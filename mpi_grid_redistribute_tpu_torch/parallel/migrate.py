@@ -1,0 +1,408 @@
+"""Resident-slot migration, single device (port of the JAX package's
+``parallel/migrate.py``, dense planar vrank engine).
+
+State is a PLANAR int32 matrix ``[K, V * n]``: position rows, payload
+rows and the alive row last (float fields travel bitcast, so every bit
+pattern survives). Vrank ``v`` ("virtual rank": one subdomain of the
+grid, all of them side by side on one device) owns columns
+``[v * n, (v + 1) * n)``. One step:
+
+  1. destination key per column (given by the fused drift-bin kernel, or
+     binned here);
+  2. one packed sort groups leavers by destination; counts by search;
+  3. receiver-granted flow control on ``[V, V]`` tables: pairwise swaps
+     (self-financing), a greedy share of free slots, a monotone fixpoint
+     over the slots each receiver's own departures vacate, and the cycle
+     rescue for rotation cycles between full vranks;
+  4. vacated-slot and arrival plans, one column gather of the arrivals;
+  5. ONE landing scatter writes arrivals and hole markers for every
+     vrank (the overlay kernel);
+  6. the free-slot stack update.
+
+Ungranted leavers stay resident and retry (``backlog``); nothing is ever
+dropped. Slot order is not the MPI canonical order; the reference defines
+correctness as set-equality per vrank, and this port reproduces the
+reference's bits exactly.
+
+Differences from the reference, none visible in any output: the
+multi-device (``Dev > 1``) branches and the mover-sparse engine are not
+ported yet; the unclipped vacated-plan shortcut (a ``lax.cond`` there)
+always takes the general plan, whose entries agree wherever they are
+read, so no step syncs with the host; the plan lookups are integer
+search + gather instead of the reference's float einsum workaround.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+
+from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+from mpi_grid_redistribute_tpu_torch.ops import binning, overlay
+from mpi_grid_redistribute_tpu_torch.ops.pack import gather_plan_cols
+
+_I32 = torch.int32
+
+
+def _land_scatter(flat, targets, cols, plain: bool = False):
+    """The landing column scatter on planar ``[K, m]`` state, in place.
+
+    UNIQUENESS INVARIANT (the overlay kernel's contract): every in-range
+    target this module passes is unique by construction — per vrank,
+    targets are vacated slots (disjoint prefixes of a sort permutation)
+    plus popped free-stack entries (distinct hole ids, disjoint from the
+    live vacated slots), globalized onto disjoint column blocks; every
+    other entry is the drop sentinel ``m``."""
+    if plain:
+        return overlay.overlay_scatter_planar_plain(flat, targets, cols)
+    return overlay.overlay_scatter_planar(flat, targets, cols)
+
+
+class MigrateStats(NamedTuple):
+    """Per-step migration observability, one entry per vrank ``[V]``
+    (stacked ``[S, V]`` by the loop). ``backlog`` counts leavers held back
+    by the grants (they stay resident and retry); ``dropped_recv`` is a
+    safety counter, structurally zero since sends are receiver-granted.
+    ``flow`` is the ``[V, V]`` granted-send table (``[i, j]`` = rows vrank
+    ``i`` sent to ``j``). ``fast_path`` is ``None``: the dense engine has
+    no sparse path."""
+
+    sent: torch.Tensor
+    received: torch.Tensor
+    population: torch.Tensor
+    backlog: torch.Tensor
+    dropped_recv: torch.Tensor
+    flow: torch.Tensor = None
+    fast_path: torch.Tensor = None
+
+
+class MigrateState(NamedTuple):
+    """Loop-carried state: ``fused`` planar int32 ``[K, V * n]``;
+    ``free_stack`` ``[V, n]`` holds each vrank's hole columns (local ids,
+    only the first ``n_free[v]`` entries live); ``n_free`` ``[V]``."""
+
+    fused: torch.Tensor
+    free_stack: torch.Tensor
+    n_free: torch.Tensor
+
+
+def fuse_fields(arrays: Sequence[torch.Tensor], alive: torch.Tensor):
+    """Pack ``[n, ...]`` 32-bit fields + the alive mask into one PLANAR
+    ``[K, n]`` int32 matrix (float fields bitcast with
+    ``Tensor.view(torch.int32)``; the alive mask becomes the last row,
+    1/0). Returns ``(fused, specs)`` for :func:`unfuse_fields`."""
+    n = arrays[0].shape[0]
+    parts, specs = [], []
+    for a in arrays:
+        if a.element_size() != 4:
+            raise TypeError(
+                f"fused migration payload requires 32-bit dtypes, got "
+                f"{a.dtype}; cast or split the field"
+            )
+        flat = a.reshape(n, -1)
+        if flat.dtype != _I32:
+            flat = flat.view(_I32)
+        parts.append(flat.T)
+        specs.append((tuple(a.shape[1:]), a.dtype))
+    parts.append(alive.to(_I32)[None, :])
+    return torch.cat(parts, dim=0), tuple(specs)
+
+
+def unfuse_fields(fused: torch.Tensor, specs):
+    """Inverse of :func:`fuse_fields`: ``((arrays...), alive)``."""
+    out = []
+    row = 0
+    n = fused.shape[1]
+    for shape, dtype in specs:
+        k = 1
+        for s in shape:
+            k *= s
+        flat = fused[row : row + k, :].T.contiguous()
+        if dtype != flat.dtype:
+            flat = flat.view(dtype)
+        out.append(flat.reshape((n,) + tuple(shape)))
+        row += k
+    return tuple(out), fused[-1, :] > 0
+
+
+def init_state(fused: torch.Tensor, vranks: int = 1,
+               batched: bool = None) -> MigrateState:
+    """Build the free-slot stack from the alive row: per vrank, the dead
+    columns in ascending order (a stable argsort), then the live ones.
+    ``batched`` (default ``vranks > 1``) gives the ``[V, n]`` / ``[V]``
+    shapes the vrank engine expects even at ``V = 1``."""
+    if batched is None:
+        batched = vranks > 1
+    alive = fused[-1, :] > 0
+    if batched:
+        alive = alive.reshape(vranks, -1)
+    stack = torch.argsort(alive.to(_I32), dim=-1, stable=True).to(_I32)
+    n_free = (~alive).sum(dim=-1, dtype=_I32)
+    return MigrateState(fused, stack, n_free)
+
+
+def _segment_of(k: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
+    """For output positions ``k`` (any shape, k >= 0), the segment ``d``
+    with ``cum[d] <= k < cum[d+1]`` under exclusive cumulative counts
+    ``cum`` ([n_segs+1], cum[0] = 0); ``k >= cum[-1]`` gives n_segs and
+    empty segments resolve past their run of duplicates."""
+    return torch.searchsorted(cum[1:].contiguous(), k, right=True).to(_I32)
+
+
+def _greedy_alloc(desired: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
+    """Allocate ``desired[s, w]`` units across sources ``s`` per column
+    ``w``, greedily in source order, never exceeding ``cap[w]`` in total
+    (lower source index wins under pressure)."""
+    cum = torch.cumsum(desired, dim=0, dtype=_I32)
+    prev = cum - desired
+    capb = cap[None, :]
+    return (torch.minimum(cum, capb) - torch.minimum(prev, capb)).clamp_min(0)
+
+
+def _cycle_rescue(pending, sends_zero, ok=None):
+    """Force one self-financed row along each stalled rotation cycle.
+
+    ``pending`` ``[S, S]`` (>0 where source s still wants to send to d
+    after the grants), ``sends_zero`` ``[S]`` (source granted nothing),
+    ``ok`` optional ``[S]`` guard (a cycle is forced only if all its
+    members are ok). Cycles of the functional graph v -> first pending
+    destination of v are found by log-squared boolean closure. Returns
+    ``[S, S]`` int32 in {0, 1}."""
+    S = pending.shape[0]
+    pos = pending > 0
+    has = pos.any(dim=1) & sends_zero
+    succ = torch.argmax(pos.to(_I32), dim=1)  # first pending destination
+    eye = torch.eye(S, dtype=torch.float32, device=pending.device)
+    A = torch.where(has[:, None], eye[succ], torch.zeros_like(eye))
+    clo = A + eye
+    for _ in range(max(1, (max(S, 2) - 1).bit_length())):
+        clo = torch.clamp(clo @ clo, max=1.0)
+    # v is on a cycle iff a path v -> succ(v) ->* v exists
+    on_cycle = (A * clo.T).sum(dim=1) > 0
+    if ok is not None:
+        # mutual reachability = the member set of v's cycle; drop cycles
+        # with any member that is not ok
+        mutual = (clo * clo.T) > 0
+        cycle_bad = (mutual & ~ok[None, :]).any(dim=1)
+        on_cycle = on_cycle & ~cycle_bad
+    return (A * on_cycle[:, None]).to(_I32)
+
+
+def _stack_push_pop(free_stack, n_free, n_pop, n_push, vacated, n_in):
+    """Batched free-stack update after landing (``[V, n]`` stack, ``[V]``
+    counts, ``[V, P]`` vacated plan): pops lower the head; the net-excess
+    vacated slots ``vacated[v, n_in : n_in + n_push]`` are pushed through
+    a read-modify-write of one contiguous window per vrank (the same
+    window the reference updates, so every stack entry, live or not,
+    matches its bits). Returns ``(free_stack, n_free)``."""
+    n = free_stack.shape[1]
+    P = vacated.shape[1]
+    W = min(P, n)
+    new_n_free = n_free - n_pop + n_push
+    win_start = n_free.clamp(0, max(n - W, 0))
+    w_idx = torch.arange(W, dtype=_I32, device=free_stack.device)[None, :]
+    win_idx = (win_start[:, None] + w_idx).long()
+    window = torch.gather(free_stack, 1, win_idx)
+    rel = (n_free - win_start)[:, None]  # stack head inside the window
+    src = (n_in[:, None] - rel + w_idx).clamp(0, P - 1)
+    pushes = torch.gather(vacated, 1, src.long())
+    use = (w_idx >= rel) & (w_idx < rel + n_push[:, None])
+    window = torch.where(use, pushes, window)
+    return free_stack.scatter(1, win_idx, window), new_n_free
+
+
+def _plan_rows_batched(seg_starts, seg_counts, order, length: int,
+                       seg_rows=None, row_stride: int = None):
+    """Expand per-segment (start in sorted space, count) pairs into row
+    plans: entry ``[v, j]`` is the resident column of the ``j``-th planned
+    row of plan row ``v`` (segments in order, the first ``count`` rows of
+    each). Entries ``j >= total`` are clipped junk; callers mask them.
+
+    ``seg_starts``/``seg_counts`` ``[V, S]``, ``order`` ``[V, n]``;
+    returns ``(plan [V, length], totals [V])``. ``seg_rows`` ``[S]`` maps
+    segment ``s`` to the row of ``order`` it reads (arrival plans); the
+    entries are then GLOBALIZED to ``seg_row * row_stride + column``
+    (``row_stride`` defaults to ``n``). The segment lookup is an integer
+    binary search plus gathers (the reference telescopes it through a
+    float einsum as a TPU workaround; the values are equal)."""
+    V, S = seg_counts.shape
+    n = order.shape[-1]
+    stride = n if row_stride is None else row_stride
+    dev = order.device
+    cum = torch.cat(
+        [
+            torch.zeros((V, 1), dtype=_I32, device=dev),
+            torch.cumsum(seg_counts, dim=1, dtype=_I32),
+        ],
+        dim=1,
+    )  # [V, S+1]
+    j = torch.arange(length, dtype=_I32, device=dev)
+    seg = torch.searchsorted(
+        cum[:, 1:].contiguous(), j.expand(V, -1).contiguous(), right=True
+    ).clamp_max(S - 1)  # [V, length], int64
+    starts_g = torch.gather(seg_starts.to(_I32), 1, seg)
+    cum_g = torch.gather(cum, 1, seg)
+    pos = (starts_g + (j[None, :] - cum_g)).clamp(0, n - 1)
+    if seg_rows is not None:
+        row_g = seg_rows.to(_I32)[seg]
+    else:
+        row_g = torch.arange(V, dtype=_I32, device=dev)[:, None]
+    vac = order.reshape(-1)[(row_g * n + pos).reshape(-1).long()].reshape(
+        V, length
+    )
+    if seg_rows is not None:
+        vac = row_g * stride + vac
+    return vac, cum[:, -1]
+
+
+def shard_migrate_vranks_fn(
+    domain: Domain,
+    dev_grid: ProcessGrid,
+    vgrid: ProcessGrid,
+    capacity: int,
+    local_budget: int = None,
+    plain: bool = False,
+):
+    """Migration over ``V = vgrid.nranks`` vranks on ONE device, planar
+    layout: ``fn(state, dest_key=None) -> (state, MigrateStats)`` with
+    ``state.fused [K, V * n]``, ``free_stack [V, n]``, ``n_free [V]``.
+
+    ``dest_key`` ``[V, n]`` (the destination vrank, sentinel ``V`` on
+    stayers and holes) is what the fused drift-bin kernel emits; without
+    it the step bins the position rows itself with the same arithmetic.
+    ``local_budget`` (default ``V * capacity``) bounds the rows a vrank
+    sends or receives per step; the landing scatter is sized to it.
+    ``plain=True`` runs every kernel's plain PyTorch version even on the
+    GPU (the reference run a kernel is held against).
+
+    Only ``dev_grid.nranks == 1`` is ported (the multi-device exchange
+    over ``torch.distributed`` is a later slice)."""
+    if dev_grid.nranks != 1:
+        raise NotImplementedError(
+            "the multi-device migrate engine is not ported yet; use a "
+            "single-device dev_grid with vranks"
+        )
+    V = vgrid.nranks
+    D = domain.ndim
+    M = V * capacity if local_budget is None else int(local_budget)
+    P = M  # Dev == 1: the send and arrival plans are both M wide
+    full_grid = ProcessGrid(
+        tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
+        axis_names=dev_grid.axis_names,
+    )
+
+    def _step(flat, free_stack, n_free, dest_key):
+        dev = flat.device
+        K = flat.shape[0]
+        n = flat.shape[1] // V
+        my_v = torch.arange(V, dtype=_I32, device=dev)
+        with torch.profiler.record_function("mig:bin"):
+            order, counts, bounds = binning.sorted_dest_counts_batched(
+                dest_key, V
+            )  # [V, n], [V, V], [V, V + 1]
+        leavers = counts.sum(dim=1, dtype=_I32)
+
+        # ---- local allocation: [V_src, V_dst] -------------------------
+        loc_counts = counts
+        loc_starts = bounds[:, :V]
+        # per-source budget M: prefix truncation in destination order
+        rel_start = loc_starts - loc_starts[:, :1]
+        rel_end = rel_start + loc_counts
+        eff = (
+            torch.clamp_max(rel_end, M) - torch.clamp_max(rel_start, M)
+        ).clamp_min(0)
+
+        # receiver capacity: free slots plus the slots a receiver's own
+        # departures vacate, by monotone fixpoint seeded with pairwise
+        # swaps (self-financing), trimmed to the [M] arrival plan
+        swap = torch.minimum(eff, eff.T)
+        swap = _greedy_alloc(swap, torch.full((V,), M, dtype=_I32, device=dev))
+        swap = torch.minimum(swap, swap.T)
+        res_eff = eff - swap
+        res = torch.zeros_like(eff)
+        recv_room = M - swap.sum(dim=0, dtype=_I32)
+        for _ in range(V):
+            cap_res = torch.minimum(
+                recv_room, n_free + res.sum(dim=1, dtype=_I32)
+            )
+            res = _greedy_alloc(res_eff, cap_res.clamp_min(0))
+        allowed = swap + res  # [V_src, V_dst]
+        # drain full-vrank rotation cycles (on one device the per-device
+        # rescue is complete); a cycle is forced only if every member
+        # stays within the [M] plans (+1 row)
+        pending = res_eff - res
+        sends_zero = allowed.sum(dim=1, dtype=_I32) == 0
+        ok = (allowed.sum(dim=1, dtype=_I32) < M) & (
+            allowed.sum(dim=0, dtype=_I32) < M
+        )
+        allowed = allowed + _cycle_rescue(pending, sends_zero, ok)
+        n_sent = allowed.sum(dim=1, dtype=_I32)
+        n_in = allowed.sum(dim=0, dtype=_I32)
+
+        # ---- vacated slots and arrivals --------------------------------
+        vacated, _ = _plan_rows_batched(loc_starts, allowed, order, P)
+        with torch.profiler.record_function("mig:pack"):
+            # dst w reads source s's sorted space at segment (s -> w)
+            arr_src, _ = _plan_rows_batched(
+                loc_starts.T, allowed.T, order, M, seg_rows=my_v,
+            )  # [V_dst, M] global source columns
+            arr_cols = gather_plan_cols(flat, arr_src)  # [K, V, M]
+
+        # ---- landing plan: one scatter for arrivals + holes ------------
+        k_idx = torch.arange(P, dtype=_I32, device=dev)[None, :]
+        ns = n_sent[:, None]
+        ni = n_in[:, None]
+        n_pop = torch.minimum((n_in - n_sent).clamp_min(0), n_free)
+        # pops walk the stack head downward: nf-1, nf-2, ...
+        pop_idx = (n_free[:, None] - 1 - (k_idx - ns)).clamp(0, n - 1)
+        pops = torch.gather(free_stack, 1, pop_idx.long())
+        sentinel = torch.full_like(vacated, n)
+        targets = torch.where(
+            k_idx < torch.minimum(ni, ns),
+            vacated,
+            torch.where(
+                (k_idx >= ns) & (k_idx < ns + n_pop[:, None]),
+                pops,
+                torch.where((k_idx >= ni) & (k_idx < ns), vacated, sentinel),
+            ),
+        )  # [V, P] local targets, sentinel n
+        gtargets = torch.where(
+            targets >= n, torch.full_like(targets, V * n),
+            my_v[:, None] * n + targets,
+        )
+        cols = torch.where(
+            (k_idx < ni)[None], arr_cols, torch.zeros_like(arr_cols)
+        )
+        with torch.profiler.record_function("mig:unpack"):
+            flat = _land_scatter(
+                flat, gtargets.reshape(-1), cols.reshape(K, V * P), plain
+            )
+
+        # ---- free-stack update ----------------------------------------
+        n_push = (n_sent - n_in).clamp_min(0)
+        free_stack, n_free = _stack_push_pop(
+            free_stack, n_free, n_pop, n_push, vacated, n_in
+        )
+
+        population = (flat[-1, :].reshape(V, n) > 0).sum(dim=1, dtype=_I32)
+        stats = MigrateStats(
+            sent=n_sent,
+            received=n_in,
+            population=population,
+            backlog=leavers - n_sent,
+            dropped_recv=torch.zeros((V,), dtype=_I32, device=dev),
+            flow=allowed,
+        )
+        return MigrateState(flat, free_stack, n_free), stats
+
+    def fn(state: MigrateState, dest_key: torch.Tensor = None):
+        flat, free_stack, n_free = state
+        if dest_key is None:
+            dest_key = binning.dest_key_planar(
+                flat[:D].view(torch.float32), flat[-1] > 0, domain,
+                full_grid, V, V,
+            )
+        return _step(flat, free_stack, n_free, dest_key)
+
+    return fn

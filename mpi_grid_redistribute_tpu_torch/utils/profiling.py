@@ -1,0 +1,83 @@
+"""Per-step timing on the GPU with CUDA events (min-of-k).
+
+The protocol of the JAX package's ``utils/profiling.py``
+(``scan_time_per_step_samples``): runs of two lengths are differenced,
+so the fixed cost of a run (state set-up, the first launch) cancels and
+what remains is the cost of a step, host launch gaps included. Each
+length is warmed up once, then timed ``k`` times; interference only adds
+time, so the minimum is the estimate and ``spread = (max - min) / min``
+is the capture's own noise floor.
+"""
+
+from __future__ import annotations
+
+import statistics
+from typing import Callable
+
+import torch
+
+
+def _event_seconds(fn: Callable[[], object]):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3, out
+
+
+def cuda_time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
+                               s1: int = 2, s2: int = 10, reps: int = 4):
+    """Min-of-k seconds per step. ``make_run(S)`` returns a callable that
+    enqueues an S-step run on the current CUDA stream and returns its
+    output. Each of the ``reps`` long runs gives one per-step sample
+    against the best short run.
+
+    Returns ``(detail, long_out)``: ``detail`` is ``{min, max, mean,
+    median, spread, k, values}`` of per-step seconds; ``long_out`` is the
+    last long run's output."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_time_per_step_samples needs a CUDA device")
+    if s2 <= s1 or reps < 1:
+        raise ValueError(f"need s2 > s1 and reps >= 1, got {s1}, {s2}, {reps}")
+
+    def run(s: int):
+        fn = make_run(s)
+        out = fn()  # warm-up
+        times = []
+        for _ in range(reps):
+            out = None  # free the previous run's state first
+            t, out = _event_seconds(fn)
+            times.append(t)
+        return times, out
+
+    times1 = run(s1)[0]
+    times2, out2 = run(s2)
+    t1 = min(times1)
+    samples = [(t2 - t1) / (s2 - s1) for t2 in times2]
+    lo, hi = min(samples), max(samples)
+    detail = {
+        "min": lo,
+        "max": hi,
+        "mean": sum(samples) / len(samples),
+        "median": statistics.median(samples),
+        "spread": (hi - lo) / lo if lo > 0 else 0.0,
+        "k": len(samples),
+        "values": samples,
+    }
+    return detail, out2
+
+
+def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
+                 reps: int = 3) -> float:
+    """Min over ``reps`` of the mean milliseconds of ``fn()`` across
+    ``iters`` back-to-back calls (CUDA events; one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+
+    def many():
+        for _ in range(iters):
+            fn()
+
+    return min(_event_seconds(many)[0] for _ in range(reps)) * 1e3 / iters
