@@ -2,13 +2,16 @@
 the JAX package's ``models/nbody.py``, single-device vrank path).
 
     for step in range(S): pos += vel*dt; wrap; migrate(pos, vel)
+                          [rho = CIC deposit of the new state]
 
 The loop carries the fused PLANAR int32 state ``[2D+1, V*n]`` (position
 rows, velocity rows, alive row) and runs each step as the fused drift-bin
-kernel followed by one dense migrate step. The reference's ``lax.scan``
-is a Python loop here and nothing in a step waits for the host; stats
-are stacked per step as ``[S, V]`` (``flow`` as ``[S, V, V]``), exactly
-as in the reference.
+kernel followed by one dense migrate step and, for the config-5
+workload, the CIC deposit (``ops.deposit``). The reference's ``lax.scan``
+is a Python loop here; stats are stacked per step as ``[S, V]`` (``flow``
+as ``[S, V, V]``), exactly as in the reference. Nothing in a step waits
+for the host except the slab deposit's residence guard (one boolean per
+step with ``deposit_method="mxu"``).
 """
 
 from __future__ import annotations
@@ -21,16 +24,17 @@ import torch
 
 from mpi_grid_redistribute_tpu_torch import _device
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
-from mpi_grid_redistribute_tpu_torch.ops import driftbin
+from mpi_grid_redistribute_tpu_torch.ops import deposit, driftbin
 from mpi_grid_redistribute_tpu_torch.parallel import migrate
 
 
 @dataclasses.dataclass(frozen=True)
 class DriftConfig:
     """Static configuration for the drift loop (same fields as the
-    reference). Only ``engine="planar"`` runs in this port so far; the
-    deposit and the load-balanced ``cells``/``assignment`` decomposition
-    are later slices."""
+    reference). Only ``engine="planar"`` runs in this port so far, and of
+    the deposit methods the planar ``"scan"`` and ``"mxu"`` engines; the
+    load-balanced ``cells``/``assignment`` decomposition is a later
+    slice."""
 
     domain: Domain
     grid: ProcessGrid
@@ -62,8 +66,19 @@ def _check_supported(cfg: DriftConfig, vgrid) -> None:
             "only the single-device vrank path is ported: pass a one-rank "
             "grid and vgrid"
         )
-    if cfg.deposit_shape is not None:
-        raise NotImplementedError("the CIC deposit is not ported yet")
+    if cfg.deposit_shape is not None and cfg.deposit_method not in (
+        "scan", "mxu"
+    ):
+        if cfg.deposit_method == "segment":
+            raise NotImplementedError(
+                "deposit_method='segment' (the row-major scatter-add route, "
+                "shard_deposit_vranks_fn) is not ported yet (ROADMAP A7); "
+                "use 'scan' or 'mxu'"
+            )
+        raise ValueError(
+            f"deposit_method must be 'scan', 'mxu' or 'segment', got "
+            f"{cfg.deposit_method!r}"
+        )
     if cfg.cells is not None or cfg.assignment is not None:
         raise NotImplementedError(
             "cells/assignment decompositions are not ported yet"
@@ -76,13 +91,42 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _deposit_fn(cfg: DriftConfig, vgrid: ProcessGrid, plain: bool):
+    """The per-device deposit the reference's loop builds for
+    ``cfg.deposit_shape`` (``None`` without one): the slab-keyed mxu
+    engine when the canonical vrank blocks divide the mesh, the flat
+    position-keyed one otherwise; the double-float scan engine for
+    ``"scan"``."""
+    if cfg.deposit_shape is None:
+        return None
+    if cfg.deposit_method == "mxu":
+        slab_ok = all(
+            (m // g) % v == 0
+            for m, g, v in zip(cfg.deposit_shape, cfg.grid.shape, vgrid.shape)
+        )
+        return deposit.shard_deposit_device_mxu_fn(
+            cfg.domain, cfg.grid, cfg.deposit_shape,
+            vgrid=vgrid if slab_ok else None, plain=plain,
+        )
+    return deposit.shard_deposit_device_planar_fn(
+        cfg.domain, cfg.grid, cfg.deposit_shape, plain=plain
+    )
+
+
 def make_migrate_loop(cfg: DriftConfig, n_steps: int,
                       vgrid: Optional[ProcessGrid] = None, device=None,
-                      plain: bool = False):
+                      plain: bool = False, deposit_each_step: bool = False):
     """S drift + migrate steps on one device.
 
     Returns ``loop(pos, vel, alive) -> (pos_planar, vel_planar, alive,
-    stats)``. ``pos``/``vel`` are ``[N, D]`` numpy rows or PLANAR flat
+    stats)``, and ``rho`` appended when ``cfg.deposit_shape`` is set: the
+    CIC density of the final state (fully periodic domains: the
+    ``deposit_shape`` mesh; any open axis: the ``global_node_shape``
+    mesh). ``deposit_each_step=True`` deposits after EVERY step (the
+    config-5 workload) and returns the last step's mesh; without it the
+    loop deposits once, on the final state.
+
+    ``pos``/``vel`` are ``[N, D]`` numpy rows or PLANAR flat
     ``[D * N]`` arrays/tensors (all x's, then all y's, ...; see
     :func:`rows_to_planar`); they are returned planar flat on the device
     (:func:`planar_to_rows` recovers rows). Rows are vrank-major: vrank
@@ -96,6 +140,9 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
     are held against)."""
     _check_supported(cfg, vgrid)
     dev = _device.resolve(device)
+    dep_fn = _deposit_fn(cfg, vgrid, plain)
+    if deposit_each_step and dep_fn is None:
+        raise ValueError("cfg.deposit_shape is required for deposit")
     D = cfg.domain.ndim
     V = vgrid.nranks
     full_grid = ProcessGrid(
@@ -119,6 +166,17 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
             "[D * N] arrays"
         )
 
+    def _deposit(fused):
+        """CIC density of the planar fused state ``[K, V*n]``."""
+        pos_rows = fused[:D].view(torch.float32)
+        valid = fused[-1] > 0
+        if cfg.deposit_method == "mxu":
+            # unit mass: None drops the mass row from the payload sort
+            return dep_fn(pos_rows, None, valid)
+        ones = torch.ones(pos_rows.shape[1:], dtype=torch.float32,
+                          device=pos_rows.device)
+        return dep_fn(pos_rows, ones, valid)
+
     def loop(pos, vel, alive):
         p = _to_tensor(to_planar(pos), dev).reshape(D, -1)
         v = _to_tensor(to_planar(vel), dev).reshape(D, -1)
@@ -136,18 +194,35 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
             dim=0,
         )
         state = migrate.init_state(fused, vranks=V, batched=True)
+        if deposit_each_step:
+            rho = torch.zeros(_rho_shape(cfg), dtype=torch.float32,
+                              device=dev)
         steps = []
         for _ in range(n_steps):
             with torch.profiler.record_function("mig:step"):
                 f, key = bin_fn(state.fused, dt, cfg.domain, full_grid, V, V)
                 state, stats = mig(state._replace(fused=f), key)
             steps.append(stats)
+            if deposit_each_step:
+                with torch.profiler.record_function("dep:deposit"):
+                    rho = _deposit(state.fused)
         f = state.fused
         pos_f = f[:D].view(torch.float32).reshape(-1)
         vel_f = f[D : 2 * D].view(torch.float32).reshape(-1)
-        return pos_f, vel_f, f[-1] > 0, _stack_stats(steps, V, dev)
+        out = (pos_f, vel_f, f[-1] > 0, _stack_stats(steps, V, dev))
+        if dep_fn is None:
+            return out
+        return out + (rho if deposit_each_step else _deposit(f),)
 
     return loop
+
+
+def _rho_shape(cfg: DriftConfig):
+    """Shape of the loop's density output: the device's block for fully
+    periodic domains (ghost-folded), the global node mesh otherwise."""
+    if all(cfg.domain.periodic):
+        return tuple(m // g for m, g in zip(cfg.deposit_shape, cfg.grid.shape))
+    return deposit.global_node_shape(cfg.domain, cfg.deposit_shape)
 
 
 def _stack_stats(steps, V: int, dev) -> migrate.MigrateStats:

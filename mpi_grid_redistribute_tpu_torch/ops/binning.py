@@ -177,6 +177,24 @@ def sorted_dest_counts_batched(dest: torch.Tensor, n_dest: int):
     return order, bounds[:, 1:] - bounds[:, :-1], bounds
 
 
+def bounds_dense(keys_sorted: torch.Tensor, n_edges: int,
+                 stride: int = 1) -> torch.Tensor:
+    """``searchsorted(keys_sorted, arange(n_edges) * stride, 'left')`` as
+    int32: for each edge, the number of keys below it. Keys past the last
+    edge (sentinels) fall in no bound. The reference builds this from two
+    sorts because the TPU's searchsorted scatters; one
+    ``torch.searchsorted`` gives the same integers."""
+    if (n_edges - 1) * stride >= 2**31:
+        raise ValueError(
+            f"bounds_dense: edge grid (n_edges={n_edges}, stride={stride}) "
+            f"exceeds int32"
+        )
+    edges = torch.arange(
+        n_edges, dtype=torch.int32, device=keys_sorted.device
+    ) * stride
+    return torch.searchsorted(keys_sorted, edges, side="left").to(torch.int32)
+
+
 def sorted_dest_counts(dest: torch.Tensor, n_dest: int):
     """One-row :func:`sorted_dest_counts_batched`: ``[N]`` keys ->
     ``(order [N], counts [n_dest], bounds [n_dest + 1])``."""

@@ -1,0 +1,557 @@
+"""Cloud-in-cell (CIC) particle-mesh deposit on one device (port of the
+JAX package's ``ops/deposit.py``: the planar scan and segmented-sum
+engines, their per-device wrappers and the ghost fold).
+
+Each particle spreads ``mass * w`` to the 2^D mesh nodes around it. The
+deposit keys every particle by its base cell, sorts, and sums per cell;
+the per-cell channel sums are then placed onto a +1-ghost node mesh
+(corner ``c`` lands at ``base + c``), whose ghost faces fold onto plane 0
+of periodic axes (:func:`fold_ghosts`) or stay as the clamp-edge planes
+of open axes (:func:`assemble_dense`). Two engines:
+
+  * ``"scan"`` (:func:`cic_deposit_device_planar`): a stable sort by
+    ``key``, the corner-weight channels, a two-level double-float prefix
+    sum (kernel 5, ``ops.dfscan``, within 256-row tiles; plain PyTorch
+    over the tile totals) and differences at the run bounds. Per-cell
+    error ~ulp(cell value); bit-equal to the JAX package on the same
+    inputs;
+  * ``"mxu"`` (:func:`cic_deposit_device_mxu`, and the slab-keyed
+    :func:`cic_deposit_vranks_mxu`): the sort feeds the segmented-sum
+    kernel 4 (``ops.segdep``) directly. float32 accumulation; the
+    reference's sort is unstable, so its per-cell summation order is not
+    a contract and the two packages agree at float32 tolerance (bit for
+    bit on dyadic data).
+
+The reference's ``lax.sort((key, iota, payload...), num_keys=2)`` is a
+stable ``torch.sort`` on the key (the same permutation) followed by ONE
+gather of the stacked payload rows. Sorts here are always stable, so the
+port is deterministic even where the reference is not.
+
+Only one device is ported: ``lax.axis_index`` is 0, the ghost fold is
+the self-fold and ``assemble_dense``'s ``psum`` is the identity. The
+slab engine's residence guard (the reference's ``lax.cond``) reads one
+boolean on the host per call; :data:`HOST_SYNCS` counts those reads.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+from mpi_grid_redistribute_tpu_torch.ops import binning, dfscan, segdep
+from mpi_grid_redistribute_tpu_torch.ops.dfscan import (  # noqa: F401
+    _df_add, _df_cumsum, _two_sum,
+)
+
+# host reads of device values, by cause (the residence guard of the slab
+# engine is the only one on the deposit path)
+HOST_SYNCS = {"residence_guard": 0}
+
+_F32 = torch.float32
+_I32 = torch.int32
+
+
+def _check_mesh_shape(domain: Domain, grid: ProcessGrid,
+                      mesh_shape: Tuple[int, ...]) -> None:
+    if len(mesh_shape) != domain.ndim:
+        raise ValueError(
+            f"mesh_shape must have {domain.ndim} axes, got {mesh_shape}"
+        )
+    for a, (m, g) in enumerate(zip(mesh_shape, grid.shape)):
+        if m % g:
+            raise ValueError(
+                f"axis {a}: mesh cells {m} not divisible by grid extent {g}"
+            )
+
+
+def global_node_shape(domain: Domain,
+                      mesh_shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Global node-mesh shape for ``mesh_shape`` CELLS per axis: periodic
+    axes have as many nodes as cells (the upper face wraps onto plane 0);
+    open axes carry one extra clamp-edge node plane."""
+    return tuple(
+        m if p else m + 1 for m, p in zip(mesh_shape, domain.periodic)
+    )
+
+
+def _row_major_strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    strides = []
+    acc = 1
+    for m in reversed(shape):
+        strides.append(acc)
+        acc *= m
+    return tuple(reversed(strides))
+
+
+def _base_cell(r: torch.Tensor, n: int) -> torch.Tensor:
+    """``clip(int32(floor(r)), 0, n - 1)``, with XLA's saturating
+    float-to-int32 conversion."""
+    return binning.floor_to_int32(r).clamp(0, n - 1)
+
+
+def _tile_prefix_planar(wt: torch.Tensor, plain: bool = False):
+    """Within-tile double-float prefix of ``wt [g, T, K]`` along K:
+    kernel 5 on the card (any K up to 1024; the reference's TPU size
+    gates do not apply), its plain version on the CPU or when
+    ``plain``."""
+    g, T, K = wt.shape
+    fn = (dfscan.tile_df_cumsum_rows_plain if plain
+          else dfscan.tile_df_cumsum_rows)
+    hi, lo = fn(wt.reshape(g * T, K))
+    return hi.reshape(g, T, K), lo.reshape(g, T, K)
+
+
+def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
+                               local_shape, tile: int,
+                               channel_group: int = None,
+                               plain: bool = False) -> torch.Tensor:
+    """Scan-deposit core: stable sort by segment key, double-float prefix
+    of the corner-weight channels, differences at the segment bounds.
+
+    ``key [N]`` int32 (sentinel ``n_segments`` for invalid rows),
+    ``rel_rows [D, N]`` block-local coordinates, ``mass [N]`` (already
+    zero on invalid rows). Returns ``per_cell [2^D, n_segments]``.
+    ``channel_group`` processes the channels in groups of that many to
+    bound the prefix temporaries; it changes no channel's arithmetic."""
+    n = key.shape[0]
+    D = rel_rows.shape[0]
+    keys_sorted, order = torch.sort(key, stable=True)
+    payload = torch.cat([rel_rows, mass[None, :]], dim=0)  # [D + 1, N]
+    payload_s = torch.index_select(payload, 1, order)
+    rel_s = payload_s[:D]
+    mass_s = payload_s[D]
+    i0_s = torch.stack(
+        [_base_cell(rel_s[d], local_shape[d]) for d in range(D)], dim=0
+    )
+    frac = (rel_s - i0_s.to(_F32)).clamp(0.0, 1.0)  # [D, N]
+
+    corners = list(itertools.product((0, 1), repeat=D))
+    nch = len(corners)
+    K = max(1, min(tile, n))
+    n_pad = -(-n // K) * K
+    bounds = binning.bounds_dense(keys_sorted, n_segments + 1)
+    t_idx = (bounds // K).long()
+    has_local = (bounds % K > 0)[None, :]
+    lb = (bounds - 1).clamp(0, n_pad - 1).long()
+    cg = nch if not channel_group else max(1, min(channel_group, nch))
+
+    def per_group(corner_list):
+        # corner-weight rows [g, N] in sorted order: mass * ((f0 * f1) *
+        # f2), the explicit left fold the reference pins
+        rows = []
+        for corner in corner_list:
+            w = None
+            for d in range(D):
+                t = frac[d] if corner[d] == 1 else 1.0 - frac[d]
+                w = t if w is None else w * t
+            rows.append(mass_s * w)
+        wg = torch.stack(rows, dim=0)
+        g = wg.shape[0]
+        wt = torch.nn.functional.pad(wg, (0, n_pad - n)).reshape(
+            g, n_pad // K, K
+        )
+        lhi, llo = _tile_prefix_planar(wt, plain)  # within-tile prefixes
+        thi, tlo = _df_cumsum(lhi[:, :, -1], axis=1, x_lo=llo[:, :, -1])
+        zg = torch.zeros((g, 1), dtype=_F32, device=wg.device)
+        s_hi = torch.cat([zg, thi], dim=1)  # exclusive tile prefixes
+        s_lo = torch.cat([zg, tlo], dim=1)  # [g, T + 1]
+        l_pack = torch.cat(
+            [lhi.reshape(g, n_pad), llo.reshape(g, n_pad)], dim=0
+        )  # [2 g, n_pad]
+        s_pack = torch.cat([s_hi, s_lo], dim=0)  # [2 g, T + 1]
+        l_at = torch.where(
+            has_local, torch.index_select(l_pack, 1, lb), 0.0
+        )
+        s_at = torch.index_select(s_pack, 1, t_idx)
+        g_hi, g_lo = _df_add(s_at[:g], s_at[g:], l_at[:g], l_at[g:])
+        # run sum over [bounds[c], bounds[c+1]): the hi difference cancels
+        # the shared prefix, the lo difference restores what hi rounded
+        return (g_hi[:, 1:] - g_hi[:, :-1]) + (g_lo[:, 1:] - g_lo[:, :-1])
+
+    if cg >= nch:
+        return per_group(corners)
+    return torch.cat(
+        [per_group(corners[g0 : g0 + cg]) for g0 in range(0, nch, cg)],
+        dim=0,
+    )
+
+
+def _place_corners(total: torch.Tensor, per_cell: torch.Tensor,
+                   block: Tuple[int, ...]) -> torch.Tensor:
+    """Add corner channel ``k`` of ``per_cell [2^D, ..., *block]`` onto
+    the +1-ghost ``total [..., *(block + 1)]`` at offset ``corner(k)``,
+    in corner order (the reference's chain of padded adds)."""
+    D = len(block)
+    lead = (slice(None),) * (total.dim() - D)
+    for k, corner in enumerate(itertools.product((0, 1), repeat=D)):
+        idx = lead + tuple(slice(c, c + b) for c, b in zip(corner, block))
+        total[idx] += per_cell[k]
+    return total
+
+
+def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
+                              vblock: Tuple[int, ...], tile: int = 256,
+                              plain: bool = False) -> torch.Tensor:
+    """Planar batched scan deposit of V slabs: ``pos_rows [D, V * n]``
+    (vrank ``v`` owns columns ``[v*n, (v+1)*n)``), ``mass``/``valid``
+    ``[V * n]``, ``lo_local [V, D]`` and ``inv_h [D]`` float32 tensors.
+    Returns per-vrank ghost blocks ``[V, *(vblock + 1)]``."""
+    D, m = pos_rows.shape
+    V = lo_local.shape[0]
+    n = m // V
+    n_cells = math.prod(vblock)
+    if V * n_cells > 2**27:
+        raise ValueError(
+            f"cic_deposit_vranks_planar: V * prod(vblock) = {V} * "
+            f"{n_cells} = {V * n_cells} exceeds the safe int32/memory "
+            f"bound (2**27). Use a coarser deposit grid per vrank or "
+            f"fewer vranks per device."
+        )
+    strides = _row_major_strides(vblock)
+    valid2 = valid.reshape(V, n)
+    rel = []
+    cell = torch.zeros((V, n), dtype=_I32, device=pos_rows.device)
+    for d in range(D):
+        r = (pos_rows[d].reshape(V, n) - lo_local[:, d, None]) * inv_h[d]
+        r = torch.where(valid2, r, 0.0)
+        cell = cell + _base_cell(r, vblock[d]) * strides[d]
+        rel.append(r.reshape(m))
+    v_ids = torch.arange(V, dtype=_I32, device=pos_rows.device)[:, None]
+    key = torch.where(valid2, v_ids * n_cells + cell, V * n_cells).to(_I32)
+    mass_z = torch.where(valid, mass, 0.0)
+    # above ~16M rows, process corner channels two at a time to bound the
+    # double-float prefix temporaries, as the reference does
+    cg = 2 if m > (1 << 24) else None
+    per_cell = _sorted_per_segment_planar(
+        key.reshape(-1), torch.stack(rel, dim=0), mass_z, V * n_cells,
+        vblock, tile, channel_group=cg, plain=plain,
+    )  # [2^D, V * n_cells]
+    per_cell = per_cell.reshape((per_cell.shape[0], V) + tuple(vblock))
+    ghost = tuple(b + 1 for b in vblock)
+    total = torch.zeros((V,) + ghost, dtype=mass.dtype, device=mass.device)
+    return _place_corners(total, per_cell, vblock)
+
+
+def cic_deposit_device_planar(pos_rows, mass, valid, dev_lo, inv_h,
+                              dev_block: Tuple[int, ...], tile: int = 256,
+                              plain: bool = False) -> torch.Tensor:
+    """Planar scan deposit keyed by DEVICE-local cell: the vrank core at
+    ``V = 1``. ``pos_rows [D, n]``, ``mass``/``valid`` ``[n]``, ``dev_lo
+    [D]``. Returns the +1-ghost device mesh ``[*(dev_block + 1)]``."""
+    return cic_deposit_vranks_planar(
+        pos_rows, mass, valid, dev_lo[None, :], inv_h, dev_block,
+        tile=tile, plain=plain,
+    )[0]
+
+
+def _device_keys_planar(pos_rows, valid, dev_lo, inv_h, dev_block):
+    """Device-cell keys and block-local coordinates: ``(key [m], rel_rows
+    [D, m])`` with sentinel ``n_cells`` on invalid columns."""
+    D, m = pos_rows.shape
+    n_cells = math.prod(dev_block)
+    strides = _row_major_strides(dev_block)
+    rel = []
+    cell = torch.zeros((m,), dtype=_I32, device=pos_rows.device)
+    for d in range(D):
+        r = (pos_rows[d] - dev_lo[d]) * inv_h[d]
+        r = torch.where(valid, r, 0.0)
+        cell = cell + _base_cell(r, dev_block[d]) * strides[d]
+        rel.append(r)
+    key = torch.where(valid, cell, n_cells).to(_I32)
+    return key, torch.stack(rel, dim=0)
+
+
+def _corner_ghost(per_cell: torch.Tensor, dev_block) -> torch.Tensor:
+    """Place ``[2^D, n_cells]`` corner channels onto the +1-ghost mesh."""
+    per_cell = per_cell.reshape((per_cell.shape[0],) + tuple(dev_block))
+    ghost = tuple(b + 1 for b in dev_block)
+    total = torch.zeros(ghost, dtype=per_cell.dtype, device=per_cell.device)
+    return _place_corners(total, per_cell, tuple(dev_block))
+
+
+def _segsum(plain: bool):
+    return segdep.segsum_sorted_plain if plain else segdep.segsum_sorted
+
+
+def cic_deposit_device_mxu(pos_rows, mass, valid, dev_lo, inv_h,
+                           dev_block: Tuple[int, ...],
+                           plain: bool = False) -> torch.Tensor:
+    """Throughput CIC deposit keyed by device cell: one stable payload
+    sort, then the segmented-sum kernel 4. ``mass=None`` means unit mass
+    and drops the mass row from the payload. float32 accumulation; the
+    same contract as :func:`cic_deposit_device_planar` otherwise."""
+    D = pos_rows.shape[0]
+    n_cells = math.prod(dev_block)
+    key, rel_rows = _device_keys_planar(
+        pos_rows, valid, dev_lo, inv_h, dev_block
+    )
+    payload = rel_rows
+    if mass is not None:
+        payload = torch.cat(
+            [rel_rows, torch.where(valid, mass, 0.0)[None, :]], dim=0
+        )
+    keys_s, order = torch.sort(key, stable=True)
+    payload_s = torch.index_select(payload, 1, order)
+    mass_s = payload_s[D] if mass is not None else None
+    per_cell = _segsum(plain)(
+        keys_s, payload_s[:D], mass_s, n_cells, dev_block
+    )
+    return _corner_ghost(per_cell, dev_block)
+
+
+def cic_deposit_vranks_mxu(pos_rows, mass, valid, lo_local, inv_h,
+                           vblock: Tuple[int, ...],
+                           vgrid_shape: Tuple[int, ...],
+                           plain: bool = False) -> torch.Tensor:
+    """Slab-keyed throughput deposit: rows arrive slab-partitioned (slab
+    ``v`` holds only vrank ``v``'s particles), so vrank-major keys
+    ``v * C + local_cell`` sorted slab by slab (one batched ``[V, n]``
+    sort) form the stream kernel 4 takes. Returns the +1-ghost DEVICE
+    mesh ``[*(vblock * vgrid_shape + 1)]``."""
+    key, rel, mass2, _ = _slab_keys_mxu(
+        pos_rows, mass, valid, lo_local, inv_h, vblock
+    )
+    return _slab_deposit_from_keys(
+        key, rel, mass2, vblock, vgrid_shape, plain=plain
+    )
+
+
+def _slab_keys_mxu(pos_rows, mass, valid, lo_local, inv_h, vblock):
+    """One pass over the slab state: vrank-major keys ``[V, n]``,
+    block-local rel rows, masked mass, and the residence predicate (every
+    valid row inside its slab's block, up to the boundary tolerances
+    below) that :func:`shard_deposit_device_mxu_fn` routes on.
+
+    Tolerances: the migrate binning and this ``r`` use different
+    arithmetic, so a legal boundary row can compute ``r == vblock``
+    exactly or a few ulp below zero; admitting ``[-1e-4, vblock]`` keeps
+    those on the slab path (placement error <= 1e-4 cell) while
+    mis-slabbed rows, a full cell or more away, fail the guard."""
+    D, m = pos_rows.shape
+    V = lo_local.shape[0]
+    n = m // V
+    n_cells = math.prod(vblock)
+    strides = _row_major_strides(vblock)
+    valid2 = valid.reshape(V, n)
+    rel = []
+    cell = torch.zeros((V, n), dtype=_I32, device=pos_rows.device)
+    in_block = torch.ones((), dtype=torch.bool, device=pos_rows.device)
+    for d in range(D):
+        r = (pos_rows[d].reshape(V, n) - lo_local[:, d, None]) * inv_h[d]
+        # a Python float compares like its float32 rounding here: no
+        # float32 lies between a constant and its nearest float32
+        ok_d = (~valid2) | ((r >= -1e-4) & (r <= float(vblock[d])))
+        in_block = in_block & ok_d.all()
+        r = torch.where(valid2, r, 0.0)
+        cell = cell + _base_cell(r, vblock[d]) * strides[d]
+        rel.append(r)
+    v_ids = torch.arange(V, dtype=_I32, device=pos_rows.device)[:, None]
+    key = torch.where(valid2, v_ids * n_cells + cell, V * n_cells).to(_I32)
+    mass2 = None if mass is None else torch.where(
+        valid2, mass.reshape(V, n), 0.0
+    )
+    return key, rel, mass2, in_block
+
+
+def _slab_deposit_from_keys(key, rel, mass2, vblock, vgrid_shape,
+                            plain: bool = False) -> torch.Tensor:
+    """Sort + kernel 4 + canvas remap half of the slab engine: a batched
+    stable sort of each slab's keys, one gather of the payload rows, the
+    segmented sums on the vrank-major ``[2^D, V * C]`` canvas, then the
+    transpose to device row-major."""
+    D = len(rel)
+    V, n = key.shape
+    m = V * n
+    n_cells = math.prod(vblock)
+    keys_s, order = torch.sort(key, dim=1, stable=True)
+    rows = list(rel) + ([mass2] if mass2 is not None else [])
+    payload = torch.stack(rows, dim=0).reshape(len(rows), m)
+    col = order + torch.arange(V, device=key.device)[:, None] * n
+    payload_s = torch.index_select(payload, 1, col.reshape(-1))
+    mass_s = payload_s[D] if mass2 is not None else None
+    per_cell = _segsum(plain)(
+        keys_s.reshape(m), payload_s[:D], mass_s, V * n_cells, vblock
+    )  # [2^D, V * n_cells], vrank-major columns
+    nch = per_cell.shape[0]
+    # [nch, Vx, Vy, Vz, bx, by, bz] -> [nch, Vx, bx, Vy, by, Vz, bz]
+    per_cell = per_cell.reshape((nch,) + tuple(vgrid_shape) + tuple(vblock))
+    axes_order = [0]
+    for d in range(D):
+        axes_order += [1 + d, 1 + D + d]
+    per_cell = per_cell.permute(axes_order)
+    dev_block = tuple(v * b for v, b in zip(vgrid_shape, vblock))
+    per_cell = per_cell.reshape((nch, math.prod(dev_block)))
+    return _corner_ghost(per_cell, dev_block)
+
+
+def _device_consts(domain: Domain, dev_grid: ProcessGrid, mesh_shape):
+    """float32 ``inv_h [D]`` and the device origin ``dev_lo [D]`` (device
+    0: ``lo + 0 * width``, in float32 as the reference computes it)."""
+    inv_h = np.asarray(
+        [m / e for m, e in zip(mesh_shape, domain.extent)], np.float32
+    )
+    widths = dev_grid.cell_widths(domain)
+    dev_lo = np.asarray(
+        [np.float32(lo) + np.float32(0) * np.float32(w)
+         for lo, w in zip(domain.lo, widths)],
+        np.float32,
+    )
+    return dev_lo, inv_h
+
+
+class _OnDevice:
+    """Small constant arrays, copied to a device once and reused (a copy
+    per call would be a host-to-device transfer per step)."""
+
+    def __init__(self, *arrays):
+        self._arrays = arrays
+        self._cache = {}
+
+    def get(self, device):
+        if device not in self._cache:
+            self._cache[device] = tuple(
+                torch.from_numpy(a).to(device) for a in self._arrays
+            )
+        return self._cache[device]
+
+
+def shard_deposit_device_planar_fn(domain: Domain, dev_grid: ProcessGrid,
+                                   mesh_shape: Tuple[int, ...], core=None,
+                                   plain: bool = False):
+    """Per-device CIC deposit keyed by device-local cells: ``fn(pos_rows
+    [D, m], mass [m], valid [m]) -> rho``. ``core`` selects the engine
+    (default :func:`cic_deposit_device_planar`, the double-float scan),
+    called as ``core(pos_rows, mass, valid, dev_lo, inv_h, dev_block)``;
+    the ghost fold (fully periodic domains: the ``mesh_shape`` block) or
+    the dense assembly (any open axis: the :func:`global_node_shape`
+    mesh) is shared. One device only (``dev_grid`` of one rank)."""
+    if dev_grid.nranks != 1:
+        raise NotImplementedError(
+            "the multi-device deposit (ghost-face ppermute, dense psum) is "
+            "not ported yet (ROADMAP A5); use a one-rank dev_grid"
+        )
+    if core is None:
+        def core(*args):
+            return cic_deposit_device_planar(*args, plain=plain)
+    _check_mesh_shape(domain, dev_grid, mesh_shape)
+    dev_block = tuple(m // g for m, g in zip(mesh_shape, dev_grid.shape))
+    consts = _OnDevice(*_device_consts(domain, dev_grid, mesh_shape))
+
+    def fn(pos_rows, mass, valid):
+        dev_lo, inv_h = consts.get(pos_rows.device)
+        rho = core(pos_rows, mass, valid, dev_lo, inv_h, dev_block)
+        if all(domain.periodic):
+            return fold_ghosts(rho, dev_grid)
+        return assemble_dense(rho, dev_grid, domain)
+
+    return fn
+
+
+def shard_deposit_device_mxu_fn(domain: Domain, dev_grid: ProcessGrid,
+                                mesh_shape: Tuple[int, ...],
+                                vgrid: ProcessGrid = None,
+                                plain: bool = False):
+    """Per-device throughput deposit (``mass=None`` supported). With
+    ``vgrid``, rows must arrive slab-ordered (slab ``v`` holding only
+    vrank ``v``'s particles, the migrate loop's steady state) and the
+    slab-keyed engine runs, guarded by a residence check; without it,
+    the position-keyed flat engine, which assumes no row order."""
+    if vgrid is None:
+        def flat_core(*args):
+            return cic_deposit_device_mxu(*args, plain=plain)
+
+        return shard_deposit_device_planar_fn(
+            domain, dev_grid, mesh_shape, core=flat_core
+        )
+    full_grid = ProcessGrid(
+        tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
+        axis_names=dev_grid.axis_names,
+    )
+    _check_mesh_shape(domain, full_grid, mesh_shape)
+    V = vgrid.nranks
+    vwidths = full_grid.cell_widths(domain)
+    vcells = np.asarray(
+        [vgrid.cell_of_rank(v) for v in range(V)], dtype=np.float32
+    )
+    # vrank origins on device 0, in float32 and in the reference's op
+    # order: lo + (0 * vgrid.shape + vcell) * vwidth
+    lo_all = np.stack(
+        [
+            np.float32(domain.lo[a])
+            + (np.float32(0) * np.float32(vgrid.shape[a]) + vcells[:, a])
+            * np.float32(vwidths[a])
+            for a in range(domain.ndim)
+        ],
+        axis=1,
+    ).astype(np.float32)  # [V, D]
+    lo_dev = _OnDevice(lo_all)
+
+    def slab_core(pos_rows, mass, valid, dev_lo, inv_h, dev_block):
+        vblock = tuple(b // v for b, v in zip(dev_block, vgrid.shape))
+        (lo_v,) = lo_dev.get(pos_rows.device)
+        # RESIDENCE GUARD: slab keys are meaningful only while every valid
+        # row sits inside its slab's block; a row a capacity backlog left
+        # on the wrong slab would be clamped into a wrong cell SILENTLY.
+        # The reference lax.cond-routes such calls to the flat engine;
+        # eager PyTorch has no sync-free equivalent, so the predicate is
+        # read on the host (one sync per call) and only one branch runs.
+        key, rel, mass2, in_block = _slab_keys_mxu(
+            pos_rows, mass, valid, lo_v, inv_h, vblock
+        )
+        HOST_SYNCS["residence_guard"] += 1
+        if bool(in_block):
+            return _slab_deposit_from_keys(
+                key, rel, mass2, vblock, vgrid.shape, plain=plain
+            )
+        return cic_deposit_device_mxu(
+            pos_rows, mass, valid, dev_lo, inv_h, dev_block, plain=plain
+        )
+
+    return shard_deposit_device_planar_fn(
+        domain, dev_grid, mesh_shape, core=slab_core
+    )
+
+
+def fold_ghosts(rho_ghost: torch.Tensor, grid: ProcessGrid) -> torch.Tensor:
+    """Fold each axis's upper ghost face onto plane 0 (the periodic
+    self-fold of an axis with grid extent 1, in axis order, so edge and
+    corner ghost mass propagates exactly). One device only."""
+    if grid.nranks != 1:
+        raise NotImplementedError(
+            "fold_ghosts across devices (ppermute) is not ported yet "
+            "(ROADMAP A5)"
+        )
+    for a in range(grid.ndim):
+        m = rho_ghost.shape[a] - 1
+        ghost = rho_ghost.narrow(a, m, 1)
+        body = rho_ghost.narrow(a, 0, m)
+        first = body.narrow(a, 0, 1) + ghost
+        rho_ghost = torch.cat([first, body.narrow(a, 1, m - 1)], dim=a)
+    return rho_ghost
+
+
+def assemble_dense(rho_ghost: torch.Tensor, grid: ProcessGrid,
+                   domain: Domain) -> torch.Tensor:
+    """The +1-ghost block as the global node mesh (the non-periodic
+    alternative to :func:`fold_ghosts`): on one device the block IS the
+    canvas (offset 0, and the reference's ``psum`` is the identity);
+    periodic axes of a mixed domain then wrap their top plane onto plane
+    0. Returns the :func:`global_node_shape` mesh."""
+    if grid.nranks != 1:
+        raise NotImplementedError(
+            "assemble_dense across devices (psum) is not ported yet "
+            "(ROADMAP A5)"
+        )
+    canvas = rho_ghost
+    for a in range(canvas.dim()):
+        if domain.periodic[a]:
+            m = canvas.shape[a] - 1
+            top = canvas.narrow(a, m, 1)
+            first = canvas.narrow(a, 0, 1) + top
+            canvas = torch.cat([first, canvas.narrow(a, 1, m - 1)], dim=a)
+    return canvas

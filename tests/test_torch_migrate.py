@@ -7,7 +7,14 @@ leaf, and the free-slot stack.
 dt is 1.0 or 0.0625 where positions drift: a jitted JAX function on the
 CPU contracts ``p + v*dt`` into a fused multiply-add and the port does
 not; with a power-of-two dt the product is exact and the two agree (at
-dt = 0.05 one drift in ~26 differs by an ulp, enough to re-home it)."""
+dt = 0.05 one drift in ~26 differs by an ulp, enough to re-home it).
+
+With the CIC deposit fused in (config 5), the state and stats stay
+bit-equal; the density is bit-equal for ``deposit_method="scan"`` (same
+stable order, same double-float sequence) and within ``rtol = atol =
+2e-5`` for ``"mxu"``, whose reference sort is unstable, so its per-cell
+summation order is not a contract (2e-5 is the reference's own
+float64-oracle tolerance for the deposit engines)."""
 
 import numpy as np
 import pytest
@@ -58,30 +65,37 @@ def _assert_stats(got, want):
 
 
 def _run_both(vgrid_shape, n_local, dt, capacity, budget, pos, vel, alive,
-              n_steps, lo=0.0, hi=1.0, port_inputs=None):
+              n_steps, lo=0.0, hi=1.0, port_inputs=None, periodic=True,
+              deposit=None, deposit_each_step=False):
     """The JAX loop on numpy ``pos, vel, alive`` and the port's loop on
-    the same arrays (or on ``port_inputs``, tensors of the same bits)."""
+    the same arrays (or on ``port_inputs``, tensors of the same bits).
+    ``deposit`` is ``(deposit_shape, deposit_method)`` or None."""
     dev_grid = jdomain.ProcessGrid((1,) * len(vgrid_shape))
     mesh = mesh_lib.make_mesh(dev_grid, devices=jax.devices()[:1])
+    dep = {} if deposit is None else dict(
+        deposit_shape=deposit[0], deposit_method=deposit[1]
+    )
     jcfg = jnbody.DriftConfig(
-        domain=jdomain.Domain(lo, hi, periodic=True), grid=dev_grid, dt=dt,
-        capacity=capacity, n_local=n_local, local_budget=budget,
-        engine="planar",
+        domain=jdomain.Domain(lo, hi, periodic=periodic), grid=dev_grid,
+        dt=dt, capacity=capacity, n_local=n_local, local_budget=budget,
+        engine="planar", **dep,
     )
     want = jax.tree.map(
         np.asarray,
         jnbody.make_migrate_loop(
-            jcfg, mesh, n_steps, vgrid=jdomain.ProcessGrid(vgrid_shape)
+            jcfg, mesh, n_steps, vgrid=jdomain.ProcessGrid(vgrid_shape),
+            deposit_each_step=deposit_each_step,
         )(pos, vel, alive),
     )
     tcfg = tnbody.DriftConfig(
-        domain=tdomain.Domain(lo, hi, periodic=True),
+        domain=tdomain.Domain(lo, hi, periodic=periodic),
         grid=tdomain.ProcessGrid((1,) * len(vgrid_shape)), dt=dt,
         capacity=capacity, n_local=n_local, local_budget=budget,
-        engine="planar",
+        engine="planar", **dep,
     )
     got = tnbody.make_migrate_loop(
-        tcfg, n_steps, vgrid=tdomain.ProcessGrid(vgrid_shape), device="cpu"
+        tcfg, n_steps, vgrid=tdomain.ProcessGrid(vgrid_shape), device="cpu",
+        deposit_each_step=deposit_each_step,
     )(*(port_inputs or (pos, vel, alive)))
     return got, want
 
@@ -359,4 +373,98 @@ def test_unported_engines_raise(engine, exc):
     with pytest.raises(exc):
         tnbody.make_migrate_loop(
             cfg, 1, vgrid=tdomain.ProcessGrid(GRID), device="cpu"
+        )
+
+
+def _check_deposit(got, want, method, alive_total):
+    for g, w in zip(got[:3], want[:3]):
+        _assert_bits(g, w)
+    _assert_stats(got[3], want[3])
+    rho = got[4]
+    assert rho.dtype == torch.float32 and rho.shape == want[4].shape
+    if method == "scan":
+        _assert_bits(rho, want[4])
+    else:
+        np.testing.assert_allclose(rho.numpy(), want[4], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(float(rho.double().sum()), alive_total,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["scan", "mxu"])
+@pytest.mark.parametrize("n_local,shape", [
+    (256, (8, 8, 8)), (4096, (16, 16, 16)),
+])
+def test_fused_deposit_loop_matches_jax(n_local, shape, method):
+    """Config 5 at a small width: 2x2x2 vranks, 3 steps, the deposit
+    fused into every step."""
+    v, cap, budget = tcommon.drift_sizing(GRID, n_local, 0.9, 0.02)
+    pos, vel, alive = tcommon.uniform_state(
+        GRID, n_local, 0.9, np.random.default_rng(n_local + 1),
+        vel_scale=4 * v,
+    )
+    got, want = _run_both(GRID, n_local, 1.0, cap, budget, pos, vel, alive,
+                          3, deposit=(shape, method), deposit_each_step=True)
+    _check_deposit(got, want, method, int(got[2].sum()))
+    assert int(got[3].sent.sum()) > 0
+
+
+@pytest.mark.parametrize("method", ["scan", "mxu"])
+def test_deposit_on_final_state_matches_jax(method):
+    """Without deposit_each_step the loop deposits once, on the final
+    state; on a mixed-periodic domain the density is the global node
+    mesh (one clamp-edge plane on the open axis)."""
+    n_local = 256
+    v, cap, budget = tcommon.drift_sizing(GRID, n_local, 0.9, 0.02)
+    pos, vel, alive = tcommon.uniform_state(
+        GRID, n_local, 0.9, np.random.default_rng(3), vel_scale=4 * v
+    )
+    for periodic in (True, (True, False, True)):
+        got, want = _run_both(
+            GRID, n_local, 1.0, cap, budget, pos, vel, alive, 2,
+            periodic=periodic, deposit=((8, 8, 8), method),
+        )
+        _check_deposit(got, want, method, int(got[2].sum()))
+    assert tuple(got[4].shape) == (8, 9, 8)
+
+
+def test_zero_steps_returns_the_zero_mesh():
+    cfg = tnbody.DriftConfig(
+        domain=tdomain.Domain(0.0, 1.0, periodic=True),
+        grid=tdomain.ProcessGrid((1, 1, 1)), dt=1.0, capacity=8, n_local=8,
+        deposit_shape=(4, 4, 4), engine="planar",
+    )
+    r = np.random.default_rng(0)
+    out = tnbody.make_migrate_loop(
+        cfg, 0, vgrid=tdomain.ProcessGrid(GRID), device="cpu",
+        deposit_each_step=True,
+    )(r.random((64, 3), dtype=np.float32), np.zeros((64, 3), np.float32),
+      np.ones(64, bool))
+    assert torch.equal(out[4], torch.zeros((4, 4, 4)))
+
+
+@pytest.mark.parametrize("method,exc", [
+    ("segment", NotImplementedError), ("bogus", ValueError),
+])
+def test_unported_deposit_methods_raise(method, exc):
+    cfg = tnbody.DriftConfig(
+        domain=tdomain.Domain(0.0, 1.0, periodic=True),
+        grid=tdomain.ProcessGrid((1, 1, 1)), dt=1.0, capacity=8, n_local=8,
+        deposit_shape=(8, 8, 8), deposit_method=method, engine="planar",
+    )
+    with pytest.raises(exc):
+        tnbody.make_migrate_loop(
+            cfg, 1, vgrid=tdomain.ProcessGrid(GRID), device="cpu"
+        )
+
+
+def test_deposit_each_step_needs_a_deposit_shape():
+    cfg = tnbody.DriftConfig(
+        domain=tdomain.Domain(0.0, 1.0, periodic=True),
+        grid=tdomain.ProcessGrid((1, 1, 1)), dt=1.0, capacity=8, n_local=8,
+        engine="planar",
+    )
+    with pytest.raises(ValueError, match="deposit_shape"):
+        tnbody.make_migrate_loop(
+            cfg, 1, vgrid=tdomain.ProcessGrid(GRID), device="cpu",
+            deposit_each_step=True,
         )

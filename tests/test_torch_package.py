@@ -40,6 +40,8 @@ def test_import_does_not_load_jax():
         "from mpi_grid_redistribute_tpu_torch import convert\n"
         "from mpi_grid_redistribute_tpu_torch.utils import profiling\n"
         "from mpi_grid_redistribute_tpu_torch.bench import common\n"
+        "from mpi_grid_redistribute_tpu_torch.bench import config5_deposit\n"
+        "from mpi_grid_redistribute_tpu_torch.ops import deposit, dfscan, segdep\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_grid_redistribute_tpu')]\n"
         "print(bad)\n"
