@@ -11,23 +11,34 @@ started together), then, on the card:
      the shapes of the main path and on a hostile input, and times the
      kernel, the plain version and (where one exists) one PyTorch library
      call computing the same function, beside the least time the card
-     could take (``bound_ms``);
-  2. drives the main path through the user entry point
-     ``models.nbody.make_migrate_loop``: the bench configuration (a
-     2x2x2 grid as 8 vranks on one device, 2^20 rows per vrank at 90%
-     fill, ~2% migration per step, dt = 1.0, engine "planar"), timed per
-     step, then a counted run whose kernel launches must equal its steps,
-     with conservation, ownership, zero dropped arrivals, and bit
-     equality with the same loop run on the plain versions;
-  3. checks the card's loop against the port's CPU run (plain versions,
+     could take (``bound_ms``); kernel 6 (the row scatter) at the rows
+     route's shape, the bench state as row-major ``[8388608, 7]``;
+  2. drives the bench configuration (a 2x2x2 grid as 8 vranks on one
+     device, 2^20 rows per vrank at 90% fill, ~2% migration per step,
+     dt = 1.0) through the user entry point
+     ``models.nbody.make_migrate_loop``, twice:
+     - with ``engine="planar"`` (the dense step, a comparison run):
+       timed per step, a counted run whose kernel launches equal its
+       steps, conservation, ownership, zero dropped arrivals, and bit
+       equality with the same loop on the plain versions;
+     - with the default engine (``"auto"``, the mover-sparse engine on
+       this layout: the MAIN PATH): the same checks, host syncs per step
+       (1, the engine's guard), the share of steps on the fast branch, and
+       bit equality with the planar run;
+  3. steps the row-store landing route (``shard_migrate_vranks_fn(...,
+     scatter_impl="rows")`` on the legacy float32 state, dest keys from
+     kernel 1): timed per step, a counted run launching kernel 6 once per
+     step, the same checks, and bit equality with its plain-version run
+     and with the int32 planar loop;
+  4. checks the card's loop against the port's CPU run (plain versions,
      which the CPU tests hold bit-equal to the JAX package) at a small
-     width;
-  4. holds the deposit kernels against their plain versions at the
+     width, for both engines;
+  5. holds the deposit kernels against their plain versions at the
      config-5 shapes (the double-float tile scan at [262144, 256], bit
      for bit; the segmented deposit on the config-5 slab stream, bit for
      bit on dyadic data and within 2e-5 otherwise, and run-to-run
-     identical), and drives config 5 (the same loop with the CIC deposit
-     onto a 128^3 mesh fused into every step) through
+     identical), and drives config 5 (the loop with its default engine
+     and the CIC deposit onto a 128^3 mesh fused into every step) through
      ``make_migrate_loop`` with ``deposit_method="mxu"`` and ``"scan"``:
      timed per step, host syncs per step, a counted run whose deposit
      kernel launches equal its steps, mass conservation, the state
@@ -39,8 +50,8 @@ lines are the ``nvidia-smi`` name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``. Exits
 non-zero without printing a result when no CUDA device is present or the
 package is not beside this script. ``--profile DIR`` also writes a
-``torch.profiler`` kernel table of a few main-path and config-5 steps to
-DIR, with the deposit's share of the config-5 step.
+``torch.profiler`` kernel table of a few steps of each loop to DIR, with
+the deposit's share of the config-5 step.
 """
 
 from __future__ import annotations
@@ -65,8 +76,10 @@ FILL = 0.9
 MIGRATION = 0.02
 DT = 1.0
 COUNTED_STEPS = 6
-# kernels the plain drift/migrate loop launches once per step
+# kernels the drift/migrate loop (either engine) launches once per step
 MIGRATE_KERNELS = ("drift_wrap_bin", "overlay_scatter_planar")
+# kernels the row-store landing route launches once per step
+ROWS_KERNELS = ("drift_wrap_bin", "scatter_rows")
 # config 5: the deposit kernel each method launches once per step
 DEPOSIT_KERNEL = {"mxu": "segsum_sorted", "scan": "tile_df_cumsum_rows"}
 
@@ -260,13 +273,253 @@ def overlay_phase(torch, overlay, profiling, budget):
     }
 
 
-def main_path_phase(torch, pt, nbody, _build, profiling, inputs, cap, budget,
-                    profile_dir):
+def scatter_phase(torch, scatter, profiling, state_np, budget):
+    """Kernel 6 at the rows route's shape: the bench state as row-major
+    float32 [V * n, 7], V * P plan entries of which ~2% of the live rows
+    are unique in-range targets and the rest the sentinel n_rows, plus
+    negative targets and rows of NaN, +-inf and denormal bit patterns."""
+    V = int(np.prod(GRID))
+    flat0 = torch.from_numpy(state_np).cuda().view(torch.float32).T
+    flat0 = flat0.contiguous()  # [m, 7] row-major
+    m, K = flat0.shape
+    P = V * budget
+    live = int(state_np[-1].sum())
+    n_in = int(round(MIGRATION * live))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    targets = torch.full((P,), m, dtype=torch.int32, device="cuda")
+    slots = torch.randperm(P, device="cuda", generator=g)
+    targets[slots[:n_in]] = torch.randperm(m, device="cuda", generator=g)[
+        :n_in].to(torch.int32)
+    targets[slots[n_in : n_in + 16]] = -1
+    targets[slots[n_in + 16 : n_in + 32]] = m + 5
+    rows = torch.randint(-(2**31), 2**31 - 1, (P, K), dtype=torch.int32,
+                         device="cuda", generator=g)
+    hostile = torch.tensor(
+        [0x7FC0BEEF, 0x7F800000, 0xFF800000 - 2**32, 0x00000001, 0x807FFFFF
+         - 2**32, 0x7FBFFFFF, 0, -(2**31)], dtype=torch.int32, device="cuda",
+    )
+    rows[slots[: hostile.numel() * 64]] = hostile.repeat(64)[:, None]
+    rows = rows.view(torch.float32)
+    a = scatter.scatter_rows(flat0.clone(), targets, rows)
+    b = scatter.scatter_rows_plain(flat0.clone(), targets, rows)
+    torch.cuda.synchronize()
+    check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+          "scatter_rows kernel != plain at the rows route's shape")
+    err = max_abs_err(a, b)
+    # the other word sizes and a ragged shape the TPU kernel refuses
+    for dt, n_rows, k in ((torch.float64, 4099, 3), (torch.int16, 8200, 9),
+                          (torch.uint8, 777, 1)):
+        f = torch.randint(0, 100, (n_rows, k), device="cuda",
+                          generator=g).to(dt)
+        r = torch.randint(0, 100, (500, k), device="cuda", generator=g).to(dt)
+        t = torch.randperm(n_rows + 40, device="cuda", generator=g)[
+            :500].to(torch.int32)
+        t[:9] = -7
+        check(torch.equal(scatter.scatter_rows(f.clone(), t, r),
+                          scatter.scatter_rows_plain(f.clone(), t, r)),
+              f"scatter_rows kernel != plain for {dt} [{n_rows}, {k}]")
+
+    work = flat0.clone()
+    ms = profiling.cuda_time_ms(
+        lambda: scatter.scatter_rows(work, targets, rows)
+    )
+    plain_ms = profiling.cuda_time_ms(
+        lambda: scatter.scatter_rows_plain(work, targets, rows)
+    )
+    ok = (targets >= 0) & (targets < m)
+    t_ok = targets[ok].long()
+    r_ok = rows[ok].contiguous()
+    library_ms = profiling.cuda_time_ms(
+        lambda: work.index_put_((t_ok,), r_ok)
+    )
+    n_ok = int(ok.sum())
+    # the targets, and the in-range rows read once and written once (the
+    # dropped rows are never needed)
+    b_ms, b_by = bound(4 * P + 2 * 4 * K * n_ok, 0)
+    log(f"scatter_rows: {n_ok} in-range of {P} targets into [{m}, {K}]")
+    return {
+        "name": "scatter_rows",
+        "route": "cuda",
+        "source": "mpi_grid_redistribute_tpu_torch/csrc/scatter.cu",
+        "replaces": "mpi_grid_redistribute_tpu/ops/pallas_scatter.py:112",
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": library_ms,
+    }
+
+
+def rows_route_phase(torch, pt, migrate, driftbin, _build, profiling,
+                     inputs, cap, budget, planar_out, profile_dir):
+    """The row-store landing route: ``shard_migrate_vranks_fn(...,
+    scatter_impl="rows")`` stepped on the legacy float32 fused state of
+    the bench start, each step's dest key from kernel 1 on the int32 view
+    of the same storage (as ``make_migrate_loop`` feeds it)."""
+    label = "rows route"
+    V = int(np.prod(GRID))
+    domain = pt.Domain(0.0, 1.0, periodic=True)
+    vgrid = pt.ProcessGrid(GRID)
+    pos, vel, alive = inputs
+    total = int(alive.sum().item())
+    fused0 = torch.cat([pos.reshape(3, -1), vel.reshape(3, -1),
+                        alive.float()[None]])  # float32 [7, V * n]
+
+    def make_run(S, plain=False):
+        mig = migrate.shard_migrate_vranks_fn(
+            domain, pt.ProcessGrid((1, 1, 1)), vgrid, cap,
+            local_budget=budget, scatter_impl="rows", plain=plain,
+        )
+        bin_fn = (driftbin.drift_wrap_bin_plain if plain
+                  else driftbin.drift_wrap_bin)
+
+        def run():
+            state = migrate.init_state(fused0.clone(), vranks=V, batched=True)
+            steps = []
+            for _ in range(S):
+                f, key = bin_fn(state.fused.view(torch.int32), DT, domain,
+                                vgrid, V, V)
+                state, st = mig(state._replace(fused=f.view(torch.float32)),
+                                key)
+                steps.append(st)
+            return state, steps
+
+        return run
+
+    detail, _ = profiling.cuda_time_per_step_samples(
+        make_run, s1=2, s2=12, reps=3
+    )
+    per_step = detail["min"]
+    log(f"{label}: {per_step * 1e3:.4f} ms/step (min of k={detail['k']}, "
+        f"median {detail['median'] * 1e3:.4f}, spread "
+        f"{detail['spread'] * 100:.2f}%), {total / per_step:.6g} "
+        f"particles/s")
+
+    _, syncs2 = synced_run(torch, make_run(2))
+    _build.reset_counts()
+    (state, steps), syncs = synced_run(torch, make_run(COUNTED_STEPS))
+    launches = _build.counts()
+    syncs = (syncs - syncs2) / (COUNTED_STEPS - 2)
+    log(f"{label}: launches over {COUNTED_STEPS} steps: {launches}; host "
+        f"syncs per step {syncs:g}")
+    check_launches(launches, ROWS_KERNELS, label)
+    check(state.fused.dtype == torch.float32, f"{label}: state not float32")
+    stats = type(steps[0])(*[
+        None if getattr(steps[0], f) is None
+        else torch.stack([getattr(st, f) for st in steps])
+        for f in steps[0]._fields
+    ])
+    fi = state.fused.view(torch.int32)
+    out = (fi[:3].reshape(-1).view(torch.float32),
+           fi[3:6].reshape(-1).view(torch.float32), state.fused[-1] > 0,
+           stats)
+    check_state(torch, label, out[0], out[2], stats, total)
+    check(torch.equal(state.fused[-1][state.fused[-1] > 0],
+                      torch.ones(total, device="cuda")),
+          f"{label}: alive row is not 1.0/0.0")
+
+    ref_state, ref_steps = make_run(COUNTED_STEPS, plain=True)()
+    torch.cuda.synchronize()
+    check(torch.equal(fi, ref_state.fused.view(torch.int32))
+          and torch.equal(state.free_stack, ref_state.free_stack)
+          and torch.equal(state.n_free, ref_state.n_free),
+          f"{label}: state differs from the plain-version run")
+    for i, (a, b) in enumerate(zip(steps, ref_steps)):
+        for f in a._fields:
+            x, y = getattr(a, f), getattr(b, f)
+            check((x is None and y is None) or torch.equal(x, y),
+                  f"{label}: step {i} stat {f} differs from the plain run")
+    # the int32 planar loop from the same start: positions and velocities
+    # as int32, the alive rows as masks, the stats exactly
+    check_same_run(torch, label, out, planar_out, "the int32 planar loop")
+    log(f"{label}: bit-equal to the plain-version run and to the int32 "
+        f"planar loop over {COUNTED_STEPS} steps")
+    busy = None
+    if profile_dir:
+        busy = write_profile(torch, make_run, profile_dir, per_step,
+                             "rows_route")
+    return {
+        "ms_per_step": per_step * 1e3,
+        "median_ms_per_step": detail["median"] * 1e3,
+        "spread": detail["spread"],
+        "particles_per_s": total / per_step,
+        "host_syncs_per_step": syncs,
+        "launches": launches,
+        "device_busy_ms_per_step": busy,
+    }
+
+
+def synced_run(torch, run):
+    """``(out, syncs)``: ``run()`` under torch's sync debug mode, with the
+    number of synchronizing operations it reported."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def check_launches(launches, kernels, label):
+    for name, n in launches.items():
+        want = COUNTED_STEPS if name in kernels else 0
+        check(n == want,
+              f"{label}: {name} launched {n} times in {COUNTED_STEPS} steps")
+
+
+def check_state(torch, label, pos_f, alive_f, stats, total):
+    """Conservation, zero drops, the stats' own accounting, finite
+    positions and ownership (computed independently of the port's
+    binning) of a ``COUNTED_STEPS`` run's output."""
+    check(int(alive_f.sum()) == total, f"{label}: alive count not conserved")
+    check(int(stats.dropped_recv.sum()) == 0, f"{label}: arrivals dropped")
+    check(torch.equal(stats.population.sum(dim=1),
+                      torch.full((COUNTED_STEPS,), total, dtype=torch.int32,
+                                 device="cuda")),
+          f"{label}: population stat disagrees with the alive count")
+    check(torch.equal(stats.sent.sum(dim=1), stats.received.sum(dim=1)),
+          f"{label}: sent != received")
+    check(bool(torch.isfinite(pos_f).all()), f"{label}: non-finite positions")
+    p = pos_f.reshape(3, -1)
+    g = torch.tensor(GRID, device="cuda")[:, None]
+    cell = torch.floor(p.double() * g).long().clamp_min(0)
+    cell = torch.minimum(cell, g - 1)
+    owner = cell[0] * GRID[1] * GRID[2] + cell[1] * GRID[2] + cell[2]
+    slot = torch.arange(p.shape[1], device="cuda") // N_LOCAL
+    check(bool((owner[alive_f] == slot[alive_f]).all()),
+          f"{label}: a live row sits on a vrank that does not own its "
+          f"position")
+
+
+def check_same_run(torch, label, out, ref, what):
+    """State bits and every stat (but ``fast_path``) of two loop runs."""
+    for name, a, b in zip(("pos", "vel", "alive"), out[:3], ref[:3]):
+        check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+              f"{label}: {name} differs from {what}")
+    for f in out[3]._fields:
+        a, b = getattr(out[3], f), getattr(ref[3], f)
+        if f == "fast_path" and (a is None or b is None):
+            continue  # the planar engine has no fast path
+        check((a is None and b is None) or torch.equal(a, b),
+              f"{label}: stat {f} differs from {what}")
+
+
+def loop_path_phase(torch, pt, nbody, migrate, _build, profiling, inputs,
+                    cap, budget, engine, profile_dir, planar_out=None):
+    """The bench configuration through ``make_migrate_loop`` with
+    ``engine``: ``"auto"`` (the default, the mover-sparse engine here:
+    the main path) or ``"planar"`` (the dense step)."""
     cfg = nbody.DriftConfig(
         domain=pt.Domain(0.0, 1.0, periodic=True),
         grid=pt.ProcessGrid((1, 1, 1)), dt=DT, capacity=cap,
-        n_local=N_LOCAL, local_budget=budget, engine="planar",
+        n_local=N_LOCAL, local_budget=budget, engine=engine,
     )
+    label = f"{engine} path"
     vgrid = pt.ProcessGrid(GRID)
     pos, vel, alive = inputs
     total = int(alive.sum().item())
@@ -278,69 +531,80 @@ def main_path_phase(torch, pt, nbody, _build, profiling, inputs, cap, budget,
     # the step is host-bound (hundreds of small launches), so host
     # jitter is the noise: long runs, many samples, min of k
     detail, _ = profiling.cuda_time_per_step_samples(
-        make_run, s1=4, s2=36, reps=7
+        make_run, s1=4, s2=36, reps=7 if engine == "auto" else 5
     )
     per_step = detail["min"]
-    log(f"main path: {per_step * 1e3:.4f} ms/step (min of k={detail['k']}, "
+    log(f"{label}: {per_step * 1e3:.4f} ms/step (min of k={detail['k']}, "
         f"median {detail['median'] * 1e3:.4f}, "
         f"spread {detail['spread'] * 100:.2f}%), "
         f"{total / per_step:.6g} particles/s, {total} particles")
-    log(f"main path per-step samples (s): {detail['values']}")
+    log(f"{label} per-step samples (s): {detail['values']}")
 
     plain_detail, _ = profiling.cuda_time_per_step_samples(
         lambda S: make_run(S, plain=True), s1=4, s2=20, reps=3
     )
-    log(f"main path on plain versions: {plain_detail['min'] * 1e3:.4f} "
+    log(f"{label} on plain versions: {plain_detail['min'] * 1e3:.4f} "
         f"ms/step")
 
-    # ---- counted run: every kernel of the path launches once per step
-    run = make_run(COUNTED_STEPS)
+    # ---- host syncs per step (runs of 2 and COUNTED_STEPS, differenced)
+    # and the counted run: every kernel of the path launches once a step
+    guard0 = migrate.HOST_SYNCS["sparse_guard"]
+    _, syncs2 = synced_run(torch, make_run(2))
+    guard2 = migrate.HOST_SYNCS["sparse_guard"]
     _build.reset_counts()
-    out = run()
-    torch.cuda.synchronize()
+    out, syncs = synced_run(torch, make_run(COUNTED_STEPS))
     launches = _build.counts()
-    log(f"launches over {COUNTED_STEPS} steps: {launches}")
-    for name, n in launches.items():
-        want = COUNTED_STEPS if name in MIGRATE_KERNELS else 0
-        check(n == want,
-              f"{name} launched {n} times in {COUNTED_STEPS} steps")
+    syncs = (syncs - syncs2) / (COUNTED_STEPS - 2)
+    guard = (migrate.HOST_SYNCS["sparse_guard"] - guard2 - (guard2 - guard0)) \
+        / (COUNTED_STEPS - 2)
+    log(f"{label}: launches over {COUNTED_STEPS} steps: {launches}; host "
+        f"syncs per step {syncs:g} (sparse-guard reads {guard:g})")
+    check_launches(launches, MIGRATE_KERNELS, label)
+    want_syncs = 1 if engine == "auto" else 0
+    check(syncs == want_syncs and guard == want_syncs,
+          f"{label}: {syncs:g} host syncs and {guard:g} guard reads per "
+          f"step, expected {want_syncs}")
     pos_f, _, alive_f, stats = out
-    check(int(alive_f.sum()) == total, "alive count not conserved")
-    check(int(stats.dropped_recv.sum()) == 0, "arrivals dropped")
-    check(torch.equal(stats.population.sum(dim=1),
-                      torch.full((COUNTED_STEPS,), total, dtype=torch.int32,
-                                 device="cuda")),
-          "population stat disagrees with the alive count")
-    check(torch.equal(stats.sent.sum(dim=1), stats.received.sum(dim=1)),
-          "sent != received")
-    check(bool(torch.isfinite(pos_f).all()), "non-finite positions")
-    # ownership, computed independently of the port's binning
-    p = pos_f.reshape(3, -1)
-    g = torch.tensor(GRID, device="cuda")[:, None]
-    cell = torch.floor(p.double() * g).long().clamp_min(0)
-    cell = torch.minimum(cell, g - 1)
-    owner = cell[0] * GRID[1] * GRID[2] + cell[1] * GRID[2] + cell[2]
-    slot = torch.arange(p.shape[1], device="cuda") // N_LOCAL
-    check(bool((owner[alive_f] == slot[alive_f]).all()),
-          "a live row sits on a vrank that does not own its position")
+    check_state(torch, label, pos_f, alive_f, stats, total)
     sent = stats.sent.sum(dim=1).tolist()
-    log(f"migrants per step: {sent} ({np.mean(sent) / total:.4%} of live "
-        f"rows), backlog {int(stats.backlog.sum())}")
+    log(f"{label}: migrants per step: {sent} ({np.mean(sent) / total:.4%} "
+        f"of live rows), backlog {int(stats.backlog.sum())}")
+    fast_share = None
+    if engine == "auto":
+        fp = stats.fast_path[:, 0]
+        fast_share = float(fp.float().mean())
+        log(f"{label}: fast-path share {fast_share:.4f} "
+            f"({int(fp.sum())} of {COUNTED_STEPS} steps)")
+        for i in torch.nonzero(fp == 0).flatten().tolist():
+            movers = stats.sent[i] + stats.backlog[i]
+            log(f"{label}: step {i} ran dense: movers per vrank max "
+                f"{int(movers.max())} (block {budget}), arrivals max "
+                f"{int(stats.received[i].max())}, backlog "
+                f"{int(stats.backlog[i].sum())}")
 
     ref = make_run(COUNTED_STEPS, plain=True)()
     torch.cuda.synchronize()
-    for name, a, b in zip(("pos", "vel", "alive"), out[:3], ref[:3]):
-        check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
-              f"main path {name} differs from the plain-version run")
-    for f in stats._fields:
-        a, b = getattr(stats, f), getattr(ref[3], f)
-        check((a is None and b is None) or torch.equal(a, b),
-              f"main path stat {f} differs from the plain-version run")
+    check_same_run(torch, label, out, ref, "the plain-version run")
+    if planar_out is not None:
+        check_same_run(torch, label, out, planar_out, "the planar loop")
 
     busy = None
     if profile_dir:
-        busy = write_profile(torch, make_run, profile_dir, per_step)
-    return launches, detail, total, busy
+        busy = write_profile(torch, make_run, profile_dir, per_step,
+                             label.replace(" ", "_"))
+    return {
+        "engine": engine,
+        "ms_per_step": per_step * 1e3,
+        "median_ms_per_step": detail["median"] * 1e3,
+        "spread": detail["spread"],
+        "plain_ms_per_step": plain_detail["min"] * 1e3,
+        "particles_per_s": total / per_step,
+        "particles": total,
+        "host_syncs_per_step": syncs,
+        "fast_path_share": fast_share,
+        "launches": launches,
+        "device_busy_ms_per_step": busy,
+    }, out
 
 
 def profile_steps(torch, make_run, profile_dir, label):
@@ -375,11 +639,11 @@ def profile_steps(torch, make_run, profile_dir, label):
     return (seen[6][0] - seen[2][0]) / 4, (seen[6][1] - seen[2][1]) / 4
 
 
-def write_profile(torch, make_run, profile_dir, per_step):
-    """The main path's device operations and device-busy time per step,
-    and with the timed ms/step the device's idle share."""
-    ops, busy = profile_steps(torch, make_run, profile_dir, "main_path")
-    log(f"profile: {ops:.1f} device operations/step, device busy "
+def write_profile(torch, make_run, profile_dir, per_step, label):
+    """A loop's device operations and device-busy time per step, and with
+    the timed ms/step the device's idle share."""
+    ops, busy = profile_steps(torch, make_run, profile_dir, label)
+    log(f"{label} profile: {ops:.1f} device operations/step, device busy "
         f"{busy:.4f} ms/step of {per_step * 1e3:.4f} ms/step "
         f"(idle {1 - busy / (per_step * 1e3):.2%}); tables in "
         f"{profile_dir}")
@@ -388,7 +652,7 @@ def write_profile(torch, make_run, profile_dir, per_step):
 
 def small_width_phase(torch, pt, nbody):
     """The loop on the card (kernels) against the port's CPU run (plain
-    versions) at a small width: the same bits."""
+    versions) at a small width, with each engine: the same bits."""
     from mpi_grid_redistribute_tpu_torch.bench import common
 
     n_local = 4096
@@ -396,23 +660,30 @@ def small_width_phase(torch, pt, nbody):
     pos, vel, alive = common.uniform_state(
         GRID, n_local, FILL, np.random.default_rng(1), vel_scale=4 * v
     )
-    cfg = nbody.DriftConfig(
-        domain=pt.Domain(0.0, 1.0, periodic=True),
-        grid=pt.ProcessGrid((1, 1, 1)), dt=DT, capacity=cap,
-        n_local=n_local, local_budget=budget, engine="planar",
-    )
     vgrid = pt.ProcessGrid(GRID)
-    a = nbody.make_migrate_loop(cfg, 5, vgrid=vgrid)(pos, vel, alive)
-    b = nbody.make_migrate_loop(cfg, 5, vgrid=vgrid, device="cpu")(
-        pos, vel, alive
-    )
-    for x, y in zip(a[:3], b[:3]):
-        check(torch.equal(x.cpu().view(torch.uint8), y.view(torch.uint8)),
-              "card loop differs from the CPU run at n_local=4096")
-    for f in ("sent", "received", "population", "backlog", "flow"):
-        check(torch.equal(getattr(a[3], f).cpu(), getattr(b[3], f)),
-              f"card stat {f} differs from the CPU run")
-    log("small width: card loop == CPU run (bits, stats)")
+    for engine in ("auto", "planar"):
+        cfg = nbody.DriftConfig(
+            domain=pt.Domain(0.0, 1.0, periodic=True),
+            grid=pt.ProcessGrid((1, 1, 1)), dt=DT, capacity=cap,
+            n_local=n_local, local_budget=budget, engine=engine,
+        )
+        a = nbody.make_migrate_loop(cfg, 5, vgrid=vgrid)(pos, vel, alive)
+        b = nbody.make_migrate_loop(cfg, 5, vgrid=vgrid, device="cpu")(
+            pos, vel, alive
+        )
+        for x, y in zip(a[:3], b[:3]):
+            check(torch.equal(x.cpu().view(torch.uint8), y.view(torch.uint8)),
+                  f"card loop ({engine}) differs from the CPU run at "
+                  f"n_local={n_local}")
+        for f in ("sent", "received", "population", "backlog", "flow",
+                  "fast_path"):
+            x, y = getattr(a[3], f), getattr(b[3], f)
+            check((x is None and y is None) or torch.equal(x.cpu(), y),
+                  f"card stat {f} ({engine}) differs from the CPU run")
+        fast = "" if a[3].fast_path is None else (
+            f", fast path on {int(a[3].fast_path[:, 0].sum())} of 5 steps")
+        log(f"small width, {engine}: card loop == CPU run (bits, stats"
+            f"{fast})")
 
 
 def dfscan_phase(torch, dfscan, profiling):
@@ -548,7 +819,8 @@ def segdep_phase(torch, segdep, profiling, stream):
 def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
                   method, inputs, profile_dir, base_busy):
     """Config 5 through ``make_migrate_loop`` with ``method``: the bench
-    shape, the CIC deposit onto 128^3 fused into every step."""
+    shape with the default engine, the CIC deposit onto 128^3 fused into
+    every step."""
     cfg, vgrid, _ = config5_deposit.build(n_local=N_LOCAL, method=method)
     pos, vel, alive = inputs
     total = int(alive.sum().item())
@@ -572,18 +844,8 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
     # ---- host syncs per step: runs of 2 and COUNTED_STEPS steps under
     # torch's sync debug mode, differenced (one-time set-up cancels)
     def synced(S):
-        run = make_run(S)
-        torch.cuda.synchronize()
         guard0 = deposit.HOST_SYNCS["residence_guard"]
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                out = run()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        out, syncs = synced_run(torch, make_run(S))
         return out, syncs, deposit.HOST_SYNCS["residence_guard"] - guard0
 
     _, syncs2, guard2 = synced(2)
@@ -595,13 +857,9 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
     guard = (guard - guard2) / (COUNTED_STEPS - 2)
     log(f"config5 {method}: launches over {COUNTED_STEPS} steps: "
         f"{launches}; host syncs per step {syncs:g} (residence-guard "
-        f"reads {guard:g})")
-    for name, n in launches.items():
-        want = (COUNTED_STEPS
-                if name in MIGRATE_KERNELS or name == DEPOSIT_KERNEL[method]
-                else 0)
-        check(n == want, f"config5 {method}: {name} launched {n} times in "
-                         f"{COUNTED_STEPS} steps")
+        f"reads {guard:g}; the engine's sparse guard is the other)")
+    check_launches(launches, MIGRATE_KERNELS + (DEPOSIT_KERNEL[method],),
+                   f"config5 {method}")
     stats, rho = out[3], out[4]
     check(int(stats.dropped_recv.sum()) == 0, "config5: arrivals dropped")
     check(int(out[2].sum()) == total, "config5: alive count not conserved")
@@ -659,7 +917,7 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None,
-                    help="write a torch.profiler table of the main path")
+                    help="write torch.profiler tables of each loop to DIR")
     args = ap.parse_args()
 
     import torch
@@ -681,8 +939,9 @@ def main() -> int:
     from mpi_grid_redistribute_tpu_torch.bench import common, config5_deposit
     from mpi_grid_redistribute_tpu_torch.models import nbody
     from mpi_grid_redistribute_tpu_torch.ops import (
-        _build, deposit, dfscan, driftbin, overlay, segdep,
+        _build, deposit, dfscan, driftbin, overlay, scatter, segdep,
     )
+    from mpi_grid_redistribute_tpu_torch.parallel import migrate
     from mpi_grid_redistribute_tpu_torch.utils import profiling
 
     smi = subprocess.run(
@@ -720,13 +979,26 @@ def main() -> int:
         f"{k2['bound_ms']:.5f}, plain {k2['plain_ms']:.5f}, index_put_ "
         f"{k2['library_ms']:.5f}) bit-equal at V*P = {8 * budget}")
 
+    k6 = scatter_phase(torch, scatter, profiling, state_np, budget)
+    log(f"scatter_rows: {k6['ms']:.5f} ms (bound {k6['bound_ms']:.5f}, "
+        f"plain {k6['plain_ms']:.5f}, index_put_ {k6['library_ms']:.5f}) "
+        f"bit-equal at V*P = {8 * budget} into [{state_np.shape[1]}, 7]")
+
     inputs = tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda()
                    for x in (pos_p, vel_p, alive))
-    launches, detail, total, base_busy = main_path_phase(
-        torch, pt, nbody, _build, profiling, inputs, cap, budget,
-        args.profile,
+    # the dense planar step (a comparison run), then the main path: the
+    # default engine, the mover-sparse one on this layout
+    planar, planar_out = loop_path_phase(
+        torch, pt, nbody, migrate, _build, profiling, inputs, cap, budget,
+        "planar", args.profile,
     )
-    per_step = detail["min"]
+    sparse, _ = loop_path_phase(
+        torch, pt, nbody, migrate, _build, profiling, inputs, cap, budget,
+        "auto", args.profile, planar_out,
+    )
+    rows = rows_route_phase(torch, pt, migrate, driftbin, _build, profiling,
+                            inputs, cap, budget, planar_out, args.profile)
+    del planar_out
     small_width_phase(torch, pt, nbody)
 
     # ---- config 5: the deposit kernels, then the fused loop
@@ -749,7 +1021,7 @@ def main() -> int:
     for method in ("mxu", "scan"):
         c5[method], rhos[method] = config5_phase(
             torch, nbody, deposit, _build, profiling, config5_deposit,
-            method, inputs, args.profile, base_busy,
+            method, inputs, args.profile, sparse["device_busy_ms_per_step"],
         )
     err = max_abs_err(rhos["mxu"], rhos["scan"])
     check(bool(torch.allclose(rhos["mxu"], rhos["scan"], rtol=2e-4,
@@ -759,19 +1031,21 @@ def main() -> int:
 
     kernels = []
     # rows 2 and 3 of the TPU table (_overlay_sorted, _overlay_sorted_i8)
-    # are one CUDA kernel
+    # are one CUDA kernel; launches are counted on the main path (rows
+    # 1-3), the config-5 loops (rows 4-5) and the rows route (row 6)
     row2 = dict(
         k2, replaces="mpi_grid_redistribute_tpu/ops/pallas_overlay.py:218"
     )
-    for k, path in ((k1, launches), (row2, launches), (k2, launches),
-                    (k4, c5["mxu"]["launches"]), (k5, c5["scan"]["launches"])):
+    main_launches = sparse["launches"]
+    for k, path in ((k1, main_launches), (row2, main_launches),
+                    (k2, main_launches), (k4, c5["mxu"]["launches"]),
+                    (k5, c5["scan"]["launches"]), (k6, rows["launches"])):
         k = dict(k)
         k["launches"] = path[k["name"]]
         kernels.append(k)
-    log(json.dumps({"main_path": {"ms_per_step": per_step * 1e3,
-                                  "median_ms_per_step": detail["median"] * 1e3,
-                                  "particles_per_s": total / per_step,
-                                  "particles": total}}))
+    log(json.dumps({"sparse_path": sparse}))
+    log(json.dumps({"planar_path": planar}))
+    log(json.dumps({"rows_path": rows}))
     log(json.dumps({"config5": c5}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -4,9 +4,10 @@ package's ``bench/config5_deposit.py``, without its telemetry report).
 
 The 2x2x2 grid (``BENCH_GRID``) runs as 8 vranks on one device, 2^20
 rows per vrank (``BENCH_SCALE`` scales it) at 90% fill, ~2% migration per
-step, dt = 1.0, ``engine="planar"``, onto a 128^3 density mesh with the
-method from ``BENCH_DEPOSIT`` (default ``"mxu"``, the segmented-sum
-engine; ``"scan"`` the double-float one).
+step, dt = 1.0, with the default engine ``"auto"`` (the mover-sparse
+engine on this single-device vrank layout, as in the reference), onto a
+128^3 density mesh with the method from ``BENCH_DEPOSIT`` (default
+``"mxu"``, the segmented-sum engine; ``"scan"`` the double-float one).
 
     python -m mpi_grid_redistribute_tpu_torch.bench.config5_deposit
 """
@@ -51,7 +52,6 @@ def build(n_local: int = None, mesh_cells: int = 128,
         grid=ProcessGrid((1,) * len(grid_shape)), dt=1.0, capacity=cap,
         n_local=n_local, local_budget=budget, deposit_shape=(m, m, m),
         deposit_method=method or os.environ.get("BENCH_DEPOSIT", "mxu"),
-        engine="planar",
     )
     return cfg, ProcessGrid(grid_shape), state
 

@@ -6,12 +6,14 @@ the JAX package's ``models/nbody.py``, single-device vrank path).
 
 The loop carries the fused PLANAR int32 state ``[2D+1, V*n]`` (position
 rows, velocity rows, alive row) and runs each step as the fused drift-bin
-kernel followed by one dense migrate step and, for the config-5
+kernel followed by one migrate step (the mover-sparse engine by default,
+the dense planar step with ``engine="planar"``) and, for the config-5
 workload, the CIC deposit (``ops.deposit``). The reference's ``lax.scan``
 is a Python loop here; stats are stacked per step as ``[S, V]`` (``flow``
-as ``[S, V, V]``), exactly as in the reference. Nothing in a step waits
-for the host except the slab deposit's residence guard (one boolean per
-step with ``deposit_method="mxu"``).
+as ``[S, V, V]``), exactly as in the reference. A step waits for the host
+only where the reference branches with ``lax.cond``: the sparse engine's
+guard (one boolean per step) and the slab deposit's residence guard (one
+more with ``deposit_method="mxu"``).
 """
 
 from __future__ import annotations
@@ -25,16 +27,18 @@ import torch
 from mpi_grid_redistribute_tpu_torch import _device
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import deposit, driftbin
-from mpi_grid_redistribute_tpu_torch.parallel import migrate
+from mpi_grid_redistribute_tpu_torch.parallel import exchange, migrate
 
 
 @dataclasses.dataclass(frozen=True)
 class DriftConfig:
     """Static configuration for the drift loop (same fields as the
-    reference). Only ``engine="planar"`` runs in this port so far, and of
-    the deposit methods the planar ``"scan"`` and ``"mxu"`` engines; the
-    load-balanced ``cells``/``assignment`` decomposition is a later
-    slice."""
+    reference). ``engine`` ``"auto"`` (the default) and ``"sparse"`` run
+    the mover-sparse engine on the single-device vrank path, ``"planar"``
+    the dense step; ``mover_cap`` sizes the mover block (default
+    ``local_budget``, then ``V * capacity``). Of the deposit methods the
+    planar ``"scan"`` and ``"mxu"`` engines run; the load-balanced
+    ``cells``/``assignment`` decomposition is a later slice."""
 
     domain: Domain
     grid: ProcessGrid
@@ -50,17 +54,12 @@ class DriftConfig:
     mover_cap: Optional[int] = None
 
 
-def _check_supported(cfg: DriftConfig, vgrid) -> None:
-    if cfg.engine in ("auto", "sparse"):
-        raise NotImplementedError(
-            f"engine={cfg.engine!r}: the mover-sparse migrate engine is not "
-            f"ported yet (ROADMAP.md A4); pass engine='planar'"
-        )
-    if cfg.engine != "planar":
-        raise ValueError(
-            f"engine={cfg.engine!r} has no migrate-loop meaning; use "
-            f"'planar'"
-        )
+def _check_supported(cfg: DriftConfig, vgrid) -> str:
+    """Raise on what the port does not run; return the resolved engine
+    (``resolve_engine`` rejects the canonical-only names)."""
+    eng = exchange.resolve_engine(
+        cfg.engine, vranks=vgrid is not None, n_devices=cfg.grid.nranks
+    )
     if vgrid is None or cfg.grid.nranks != 1:
         raise NotImplementedError(
             "only the single-device vrank path is ported: pass a one-rank "
@@ -83,6 +82,7 @@ def _check_supported(cfg: DriftConfig, vgrid) -> None:
         raise NotImplementedError(
             "cells/assignment decompositions are not ported yet"
         )
+    return eng
 
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
@@ -132,13 +132,14 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
     (:func:`planar_to_rows` recovers rows). Rows are vrank-major: vrank
     ``v`` holds rows ``[v * n_local, (v + 1) * n_local)``. ``stats`` is a
     :class:`~..parallel.migrate.MigrateStats` of ``[S, V]`` tensors
-    (``flow`` ``[S, V, V]``).
+    (``flow`` ``[S, V, V]``; ``fast_path`` ``[S, V]`` when the engine
+    resolved to the sparse one, else ``None``).
 
     ``device=None`` means the GPU and raises without one; the tests pass
     ``"cpu"``, where each kernel runs as its plain version. ``plain=True``
     runs the plain versions on the GPU too (the reference run the kernels
     are held against)."""
-    _check_supported(cfg, vgrid)
+    eng = _check_supported(cfg, vgrid)
     dev = _device.resolve(device)
     dep_fn = _deposit_fn(cfg, vgrid, plain)
     if deposit_each_step and dep_fn is None:
@@ -149,9 +150,16 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
         tuple(d * v for d, v in zip(cfg.grid.shape, vgrid.shape)),
         axis_names=cfg.grid.axis_names,
     )
+    mover_cap = None  # the sparse engine's mover block width
+    if eng == "sparse":
+        mover_cap = (
+            cfg.mover_cap if cfg.mover_cap is not None
+            else cfg.local_budget if cfg.local_budget is not None
+            else V * cfg.capacity
+        )
     mig = migrate.shard_migrate_vranks_fn(
         cfg.domain, cfg.grid, vgrid, cfg.capacity,
-        local_budget=cfg.local_budget, plain=plain,
+        local_budget=cfg.local_budget, mover_cap=mover_cap, plain=plain,
     )
     bin_fn = driftbin.drift_wrap_bin_plain if plain else driftbin.drift_wrap_bin
     dt = float(cfg.dt)
@@ -209,7 +217,8 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
         f = state.fused
         pos_f = f[:D].view(torch.float32).reshape(-1)
         vel_f = f[D : 2 * D].view(torch.float32).reshape(-1)
-        out = (pos_f, vel_f, f[-1] > 0, _stack_stats(steps, V, dev))
+        out = (pos_f, vel_f, f[-1] > 0,
+               _stack_stats(steps, V, dev, mover_cap is not None))
         if dep_fn is None:
             return out
         return out + (rho if deposit_each_step else _deposit(f),)
@@ -225,17 +234,22 @@ def _rho_shape(cfg: DriftConfig):
     return deposit.global_node_shape(cfg.domain, cfg.deposit_shape)
 
 
-def _stack_stats(steps, V: int, dev) -> migrate.MigrateStats:
-    fields = migrate.MigrateStats._fields[:-1]  # fast_path stays None
+def _stack_stats(steps, V: int, dev, fast_path: bool) -> migrate.MigrateStats:
+    """Stack per-step stats to ``[S, V]`` (``flow`` ``[S, V, V]``);
+    ``fast_path`` is stacked when the sparse engine ran, else ``None``."""
+    fields = migrate.MigrateStats._fields
     if not steps:
         empty = torch.zeros((0, V), dtype=torch.int32, device=dev)
         return migrate.MigrateStats(
-            *[empty] * (len(fields) - 1),
+            *[empty] * (len(fields) - 2),
             flow=torch.zeros((0, V, V), dtype=torch.int32, device=dev),
+            fast_path=empty if fast_path else None,
         )
-    return migrate.MigrateStats(
-        *[torch.stack([getattr(s, f) for s in steps]) for f in fields]
-    )
+    return migrate.MigrateStats(*[
+        torch.stack([getattr(s, f) for s in steps])
+        if f != "fast_path" or fast_path else None
+        for f in fields
+    ])
 
 
 def rows_to_planar(a, n_blocks: int):

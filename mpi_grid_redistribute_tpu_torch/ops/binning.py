@@ -20,6 +20,7 @@ in the CUDA drift-bin kernel:
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -200,3 +201,107 @@ def sorted_dest_counts(dest: torch.Tensor, n_dest: int):
     ``(order [N], counts [n_dest], bounds [n_dest + 1])``."""
     order, counts, bounds = sorted_dest_counts_batched(dest[None], n_dest)
     return order[0], counts[0], bounds[0]
+
+
+def sparse_select_params(n: int, block: int, *, chunk: int = 4096):
+    """``(chunk, cap)`` for :func:`sorted_mover_block` from the row width
+    and the mover-block width: ``chunk`` shrinks below ``n``; ``cap`` puts
+    a uniformly spread mover population at the full ``block`` density ~4x
+    under the per-chunk guard, rises to ``block`` when the block fits in
+    half a chunk (the leaver-count check then subsumes the chunk guard),
+    and stays at most ``chunk // 2``."""
+    while chunk >= max(2, n) and chunk > 8:
+        chunk //= 2
+    exp = max(1, -(-block * chunk // max(1, n)))
+    cap = 1 << (4 * exp - 1).bit_length()
+    if block <= chunk // 2:
+        cap = max(cap, 1 << max(0, block - 1).bit_length())
+    cap = max(1, min(cap, chunk // 2))
+    return chunk, cap
+
+
+def sparse_select_feasible(n: int, n_dest: int, *, chunk: int = 4096,
+                           cap: int = 512) -> bool:
+    """True when :func:`sorted_mover_block` can be built for this shape:
+    a power-of-two ``chunk``, packed keys within int32 at both levels,
+    candidates fewer than the rows, and no ``MPI_GRID_SELECT=flat``
+    override (read at each call, as the reference reads it at trace
+    time). The per-step guard is the ``ok`` the builder returns."""
+    bN = max(1, (n - 1).bit_length())
+    bT = (chunk - 1).bit_length()
+    nc = -(-n // chunk)
+    return not (
+        chunk <= 0
+        or chunk & (chunk - 1)
+        or n_dest + 1 > (1 << (31 - bN))
+        or n_dest + 1 > (1 << (31 - bT))
+        or nc * cap >= n
+        or os.environ.get("MPI_GRID_SELECT") == "flat"
+    )
+
+
+def sorted_mover_block(dest: torch.Tensor, n_dest: int, block: int, *,
+                       chunk: int = 4096, cap: int = 512):
+    """Two-level leaver selection compacted to a dense ``[V, block]``
+    mover block (the front end of the mover-sparse migrate engine).
+
+    Each ``chunk``-wide piece of a ``[V, n]`` key row is sorted on the
+    packed int32 key ``(dest << bT) | iota_t`` (unique within the chunk,
+    so the unstable sort equals the stable one); its first ``cap``
+    entries are the candidates, repacked as ``(dest << bN) | position``
+    with dead candidates as ``n_dest << bN`` (zero position bits), and
+    one ``[V, nc * cap]`` sort orders them. When no chunk holds more than
+    ``cap`` leavers this is the stable (dest, position) order of the flat
+    sort, bit for bit; counts and bounds are read off it by search.
+
+    Returns ``(block_rows [V, block], counts [V, n_dest], bounds
+    [V, n_dest + 1], ok)``: leaver rows zero-padded past the leaver
+    count, and ``ok`` a 0-d bool tensor, True iff no chunk overflowed
+    ``cap`` and every row's leavers fit in ``block`` (otherwise the other
+    outputs are not contractual). Raises ``ValueError`` when
+    :func:`sparse_select_feasible` is False."""
+    V, n = dest.shape
+    if not sparse_select_feasible(n, n_dest, chunk=chunk, cap=cap):
+        raise ValueError(
+            f"sorted_mover_block infeasible for n={n}, n_dest={n_dest}, "
+            f"chunk={chunk}, cap={cap} (gate on sparse_select_feasible)"
+        )
+    dev = dest.device
+    i32 = torch.int32
+    bN = max(1, (n - 1).bit_length())
+    bT = (chunk - 1).bit_length()
+    nc = -(-n // chunk)
+    npad = nc * chunk - n
+    ch = dest.to(i32)
+    if npad:
+        ch = torch.cat(
+            [ch, torch.full((V, npad), n_dest, dtype=i32, device=dev)], dim=1
+        )
+    ch = ch.reshape(V, nc, chunk)
+    lc = (ch != n_dest).sum(dim=-1, dtype=i32)  # [V, nc]
+    iota_t = torch.arange(chunk, dtype=i32, device=dev)
+    # every shift stays int32 (the feasibility gate bounds it): an int64
+    # key would double the bytes each sort moves
+    packed1 = torch.sort((ch << bT) | iota_t, dim=-1).values
+    cand = packed1[:, :, :cap]
+    dest_c = cand >> bT
+    pos_g = (
+        torch.arange(nc, dtype=i32, device=dev)[None, :, None] * chunk
+    ) | (cand & (chunk - 1))
+    live = torch.arange(cap, dtype=i32, device=dev)[None, None, :] < lc[:, :, None]
+    packed2 = torch.where(live, (dest_c << bN) | pos_g, n_dest << bN)
+    packed2 = torch.sort(packed2.reshape(V, nc * cap), dim=-1).values
+    order_c = packed2 & ((1 << bN) - 1)
+    edges = torch.arange(n_dest + 1, dtype=i32, device=dev) << bN
+    bounds = torch.searchsorted(
+        packed2, edges.expand(V, -1).contiguous(), side="left"
+    ).to(i32)
+    counts = bounds[:, 1:] - bounds[:, :-1]
+    if block <= nc * cap:
+        block_rows = order_c[:, :block]
+    else:
+        block_rows = torch.zeros((V, block), dtype=i32, device=dev)
+        block_rows[:, : nc * cap] = order_c
+    leavers = counts.sum(dim=1, dtype=i32)
+    ok = (lc.max() <= cap) & (leavers.max() <= block)
+    return block_rows, counts, bounds, ok

@@ -1,11 +1,13 @@
 """Resident-slot migration, single device (port of the JAX package's
-``parallel/migrate.py``, dense planar vrank engine).
+``parallel/migrate.py``, the vrank engine: dense planar step and
+mover-sparse fast path).
 
-State is a PLANAR int32 matrix ``[K, V * n]``: position rows, payload
-rows and the alive row last (float fields travel bitcast, so every bit
-pattern survives). Vrank ``v`` ("virtual rank": one subdomain of the
-grid, all of them side by side on one device) owns columns
-``[v * n, (v + 1) * n)``. One step:
+State is a PLANAR matrix ``[K, V * n]``: position rows, payload rows and
+the alive row last. The canonical transport is int32 (float fields
+travel bitcast, so every bit pattern survives); the legacy float32 layout
+(alive row 1.0/0.0) is accepted too, as in the reference. Vrank ``v``
+("virtual rank": one subdomain of the grid, all of them side by side on
+one device) owns columns ``[v * n, (v + 1) * n)``. One dense step:
 
   1. destination key per column (given by the fused drift-bin kernel, or
      binned here);
@@ -16,8 +18,15 @@ grid, all of them side by side on one device) owns columns
      rescue for rotation cycles between full vranks;
   4. vacated-slot and arrival plans, one column gather of the arrivals;
   5. ONE landing scatter writes arrivals and hole markers for every
-     vrank (the overlay kernel);
+     vrank (the overlay kernel by default; see :func:`_land_scatter`);
   6. the free-slot stack update.
+
+With ``mover_cap`` the step first selects the leavers into a ``[V, B]``
+mover block (two-level selection, no full sort) and computes the same
+grant tables; when the guard holds (selection exact, nothing clipped,
+arrivals within ``B``) a fast branch lands only the movers' columns and
+never touches a stayer. Otherwise the dense step runs. Both give the same
+bits.
 
 Ungranted leavers stay resident and retry (``backlog``); nothing is ever
 dropped. Slot order is not the MPI canonical order; the reference defines
@@ -25,38 +34,98 @@ correctness as set-equality per vrank, and this port reproduces the
 reference's bits exactly.
 
 Differences from the reference, none visible in any output: the
-multi-device (``Dev > 1``) branches and the mover-sparse engine are not
-ported yet; the unclipped vacated-plan shortcut (a ``lax.cond`` there)
-always takes the general plan, whose entries agree wherever they are
-read, so no step syncs with the host; the plan lookups are integer
-search + gather instead of the reference's float einsum workaround.
+multi-device (``Dev > 1``) branches are not ported yet; the unclipped
+vacated-plan shortcut (a ``lax.cond`` there) always takes the general
+plan, whose entries agree wherever they are read; the plan lookups are
+integer search + gather instead of the reference's float einsum
+workaround. The sparse engine's guard (the reference's ``lax.cond``) is
+read on the host once per step (:data:`HOST_SYNCS`); the dense step never
+syncs.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Sequence
 
 import torch
 
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
-from mpi_grid_redistribute_tpu_torch.ops import binning, overlay
+from mpi_grid_redistribute_tpu_torch.ops import binning, overlay, scatter
 from mpi_grid_redistribute_tpu_torch.ops.pack import gather_plan_cols
 
 _I32 = torch.int32
 
+# host reads of device values, by cause (the mover-sparse engine's guard
+# is the only one on the migrate path)
+HOST_SYNCS = {"sparse_guard": 0}
 
-def _land_scatter(flat, targets, cols, plain: bool = False):
-    """The landing column scatter on planar ``[K, m]`` state, in place.
+SCATTER_IMPLS = ("overlay", "xla", "rows")
 
-    UNIQUENESS INVARIANT (the overlay kernel's contract): every in-range
-    target this module passes is unique by construction — per vrank,
-    targets are vacated slots (disjoint prefixes of a sort permutation)
-    plus popped free-stack entries (distinct hole ids, disjoint from the
-    live vacated slots), globalized onto disjoint column blocks; every
-    other entry is the drop sentinel ``m``."""
-    if plain:
-        return overlay.overlay_scatter_planar_plain(flat, targets, cols)
-    return overlay.overlay_scatter_planar(flat, targets, cols)
+
+def _resolve_scatter_impl(scatter_impl) -> str:
+    """The landing-scatter route, resolved once when the engine is built:
+    ``None`` reads env ``MPI_GRID_LAND_SCATTER`` (``overlay``, ``xla`` or
+    ``rows``; the legacy ``MPI_GRID_PALLAS_SCATTER=1`` means ``rows``),
+    then defaults to ``"overlay"``; ``True`` means ``"rows"``, ``False``
+    ``"xla"``; an unknown name raises ``ValueError``. Every route runs on
+    every device (on the CPU each kernel runs its plain version)."""
+    if scatter_impl is None:
+        env = os.environ.get("MPI_GRID_LAND_SCATTER")
+        if env is None and os.environ.get("MPI_GRID_PALLAS_SCATTER") == "1":
+            env = "rows"
+        impl = env or "overlay"
+    elif scatter_impl is True:
+        impl = "rows"
+    elif scatter_impl is False:
+        impl = "xla"
+    else:
+        impl = str(scatter_impl)
+    if impl not in SCATTER_IMPLS:
+        raise ValueError(f"unknown landing-scatter impl {impl!r}")
+    return impl
+
+
+def _land_scatter(flat, targets, cols, impl: str = "overlay",
+                  plain: bool = False):
+    """The landing column scatter ``flat[:, targets] = cols`` on planar
+    ``[K, m]`` state, in place, targets outside ``[0, m)`` dropped.
+
+    ``impl``: ``"overlay"`` is kernel 2; ``"rows"`` is kernel 6 on the
+    row-major transpose (``scatter_rows(flat.T, targets, cols.T).T``, two
+    transposes paid, float32 state only, as in the reference); ``"xla"``
+    is one PyTorch indexed assignment (the counterpart of the XLA scatter
+    the reference runs outside any kernel). ``plain`` runs the kernels'
+    plain versions.
+
+    UNIQUENESS INVARIANT (the kernels' contract): every in-range target
+    this module passes is unique by construction — per vrank, targets are
+    vacated slots (disjoint prefixes of a sort permutation, or the mover
+    block) plus popped free-stack entries (distinct hole ids, disjoint
+    from the live vacated slots), globalized onto disjoint column blocks;
+    every other entry is the drop sentinel ``m``."""
+    if impl == "overlay":
+        if plain:
+            return overlay.overlay_scatter_planar_plain(flat, targets, cols)
+        return overlay.overlay_scatter_planar(flat, targets, cols)
+    if impl == "rows":
+        if flat.dtype != torch.float32:
+            raise TypeError(
+                "scatter_impl='rows' (MPI_GRID_LAND_SCATTER=rows) is "
+                "float32-only and incompatible with the int32 bit-exact "
+                "transport the migrate engines now carry; use 'overlay' "
+                "or 'xla'"
+            )
+        fn = scatter.scatter_rows_plain if plain else scatter.scatter_rows
+        rows = fn(flat.T.contiguous(), targets, cols.T.contiguous())
+        flat.copy_(rows.T)
+        return flat
+    m = flat.shape[1]
+    ok = (targets >= 0) & (targets < m)
+    words = flat.view(_I32) if flat.dtype == torch.float32 else flat
+    cw = cols.view(_I32) if cols.dtype == torch.float32 else cols
+    words[:, targets[ok].long()] = cw[:, ok]
+    return flat
 
 
 class MigrateStats(NamedTuple):
@@ -65,8 +134,10 @@ class MigrateStats(NamedTuple):
     by the grants (they stay resident and retry); ``dropped_recv`` is a
     safety counter, structurally zero since sends are receiver-granted.
     ``flow`` is the ``[V, V]`` granted-send table (``[i, j]`` = rows vrank
-    ``i`` sent to ``j``). ``fast_path`` is ``None``: the dense engine has
-    no sparse path."""
+    ``i`` sent to ``j``). ``fast_path`` is the mover-sparse engine's
+    branch, ``[V]`` int32 (1 = the fast branch ran, 0 = the guard sent the
+    step to the dense engine), and ``None`` when the engine was built
+    without ``mover_cap``."""
 
     sent: torch.Tensor
     received: torch.Tensor
@@ -78,9 +149,11 @@ class MigrateStats(NamedTuple):
 
 
 class MigrateState(NamedTuple):
-    """Loop-carried state: ``fused`` planar int32 ``[K, V * n]``;
-    ``free_stack`` ``[V, n]`` holds each vrank's hole columns (local ids,
-    only the first ``n_free[v]`` entries live); ``n_free`` ``[V]``."""
+    """Loop-carried state: ``fused`` planar int32 ``[K, V * n]`` (or the
+    legacy float32 layout, alive row 1.0/0.0); ``free_stack`` ``[V, n]``
+    holds each vrank's hole columns (local ids, only the first
+    ``n_free[v]`` entries live); ``n_free`` ``[V]``. A step updates
+    ``fused`` and ``free_stack`` in place."""
 
     fused: torch.Tensor
     free_stack: torch.Tensor
@@ -110,7 +183,8 @@ def fuse_fields(arrays: Sequence[torch.Tensor], alive: torch.Tensor):
 
 
 def unfuse_fields(fused: torch.Tensor, specs):
-    """Inverse of :func:`fuse_fields`: ``((arrays...), alive)``."""
+    """Inverse of :func:`fuse_fields`: ``((arrays...), alive)``. Accepts
+    the int32 transport or the legacy float32 layout."""
     out = []
     row = 0
     n = fused.shape[1]
@@ -195,7 +269,8 @@ def _stack_push_pop(free_stack, n_free, n_pop, n_push, vacated, n_in):
     vacated slots ``vacated[v, n_in : n_in + n_push]`` are pushed through
     a read-modify-write of one contiguous window per vrank (the same
     window the reference updates, so every stack entry, live or not,
-    matches its bits). Returns ``(free_stack, n_free)``."""
+    matches its bits), in place: only the ``[V, min(P, n)]`` window is
+    written. Returns ``(free_stack, n_free)``."""
     n = free_stack.shape[1]
     P = vacated.shape[1]
     W = min(P, n)
@@ -209,7 +284,7 @@ def _stack_push_pop(free_stack, n_free, n_pop, n_push, vacated, n_in):
     pushes = torch.gather(vacated, 1, src.long())
     use = (w_idx >= rel) & (w_idx < rel + n_push[:, None])
     window = torch.where(use, pushes, window)
-    return free_stack.scatter(1, win_idx, window), new_n_free
+    return free_stack.scatter_(1, win_idx, window), new_n_free
 
 
 def _plan_rows_batched(seg_starts, seg_counts, order, length: int,
@@ -256,25 +331,156 @@ def _plan_rows_batched(seg_starts, seg_counts, order, length: int,
     return vac, cum[:, -1]
 
 
+def _grant_tables(counts, starts, n_free, M: int):
+    """The receiver-granted ``[V_src, V_dst]`` send table of one device,
+    from the leavers' per-destination ``counts`` and segment ``starts``
+    (``[V, V]``), each vrank's free slots ``n_free`` and the per-step
+    budget ``M``: a per-source prefix truncation to ``M``, pairwise swaps
+    (self-financing) trimmed to the ``[M]`` arrival plan, then a monotone
+    fixpoint over the free slots plus the slots each receiver's own
+    departures vacate. Returns ``(allowed, pending)``: the grants, and
+    the rows each pair still wants after them (what the cycle rescue
+    reads). The dense step and the sparse engine share it, so under the
+    sparse guard both grant the same table."""
+    V = counts.shape[0]
+    dev = counts.device
+    rel_start = starts - starts[:, :1]
+    rel_end = rel_start + counts
+    eff = (
+        torch.clamp_max(rel_end, M) - torch.clamp_max(rel_start, M)
+    ).clamp_min(0)
+    swap = torch.minimum(eff, eff.T)
+    swap = _greedy_alloc(swap, torch.full((V,), M, dtype=_I32, device=dev))
+    swap = torch.minimum(swap, swap.T)
+    res_eff = eff - swap
+    res = torch.zeros_like(eff)
+    recv_room = M - swap.sum(dim=0, dtype=_I32)
+    for _ in range(V):
+        cap_res = torch.minimum(
+            recv_room, n_free + res.sum(dim=1, dtype=_I32)
+        )
+        res = _greedy_alloc(res_eff, cap_res.clamp_min(0))
+    return swap + res, res_eff - res
+
+
+def _land(flat, free_stack, n_free, vacated, arr_cols, n_sent, n_in,
+          impl: str, plain: bool):
+    """Land every vrank's arrivals with ONE scatter and update the free
+    stack. ``vacated`` ``[V, P]`` is the vacated-slot plan (the leavers in
+    send order), ``arr_cols`` ``[K, V, P]`` the gathered arrival columns.
+    Per vrank, arrival ``k`` fills vacated slot ``k`` while both last,
+    then popped holes; vacated slots past the arrivals get zero columns
+    (holes, alive row 0) and are pushed on the stack. Returns ``(flat,
+    free_stack, n_free)``, all updated in place where they can be."""
+    V, n = free_stack.shape
+    K = flat.shape[0]
+    P = vacated.shape[1]
+    dev = flat.device
+    my_v = torch.arange(V, dtype=_I32, device=dev)
+    k_idx = torch.arange(P, dtype=_I32, device=dev)[None, :]
+    ns = n_sent[:, None]
+    ni = n_in[:, None]
+    n_pop = torch.minimum((n_in - n_sent).clamp_min(0), n_free)
+    # pops walk the stack head downward: nf-1, nf-2, ... (a clamped
+    # gather; entries outside the pop range are never read)
+    pop_idx = (n_free[:, None] - 1 - (k_idx - ns)).clamp(0, n - 1)
+    pops = torch.gather(free_stack, 1, pop_idx.long())
+    sentinel = torch.full_like(vacated, n)
+    targets = torch.where(
+        k_idx < torch.minimum(ni, ns),
+        vacated,
+        torch.where(
+            (k_idx >= ns) & (k_idx < ns + n_pop[:, None]),
+            pops,
+            torch.where((k_idx >= ni) & (k_idx < ns), vacated, sentinel),
+        ),
+    )  # [V, P] local targets, sentinel n
+    gtargets = torch.where(
+        targets >= n, torch.full_like(targets, V * n),
+        my_v[:, None] * n + targets,
+    )
+    cols = torch.where(
+        (k_idx < ni)[None], arr_cols, torch.zeros_like(arr_cols)
+    )
+    flat = _land_scatter(
+        flat, gtargets.reshape(-1), cols.reshape(K, V * P), impl, plain
+    )
+    n_push = (n_sent - n_in).clamp_min(0)
+    free_stack, n_free = _stack_push_pop(
+        free_stack, n_free, n_pop, n_push, vacated, n_in
+    )
+    return flat, free_stack, n_free
+
+
+def _fast_step(flat, free_stack, n_free, block_rows, loc_starts, allowed,
+               n_sent, n_in, plain: bool):
+    """The mover-sparse fast branch, run when the guard holds: the mover
+    block ``[V, B]`` IS the vacated-slot plan (under the guard the dense
+    plan is the leaver prefix of the sorted order, which the block
+    reproduces bit for bit), arrivals gather ``B`` columns per vrank and
+    one landing writes them; stayer columns are never read or written.
+    Returns ``(MigrateState, MigrateStats)`` without ``fast_path``."""
+    V, n = free_stack.shape
+    B = block_rows.shape[1]
+    dev = flat.device
+    with torch.profiler.record_function("mig:pack"):
+        arr_src, _ = _plan_rows_batched(
+            loc_starts.T, allowed.T, block_rows, B,
+            seg_rows=torch.arange(V, dtype=_I32, device=dev), row_stride=n,
+        )  # [V_dst, B] global source columns
+        arr_cols = gather_plan_cols(flat, arr_src)  # [K, V, B]
+    with torch.profiler.record_function("mig:unpack"):
+        # kernel 2, where the reference takes its XLA scatter: the TPU
+        # overlay is O(n * plan), but kernel 2 writes each update straight
+        # to its column, O(plan) — the same flat[:, targets] = cols with
+        # unique targets
+        flat, free_stack, new_free = _land(
+            flat, free_stack, n_free, block_rows, arr_cols, n_sent, n_in,
+            "overlay", plain,
+        )
+    zeros = torch.zeros((V,), dtype=_I32, device=dev)
+    stats = MigrateStats(
+        sent=n_sent,
+        received=n_in,
+        # the stack invariant population == n - n_free: an O(V) read
+        # where the dense step reduces the alive row
+        population=(n - new_free).to(_I32),
+        backlog=zeros,
+        dropped_recv=zeros.clone(),
+        flow=allowed,
+    )
+    return MigrateState(flat, free_stack, new_free), stats
+
+
 def shard_migrate_vranks_fn(
     domain: Domain,
     dev_grid: ProcessGrid,
     vgrid: ProcessGrid,
     capacity: int,
     local_budget: int = None,
+    scatter_impl=None,
+    mover_cap: int = None,
     plain: bool = False,
 ):
     """Migration over ``V = vgrid.nranks`` vranks on ONE device, planar
     layout: ``fn(state, dest_key=None) -> (state, MigrateStats)`` with
-    ``state.fused [K, V * n]``, ``free_stack [V, n]``, ``n_free [V]``.
+    ``state.fused [K, V * n]`` (int32, or the legacy float32 layout),
+    ``free_stack [V, n]``, ``n_free [V]``.
 
     ``dest_key`` ``[V, n]`` (the destination vrank, sentinel ``V`` on
     stayers and holes) is what the fused drift-bin kernel emits; without
     it the step bins the position rows itself with the same arithmetic.
     ``local_budget`` (default ``V * capacity``) bounds the rows a vrank
     sends or receives per step; the landing scatter is sized to it.
-    ``plain=True`` runs every kernel's plain PyTorch version even on the
-    GPU (the reference run a kernel is held against).
+    ``scatter_impl`` picks the dense landing route (:func:`_resolve_scatter_impl`,
+    once, here). ``mover_cap`` builds the mover-sparse engine with a
+    ``[V, mover_cap]`` mover block (clamped to ``n``): each step reads its
+    guard on the host once (:data:`HOST_SYNCS`) and runs the fast branch
+    or the dense step, and the stats carry ``fast_path``; where the
+    selection cannot be built for the shape (or ``MPI_GRID_SELECT=flat``)
+    every step runs dense with ``fast_path`` all 0. ``plain=True`` runs
+    every kernel's plain PyTorch version even on the GPU (the reference
+    run a kernel is held against).
 
     Only ``dev_grid.nranks == 1`` is ported (the multi-device exchange
     over ``torch.distributed`` is a later slice)."""
@@ -287,14 +493,15 @@ def shard_migrate_vranks_fn(
     D = domain.ndim
     M = V * capacity if local_budget is None else int(local_budget)
     P = M  # Dev == 1: the send and arrival plans are both M wide
+    impl = _resolve_scatter_impl(scatter_impl)
     full_grid = ProcessGrid(
         tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
         axis_names=dev_grid.axis_names,
     )
 
     def _step(flat, free_stack, n_free, dest_key):
+        """One dense step, O(residents)."""
         dev = flat.device
-        K = flat.shape[0]
         n = flat.shape[1] // V
         my_v = torch.arange(V, dtype=_I32, device=dev)
         with torch.profiler.record_function("mig:bin"):
@@ -302,36 +509,11 @@ def shard_migrate_vranks_fn(
                 dest_key, V
             )  # [V, n], [V, V], [V, V + 1]
         leavers = counts.sum(dim=1, dtype=_I32)
-
-        # ---- local allocation: [V_src, V_dst] -------------------------
-        loc_counts = counts
         loc_starts = bounds[:, :V]
-        # per-source budget M: prefix truncation in destination order
-        rel_start = loc_starts - loc_starts[:, :1]
-        rel_end = rel_start + loc_counts
-        eff = (
-            torch.clamp_max(rel_end, M) - torch.clamp_max(rel_start, M)
-        ).clamp_min(0)
-
-        # receiver capacity: free slots plus the slots a receiver's own
-        # departures vacate, by monotone fixpoint seeded with pairwise
-        # swaps (self-financing), trimmed to the [M] arrival plan
-        swap = torch.minimum(eff, eff.T)
-        swap = _greedy_alloc(swap, torch.full((V,), M, dtype=_I32, device=dev))
-        swap = torch.minimum(swap, swap.T)
-        res_eff = eff - swap
-        res = torch.zeros_like(eff)
-        recv_room = M - swap.sum(dim=0, dtype=_I32)
-        for _ in range(V):
-            cap_res = torch.minimum(
-                recv_room, n_free + res.sum(dim=1, dtype=_I32)
-            )
-            res = _greedy_alloc(res_eff, cap_res.clamp_min(0))
-        allowed = swap + res  # [V_src, V_dst]
+        allowed, pending = _grant_tables(counts, loc_starts, n_free, M)
         # drain full-vrank rotation cycles (on one device the per-device
         # rescue is complete); a cycle is forced only if every member
         # stays within the [M] plans (+1 row)
-        pending = res_eff - res
         sends_zero = allowed.sum(dim=1, dtype=_I32) == 0
         ok = (allowed.sum(dim=1, dtype=_I32) < M) & (
             allowed.sum(dim=0, dtype=_I32) < M
@@ -340,7 +522,6 @@ def shard_migrate_vranks_fn(
         n_sent = allowed.sum(dim=1, dtype=_I32)
         n_in = allowed.sum(dim=0, dtype=_I32)
 
-        # ---- vacated slots and arrivals --------------------------------
         vacated, _ = _plan_rows_batched(loc_starts, allowed, order, P)
         with torch.profiler.record_function("mig:pack"):
             # dst w reads source s's sorted space at segment (s -> w)
@@ -348,42 +529,11 @@ def shard_migrate_vranks_fn(
                 loc_starts.T, allowed.T, order, M, seg_rows=my_v,
             )  # [V_dst, M] global source columns
             arr_cols = gather_plan_cols(flat, arr_src)  # [K, V, M]
-
-        # ---- landing plan: one scatter for arrivals + holes ------------
-        k_idx = torch.arange(P, dtype=_I32, device=dev)[None, :]
-        ns = n_sent[:, None]
-        ni = n_in[:, None]
-        n_pop = torch.minimum((n_in - n_sent).clamp_min(0), n_free)
-        # pops walk the stack head downward: nf-1, nf-2, ...
-        pop_idx = (n_free[:, None] - 1 - (k_idx - ns)).clamp(0, n - 1)
-        pops = torch.gather(free_stack, 1, pop_idx.long())
-        sentinel = torch.full_like(vacated, n)
-        targets = torch.where(
-            k_idx < torch.minimum(ni, ns),
-            vacated,
-            torch.where(
-                (k_idx >= ns) & (k_idx < ns + n_pop[:, None]),
-                pops,
-                torch.where((k_idx >= ni) & (k_idx < ns), vacated, sentinel),
-            ),
-        )  # [V, P] local targets, sentinel n
-        gtargets = torch.where(
-            targets >= n, torch.full_like(targets, V * n),
-            my_v[:, None] * n + targets,
-        )
-        cols = torch.where(
-            (k_idx < ni)[None], arr_cols, torch.zeros_like(arr_cols)
-        )
         with torch.profiler.record_function("mig:unpack"):
-            flat = _land_scatter(
-                flat, gtargets.reshape(-1), cols.reshape(K, V * P), plain
+            flat, free_stack, n_free = _land(
+                flat, free_stack, n_free, vacated, arr_cols, n_sent, n_in,
+                impl, plain,
             )
-
-        # ---- free-stack update ----------------------------------------
-        n_push = (n_sent - n_in).clamp_min(0)
-        free_stack, n_free = _stack_push_pop(
-            free_stack, n_free, n_pop, n_push, vacated, n_in
-        )
 
         population = (flat[-1, :].reshape(V, n) > 0).sum(dim=1, dtype=_I32)
         stats = MigrateStats(
@@ -398,11 +548,53 @@ def shard_migrate_vranks_fn(
 
     def fn(state: MigrateState, dest_key: torch.Tensor = None):
         flat, free_stack, n_free = state
+        dev = flat.device
+        n = flat.shape[1] // V
         if dest_key is None:
             dest_key = binning.dest_key_planar(
                 flat[:D].view(torch.float32), flat[-1] > 0, domain,
                 full_grid, V, V,
             )
-        return _step(flat, free_stack, n_free, dest_key)
+        B = None
+        if mover_cap is not None:
+            B = max(1, min(int(mover_cap), n))
+            chunk, cap = binning.sparse_select_params(n, B)
+            if not binning.sparse_select_feasible(n, V, chunk=chunk, cap=cap):
+                B = None
+        if B is None:
+            out, stats = _step(flat, free_stack, n_free, dest_key)
+            if mover_cap is not None:
+                stats = stats._replace(
+                    fast_path=torch.zeros((V,), dtype=_I32, device=dev)
+                )
+            return out, stats
+
+        with torch.profiler.record_function("mig:select"):
+            block_rows, counts, bounds, ok_sel = binning.sorted_mover_block(
+                dest_key, V, B, chunk=chunk, cap=cap
+            )  # [V, B], [V, V], [V, V + 1]
+        loc_starts = bounds[:, :V]
+        allowed, _ = _grant_tables(counts, loc_starts, n_free, M)
+        n_sent = allowed.sum(dim=1, dtype=_I32)
+        n_in = allowed.sum(dim=0, dtype=_I32)
+        # the guard: the block holds every leaver exactly; nothing was
+        # clipped by budget, free slots or grants (allowed <= eff <=
+        # counts, so equality means zero backlog and an idle cycle
+        # rescue); the arrivals fit the [B] plan. The reference's
+        # lax.cond has no sync-free eager form: read it once, run one
+        # branch.
+        guard = ok_sel & (allowed == counts).all() & (n_in <= B).all()
+        HOST_SYNCS["sparse_guard"] += 1
+        taken = bool(guard)
+        if taken:
+            out, stats = _fast_step(
+                flat, free_stack, n_free, block_rows, loc_starts, allowed,
+                n_sent, n_in, plain,
+            )
+        else:
+            out, stats = _step(flat, free_stack, n_free, dest_key)
+        return out, stats._replace(
+            fast_path=torch.full((V,), int(taken), dtype=_I32, device=dev)
+        )
 
     return fn

@@ -2,7 +2,8 @@
 PyTorch version on the same inputs (bit for bit; the segmented deposit
 sums in another order than the plain ``index_add_``, so it is bit-equal
 on dyadic data, where every order gives the same bits, and within
-float32 summation noise otherwise), and the drift/migrate loop, with and
+float32 summation noise otherwise), and the drift/migrate loop (the
+sparse and planar engines, and the row-store landing route), with and
 without the fused deposit, on the card against the port's CPU run. They
 skip without a GPU.
 
@@ -19,8 +20,9 @@ from mpi_grid_redistribute_tpu_torch import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.bench import common
 from mpi_grid_redistribute_tpu_torch.models import nbody
 from mpi_grid_redistribute_tpu_torch.ops import (
-    dfscan, driftbin, overlay, segdep,
+    dfscan, driftbin, overlay, scatter, segdep,
 )
+from mpi_grid_redistribute_tpu_torch.parallel import migrate
 
 
 @pytest.fixture
@@ -293,3 +295,142 @@ def test_deposit_loop_on_card_matches_cpu_run(cuda, method, each_step):
     assert abs(float(rho.double().sum()) - int(alive.sum())) <= 1e-5 * int(
         alive.sum()
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [
+    torch.float32, torch.int32, torch.float64, torch.float16, torch.uint8,
+])
+@pytest.mark.parametrize("n_rows,K,P", [
+    (100_003, 7, 5000), (8192, 8, 3000), (4099, 1, 4099), (64, 13, 40),
+])
+def test_scatter_rows_kernel_matches_plain(cuda, dtype, n_rows, K, P):
+    """Kernel 6 against its plain version on raw words: negative targets,
+    targets >= n_rows, and NaN / inf / denormal bit patterns."""
+    g = torch.Generator(device="cuda").manual_seed(n_rows + K)
+    w = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        torch.empty((), dtype=dtype).element_size()
+    ]
+    lo, hi = torch.iinfo(w).min, torch.iinfo(w).max
+    flat = torch.randint(lo, hi, (n_rows, K), dtype=w, device=cuda,
+                         generator=g)
+    rows = torch.randint(lo, hi, (P, K), dtype=w, device=cuda, generator=g)
+    if w == torch.int32:  # NaN payload, +-inf, denormals
+        rows[:4, 0] = torch.tensor([0x7FC0BEEF, 0x7F800000, 0xFF800000 - 2**32,
+                                    0x00000001], dtype=w, device=cuda)
+    t = torch.randperm(n_rows + 50, device=cuda, generator=g)[:P].to(
+        torch.int32
+    )
+    t[:7] = -3
+    flat, rows = flat.view(dtype), rows.view(dtype)
+    before = scatter.KERNEL.launches
+    got = scatter.scatter_rows(flat.clone(), t, rows)
+    want = scatter.scatter_rows_plain(flat.clone(), t, rows)
+    torch.cuda.synchronize()
+    assert scatter.KERNEL.launches == before + 1
+    assert torch.equal(got.view(w), want.view(w))
+
+
+@pytest.mark.cuda
+def test_scatter_rows_kernel_raises_on_bad_input(cuda):
+    flat = torch.zeros((64, 7), device=cuda)
+    t = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        scatter.scatter_rows(flat, t.long(), torch.zeros((4, 7), device=cuda))
+    with pytest.raises(ValueError):
+        scatter.scatter_rows(flat.T.contiguous().T, t,
+                             torch.zeros((4, 7), device=cuda))
+    with pytest.raises(ValueError):
+        scatter.scatter_rows(flat, t.cpu(), torch.zeros((4, 7), device=cuda))
+
+
+def _loop_inputs(seed, n_local=4096):
+    grid = (2, 2, 2)
+    v, cap, budget = common.drift_sizing(grid, n_local, 0.9, 0.02)
+    state = common.uniform_state(
+        grid, n_local, 0.9, np.random.default_rng(seed), vel_scale=v
+    )
+    cfg = nbody.DriftConfig(
+        domain=Domain(0.0, 1.0, periodic=True), grid=ProcessGrid((1, 1, 1)),
+        dt=1.0, capacity=cap, n_local=n_local, local_budget=budget,
+    )
+    return cfg, ProcessGrid(grid), state
+
+
+@pytest.mark.cuda
+def test_sparse_loop_on_card_matches_planar_and_cpu(cuda):
+    """The default engine on the card: bit-equal to the planar engine on
+    the card and to its own CPU run, every step on the fast branch, one
+    host read per step, kernels 1 and 2 once per step."""
+    import dataclasses
+
+    cfg, vgrid, (pos, vel, alive) = _loop_inputs(3)
+    syncs = migrate.HOST_SYNCS["sparse_guard"]
+    b1, b2 = driftbin.KERNEL.launches, overlay.KERNEL.launches
+    a = nbody.make_migrate_loop(cfg, 5, vgrid=vgrid)(pos, vel, alive)
+    torch.cuda.synchronize()
+    assert migrate.HOST_SYNCS["sparse_guard"] - syncs == 5
+    assert driftbin.KERNEL.launches - b1 == 5
+    assert overlay.KERNEL.launches - b2 == 5
+    assert a[3].fast_path.all()
+    p = nbody.make_migrate_loop(
+        dataclasses.replace(cfg, engine="planar"), 5, vgrid=vgrid
+    )(pos, vel, alive)
+    c = nbody.make_migrate_loop(cfg, 5, vgrid=vgrid, device="cpu")(
+        pos, vel, alive
+    )
+    for x, y, z in zip(a[:3], p[:3], c[:3]):
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+        assert torch.equal(x.cpu().view(torch.uint8), z.view(torch.uint8))
+    for f in ("sent", "received", "population", "backlog", "flow"):
+        assert torch.equal(getattr(a[3], f), getattr(p[3], f)), f
+        assert torch.equal(getattr(a[3], f).cpu(), getattr(c[3], f)), f
+
+
+@pytest.mark.cuda
+def test_rows_route_on_card_matches_plain_and_int32_loop(cuda):
+    """The row-store landing route on the legacy float32 state, dest keys
+    from kernel 1 on the int32 view: kernel 6 once per step, bit-equal to
+    the plain-version run and to the int32 planar loop."""
+    import dataclasses
+
+    cfg, vgrid, (pos, vel, alive) = _loop_inputs(4)
+    full = ProcessGrid((2, 2, 2))
+    pos_p = torch.from_numpy(nbody.rows_to_planar(pos, 1)).reshape(3, -1)
+    vel_p = torch.from_numpy(nbody.rows_to_planar(vel, 1)).reshape(3, -1)
+    fused0 = torch.cat([pos_p, vel_p, torch.from_numpy(alive).float()[None]])
+
+    def run(plain):
+        mig = migrate.shard_migrate_vranks_fn(
+            cfg.domain, cfg.grid, vgrid, cfg.capacity,
+            local_budget=cfg.local_budget, scatter_impl="rows", plain=plain,
+        )
+        bin_fn = driftbin.drift_wrap_bin_plain if plain else \
+            driftbin.drift_wrap_bin
+        state = migrate.init_state(fused0.clone().to(cuda), vranks=8,
+                                   batched=True)
+        stats = []
+        for _ in range(4):
+            f, key = bin_fn(state.fused.view(torch.int32), 1.0, cfg.domain,
+                            full, 8, 8)
+            state, st = mig(state._replace(fused=f.view(torch.float32)), key)
+            stats.append(st)
+        return state, stats
+
+    before = scatter.KERNEL.launches
+    got, gstats = run(False)
+    torch.cuda.synchronize()
+    assert scatter.KERNEL.launches - before == 4
+    want, wstats = run(True)
+    ref = nbody.make_migrate_loop(
+        dataclasses.replace(cfg, engine="planar"), 4, vgrid=vgrid
+    )(pos, vel, alive)
+    assert torch.equal(got.fused.view(torch.int32), want.fused.view(torch.int32))
+    fi = got.fused.view(torch.int32)
+    assert torch.equal(fi[:3].reshape(-1), ref[0].view(torch.int32))
+    assert torch.equal(fi[3:6].reshape(-1), ref[1].view(torch.int32))
+    assert torch.equal(got.fused[-1] > 0, ref[2])
+    for i, (g, w) in enumerate(zip(gstats, wstats)):
+        for f in ("sent", "received", "population", "backlog", "flow"):
+            assert torch.equal(getattr(g, f), getattr(w, f)), f
+            assert torch.equal(getattr(g, f), getattr(ref[3], f)[i]), f

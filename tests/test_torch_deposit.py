@@ -442,7 +442,8 @@ def test_config5_build_matches_reference_sizing():
     v, cap, budget = jcommon.drift_sizing((2, 2, 2), 4096, 0.9, 0.02)
     assert (cfg.capacity, cfg.local_budget) == (cap, budget)
     assert cfg.deposit_shape == (128, 128, 128) and cfg.dt == 1.0
-    assert cfg.deposit_method == "mxu" and cfg.engine == "planar"
+    # the reference's default engine ("auto": sparse on this layout)
+    assert cfg.deposit_method == "mxu" and cfg.engine == "auto"
     assert vgrid.shape == (2, 2, 2)
     jpos, jvel, jalive = jcommon.uniform_state(
         (2, 2, 2), 4096, 0.9, np.random.default_rng(0), vel_scale=v

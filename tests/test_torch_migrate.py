@@ -361,10 +361,13 @@ def test_segment_of_matches_jax():
 
 
 @pytest.mark.parametrize("engine,exc", [
-    ("auto", NotImplementedError), ("sparse", NotImplementedError),
-    ("rowmajor", ValueError),
+    ("rowmajor", ValueError), ("neighbor", ValueError),
+    ("hierarchical", ValueError), ("warp", ValueError),
 ])
 def test_unported_engines_raise(engine, exc):
+    """The canonical-exchange engines have no migrate-loop meaning (the
+    reference raises too); "auto" and "sparse" run
+    (tests/test_torch_migrate_sparse.py)."""
     cfg = tnbody.DriftConfig(
         domain=tdomain.Domain(0.0, 1.0, periodic=True),
         grid=tdomain.ProcessGrid((1, 1, 1)), dt=1.0, capacity=8,
