@@ -12,7 +12,9 @@ started together), then, on the card:
      kernel, the plain version and (where one exists) one PyTorch library
      call computing the same function, beside the least time the card
      could take (``bound_ms``); kernel 6 (the row scatter) at the rows
-     route's shape, the bench state as row-major ``[8388608, 7]``;
+     route's shape, the bench state as row-major ``[8388608, 7]``, timed
+     with its ``index_put_`` yardstick as replayed CUDA graphs (the
+     device's time; eager launches beside it);
   2. drives the bench configuration (a 2x2x2 grid as 8 vranks on one
      device, 2^20 rows per vrank at 90% fill, ~2% migration per step,
      dt = 1.0) through the user entry point
@@ -306,32 +308,46 @@ def scatter_phase(torch, scatter, profiling, state_np, budget):
     check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
           "scatter_rows kernel != plain at the rows route's shape")
     err = max_abs_err(a, b)
-    # the other word sizes and a ragged shape the TPU kernel refuses
+    # the other word sizes and a ragged shape the TPU kernel refuses, each
+    # with one warp's 32 targets all dropped
     for dt, n_rows, k in ((torch.float64, 4099, 3), (torch.int16, 8200, 9),
-                          (torch.uint8, 777, 1)):
+                          (torch.uint8, 777, 1), (torch.float32, 5003, 7)):
         f = torch.randint(0, 100, (n_rows, k), device="cuda",
                           generator=g).to(dt)
         r = torch.randint(0, 100, (500, k), device="cuda", generator=g).to(dt)
         t = torch.randperm(n_rows + 40, device="cuda", generator=g)[
             :500].to(torch.int32)
         t[:9] = -7
+        t[32:64] = n_rows
         check(torch.equal(scatter.scatter_rows(f.clone(), t, r),
                           scatter.scatter_rows_plain(f.clone(), t, r)),
               f"scatter_rows kernel != plain for {dt} [{n_rows}, {k}]")
 
+    # a ~10 us kernel: eager launches (PR 3's method) time the host's
+    # launch cost as much as the device, so the kernel and index_put_ are
+    # timed as replayed CUDA graphs of the same 20 calls
     work = flat0.clone()
-    ms = profiling.cuda_time_ms(
-        lambda: scatter.scatter_rows(work, targets, rows)
-    )
+
+    def kernel():
+        scatter.scatter_rows(work, targets, rows)
+
+    ms = profiling.cuda_graph_time_ms(kernel)
+    eager_ms = profiling.cuda_time_ms(kernel)
     plain_ms = profiling.cuda_time_ms(
         lambda: scatter.scatter_rows_plain(work, targets, rows)
     )
     ok = (targets >= 0) & (targets < m)
     t_ok = targets[ok].long()
     r_ok = rows[ok].contiguous()
-    library_ms = profiling.cuda_time_ms(
-        lambda: work.index_put_((t_ok,), r_ok)
-    )
+
+    def library():
+        work.index_put_((t_ok,), r_ok)
+
+    library_ms = profiling.cuda_graph_time_ms(library)
+    library_eager_ms = profiling.cuda_time_ms(library)
+    log(f"scatter_rows: kernel {ms:.5f} ms as a CUDA graph, {eager_ms:.5f} "
+        f"ms eager; index_put_ {library_ms:.5f} ms as a graph, "
+        f"{library_eager_ms:.5f} ms eager")
     n_ok = int(ok.sum())
     # the targets, and the in-range rows read once and written once (the
     # dropped rows are never needed)
@@ -689,7 +705,7 @@ def small_width_phase(torch, pt, nbody):
 def dfscan_phase(torch, dfscan, profiling):
     """Kernel 5 at the config-5 scan shape: the corner-weight channels of
     the 8.4M-row stream in 256-row tiles, [8 * 32768, 256]; and on hostile
-    magnitudes (huge, tiny, denormal, zero, inf, NaN)."""
+    magnitudes (huge, tiny, denormal, zero, inf, NaN) and signed zeros."""
     rows, tile = 8 * 32768, 256
     g = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn((rows, tile), device="cuda", generator=g)
@@ -706,6 +722,12 @@ def dfscan_phase(torch, dfscan, profiling):
     hx[3, :8] = 0.0
     hx[5, 17] = np.inf
     hx[6, 40] = np.nan
+    # signed zeros: a row of -0.0 (+0.0 after the first step's add of the
+    # shifted-in zero) and rows mixing +-0.0 with values
+    hx[7] = -0.0
+    hx[8, ::3] = -0.0
+    hx[8, 1::5] = 0.0
+    hx[9] = np.where(r.random(tile) < 0.5, -0.0, 0.0)
     hxt = torch.from_numpy(hx).cuda()
     a = dfscan.tile_df_cumsum_rows(hxt)
     b = dfscan.tile_df_cumsum_rows_plain(hxt)
@@ -720,8 +742,9 @@ def dfscan_phase(torch, dfscan, profiling):
     )
     n = rows * tile
     steps = (tile - 1).bit_length()
-    # read x once, write hi and lo once; 11 adds/subtracts per df_add
-    b_ms, b_by = bound(12 * n, 11 * steps * n)
+    # read x once, write hi and lo once; 11 adds/subtracts per df_add,
+    # each taking an FMA's issue slot (2 of PEAK_F32's FLOPs)
+    b_ms, b_by = bound(12 * n, 2 * 11 * steps * n)
     return {
         "name": "tile_df_cumsum_rows",
         "route": "cuda",

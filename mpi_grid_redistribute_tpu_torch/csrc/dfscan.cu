@@ -8,19 +8,28 @@
 // _df_add(hi[i], lo[i], hi[i - shift], lo[i - shift]) with zeros below
 // the shift. That ORDER is the contract: the scan deposit's accuracy and
 // its bit equality with the JAX package both rest on it, so a
-// work-efficient scan (or a library cumsum) would not be a port.
+// work-efficient scan (or a library cumsum) would not be a port. Every
+// element takes every step, the adds of shifted-in zeros included
+// (-0.0 + 0.0 is +0.0, so skipping one would change bits).
 //
-// Design: one thread per element, one block per row (several rows per
-// block when tile < 256). Each thread keeps its (hi, lo) in registers and
-// publishes it to a double-buffered shared array before every step; one
-// __syncthreads() per step separates a step's writes from its reads, and
-// the double buffer keeps the next step's writes off the words a slow
-// thread may still be reading. Device memory sees one read of x and one
-// write each of hi and lo.
+// Design: a warp per row, registers only -- no shared memory, no barrier.
+// Lane l holds elements k * 32 + l for k < R = ceil(tile / 32), loaded as
+// R independent coalesced warp loads; elements past the row end are zero,
+// which changes no earlier prefix. A shift s >= 32 is a register move:
+// element (k, l) takes (k - s / 32, l), or zero. A shift s < 32 shuffles
+// every register once from lane (l - s) & 31; lane l takes register k's
+// value when l >= s and register k - 1's otherwise (zero for k = 0). R is
+// a template parameter, so every register index is a constant and the
+// arrays stay in registers. For tile <= 16 a warp holds 32 / tile rows:
+// lane l is column l % tile of row l / tile, and a shift reads zero when
+// the lane's column is below it. The launch geometry (R and the rows per
+// warp) is chosen on the host, ops/dfscan.geometry.
 //
 // Bound: device memory bandwidth -- 12 bytes per element (4 read, 8
-// written); the ~11 adds per element and step are far below the card's
-// float32 rate.
+// written). The 11 adds per element and step come close: an add takes an
+// FMA's issue slot, so an H100 runs 33.5 T of them a second, and at
+// [262144, 256] the 5.9 G adds need 0.18 ms against the 0.24 ms that the
+// bytes need. The shuffles run on another pipe.
 //
 // Arithmetic: adds and subtracts only, each an explicit round-to-nearest
 // intrinsic, so no contraction or reassociation can change a bit. Build
@@ -35,7 +44,8 @@
 #include <stdint.h>
 
 #define DFSCAN_MAX_TILE 1024
-#define DFSCAN_BLOCK 256
+#define DFSCAN_MAX_REGS (DFSCAN_MAX_TILE / 32)
+#define DFSCAN_WARPS 8  // warps per block
 
 // deposit._df_add(a_hi, a_lo, b_hi, b_lo), its _two_sum written out in
 // the same operation order
@@ -50,57 +60,105 @@ __device__ __forceinline__ void df_add(float& a_hi, float& a_lo, float b_hi,
   a_hi = hi;
 }
 
-__global__ void dfscan_kernel(const float* __restrict__ x,
-                              float* __restrict__ hi_out,
-                              float* __restrict__ lo_out, long long rows,
-                              int tile, int rows_per_block) {
-  extern __shared__ float smem[];  // hi[2][width], lo[2][width]
-  const int width = rows_per_block * tile;  // == blockDim.x
-  const int t = threadIdx.x;
-  const int local_row = t / tile;
-  const int col = t - local_row * tile;
-  const long long row = (long long)blockIdx.x * rows_per_block + local_row;
-  const bool active = row < rows;
-  const long long idx = row * tile + col;
+__host__ __device__ constexpr int ceil_log2(int n) {
+  return n <= 1 ? 0 : 1 + ceil_log2((n + 1) / 2);
+}
 
-  float h = active ? x[idx] : 0.0f;
-  float l = 0.0f;
-  int p = 0;
-  for (int shift = 1; shift < tile; shift <<= 1) {
-    float* bh = smem + p * width;
-    float* bl = smem + (2 + p) * width;
-    bh[t] = h;
-    bl[t] = l;
-    __syncthreads();
-    float sh = 0.0f, sl = 0.0f;
-    if (col >= shift) {
-      sh = bh[t - shift];
-      sl = bl[t - shift];
+template <int R>
+__global__ void __launch_bounds__(DFSCAN_WARPS * 32)
+    dfscan_kernel(const float* __restrict__ x, float* __restrict__ hi_out,
+                  float* __restrict__ lo_out, long long rows, int tile,
+                  int rows_per_warp) {
+  const int lane = threadIdx.x & 31;
+  const long long row0 =
+      ((long long)blockIdx.x * DFSCAN_WARPS + (threadIdx.x >> 5)) *
+      rows_per_warp;
+  if (row0 >= rows) return;  // warp-uniform
+  const int sub = R == 1 ? lane / tile : 0;  // the lane's row in the warp
+  const int col = lane - sub * tile;         // its column in register 0
+  const long long row = row0 + sub;
+  const bool active = sub < rows_per_warp && row < rows;
+  const long long off = row * tile;
+
+  float h[R], l[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int c = k * 32 + col;
+    h[k] = active && c < tile ? x[off + c] : 0.0f;
+    l[k] = 0.0f;
+  }
+
+#pragma unroll
+  for (int e = 0; e < ceil_log2(R * 32); ++e) {
+    const int s = 1 << e;
+    if (s >= tile) break;  // warp-uniform
+    if (s >= 32) {
+      // register move; descending k keeps register k - d unmodified
+      const int d = s / 32;
+#pragma unroll
+      for (int k = R - 1; k >= 0; --k) {
+        const float sh = k >= d ? h[k >= d ? k - d : 0] : 0.0f;
+        const float sl = k >= d ? l[k >= d ? k - d : 0] : 0.0f;
+        df_add(h[k], l[k], sh, sl);
+      }
+    } else {
+      const int src = (lane - s) & 31;
+      const bool own = col >= s;
+      float ph = 0.0f, pl = 0.0f;  // register k - 1 from lane src
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float ch = __shfl_sync(0xffffffffu, h[k], src);
+        const float cl = __shfl_sync(0xffffffffu, l[k], src);
+        df_add(h[k], l[k], own ? ch : ph, own ? cl : pl);
+        ph = ch;
+        pl = cl;
+      }
     }
-    df_add(h, l, sh, sl);
-    p ^= 1;
   }
-  if (active) {
-    hi_out[idx] = h;
-    lo_out[idx] = l;
+
+  if (!active) return;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int c = k * 32 + col;
+    if (c < tile) {
+      hi_out[off + c] = h[k];
+      lo_out[off + c] = l[k];
+    }
   }
+}
+
+template <int R>
+static int launch_r(int regs, const float* x, float* hi, float* lo,
+                    long long rows, int tile, int rows_per_warp,
+                    cudaStream_t stream) {
+  if (regs != R) {
+    if constexpr (R < DFSCAN_MAX_REGS) {
+      return launch_r<R + 1>(regs, x, hi, lo, rows, tile, rows_per_warp,
+                             stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long warps = (rows + rows_per_warp - 1) / rows_per_warp;
+  const long long blocks = (warps + DFSCAN_WARPS - 1) / DFSCAN_WARPS;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  dfscan_kernel<R><<<(unsigned int)blocks, DFSCAN_WARPS * 32, 0, stream>>>(
+      x, hi, lo, rows, tile, rows_per_warp);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
 
+// regs and rows_per_warp as ops/dfscan.geometry chose them; refused
+// unless regs * 32 covers the tile, and rows_per_warp is 1 or (with one
+// register) fits rows_per_warp * tile lanes in the warp
 int dfscan_launch(const void* x, void* hi, void* lo, long long rows, int tile,
-                  void* stream) {
-  if (rows < 1 || tile < 1 || tile > DFSCAN_MAX_TILE)
+                  int regs, int rows_per_warp, void* stream) {
+  if (rows < 1 || tile < 1 || tile > DFSCAN_MAX_TILE || regs < 1 ||
+      regs > DFSCAN_MAX_REGS || regs * 32 < tile || rows_per_warp < 1 ||
+      (rows_per_warp > 1 && (regs != 1 || rows_per_warp * tile > 32)))
     return (int)cudaErrorInvalidValue;
-  const int rows_per_block = tile >= DFSCAN_BLOCK ? 1 : DFSCAN_BLOCK / tile;
-  const int threads = rows_per_block * tile;
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const size_t smem = 4 * (size_t)threads * sizeof(float);
-  dfscan_kernel<<<(unsigned int)blocks, threads, smem,
-                  (cudaStream_t)stream>>>(
-      (const float*)x, (float*)hi, (float*)lo, rows, tile, rows_per_block);
-  return (int)cudaGetLastError();
+  return launch_r<1>(regs, (const float*)x, (float*)hi, (float*)lo, rows,
+                     tile, rows_per_warp, (cudaStream_t)stream);
 }
 
 const char* dfscan_error_string(int code) {

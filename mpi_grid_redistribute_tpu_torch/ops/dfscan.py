@@ -10,8 +10,10 @@ accuracy and its bit equality with the JAX package rest on it.
 
 Bound: device memory bandwidth. The reference's loop makes ~6 full
 passes over the tensor per doubling step; the kernel keeps the whole
-loop in shared memory and reads the tensor once and writes hi and lo
-once (12 bytes per element).
+loop in registers, a warp per row (or several rows per warp when the
+tile is 16 or less) exchanging values by shuffles, and reads the tensor
+once and writes hi and lo once (12 bytes per element). Its launch
+geometry is chosen here (:func:`geometry`).
 
 The double-float arithmetic itself (:func:`_two_sum`, :func:`_df_add`,
 :func:`_df_cumsum`) lives here as the kernel's plain version;
@@ -33,9 +35,24 @@ KERNEL = _build.register(_build.Kernel(
     "tile_df_cumsum_rows", "dfscan.cu", "dfscan_launch",
     [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ],
 ))
+
+
+def geometry(tile: int):
+    """The kernel's launch geometry for a row of ``tile`` elements:
+    ``(regs, rows_per_warp)``. Each lane holds ``regs = ceil(tile / 32)``
+    elements of its row in registers; a warp holds ``32 // tile`` rows
+    when ``tile < 32`` (lane ``l`` is column ``l % tile`` of row
+    ``l // tile``) and one row otherwise."""
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(
+            f"tile_df_cumsum_rows: tile {tile} outside the kernel's "
+            f"1..{MAX_TILE}"
+        )
+    return -(-tile // 32), max(1, 32 // tile)
 
 
 def _two_sum(a: torch.Tensor, b: torch.Tensor):
@@ -97,11 +114,7 @@ def tile_df_cumsum_rows(x: torch.Tensor):
     if x.device.type != "cuda":
         raise ValueError(f"tile_df_cumsum_rows: unsupported device {x.device}")
     rows, tile = x.shape
-    if not 1 <= tile <= MAX_TILE:
-        raise ValueError(
-            f"tile_df_cumsum_rows: tile {tile} outside the kernel's "
-            f"1..{MAX_TILE}"
-        )
+    regs, rows_per_warp = geometry(tile)
     if not x.is_contiguous():
         raise ValueError("tile_df_cumsum_rows: x must be contiguous")
     hi = torch.empty_like(x)
@@ -109,7 +122,7 @@ def tile_df_cumsum_rows(x: torch.Tensor):
     if rows == 0:
         return hi, lo
     KERNEL.launch(
-        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, tile,
-        _build.stream_ptr(x),
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, tile, regs,
+        rows_per_warp, _build.stream_ptr(x),
     )
     return hi, lo

@@ -8,10 +8,12 @@ kernel ``csrc/scatter.cu``: ``flat[targets[j]] = rows[j]`` on a row-major
 landing plan guarantees it; see ``parallel.migrate._land_scatter``).
 
 The TPU kernel sorts the arrivals and streams the whole destination
-through VMEM because it cannot store a row at a dynamic address; here one
-thread per (arrival, word) writes the word straight to its row, touching
-only the arrivals' rows. Bound: device memory bandwidth on the scattered
-row writes.
+through VMEM because it cannot store a row at a dynamic address; here a
+warp per 32 arrivals loads their targets once and writes their rows
+straight to place, touching only the arrivals' rows (a warp whose targets
+are all dropped stops there). Bound: device memory bandwidth on the
+scattered row writes. The kernel's index math is 32-bit where the words
+fit an int32 and 64-bit otherwise, chosen here (:func:`index_bits`).
 
 Words move as raw integers of the element's size on both versions, so
 any bit pattern survives. The reference's XLA fallback (taken off its
@@ -33,12 +35,21 @@ KERNEL = _build.register(_build.Kernel(
     [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ],
 ))
 
 # integer dtype of each word size the kernel moves
 _WORDS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+_I32_MAX = 2**31 - 1
+
+
+def index_bits(n_rows: int, p: int, k: int) -> int:
+    """Width of the kernel's index math: 32 when every word offset of
+    ``flat`` (``n_rows * k``) and of ``rows`` (``p * k``) fits in an
+    int32, else 64."""
+    return 32 if max(n_rows, p) * k <= _I32_MAX else 64
 
 
 def scatter_rows_plain(flat: torch.Tensor, targets: torch.Tensor,
@@ -94,6 +105,7 @@ def scatter_rows(flat: torch.Tensor, targets: torch.Tensor,
         return flat
     KERNEL.launch(
         flat.data_ptr(), targets.data_ptr(), rows.data_ptr(), n_rows, p, K,
-        flat.element_size(), _build.stream_ptr(flat),
+        flat.element_size(), index_bits(n_rows, p, K),
+        _build.stream_ptr(flat),
     )
     return flat

@@ -81,3 +81,26 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
             fn()
 
     return min(_event_seconds(many)[0] for _ in range(reps)) * 1e3 / iters
+
+
+def cuda_graph_time_ms(fn: Callable[[], object], iters: int = 20,
+                       reps: int = 3) -> float:
+    """Like :func:`cuda_time_ms`, but the ``iters`` calls are captured in
+    one CUDA graph and each rep replays it, so the time is the device's
+    alone: for microsecond kernels the host's launch cost would otherwise
+    set the number. ``fn`` must be capturable (no host sync, no
+    allocation that outlives the capture)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return min(_event_seconds(graph.replay)[0]
+               for _ in range(reps)) * 1e3 / iters

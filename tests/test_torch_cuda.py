@@ -164,6 +164,57 @@ def test_dfscan_kernel_hostile_magnitudes(cuda, mags):
     assert _bits_equal(hi, hp) and _bits_equal(lo, lp)
 
 
+def _signed_zero_rows(r, rows, tile):
+    """Normals, with (where there are rows for them) a row of -0.0, a row
+    mixing -0.0 and +0.0 with values, and a row of +-0.0 only."""
+    x = r.standard_normal((rows, tile)).astype(np.float32)
+    if rows >= 4:
+        x[1] = -0.0
+        x[2, ::3] = -0.0
+        x[2, 1::5] = 0.0
+        x[3] = np.where(r.random(tile) < 0.5, -0.0, 0.0)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [
+    1, 2, 3, 5, 31, 32, 33, 63, 96, 255, 256, 257, 1000, 1024,
+])
+@pytest.mark.parametrize("rows", [1, 13, 517])
+def test_dfscan_kernel_tiles_and_partial_warps(cuda, tile, rows):
+    """Every register count and rows-per-warp class, with row counts that
+    leave the last warp (13 rows at tile <= 16) and the last 8-warp block
+    partly filled, and rows of signed zeros: bit-equal to the plain
+    version."""
+    x = torch.from_numpy(
+        _signed_zero_rows(np.random.default_rng(tile * 1000 + rows), rows,
+                          tile)
+    ).to(cuda)
+    before = dfscan.KERNEL.launches
+    hi, lo = dfscan.tile_df_cumsum_rows(x)
+    hp, lp = dfscan.tile_df_cumsum_rows_plain(x)
+    torch.cuda.synchronize()
+    assert dfscan.KERNEL.launches == before + 1
+    assert _bits_equal(hi, hp) and _bits_equal(lo, lp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [5, 32, 256])
+def test_dfscan_kernel_negative_zero_rows(cuda, tile):
+    """All -0.0 rows become +0.0 at the first step (-0.0 + 0.0 is +0.0),
+    as in the plain version; a kernel that skipped the add with the
+    shifted-in zeros would keep -0.0 at column 0."""
+    r = np.random.default_rng(tile)
+    x = np.full((40, tile), -0.0, np.float32)
+    x[20:] = _signed_zero_rows(r, 20, tile)
+    xt = torch.from_numpy(x).to(cuda)
+    hi, lo = dfscan.tile_df_cumsum_rows(xt)
+    hp, lp = dfscan.tile_df_cumsum_rows_plain(xt)
+    torch.cuda.synchronize()
+    assert _bits_equal(hi, hp) and _bits_equal(lo, lp)
+    assert not torch.signbit(hi[:20]).any()
+
+
 @pytest.mark.cuda
 def test_dfscan_kernel_raises_on_bad_input(cuda):
     with pytest.raises(ValueError):
@@ -329,6 +380,66 @@ def test_scatter_rows_kernel_matches_plain(cuda, dtype, n_rows, K, P):
     torch.cuda.synchronize()
     assert scatter.KERNEL.launches == before + 1
     assert torch.equal(got.view(w), want.view(w))
+
+
+_WORD = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [
+    torch.float32, torch.int32, torch.float64, torch.float16, torch.uint8,
+])
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 6, 7, 8, 9, 13])
+def test_scatter_rows_kernel_every_k(cuda, dtype, K):
+    """Each compile-time K (1..8) and the generic one (9, 13), at a P that
+    is not a multiple of 32, with one warp's 32 targets all dropped (too
+    large or negative) and a partial last warp."""
+    g = torch.Generator(device="cuda").manual_seed(100 + K)
+    w = _WORD[torch.empty((), dtype=dtype).element_size()]
+    lo, hi = torch.iinfo(w).min, torch.iinfo(w).max
+    n_rows, P = 5003, 1061
+    flat = torch.randint(lo, hi, (n_rows, K), dtype=w, device=cuda,
+                         generator=g)
+    rows = torch.randint(lo, hi, (P, K), dtype=w, device=cuda, generator=g)
+    t = torch.randperm(n_rows + 300, device=cuda, generator=g)[:P].to(
+        torch.int32
+    )
+    t[64:96] = torch.where(torch.arange(32, device=cuda) % 2 == 0,
+                           n_rows + 7, -1).to(torch.int32)
+    t[5] = -(2**31)
+    assert scatter.index_bits(n_rows, P, K) == 32
+    flat, rows = flat.view(dtype), rows.view(dtype)
+    before = scatter.KERNEL.launches
+    got = scatter.scatter_rows(flat.clone(), t, rows)
+    want = scatter.scatter_rows_plain(flat.clone(), t, rows)
+    torch.cuda.synchronize()
+    assert scatter.KERNEL.launches == before + 1
+    assert torch.equal(got.view(w), want.view(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,K,bits", [
+    (2**28, 9, 64),  # 2.4 GB: word offsets past 2**31
+    (2**31 - 1, 1, 32),  # the last shape on the 32-bit path
+])
+def test_scatter_rows_kernel_index_width_edges(cuda, n_rows, K, bits):
+    """The 64-bit index path, and the 32-bit one at its largest offset,
+    bit-equal to the plain version; targets reach the last row."""
+    assert scatter.index_bits(n_rows, 4099, K) == bits
+    g = torch.Generator(device="cuda").manual_seed(K)
+    flat = torch.randint(0, 256, (n_rows, K), dtype=torch.uint8, device=cuda,
+                         generator=g)
+    rows = torch.randint(0, 256, (4099, K), dtype=torch.uint8, device=cuda,
+                         generator=g)
+    t = (torch.randperm(4096, device=cuda, generator=g) * (n_rows // 4096))
+    t = torch.cat([t, torch.tensor([n_rows - 1, n_rows - 2, n_rows],
+                                   device=cuda)]).to(torch.int32)
+    want = scatter.scatter_rows_plain(flat.clone(), t, rows)
+    got = scatter.scatter_rows(flat, t, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    del want
+    assert torch.equal(got[-2:], rows[-3:-1].flip(0))
 
 
 @pytest.mark.cuda

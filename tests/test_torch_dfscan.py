@@ -72,6 +72,51 @@ def test_plain_matches_xla_on_a_non_power_of_two_tile():
     _check(r.standard_normal((37, 100)).astype(np.float32), interpret=False)
 
 
+@pytest.mark.parametrize("tile", [3, 5, 33, 1000])
+def test_plain_matches_xla_at_non_power_of_two_tiles(tile):
+    """The tiles the card kernel pads to whole registers or packs several
+    to a warp; the TPU kernel takes none of them."""
+    r = np.random.default_rng(tile)
+    _check(r.standard_normal((19, tile)).astype(np.float32), interpret=False)
+
+
+@pytest.mark.parametrize("tile", [5, 256])
+def test_plain_matches_jax_on_signed_zeros(tile):
+    """Rows of -0.0 and rows mixing +-0.0 with values: every element takes
+    every step, the add of the shifted-in +0.0 included, which turns a
+    leading -0.0 into +0.0 on both sides."""
+    r = np.random.default_rng(tile + 1)
+    x = r.standard_normal((6, tile)).astype(np.float32)
+    x[0] = -0.0
+    x[1, ::2] = -0.0
+    x[2] = np.where(r.random(tile) < 0.5, -0.0, 0.0)
+    x[3, :3] = -0.0
+    _check(x, interpret=tile == 256)
+    hi, _ = dfscan.tile_df_cumsum_rows_plain(torch.from_numpy(x))
+    assert not torch.signbit(hi[0]).any()
+
+
+@pytest.mark.parametrize("tile,regs,rows_per_warp", [
+    (1, 1, 32), (2, 1, 16), (3, 1, 10), (5, 1, 6), (16, 1, 2), (17, 1, 1),
+    (31, 1, 1), (32, 1, 1), (33, 2, 1), (63, 2, 1), (64, 2, 1), (96, 3, 1),
+    (255, 8, 1), (256, 8, 1), (257, 9, 1), (1000, 32, 1), (1024, 32, 1),
+])
+def test_kernel_geometry(tile, regs, rows_per_warp):
+    """ceil(tile / 32) registers a lane; floor(32 / tile) rows a warp
+    below 32, one row from there on."""
+    assert dfscan.geometry(tile) == (regs, rows_per_warp)
+
+
+def test_kernel_geometry_covers_every_tile_and_refuses_the_rest():
+    for tile in range(1, dfscan.MAX_TILE + 1):
+        regs, rpw = dfscan.geometry(tile)
+        assert regs * 32 >= tile > (regs - 1) * 32
+        assert rpw == 1 or (regs == 1 and rpw * tile <= 32)
+    for tile in (0, -1, dfscan.MAX_TILE + 1):
+        with pytest.raises(ValueError):
+            dfscan.geometry(tile)
+
+
 def test_plain_matches_jax_on_hostile_magnitudes():
     """Mixed huge/tiny magnitudes and signs, exact zeros mid-stream
     (the reference's own hostile case)."""

@@ -138,6 +138,24 @@ def test_scatter_rows_raises_on_bad_input():
     assert scatter.scatter_rows(flat, t[:0], torch.zeros((0, 3))) is flat
 
 
+@pytest.mark.parametrize("n_rows,p,k,bits", [
+    (8388608, 196296, 7, 32),  # the rows route's shape
+    (2**31 - 1, 10, 1, 32),  # n_rows * K at the int32 limit
+    (2**28, 10, 8, 64),  # n_rows * K = 2**31: one past it
+    (2**28 - 1, 10, 8, 32),
+    (2**28, 10, 9, 64),
+    (10, 2**31 - 1, 1, 32),  # P * K at the limit
+    (10, 2**30, 2, 64),  # P * K = 2**31
+    (1, 1, 2**31 - 1, 32),
+    (1, 1, 2**31, 64),
+])
+def test_index_bits_boundary(n_rows, p, k, bits):
+    """The kernel's index math is 32-bit while every word offset of flat
+    and rows fits in an int32 (at most 2**31 - 1 words), 64-bit from 2**31
+    words on."""
+    assert scatter.index_bits(n_rows, p, k) == bits
+
+
 @pytest.mark.parametrize("env,legacy,arg,want", [
     (None, None, None, "overlay"),
     ("overlay", None, None, "overlay"),
