@@ -11,10 +11,11 @@ started together), then, on the card:
      the shapes of the main path and on a hostile input, and times the
      kernel, the plain version and (where one exists) one PyTorch library
      call computing the same function, beside the least time the card
-     could take (``bound_ms``); kernel 6 (the row scatter) at the rows
-     route's shape, the bench state as row-major ``[8388608, 7]``, timed
-     with its ``index_put_`` yardstick as replayed CUDA graphs (the
-     device's time; eager launches beside it);
+     could take (``bound_ms``); kernels 2, 4 and 6 with their library
+     yardsticks as replayed CUDA graphs (the device's time; eager launches
+     beside them; ``bench/kernel_times``, given this script's sizing):
+     kernel 2 on random targets, kernel 6 at the rows route's shape, the
+     bench state as row-major ``[8388608, 7]``;
   2. drives the bench configuration (a 2x2x2 grid as 8 vranks on one
      device, 2^20 rows per vrank at 90% fill, ~2% migration per step,
      dt = 1.0) through the user entry point
@@ -39,7 +40,8 @@ started together), then, on the card:
      config-5 shapes (the double-float tile scan at [262144, 256], bit
      for bit; the segmented deposit on the config-5 slab stream, bit for
      bit on dyadic data and within 2e-5 otherwise, and run-to-run
-     identical), and drives config 5 (the loop with its default engine
+     identical, there and on streams that put runs across its tile
+     edges), and drives config 5 (the loop with its default engine
      and the CIC deposit onto a 128^3 mesh fused into every step) through
      ``make_migrate_loop`` with ``deposit_method="mxu"`` and ``"scan"``:
      timed per step, host syncs per step, a counted run whose deposit
@@ -52,8 +54,9 @@ lines are the ``nvidia-smi`` name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``. Exits
 non-zero without printing a result when no CUDA device is present or the
 package is not beside this script. ``--profile DIR`` also writes a
-``torch.profiler`` kernel table of a few steps of each loop to DIR, with
-the deposit's share of the config-5 step.
+``torch.profiler`` kernel table of a few steps of each loop to DIR, and
+prints each hand-written kernel's device microseconds per step in each
+loop and the deposit's share of the config-5 step.
 """
 
 from __future__ import annotations
@@ -84,6 +87,15 @@ MIGRATE_KERNELS = ("drift_wrap_bin", "overlay_scatter_planar")
 ROWS_KERNELS = ("drift_wrap_bin", "scatter_rows")
 # config 5: the deposit kernel each method launches once per step
 DEPOSIT_KERNEL = {"mxu": "segsum_sorted", "scan": "tile_df_cumsum_rows"}
+# a substring of each kernel's device function names (csrc/*.cu), for its
+# device time in the profiles (kernel 4's memset is not counted)
+KERNEL_SYMBOLS = {
+    "drift_wrap_bin": "driftbin_kernel",
+    "overlay_scatter_planar": "overlay_",
+    "segsum_sorted": "segdep_",
+    "tile_df_cumsum_rows": "dfscan_kernel",
+    "scatter_rows": "scatter_rows_kernel",
+}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores
@@ -201,23 +213,15 @@ def driftbin_phase(torch, pt, driftbin, profiling, state_np):
     }
 
 
-def overlay_phase(torch, overlay, profiling, budget):
-    """Kernel 2 at the main-path shape: V * P unique targets into the
-    [7, V * n] state, plus drops."""
-    V = int(np.prod(GRID))
-    K, m = 7, V * N_LOCAL
-    P = V * budget
-    g = torch.Generator(device="cuda").manual_seed(3)
-    flat0 = torch.randint(-(2**31), 2**31 - 1, (K, m), dtype=torch.int32,
-                          device="cuda", generator=g)
-    targets = torch.randperm(m, device="cuda", generator=g)[:P].to(
-        torch.int32
+def overlay_phase(torch, overlay, profiling, kernel_times, budget):
+    """Kernel 2 at the main-path shape: V * P unique targets in random
+    order into the [7, V * n] state, plus drops, bit-equal to the plain
+    version and timed with ``index_put_`` as replayed CUDA graphs and
+    eagerly."""
+    flat0, cols, targets = kernel_times.overlay_inputs(
+        int(np.prod(GRID)), N_LOCAL, budget
     )
-    drop = torch.rand(P, device="cuda", generator=g) < 0.1
-    targets = torch.where(drop, torch.full_like(targets, m), targets)
-    targets[:16] = -1
-    cols = torch.randint(-(2**31), 2**31 - 1, (K, P), dtype=torch.int32,
-                         device="cuda", generator=g)
+    K, m = flat0.shape
     a = overlay.overlay_scatter_planar(flat0.clone(), targets, cols)
     b = overlay.overlay_scatter_planar_plain(flat0.clone(), targets, cols)
     torch.cuda.synchronize()
@@ -232,46 +236,38 @@ def overlay_phase(torch, overlay, profiling, budget):
     check(torch.equal(af.view(torch.int32), bf.view(torch.int32)),
           "overlay kernel != plain (float32 bit patterns)")
     err = max_abs_err(a, b)
+    del a, b, af, bf
 
+    times = kernel_times.time_overlay(overlay, profiling, flat0, cols,
+                                      targets)
+    for case, t in times.items():
+        log(f"overlay_scatter_planar {case}: {t['graph']:.5f} ms as a CUDA "
+            f"graph, {t['eager']:.5f} ms eager")
+    log(json.dumps({"overlay_times": times}))
     work = flat0.clone()
-    ms = profiling.cuda_time_ms(
-        lambda: overlay.overlay_scatter_planar(work, targets, cols)
-    )
     plain_ms = profiling.cuda_time_ms(
         lambda: overlay.overlay_scatter_planar_plain(work, targets, cols)
     )
-    ok = (targets >= 0) & (targets < m)
-    t_ok = targets[ok].long()
-    c_ok = cols[:, ok].contiguous()
-    rows = torch.arange(K, device="cuda")[:, None]
-    library_ms = profiling.cuda_time_ms(
-        lambda: work.index_put_((rows, t_ok[None, :]), c_ok)
-    )
-    # the same updates in ascending target order: neighbouring threads
-    # then write nearby columns, which separates write locality from the
-    # per-word sector cost as the cause of the kernel's distance to bound
-    perm = torch.argsort(targets)
-    t_sorted = targets[perm].contiguous()
-    c_sorted = cols[:, perm].contiguous()
-    sorted_ms = profiling.cuda_time_ms(
-        lambda: overlay.overlay_scatter_planar(work, t_sorted, c_sorted)
-    )
-    log(f"overlay_scatter_planar: {ms:.5f} ms on random targets, "
-        f"{sorted_ms:.5f} ms on the same targets sorted")
-    n_ok = int(ok.sum())
+    n_ok = int(((targets >= 0) & (targets < m)).sum())
+    P = targets.shape[0]
     bytes_moved = 4 * P + 4 * K * P + 4 * K * n_ok
     b_ms, b_by = bound(bytes_moved, 0)
+    # every in-range word alone in its 32-byte sector, written (and, for a
+    # partial sector, first read) once: the floor at sector granularity
+    log(f"overlay_scatter_planar: {n_ok} in-range of {P}; bound "
+        f"{b_ms:.5f} ms, sector floor {bound(32 * K * n_ok, 0)[0]:.5f} ms "
+        f"written, {bound(64 * K * n_ok, 0)[0]:.5f} ms with the fills")
     return {
         "name": "overlay_scatter_planar",
         "route": "cuda",
         "source": "mpi_grid_redistribute_tpu_torch/csrc/overlay.cu",
         "replaces": "mpi_grid_redistribute_tpu/ops/pallas_overlay.py:317",
         "max_abs_err": err,
-        "ms": ms,
+        "ms": times["kernel"]["graph"],
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
-        "library_ms": library_ms,
+        "library_ms": times["index_put_"]["graph"],
     }
 
 
@@ -625,7 +621,8 @@ def loop_path_phase(torch, pt, nbody, migrate, _build, profiling, inputs,
 
 def profile_steps(torch, make_run, profile_dir, label):
     """Profile runs of 2 and 6 steps; their difference gives the device
-    operations and device-busy milliseconds of one step (set-up
+    operations, device-busy milliseconds and each hand-written kernel's
+    device microseconds (``KERNEL_SYMBOLS``) of one step (set-up
     cancels). Writes each run's kernel table to DIR."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -647,18 +644,26 @@ def profile_steps(torch, make_run, profile_dir, label):
                and not getattr(e, "is_user_annotation", False)
                and not e.name.startswith(("mig:", "dep:"))]
         busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-        seen[S] = (len(dev), busy)
+        per_kernel = {
+            k: sum(e.time_range.elapsed_us() for e in dev if sym in e.name)
+            for k, sym in KERNEL_SYMBOLS.items()
+        }
+        seen[S] = (len(dev), busy, per_kernel)
         table = prof.key_averages().table(
             sort_by="self_cuda_time_total", row_limit=80
         )
         (out / f"{label}_profile_{S}steps.txt").write_text(table)
-    return (seen[6][0] - seen[2][0]) / 4, (seen[6][1] - seen[2][1]) / 4
+    kernel_us = {k: (seen[6][2][k] - seen[2][2][k]) / 4
+                 for k in KERNEL_SYMBOLS if seen[6][2][k] > 0}
+    log(f"{label} profile: in-loop kernel us/step {kernel_us}")
+    return ((seen[6][0] - seen[2][0]) / 4, (seen[6][1] - seen[2][1]) / 4,
+            kernel_us)
 
 
 def write_profile(torch, make_run, profile_dir, per_step, label):
     """A loop's device operations and device-busy time per step, and with
     the timed ms/step the device's idle share."""
-    ops, busy = profile_steps(torch, make_run, profile_dir, label)
+    ops, busy, _ = profile_steps(torch, make_run, profile_dir, label)
     log(f"{label} profile: {ops:.1f} device operations/step, device busy "
         f"{busy:.4f} ms/step of {per_step * 1e3:.4f} ms/step "
         f"(idle {1 - busy / (per_step * 1e3):.2%}); tables in "
@@ -760,35 +765,10 @@ def dfscan_phase(torch, dfscan, profiling):
     }
 
 
-def config5_slab_stream(torch, deposit, cfg, vgrid, inputs):
-    """The slab stream kernel 4 sees in the config-5 step: the keys and
-    rel rows of the start state (rows on their own slabs), sorted slab by
-    slab as ``_slab_deposit_from_keys`` sorts them."""
-    pos_p, _, alive = inputs
-    D = 3
-    V = vgrid.nranks
-    vblock = tuple(m // v for m, v in zip(cfg.deposit_shape, vgrid.shape))
-    vcells = np.asarray([vgrid.cell_of_rank(v) for v in range(V)],
-                        np.float32)
-    lo_all = torch.from_numpy(
-        (vcells / np.asarray(vgrid.shape, np.float32)).astype(np.float32)
-    ).cuda()
-    inv_h = torch.full((D,), float(cfg.deposit_shape[0]), device="cuda")
-    key, rel, _, in_block = deposit._slab_keys_mxu(
-        pos_p.reshape(D, -1), None, alive, lo_all, inv_h, vblock
-    )
-    check(bool(in_block), "config-5 start state is not slab-resident")
-    keys_s, order = torch.sort(key, dim=1, stable=True)
-    n = key.shape[1]
-    col = (order + torch.arange(V, device="cuda")[:, None] * n).reshape(-1)
-    rel_s = torch.index_select(torch.stack(rel).reshape(D, -1), 1, col)
-    n_cells = V * int(np.prod(vblock))
-    return keys_s.reshape(-1), rel_s.contiguous(), n_cells, vblock
-
-
-def segdep_phase(torch, segdep, profiling, stream):
+def segdep_phase(torch, segdep, common, profiling, kernel_times, stream):
     """Kernel 4 at the config-5 slab stream: N = 8 * 2^20 rows onto
-    n_cells = 8 * 64^3 cells, unit mass (the loop's mxu deposit)."""
+    n_cells = 8 * 64^3 cells, unit mass (the loop's mxu deposit); and on
+    the streams that put runs across its tile edges."""
     keys, rel, n_cells, vblock = stream
     N = keys.shape[0]
     # dyadic rel (multiples of 1/4): every weight is a multiple of 1/64 and
@@ -809,33 +789,62 @@ def segdep_phase(torch, segdep, profiling, stream):
     err = max_abs_err(k1, p)
     check(bool(torch.allclose(k1, p, rtol=2e-5, atol=2e-5)),
           f"segsum_sorted kernel vs plain beyond 2e-5 (max abs {err})")
-    ms = profiling.cuda_time_ms(
-        lambda: segdep.segsum_sorted(keys, rel, None, n_cells, vblock)
-    )
+    del a, b, k1, k2, p
+
+    r = np.random.default_rng(44)
+    edges = common.segdep_edge_streams(segdep.TILE, r)
+    for name, (keys_np, cells) in edges.items():
+        ek = torch.from_numpy(keys_np).cuda()
+        n = keys_np.shape[0]
+        for d in (1, 2, 3):
+            vb = (8,) * d
+            rd = torch.from_numpy(
+                (r.integers(0, 32, (d, n)) * 0.25).astype(np.float32)).cuda()
+            rg = torch.from_numpy(
+                (r.random((d, n)) * 8).astype(np.float32)).cuda()
+            md = torch.from_numpy(
+                r.choice(np.float32([0.5, 1.0, 2.0]), n)).cuda()
+            for mass in (None, md):
+                x = segdep.segsum_sorted(ek, rd, mass, cells, vb)
+                y = segdep.segsum_sorted_plain(ek, rd, mass, cells, vb)
+                g1 = segdep.segsum_sorted(ek, rg, mass, cells, vb)
+                g2 = segdep.segsum_sorted(ek, rg, mass, cells, vb)
+                gp = segdep.segsum_sorted_plain(ek, rg, mass, cells, vb)
+                torch.cuda.synchronize()
+                what = (f"segsum_sorted on the {name} stream, D={d}, "
+                        f"{'unit' if mass is None else 'dyadic'} mass")
+                check(torch.equal(x.view(torch.int32), y.view(torch.int32)),
+                      f"{what}: kernel != plain on dyadic data")
+                check(torch.equal(g1.view(torch.int32), g2.view(torch.int32))
+                      and bool(torch.allclose(g1, gp, rtol=2e-5, atol=2e-5)),
+                      f"{what}: generic floats beyond 2e-5 or not "
+                      f"run-to-run identical")
+    log(f"segsum_sorted: bit-equal on the tile-edge streams {sorted(edges)} "
+        f"for D = 1..3, with and without mass")
+
+    times = kernel_times.time_segdep(segdep, profiling, stream)
+    for case, t in times.items():
+        log(f"segsum_sorted {case}: {t['graph']:.5f} ms as a CUDA graph, "
+            f"{t['eager']:.5f} ms eager")
+    log(json.dumps({"segdep_times": times}))
     plain_ms = profiling.cuda_time_ms(
         lambda: segdep.segsum_sorted_plain(keys, rel, None, n_cells, vblock),
         iters=5,
     )
-    # library yardstick: index_add_ of PRECOMPUTED channels -- only the
-    # summing part of the function (weights and mask are not in it)
-    wch = segdep._corner_weights([rel[d] for d in range(3)], None, vblock)
-    seg = keys.clamp(0, n_cells).long()
-    acc = torch.zeros((8, n_cells + 1), device="cuda")
-    library_ms = profiling.cuda_time_ms(lambda: acc.index_add_(1, seg, wch))
     # read keys + 3 rel rows once, write the [8, n_cells] canvas once;
-    # per row ~3 x 6 frac ops, 8 corners x 3 weight ops, 8 x 5 scan adds
-    b_ms, b_by = bound(N * 16 + 8 * n_cells * 4, N * (18 + 24 + 40))
+    # per row ~3 x 6 frac ops, 8 corners x 3 weight ops and 8 sum adds
+    b_ms, b_by = bound(N * 16 + 8 * n_cells * 4, N * (18 + 24 + 8))
     return {
         "name": "segsum_sorted",
         "route": "cuda",
         "source": "mpi_grid_redistribute_tpu_torch/csrc/segdep.cu",
         "replaces": "mpi_grid_redistribute_tpu/ops/pallas_segdep.py:181",
         "max_abs_err": err,
-        "ms": ms,
+        "ms": times["kernel"]["graph"],
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
-        "library_ms": library_ms,
+        "library_ms": times["index_add_"]["graph"],
     }
 
 
@@ -914,8 +923,8 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
 
     busy = None
     if profile_dir:
-        ops, busy = profile_steps(torch, make_run, profile_dir,
-                                  f"config5_{method}")
+        ops, busy, _ = profile_steps(torch, make_run, profile_dir,
+                                     f"config5_{method}")
         msg = (f"config5 {method} profile: {ops:.1f} device operations/step, "
                f"device busy {busy:.4f} ms/step of {per_step * 1e3:.4f} "
                f"(idle {1 - busy / (per_step * 1e3):.2%})")
@@ -959,7 +968,9 @@ def main() -> int:
         print("chip_smoke: imported a port from outside this checkout",
               file=sys.stderr)
         return 3
-    from mpi_grid_redistribute_tpu_torch.bench import common, config5_deposit
+    from mpi_grid_redistribute_tpu_torch.bench import (
+        common, config5_deposit, kernel_times,
+    )
     from mpi_grid_redistribute_tpu_torch.models import nbody
     from mpi_grid_redistribute_tpu_torch.ops import (
         _build, deposit, dfscan, driftbin, overlay, scatter, segdep,
@@ -997,7 +1008,7 @@ def main() -> int:
     k1 = driftbin_phase(torch, pt, driftbin, profiling, state_np)
     log(f"drift_wrap_bin: {k1['ms']:.5f} ms (bound {k1['bound_ms']:.5f}, "
         f"plain {k1['plain_ms']:.5f}) bit-equal at [7, {state_np.shape[1]}]")
-    k2 = overlay_phase(torch, overlay, profiling, budget)
+    k2 = overlay_phase(torch, overlay, profiling, kernel_times, budget)
     log(f"overlay_scatter_planar: {k2['ms']:.5f} ms (bound "
         f"{k2['bound_ms']:.5f}, plain {k2['plain_ms']:.5f}, index_put_ "
         f"{k2['library_ms']:.5f}) bit-equal at V*P = {8 * budget}")
@@ -1033,9 +1044,9 @@ def main() -> int:
     log(f"tile_df_cumsum_rows: {k5['ms']:.5f} ms (bound "
         f"{k5['bound_ms']:.5f}, plain {k5['plain_ms']:.5f}) bit-equal at "
         f"[262144, 256]")
-    k4 = segdep_phase(torch, segdep, profiling, config5_slab_stream(
-        torch, deposit, cfg5, vgrid5, inputs
-    ))
+    k4 = segdep_phase(torch, segdep, common, profiling, kernel_times,
+                      kernel_times.config5_slab_stream(
+                          deposit, cfg5, vgrid5, inputs[0], inputs[2]))
     log(f"segsum_sorted: {k4['ms']:.5f} ms (bound {k4['bound_ms']:.5f}, "
         f"plain {k4['plain_ms']:.5f}, index_add_ of precomputed channels "
         f"{k4['library_ms']:.5f}) at N = {8 * N_LOCAL}, max abs err "

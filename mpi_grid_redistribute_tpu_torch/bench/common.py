@@ -61,3 +61,41 @@ def drift_sizing(
     cap = max(64, math.ceil(fill * n_local * migration / distinct * headroom))
     budget = max(256, math.ceil(fill * n_local * migration * headroom))
     return v.astype(np.float32), cap, budget
+
+
+def segdep_edge_streams(tile: int, rng):
+    """Key streams that put runs across the segmented deposit's tile
+    edges (``tile`` rows a tile), each ``(keys int32 [N], n_cells)`` with
+    valid keys non-decreasing and the sentinel ``n_cells``:
+
+    - ``run_spans_tiles``: one cell's run starts mid-tile and covers
+      three more tiles;
+    - ``runs_end_at_tile_ends``: run boundaries on tile ends, runs of one
+      row and of a whole tile, a sentinel run ending on a tile end;
+    - ``sentinel_tile_between_slabs``: two per-slab sorts (vrank-major
+      keys) with more than a whole tile of sentinels between them;
+    - ``all_sentinel``: no valid row;
+    - ``empty_canvas_ends``: valid keys only in the middle of the canvas,
+      sentinels scattered through the stream."""
+    t = tile
+    streams = {}
+    streams["run_spans_tiles"] = (np.concatenate([
+        np.sort(rng.integers(0, 20, t // 2)), np.full(3 * t + 5, 30),
+        np.sort(rng.integers(31, 64, t)),
+    ]), 64)
+    lengths = [t, t // 2, t // 2, 1, t - 1, 2 * t, t]
+    keys = np.repeat(np.asarray([3, 5, 6, 7, 8, 9, 64]), lengths)
+    streams["runs_end_at_tile_ends"] = (
+        np.concatenate([keys, np.sort(rng.integers(10, 64, t + 7))]), 64
+    )
+    streams["sentinel_tile_between_slabs"] = (np.concatenate([
+        np.sort(rng.integers(0, 32, t - 300)), np.full(t + t // 2, 64),
+        np.sort(rng.integers(32, 64, t)), np.full(5, 64),
+    ]), 64)
+    streams["all_sentinel"] = (np.full(2 * t + 3, 64), 64)
+    n = 3 * t
+    keys = np.sort(rng.integers(100, 3000, n))
+    streams["empty_canvas_ends"] = (
+        np.where(rng.random(n) < 0.2, 4096, keys), 4096
+    )
+    return {k: (v.astype(np.int32), c) for k, (v, c) in streams.items()}

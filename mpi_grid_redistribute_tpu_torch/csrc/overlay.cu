@@ -17,6 +17,14 @@
 // each update reads 4 + 4K bytes and writes 4K bytes, but a lone 4-byte
 // store costs a whole 32-byte sector. Reads of targets and cols are
 // coalesced (neighbouring threads, neighbouring columns of cols).
+//
+// Design: at the loop's ~2% migration almost no two updates share a
+// sector, so the store pattern cannot merge them. Three other designs
+// were timed on the card against this one (PERF.md): a warp per 32
+// updates with batched loads and evict-first stores, the grid walking
+// one plane at a time, and each block's targets sorted in shared memory
+// first. None was faster, in random order or inside the migrate loop,
+// so the plain one-thread-per-update kernel stays.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -101,6 +101,90 @@ def test_overlay_kernel_raises_on_bad_input(cuda):
         )
 
 
+def _ordered_targets(g, order, m, p, V=8):
+    """``p`` unique targets in ``[0, m)`` in ascending, descending, random
+    or loop order, with the first warp's 32 all dropped and a few
+    negatives. Loop order is the shape ``parallel.migrate._land`` emits
+    per vrank (V groups): the vacated slots in send order (ascending
+    within each of 7 destination runs), then popped holes walking the
+    free stack downward, then the sentinel ``m``."""
+    t = torch.randperm(m, device="cuda", generator=g)[:p]
+    if order == "ascending":
+        t = t.sort().values
+    elif order == "descending":
+        t = t.sort(descending=True).values
+    elif order == "loop":
+        n, per = m // V, p // V
+        parts = []
+        for v in range(V):
+            cnt = per if v < V - 1 else p - per * (V - 1)
+            k_in, k_pop = int(cnt * 0.75), int(cnt * 0.1)
+            slots = torch.randperm(n, device="cuda", generator=g)[
+                :k_in + k_pop] + v * n
+            for run in slots[:k_in].tensor_split(7):
+                parts.append(run.sort().values)
+            parts += [slots[k_in:].sort(descending=True).values,
+                      torch.full((cnt - k_in - k_pop,), m, device="cuda")]
+        t = torch.cat(parts)
+    t = t.to(torch.int32)
+    t[:32] = torch.where(torch.arange(32, device="cuda") % 2 == 0, m + 3,
+                         -1).to(torch.int32)
+    t[40:43] = -(2**31)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("order", ["ascending", "descending", "random",
+                                   "loop"])
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 6, 7, 9])
+def test_overlay_kernel_every_k_and_order(cuda, K, order, dtype):
+    """K planes from 1 to 9, P not a multiple of 32 with an all-dropped
+    first warp, targets in four orders, NaN bit patterns in float32:
+    bit-equal to the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(K * 10 + len(order))
+    m, P = 40_000, 3_001
+    flat = torch.randint(-(2**31), 2**31 - 1, (K, m), dtype=torch.int32,
+                         device=cuda, generator=g)
+    cols = torch.randint(-(2**31), 2**31 - 1, (K, P), dtype=torch.int32,
+                         device=cuda, generator=g)
+    cols[0, :4] = torch.tensor([0x7FC0BEEF, 0x7F800001, -1, 1],
+                               dtype=torch.int32, device=cuda)
+    t = _ordered_targets(g, order, m, P)
+    flat, cols = flat.view(dtype), cols.view(dtype)
+    before = overlay.KERNEL.launches
+    got = overlay.overlay_scatter_planar(flat.clone(), t, cols)
+    want = overlay.overlay_scatter_planar_plain(flat.clone(), t, cols)
+    torch.cuda.synchronize()
+    assert overlay.KERNEL.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [
+    2**30,  # K * m = 2**31: word offsets past an int32
+    2**30 - 1,  # the largest K = 2 plane pair whose offsets fit an int32
+])
+def test_overlay_kernel_index_width_edges(cuda, m):
+    """Word offsets on both sides of 2**31 (8 GB of state), targets
+    reaching the last column of the second plane: every in-range word
+    lands and nothing else changes."""
+    K, P = 2, 4099
+    g = torch.Generator(device="cuda").manual_seed(m % 1000)
+    flat = torch.zeros((K, m), dtype=torch.int32, device=cuda)
+    cols = torch.randint(1, 2**31 - 1, (K, P), dtype=torch.int32,
+                         device=cuda, generator=g)
+    t = torch.randperm(P - 3, device=cuda, generator=g) * (m // P)
+    t = torch.cat([t, torch.tensor([m - 1, m - 2, m], device=cuda)]).to(
+        torch.int32
+    )
+    got = overlay.overlay_scatter_planar(flat, t, cols)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, t[:-1].long()], cols[:, :-1])
+    assert int((got != 0).sum()) == K * (P - 1)
+    del flat, got
+
+
 @pytest.mark.cuda
 def test_loop_on_card_matches_cpu_run(cuda):
     grid = (2, 2, 2)
@@ -296,6 +380,94 @@ def test_segdep_kernel_matches_plain(cuda, kind, d, vblock, n, n_cells,
     torch.cuda.synchronize()
     assert _bits_equal(a, b)
     torch.testing.assert_close(a, p, rtol=2e-5, atol=2e-5)
+
+
+EDGE_STREAMS = ("run_spans_tiles", "runs_end_at_tile_ends",
+                "sentinel_tile_between_slabs", "all_sentinel",
+                "empty_canvas_ends")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_mass", [False, True])
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("stream", EDGE_STREAMS)
+def test_segdep_kernel_tile_edge_streams(cuda, stream, d, with_mass):
+    """Runs across the kernel's tile edges (a cell over three tiles,
+    boundaries on tile ends, a whole tile of sentinels between two slabs,
+    no valid row, empty canvas ends): bit-equal to the plain version on
+    dyadic data, within 2e-5 and run-to-run identical on generic
+    floats."""
+    r = np.random.default_rng(EDGE_STREAMS.index(stream) * 10 + d)
+    keys_np, n_cells = common.segdep_edge_streams(segdep.TILE, r)[stream]
+    n = keys_np.shape[0]
+    vblock = (8,) * d
+    keys = torch.from_numpy(keys_np).to(cuda)
+    rel_d = torch.from_numpy(
+        (r.integers(0, 32, (d, n)) * 0.25).astype(np.float32)
+    ).to(cuda)
+    mass_d = torch.from_numpy(
+        r.choice(np.float32([0.5, 1.0, 2.0]), n)
+    ).to(cuda) if with_mass else None
+    before = segdep.KERNEL.launches
+    got = segdep.segsum_sorted(keys, rel_d, mass_d, n_cells, vblock)
+    want = segdep.segsum_sorted_plain(keys, rel_d, mass_d, n_cells, vblock)
+    torch.cuda.synchronize()
+    assert segdep.KERNEL.launches == before + 1
+    assert _bits_equal(got, want)
+    rel_g = torch.from_numpy(
+        (r.random((d, n)) * 8).astype(np.float32)
+    ).to(cuda)
+    mass_g = None if mass_d is None else (mass_d * 0.37).contiguous()
+    a = segdep.segsum_sorted(keys, rel_g, mass_g, n_cells, vblock)
+    b = segdep.segsum_sorted(keys, rel_g, mass_g, n_cells, vblock)
+    p = segdep.segsum_sorted_plain(keys, rel_g, mass_g, n_cells, vblock)
+    torch.cuda.synchronize()
+    assert _bits_equal(a, b)
+    torch.testing.assert_close(a, p, rtol=2e-5, atol=2e-5)
+
+
+T = segdep.TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [
+    (1, 0), (T - 1, 0), (T, 0), (T + 1, 0), (2 * T - 1, 1), (4 * T + 1, 1),
+    (6 * T, 1), (6 * T, 0), (600 * T + 3, 0),
+])
+def test_segdep_kernel_partial_tiles_and_unaligned_rows(cuda, n, offset):
+    """N at and around the tile, N not a multiple of 4, rows that start
+    off a 16-byte boundary (the kernel's scalar loads) and a stream of
+    600 tiles, bit-equal to the plain version on dyadic data."""
+    r = np.random.default_rng(n + offset)
+    n_cells = 512
+    keys_np = np.sort(r.integers(0, n_cells + 1, n + offset)).astype(np.int32)
+    keys = torch.from_numpy(keys_np).to(cuda)[offset:]
+    rel = torch.from_numpy(
+        (r.integers(0, 32, (3 * (n + offset),)) * 0.25).astype(np.float32)
+    ).to(cuda)[offset * 3:].reshape(3, n)
+    mass = torch.from_numpy(
+        r.choice(np.float32([0.5, 1.0, 2.0]), n + offset)
+    ).to(cuda)[offset:]
+    for m in (None, mass):
+        got = segdep.segsum_sorted(keys, rel, m, n_cells, (8, 8, 8))
+        want = segdep.segsum_sorted_plain(keys, rel, m, n_cells, (8, 8, 8))
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_segdep_kernel_drops_negative_keys(cuda):
+    """Negative keys are outside the contract: the kernel drops them, the
+    plain version (like the reference's XLA fallback) clamps them into
+    cell 0 (ROADMAP.md C4)."""
+    keys = torch.tensor([-3, -1, 0, 0, 2, 5], dtype=torch.int32, device=cuda)
+    rel = torch.full((1, 6), 0.25, device=cuda)
+    got = segdep.segsum_sorted(keys, rel, None, 4, (4,))
+    want = segdep.segsum_sorted_plain(keys, rel, None, 4, (4,))
+    torch.cuda.synchronize()
+    assert got[:, 0].tolist() == [1.5, 0.5]
+    assert want[:, 0].tolist() == [3.0, 1.0]
+    assert torch.equal(got[:, 1:], want[:, 1:])
 
 
 @pytest.mark.cuda

@@ -16,6 +16,8 @@ Tolerances, and why:
   * the corner-weight CHANNELS themselves share one definition
     (``_corner_weights``), so they are bit-equal on any data."""
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -24,6 +26,8 @@ import jax.numpy as jnp
 import torch
 
 from mpi_grid_redistribute_tpu.ops import pallas_segdep as jseg
+from mpi_grid_redistribute_tpu_torch.bench import common
+from mpi_grid_redistribute_tpu_torch.ops import deposit as tdeposit
 from mpi_grid_redistribute_tpu_torch.ops import segdep
 
 torch.set_num_threads(1)
@@ -195,3 +199,176 @@ def test_n_cells_bound_and_types_raise():
     before = segdep.KERNEL.launches
     segdep.segsum_sorted(keys, rel, None, 16, (8, 8, 8))
     assert segdep.KERNEL.launches == before  # CPU runs the plain version
+
+
+@pytest.mark.parametrize("n,d,want", [
+    (8 * 2**20, 3, (4096, 16)),  # the config-5 slab stream
+    (1, 3, (1, 16)),
+    (segdep.TILE - 1, 2, (1, 8)),
+    (segdep.TILE, 1, (1, 4)),
+    (segdep.TILE + 1, 3, (2, 16)),
+    (0, 3, (0, 16)),
+])
+def test_kernel_geometry(n, d, want):
+    """One block per TILE rows, and the floats of a tile's carry record
+    (its last run's total and its first run's sum, 2^D channels each)."""
+    assert segdep.geometry(n, d) == want
+
+
+@pytest.mark.parametrize("n,d", [(-1, 3), (16, 0), (16, 4)])
+def test_kernel_geometry_refuses(n, d):
+    with pytest.raises(ValueError):
+        segdep.geometry(n, d)
+
+
+EDGE_STREAMS = ["run_spans_tiles", "runs_end_at_tile_ends",
+                "sentinel_tile_between_slabs", "all_sentinel",
+                "empty_canvas_ends"]
+
+
+@pytest.mark.parametrize("with_mass", [False, True])
+@pytest.mark.parametrize("stream", EDGE_STREAMS)
+def test_plain_bit_equal_to_jax_on_tile_edge_streams(stream, with_mass):
+    """The streams that put runs across the kernel's tile edges (a cell
+    over three tiles, boundaries on tile ends, a whole tile of sentinels
+    between two slabs, no valid row, empty canvas ends): the plain version
+    bit-equal to both JAX engines on dyadic data."""
+    r = np.random.default_rng(EDGE_STREAMS.index(stream) + 10 * with_mass)
+    keys, n_cells = common.segdep_edge_streams(segdep.TILE, r)[stream]
+    n = keys.shape[0]
+    vblock = (8, 8, 8)
+    rel = (r.integers(0, 32, size=(3, n)) * 0.25).astype(np.float32)
+    mass = (r.choice(np.float32([0.5, 1.0, 2.0]), n).astype(np.float32)
+            if with_mass else None)
+    got = _port(keys, rel, mass, n_cells, vblock)
+    kern, xla = _jax_both(keys, rel, mass, n_cells, vblock)
+    _bits(got, kern)
+    _bits(got, xla)
+    valid = keys < n_cells
+    assert got.numpy().sum() == pytest.approx(
+        valid.sum() if mass is None else mass[valid].sum(), rel=1e-6
+    )
+
+
+def test_edge_streams_are_monotone_and_hit_tile_edges():
+    """Each edge stream keeps its valid keys non-decreasing, and the
+    features they are named for are where the kernel's tiles put them."""
+    t = segdep.TILE
+    s = common.segdep_edge_streams(t, np.random.default_rng(0))
+    for keys, n_cells in s.values():
+        ok = keys[keys < n_cells]
+        assert (np.diff(ok) >= 0).all()
+    keys, _ = s["run_spans_tiles"]
+    first, last = np.flatnonzero(keys == 30)[[0, -1]]
+    assert last // t - first // t >= 3
+    keys, n_cells = s["runs_end_at_tile_ends"]
+    breaks = np.flatnonzero(np.diff(keys)) + 1
+    assert {t, 2 * t, 3 * t, 5 * t, 6 * t} <= set(breaks.tolist())
+    keys, n_cells = s["sentinel_tile_between_slabs"]
+    tiles = keys[: len(keys) // t * t].reshape(-1, t)
+    assert (tiles == n_cells).all(axis=1).any()
+    keys, n_cells = s["empty_canvas_ends"]
+    ok = keys[keys < n_cells]
+    assert ok.min() > 0 and ok.max() < n_cells - 1
+    assert (s["all_sentinel"][0] == s["all_sentinel"][1]).all()
+
+
+def test_negative_keys_clamp_into_cell_0_as_in_the_reference():
+    """Negative keys are outside the contract (no caller passes one). The
+    reference's XLA fallback clamps them into cell 0, and so does the
+    plain version; the kernel drops them (ROADMAP.md C4,
+    tests/test_torch_cuda.py pins the kernel's side)."""
+    keys = np.array([-3, -1, 0, 0, 2, 5], np.int32)
+    rel = np.full((1, 6), 0.25, np.float32)
+    got = _port(keys, rel, None, 4, (4,))
+    kern, xla = _jax_both(keys, rel, None, 4, (4,))
+    _bits(got, xla)
+    assert got[:, 0].tolist() == [3.0, 1.0]  # 4 rows: 2 negative, 2 key 0
+
+
+def _recording_segsum(monkeypatch):
+    seen = []
+    orig = tdeposit._segsum
+
+    def wrapped(plain):
+        fn = orig(plain)
+
+        def rec(keys, rel, mass, n_cells, vblock):
+            seen.append((keys.clone(), n_cells))
+            return fn(keys, rel, mass, n_cells, vblock)
+
+        return rec
+
+    monkeypatch.setattr(tdeposit, "_segsum", wrapped)
+    return seen
+
+
+@pytest.mark.parametrize("caller", ["device_sort", "slab_sorts"])
+def test_callers_pass_non_decreasing_valid_keys(monkeypatch, caller):
+    """Both callers of segsum_sorted (the whole-stream sort of
+    cic_deposit_device_mxu and the per-slab sorts of
+    _slab_deposit_from_keys) hand it streams whose valid keys never
+    decrease, the kernel's contract; sentinels sit at the slab tails."""
+    seen = _recording_segsum(monkeypatch)
+    r = np.random.default_rng(5)
+    V, n = 8, 3000
+    vgrid_shape, vblock = (2, 2, 2), (8, 8, 8)
+    cells = np.asarray(list(itertools.product(range(2), repeat=3)),
+                       np.float32)
+    pos = ((cells[:, :, None] + r.random((V, 3, n), dtype=np.float32))
+           / 2).astype(np.float32).transpose(1, 0, 2).reshape(3, V * n)
+    valid = torch.from_numpy(r.random(V * n) < 0.9)
+    inv_h = torch.full((3,), 16.0)
+    if caller == "device_sort":
+        tdeposit.cic_deposit_device_mxu(
+            torch.from_numpy(pos), None, valid, torch.zeros(3), inv_h,
+            (16, 16, 16),
+        )
+    else:
+        tdeposit.cic_deposit_vranks_mxu(
+            torch.from_numpy(pos), None, valid,
+            torch.from_numpy(cells / 2), inv_h, vblock, vgrid_shape,
+        )
+    assert len(seen) == 1
+    keys, n_cells = seen[0]
+    ok = keys[(keys >= 0) & (keys < n_cells)]
+    assert ok.numel() == int(valid.sum())
+    assert bool((ok[1:] >= ok[:-1]).all())
+    assert bool((keys >= 0).all())
+    if caller == "slab_sorts":  # a sentinel run at each slab's tail
+        slabs = keys.reshape(V, n)
+        assert bool((slabs[:, -1] == n_cells).all())
+
+
+@pytest.mark.parametrize("keys", [
+    [0, 2, 1, 3],  # one descent between valid rows
+    [4, 6, 6, 5],  # the descent is the last row
+    [3, 8, 8, 2],  # a descent hidden behind sentinel rows (n_cells = 8)
+    [5, -1, 4, 7],  # and behind a negative key
+])
+def test_debug_check_refuses_decreasing_valid_keys(monkeypatch, keys):
+    """With ``MPI_GRID_SEGDEP_DEBUG=1`` a stream whose valid keys decrease
+    raises, naming the descent; without it the call goes through (the
+    plain version does not need the contract, the kernel does)."""
+    k = torch.tensor(keys, dtype=torch.int32)
+    rel = torch.full((1, len(keys)), 0.25)
+    segdep.segsum_sorted(k, rel, None, 8, (4,))
+    monkeypatch.setenv("MPI_GRID_SEGDEP_DEBUG", "1")
+    with pytest.raises(ValueError, match="decrease 1 time"):
+        segdep.segsum_sorted(k, rel, None, 8, (4,))
+
+
+@pytest.mark.parametrize("stream", EDGE_STREAMS)
+def test_debug_check_passes_contract_streams(monkeypatch, stream):
+    """The tile-edge streams meet the contract (sentinels anywhere, valid
+    keys non-decreasing): the debug check lets them through and changes
+    nothing."""
+    r = np.random.default_rng(EDGE_STREAMS.index(stream))
+    keys, n_cells = common.segdep_edge_streams(segdep.TILE, r)[stream]
+    rel = (r.integers(0, 32, size=(2, keys.shape[0])) * 0.25).astype(
+        np.float32)
+    args = (torch.from_numpy(keys), torch.from_numpy(rel), None, n_cells,
+            (8, 8))
+    want = segdep.segsum_sorted(*args).numpy()
+    monkeypatch.setenv("MPI_GRID_SEGDEP_DEBUG", "1")
+    _bits(segdep.segsum_sorted(*args), want)
