@@ -47,7 +47,20 @@ started together), then, on the card:
      timed per step, host syncs per step, a counted run whose deposit
      kernel launches equal its steps, mass conservation, the state
      bit-equal to the loop without deposit, and the density held against
-     the plain-version run and across the two methods.
+     the plain-version run and across the two methods. Kernel 5 is also
+     held at the tiles of its block route (2048 and 8192) and kernel 4 at
+     D = 4, both timed;
+  6. drives the canonical ``GridRedistribute.redistribute`` (the 2x2x2
+     grid as 8 vranks, engine ``"auto"``, which is the planar engine on
+     one device): config 1 (1,048,576 uniform rows, seed 42, pos/vel/ids,
+     ``capacity_factor=4.0``) byte-equal to the port's NumPy oracle,
+     positions, fields, count and stats; then at the headline width, 2^20
+     rows per vrank, ms per call (min and median of k), host syncs per
+     steady-state call (0: the overflow check is deferred), conservation,
+     zero drops and ownership; and the planar canonical step in a drift
+     loop (2^20 rows per vrank, 1.25x slots, ~2% migration), ms/step and
+     host syncs per step, with ``--profile`` the device's busy and idle
+     share of both.
 
 Any failed check raises; nothing is caught and carried on. The last
 lines are the ``nvidia-smi`` name and power limit, one JSON object with
@@ -64,6 +77,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -96,6 +110,10 @@ KERNEL_SYMBOLS = {
     "tile_df_cumsum_rows": "dfscan_kernel",
     "scatter_rows": "scatter_rows_kernel",
 }
+
+# steady-state canonical calls under the sync check: two deferred
+# overflow-check windows (check_every = 16)
+CANON_CALLS = 32
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores
@@ -741,6 +759,34 @@ def dfscan_phase(torch, dfscan, profiling):
               for u, v in zip(a, b)),
           "tile_df_cumsum_rows kernel != plain on the hostile input")
 
+    # the block route (a block per row, the row in shared memory): the
+    # same elements as tiles of 2048, and rows of 8192
+    block = {}
+    for bt in (2048, 8192):
+        check(dfscan.geometry(bt).route == "block",
+              f"tile {bt} is not on kernel 5's block route")
+        xb = x.reshape(-1, bt)
+        hb = _signed_zero_rows_t(torch, xb)
+        kb = dfscan.tile_df_cumsum_rows(hb)
+        pb = dfscan.tile_df_cumsum_rows_plain(hb)
+        torch.cuda.synchronize()
+        check(all(torch.equal(u.view(torch.int32), v.view(torch.int32))
+                  for u, v in zip(kb, pb)),
+              f"tile_df_cumsum_rows block route != plain at "
+              f"[{xb.shape[0]}, {bt}]")
+        bsteps = (bt - 1).bit_length()
+        block[bt] = {
+            "shape": list(xb.shape),
+            "ms": profiling.cuda_time_ms(
+                lambda: dfscan.tile_df_cumsum_rows(xb)),
+            "plain_ms": profiling.cuda_time_ms(
+                lambda: dfscan.tile_df_cumsum_rows_plain(xb), iters=3),
+            "bound_ms": bound(12 * xb.numel(),
+                              2 * 11 * bsteps * xb.numel())[0],
+        }
+        del kb, pb, hb
+    log(json.dumps({"dfscan_block_route": block}))
+
     ms = profiling.cuda_time_ms(lambda: dfscan.tile_df_cumsum_rows(x))
     plain_ms = profiling.cuda_time_ms(
         lambda: dfscan.tile_df_cumsum_rows_plain(x), iters=5
@@ -763,6 +809,16 @@ def dfscan_phase(torch, dfscan, profiling):
         # no single PyTorch call computes a double-float prefix
         "library_ms": None,
     }
+
+
+def _signed_zero_rows_t(torch, x):
+    """A copy of ``x`` with a row of -0.0 and one mixing +-0.0 with
+    values (the adds of shifted-in zeros must turn -0.0 into +0.0)."""
+    x = x.clone()
+    x[1] = -0.0
+    x[2, ::3] = -0.0
+    x[2, 1::5] = 0.0
+    return x
 
 
 def segdep_phase(torch, segdep, common, profiling, kernel_times, stream):
@@ -796,7 +852,7 @@ def segdep_phase(torch, segdep, common, profiling, kernel_times, stream):
     for name, (keys_np, cells) in edges.items():
         ek = torch.from_numpy(keys_np).cuda()
         n = keys_np.shape[0]
-        for d in (1, 2, 3):
+        for d in (1, 2, 3, 4):
             vb = (8,) * d
             rd = torch.from_numpy(
                 (r.integers(0, 32, (d, n)) * 0.25).astype(np.float32)).cuda()
@@ -820,7 +876,25 @@ def segdep_phase(torch, segdep, common, profiling, kernel_times, stream):
                       f"{what}: generic floats beyond 2e-5 or not "
                       f"run-to-run identical")
     log(f"segsum_sorted: bit-equal on the tile-edge streams {sorted(edges)} "
-        f"for D = 1..3, with and without mass")
+        f"for D = 1..4, with and without mass")
+
+    # D = 4 (16 channels) on the config-5 stream's keys with a fourth rel
+    # row: dyadic bit-equal, timed as a CUDA graph
+    rel4 = torch.cat([rel_d, rel_d[:1]], dim=0).contiguous()
+    vb4 = tuple(vblock) + (vblock[0],)
+    a4 = segdep.segsum_sorted(keys, rel4, None, n_cells, vb4)
+    p4 = segdep.segsum_sorted_plain(keys, rel4, None, n_cells, vb4)
+    torch.cuda.synchronize()
+    check(torch.equal(a4.view(torch.int32), p4.view(torch.int32)),
+          "segsum_sorted kernel != plain at D = 4 on dyadic data")
+    del a4, p4
+    d4 = {
+        "ms": profiling.cuda_graph_time_ms(
+            lambda: segdep.segsum_sorted(keys, rel4, None, n_cells, vb4)),
+        "bound_ms": bound(N * 20 + 16 * n_cells * 4, N * (24 + 64 + 16))[0],
+    }
+    log(json.dumps({"segdep_d4": d4}))
+    del rel4
 
     times = kernel_times.time_segdep(segdep, profiling, stream)
     for case, t in times.items():
@@ -946,6 +1020,146 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
     }, rho
 
 
+def _owned(oracle, pt, pos_rows, counts, out_cap, label):
+    """Every live row of each vrank's slice lies in that vrank's
+    subdomain (the port's NumPy oracle binning, on the host)."""
+    pos_rows = pos_rows.cpu().numpy()
+    counts = counts.cpu().numpy()
+    shards = [pos_rows[v * out_cap: v * out_cap + counts[v]]
+              for v in range(len(counts))]
+    try:
+        oracle.assert_ownership(pt.Domain(0.0, 1.0, periodic=True),
+                                pt.ProcessGrid(GRID), shards)
+    except AssertionError as e:
+        fail(f"{label}: {e}")
+
+
+def canonical_phase(torch, pt, config1_oracle, oracle, profiling,
+                    profile_dir):
+    """The canonical ``GridRedistribute.redistribute`` on the card: config
+    1 against the NumPy oracle, then the headline width per call, then the
+    planar canonical step in a drift loop."""
+    V = int(np.prod(GRID))
+
+    # ---- config 1, byte-equal to the oracle (positions, fields, count,
+    # every stats leaf; oracle_check raises on any difference)
+    n1 = 1 << 20
+    t0 = time.perf_counter()
+    res, _, rd1 = config1_oracle.oracle_check(n1)
+    check(res.positions.is_cuda, "config 1 did not run on the card")
+    check(int(res.count.sum()) == n1
+          and int(res.stats.dropped_send.sum()) == 0
+          and int(res.stats.dropped_recv.sum()) == 0,
+          "config 1: rows lost")
+    oc1 = res.positions.shape[0] // V
+    _owned(oracle, pt, res.positions, res.count, oc1, "config 1")
+    log(f"config 1: GridRedistribute on the card byte-equal to the NumPy "
+        f"oracle (positions, 2 fields, count, 5 stats leaves) at N = {n1}, "
+        f"grid {GRID} as {V} vranks, capacity {rd1._capacities(n1 // V)[0]},"
+        f" out_capacity {oc1}; {time.perf_counter() - t0:.1f} s with the "
+        f"oracle")
+    del res, rd1
+
+    # ---- the headline width: 2^20 rows per vrank through the public call
+    N = V * N_LOCAL
+    args = tuple(torch.from_numpy(a).cuda()
+                 for a in config1_oracle.inputs(N))
+    rd = pt.GridRedistribute(lo=0.0, hi=1.0, periodic=True, grid=GRID,
+                             capacity_factor=config1_oracle.CAPACITY_FACTOR)
+    for _ in range(3):  # calibration: the synchronous checks (and growth)
+        out = rd.redistribute(*args)
+    check(rd._clean_checks >= 2, "canonical: not calibrated after 3 calls")
+    fetches = rd._blocking_fetches
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = rd.redistribute(*args)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    call_ms = sorted(a.elapsed_time(b) for a, b in times)
+    _, syncs = synced_run(
+        torch, lambda: [rd.redistribute(*args) for _ in range(CANON_CALLS)])
+    check(syncs == 0 and rd._blocking_fetches == fetches,
+          f"canonical: {syncs} host syncs and "
+          f"{rd._blocking_fetches - fetches} blocking reads in "
+          f"{CANON_CALLS} steady-state calls")
+    out = rd.redistribute(*args)
+    rd.flush_overflow_checks()  # raises on any drop since calibration
+    check(int(out.count.sum()) == N
+          and int(out.stats.dropped_send.sum()) == 0
+          and int(out.stats.dropped_recv.sum()) == 0,
+          "canonical: rows lost at the headline width")
+    cap, out_cap = rd._capacities(N_LOCAL)
+    _owned(oracle, pt, out.positions, out.count, out_cap,
+           "canonical headline call")
+    check(bool(torch.isfinite(out.positions).all()),
+          "canonical: non-finite positions")
+    log(f"canonical call: {call_ms[0]:.4f} ms/call (min of k=10, median "
+        f"{statistics.median(call_ms):.4f}) at {N} rows (2^20 per vrank), "
+        f"capacity {cap}, out_capacity {out_cap}; host syncs per "
+        f"steady-state call {syncs / CANON_CALLS:g} over {CANON_CALLS} "
+        f"calls; conservation, zero drops and ownership hold")
+    call_busy = None
+    if profile_dir:
+        def make_calls(S):
+            return lambda: [rd.redistribute(*args) for _ in range(S)]
+
+        ops, call_busy, _ = profile_steps(torch, make_calls, profile_dir,
+                                          "canonical_call")
+        log(f"canonical call profile: {ops:.1f} device operations/call, "
+            f"device busy {call_busy:.4f} ms/call of {call_ms[0]:.4f} (idle "
+            f"{1 - call_busy / call_ms[0]:.2%})")
+    rd.flush_overflow_checks()
+    del out, args, rd
+
+    # ---- the planar canonical step in a drift loop
+    fused, count = config1_oracle.drift_state(N_LOCAL)
+    f0 = torch.from_numpy(fused).cuda()
+    c0 = torch.from_numpy(count).cuda()
+    loop = config1_oracle.make_loop_planar(N_LOCAL)
+
+    def make_run(S):
+        return lambda: loop(f0, c0, S)
+
+    detail, _ = profiling.cuda_time_per_step_samples(make_run, s1=4, s2=20,
+                                                     reps=5)
+    per_step = detail["min"]
+    _, syncs2 = synced_run(torch, make_run(2))
+    (f, c, drops), syncs6 = synced_run(torch, make_run(COUNTED_STEPS))
+    step_syncs = (syncs6 - syncs2) / (COUNTED_STEPS - 2)
+    check(int(drops) == 0 and int(c.sum()) == V * N_LOCAL,
+          "canonical step: rows lost in the drift loop")
+    slots = f.shape[2]
+    _owned(oracle, pt, f[:, :3].transpose(1, 2).reshape(-1, 3), c, slots,
+           "canonical drift loop")
+    log(f"canonical step: {per_step * 1e3:.4f} ms/step (min of "
+        f"k={detail['k']}, median {detail['median'] * 1e3:.4f}, spread "
+        f"{detail['spread'] * 100:.2f}%) at {V * N_LOCAL} rows, {slots} "
+        f"slots a vrank, capacity {config1_oracle.loop_sizing(N_LOCAL)[1]};"
+        f" host syncs per step {step_syncs:g}; conservation, zero drops "
+        f"and ownership over {COUNTED_STEPS} steps")
+    check(step_syncs == 0, f"canonical step: {step_syncs} host syncs/step")
+    step_busy = None
+    if profile_dir:
+        step_busy = write_profile(torch, make_run, profile_dir, per_step,
+                                  "canonical_step")
+    return {
+        "config1_bit_equal": True,
+        "ms_per_call": call_ms[0],
+        "median_ms_per_call": statistics.median(call_ms),
+        "host_syncs_per_call": syncs / CANON_CALLS,
+        "device_busy_ms_per_call": call_busy,
+        "ms_per_step": per_step * 1e3,
+        "median_ms_per_step": detail["median"] * 1e3,
+        "spread": detail["spread"],
+        "host_syncs_per_step": step_syncs,
+        "device_busy_ms_per_step": step_busy,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None,
@@ -968,8 +1182,9 @@ def main() -> int:
         print("chip_smoke: imported a port from outside this checkout",
               file=sys.stderr)
         return 3
+    from mpi_grid_redistribute_tpu_torch import oracle
     from mpi_grid_redistribute_tpu_torch.bench import (
-        common, config5_deposit, kernel_times,
+        common, config1_oracle, config5_deposit, kernel_times,
     )
     from mpi_grid_redistribute_tpu_torch.models import nbody
     from mpi_grid_redistribute_tpu_torch.ops import (
@@ -1062,6 +1277,11 @@ def main() -> int:
                               atol=2e-4)),
           f"config5: mxu rho vs scan rho beyond 2e-4 (max abs {err})")
     log(f"config5: mxu rho vs scan rho max abs err {err}")
+    del rhos
+
+    # ---- the canonical GridRedistribute.redistribute
+    canon = canonical_phase(torch, pt, config1_oracle, oracle, profiling,
+                            args.profile)
 
     kernels = []
     # rows 2 and 3 of the TPU table (_overlay_sorted, _overlay_sorted_i8)
@@ -1081,6 +1301,7 @@ def main() -> int:
     log(json.dumps({"planar_path": planar}))
     log(json.dumps({"rows_path": rows}))
     log(json.dumps({"config5": c5}))
+    log(json.dumps({"canonical": canon}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,15 +1,28 @@
 """PyTorch/CUDA port of ``mpi_grid_redistribute_tpu`` for NVIDIA Hopper.
 
 The JAX package beside this one is the reference; this package imports
-neither it nor JAX. Ported so far: the single-device drift/migrate loop
-(:func:`.models.nbody.make_migrate_loop` with ``engine="planar"``) on the
-resident-slot vrank engine, with two hand-written CUDA kernels
-(``csrc/driftbin.cu``, ``csrc/overlay.cu``) that are compiled with
-``nvcc`` at first use. Entry points run on the GPU unless the caller
-passes ``device="cpu"``, where every kernel runs as its plain PyTorch
-version.
+neither it nor JAX. Ported so far, all on ONE device with the ranks of
+the grid as virtual ranks:
+
+  * the canonical :class:`GridRedistribute` ``.redistribute()`` (the
+    planar and row-major engines; ``engine="auto"`` picks planar) with its
+    NumPy oracle (:mod:`.oracle`) and non-uniform :class:`GridEdges`;
+  * the drift/migrate loop (:func:`.models.nbody.make_migrate_loop`, the
+    mover-sparse and planar engines, the row-store landing route) and the
+    config-5 CIC deposit fused into it.
+
+Every TPU kernel of the reference has a hand-written CUDA counterpart
+under ``csrc/``, compiled with ``nvcc`` at first use. Entry points run on
+the GPU unless the caller passes ``device="cpu"``, where every kernel
+runs as its plain PyTorch version.
 """
 
-from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+from mpi_grid_redistribute_tpu_torch.api import (
+    GridRedistribute, MoverCapacity, RedistributeResult,
+)
+from mpi_grid_redistribute_tpu_torch.domain import Domain, GridEdges, ProcessGrid
 
-__all__ = ["Domain", "ProcessGrid"]
+__all__ = [
+    "Domain", "GridEdges", "GridRedistribute", "MoverCapacity",
+    "ProcessGrid", "RedistributeResult",
+]

@@ -1,0 +1,712 @@
+"""Public API: ``GridRedistribute`` and its ``redistribute()`` (port of the
+JAX package's ``api.py``, one device).
+
+Construct with domain bounds and a process-grid shape, then call
+``redistribute(positions, *payload_arrays)``. Two backends: ``"torch"``
+(the default) runs the canonical exchange on one device, the R ranks of
+the grid as virtual ranks (what the reference does when it has fewer
+devices than ranks); ``"numpy"`` runs the rank-simulation oracle with the
+same padded layout and capacity semantics.
+
+Global data layout (both backends):
+  * ``positions``: ``[R * n_local, ndim]``; shard r owns rows
+    ``[r * n_local, (r + 1) * n_local)``, the first ``count[r]`` valid;
+  * ``count``: ``[R]`` int32 valid-row counts (``None``: all rows valid);
+  * fields: any number of ``[R * n_local, ...]`` arrays riding the same
+    permutation.
+
+Inputs are NumPy arrays or tensors; 64-bit dtypes are narrowed at the
+boundary as JAX narrows them with x64 off (float64 -> float32, int64 ->
+int32, uint64 -> uint32, complex128 -> complex64), so both backends and
+the reference bin at the same precision. The torch backend returns
+tensors on its device, the numpy backend NumPy arrays.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mpi_grid_redistribute_tpu_torch import _device, oracle
+from mpi_grid_redistribute_tpu_torch.domain import Domain, GridEdges, ProcessGrid
+from mpi_grid_redistribute_tpu_torch.parallel import exchange
+
+# 64-bit dtypes and what JAX (x64 off) narrows them to
+_NARROW_NP = {
+    np.dtype(np.float64): np.dtype(np.float32),
+    np.dtype(np.int64): np.dtype(np.int32),
+    np.dtype(np.uint64): np.dtype(np.uint32),
+    np.dtype(np.complex128): np.dtype(np.complex64),
+}
+_NARROW_TORCH = {
+    torch.float64: torch.float32,
+    torch.int64: torch.int32,
+    torch.uint64: torch.uint32,
+    torch.complex128: torch.complex64,
+}
+
+
+class RedistributeResult(NamedTuple):
+    """Outcome of one redistribute: padded arrays, counts and stats."""
+
+    positions: object
+    fields: Tuple
+    count: object
+    stats: object
+
+
+def _next_pow2(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _host(x) -> np.ndarray:
+    """A tensor or array as a NumPy array (a device tensor is read back)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class MoverCapacity:
+    """Measured-need growth policy for the sparse migrate engine's
+    ``mover_cap``: fold each window's ``MigrateStats`` with
+    :meth:`update`. The per-step mover count is ``sent + backlog``; when
+    its peak exceeds the cap, the cap ratchets to the next power of two
+    (never shrinking; clipped to ``max_cap``) and ``update`` returns True,
+    so the caller rebuilds its loop. ``recorder=`` (journaling the growth)
+    raises ``NotImplementedError``: the telemetry plane is not ported
+    (``ROADMAP.md`` A11)."""
+
+    def __init__(self, initial: int, max_cap: int = None, recorder=None):
+        if recorder is not None:
+            raise NotImplementedError(
+                "MoverCapacity(recorder=...): journaling belongs to the "
+                "telemetry plane, which is not ported yet (ROADMAP.md A11)"
+            )
+        if int(initial) < 1:
+            raise ValueError(f"initial must be >= 1, got {initial}")
+        self.max_cap = None if max_cap is None else int(max_cap)
+        self.value = _next_pow2(int(initial))
+        if self.max_cap is not None:
+            self.value = min(self.value, self.max_cap)
+        self.grow_count = 0
+
+    def update(self, stats) -> bool:
+        """Fold one step's (or a stacked window's) stats; True when
+        ``value`` grew and the loop should be rebuilt."""
+        movers = _host(stats.sent) + _host(stats.backlog)
+        peak = int(movers.max()) if movers.size else 0
+        if peak <= self.value:
+            return False
+        new = _next_pow2(peak)
+        if self.max_cap is not None:
+            new = min(new, self.max_cap)
+        if new <= self.value:
+            return False
+        self.value = new
+        self.grow_count += 1
+        return True
+
+
+def _planar_specs(positions, fields):
+    """Per-array ``(trailing_shape, dtype, k)`` for the planar engine, or
+    ``None`` when an array is not 32-bit (the planar state carries every
+    array as int32 rows; other widths take the row-major engine)."""
+    specs = []
+    for a in (positions,) + tuple(fields):
+        if a.element_size() != 4:
+            return None
+        specs.append((tuple(a.shape[1:]), a.dtype,
+                      math.prod(int(s) for s in a.shape[1:])))
+    return tuple(specs)
+
+
+def _fuse_planar(positions, fields, R: int, n_local: int, specs):
+    """``[R * n, ...]`` row-major arrays -> ``[R, K, n]`` int32 planar
+    state (every array viewed as int32 words, one row per component)."""
+    parts = []
+    for a, (_, _, k) in zip((positions,) + tuple(fields), specs):
+        flat = a.reshape(R, n_local, k)
+        if flat.dtype != torch.int32:
+            flat = flat.view(torch.int32)
+        parts.append(flat.transpose(1, 2))  # [R, k, n]
+    return torch.cat(parts, dim=1)
+
+
+def _unfuse_planar(fused, specs, R: int, out_cap: int):
+    """Inverse of :func:`_fuse_planar`: ``(positions, fields)``."""
+    outs = []
+    row = 0
+    for shape, dtype, k in specs:
+        block = fused[:, row: row + k, :].transpose(1, 2).contiguous()
+        if dtype != torch.int32:
+            block = block.view(dtype)
+        outs.append(block.reshape((R * out_cap,) + tuple(shape)))
+        row += k
+    return outs[0], tuple(outs[1:])
+
+
+def _planar_vranks_call(domain: Domain, grid: ProcessGrid, cap: int,
+                        out_cap: int, specs, edges=None):
+    """Boundary fuse -> planar vrank exchange -> boundary unfuse."""
+    V = grid.nranks
+    engine = exchange.vrank_redistribute_planar_fn(
+        domain, grid, cap, out_cap, domain.ndim, edges=edges
+    )
+
+    def call(positions, count, *fields):
+        n_local = positions.shape[0] // V
+        fused = _fuse_planar(positions, fields, V, n_local, specs)
+        out, new_count, stats = engine(fused, count)
+        pos_out, fields_out = _unfuse_planar(out, specs, V, out_cap)
+        return pos_out, new_count, fields_out, stats
+
+    return call
+
+
+def _rowmajor_vranks_call(domain: Domain, grid: ProcessGrid, cap: int,
+                          out_cap: int, edges=None):
+    """Row-major vrank exchange on ``[R * n, ...]`` arrays."""
+    R = grid.nranks
+    engine = exchange.vrank_redistribute_fn(domain, grid, cap, out_cap, edges)
+
+    def call(positions, count, *fields):
+        n = positions.shape[0] // R
+        out = engine(
+            positions.reshape(R, n, -1), count,
+            *(f.reshape((R, n) + tuple(f.shape[1:])) for f in fields),
+        )
+
+        def unstack(a):
+            return a.reshape((R * out_cap,) + tuple(a.shape[2:]))
+
+        return (unstack(out[0]), out[1], tuple(unstack(f) for f in out[2:-1]),
+                out[-1])
+
+    return call
+
+
+def _accum_overflow_counters(cum, stats, count):
+    """Fold one call's overflow stats into the cumulative device-side
+    counters ``[dropped_send, dropped_recv, needed_capacity,
+    needed_out]`` (int32 ``[4]``): a few small device ops, no host read,
+    so a window read every ``check_every`` calls covers every call."""
+    return torch.stack([
+        cum[0] + stats.dropped_send.sum(dtype=torch.int32),
+        cum[1] + stats.dropped_recv.sum(dtype=torch.int32),
+        torch.maximum(cum[2], stats.needed_capacity.max()),
+        torch.maximum(cum[3], (count + stats.dropped_recv).max()),
+    ])
+
+
+def _as_domain(domain, lo=None, hi=None, periodic=False) -> Domain:
+    if isinstance(domain, Domain):
+        return domain
+    if domain is None:
+        return Domain(lo, hi, periodic)
+    raise TypeError(f"domain must be a Domain, got {type(domain)}")
+
+
+class GridRedistribute:
+    """Spatial particle redistribution over a Cartesian grid of shards, on
+    one device.
+
+    Args:
+      domain: :class:`Domain` (or pass ``lo``/``hi``/``periodic``).
+      grid: :class:`ProcessGrid` or a grid-shape tuple like ``(2, 2, 2)``.
+      backend: ``"torch"`` (the canonical exchange on ``device``, the R
+        ranks as virtual ranks) or ``"numpy"`` (the oracle).
+      device: the torch backend's device; ``None`` means the GPU and
+        raises when there is none (the tests pass ``"cpu"``).
+      capacity: slots per remote (source, dest) pair (a rank's own rows
+        never ride the wire and are never clipped); default
+        ``next_pow2(ceil(n_local / R * capacity_factor))`` at call time,
+        at most ``n_local``.
+      capacity_factor: headroom of the default capacity.
+      out_capacity: padded rows per shard on output; default ``n_local``.
+      on_overflow: when a capacity overflow drops rows:
+
+        * ``"grow"`` (default): read the measured need off the stats,
+          rebuild at the next power-of-two capacity and re-run the call on
+          the same inputs (up to 5 attempts); grown capacities stick on
+          the instance. The check reads the device every call only while
+          calibrating: after two clean checks every call folds its drop
+          counters into cumulative device-side totals, and every
+          ``check_every``-th call copies them to pinned host memory behind
+          a CUDA event without waiting, resolving the copy made one window
+          earlier. A drop found that late cannot be healed: it grows the
+          capacities for later calls and raises ``RuntimeError`` naming the
+          window. Call :meth:`flush_overflow_checks` (or use the instance
+          as a context manager) at loop end;
+        * ``"raise"``: raise ``RuntimeError`` on any drop (a host read
+          every call);
+        * ``"ignore"``: return at once, drops reported in ``stats``.
+      check_every: the deferred check's cadence in calls (default 16).
+      engine: ``"auto"`` (default: ``"planar"`` on one device, or
+        ``"rowmajor"`` when an array is not 32-bit), ``"planar"`` or
+        ``"rowmajor"``. ``"sparse"``, ``"neighbor"`` and
+        ``"hierarchical"`` raise ``NotImplementedError`` (``ROADMAP.md``
+        A5, A9).
+      edges: optional :class:`GridEdges` (non-uniform or
+        assignment-aware ownership), honoured by routing, the oracle and
+        :func:`oracle.assert_ownership`.
+      mesh, dcn_shape, cross_cap: the multi-device and two-level planes;
+        not ported, they raise ``NotImplementedError``.
+    """
+
+    def __init__(
+        self,
+        domain: Domain = None,
+        grid=None,
+        *,
+        lo=None,
+        hi=None,
+        periodic=False,
+        backend: str = "torch",
+        device=None,
+        mesh=None,
+        capacity: Optional[int] = None,
+        capacity_factor: float = 2.0,
+        out_capacity: Optional[int] = None,
+        on_overflow: str = "grow",
+        check_every: int = 16,
+        engine: str = "auto",
+        dcn_shape=None,
+        cross_cap: Optional[int] = None,
+        edges=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh=: the multi-device canonical exchange is not ported "
+                "yet (ROADMAP.md A5); the port runs the grid as virtual "
+                "ranks on one device"
+            )
+        if dcn_shape is not None or cross_cap is not None:
+            raise NotImplementedError(
+                "dcn_shape=/cross_cap=: the hierarchical two-level engine is "
+                "not ported yet (ROADMAP.md A9)"
+            )
+        if engine in ("sparse", "neighbor"):
+            raise NotImplementedError(
+                f"engine={engine!r}: the count-driven canonical engines are "
+                "not ported yet (ROADMAP.md A5)"
+            )
+        if engine == "hierarchical":
+            raise NotImplementedError(
+                "engine='hierarchical' is not ported yet (ROADMAP.md A9)"
+            )
+        self.domain = _as_domain(domain, lo, hi, periodic)
+        if grid is None:
+            raise ValueError("grid (ProcessGrid or shape tuple) is required")
+        self.grid = (
+            grid if isinstance(grid, ProcessGrid) else ProcessGrid(tuple(grid))
+        )
+        self.grid.validate_against(self.domain)
+        if edges is not None and not isinstance(edges, GridEdges):
+            edges = GridEdges(edges)
+        self.edges = edges
+        if edges is not None:
+            edges.validate_against(self.domain, self.grid)
+        if backend not in ("torch", "numpy"):
+            raise ValueError(
+                f"backend must be 'torch' or 'numpy', got {backend!r}"
+            )
+        self.backend = backend
+        self.device = _device.resolve(device) if backend == "torch" else None
+        for name, v in (("capacity", capacity),
+                        ("out_capacity", out_capacity)):
+            if v is not None and int(v) < 1:
+                raise ValueError(f"{name} must be >= 1, got {v}")
+        if on_overflow not in ("grow", "raise", "ignore"):
+            raise ValueError(
+                f"on_overflow must be 'grow', 'raise' or 'ignore', "
+                f"got {on_overflow!r}"
+            )
+        self.on_overflow = on_overflow
+        if int(check_every) < 1:
+            raise ValueError(f"check_every must be >= 1, got {check_every}")
+        self.check_every = int(check_every)
+        if engine not in exchange.ENGINES:
+            raise ValueError(
+                f"engine must be one of {exchange.ENGINES}, got {engine!r}"
+            )
+        self.engine = engine
+        self.capacity = capacity
+        self.capacity_factor = float(capacity_factor)
+        self.out_capacity = out_capacity
+        # deferred-check state of "grow" (see the class docstring): clean
+        # synchronous checks in a row, calls since the last scheduled
+        # check, the pending host copy, the cumulative device counters,
+        # the totals already accounted for, and a count of blocking reads
+        self._clean_checks = 0
+        self._calls_since_check = 0
+        self._pending_check = None  # (host [4], event, cap, out_cap, n, call)
+        self._call_index = 0
+        self._blocking_fetches = 0
+        self._cum_counters = None
+        self._seen_send = 0
+        self._seen_recv = 0
+        self._resolved_through = 0
+        self._del_warned = False
+        self._last_caps = None  # (cap, out_cap, n_local) of the last call
+        self._last_stats = None
+
+    @property
+    def nranks(self) -> int:
+        return self.grid.nranks
+
+    def halo(self, *args, **kwargs):
+        raise NotImplementedError(
+            "halo(): the halo exchange is not ported yet (ROADMAP.md A8)"
+        )
+
+    def _capacities(self, n_local: int) -> Tuple[int, int]:
+        cap = self.capacity
+        if cap is None:
+            cap = max(1, math.ceil(n_local / self.nranks
+                                   * self.capacity_factor))
+            # power-of-two buckets: growing workloads change capacities
+            # only on bucket crossings
+            cap = _next_pow2(cap)
+        cap = min(cap, n_local)  # no more than n_local to one destination
+        out_cap = n_local if self.out_capacity is None else self.out_capacity
+        return cap, out_cap
+
+    def _canonical_np(self, a) -> np.ndarray:
+        a = _host(a)
+        return a.astype(_NARROW_NP.get(a.dtype, a.dtype), copy=False)
+
+    def _canonical_torch(self, a) -> torch.Tensor:
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(self._canonical_np(a)))
+        a = a.to(self.device)
+        return a.to(_NARROW_TORCH.get(a.dtype, a.dtype))
+
+    def _check_inputs(self, pos, fields, count):
+        R = self.nranks
+        canon = (self._canonical_np if self.backend == "numpy"
+                 else self._canonical_torch)
+        pos = canon(pos)
+        fields = tuple(canon(f) for f in fields)
+        if pos.ndim != 2 or pos.shape[1] != self.domain.ndim:
+            raise ValueError(
+                f"positions must be [R*n_local, {self.domain.ndim}], "
+                f"got {tuple(pos.shape)}"
+            )
+        if pos.shape[0] % R:
+            raise ValueError(
+                f"global rows {pos.shape[0]} must divide evenly over "
+                f"{R} ranks"
+            )
+        n_local = pos.shape[0] // R
+        for i, f in enumerate(fields):
+            if f.shape[0] != pos.shape[0]:
+                raise ValueError(
+                    f"field {i} leading dim {f.shape[0]} != {pos.shape[0]}"
+                )
+        if count is None and self.backend == "torch":
+            count = torch.full((R,), n_local, dtype=torch.int32,
+                               device=self.device)
+        elif count is None:
+            count = np.full((R,), n_local, dtype=np.int32)
+        if isinstance(count, torch.Tensor) and self.backend == "torch":
+            # a tensor count (e.g. the previous call's result.count) is
+            # clipped where it lives: a host range check would read it back
+            if tuple(count.shape) != (R,):
+                raise ValueError(
+                    f"count must be [{R}], got {tuple(count.shape)}")
+            count = count.to(self.device, torch.int32).clamp(0, n_local)
+        else:
+            count_host = np.asarray(_host(count), dtype=np.int32)
+            if count_host.shape != (R,):
+                raise ValueError(
+                    f"count must be [{R}], got {count_host.shape}")
+            if (count_host < 0).any() or (count_host > n_local).any():
+                raise ValueError(
+                    f"count entries must be in [0, {n_local}], got "
+                    f"{count_host}"
+                )
+            count = (count_host if self.backend == "numpy"
+                     else torch.from_numpy(count_host).to(
+                         self.device, non_blocking=True))
+        return pos, fields, n_local, count
+
+    def _engine_call(self, positions, fields, cap: int, out_cap: int):
+        """The engine for these arrays and capacities, by the reference's
+        one dispatch rule (``exchange.resolve_engine``) on one device."""
+        specs = None
+        if self.engine in ("auto", "planar"):
+            specs = _planar_specs(positions, fields)
+            if specs is None and self.engine == "planar":
+                raise TypeError(
+                    "engine='planar' requires 32-bit positions and fields "
+                    "(they ride as int32 rows); cast or use "
+                    "engine='auto'/'rowmajor'"
+                )
+        resolved = exchange.resolve_engine(
+            self.engine, vranks=True, n_devices=1,
+            planar_ok=specs is not None, canonical=True,
+        )
+        if resolved == "planar":
+            return _planar_vranks_call(self.domain, self.grid, cap, out_cap,
+                                       specs, edges=self.edges)
+        return _rowmajor_vranks_call(self.domain, self.grid, cap, out_cap,
+                                     edges=self.edges)
+
+    def _run_once(self, positions, fields, count, cap: int,
+                  out_cap: int) -> RedistributeResult:
+        if self.backend == "numpy":
+            pos_out, counts_out, fields_out, stats = (
+                oracle.redistribute_oracle_padded(
+                    self.domain, self.grid, positions, count, list(fields),
+                    cap, out_cap, edges=self.edges,
+                )
+            )
+            return RedistributeResult(pos_out, tuple(fields_out), counts_out,
+                                      exchange.RedistributeStats(**stats))
+        fn = self._engine_call(positions, fields, cap, out_cap)
+        pos_out, new_count, fields_out, stats = fn(positions, count, *fields)
+        return RedistributeResult(pos_out, fields_out, new_count, stats)
+
+    def engine_fn(self, positions, *fields):
+        """``(fn, cap, out_cap)``: the engine :meth:`redistribute` would run
+        for arrays of these shapes and dtypes, with no overflow policy
+        around it: ``fn(positions, count, *fields) -> (positions, count,
+        fields, stats)``. The caller reads the drop counters and grows
+        through :meth:`_grow`; a fresh ``engine_fn`` takes the grown
+        capacities."""
+        if self.backend != "torch":
+            raise ValueError(
+                "engine_fn requires backend='torch': the numpy oracle has "
+                "no engine to hand out"
+            )
+        R = self.nranks
+        if positions.ndim != 2 or positions.shape[0] % R:
+            raise ValueError(
+                f"positions must be [R*n_local, ndim] over {R} ranks, "
+                f"got {tuple(positions.shape)}"
+            )
+        cap, out_cap = self._capacities(positions.shape[0] // R)
+        return self._engine_call(positions, fields, cap, out_cap), cap, out_cap
+
+    def redistribute(self, positions, *fields, count=None) -> RedistributeResult:
+        """Bin, pack, exchange: every particle moves to its owner shard.
+
+        Returns a :class:`RedistributeResult` in the global padded layout
+        (leading dim ``R * out_capacity``). Under ``on_overflow="grow"`` an
+        overflow is healed by rebuilding at the measured need and
+        re-running on the same inputs."""
+        positions, fields, n_local, count = self._check_inputs(
+            positions, fields, count
+        )
+        self._call_index += 1
+        return self._redistribute_attempts(positions, fields, count, n_local)
+
+    def _read_overflow(self, result) -> Tuple[int, int, int, int]:
+        """One blocking read of ``(dropped_send, dropped_recv, needed,
+        needed_out)`` off a call's stats."""
+        self._blocking_fetches += 1
+        st = result.stats
+        if self.backend == "numpy":
+            return (int(st.dropped_send.sum()), int(st.dropped_recv.sum()),
+                    int(st.needed_capacity.max()),
+                    int((result.count + st.dropped_recv).max()))
+        vals = torch.stack([
+            st.dropped_send.sum(dtype=torch.int32),
+            st.dropped_recv.sum(dtype=torch.int32),
+            st.needed_capacity.max(),
+            (result.count + st.dropped_recv).max(),
+        ]).tolist()
+        return tuple(int(v) for v in vals)
+
+    def _redistribute_attempts(self, positions, fields, count,
+                               n_local) -> RedistributeResult:
+        max_attempts = 5
+        for _ in range(max_attempts):
+            cap, out_cap = self._capacities(n_local)
+            result = self._run_once(positions, fields, count, cap, out_cap)
+            self._last_stats = result.stats
+            if self.on_overflow == "ignore":
+                return result  # no host read of the stats
+            if (self.on_overflow == "grow" and self._clean_checks >= 2
+                    and self.backend == "torch"):
+                # calibrated: every call folds its counters into the
+                # cumulative device totals, read one window later
+                if self._cum_counters is None:
+                    self._cum_counters = torch.zeros(
+                        (4,), dtype=torch.int32, device=self.device)
+                self._cum_counters = _accum_overflow_counters(
+                    self._cum_counters, result.stats, result.count
+                )
+                self._deferred_check(n_local, cap, out_cap)
+                return result
+            dropped_send, dropped_recv, needed, needed_out = (
+                self._read_overflow(result))
+            if not dropped_send and not dropped_recv:
+                if self.on_overflow == "grow":
+                    self._clean_checks += 1
+                return result
+            self._clean_checks = 0
+            if self.on_overflow == "raise":
+                raise RuntimeError(
+                    f"particle loss detected: dropped_send={dropped_send}, "
+                    f"dropped_recv={dropped_recv} — raise capacity / "
+                    f"out_capacity or use on_overflow='grow'"
+                )
+            if not self._grow(dropped_send, dropped_recv, needed, needed_out,
+                              n_local, cap, out_cap):
+                raise RuntimeError(
+                    f"overflow not resolvable by growth (capacity {cap}, "
+                    f"out_capacity {out_cap} already at their maxima): "
+                    f"dropped_send={dropped_send} dropped_recv={dropped_recv}"
+                )
+        raise RuntimeError(
+            f"capacity growth did not converge in {max_attempts} attempts"
+        )
+
+    def _grow(self, dropped_send, dropped_recv, needed, needed_out, n_local,
+              cap, out_cap) -> bool:
+        """Raise the instance capacities from the measured need; True if
+        grown. A capacity grows when the measured window needed more than
+        the caps it ran with, and never below its floor: the current
+        explicit capacity, or in derived mode the caps of the most recent
+        call, so a late flush of a stale window never shrinks one."""
+        grew = False
+        last_cap, last_out = (
+            (self._last_caps[0], self._last_caps[1])
+            if self._last_caps is not None else (0, 0)
+        )
+        if dropped_send:
+            new_cap = min(_next_pow2(needed), n_local)
+            if new_cap > cap:
+                floor = last_cap if self.capacity is None else self.capacity
+                self.capacity = max(new_cap, floor)
+                grew = True
+        if dropped_recv:
+            new_out = min(_next_pow2(needed_out), self.nranks * n_local)
+            if new_out > out_cap:
+                floor = (last_out if self.out_capacity is None
+                         else self.out_capacity)
+                self.out_capacity = max(new_out, floor)
+                grew = True
+        return grew
+
+    def _deferred_check(self, n_local, cap, out_cap) -> None:
+        """Every ``check_every``-th call: resolve the previous snapshot
+        (its copy finished a window ago) and start a non-blocking copy of
+        the cumulative counters into pinned host memory behind an event."""
+        self._last_caps = (cap, out_cap, n_local)
+        self._calls_since_check += 1
+        if self._calls_since_check < self.check_every:
+            return
+        self._calls_since_check = 0
+        self._resolve_pending()
+        self._pending_check = self._snapshot() + (
+            cap, out_cap, n_local, self._call_index)
+
+    def _snapshot(self):
+        """``(host, event)``: the cumulative counters copied to the host
+        without a wait (``event`` None on the CPU, where the copy is
+        synchronous)."""
+        cum = self._cum_counters
+        if cum.device.type != "cuda":
+            return cum.clone(), None
+        host = torch.empty(cum.shape, dtype=cum.dtype, pin_memory=True)
+        host.copy_(cum, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _resolve_pending(self) -> None:
+        if self._pending_check is None:
+            return
+        host, event, cap, out_cap, n_local, call_idx = self._pending_check
+        # read first, bookkeeping after: a failed read leaves the window
+        # pending, so a later resolve or flush still reports it
+        if event is not None:
+            event.synchronize()
+        total_send, total_recv, needed, needed_out = (
+            int(v) for v in host.tolist())
+        self._pending_check = None
+        self._resolved_through = max(self._resolved_through, call_idx)
+        dropped_send = total_send - self._seen_send
+        dropped_recv = total_recv - self._seen_recv
+        if not dropped_send and not dropped_recv:
+            return
+        self._seen_send, self._seen_recv = total_send, total_recv
+        # too late to heal (the results were consumed): grow for later
+        # calls, then fail loudly
+        self._grow(dropped_send, dropped_recv, needed, needed_out, n_local,
+                   cap, out_cap)
+        self._clean_checks = 0
+        raise RuntimeError(
+            f"deferred overflow check: the {self.check_every}-call window "
+            f"ending at call {call_idx} dropped {dropped_send} (send) / "
+            f"{dropped_recv} (recv) particles; capacities have been grown "
+            f"for subsequent calls, but results in that window are lossy — "
+            f"restart from the last checkpoint or rerun. Use a smaller "
+            f"check_every (or on_overflow='ignore' + your own per-step "
+            f"check) to narrow the window."
+        )
+
+    def _has_unresolved_windows(self) -> bool:
+        """True when deferred-mode calls exist whose counters were not read
+        back yet."""
+        return (self._cum_counters is not None
+                and self._call_index > self._resolved_through)
+
+    def flush_overflow_checks(self) -> None:
+        """Resolve the whole cumulative counter history (blocking): the
+        pending window and any partial one. Call at loop end under
+        ``on_overflow="grow"``; raises like the in-loop check on a loss."""
+        if self._cum_counters is not None and self._last_caps is not None:
+            cap, out_cap, n_local = self._last_caps
+            self._pending_check = self._snapshot() + (
+                cap, out_cap, n_local, self._call_index)
+            self._calls_since_check = 0
+        self._resolve_pending()
+
+    def __enter__(self) -> "GridRedistribute":
+        """``with GridRedistribute(...) as rd``: the exit flushes the
+        deferred checks, so a lossy trailing window raises there."""
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is None:
+            self.flush_overflow_checks()
+        else:
+            # an exception is in flight: still resolve, but warn (always
+            # printed) rather than raise over it
+            try:
+                self.flush_overflow_checks()
+            except Exception as loss:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("always")
+                    warnings.warn(
+                        f"flush_overflow_checks at context exit: {loss!r}",
+                        RuntimeWarning, stacklevel=2,
+                    )
+        return False
+
+    def __del__(self):
+        # unread deferred windows at garbage collection: warn, since
+        # __del__ cannot raise
+        try:
+            unresolved = self._has_unresolved_windows() and not self._del_warned
+        except AttributeError:
+            return  # partially constructed instance
+        if unresolved:
+            self._del_warned = True
+            warnings.warn(
+                "GridRedistribute dropped with unresolved deferred "
+                "overflow windows: call flush_overflow_checks() at loop "
+                "end (or use the instance as a context manager: "
+                "`with GridRedistribute(...) as rd:`) — a capacity "
+                "overflow in the trailing window would otherwise go "
+                "unreported",
+                RuntimeWarning, stacklevel=2,
+            )

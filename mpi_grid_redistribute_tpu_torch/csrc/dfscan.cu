@@ -12,7 +12,8 @@
 // element takes every step, the adds of shifted-in zeros included
 // (-0.0 + 0.0 is +0.0, so skipping one would change bits).
 //
-// Design: a warp per row, registers only -- no shared memory, no barrier.
+// Design, tiles up to 1024: a warp per row, registers only -- no shared
+// memory, no barrier.
 // Lane l holds elements k * 32 + l for k < R = ceil(tile / 32), loaded as
 // R independent coalesced warp loads; elements past the row end are zero,
 // which changes no earlier prefix. A shift s >= 32 is a register move:
@@ -37,8 +38,18 @@
 // plain PyTorch version on the card (XLA on the CPU and the TPU flush
 // them, so bit comparisons with the JAX package avoid denormal inputs).
 //
-// Any tile from 1 to 1024 is accepted: the power-of-two and size gates of
-// the TPU path are tiling constraints of that machine, not semantics.
+// Tiles above 1024 take a second geometry: one 1024-thread block per row,
+// the row's hi/lo pair in shared memory, double-buffered (16 bytes an
+// element), one barrier a step. Each thread computes the elements
+// j = threadIdx.x + i * 1024 of the row from the previous buffer: the same
+// _df_add(hi[j], lo[j], hi[j - s], lo[j - s]) with zeros below the shift,
+// so the bits are those of the register route and the plain version. A
+// block can use 232,448 bytes of shared memory on an H100, so this route
+// takes tiles up to 14,528 (DFSCAN_MAX_BLOCK_TILE); ops/dfscan.geometry
+// sends larger tiles to the plain version by that shape rule.
+//
+// The power-of-two and size gates of the TPU path are tiling constraints
+// of that machine, not semantics: any tile from 1 to 14,528 is accepted.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +57,10 @@
 #define DFSCAN_MAX_TILE 1024
 #define DFSCAN_MAX_REGS (DFSCAN_MAX_TILE / 32)
 #define DFSCAN_WARPS 8  // warps per block
+#define DFSCAN_BLOCK_THREADS 1024  // threads per row on the block route
+// the largest row whose two (hi, lo) buffers fit one block's 232,448
+// bytes of shared memory
+#define DFSCAN_MAX_BLOCK_TILE (232448 / 16)
 
 // deposit._df_add(a_hi, a_lo, b_hi, b_lo), its _two_sum written out in
 // the same operation order
@@ -146,13 +161,70 @@ static int launch_r(int regs, const float* x, float* hi, float* lo,
   return (int)cudaGetLastError();
 }
 
+// One block per row: the row's (hi, lo) in two shared-memory buffers,
+// [hi | lo] each; step e reads buffer e % 2 and writes the other.
+__global__ void __launch_bounds__(DFSCAN_BLOCK_THREADS)
+    dfscan_block_kernel(const float* __restrict__ x, float* __restrict__ hi_out,
+                        float* __restrict__ lo_out, int tile) {
+  extern __shared__ float sm[];
+  float* src = sm;             // [hi: tile | lo: tile]
+  float* dst = sm + 2 * tile;  // the other buffer
+  const long long off = (long long)blockIdx.x * tile;
+  for (int j = threadIdx.x; j < tile; j += DFSCAN_BLOCK_THREADS) {
+    src[j] = x[off + j];
+    src[tile + j] = 0.0f;
+  }
+  __syncthreads();
+  for (int s = 1; s < tile; s <<= 1) {
+    for (int j = threadIdx.x; j < tile; j += DFSCAN_BLOCK_THREADS) {
+      float h = src[j], l = src[tile + j];
+      const bool in = j >= s;
+      df_add(h, l, in ? src[in ? j - s : 0] : 0.0f,
+             in ? src[tile + (in ? j - s : 0)] : 0.0f);
+      dst[j] = h;
+      dst[tile + j] = l;
+    }
+    __syncthreads();
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+  for (int j = threadIdx.x; j < tile; j += DFSCAN_BLOCK_THREADS) {
+    hi_out[off + j] = src[j];
+    lo_out[off + j] = src[tile + j];
+  }
+}
+
+static int launch_block(const float* x, float* hi, float* lo, long long rows,
+                        int tile, cudaStream_t stream) {
+  if (rows > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)tile * 4 * sizeof(float);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dfscan_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        DFSCAN_MAX_BLOCK_TILE * 4 * (int)sizeof(float));
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  dfscan_block_kernel<<<(unsigned int)rows, DFSCAN_BLOCK_THREADS, smem,
+                        stream>>>(x, hi, lo, tile);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
-// regs and rows_per_warp as ops/dfscan.geometry chose them; refused
-// unless regs * 32 covers the tile, and rows_per_warp is 1 or (with one
-// register) fits rows_per_warp * tile lanes in the warp
+// regs and rows_per_warp as ops/dfscan.geometry chose them. The register
+// route (tile <= 1024) is refused unless regs * 32 covers the tile, and
+// rows_per_warp is 1 or (with one register) fits rows_per_warp * tile
+// lanes in the warp; the block route (1024 < tile <= 14,528) takes
+// regs = rows_per_warp = 0 and nothing else.
 int dfscan_launch(const void* x, void* hi, void* lo, long long rows, int tile,
                   int regs, int rows_per_warp, void* stream) {
+  if (rows >= 1 && tile > DFSCAN_MAX_TILE && tile <= DFSCAN_MAX_BLOCK_TILE &&
+      regs == 0 && rows_per_warp == 0)
+    return launch_block((const float*)x, (float*)hi, (float*)lo, rows, tile,
+                        (cudaStream_t)stream);
   if (rows < 1 || tile < 1 || tile > DFSCAN_MAX_TILE || regs < 1 ||
       regs > DFSCAN_MAX_REGS || regs * 32 < tile || rows_per_warp < 1 ||
       (rows_per_warp > 1 && (regs != 1 || rows_per_warp * tile > 32)))

@@ -45,9 +45,9 @@
 //      warp, then one warp over the 8 warp totals): 2 + 2^D words per
 //      step per 8 rows instead of 1 + 2^D per row. The combine is "add if
 //      the last keys are equal", which the contract makes exact;
-//   4. runs land in a shared-memory window of the canvas, 1024 cells from
-//      the tile's first valid key (a tile of the config-5 stream spans
-//      ~570 cells); the block then writes the window's cells strictly
+//   4. runs land in a shared-memory window of the canvas, 1024 cells
+//      (512 at D = 4) from the tile's first valid key (a tile of the
+//      config-5 stream spans ~570 cells); the block then writes the window's cells strictly
 //      between its first and last key with coalesced stores, empty cells
 //      as zeros. A run that starts and ends inside a lane is placed at
 //      once; with its exclusive prefix a lane places the run that ended
@@ -68,6 +68,11 @@
 //      gap can be as long as the canvas (sparse or sentinel-heavy
 //      streams), and zeroing it at its break would put it on one thread
 //      or one block.
+// D is a template parameter from 1 to 4 (16 channels): the lane
+// registers, the carry records and the canvas window are sized from it,
+// and D <= 3 compiles to the same code as before D = 4 was added.
+// ops/segdep.geometry sends D >= 5 to the plain version by that shape
+// rule (32 channels would need 64 KB of window, past the static 48 KB).
 // No float atomics: the summation order is fixed, so results are
 // bit-reproducible from run to run. PERF.md has the card times, and the
 // probes (memset alone, stream read alone, no valid row, D = 1) that
@@ -77,11 +82,14 @@
 #include <limits.h>
 #include <stdint.h>
 
-#define SEGDEP_MAX_D 3
+#define SEGDEP_MAX_D 4
 #define SEGDEP_THREADS 256
 #define SEGDEP_WARPS (SEGDEP_THREADS / 32)
 #define SEGDEP_RPL 8  // rows per lane
-#define SEGDEP_WIN 1024  // canvas cells a tile stages in shared memory
+// canvas cells a tile stages in shared memory: 1024 up to D = 3 (32 KB
+// at 8 channels), 512 at D = 4 (32 KB at 16), inside the 48 KB of static
+// shared memory a block may declare
+#define SEGDEP_WIN(D) ((D) <= 3 ? 1024 : 512)
 #define SEGDEP_TILE (SEGDEP_THREADS * SEGDEP_RPL)
 #define SEGDEP_SCAN_THREADS 1024
 #define FULL_MASK 0xffffffffu
@@ -208,14 +216,14 @@ __device__ __forceinline__ void put(float* __restrict__ out, int n_cells,
 }
 
 // a run's sums into the tile's shared canvas window when its key is in
-// [lo, lo + SEGDEP_WIN), else straight to out
-template <int NCH>
-__device__ __forceinline__ void put_tile(float (*win)[SEGDEP_WIN],
+// [lo, lo + WIN), else straight to out
+template <int NCH, int WIN>
+__device__ __forceinline__ void put_tile(float (*win)[WIN],
                                          float* __restrict__ out,
                                          int n_cells, int lo, int key,
                                          const float (&v)[NCH]) {
   const unsigned int off = (unsigned int)(key - lo);
-  if (off < SEGDEP_WIN) {
+  if (off < WIN) {
 #pragma unroll
     for (int c = 0; c < NCH; ++c) win[c][off] = v[c];
   } else {
@@ -235,9 +243,10 @@ __global__ void __launch_bounds__(SEGDEP_THREADS)
                        float* __restrict__ tile_sums, long long N,
                        int n_cells, SegdepParams prm, bool vec) {
   constexpr int NCH = 1 << D;
+  constexpr int WIN = SEGDEP_WIN(D);
   __shared__ Seg<NCH> s_w[SEGDEP_WARPS], s_wx[SEGDEP_WARPS];
   __shared__ Seg<NCH> s_total;
-  __shared__ float s_win[NCH][SEGDEP_WIN];
+  __shared__ float s_win[NCH][WIN];
   __shared__ int s_min[SEGDEP_WARPS];
 
   const long long row0 =
@@ -286,7 +295,7 @@ __global__ void __launch_bounds__(SEGDEP_THREADS)
     if (k[i] >= 0 && k[i] < n_cells) first = min(first, k[i]);
   first = __reduce_min_sync(FULL_MASK, first);
   if ((threadIdx.x & 31) == 0) s_min[threadIdx.x >> 5] = first;
-  for (int i = threadIdx.x; i < NCH * SEGDEP_WIN; i += SEGDEP_THREADS)
+  for (int i = threadIdx.x; i < NCH * WIN; i += SEGDEP_THREADS)
     (&s_win[0][0])[i] = 0.0f;
   __syncthreads();
   int tile_fk = s_min[0];
@@ -319,7 +328,7 @@ __global__ void __launch_bounds__(SEGDEP_THREADS)
 #pragma unroll
         for (int c = 0; c < NCH; ++c) head[c] = sum[c];
       } else {  // a run inside the lane
-        put_tile<NCH>(s_win, out, n_cells, tile_fk, cur, sum);
+        put_tile<NCH, WIN>(s_win, out, n_cells, tile_fk, cur, sum);
       }
       cur = key;
 #pragma unroll
@@ -346,7 +355,7 @@ __global__ void __launch_bounds__(SEGDEP_THREADS)
 #pragma unroll
         for (int c = 0; c < NCH; ++c) carry[NCH + c] = e.t[c];
       } else {
-        put_tile<NCH>(s_win, out, n_cells, tile_fk, e.lk, e.t);
+        put_tile<NCH, WIN>(s_win, out, n_cells, tile_fk, e.lk, e.t);
       }
     }
     if (broke) {
@@ -358,7 +367,7 @@ __global__ void __launch_bounds__(SEGDEP_THREADS)
 #pragma unroll
         for (int c = 0; c < NCH; ++c) carry[NCH + c] = v[c];
       } else {
-        put_tile<NCH>(s_win, out, n_cells, tile_fk, fk, v);
+        put_tile<NCH, WIN>(s_win, out, n_cells, tile_fk, fk, v);
       }
     }
   }
@@ -366,7 +375,7 @@ __global__ void __launch_bounds__(SEGDEP_THREADS)
   // keys (those two runs are the carry kernel's), coalesced
   __syncthreads();
   if (s_total.lk >= 0) {
-    const int hi = min(s_total.lk - tile_fk, SEGDEP_WIN);
+    const int hi = min(s_total.lk - tile_fk, WIN);
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
       for (int i = 1 + threadIdx.x; i < hi; i += SEGDEP_THREADS)
@@ -486,6 +495,7 @@ int segdep_launch(const void* keys, const void* rel, const void* mass,
   SEGDEP_CASE(1)
   SEGDEP_CASE(2)
   SEGDEP_CASE(3)
+  SEGDEP_CASE(4)
 #undef SEGDEP_CASE
   return (int)cudaErrorInvalidValue;
 }

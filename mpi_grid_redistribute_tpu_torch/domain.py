@@ -1,9 +1,9 @@
 """Domain and process-grid specifications (PyTorch port).
 
-The port's own copy of :class:`Domain` and :class:`ProcessGrid` from the
-JAX package's ``domain.py``: pure static metadata (frozen, hashable
-dataclasses), so the port never imports the JAX package. Same
-conventions:
+The port's own copy of :class:`Domain`, :class:`ProcessGrid` and
+:class:`GridEdges` from the JAX package's ``domain.py``: pure static
+metadata (frozen, hashable dataclasses), so the port never imports the
+JAX package. Same conventions:
 
   * the domain is an axis-aligned box ``[lo, hi)`` in ``ndim`` dimensions;
   * the process grid has one axis per domain axis (undecomposed axes use
@@ -15,7 +15,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
 
 
 def _as_float_tuple(x, ndim: int, name: str) -> Tuple[float, ...]:
@@ -136,6 +138,20 @@ class ProcessGrid:
             rank = rank % s
         return tuple(cell)
 
+    def neighbor_rank(self, rank: int, axis: int, step: int,
+                      periodic: bool) -> int:
+        """Rank of the neighbor ``step`` cells along ``axis``; -1 if off-grid
+        and not periodic."""
+        cell = list(self.cell_of_rank(rank))
+        c = cell[axis] + step
+        g = self.shape[axis]
+        if periodic:
+            c %= g
+        elif not 0 <= c < g:
+            return -1
+        cell[axis] = c
+        return self.rank_of_cell(cell)
+
     def validate_against(self, domain: Domain) -> None:
         if self.ndim != domain.ndim:
             raise ValueError(
@@ -156,3 +172,175 @@ class ProcessGrid:
         lo = tuple(domain.lo[a] + cell[a] * w[a] for a in range(self.ndim))
         hi = tuple(domain.lo[a] + (cell[a] + 1) * w[a] for a in range(self.ndim))
         return lo, hi
+
+
+@dataclasses.dataclass(frozen=True)
+class GridEdges:
+    """Non-uniform per-axis subdomain boundaries.
+
+    ``edges[axis]`` is a strictly increasing tuple of floats spanning
+    exactly ``[domain.lo[axis], domain.hi[axis]]``; cell ``k`` on that
+    axis owns ``[edges[k], edges[k+1])``. Without ``assignment`` there
+    are ``shape[axis] + 1`` boundaries and grid cell == rank. With
+    ``assignment`` the edges define a finer cell grid (``len(edges[a]) -
+    1`` cells per axis) and ``assignment`` maps each row-major flat fine
+    cell to its owning rank, so a rank's territory is a set of fine cells.
+
+    Frozen and hashable (tuples only). ``uniform_axes`` (derived, outside
+    eq/hash) flags the axes that reproduce ``np.linspace`` exactly: those
+    bin by the uniform floor-multiply instead of the per-edge digitize.
+    """
+
+    edges: Tuple[Tuple[float, ...], ...]
+    assignment: Optional[Tuple[int, ...]] = None
+
+    def __init__(
+        self,
+        edges: Sequence[Sequence[float]],
+        assignment: Optional[Sequence[int]] = None,
+    ):
+        object.__setattr__(
+            self,
+            "edges",
+            tuple(tuple(float(v) for v in ax) for ax in edges),
+        )
+        for a, ax in enumerate(self.edges):
+            if len(ax) < 2:
+                raise ValueError(
+                    f"edges axis {a}: need >= 2 boundaries, got {len(ax)}"
+                )
+            # `not (a < b)` so NaN boundaries fail too
+            if any(not (ax[i] < ax[i + 1]) for i in range(len(ax) - 1)):
+                raise ValueError(
+                    f"edges axis {a} must be strictly increasing and "
+                    f"NaN-free, got {ax}"
+                )
+        if assignment is not None:
+            assignment = tuple(int(r) for r in assignment)
+            n_cells = math.prod(self.cells_shape)
+            if len(assignment) != n_cells:
+                raise ValueError(
+                    f"assignment has {len(assignment)} entries for "
+                    f"{n_cells} cells (edges define {self.cells_shape})"
+                )
+            if any(r < 0 for r in assignment):
+                raise ValueError("assignment ranks must be >= 0")
+        object.__setattr__(self, "assignment", assignment)
+        object.__setattr__(
+            self,
+            "uniform_axes",
+            tuple(
+                np.array_equal(
+                    np.asarray(ax, dtype=np.float64),
+                    np.linspace(ax[0], ax[-1], len(ax)),
+                )
+                for ax in self.edges
+            ),
+        )
+
+    @property
+    def ndim(self) -> int:
+        return len(self.edges)
+
+    @property
+    def cells_shape(self) -> Tuple[int, ...]:
+        """Per-axis cell counts these edges define (``len(edges[a]) - 1``)."""
+        return tuple(len(ax) - 1 for ax in self.edges)
+
+    @property
+    def cell_strides(self) -> Tuple[int, ...]:
+        """Row-major strides over :attr:`cells_shape` (the flat fine-cell
+        id indexes :attr:`assignment`)."""
+        strides = []
+        acc = 1
+        for s in reversed(self.cells_shape):
+            strides.append(acc)
+            acc *= s
+        return tuple(reversed(strides))
+
+    def validate_against(self, domain: Domain, grid: ProcessGrid) -> None:
+        grid.validate_against(domain)
+        if self.ndim != grid.ndim:
+            raise ValueError(
+                f"edges ndim {self.ndim} != grid ndim {grid.ndim}"
+            )
+        for a, ax in enumerate(self.edges):
+            if self.assignment is None and len(ax) != grid.shape[a] + 1:
+                raise ValueError(
+                    f"edges axis {a}: {len(ax)} boundaries for "
+                    f"{grid.shape[a]} cells (need shape+1, or pass an "
+                    f"assignment for finer-than-grid cells)"
+                )
+            if ax[0] != domain.lo[a] or ax[-1] != domain.hi[a]:
+                raise ValueError(
+                    f"edges axis {a} must span [{domain.lo[a]}, "
+                    f"{domain.hi[a]}] exactly, got [{ax[0]}, {ax[-1]}]"
+                )
+        if self.assignment is not None and max(self.assignment) >= grid.nranks:
+            raise ValueError(
+                f"assignment references rank {max(self.assignment)} but "
+                f"grid {grid.shape} has only {grid.nranks} ranks"
+            )
+
+    def subdomain_of_rank(self, rank: int, grid: ProcessGrid):
+        """(lo, hi) bounds of ``rank``'s box; undefined (raises) with an
+        ``assignment``, where a rank owns a set of fine cells."""
+        if self.assignment is not None:
+            raise ValueError(
+                "subdomain_of_rank is undefined for assignment-aware "
+                "edges: a rank owns a set of fine cells, not one box — "
+                "enumerate cells via rank_cells_of instead"
+            )
+        cell = grid.cell_of_rank(rank)
+        lo = tuple(self.edges[a][cell[a]] for a in range(self.ndim))
+        hi = tuple(self.edges[a][cell[a] + 1] for a in range(self.ndim))
+        return lo, hi
+
+    def rank_cells_of(self, rank: int) -> Tuple[int, ...]:
+        """Flat fine-cell ids owned by ``rank`` under :attr:`assignment`."""
+        if self.assignment is None:
+            raise ValueError(
+                "rank_cells_of needs assignment-aware edges; identity "
+                "edges map grid cell == rank (use grid.cell_of_rank)"
+            )
+        return tuple(c for c, r in enumerate(self.assignment) if r == rank)
+
+    @staticmethod
+    def balanced_for(domain: Domain, grid: ProcessGrid,
+                     positions) -> "GridEdges":
+        """Edges placing ~equal row counts per slab along each axis: per-axis
+        quantiles of host sample positions ``[N, ndim]``, after the
+        periodic wrap (open axes clamp into ``[lo, hi]``), snapped to the
+        domain bounds at the ends and pushed apart where they collide."""
+        grid.validate_against(domain)
+        shp = np.shape(positions)
+        if len(shp) != 2 or shp[1] != grid.ndim:
+            raise ValueError(
+                f"positions must be [N, {grid.ndim}], got {shp}"
+            )
+        pos = np.array(positions, dtype=np.float64)
+        for a in range(grid.ndim):
+            lo, ext = domain.lo[a], domain.extent[a]
+            if domain.periodic[a]:
+                pos[:, a] = lo + np.remainder(pos[:, a] - lo, ext)
+            else:
+                pos[:, a] = np.clip(pos[:, a], lo, lo + ext)
+        axes_edges = []
+        for a in range(grid.ndim):
+            g = grid.shape[a]
+            qs = np.quantile(pos[:, a], np.linspace(0.0, 1.0, g + 1))
+            qs[0], qs[-1] = domain.lo[a], domain.hi[a]
+            for i in range(1, g + 1):
+                if qs[i] <= qs[i - 1]:
+                    qs[i] = np.nextafter(qs[i - 1], np.inf)
+            qs[-1] = domain.hi[a]
+            for i in range(g - 1, 0, -1):
+                if qs[i] >= qs[i + 1]:
+                    qs[i] = np.nextafter(qs[i + 1], -np.inf)
+            if any(qs[i] <= qs[i - 1] for i in range(1, g + 1)):
+                raise ValueError(
+                    f"axis {a}: cannot place {g} non-empty slabs in "
+                    f"[{domain.lo[a]}, {domain.hi[a]}]"
+                )
+            axes_edges.append(tuple(float(v) for v in qs))
+        return GridEdges(axes_edges)

@@ -1,5 +1,7 @@
 """Periodic wrap, position -> cell -> destination binning, and the
-destination sort (port of the JAX package's ``ops/binning.py``).
+destination sort (port of the JAX package's ``ops/binning.py``): the
+migrate loop's planar binning and the canonical exchange's row-major,
+planar and ``GridEdges`` routing.
 
 Every float expression keeps the reference's op order on float32
 constants computed the same way (numpy float32 arithmetic), because one
@@ -38,8 +40,18 @@ def _is_pow2(x: float) -> bool:
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
     """0-d float32 constant on ``like``'s device (a Python float operand
-    would be a weakly typed scalar; a tensor pins float32 arithmetic)."""
-    return torch.tensor(np.float32(x), dtype=torch.float32, device=like.device)
+    would be a weakly typed scalar; a tensor pins float32 arithmetic).
+    Filled on the device: the value is float32-exact, so nothing rounds,
+    and no host-to-device copy waits."""
+    return torch.full((), float(np.float32(x)), dtype=torch.float32,
+                      device=like.device)
+
+
+def _i32_table(values, like: torch.Tensor) -> torch.Tensor:
+    """A small int32 table on ``like``'s device, copied without making the
+    host wait for the device."""
+    return torch.tensor(values, dtype=torch.int32).to(like.device,
+                                                      non_blocking=True)
 
 
 def floor_to_int32(x: torch.Tensor) -> torch.Tensor:
@@ -113,6 +125,165 @@ def wrap_periodic_planar(pos: torch.Tensor, domain: Domain) -> torch.Tensor:
         p = pos[..., d, :]
         out.append(_wrap_axis(p, domain, d) if domain.periodic[d] else p)
     return torch.stack(out, dim=-2)
+
+
+def wrap_periodic(pos: torch.Tensor, domain: Domain) -> torch.Tensor:
+    """Wrap row-major ``[..., D]`` float32 positions into ``[lo, hi)``
+    along the periodic axes; open axes pass through unchanged (the cell
+    clamp handles them). The reference's row-major arithmetic: when every
+    periodic extent is a power of two, ``q - floor(q * (1/ext)) * ext``
+    with only ``r < 0`` folded to 0; otherwise ``remainder`` on every
+    axis; then ``lo + r``, and a result at ``hi`` folds back to ``lo``."""
+    fast = all(
+        _is_pow2(float(e))
+        for e, p in zip(domain.extent, domain.periodic) if p
+    )
+    add_lo = any(v != 0.0 for v in domain.lo)  # XLA folds an all-zero add
+    out = []
+    for d in range(domain.ndim):
+        p = pos[..., d]
+        if not domain.periodic[d]:
+            out.append(p)
+            continue
+        lo = _f32(domain.lo[d], p)
+        q = p - lo
+        if fast:
+            e = _f32(domain.extent[d], p)
+            r = q - torch.floor(q * _f32(1.0 / domain.extent[d], p)) * e
+            r = torch.where(r < 0, torch.zeros_like(r), r)
+        else:
+            r = _remainder(q, domain.extent[d])
+        w = lo + r if add_lo else r
+        hi = _f32(np.float32(domain.lo[d]) + np.float32(domain.extent[d]), p)
+        out.append(torch.where(w >= hi, lo, w))
+    return torch.stack(out, dim=-1)
+
+
+def _digitize_edges(p: torch.Tensor, axis_edges) -> torch.Tensor:
+    """``#{k in 1..g-1 : p >= edges[k]}`` (``np.digitize`` on the inner
+    edges), as a compare-sum against float32 edge values: NaN counts no
+    edge and lands in cell 0."""
+    c = torch.zeros(p.shape, dtype=torch.int32, device=p.device)
+    for k in range(1, len(axis_edges) - 1):
+        c = c + (p >= _f32(axis_edges[k], p)).to(torch.int32)
+    return c
+
+
+def _cell_uniform_axis(p: torch.Tensor, axis_edges) -> torch.Tensor:
+    """Floor-multiply binning of one uniformly spaced edges axis:
+    ``clip(floor((p - lo) * float32(g / (hi - lo))), 0, g - 1)``."""
+    g = len(axis_edges) - 1
+    lo = _f32(axis_edges[0], p)
+    inv = _f32(g / (axis_edges[-1] - axis_edges[0]), p)
+    return floor_to_int32((p - lo) * inv).clamp(0, g - 1)
+
+
+def _cell_edges_axis(p: torch.Tensor, edges, a: int) -> torch.Tensor:
+    """One axis of the ``edges`` binning: the floor-multiply for axes that
+    :class:`~..domain.GridEdges` found uniform, the digitize otherwise."""
+    if edges.uniform_axes[a]:
+        return _cell_uniform_axis(p, edges.edges[a])
+    return _digitize_edges(p, edges.edges[a])
+
+
+def _cell_uniform(p: torch.Tensor, domain: Domain, grid: ProcessGrid,
+                  d: int) -> torch.Tensor:
+    """The canonical path's uniform cell of axis ``d``:
+    ``clip(floor((p - lo) * float32(g / ext)), 0, g - 1)``. ``g / ext`` is
+    a float64 quotient rounded once to float32, as the reference's
+    canonical binning computes it; the migrate loop's :func:`axis_consts`
+    divides in float32 instead, which can differ by an ulp."""
+    lo = _f32(domain.lo[d], p)
+    inv = _f32(grid.shape[d] / domain.extent[d], p)
+    return floor_to_int32((p - lo) * inv).clamp(0, grid.shape[d] - 1)
+
+
+def cell_of_position(pos: torch.Tensor, domain: Domain, grid: ProcessGrid,
+                     edges=None) -> torch.Tensor:
+    """Row-major ``[..., D]`` positions -> ``[..., D]`` int32 grid cells:
+    uniform cells clamped into ``[0, shape - 1]``, or the digitize of
+    ``edges`` (a :class:`~..domain.GridEdges`)."""
+    cols = []
+    for d in range(grid.ndim):
+        p = pos[..., d]
+        cols.append(_cell_uniform(p, domain, grid, d) if edges is None
+                    else _cell_edges_axis(p, edges, d))
+    return torch.stack(cols, dim=-1)
+
+
+def rank_of_cell(cell: torch.Tensor, grid: ProcessGrid) -> torch.Tensor:
+    """Flat row-major rank ``[...]`` of ``[..., D]`` cell coordinates."""
+    return (cell * _i32_table(grid.strides, cell)).sum(dim=-1,
+                                                       dtype=torch.int32)
+
+
+def _assigned_rank(flat_cell: torch.Tensor, edges) -> torch.Tensor:
+    """Fine-cell -> rank table lookup of assignment-aware edges."""
+    return _i32_table(edges.assignment, flat_cell)[flat_cell.long()]
+
+
+def rank_of_position(pos: torch.Tensor, domain: Domain, grid: ProcessGrid,
+                     edges=None) -> torch.Tensor:
+    """Wrap -> cell -> rank of row-major ``[..., D]`` positions; with
+    assignment-aware ``edges`` the fine cell's rank comes from the
+    assignment table."""
+    cell = cell_of_position(wrap_periodic(pos, domain), domain, grid,
+                            edges=edges)
+    if edges is not None and edges.assignment is not None:
+        flat = (cell * _i32_table(edges.cell_strides, cell)).sum(
+            dim=-1, dtype=torch.int32)
+        return _assigned_rank(flat, edges)
+    return rank_of_cell(cell, grid)
+
+
+def cell_of_position_planar(pos: torch.Tensor, domain: Domain,
+                            grid: ProcessGrid, edges=None) -> torch.Tensor:
+    """Planar twin of :func:`cell_of_position`: ``[..., D, n]`` positions
+    -> ``[..., D, n]`` int32 cells."""
+    out = []
+    for d in range(pos.shape[-2]):
+        p = pos[..., d, :]
+        out.append(_cell_uniform(p, domain, grid, d) if edges is None
+                   else _cell_edges_axis(p, edges, d))
+    return torch.stack(out, dim=-2)
+
+
+def rank_of_position_planar(pos: torch.Tensor, domain: Domain,
+                            grid: ProcessGrid, edges=None) -> torch.Tensor:
+    """Planar twin of :func:`rank_of_position`: ``[..., D, n]`` -> ``[...,
+    n]`` int32 ranks."""
+    cell = cell_of_position_planar(wrap_periodic_planar(pos, domain), domain,
+                                   grid, edges=edges)
+    assigned = edges is not None and edges.assignment is not None
+    strides = edges.cell_strides if assigned else grid.strides
+    rank = None
+    for d in range(cell.shape[-2]):
+        t = cell[..., d, :] * strides[d]
+        rank = t if rank is None else rank + t
+    return _assigned_rank(rank, edges) if assigned else rank
+
+
+def dest_histogram(dest: torch.Tensor, nranks: int,
+                   valid: torch.Tensor = None) -> torch.Tensor:
+    """Per-destination counts ``[nranks]`` int32 of ``[N]`` ranks; the
+    sentinel ``nranks`` (and any id outside ``[0, nranks]``, which the
+    reference's ``segment_sum`` drops) counts nowhere."""
+    keep = (dest >= 0) & (dest <= nranks)
+    if valid is not None:
+        keep = keep & valid
+    out = torch.zeros((nranks + 1,), dtype=torch.int32, device=dest.device)
+    out.scatter_add_(0, dest.clamp(0, nranks).long(), keep.to(torch.int32))
+    return out[:nranks]
+
+
+def dest_histogram_np(dest, nranks: int, valid=None) -> np.ndarray:
+    """NumPy twin of :func:`dest_histogram` for the oracle backend."""
+    weights = np.ones(dest.shape, dtype=np.int64)
+    if valid is not None:
+        weights = weights * valid.astype(np.int64)
+    return np.bincount(dest, weights=weights, minlength=nranks + 1)[
+        :nranks
+    ].astype(np.int32)
 
 
 def dest_key_planar(pos: torch.Tensor, alive: torch.Tensor, domain: Domain,

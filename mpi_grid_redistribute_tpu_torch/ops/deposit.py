@@ -96,9 +96,10 @@ def _base_cell(r: torch.Tensor, n: int) -> torch.Tensor:
 
 def _tile_prefix_planar(wt: torch.Tensor, plain: bool = False):
     """Within-tile double-float prefix of ``wt [g, T, K]`` along K:
-    kernel 5 on the card (any K up to 1024; the reference's TPU size
-    gates do not apply), its plain version on the CPU or when
-    ``plain``."""
+    kernel 5 on the card (any K; the reference's TPU size gates do not
+    apply, and ``dfscan.geometry``'s shape rule sends a K beyond one
+    block's shared memory to the plain version), its plain version on
+    the CPU or when ``plain``."""
     g, T, K = wt.shape
     fn = (dfscan.tile_df_cumsum_rows_plain if plain
           else dfscan.tile_df_cumsum_rows)

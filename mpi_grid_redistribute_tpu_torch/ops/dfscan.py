@@ -9,11 +9,14 @@ arithmetic), by the Hillis-Steele doubling loop of the reference's
 accuracy and its bit equality with the JAX package rest on it.
 
 Bound: device memory bandwidth. The reference's loop makes ~6 full
-passes over the tensor per doubling step; the kernel keeps the whole
-loop in registers, a warp per row (or several rows per warp when the
-tile is 16 or less) exchanging values by shuffles, and reads the tensor
-once and writes hi and lo once (12 bytes per element). Its launch
-geometry is chosen here (:func:`geometry`).
+passes over the tensor per doubling step; the kernel reads the tensor
+once and writes hi and lo once (12 bytes per element). Up to a tile of
+1024 it keeps the whole loop in registers, a warp per row (or several
+rows per warp when the tile is 16 or less) exchanging values by
+shuffles; above that, a block per row holds the row's (hi, lo) in shared
+memory, double-buffered, up to the 14,528 elements one block's 227 KB
+hold. :func:`geometry` chooses the route by that shape rule, and sends a
+larger tile to the plain version.
 
 The double-float arithmetic itself (:func:`_two_sum`, :func:`_df_add`,
 :func:`_df_cumsum`) lives here as the kernel's plain version;
@@ -24,12 +27,16 @@ stays plain PyTorch as it stays XLA in the reference.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from mpi_grid_redistribute_tpu_torch.ops import _build
 
-MAX_TILE = 1024  # DFSCAN_MAX_TILE in csrc/dfscan.cu
+MAX_TILE = 1024  # DFSCAN_MAX_TILE in csrc/dfscan.cu: the register route
+# DFSCAN_MAX_BLOCK_TILE: the block route's two (hi, lo) buffers, 16 bytes
+# an element, in one block's 232,448 bytes of shared memory
+MAX_BLOCK_TILE = 232448 // 16
 
 KERNEL = _build.register(_build.Kernel(
     "tile_df_cumsum_rows", "dfscan.cu", "dfscan_launch",
@@ -41,18 +48,33 @@ KERNEL = _build.register(_build.Kernel(
 ))
 
 
-def geometry(tile: int):
-    """The kernel's launch geometry for a row of ``tile`` elements:
-    ``(regs, rows_per_warp)``. Each lane holds ``regs = ceil(tile / 32)``
-    elements of its row in registers; a warp holds ``32 // tile`` rows
-    when ``tile < 32`` (lane ``l`` is column ``l % tile`` of row
-    ``l // tile``) and one row otherwise."""
-    if not 1 <= tile <= MAX_TILE:
-        raise ValueError(
-            f"tile_df_cumsum_rows: tile {tile} outside the kernel's "
-            f"1..{MAX_TILE}"
-        )
-    return -(-tile // 32), max(1, 32 // tile)
+class Geometry(NamedTuple):
+    """How a row of ``tile`` elements is scanned on the card. ``route``:
+    ``"warp"`` (the register route, ``regs`` elements a lane and
+    ``rows_per_warp`` rows a warp), ``"block"`` (a block per row in
+    shared memory; ``regs = rows_per_warp = 0``) or ``"plain"`` (the
+    plain version: the row does not fit one block's shared memory)."""
+
+    route: str
+    regs: int
+    rows_per_warp: int
+
+
+def geometry(tile: int) -> Geometry:
+    """The shape rule of kernel 5. Tiles 1..:data:`MAX_TILE` take the
+    register route: each lane holds ``regs = ceil(tile / 32)`` elements
+    of its row; a warp holds ``32 // tile`` rows when ``tile < 32`` (lane
+    ``l`` is column ``l % tile`` of row ``l // tile``) and one row
+    otherwise. Tiles up to :data:`MAX_BLOCK_TILE` take the block route;
+    larger ones the plain version. Never decided by a build or launch
+    failure."""
+    if tile < 1:
+        raise ValueError(f"tile_df_cumsum_rows: tile {tile} < 1")
+    if tile <= MAX_TILE:
+        return Geometry("warp", -(-tile // 32), max(1, 32 // tile))
+    if tile <= MAX_BLOCK_TILE:
+        return Geometry("block", 0, 0)
+    return Geometry("plain", 0, 0)
 
 
 def _two_sum(a: torch.Tensor, b: torch.Tensor):
@@ -101,9 +123,9 @@ def tile_df_cumsum_rows_plain(x: torch.Tensor):
 def tile_df_cumsum_rows(x: torch.Tensor):
     """Inclusive double-float prefix along axis 1 of ``x [rows, tile]``
     float32 -> ``(hi, lo)``, each ``[rows, tile]``. CPU tensors run
-    :func:`tile_df_cumsum_rows_plain`; CUDA tensors launch the kernel,
-    which takes any ``tile`` from 1 to 1024 and raises on anything else
-    it cannot take."""
+    :func:`tile_df_cumsum_rows_plain`; CUDA tensors launch the kernel on
+    the route :func:`geometry` gives (the plain version for a tile above
+    :data:`MAX_BLOCK_TILE`), and raise on what it cannot take."""
     if x.dtype != torch.float32 or x.dim() != 2:
         raise TypeError(
             f"tile_df_cumsum_rows takes float32 [rows, tile], got {x.dtype} "
@@ -114,15 +136,17 @@ def tile_df_cumsum_rows(x: torch.Tensor):
     if x.device.type != "cuda":
         raise ValueError(f"tile_df_cumsum_rows: unsupported device {x.device}")
     rows, tile = x.shape
-    regs, rows_per_warp = geometry(tile)
+    geo = geometry(tile)
     if not x.is_contiguous():
         raise ValueError("tile_df_cumsum_rows: x must be contiguous")
+    if geo.route == "plain":
+        return tile_df_cumsum_rows_plain(x)
     hi = torch.empty_like(x)
     lo = torch.empty_like(x)
     if rows == 0:
         return hi, lo
     KERNEL.launch(
-        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, tile, regs,
-        rows_per_warp, _build.stream_ptr(x),
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, tile, geo.regs,
+        geo.rows_per_warp, _build.stream_ptr(x),
     )
     return hi, lo

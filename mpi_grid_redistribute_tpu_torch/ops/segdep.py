@@ -24,7 +24,9 @@ each lane's first key, last key and last-run sum go through a segmented
 block scan, which places the runs that cross lanes; runs land in a
 shared-memory window of the canvas that the block writes out coalesced;
 runs that cross tiles go through a carry record per tile and a one-block
-scan over the records (the tile count is :func:`geometry`'s). Bound:
+scan over the records (the tile count is :func:`geometry`'s). ``D``
+runs from 1 to :data:`MAX_D` on the card; :func:`geometry`'s shape rule
+sends ``D >= 5`` to the plain version. Bound:
 device memory bandwidth (read the stream once, write the canvas once,
 plus the canvas's memset). No float atomics, so the result is
 bit-reproducible; the summation order differs from the plain version's
@@ -52,7 +54,7 @@ import torch
 
 from mpi_grid_redistribute_tpu_torch.ops import _build
 
-MAX_D = 3  # SEGDEP_MAX_D in csrc/segdep.cu
+MAX_D = 4  # SEGDEP_MAX_D in csrc/segdep.cu
 TILE = 2048  # SEGDEP_TILE: rows per block of the first pass
 
 KERNEL = _build.register(_build.Kernel(
@@ -66,12 +68,17 @@ KERNEL = _build.register(_build.Kernel(
 
 
 def geometry(n: int, d: int):
-    """``(n_tiles, carry_floats)``: the first pass's tile count for a
-    stream of ``n`` rows (one 256-thread block per ``TILE`` rows) and the
-    floats of one tile's carry record at ``2^d`` channels (its last run's
-    total and its first run's sum)."""
-    if n < 0 or not 1 <= d <= MAX_D:
+    """The shape rule of kernel 4: ``(n_tiles, carry_floats)``, the first
+    pass's tile count for a stream of ``n`` rows (one 256-thread block per
+    ``TILE`` rows) and the floats of one tile's carry record at ``2^d``
+    channels (its last run's total and its first run's sum), for ``d``
+    from 1 to :data:`MAX_D`; ``None`` for a larger ``d``, which the
+    wrapper sends to the plain version. Never decided by a build or
+    launch failure."""
+    if n < 0 or d < 1:
         raise ValueError(f"segsum_sorted: no geometry for n={n}, D={d}")
+    if d > MAX_D:
+        return None
     return -(-n // TILE), 2 * (1 << d)
 
 
@@ -160,8 +167,8 @@ def segsum_sorted(keys, rel, mass, n_cells: int, vblock):
     the module note); with env ``MPI_GRID_SEGDEP_DEBUG=1`` that is
     checked, with a device sync, and a stream that breaks it raises.
     CPU tensors run :func:`segsum_sorted_plain`; CUDA tensors launch the
-    kernel (``D`` up to 3; keys outside ``[0, n_cells)`` are dropped) or
-    raise."""
+    kernel (``D`` up to 4; keys outside ``[0, n_cells)`` are dropped), take
+    the plain version where :func:`geometry` says so, or raise."""
     _check(keys, rel, mass, n_cells)
     if os.environ.get("MPI_GRID_SEGDEP_DEBUG") == "1":
         _raise_on_decreasing_valid_keys(keys, n_cells)
@@ -170,22 +177,24 @@ def segsum_sorted(keys, rel, mass, n_cells: int, vblock):
     if keys.device.type != "cuda":
         raise ValueError(f"segsum_sorted: unsupported device {keys.device}")
     d = rel.shape[0]
-    if not 1 <= d <= MAX_D or len(vblock) != d:
+    if d < 1 or len(vblock) != d:
         raise ValueError(
-            f"segsum_sorted: D={d} (vblock {tuple(vblock)}) outside the "
-            f"kernel's 1..{MAX_D}"
+            f"segsum_sorted: D={d} does not match vblock {tuple(vblock)}"
         )
+    n = keys.shape[0]
+    geo = geometry(n, d)
+    if geo is None:
+        return segsum_sorted_plain(keys, rel, mass, n_cells, vblock)
     tensors = (keys, rel) if mass is None else (keys, rel, mass)
     if any(t.device != keys.device for t in tensors):
         raise ValueError("segsum_sorted: tensors on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("segsum_sorted: tensors must be contiguous")
-    n = keys.shape[0]
     nch = 1 << d
     out = torch.empty((nch, n_cells), dtype=torch.float32, device=keys.device)
     if n == 0:
         return out.zero_()
-    n_tiles, carry_floats = geometry(n, d)
+    n_tiles, carry_floats = geo
     tile_meta = torch.empty((n_tiles, 2), dtype=torch.int32,
                             device=keys.device)
     tile_sums = torch.empty((n_tiles, carry_floats), dtype=torch.float32,

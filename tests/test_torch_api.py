@@ -1,0 +1,514 @@
+"""The port's ``GridRedistribute`` (device="cpu") vs the JAX package's
+``GridRedistribute(backend="numpy")`` (its oracle), vs the port's own
+NumPy backend and vs the reference's vrank builders: bit level (uint8
+views) on positions, fields, count and every stats leaf. Grids (1,1,1),
+(2,1,1), (2,2,2), (3,2,1); every engine; ``GridEdges``; int16 and bool
+fields; float64/int64 inputs (narrowed as JAX narrows them); NaN
+payloads, -0.0 and denormals; count 0 and a tensor count; the overflow
+policies with growth converging in <= 3 builds; the deferred-check
+window; ``MoverCapacity``; and the arguments of planes not ported yet.
+
+The reference's ``backend="jax"`` runs its mesh engines on the tests'
+8-device CPU mesh (``"auto"`` is the count-driven sparse engine there),
+so stats are held against its oracle and vrank builders instead."""
+
+import warnings
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+import mpi_grid_redistribute_tpu as jgr
+from mpi_grid_redistribute_tpu import api as japi
+from mpi_grid_redistribute_tpu.parallel import exchange as jex
+import mpi_grid_redistribute_tpu_torch as tgr
+from mpi_grid_redistribute_tpu_torch import oracle
+
+torch.set_num_threads(1)
+
+JDOM = jgr.Domain(0.0, 1.0, periodic=True)
+TDOM = tgr.Domain(0.0, 1.0, periodic=True)
+GRIDS = [(1, 1, 1), (2, 1, 1), (2, 2, 2), (3, 2, 1)]
+STATS = ("send_counts", "recv_counts", "dropped_send", "dropped_recv",
+         "needed_capacity")
+
+
+def _np(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _same(got, want):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape and got.dtype == want.dtype, (
+        got.shape, want.shape, got.dtype, want.dtype)
+    np.testing.assert_array_equal(np.ascontiguousarray(got).view(np.uint8),
+                                  np.ascontiguousarray(want).view(np.uint8))
+
+
+def _compare(got, want):
+    _same(got.positions, want.positions)
+    _same(got.count, want.count)
+    assert len(got.fields) == len(want.fields)
+    for g, w in zip(got.fields, want.fields):
+        _same(g, w)
+    for f in STATS:
+        _same(getattr(got.stats, f), getattr(want.stats, f))
+
+
+def _inputs(r, R=8, n_local=300, clustered=False):
+    n = R * n_local
+    if clustered:
+        pos = (r.random((n, 3)) ** 4).astype(np.float32)
+    else:
+        pos = r.random((n, 3), dtype=np.float32)
+    vel = r.standard_normal((n, 3)).astype(np.float32)
+    ids = np.arange(n, dtype=np.int32)
+    return pos, vel, ids
+
+
+def _pair(grid, **kw):
+    return (tgr.GridRedistribute(TDOM, grid, device="cpu", **kw),
+            jgr.GridRedistribute(JDOM, grid, backend="numpy", **kw))
+
+
+@pytest.mark.parametrize("engine", ["auto", "planar", "rowmajor"])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_matches_reference_oracle(grid, engine):
+    r = np.random.default_rng(sum(grid) * 3 + len(engine))
+    R = int(np.prod(grid))
+    pos, vel, ids = _inputs(r, R)
+    count = r.integers(0, 301, R).astype(np.int32)
+    t, j = _pair(grid, capacity_factor=3.0, engine=engine)
+    _compare(t.redistribute(pos, vel, ids, count=count),
+             j.redistribute(pos, vel, ids, count=count))
+
+
+@pytest.mark.parametrize("engine", ["planar", "rowmajor"])
+@pytest.mark.parametrize("grid", [(2, 2, 2), (3, 2, 1)])
+def test_matches_reference_vrank_builders(grid, engine):
+    """The reference's own single-device engines at the same capacities:
+    positions, fields, count and every stats leaf."""
+    r = np.random.default_rng(sum(grid))
+    R, n = int(np.prod(grid)), 250
+    pos, vel, ids = _inputs(r, R, n)
+    count = r.integers(0, n + 1, R).astype(np.int32)
+    cap, out_cap = 20, 300
+    t = tgr.GridRedistribute(TDOM, grid, device="cpu", capacity=cap,
+                             out_capacity=out_cap, on_overflow="ignore",
+                             engine=engine)
+    got = t.redistribute(pos, vel, ids, count=count)
+    jg = jgr.ProcessGrid(grid)
+    if engine == "planar":
+        specs = japi._planar_specs(pos, (vel, ids))
+        fused = japi._fuse_planar(pos, (vel, ids), R, n, specs, stacked=True)
+        out, cnt, stats = jex.build_redistribute_planar_vranks(
+            JDOM, jg, cap, out_cap)(fused, jnp.asarray(count))
+        wpos, wfields = japi._unfuse_planar(out, specs, R, out_cap,
+                                            stacked=True)
+    else:
+        out = jex.build_redistribute_vranks(JDOM, jg, cap, out_cap)(
+            jnp.asarray(pos.reshape(R, n, 3)), jnp.asarray(count),
+            jnp.asarray(vel.reshape(R, n, 3)), jnp.asarray(ids.reshape(R, n)))
+        wpos = np.asarray(out[0]).reshape(R * out_cap, 3)
+        wfields = (np.asarray(out[2]).reshape(R * out_cap, 3),
+                   np.asarray(out[3]).reshape(R * out_cap))
+        cnt, stats = out[1], out[-1]
+    _same(got.positions, wpos)
+    for g, w in zip(got.fields, wfields):
+        _same(g, w)
+    _same(got.count, cnt)
+    for f in STATS:
+        _same(getattr(got.stats, f), getattr(stats, f))
+    assert int(_np(got.stats.dropped_send).sum()) > 0  # the clip is live
+
+
+@pytest.mark.parametrize("assignment", [False, True])
+@pytest.mark.parametrize("grid", [(2, 2, 2), (3, 2, 1)])
+def test_grid_edges_match_reference_oracle(grid, assignment):
+    """Non-uniform edges (axis 0 an exact linspace, so one uniform axis),
+    with and without a fine-cell assignment; ownership holds under them."""
+    r = np.random.default_rng(7 + assignment)
+    R = int(np.prod(grid))
+    axes = []
+    for d, g in enumerate(grid):
+        cells = g * (2 if assignment else 1)
+        ax = (np.linspace(0.0, 1.0, cells + 1) if d == 0 else
+              np.concatenate([[0.0], np.sort(r.random(cells - 1)), [1.0]]))
+        axes.append(tuple(float(v) for v in ax))
+    assign = None
+    if assignment:
+        n_fine = int(np.prod([len(a) - 1 for a in axes]))
+        assign = tuple(int(v) for v in r.integers(0, R, n_fine))
+    te, je = tgr.GridEdges(axes, assign), jgr.GridEdges(axes, assign)
+    assert te.uniform_axes[0] and te.uniform_axes == je.uniform_axes
+    pos, vel, ids = _inputs(r, R)
+    t = tgr.GridRedistribute(TDOM, grid, device="cpu", edges=te,
+                             capacity_factor=4.0)
+    j = jgr.GridRedistribute(JDOM, grid, backend="numpy", edges=je,
+                             capacity_factor=4.0)
+    got = t.redistribute(pos, vel, ids)
+    _compare(got, j.redistribute(pos, vel, ids))
+    oc = got.positions.shape[0] // R
+    shards = [_np(got.positions)[i * oc: i * oc + int(got.count[i])]
+              for i in range(R)]
+    oracle.assert_ownership(TDOM, tgr.ProcessGrid(grid), shards, edges=te)
+    if not assignment:
+        assert te.subdomain_of_rank(1, tgr.ProcessGrid(grid)) == \
+            je.subdomain_of_rank(1, jgr.ProcessGrid(grid))
+    else:
+        assert te.rank_cells_of(1) == je.rank_cells_of(1)
+
+
+def test_grid_edges_validation_and_balance():
+    r = np.random.default_rng(3)
+    grid = tgr.ProcessGrid((2, 2, 2))
+    sample = (r.random((4000, 3)) ** 2).astype(np.float32)
+    te = tgr.GridEdges.balanced_for(TDOM, grid, sample)
+    je = jgr.GridEdges.balanced_for(JDOM, jgr.ProcessGrid((2, 2, 2)), sample)
+    assert te.edges == je.edges and hash(te) == hash(tgr.GridEdges(te.edges))
+    with pytest.raises(ValueError):
+        tgr.GridEdges([(0.0, 0.5, 0.4, 1.0)] * 3)
+    with pytest.raises(ValueError):
+        tgr.GridEdges([(0.0, 0.5, 1.0)] * 3).validate_against(
+            TDOM, tgr.ProcessGrid((3, 2, 2)))
+    with pytest.raises(ValueError):
+        tgr.GridEdges([(0.0, 0.5, 0.9)] * 3).validate_against(TDOM, grid)
+    with pytest.raises(ValueError):
+        tgr.GridEdges([(0.0, 0.5, 1.0)] * 3, assignment=(0,) * 7)
+    for rank, axis, step, per in ((0, 0, -1, True), (0, 0, -1, False),
+                                  (5, 2, 1, True), (3, 1, 3, False)):
+        assert grid.neighbor_rank(rank, axis, step, per) == \
+            jgr.ProcessGrid((2, 2, 2)).neighbor_rank(rank, axis, step, per)
+
+
+def test_narrow_fields_take_the_rowmajor_engine():
+    """int16 and bool fields are not 32-bit: ``"auto"`` runs the row-major
+    engine, bit-equal to the oracle (bool stays bool; the reference's jax
+    row-major engine returns it as int32, ROADMAP.md C6)."""
+    r = np.random.default_rng(11)
+    pos, vel, _ = _inputs(r, 6, 200)
+    tag = r.integers(-2**15, 2**15 - 1, (1200, 2)).astype(np.int16)
+    flag = r.random(1200) < 0.5
+    t, j = _pair((3, 2, 1), capacity_factor=3.0)
+    got = t.redistribute(pos, tag, flag, vel)
+    assert got.fields[1].dtype == torch.bool
+    _compare(got, j.redistribute(pos, tag, flag, vel))
+    with pytest.raises(TypeError, match="32-bit"):
+        tgr.GridRedistribute(TDOM, (3, 2, 1), device="cpu",
+                             engine="planar").redistribute(pos, tag)
+
+
+def test_64_bit_inputs_are_narrowed_as_jax_narrows_them():
+    """float64 positions bin at float32, as the reference's jax backend
+    sees them (a row within a float32 ulp of a cell edge would otherwise
+    land elsewhere); int64 ids arrive as int32. Tensors and arrays alike."""
+    r = np.random.default_rng(12)
+    pos = r.random((2400, 3))  # float64
+    edge = np.float32(0.5)
+    pos[:8, 0] = np.nextafter(edge, np.float32(0), dtype=np.float32) + \
+        np.array([0.0, 1e-9, 2e-9, 3e-9, -1e-9, 5e-9, 6e-9, 7e-9])
+    ids = np.arange(2400, dtype=np.int64)
+    t, j = _pair((2, 2, 2), capacity_factor=3.0)
+    want = j.redistribute(pos, ids)
+    for args in ((pos, ids), (torch.from_numpy(pos), torch.from_numpy(ids))):
+        got = t.redistribute(*args)
+        assert got.positions.dtype == torch.float32
+        assert got.fields[0].dtype == torch.int32
+        _compare(got, want)
+    n = tgr.GridRedistribute(TDOM, (2, 2, 2), backend="numpy",
+                             capacity_factor=3.0).redistribute(pos, ids)
+    _compare(n, want)
+
+
+@pytest.mark.parametrize("engine", ["planar", "rowmajor"])
+def test_every_bit_pattern_survives(engine):
+    """NaN payloads, infinities, denormals and -0.0 in a float field, and
+    int32 ids below 2^23 (denormal as float bits): the planar transport is
+    an int32 view, the row-major one moves raw elements."""
+    r = np.random.default_rng(13)
+    n = 8 * 400
+    pos = r.random((n, 3), dtype=np.float32)
+    bits = (np.arange(n, dtype=np.uint64) * 2654435761 % (1 << 32)).astype(
+        np.uint32)
+    bits[:6] = [0x7FC00001, 0xFF800000, 0x00000001, 0x80000000, 0x007FFFFF,
+                0xFFC0BEEF]
+    weird = bits.view(np.float32)
+    ids = np.arange(n, dtype=np.int32)
+    t, j = _pair((2, 2, 2), capacity_factor=4.0, engine=engine)
+    _compare(t.redistribute(pos, weird, ids), j.redistribute(pos, weird, ids))
+
+
+def test_count_zero_and_tensor_counts():
+    r = np.random.default_rng(14)
+    pos, vel, ids = _inputs(r)
+    t, j = _pair((2, 2, 2), capacity_factor=3.0)
+    zero = t.redistribute(pos, vel, ids, count=np.zeros(8, np.int32))
+    assert not zero.count.any() and not zero.positions.any()
+    _compare(zero, j.redistribute(pos, vel, ids, count=np.zeros(8, np.int32)))
+    # a tensor count (e.g. the previous call's result.count) is clipped
+    # where it lives instead of read back and checked
+    cnt = torch.tensor([0, 5, 300, 999, -4, 17, 299, 1], dtype=torch.int32)
+    got = t.redistribute(pos, vel, ids, count=cnt)
+    _compare(got, j.redistribute(pos, vel, ids,
+                                 count=np.clip(cnt.numpy(), 0, 300)))
+    with pytest.raises(ValueError, match="count entries"):
+        t.redistribute(pos, vel, ids, count=cnt.numpy())
+    with pytest.raises(ValueError, match="count must be"):
+        t.redistribute(pos, vel, ids, count=torch.zeros(3, dtype=torch.int32))
+    # chained: the result feeds the next call
+    again = t.redistribute(got.positions, *got.fields, count=got.count)
+    assert int(again.count.sum()) == int(got.count.sum())
+    t.flush_overflow_checks()
+
+
+def _count_builds(rd):
+    builds = []
+    orig = rd._run_once
+
+    def counting(*args):
+        builds.append((rd.capacity, rd.out_capacity))
+        return orig(*args)
+
+    rd._run_once = counting
+    return builds
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+def test_overflow_grows_like_the_reference(backend):
+    """Clustered data at a tiny capacity: growth converges in <= 3 builds,
+    to the reference's capacities and bits, and the grown capacities
+    stick."""
+    r = np.random.default_rng(15)
+    pos, vel, ids = _inputs(r, clustered=True)
+    t = tgr.GridRedistribute(TDOM, (2, 2, 2), backend=backend, device="cpu",
+                             capacity=32)
+    j = jgr.GridRedistribute(JDOM, (2, 2, 2), backend="numpy", capacity=32)
+    tb, jb = _count_builds(t), _count_builds(j)
+    got = t.redistribute(pos, vel, ids)
+    _compare(got, j.redistribute(pos, vel, ids))
+    assert tb == jb and 2 <= len(tb) <= 3
+    assert int(_np(got.count).sum()) == pos.shape[0]
+    assert (t.capacity, t.out_capacity) == (j.capacity, j.out_capacity)
+    tb.clear()
+    t.redistribute(pos, vel, ids)
+    assert len(tb) == 1
+
+
+def test_overflow_raise_and_ignore():
+    r = np.random.default_rng(16)
+    pos, vel, ids = _inputs(r, clustered=True)
+    with pytest.raises(RuntimeError, match="dropped"):
+        tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", capacity=32,
+                             on_overflow="raise").redistribute(pos, ids)
+    t, j = _pair((2, 2, 2), capacity=32, on_overflow="ignore")
+    got = t.redistribute(pos, vel, ids)
+    _compare(got, j.redistribute(pos, vel, ids))
+    dropped = int(got.stats.dropped_send.sum() + got.stats.dropped_recv.sum())
+    assert dropped > 0
+    assert int(got.count.sum()) + dropped == pos.shape[0]
+    assert t._blocking_fetches == 0
+    with pytest.raises(ValueError, match="on_overflow"):
+        tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu",
+                             on_overflow="retry")
+
+
+def _placed_state(r, n_local=64):
+    """Every row already on its owner shard (no sends) and the counts."""
+    pos, _, _ = _inputs(r, 8, n_local)
+    dest = oracle.rank_of_position(pos, TDOM, tgr.ProcessGrid((2, 2, 2)))
+    counts = np.bincount(dest, minlength=8)
+    rows = int(counts.max())
+    placed = np.zeros((8 * rows, 3), np.float32)
+    for k in range(8):
+        placed[k * rows: k * rows + counts[k]] = pos[dest == k]
+    return placed, counts.astype(np.int32)
+
+
+def test_deferred_check_reads_nothing_in_steady_state():
+    r = np.random.default_rng(17)
+    pos, vel, ids = _inputs(r, n_local=64)
+    rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu",
+                              capacity_factor=16.0, check_every=4)
+    for _ in range(3):
+        rd.redistribute(pos, vel, ids)
+    assert rd._clean_checks >= 2
+    fetches = rd._blocking_fetches
+    for _ in range(8):
+        rd.redistribute(pos, vel, ids)
+    assert rd._blocking_fetches == fetches
+    assert rd._pending_check is not None
+    rd.flush_overflow_checks()
+    assert not rd._has_unresolved_windows()
+
+
+def test_deferred_check_catches_an_unsampled_spike():
+    """A one-call overflow between sampled calls is in the cumulative
+    counters: the next scheduled read raises and grows the capacity."""
+    r = np.random.default_rng(18)
+    placed, cnt = _placed_state(r)
+    rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", capacity=1,
+                              check_every=4)
+    rd.redistribute(placed, count=cnt)
+    rd.redistribute(placed, count=cnt)
+    assert rd._clean_checks == 2
+    clustered = np.full_like(placed, 0.1)
+    rd.redistribute(clustered, count=cnt)  # lossy, not itself sampled
+    with pytest.raises(RuntimeError, match="deferred overflow check"):
+        for _ in range(8):
+            rd.redistribute(placed, count=cnt)
+    assert rd.capacity > 1
+    rd.flush_overflow_checks()
+
+
+def test_flush_covers_the_partial_window_and_context_exit():
+    r = np.random.default_rng(19)
+    placed, cnt = _placed_state(r)
+    clustered = np.full_like(placed, 0.1)
+    rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", capacity=1,
+                              check_every=100)
+    rd.redistribute(placed, count=cnt)
+    rd.redistribute(placed, count=cnt)
+    rd.redistribute(clustered, count=cnt)
+    with pytest.raises(RuntimeError, match="deferred overflow check"):
+        rd.flush_overflow_checks()
+    with pytest.raises(RuntimeError, match="deferred overflow check"):
+        with tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", capacity=1,
+                                  check_every=100) as rd2:
+            rd2.redistribute(placed, count=cnt)
+            rd2.redistribute(placed, count=cnt)
+            rd2.redistribute(clustered, count=cnt)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu",
+                                  check_every=4) as rd3:
+            for _ in range(6):
+                rd3.redistribute(placed, count=cnt)
+    assert not rd3._has_unresolved_windows()
+
+
+def test_del_warns_on_unflushed_windows():
+    r = np.random.default_rng(20)
+    placed, cnt = _placed_state(r)
+    rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", capacity=1,
+                              check_every=100)
+    for _ in range(3):
+        rd.redistribute(placed, count=cnt)
+    assert rd._has_unresolved_windows()
+    with pytest.warns(RuntimeWarning, match="unresolved deferred"):
+        rd.__del__()
+    rd.flush_overflow_checks()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        rd.__del__()
+
+
+def test_engine_fn_runs_the_same_engine():
+    r = np.random.default_rng(21)
+    pos, vel, ids = _inputs(r)
+    rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu",
+                              capacity_factor=3.0, on_overflow="ignore")
+    want = rd.redistribute(pos, vel, ids)
+    fn, cap, out_cap = rd.engine_fn(torch.from_numpy(pos),
+                                    torch.from_numpy(vel),
+                                    torch.from_numpy(ids))
+    assert (cap, out_cap) == rd._capacities(300)
+    p, c, f, s = fn(torch.from_numpy(pos), torch.full((8,), 300, dtype=torch.int32),
+                    torch.from_numpy(vel), torch.from_numpy(ids))
+    assert torch.equal(p, want.positions) and torch.equal(c, want.count)
+    assert all(torch.equal(a, b) for a, b in zip(f, want.fields))
+
+
+class _Stats:
+    def __init__(self, sent, backlog):
+        self.sent, self.backlog = sent, backlog
+
+
+def test_mover_capacity_matches_reference():
+    r = np.random.default_rng(22)
+    seq = [_Stats(r.integers(0, hi, (4, 8)).astype(np.int32),
+                  r.integers(0, 5, (4, 8)).astype(np.int32))
+           for hi in (3, 40, 20, 300, 100, 1000)]
+    for max_cap in (None, 256):
+        t, j = tgr.MoverCapacity(5, max_cap), jgr.api.MoverCapacity(5, max_cap)
+        for st in seq:
+            tst = _Stats(torch.from_numpy(st.sent), torch.from_numpy(st.backlog))
+            assert t.update(tst) == j.update(st)
+            assert (t.value, t.grow_count) == (j.value, j.grow_count)
+    with pytest.raises(ValueError):
+        tgr.MoverCapacity(0)
+    with pytest.raises(NotImplementedError, match="A11"):
+        tgr.MoverCapacity(4, recorder=object())
+
+
+def test_unported_planes_raise():
+    for kw, item in ((dict(mesh=object()), "A5"), (dict(dcn_shape=(2, 1, 1)),
+                                                   "A9"),
+                     (dict(cross_cap=4), "A9"), (dict(engine="sparse"), "A5"),
+                     (dict(engine="neighbor"), "A5"),
+                     (dict(engine="hierarchical"), "A9")):
+        with pytest.raises(NotImplementedError, match=item):
+            tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", **kw)
+    rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        rd.halo(np.zeros((8, 3), np.float32), width=0.1)
+    with pytest.raises(ValueError, match="backend"):
+        tgr.GridRedistribute(TDOM, (2, 2, 2), backend="jax")
+    with pytest.raises(ValueError, match="engine"):
+        tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", engine="fast")
+    with pytest.raises(ValueError, match="divide"):
+        rd.redistribute(np.zeros((9, 3), np.float32))
+
+
+def test_config1_bench_matches_the_reference_loop():
+    """The config-1 twin at a small width: the oracle check passes on the
+    CPU, and its canonical drift loop is bit-equal to the reference's
+    ``make_loop_planar`` body (``lax.scan`` of the planar vrank engine)."""
+    import jax
+    from jax import lax
+    from mpi_grid_redistribute_tpu.ops import binning as jbin
+    from mpi_grid_redistribute_tpu_torch.bench import config1_oracle as c1
+
+    res, _, _ = c1.oracle_check(8 * 1500, device="cpu")
+    assert int(res.count.sum()) == 8 * 1500
+    n_loc, steps = 1024, 3
+    slots, cap = c1.loop_sizing(n_loc)
+    fused, count = c1.drift_state(n_loc)
+    f, c, drops = c1.make_loop_planar(n_loc)(
+        torch.from_numpy(fused), torch.from_numpy(count), steps)
+    xfn = jex.vrank_redistribute_planar_fn(JDOM, jgr.ProcessGrid((2, 2, 2)),
+                                           cap, slots)
+
+    @jax.jit
+    def ref(fu, co):
+        def body(carry, _):
+            fu, co = carry
+            p = jbin.wrap_periodic_planar(
+                fu[:, :3, :] + fu[:, 3:6, :] * jnp.float32(1.0), JDOM)
+            fu, co, st = xfn(jnp.concatenate([p, fu[:, 3:6, :]], axis=1), co)
+            return (fu, co), st.dropped_send + st.dropped_recv
+        (fu, co), d = lax.scan(body, (fu, co), None, length=steps)
+        return fu, co, d
+
+    wf, wc, wd = ref(jnp.asarray(fused), jnp.asarray(count))
+    _same(f, wf)
+    _same(c, wc)
+    assert int(drops) == int(np.asarray(wd).sum()) == 0
+    assert int(c.sum()) == 8 * n_loc
+
+
+def test_unsigned_and_complex_fields_match_reference_oracle():
+    """uint64 and complex128 fields arrive narrowed (uint32, complex64) as
+    on the reference's backends, and ride the row-major engine as
+    integer words (PyTorch's gathers take no uint32)."""
+    r = np.random.default_rng(23)
+    pos = r.random((800, 3), dtype=np.float32)
+    u = np.arange(800, dtype=np.uint64) * np.uint64(2**40 + 3)
+    c = r.standard_normal(800) + 1j * r.standard_normal(800)
+    h = r.standard_normal(800).astype(np.float16)
+    t, j = _pair((2, 2, 2), capacity_factor=4.0)
+    got = t.redistribute(pos, u, c, h)
+    assert [f.dtype for f in got.fields] == [torch.uint32, torch.complex64,
+                                             torch.float16]
+    _compare(got, j.redistribute(pos, u, c, h))

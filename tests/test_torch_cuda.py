@@ -16,11 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from mpi_grid_redistribute_tpu_torch import Domain, ProcessGrid
+from mpi_grid_redistribute_tpu_torch import Domain, GridRedistribute, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.bench import common
 from mpi_grid_redistribute_tpu_torch.models import nbody
 from mpi_grid_redistribute_tpu_torch.ops import (
-    dfscan, driftbin, overlay, scatter, segdep,
+    deposit, dfscan, driftbin, overlay, scatter, segdep,
 )
 from mpi_grid_redistribute_tpu_torch.parallel import migrate
 
@@ -300,9 +300,41 @@ def test_dfscan_kernel_negative_zero_rows(cuda, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1025, 2048, 3000, 8192, 14528])
+@pytest.mark.parametrize("rows", [1, 13, 517])
+def test_dfscan_kernel_block_route(cuda, tile, rows):
+    """Tiles above 1024 (a block per row, the row in shared memory), with
+    rows of signed zeros: bit-equal to the plain version."""
+    assert dfscan.geometry(tile).route == "block"
+    x = torch.from_numpy(
+        _signed_zero_rows(np.random.default_rng(tile + rows), rows, tile)
+    ).to(cuda)
+    before = dfscan.KERNEL.launches
+    hi, lo = dfscan.tile_df_cumsum_rows(x)
+    hp, lp = dfscan.tile_df_cumsum_rows_plain(x)
+    torch.cuda.synchronize()
+    assert dfscan.KERNEL.launches == before + 1
+    assert _bits_equal(hi, hp) and _bits_equal(lo, lp)
+
+
+@pytest.mark.cuda
+def test_dfscan_tile_past_shared_memory_runs_plain(cuda):
+    """A tile past one block's shared memory goes to the plain version by
+    ``dfscan.geometry``'s shape rule: no launch, the plain bits."""
+    tile = dfscan.MAX_BLOCK_TILE + 1
+    x = torch.randn((3, tile), device=cuda)
+    before = dfscan.KERNEL.launches
+    hi, lo = dfscan.tile_df_cumsum_rows(x)
+    hp, lp = dfscan.tile_df_cumsum_rows_plain(x)
+    torch.cuda.synchronize()
+    assert dfscan.KERNEL.launches == before
+    assert _bits_equal(hi, hp) and _bits_equal(lo, lp)
+
+
+@pytest.mark.cuda
 def test_dfscan_kernel_raises_on_bad_input(cuda):
     with pytest.raises(ValueError):
-        dfscan.tile_df_cumsum_rows(torch.zeros((4, 1025), device=cuda))
+        dfscan.tile_df_cumsum_rows(torch.zeros((4, 0), device=cuda))
     with pytest.raises(TypeError):
         dfscan.tile_df_cumsum_rows(
             torch.zeros((4, 8), dtype=torch.float64, device=cuda)
@@ -344,6 +376,7 @@ def _segdep_stream(r, kind, n, n_cells):
 @pytest.mark.parametrize("d,vblock,n,n_cells", [
     (3, (8, 8, 8), 20_000, 512),
     (2, (16, 16), 3_000, 256),
+    (4, (4, 4, 4, 4), 20_000, 256),
 ])
 @pytest.mark.parametrize("with_mass", [False, True])
 def test_segdep_kernel_matches_plain(cuda, kind, d, vblock, n, n_cells,
@@ -389,7 +422,7 @@ EDGE_STREAMS = ("run_spans_tiles", "runs_end_at_tile_ends",
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_mass", [False, True])
-@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
 @pytest.mark.parametrize("stream", EDGE_STREAMS)
 def test_segdep_kernel_tile_edge_streams(cuda, stream, d, with_mass):
     """Runs across the kernel's tile edges (a cell over three tiles,
@@ -471,11 +504,28 @@ def test_segdep_kernel_drops_negative_keys(cuda):
 
 
 @pytest.mark.cuda
+def test_segdep_d5_runs_plain(cuda):
+    """D = 5 is past the kernel's 4: ``segdep.geometry``'s shape rule
+    sends it to the plain version, with no launch."""
+    r = np.random.default_rng(5)
+    keys = torch.from_numpy(
+        np.sort(r.integers(0, 33, 3000)).astype(np.int32)).to(cuda)
+    rel = torch.from_numpy(
+        (r.integers(0, 8, (5, 3000)) * 0.25).astype(np.float32)).to(cuda)
+    before = segdep.KERNEL.launches
+    got = segdep.segsum_sorted(keys, rel, None, 32, (2,) * 5)
+    want = segdep.segsum_sorted_plain(keys, rel, None, 32, (2,) * 5)
+    torch.cuda.synchronize()
+    assert segdep.KERNEL.launches == before
+    assert got.shape == (32, 32) and _bits_equal(got, want)
+
+
+@pytest.mark.cuda
 def test_segdep_kernel_raises_on_bad_input(cuda):
     keys = torch.zeros(16, dtype=torch.int32, device=cuda)
     rel = torch.zeros((4, 16), device=cuda)
-    with pytest.raises(ValueError):  # D = 4 is past the kernel's 3
-        segdep.segsum_sorted(keys, rel, None, 16, (2, 2, 2, 2))
+    with pytest.raises(ValueError):  # vblock does not match D = 4
+        segdep.segsum_sorted(keys, rel, None, 16, (2, 2, 2))
     with pytest.raises(ValueError):
         segdep.segsum_sorted(keys, rel[:3], None, 2**27 + 1, (8, 8, 8))
     with pytest.raises(TypeError):
@@ -518,6 +568,50 @@ def test_deposit_loop_on_card_matches_cpu_run(cuda, method, each_step):
     assert abs(float(rho.double().sum()) - int(alive.sum())) <= 1e-5 * int(
         alive.sum()
     )
+
+
+@pytest.mark.cuda
+def test_scan_deposit_at_tile_2048_launches_kernel_5(cuda):
+    """``cic_deposit_device_planar(..., tile=2048)``: kernel 5 on its block
+    route, bit-equal to the port's CPU run."""
+    r = np.random.default_rng(2048)
+    n, block = 50_000, (8, 8, 8)
+    args = [torch.from_numpy(a) for a in (
+        r.random((3, n), dtype=np.float32), r.random(n, dtype=np.float32),
+        r.random(n) < 0.9)] + [torch.zeros(3), torch.full((3,), 8.0)]
+    before = dfscan.KERNEL.launches
+    got = deposit.cic_deposit_device_planar(
+        *(a.to(cuda) for a in args), block, tile=2048)
+    torch.cuda.synchronize()
+    assert dfscan.KERNEL.launches == before + 1
+    want = deposit.cic_deposit_device_planar(*args, block, tile=2048)
+    assert _bits_equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dyadic", [True, False])
+def test_mxu_deposit_in_4d_launches_kernel_4(cuda, dyadic):
+    """A 4-D mxu deposit: kernel 4 at D = 4, bit-equal to the port's CPU
+    run on dyadic positions, within 2e-5 otherwise."""
+    r = np.random.default_rng(4)
+    n, block = 40_000, (6, 6, 6, 6)
+    pos = r.random((4, n), dtype=np.float32)
+    if dyadic:
+        pos = np.floor(pos * 24) / 24  # multiples of 1/4 cell
+        pos = pos.astype(np.float32)
+    args = [torch.from_numpy(a) for a in (
+        pos, np.ones(n, np.float32), r.random(n) < 0.9)] + [
+        torch.zeros(4), torch.full((4,), 6.0)]
+    before = segdep.KERNEL.launches
+    got = deposit.cic_deposit_device_mxu(*(a.to(cuda) for a in args), block)
+    torch.cuda.synchronize()
+    assert segdep.KERNEL.launches == before + 1
+    want = deposit.cic_deposit_device_mxu(*args, block)
+    assert got.shape == (7, 7, 7, 7)
+    if dyadic:
+        assert _bits_equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda
@@ -717,3 +811,85 @@ def test_rows_route_on_card_matches_plain_and_int32_loop(cuda):
         for f in ("sent", "received", "population", "backlog", "flow"):
             assert torch.equal(getattr(g, f), getattr(w, f)), f
             assert torch.equal(getattr(g, f), getattr(ref[3], f)[i]), f
+
+
+def _canonical_inputs(r, R, n):
+    pos = r.random((R * n, 3), dtype=np.float32)
+    vel = r.standard_normal((R * n, 3)).astype(np.float32)
+    vel.view(np.uint32)[:4, 0] = [0x7FC0BEEF, 0x00000001, 0x80000000,
+                                  0x007FFFFF]
+    ids = np.arange(R * n, dtype=np.int32)
+    tag = (np.arange(R * n) % 7).astype(np.int16)
+    return pos, vel, ids, tag
+
+
+def _same_result(a, b):
+    def u8(x):
+        return x.cpu().contiguous().view(torch.uint8)
+
+    assert torch.equal(u8(a.positions), u8(b.positions))
+    assert torch.equal(u8(a.count), u8(b.count))
+    for x, y in zip(a.fields, b.fields):
+        assert torch.equal(u8(x), u8(y))
+    for f in ("send_counts", "recv_counts", "dropped_send", "dropped_recv",
+              "needed_capacity"):
+        assert torch.equal(getattr(a.stats, f).cpu(), getattr(b.stats, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(2, 2, 2), (3, 2, 1)])
+@pytest.mark.parametrize("case", ["auto", "rowmajor", "int16", "edges",
+                                  "tight"])
+def test_canonical_call_on_card_matches_cpu_run(cuda, grid, case):
+    """``GridRedistribute.redistribute`` on the card (the default device)
+    byte-equal to the same call on the CPU port, stats included."""
+    r = np.random.default_rng(len(case) + sum(grid))
+    R = int(np.prod(grid))
+    pos, vel, ids, tag = _canonical_inputs(r, R, 3000)
+    fields = (vel, ids, tag) if case == "int16" else (vel, ids)
+    kw = dict(capacity_factor=3.0)
+    if case == "rowmajor":
+        kw["engine"] = "rowmajor"
+    if case == "tight":
+        kw = dict(capacity=64, out_capacity=2500, on_overflow="ignore")
+    if case == "edges":
+        # axis 0 non-uniform, the others uniform (the floor-multiply path)
+        kw["edges"] = [
+            tuple(np.linspace(0.0, 1.0, g + 1)) if d else
+            tuple(np.concatenate([[0.0], np.sort(r.random(g - 1)), [1.0]]))
+            for d, g in enumerate(grid)]
+    dom = Domain(0.0, 1.0, periodic=True)
+    a = GridRedistribute(dom, grid, **kw).redistribute(pos, *fields)
+    b = GridRedistribute(dom, grid, device="cpu", **kw).redistribute(
+        pos, *fields)
+    torch.cuda.synchronize()
+    assert a.positions.is_cuda
+    _same_result(a, b)
+    if case == "tight":
+        assert int(a.stats.dropped_send.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_canonical_deferred_check_on_card(cuda):
+    """The deferred overflow check's pinned copy behind a CUDA event: no
+    blocking read after calibration, and a loss between samples raises at
+    the flush and grows the capacity."""
+    r = np.random.default_rng(3)
+    n = 8 * 2000
+    pos = torch.from_numpy(r.random((n, 3), dtype=np.float32)).to(cuda)
+    ids = torch.arange(n, dtype=torch.int32, device=cuda)
+    rd = GridRedistribute(Domain(0.0, 1.0, periodic=True), (2, 2, 2),
+                          capacity_factor=16.0, check_every=4)
+    for _ in range(3):
+        rd.redistribute(pos, ids)
+    fetches = rd._blocking_fetches
+    for _ in range(9):
+        rd.redistribute(pos, ids)
+    assert rd._blocking_fetches == fetches
+    assert rd._pending_check[0].is_pinned()
+    rd.flush_overflow_checks()
+    old = rd.capacity = 1  # force drops on the next call
+    rd.redistribute(pos, ids)
+    with pytest.raises(RuntimeError, match="deferred overflow check"):
+        rd.flush_overflow_checks()
+    assert rd.capacity > old

@@ -104,17 +104,71 @@ def test_plain_matches_jax_on_signed_zeros(tile):
 def test_kernel_geometry(tile, regs, rows_per_warp):
     """ceil(tile / 32) registers a lane; floor(32 / tile) rows a warp
     below 32, one row from there on."""
-    assert dfscan.geometry(tile) == (regs, rows_per_warp)
+    assert dfscan.geometry(tile) == ("warp", regs, rows_per_warp)
 
 
 def test_kernel_geometry_covers_every_tile_and_refuses_the_rest():
     for tile in range(1, dfscan.MAX_TILE + 1):
-        regs, rpw = dfscan.geometry(tile)
+        route, regs, rpw = dfscan.geometry(tile)
+        assert route == "warp"
         assert regs * 32 >= tile > (regs - 1) * 32
         assert rpw == 1 or (regs == 1 and rpw * tile <= 32)
-    for tile in (0, -1, dfscan.MAX_TILE + 1):
+    for tile in (0, -1):
         with pytest.raises(ValueError):
             dfscan.geometry(tile)
+
+
+@pytest.mark.parametrize("tile,route", [
+    (1024, "warp"), (1025, "block"), (2048, "block"), (8192, "block"),
+    (14528, "block"), (14529, "plain"), (16384, "plain"), (1 << 20, "plain"),
+])
+def test_kernel_shape_rule_routes_large_tiles(tile, route):
+    """Above 1024 a block per row holds the row's two (hi, lo) buffers in
+    shared memory, 16 bytes an element: up to 232,448 // 16 = 14,528 on
+    an H100. A larger tile goes to the plain version, by this rule alone."""
+    assert dfscan.MAX_BLOCK_TILE == 232448 // 16 == 14528
+    geo = dfscan.geometry(tile)
+    assert geo.route == route
+    if route != "warp":
+        assert (geo.regs, geo.rows_per_warp) == (0, 0)
+
+
+@pytest.mark.parametrize("tile", [1025, 2048])
+def test_plain_matches_xla_at_block_route_tiles(tile):
+    """The tiles of the block route: the plain version (the kernel's
+    reference on the card) is bit-equal to the reference's jitted
+    ``_df_cumsum``."""
+    r = np.random.default_rng(tile)
+    x = _signed(r.standard_normal((6, tile)).astype(np.float32), r)
+    _check(x, interpret=tile == 2048)
+
+
+def _signed(x, r):
+    x[0] = -0.0
+    x[1, ::7] = -0.0
+    x[2, :: 3] = 0.0
+    return x
+
+
+def test_deposit_scan_at_tile_2048_matches_reference():
+    """The scan deposit at tile 2048 (kernel 5's block route on the card)
+    is bit-equal to the reference's ``cic_deposit_device_planar``."""
+    r = np.random.default_rng(2048)
+    n, block = 6000, (4, 4, 4)
+    pos = r.random((3, n), dtype=np.float32)
+    mass = r.random(n, dtype=np.float32)
+    valid = r.random(n) < 0.9
+    inv_h = np.float32(4.0)
+    got = tdeposit.cic_deposit_device_planar(
+        torch.from_numpy(pos), torch.from_numpy(mass),
+        torch.from_numpy(valid), torch.zeros(3),
+        torch.full((3,), inv_h), block, tile=2048,
+    )
+    want = jdeposit.cic_deposit_device_planar(
+        jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(valid),
+        jnp.zeros(3, jnp.float32), jnp.full((3,), inv_h), block, tile=2048,
+    )
+    _assert_bits(got, want)
 
 
 def test_plain_matches_jax_on_hostile_magnitudes():

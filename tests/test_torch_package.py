@@ -44,6 +44,9 @@ def test_import_does_not_load_jax():
         "from mpi_grid_redistribute_tpu_torch.ops import deposit, dfscan, segdep\n"
         "from mpi_grid_redistribute_tpu_torch.ops import scatter\n"
         "from mpi_grid_redistribute_tpu_torch.parallel import exchange\n"
+        "from mpi_grid_redistribute_tpu_torch import api, oracle\n"
+        "from mpi_grid_redistribute_tpu_torch.ops import pack\n"
+        "from mpi_grid_redistribute_tpu_torch.bench import config1_oracle\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_grid_redistribute_tpu')]\n"
         "print(bad)\n"
@@ -87,6 +90,11 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
         nbody.make_migrate_loop(_cfg(), 1, vgrid=ProcessGrid((2, 2, 2)))
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.to_tensor(np.zeros(3, np.float32))
+    from mpi_grid_redistribute_tpu_torch import GridRedistribute
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GridRedistribute(lo=0.0, hi=1.0, grid=(2, 2, 2))
+    GridRedistribute(lo=0.0, hi=1.0, grid=(2, 2, 2), backend="numpy")
     # an explicit CPU device works
     nbody.make_migrate_loop(
         _cfg(), 1, vgrid=ProcessGrid((2, 2, 2)), device="cpu"

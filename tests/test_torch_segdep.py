@@ -215,10 +215,44 @@ def test_kernel_geometry(n, d, want):
     assert segdep.geometry(n, d) == want
 
 
-@pytest.mark.parametrize("n,d", [(-1, 3), (16, 0), (16, 4)])
+@pytest.mark.parametrize("n,d", [(-1, 3), (16, 0)])
 def test_kernel_geometry_refuses(n, d):
     with pytest.raises(ValueError):
         segdep.geometry(n, d)
+
+
+@pytest.mark.parametrize("d,want", [
+    (1, (1, 4)), (3, (1, 16)), (4, (1, 32)), (5, None), (6, None),
+])
+def test_kernel_shape_rule_routes_d(d, want):
+    """D up to 4 (16 channels) runs on the kernel; D >= 5 goes to the
+    plain version by this rule alone (``None``)."""
+    assert segdep.MAX_D == 4
+    assert segdep.geometry(100, d) == want
+
+
+@pytest.mark.parametrize("with_mass", [False, True])
+@pytest.mark.parametrize("kind", ["dense", "sparse", "slabs"])
+def test_plain_at_d4_matches_reference(kind, with_mass):
+    """D = 4 (the kernel's new top): the plain version, the kernel's
+    reference on the card, is bit-equal to the reference's ``_segsum_xla``
+    on dyadic data and within 1e-6 of it on generic floats."""
+    vblock = (4, 4, 4, 4)
+    r, keys, n, n_cells = _stream(kind, 404, vblock)
+    rel_d = (r.integers(0, 16, (4, n)) * 0.25).astype(np.float32)
+    rel_g = (r.random((4, n)) * 4).astype(np.float32)
+    mass = r.choice(np.float32([0.5, 1.0, 2.0]), n) if with_mass else None
+    m = None if mass is None else jnp.asarray(mass)
+    for rel, exact in ((rel_d, True), (rel_g, False)):
+        got = _port(keys, rel, mass, n_cells, vblock)
+        want = np.asarray(jax.jit(
+            lambda k, x: jseg._segsum_xla(k, x, m, n_cells, vblock, 4)
+        )(jnp.asarray(keys), jnp.asarray(rel)))
+        assert got.shape == (16, n_cells)
+        if exact:
+            _bits(got, want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
 EDGE_STREAMS = ["run_spans_tiles", "runs_end_at_tile_ends",
