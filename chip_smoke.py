@@ -60,7 +60,19 @@ started together), then, on the card:
      zero drops and ownership; and the planar canonical step in a drift
      loop (2^20 rows per vrank, 1.25x slots, ~2% migration), ms/step and
      host syncs per step, with ``--profile`` the device's busy and idle
-     share of both.
+     share of both;
+  7. drives the halo exchange (config 6: the 2x2x2 grid as 8 vranks on
+     the periodic unit box, every slot filled, width 0.05, derived
+     capacities): at 2^18 rows per vrank both vrank engines on the card
+     bit-equal to each other and to the port's CPU run; at 2^20 rows per
+     vrank ms per exchange (min and median of k) and ns per ghost of
+     each engine, the ghost fraction beside the uniform expectation,
+     zero overflow, host syncs per exchange (0) and a shell check of
+     every ghost; then the public ``GridRedistribute.halo()`` on the
+     output of the headline ``redistribute()`` call, ms per call, and its
+     ghost set equal to the vectorised ``oracle.brute_force_ghosts`` at
+     2^16 rows per vrank; with ``--profile`` the device's busy and idle
+     share and operations per exchange.
 
 Any failed check raises; nothing is caught and carried on. The last
 lines are the ``nvidia-smi`` name and power limit, one JSON object with
@@ -86,6 +98,7 @@ from pathlib import Path
 
 import numpy as np
 
+T_START = time.perf_counter()
 HERE = Path(__file__).resolve().parent
 
 # the bench configuration (bench.py: GRID, FILL, migration, dt)
@@ -1038,7 +1051,9 @@ def canonical_phase(torch, pt, config1_oracle, oracle, profiling,
                     profile_dir):
     """The canonical ``GridRedistribute.redistribute`` on the card: config
     1 against the NumPy oracle, then the headline width per call, then the
-    planar canonical step in a drift loop."""
+    planar canonical step in a drift loop. Returns ``(summary, (rd,
+    out))``: the headline call's redistributor and output, which the
+    halo phase exchanges."""
     V = int(np.prod(GRID))
 
     # ---- config 1, byte-equal to the oracle (positions, fields, count,
@@ -1113,7 +1128,7 @@ def canonical_phase(torch, pt, config1_oracle, oracle, profiling,
             f"device busy {call_busy:.4f} ms/call of {call_ms[0]:.4f} (idle "
             f"{1 - call_busy / call_ms[0]:.2%})")
     rd.flush_overflow_checks()
-    del out, args, rd
+    del args
 
     # ---- the planar canonical step in a drift loop
     fused, count = config1_oracle.drift_state(N_LOCAL)
@@ -1157,7 +1172,202 @@ def canonical_phase(torch, pt, config1_oracle, oracle, profiling,
         "spread": detail["spread"],
         "host_syncs_per_step": step_syncs,
         "device_busy_ms_per_step": step_busy,
-    }
+    }, (rd, out)
+
+
+HALO_SMALL = 1 << 18  # config 6's own size, card against CPU
+HALO_ORACLE = 1 << 16  # the public call against the ghost oracle
+HALO_CALLS = 10
+
+
+def _halo_bits(torch, x):
+    return x.cpu().contiguous().view(torch.uint8)
+
+
+def _shell_check(torch, pt, ghost, gcount, w, label):
+    """Every ghost of receiver r lies in its subdomain widened by ``w``
+    and not in the subdomain (all in float32, the bounds built as the
+    engine builds its thresholds, ``lo + coord * cell_w`` then ``+
+    cell_w``), and every column past the count is zero. A ghost selected
+    at the sender's rounded threshold can lie below the receiver's
+    rounded ``lo - w`` after a wrap's shift; the widened test allows one
+    ulp of the extent for that and counts the ghosts that needed it."""
+    grid = pt.ProcessGrid(GRID)
+    V, G = ghost.shape[0], ghost.shape[2]
+    coord = torch.tensor([grid.cell_of_rank(r) for r in range(V)],
+                         dtype=torch.float32, device=ghost.device)[:, :, None]
+    cw = torch.tensor(grid.cell_widths(pt.Domain(0.0, 1.0)),
+                      dtype=torch.float32, device=ghost.device)[None, :, None]
+    lo = coord * cw
+    hi = lo + cw
+    wf = torch.tensor(w, dtype=torch.float32, device=ghost.device)
+    ulp = 2.0 ** -23
+    valid = (torch.arange(G, device=ghost.device)[None, :]
+             < gcount[:, None])
+    strict = ((ghost >= lo - wf) & (ghost < hi + wf)).all(dim=1)
+    wide = ((ghost >= lo - wf - ulp) & (ghost < hi + wf + ulp)).all(dim=1)
+    own = ((ghost >= lo) & (ghost < hi)).all(dim=1)
+    bad = valid & ~(wide & ~own)
+    check(not bool(bad.any()),
+          f"{label}: {int(bad.sum())} ghosts outside their receiver's shell")
+    check(not bool(((ghost.view(torch.int32) != 0).any(dim=1)
+                    & ~valid).any()),
+          f"{label}: a ghost column past the count is not zero")
+    return int((valid & wide & ~strict).sum())
+
+
+def halo_phase(torch, pt, config6_halo, config1_oracle, oracle, profiling,
+               profile_dir, headline):
+    """Config 6 on the card: both vrank engines against each other and
+    the CPU run, then timed at the headline width, then the public
+    ``halo()`` on ``headline``, the canonical phase's ``(rd, out)`` of
+    the headline ``redistribute()``, and against the ghost oracle."""
+    V = int(np.prod(GRID))
+
+    # ---- config 6 at its own size: card == CPU, planar == row-major
+    t0 = time.perf_counter()
+    pos_v, count, w, pc, gc = config6_halo.setup(HALO_SMALL)
+    fns = config6_halo.engines(w, pc, gc)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        states, c = config6_halo.device_states(pos_v, count, dev)
+        for engine in ("planar", "rowmajor"):
+            out[dev, engine] = fns[engine](states[engine], c)
+    check(out["cuda", "planar"][0].is_cuda, "halo: did not run on the card")
+    for engine in ("planar", "rowmajor"):
+        for x, y in zip(out["cuda", engine], out["cpu", engine]):
+            check(torch.equal(_halo_bits(torch, x), _halo_bits(torch, y)),
+                  f"halo ({engine}): card differs from the CPU run at "
+                  f"{HALO_SMALL} rows a vrank")
+    (pg, pcnt, pov), (rg, rcnt, rov) = out["cuda", "planar"], out[
+        "cuda", "rowmajor"]
+    check(torch.equal(_halo_bits(torch, pg.transpose(1, 2)),
+                      _halo_bits(torch, rg))
+          and torch.equal(pcnt, rcnt) and torch.equal(pov, rov),
+          "halo: planar engine differs from row-major on the card")
+    check(int(pov.sum()) == 0, "halo: overflow at config 6's own size")
+    small_ghosts = int(pcnt.sum())
+    log(f"halo, config 6 at {HALO_SMALL} rows a vrank (w {w}, capacities "
+        f"{pc}/{gc}): planar == row-major on the card and card == CPU for "
+        f"both engines (ghost bits, {small_ghosts} ghosts, counts, "
+        f"overflow 0); {time.perf_counter() - t0:.1f} s")
+    del out, pg, rg
+
+    # ---- the headline width: 2^20 rows a vrank, both engines timed
+    case = config6_halo.prepare(N_LOCAL, "cuda")
+    res = config6_halo.time_case(case)
+    check(res["overflow"] == 0, f"halo: overflow {res['overflow']} at the "
+          f"headline width")
+    fns, states, count_t, w = case.fns, case.states, case.count, case.w
+    syncs, shell_slack = {}, None
+    for engine in ("planar", "rowmajor"):
+        fn, st = fns[engine], states[engine]
+        o, syncs[engine] = synced_run(torch, lambda: fn(st, count_t))
+        check(syncs[engine] == 0,
+              f"halo ({engine}): {syncs[engine]} host syncs an exchange")
+        if engine == "planar":
+            check(int(o[1].sum()) == res["ghosts_per_exchange"],
+                  "halo: ghost count differs from the timed run")
+            shell_slack = _shell_check(torch, pt, o[0], o[1], w,
+                                       "halo (planar)")
+        del o
+    frac = res["ghost_frac_measured"]
+    check(abs(frac - res["ghost_frac_expected_uniform"]) < 0.01,
+          f"halo: ghost fraction {frac} far from the uniform expectation")
+    log(f"halo, config 6 at {N_LOCAL} rows a vrank (capacities "
+        f"{res['pass_capacity']}/{res['ghost_capacity']}): planar "
+        f"{res['value']:.4f} ms/exchange (min of k={res['samples']}, median "
+        f"{res['median_ms_per_exchange']:.4f}), {res['ns_per_ghost']:.4f} "
+        f"ns/ghost; row-major {res['rowmajor_ms_per_exchange']:.4f} "
+        f"(median {res['rowmajor_median_ms_per_exchange']:.4f}), "
+        f"{res['rowmajor_ns_per_ghost']:.4f} ns/ghost; "
+        f"{res['ghosts_per_exchange']} ghosts, fraction {frac:.6f} against "
+        f"{res['ghost_frac_expected_uniform']:.6f} uniform; overflow 0; "
+        f"host syncs an exchange {syncs}; shell check holds "
+        f"({shell_slack} ghosts within one ulp of a widened face)")
+    busy = {}
+    if profile_dir:
+        for engine in ("planar", "rowmajor"):
+            make_run = config6_halo.make_loop(engine, fns[engine],
+                                              states[engine], count_t)
+            per = res["value" if engine == "planar"
+                      else "rowmajor_ms_per_exchange"] / 1e3
+            busy[engine] = write_profile(torch, make_run, profile_dir, per,
+                                         f"halo_{engine}")
+    del states, case
+
+    # ---- the public call after the headline redistribute
+    rd, red = headline
+    h = rd.halo(red.positions, *red.fields, width=w, count=red.count)
+    times = []
+    for _ in range(HALO_CALLS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        h = rd.halo(red.positions, *red.fields, width=w, count=red.count)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    call_ms = sorted(a.elapsed_time(b) for a, b in times)
+    _, call_syncs = synced_run(torch, lambda: rd.halo(
+        red.positions, *red.fields, width=w, count=red.count))
+    check(int(h.overflow.sum()) == 0, "halo(): overflow after growth")
+    n_pad = red.positions.shape[0] // V
+    log(f"halo(): {call_ms[0]:.4f} ms/call (min of k={HALO_CALLS}, median "
+        f"{statistics.median(call_ms):.4f}) on the headline redistribute's "
+        f"output ({n_pad} padded rows a vrank, {int(red.count.sum())} live, "
+        f"pos + 2 fields), width {w}, capacities "
+        f"{rd._halo_caps or 'derived'}; {int(h.ghost_count.sum())} ghosts; "
+        f"host syncs a call {call_syncs} (the 'grow' policy's one overflow "
+        f"read)")
+    if profile_dir:
+        def make_calls(S):
+            return lambda: [rd.halo(red.positions, *red.fields, width=w,
+                                    count=red.count) for _ in range(S)]
+
+        ops, call_busy, _ = profile_steps(torch, make_calls, profile_dir,
+                                          "halo_call")
+        busy["call"] = call_busy
+        log(f"halo() profile: {ops:.1f} device operations/call, device busy "
+            f"{call_busy:.4f} ms/call of {call_ms[0]:.4f} (idle "
+            f"{1 - call_busy / call_ms[0]:.2%})")
+    del h, red, rd
+
+    # ---- the public call's ghost set against the oracle
+    t0 = time.perf_counter()
+    args = tuple(torch.from_numpy(a).cuda()
+                 for a in config1_oracle.inputs(V * HALO_ORACLE))
+    rd = pt.GridRedistribute(lo=0.0, hi=1.0, periodic=True, grid=GRID,
+                             capacity_factor=config1_oracle.CAPACITY_FACTOR)
+    red = rd.redistribute(*args)
+    h = rd.halo(red.positions, width=w, count=red.count)
+    oc = red.positions.shape[0] // V
+    pos_np, cnt = red.positions.cpu().numpy(), red.count.cpu().numpy()
+    shards = [pos_np[r * oc: r * oc + cnt[r]] for r in range(V)]
+    expected = oracle.brute_force_ghosts(pt.Domain(0.0, 1.0, periodic=True),
+                                         pt.ProcessGrid(GRID), shards, w)
+    G = h.ghost_positions.shape[0] // V
+    gpos, gcnt = h.ghost_positions.cpu().numpy(), h.ghost_count.cpu().numpy()
+
+    def rows(a):
+        u = np.ascontiguousarray(a).view(np.uint32)
+        return u[np.lexsort(u.T[::-1])]
+
+    for r in range(V):
+        check(gcnt[r] == len(expected[r]) and np.array_equal(
+            rows(gpos[r * G: r * G + gcnt[r]]), rows(expected[r])),
+            f"halo(): rank {r}'s ghost set differs from the oracle at "
+            f"{HALO_ORACLE} rows a vrank")
+    log(f"halo(): ghost sets equal the vectorised brute_force_ghosts at "
+        f"{HALO_ORACLE} rows a vrank ({int(gcnt.sum())} ghosts, bits); "
+        f"{time.perf_counter() - t0:.1f} s with the oracle")
+    return dict(
+        res, small_bit_equal=True, host_syncs_per_exchange=syncs,
+        shell_ulp_ghosts=shell_slack, call_ms=call_ms[0],
+        median_call_ms=statistics.median(call_ms),
+        host_syncs_per_call=call_syncs,
+        device_busy_ms=busy or None, oracle_set_equal=True,
+    )
 
 
 def main() -> int:
@@ -1184,7 +1394,7 @@ def main() -> int:
         return 3
     from mpi_grid_redistribute_tpu_torch import oracle
     from mpi_grid_redistribute_tpu_torch.bench import (
-        common, config1_oracle, config5_deposit, kernel_times,
+        common, config1_oracle, config5_deposit, config6_halo, kernel_times,
     )
     from mpi_grid_redistribute_tpu_torch.models import nbody
     from mpi_grid_redistribute_tpu_torch.ops import (
@@ -1202,9 +1412,15 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
 
+    laps = [("start", T_START)]
+
+    def lap(name):
+        laps.append((name, time.perf_counter()))
+
     t0 = time.perf_counter()
     _build.build_all()
     log(f"built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    lap("set-up and build")
 
     v, cap, budget = common.drift_sizing(GRID, N_LOCAL, FILL, MIGRATION)
     log(f"bench sizing: capacity {cap}, local_budget {budget}, "
@@ -1232,6 +1448,7 @@ def main() -> int:
     log(f"scatter_rows: {k6['ms']:.5f} ms (bound {k6['bound_ms']:.5f}, "
         f"plain {k6['plain_ms']:.5f}, index_put_ {k6['library_ms']:.5f}) "
         f"bit-equal at V*P = {8 * budget} into [{state_np.shape[1]}, 7]")
+    lap("kernels 1-3, 6")
 
     inputs = tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda()
                    for x in (pos_p, vel_p, alive))
@@ -1249,6 +1466,7 @@ def main() -> int:
                             inputs, cap, budget, planar_out, args.profile)
     del planar_out
     small_width_phase(torch, pt, nbody)
+    lap("loops")
 
     # ---- config 5: the deposit kernels, then the fused loop
     cfg5, vgrid5, state5 = config5_deposit.build(n_local=N_LOCAL)
@@ -1278,10 +1496,18 @@ def main() -> int:
           f"config5: mxu rho vs scan rho beyond 2e-4 (max abs {err})")
     log(f"config5: mxu rho vs scan rho max abs err {err}")
     del rhos
+    lap("config 5")
 
     # ---- the canonical GridRedistribute.redistribute
-    canon = canonical_phase(torch, pt, config1_oracle, oracle, profiling,
-                            args.profile)
+    canon, headline = canonical_phase(torch, pt, config1_oracle, oracle,
+                                      profiling, args.profile)
+    lap("canonical")
+
+    # ---- the halo exchange (config 6) and the public halo()
+    halo = halo_phase(torch, pt, config6_halo, config1_oracle, oracle,
+                      profiling, args.profile, headline)
+    del headline
+    lap("halo")
 
     kernels = []
     # rows 2 and 3 of the TPU table (_overlay_sorted, _overlay_sorted_i8)
@@ -1297,11 +1523,17 @@ def main() -> int:
         k = dict(k)
         k["launches"] = path[k["name"]]
         kernels.append(k)
+    log(f"chip_smoke: every phase passed, {time.perf_counter() - T_START:.1f}"
+        f" s since the script started (the kernels' build included); "
+        f"seconds a phase: " + ", ".join(
+            f"{name} {t - t_prev:.1f}"
+            for (_, t_prev), (name, t) in zip(laps, laps[1:])))
     log(json.dumps({"sparse_path": sparse}))
     log(json.dumps({"planar_path": planar}))
     log(json.dumps({"rows_path": rows}))
     log(json.dumps({"config5": c5}))
     log(json.dumps({"canonical": canon}))
+    log(json.dumps({"halo": halo}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,7 +6,12 @@ the grid as virtual ranks:
 
   * the canonical :class:`GridRedistribute` ``.redistribute()`` (the
     planar and row-major engines; ``engine="auto"`` picks planar) with its
-    NumPy oracle (:mod:`.oracle`) and non-uniform :class:`GridEdges`;
+    NumPy oracle (:mod:`.oracle`) and non-uniform :class:`GridEdges`,
+    ``.apply_assignment()``, and the functional :func:`redistribute` and
+    :func:`.api.reshard`;
+  * the halo exchange ``GridRedistribute.halo()`` (:class:`HaloResult`;
+    the planar and row-major vrank engines of :mod:`.parallel.halo`),
+    with the set-level ghost oracle ``oracle.brute_force_ghosts``;
   * the drift/migrate loop (:func:`.models.nbody.make_migrate_loop`, the
     mover-sparse and planar engines, the row-store landing route) and the
     config-5 CIC deposit fused into it.
@@ -18,11 +23,12 @@ runs as its plain PyTorch version.
 """
 
 from mpi_grid_redistribute_tpu_torch.api import (
-    GridRedistribute, MoverCapacity, RedistributeResult,
+    GridRedistribute, MoverCapacity, RedistributeResult, redistribute,
 )
 from mpi_grid_redistribute_tpu_torch.domain import Domain, GridEdges, ProcessGrid
+from mpi_grid_redistribute_tpu_torch.parallel.halo import HaloResult
 
 __all__ = [
-    "Domain", "GridEdges", "GridRedistribute", "MoverCapacity",
-    "ProcessGrid", "RedistributeResult",
+    "Domain", "GridEdges", "GridRedistribute", "HaloResult", "MoverCapacity",
+    "ProcessGrid", "RedistributeResult", "redistribute",
 ]

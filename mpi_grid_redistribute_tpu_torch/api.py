@@ -1,8 +1,10 @@
-"""Public API: ``GridRedistribute`` and its ``redistribute()`` (port of the
-JAX package's ``api.py``, one device).
+"""Public API: ``GridRedistribute`` with its ``redistribute()`` and
+``halo()``, and the functional ``redistribute()`` and ``reshard()`` (port
+of the JAX package's ``api.py``, one device).
 
 Construct with domain bounds and a process-grid shape, then call
-``redistribute(positions, *payload_arrays)``. Two backends: ``"torch"``
+``redistribute(positions, *payload_arrays)``, and for ghosts
+``halo(positions, *fields, width=..., count=...)``. Two backends: ``"torch"``
 (the default) runs the canonical exchange on one device, the R ranks of
 the grid as virtual ranks (what the reference does when it has fewer
 devices than ranks); ``"numpy"`` runs the rank-simulation oracle with the
@@ -34,6 +36,8 @@ import torch
 from mpi_grid_redistribute_tpu_torch import _device, oracle
 from mpi_grid_redistribute_tpu_torch.domain import Domain, GridEdges, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.parallel import exchange
+from mpi_grid_redistribute_tpu_torch.parallel import halo as halo_lib
+from mpi_grid_redistribute_tpu_torch.parallel.halo import HaloResult
 
 # 64-bit dtypes and what JAX (x64 off) narrows them to
 _NARROW_NP = {
@@ -150,30 +154,26 @@ def _unfuse_planar(fused, specs, R: int, out_cap: int):
     return outs[0], tuple(outs[1:])
 
 
-def _planar_vranks_call(domain: Domain, grid: ProcessGrid, cap: int,
-                        out_cap: int, specs, edges=None):
-    """Boundary fuse -> planar vrank exchange -> boundary unfuse."""
-    V = grid.nranks
-    engine = exchange.vrank_redistribute_planar_fn(
-        domain, grid, cap, out_cap, domain.ndim, edges=edges
-    )
-
+def _planar_call(engine, V: int, out_cap: int, specs):
+    """Boundary fuse -> a planar vrank engine ``(fused [V, K, n], count) ->
+    (out [V, K, out_cap], count, extra)`` -> boundary unfuse. The call
+    returns ``(positions, count, fields, extra)``; ``extra`` is the
+    engine's stats (redistribute) or overflow (halo)."""
     def call(positions, count, *fields):
         n_local = positions.shape[0] // V
         fused = _fuse_planar(positions, fields, V, n_local, specs)
-        out, new_count, stats = engine(fused, count)
+        out, new_count, extra = engine(fused, count)
         pos_out, fields_out = _unfuse_planar(out, specs, V, out_cap)
-        return pos_out, new_count, fields_out, stats
+        return pos_out, new_count, fields_out, extra
 
     return call
 
 
-def _rowmajor_vranks_call(domain: Domain, grid: ProcessGrid, cap: int,
-                          out_cap: int, edges=None):
-    """Row-major vrank exchange on ``[R * n, ...]`` arrays."""
-    R = grid.nranks
-    engine = exchange.vrank_redistribute_fn(domain, grid, cap, out_cap, edges)
-
+def _rowmajor_call(engine, R: int, out_cap: int):
+    """A row-major vrank engine ``(pos [R, n, D], count, *fields [R, n,
+    ...]) -> (pos [R, out_cap, D], count, *fields, extra)`` on ``[R * n,
+    ...]`` arrays. The call returns ``(positions, count, fields,
+    extra)``."""
     def call(positions, count, *fields):
         n = positions.shape[0] // R
         out = engine(
@@ -256,6 +256,9 @@ class GridRedistribute:
         :func:`oracle.assert_ownership`.
       mesh, dcn_shape, cross_cap: the multi-device and two-level planes;
         not ported, they raise ``NotImplementedError``.
+
+    :meth:`halo` exchanges ghosts on the same grid (torch backend, uniform
+    cells), with the same engine rule and its own overflow policy.
     """
 
     def __init__(
@@ -354,15 +357,11 @@ class GridRedistribute:
         self._del_warned = False
         self._last_caps = None  # (cap, out_cap, n_local) of the last call
         self._last_stats = None
+        self._halo_caps = {}  # widths tuple -> grown (pass_cap, ghost_cap)
 
     @property
     def nranks(self) -> int:
         return self.grid.nranks
-
-    def halo(self, *args, **kwargs):
-        raise NotImplementedError(
-            "halo(): the halo exchange is not ported yet (ROADMAP.md A8)"
-        )
 
     def _capacities(self, n_local: int) -> Tuple[int, int]:
         cap = self.capacity
@@ -452,10 +451,12 @@ class GridRedistribute:
             planar_ok=specs is not None, canonical=True,
         )
         if resolved == "planar":
-            return _planar_vranks_call(self.domain, self.grid, cap, out_cap,
-                                       specs, edges=self.edges)
-        return _rowmajor_vranks_call(self.domain, self.grid, cap, out_cap,
-                                     edges=self.edges)
+            return _planar_call(exchange.vrank_redistribute_planar_fn(
+                self.domain, self.grid, cap, out_cap, self.domain.ndim,
+                edges=self.edges), self.nranks, out_cap, specs)
+        return _rowmajor_call(exchange.vrank_redistribute_fn(
+            self.domain, self.grid, cap, out_cap, self.edges), self.nranks,
+            out_cap)
 
     def _run_once(self, positions, fields, count, cap: int,
                   out_cap: int) -> RedistributeResult:
@@ -505,6 +506,141 @@ class GridRedistribute:
         )
         self._call_index += 1
         return self._redistribute_attempts(positions, fields, count, n_local)
+
+    def apply_assignment(self, edges, positions, *fields,
+                         count=None) -> RedistributeResult:
+        """Rebind ownership to ``edges`` (typically an assignment-aware
+        fine-cell -> rank map) and re-home the state in one canonical
+        redistribute. The new edges stick on the instance: later calls
+        route by them. The returned particle set is the input set,
+        permuted. ``edges=None`` reverts to uniform cells."""
+        if edges is not None and not isinstance(edges, GridEdges):
+            edges = GridEdges(edges)
+        if edges is not None:
+            edges.validate_against(self.domain, self.grid)
+        self.edges = edges
+        return self.redistribute(positions, *fields, count=count)
+
+    def halo(
+        self,
+        positions,
+        *fields,
+        width,
+        count=None,
+        headroom: float = 2.0,
+        pass_capacity: Optional[int] = None,
+        ghost_capacity: Optional[int] = None,
+    ) -> HaloResult:
+        """Ghost exchange: for every rank, copies of the neighbour ranks'
+        particles within ``width`` of its subdomain faces.
+
+        Args:
+          positions: ``[R * n_local, ndim]`` in :meth:`redistribute`'s
+            global padded layout (typically its output).
+          *fields: per-particle arrays riding along (ids, masses).
+          width: scalar or per-axis halo width in domain units, at most
+            the per-axis subdomain width (one-hop shell).
+          count: ``[R]`` valid-row counts (e.g. ``result.count``).
+          headroom: multiplier of the derived capacities
+            (:func:`~.parallel.halo.default_capacities`), sized from the
+            PADDED per-rank rows, so forcing overflow needs it well
+            below 1.
+          pass_capacity / ghost_capacity: explicit pins; by default
+            derived, and under ``on_overflow="grow"`` grown on a measured
+            overflow (grown sizes stick on the instance per width).
+            ``"raise"`` raises on any overflow; ``"ignore"`` returns
+            without reading the device, ``overflow`` in the result.
+
+        Returns a :class:`HaloResult`: ``ghost_positions [R *
+        ghost_capacity, ndim]`` (shifted into each receiver's frame
+        across periodic wraps), ``ghost_count [R]``, ``ghost_fields``,
+        ``overflow [R]``. The planar engine runs when every array is
+        32-bit, the row-major one otherwise; both give the same ghosts.
+        "grow" and "raise" read ``overflow`` on the host once an attempt.
+        """
+        if self.backend != "torch":
+            raise ValueError(
+                "halo() runs on the torch backend; for NumPy-side "
+                "validation use oracle.brute_force_ghosts (the set-level "
+                "ghost oracle)"
+            )
+        if self.edges is not None:
+            raise ValueError(
+                "halo() requires uniform cells (edges=None): the halo "
+                "engines' face predicates assume uniform subdomain "
+                "widths — rebalance with GridEdges only on the "
+                "redistribute path, or rebuild without edges for ghosts"
+            )
+        positions, fields, n_local, count = self._check_inputs(
+            positions, fields, count
+        )
+        widths = halo_lib._as_per_axis(width, self.domain.ndim)
+        dpc, dgc = halo_lib.default_capacities(
+            self.domain, self.grid, widths, n_local, headroom
+        )
+        grown_pc, grown_gc = self._halo_caps.get(widths, (0, 0))
+        pc = pass_capacity if pass_capacity is not None else max(dpc,
+                                                                 grown_pc)
+        gc = ghost_capacity if ghost_capacity is not None else max(dgc,
+                                                                   grown_gc)
+        max_attempts = 5
+        for attempt in range(1, max_attempts + 1):
+            result = self._halo_once(positions, fields, count, widths, pc,
+                                     gc)
+            if self.on_overflow == "ignore":
+                return result  # no host read
+            overflow = _host(result.overflow)
+            total_ov = int(overflow.sum())
+            if not total_ov:
+                return result
+            if self.on_overflow == "raise":
+                raise RuntimeError(
+                    f"halo overflow: {total_ov} ghosts dropped at "
+                    f"pass_capacity={pc}, ghost_capacity={gc} — raise "
+                    f"capacities/headroom or use on_overflow='grow'"
+                )
+            if pass_capacity is not None and ghost_capacity is not None:
+                raise RuntimeError(
+                    f"halo overflow: {total_ov} ghosts dropped at the "
+                    f"explicitly pinned capacities ({pc}, {gc})"
+                )
+            if attempt == max_attempts:
+                # growth happens only when another attempt follows, so
+                # (pc, gc) are the capacities of the run that dropped
+                raise RuntimeError(
+                    f"halo capacity growth did not converge in "
+                    f"{max_attempts} attempts (last run: "
+                    f"pass_capacity={pc}, ghost_capacity={gc}, "
+                    f"{total_ov} ghosts still dropped)"
+                )
+            # pass and ghost drops cascade into one counter: grow both by
+            # at least the worst rank's overflow, in power-of-two buckets
+            max_ov = int(overflow.max())
+            if pass_capacity is None:
+                pc = _next_pow2(max(2 * pc, pc + max_ov))
+            if ghost_capacity is None:
+                gc = _next_pow2(gc + max_ov)
+            self._halo_caps[widths] = (max(pc, grown_pc), max(gc, grown_gc))
+
+    def _halo_once(self, positions, fields, count, widths, pc: int,
+                   gc: int) -> HaloResult:
+        specs = None
+        if self.engine in ("auto", "planar"):
+            specs = _planar_specs(positions, fields)
+            if specs is None and self.engine == "planar":
+                raise TypeError(
+                    "engine='planar' requires 32-bit positions and fields "
+                    "(they ride as int32 rows); cast or use "
+                    "engine='auto'/'rowmajor'"
+                )
+        if specs is not None:
+            fn = _planar_call(halo_lib.vrank_halo_planar_fn(
+                self.domain, self.grid, widths, pc, gc), self.nranks, gc,
+                specs)
+        else:
+            fn = _rowmajor_call(halo_lib.vrank_halo_fn(
+                self.domain, self.grid, widths, pc, gc), self.nranks, gc)
+        return HaloResult(*fn(positions, count, *fields))
 
     def _read_overflow(self, result) -> Tuple[int, int, int, int]:
         """One blocking read of ``(dropped_send, dropped_recv, needed,
@@ -710,3 +846,56 @@ class GridRedistribute:
                 "unreported",
                 RuntimeWarning, stacklevel=2,
             )
+
+
+def redistribute(positions, *fields, domain: Domain, grid, count=None,
+                 backend: str = "torch", **kwargs) -> RedistributeResult:
+    """One-shot functional form of :class:`GridRedistribute`."""
+    rd = GridRedistribute(domain, grid, backend=backend, **kwargs)
+    return rd.redistribute(positions, *fields, count=count)
+
+
+def reshard(positions, *fields, domain: Domain, grid, n_local: int,
+            backend: str = "numpy", telemetry=None,
+            **kwargs) -> RedistributeResult:
+    """Route UNPADDED live rows onto ``grid``'s owners in one canonical
+    redistribute (the elastic-restart entry).
+
+    Ownership follows position, so re-decomposing ``N`` live rows onto an
+    M-rank grid is one redistribute: the ``[N, ndim]`` rows are chunked
+    contiguously over M input shards (any chunking works; the exchange
+    routes by position) into the ``[M * n_local, ...]`` padded layout.
+    ``fields`` ride the same permutation. Defaults to the numpy backend,
+    as the reference does; overflow heals by growing. ``telemetry=``
+    (journaling) raises ``NotImplementedError``: the telemetry plane is
+    not ported (``ROADMAP.md`` A11)."""
+    if telemetry is not None:
+        raise NotImplementedError(
+            "reshard(telemetry=...): journaling belongs to the telemetry "
+            "plane, which is not ported yet (ROADMAP.md A11)"
+        )
+    grid = grid if isinstance(grid, ProcessGrid) else ProcessGrid(grid)
+    positions = _host(positions)
+    n = positions.shape[0]
+    m = grid.nranks
+    if int(n_local) < 1:
+        raise ValueError(f"n_local must be >= 1, got {n_local}")
+    in_rows = max(1, -(-n // m))  # ceil: every live row gets an input slot
+    fields = tuple(_host(f) for f in fields)
+    pos_in = np.zeros((m * in_rows,) + positions.shape[1:], positions.dtype)
+    pos_in[:n] = positions
+    fields_in = []
+    for f in fields:
+        buf = np.zeros((m * in_rows,) + f.shape[1:], f.dtype)
+        buf[:n] = f
+        fields_in.append(buf)
+    # input shard c's live rows are rows [c * in_rows, c * in_rows +
+    # count_in[c]) of the flat live array
+    count_in = np.clip(
+        n - in_rows * np.arange(m, dtype=np.int64), 0, in_rows
+    ).astype(np.int32)
+    rd = GridRedistribute(
+        domain, grid, backend=backend, capacity=in_rows,
+        out_capacity=int(n_local), on_overflow="grow", **kwargs,
+    )
+    return rd.redistribute(pos_in, *fields_in, count=count_in)

@@ -15,6 +15,7 @@ binning, which the oracle thereby checks.
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -226,3 +227,63 @@ def assert_ownership(domain: Domain, grid: ProcessGrid,
                 f"rank {r}: {bad.size} particles outside subdomain, e.g. "
                 f"{np.asarray(pos)[bad[0]]} -> rank {dest[bad[0]]}"
             )
+
+
+def brute_force_ghosts(
+    domain: Domain,
+    grid: ProcessGrid,
+    pos_shards: Sequence[np.ndarray],
+    halo_width,
+) -> List[np.ndarray]:
+    """Set-level halo oracle: for each rank, every particle (from any
+    shard, under every periodic image shift) inside the rank's subdomain
+    widened by ``halo_width`` but NOT inside the subdomain itself, as
+    float32 ``[g, ndim]``. Comparisons are float64 (the shifted position
+    ``p + shift`` and the box bounds), as in the reference's oracle.
+
+    The engines also fix a ghost ORDER; this defines the SET, compared
+    after sorting rows. Rows come out in the reference's loop order
+    (source shard, particle, image shift), computed with one pass over
+    all particles per shift and grid coordinate instead of the
+    reference's per-particle loops. A scalar width broadcasts over axes.
+    """
+    R = grid.nranks
+    ndim = domain.ndim
+    ext = np.asarray(domain.extent)
+    w = np.asarray(halo_width, dtype=np.float64)
+    if w.ndim == 0:
+        w = np.full((ndim,), float(w))
+    shifts = np.asarray([
+        np.asarray(vec) * ext for vec in itertools.product(*[
+            (-1, 0, 1) if domain.periodic[a] else (0,) for a in range(ndim)
+        ])
+    ])
+    pts = [np.asarray(p) for p in pos_shards]
+    pts = [p for p in pts if len(p)]
+    if not pts:
+        return [np.zeros((0, ndim), np.float32) for _ in range(R)]
+    P = np.concatenate(pts, axis=0)
+    boxes = [grid.subdomain_of_rank(d, domain) for d in range(R)]
+    hit = np.zeros((R, len(P), len(shifts)), dtype=bool)
+    for s, v in enumerate(shifts):
+        q = P + v  # float64
+        # (axis, lo) -> (inside the widened interval, inside the owned
+        # one): a rank's box test is the AND of its axes' intervals
+        axis_tests = {}
+        for d, (lo, hi) in enumerate(boxes):
+            wide = own = True
+            for a in range(ndim):
+                key = (a, lo[a])
+                if key not in axis_tests:
+                    qa = q[:, a]
+                    axis_tests[key] = (
+                        (qa >= lo[a] - w[a]) & (qa < hi[a] + w[a]),
+                        (qa >= lo[a]) & (qa < hi[a]))
+                wide = wide & axis_tests[key][0]
+                own = own & axis_tests[key][1]
+            hit[d, :, s] = wide & ~own
+    out = []
+    for d in range(R):
+        p_idx, s_idx = np.nonzero(hit[d])
+        out.append((P[p_idx] + shifts[s_idx]).astype(np.float32))
+    return out

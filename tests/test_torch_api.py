@@ -24,7 +24,7 @@ import mpi_grid_redistribute_tpu as jgr
 from mpi_grid_redistribute_tpu import api as japi
 from mpi_grid_redistribute_tpu.parallel import exchange as jex
 import mpi_grid_redistribute_tpu_torch as tgr
-from mpi_grid_redistribute_tpu_torch import oracle
+from mpi_grid_redistribute_tpu_torch import api, oracle
 
 torch.set_num_threads(1)
 
@@ -451,14 +451,95 @@ def test_unported_planes_raise():
         with pytest.raises(NotImplementedError, match=item):
             tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", **kw)
     rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        rd.halo(np.zeros((8, 3), np.float32), width=0.1)
     with pytest.raises(ValueError, match="backend"):
         tgr.GridRedistribute(TDOM, (2, 2, 2), backend="jax")
     with pytest.raises(ValueError, match="engine"):
         tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", engine="fast")
     with pytest.raises(ValueError, match="divide"):
         rd.redistribute(np.zeros((9, 3), np.float32))
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+def test_functional_redistribute_matches_reference(backend):
+    """The package root's ``redistribute()`` builds an instance and runs
+    one call: byte-equal to the reference's (numpy backend), stats too."""
+    r = np.random.default_rng(31)
+    pos, vel, ids = _inputs(r, 8, 200)
+    count = r.integers(100, 201, 8).astype(np.int32)
+    kw = dict(device="cpu") if backend == "torch" else {}
+    got = tgr.redistribute(pos, vel, ids, domain=TDOM, grid=(2, 2, 2),
+                           count=count, backend=backend,
+                           capacity_factor=3.0, **kw)
+    want = jgr.redistribute(pos, vel, ids, domain=JDOM, grid=(2, 2, 2),
+                            count=count, backend="numpy",
+                            capacity_factor=3.0)
+    _compare(got, want)
+    if backend == "torch":
+        assert isinstance(got.positions, torch.Tensor)
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+@pytest.mark.parametrize("grid", [(1, 2, 2), (2, 2, 2), (4, 2, 2)])
+def test_reshard_matches_reference(grid, backend):
+    """``reshard`` routes unpadded live rows onto fewer or more ranks:
+    byte-equal to the reference's (numpy backend), fields riding along,
+    every live row kept and owned."""
+    r = np.random.default_rng(5 + len(grid) + grid[0])
+    n = 1500
+    pos = r.random((n, 3), dtype=np.float32)
+    vel = r.standard_normal((n, 3)).astype(np.float32)
+    ids = np.arange(n, dtype=np.int32)
+    R = int(np.prod(grid))
+    n_local = 2 * n // R
+    kw = dict(device="cpu") if backend == "torch" else {}
+    got = api.reshard(pos, vel, ids, domain=TDOM, grid=grid, n_local=n_local,
+                      backend=backend, **kw)
+    want = japi.reshard(pos, vel, ids, domain=JDOM, grid=grid,
+                        n_local=n_local)
+    _compare(got, want)
+    assert int(_np(got.count).sum()) == n
+    shards = [_np(got.positions)[i * n_local: i * n_local + int(got.count[i])]
+              for i in range(R)]
+    oracle.assert_ownership(TDOM, tgr.ProcessGrid(grid), shards)
+    with pytest.raises(NotImplementedError, match="A11"):
+        api.reshard(pos, domain=TDOM, grid=grid, n_local=n_local,
+                    telemetry=object())
+    with pytest.raises(ValueError, match="n_local"):
+        api.reshard(pos, domain=TDOM, grid=grid, n_local=0)
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+def test_apply_assignment_matches_reference(backend):
+    """Re-home a redistributed state under balanced edges: byte-equal to
+    the reference replaying the same two-stage sequence; the edges stick
+    (the next call routes by them) and ``None`` reverts to uniform
+    cells."""
+    r = np.random.default_rng(17)
+    pos, vel, ids = _inputs(r, 8, 250, clustered=True)
+    kw = dict(device="cpu") if backend == "torch" else {}
+    t = tgr.GridRedistribute(TDOM, (2, 2, 2), backend=backend,
+                             capacity_factor=8.0, out_capacity=1200, **kw)
+    j = jgr.GridRedistribute(JDOM, (2, 2, 2), backend="numpy",
+                             capacity_factor=8.0, out_capacity=1200)
+    a, b = t.redistribute(pos, vel, ids), j.redistribute(pos, vel, ids)
+    _compare(a, b)
+    te = tgr.GridEdges.balanced_for(TDOM, tgr.ProcessGrid((2, 2, 2)), pos)
+    je = jgr.GridEdges.balanced_for(JDOM, jgr.ProcessGrid((2, 2, 2)), pos)
+    got = t.apply_assignment(te, a.positions, *a.fields, count=a.count)
+    want = j.apply_assignment(je, b.positions, *b.fields, count=b.count)
+    _compare(got, want)
+    assert t.edges == te
+    c, c0 = _np(got.count), _np(a.count)
+    assert c.sum() == 2000 and c.max() / c.mean() < c0.max() / c0.mean()
+    _compare(t.redistribute(pos, vel, ids), j.redistribute(pos, vel, ids))
+    got = t.apply_assignment(te.edges, a.positions, *a.fields, count=a.count)
+    _compare(got, want)  # raw edge tuples are wrapped in GridEdges
+    got = t.apply_assignment(None, a.positions, *a.fields, count=a.count)
+    want = j.apply_assignment(None, b.positions, *b.fields, count=b.count)
+    _compare(got, want)
+    assert t.edges is None
+    with pytest.raises(ValueError):
+        t.apply_assignment([(0.0, 0.5, 0.9)] * 3, pos)
 
 
 def test_config1_bench_matches_the_reference_loop():

@@ -4,8 +4,11 @@ sums in another order than the plain ``index_add_``, so it is bit-equal
 on dyadic data, where every order gives the same bits, and within
 float32 summation noise otherwise), and the drift/migrate loop (the
 sparse and planar engines, and the row-store landing route), with and
-without the fused deposit, on the card against the port's CPU run. They
-skip without a GPU.
+without the fused deposit, on the card against the port's CPU run; the
+canonical redistribute and the halo exchange (both vrank engines and the
+public ``halo()`` under each overflow policy) on the card against the
+port's CPU run, with no host sync in an engine exchange. They skip
+without a GPU.
 
 This file imports no JAX, so it runs on a machine without it:
 
@@ -22,7 +25,7 @@ from mpi_grid_redistribute_tpu_torch.models import nbody
 from mpi_grid_redistribute_tpu_torch.ops import (
     deposit, dfscan, driftbin, overlay, scatter, segdep,
 )
-from mpi_grid_redistribute_tpu_torch.parallel import migrate
+from mpi_grid_redistribute_tpu_torch.parallel import halo, migrate
 
 
 @pytest.fixture
@@ -893,3 +896,117 @@ def test_canonical_deferred_check_on_card(cuda):
     with pytest.raises(RuntimeError, match="deferred overflow check"):
         rd.flush_overflow_checks()
     assert rd.capacity > old
+
+
+def _halo_state(r, grid_shape, n, fill=0.8):
+    """Owned rows ``[V, n, 3]`` float32 (padding rows zero), counts, and
+    an int32 id row, for the halo engines."""
+    g = ProcessGrid(grid_shape)
+    V = g.nranks
+    pos = np.zeros((V, n, 3), np.float32)
+    count = r.integers(int(fill * n), n + 1, V).astype(np.int32)
+    for v in range(V):
+        cell = np.asarray(g.cell_of_rank(v))
+        pos[v, :count[v]] = ((cell + r.random((count[v], 3)))
+                             / np.asarray(grid_shape)).astype(np.float32)
+    ids = np.arange(V * n, dtype=np.int32).reshape(V, n)
+    return pos, count, ids
+
+
+def _u8(x):
+    return x.cpu().contiguous().view(torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_shape,periodic", [
+    ((2, 2, 2), True), ((2, 2, 2), False), ((4, 2, 1), True)])
+@pytest.mark.parametrize("case", ["roomy", "overflow", "two_sorts"])
+def test_halo_engines_on_card_match_cpu_run(cuda, grid_shape, periodic,
+                                            case):
+    """Both vrank halo engines on the card bit-equal to the port's CPU
+    run (ghosts, ids, counts, overflow), roomy and dropping capacities
+    and the two-sort band path; planar == row-major on the card."""
+    r = np.random.default_rng(len(case) + sum(grid_shape))
+    pos, count, ids = _halo_state(r, grid_shape, 3000)
+    dom = Domain(0.0, 1.0, periodic=periodic)
+    grid = ProcessGrid(grid_shape)
+    w = 0.25 if case == "two_sorts" else 0.08
+    H, G = (64, 200) if case == "overflow" else halo.default_capacities(
+        dom, grid, w, 3000)
+    fused = np.ascontiguousarray(np.concatenate(
+        [pos.transpose(0, 2, 1), ids[:, None, :].view(np.float32)], axis=1))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        c = torch.from_numpy(count).to(dev)
+        outs[dev, "rm"] = halo.vrank_halo_fn(dom, grid, w, H, G)(
+            torch.from_numpy(pos).to(dev), c, torch.from_numpy(ids).to(dev))
+        outs[dev, "pl"] = halo.vrank_halo_planar_fn(dom, grid, w, H, G)(
+            torch.from_numpy(fused).to(dev), c)
+    torch.cuda.synchronize()
+    for eng in ("rm", "pl"):
+        assert outs["cuda", eng][0].is_cuda
+        for a, b in zip(outs["cuda", eng], outs["cpu", eng]):
+            assert torch.equal(_u8(a), _u8(b))
+    rg, rc, rid, ro = outs["cuda", "rm"]
+    pg, pc, po = outs["cuda", "pl"]
+    assert torch.equal(rc, pc) and torch.equal(ro, po)
+    assert torch.equal(_u8(pg[:, :3].transpose(1, 2)), _u8(rg))
+    assert torch.equal(pg[:, 3].view(torch.int32), rid)
+    assert (int(ro.sum()) > 0) == (case == "overflow")
+
+
+@pytest.mark.cuda
+def test_halo_engines_make_no_host_sync(cuda):
+    """An engine exchange on the card never waits for the device: torch's
+    sync debug mode raises on any synchronizing call."""
+    r = np.random.default_rng(5)
+    pos, count, ids = _halo_state(r, (2, 2, 2), 20000)
+    dom, grid = Domain(0.0, 1.0, periodic=True), ProcessGrid((2, 2, 2))
+    H, G = halo.default_capacities(dom, grid, 0.05, 20000)
+    p = torch.from_numpy(pos).to(cuda)
+    c = torch.from_numpy(count).to(cuda)
+    fused = p.transpose(1, 2).contiguous()
+    rm = halo.vrank_halo_fn(dom, grid, 0.05, H, G)
+    pl = halo.vrank_halo_planar_fn(dom, grid, 0.05, H, G)
+    rm(p, c), pl(fused, c)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            rm(p, c)
+            pl(fused, c)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["grow", "raise", "ignore"])
+def test_halo_call_on_card_matches_cpu_run(cuda, policy):
+    """``GridRedistribute.halo`` on the card (the default device) under
+    each overflow policy on clustered rows that overflow the starved
+    budgets: the CPU port's bits, grown capacities and errors."""
+    r = np.random.default_rng(9)
+    pos = (r.random((8 * 2000, 3)) ** 4).astype(np.float32)
+    ids = np.arange(8 * 2000, dtype=np.int32)
+    dom = Domain(0.0, 1.0, periodic=True)
+    res = GridRedistribute(dom, (2, 2, 2), device="cpu", capacity_factor=8.0,
+                           out_capacity=8 * 2000).redistribute(pos, ids)
+    kw = dict(width=0.12, count=res.count, headroom=0.05)
+    a = GridRedistribute(dom, (2, 2, 2), on_overflow=policy)
+    b = GridRedistribute(dom, (2, 2, 2), device="cpu", on_overflow=policy)
+    if policy == "raise":
+        with pytest.raises(RuntimeError, match="halo overflow"):
+            a.halo(res.positions, *res.fields, **kw)
+        return
+    ha = a.halo(res.positions.to(cuda), *(f.to(cuda) for f in res.fields),
+                **kw)
+    hb = b.halo(res.positions, *res.fields, **kw)
+    torch.cuda.synchronize()
+    assert ha.ghost_positions.is_cuda
+    for x, y in ((ha.ghost_positions, hb.ghost_positions),
+                 (ha.ghost_count, hb.ghost_count), (ha.overflow, hb.overflow),
+                 (ha.ghost_fields[0], hb.ghost_fields[0])):
+        assert torch.equal(_u8(x), _u8(y))
+    assert a._halo_caps == b._halo_caps
+    assert (int(ha.overflow.sum()) > 0) == (policy == "ignore")
