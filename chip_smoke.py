@@ -72,7 +72,26 @@ started together), then, on the card:
      output of the headline ``redistribute()`` call, ms per call, and its
      ghost set equal to the vectorised ``oracle.brute_force_ghosts`` at
      2^16 rows per vrank; with ``--profile`` the device's busy and idle
-     share and operations per exchange.
+     share and operations per exchange;
+  8. drives config 2's load-balanced decomposition (the 4x4x4 cells
+     LPT-assigned onto 8 vranks, ``cells``/``assignment`` in the
+     ``DriftConfig``): the steady state at the BASELINE's 67,108,864
+     rows, clustered and uniform, with the default engine: ms per step
+     (min and median of k), pps and their ratio, the cell and balanced-bin
+     imbalance, the slot waste, the fast-path share and host syncs per
+     step, a counted run (kernel 2 once a step, kernel 1 never),
+     conservation, zero drops, every live row on its assigned vrank, and
+     bit equality with the plain-version run and with ``engine="planar"``;
+     then the placement (64 vranks of 2^17 rows, ``dt = 0``, the backlog
+     draining it: rows placed, rounds, pps, nothing dropped, ownership,
+     a counted loop bit-equal to its plain-version run), and the mxu and
+     scan deposits under the assignment at 2^20 rows against the density
+     of the same particles on the canonical layout (2e-5); the
+     ``"segment"`` deposit on config 5's shape (its mass, its difference
+     from the scan density); and config 3 ((8, 8, 1) as 64 vranks, 2^17
+     slots a vrank): ms per step, kernels 1 and 2 a step, the fast-path
+     share, the plain-version run's bits; with ``--profile`` the device's
+     busy and idle share of config 2's steady state and of config 3.
 
 Any failed check raises; nothing is caught and carried on. The last
 lines are the ``nvidia-smi`` name and power limit, one JSON object with
@@ -87,6 +106,7 @@ loop and the deposit's share of the config-5 step.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import statistics
@@ -508,6 +528,24 @@ def synced_run(torch, run):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
+def counted_run(torch, migrate, _build, make_run):
+    """The counted run of a loop: ``(out, launches, syncs, guard)``, each
+    kernel's launches over ``COUNTED_STEPS`` steps (the counts set to 0
+    just before the run and read just after), and the host syncs and
+    sparse-guard reads per step (runs of 2 and ``COUNTED_STEPS`` steps
+    under torch's sync debug mode, differenced)."""
+    guard0 = migrate.HOST_SYNCS["sparse_guard"]
+    _, syncs2 = synced_run(torch, make_run(2))
+    guard2 = migrate.HOST_SYNCS["sparse_guard"]
+    _build.reset_counts()
+    out, syncs = synced_run(torch, make_run(COUNTED_STEPS))
+    launches = _build.counts()
+    syncs = (syncs - syncs2) / (COUNTED_STEPS - 2)
+    guard = (migrate.HOST_SYNCS["sparse_guard"] - guard2 - (guard2 - guard0)) \
+        / (COUNTED_STEPS - 2)
+    return out, launches, syncs, guard
+
+
 def check_launches(launches, kernels, label):
     for name, n in launches.items():
         want = COUNTED_STEPS if name in kernels else 0
@@ -515,25 +553,38 @@ def check_launches(launches, kernels, label):
               f"{label}: {name} launched {n} times in {COUNTED_STEPS} steps")
 
 
-def check_state(torch, label, pos_f, alive_f, stats, total):
+def check_state(torch, label, pos_f, alive_f, stats, total, grid=GRID,
+                n_local=N_LOCAL, assignment=None):
     """Conservation, zero drops, the stats' own accounting, finite
     positions and ownership (computed independently of the port's
-    binning) of a ``COUNTED_STEPS`` run's output."""
+    binning: the cell of each live row on the unit box's ``grid`` in
+    float64, then its vrank, or with ``assignment`` the vrank the cell is
+    assigned to) of a ``COUNTED_STEPS`` run's output (``n_local`` slots a
+    vrank)."""
     check(int(alive_f.sum()) == total, f"{label}: alive count not conserved")
     check(int(stats.dropped_recv.sum()) == 0, f"{label}: arrivals dropped")
     check(torch.equal(stats.population.sum(dim=1),
-                      torch.full((COUNTED_STEPS,), total, dtype=torch.int32,
-                                 device="cuda")),
+                      torch.full((stats.sent.shape[0],), total,
+                                 dtype=torch.int32, device="cuda")),
           f"{label}: population stat disagrees with the alive count")
     check(torch.equal(stats.sent.sum(dim=1), stats.received.sum(dim=1)),
           f"{label}: sent != received")
     check(bool(torch.isfinite(pos_f).all()), f"{label}: non-finite positions")
+    check_owned(torch, label, pos_f, alive_f, grid, n_local, assignment)
+
+
+def check_owned(torch, label, pos_f, alive_f, grid=GRID, n_local=N_LOCAL,
+                assignment=None):
+    """Every live row of the planar flat ``pos_f`` sits on the vrank that
+    owns its position (see :func:`check_state`)."""
     p = pos_f.reshape(3, -1)
-    g = torch.tensor(GRID, device="cuda")[:, None]
+    g = torch.tensor(grid, device="cuda")[:, None]
     cell = torch.floor(p.double() * g).long().clamp_min(0)
     cell = torch.minimum(cell, g - 1)
-    owner = cell[0] * GRID[1] * GRID[2] + cell[1] * GRID[2] + cell[2]
-    slot = torch.arange(p.shape[1], device="cuda") // N_LOCAL
+    owner = cell[0] * grid[1] * grid[2] + cell[1] * grid[2] + cell[2]
+    if assignment is not None:
+        owner = torch.tensor(assignment, device="cuda")[owner]
+    slot = torch.arange(p.shape[1], device="cuda") // n_local
     check(bool((owner[alive_f] == slot[alive_f]).all()),
           f"{label}: a live row sits on a vrank that does not own its "
           f"position")
@@ -589,17 +640,9 @@ def loop_path_phase(torch, pt, nbody, migrate, _build, profiling, inputs,
     log(f"{label} on plain versions: {plain_detail['min'] * 1e3:.4f} "
         f"ms/step")
 
-    # ---- host syncs per step (runs of 2 and COUNTED_STEPS, differenced)
-    # and the counted run: every kernel of the path launches once a step
-    guard0 = migrate.HOST_SYNCS["sparse_guard"]
-    _, syncs2 = synced_run(torch, make_run(2))
-    guard2 = migrate.HOST_SYNCS["sparse_guard"]
-    _build.reset_counts()
-    out, syncs = synced_run(torch, make_run(COUNTED_STEPS))
-    launches = _build.counts()
-    syncs = (syncs - syncs2) / (COUNTED_STEPS - 2)
-    guard = (migrate.HOST_SYNCS["sparse_guard"] - guard2 - (guard2 - guard0)) \
-        / (COUNTED_STEPS - 2)
+    # every kernel of the path launches once a step
+    out, launches, syncs, guard = counted_run(torch, migrate, _build,
+                                              make_run)
     log(f"{label}: launches over {COUNTED_STEPS} steps: {launches}; host "
         f"syncs per step {syncs:g} (sparse-guard reads {guard:g})")
     check_launches(launches, MIGRATE_KERNELS, label)
@@ -664,8 +707,9 @@ def profile_steps(torch, make_run, profile_dir, label):
         run = make_run(S)
         run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity only: the host-side trace of every op would
+        # cost seconds a run and no device number reads it
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
         # device activities (kernels, copies, memsets), without the
@@ -1370,6 +1414,323 @@ def halo_phase(torch, pt, config6_halo, config1_oracle, oracle, profiling,
     )
 
 
+# ---- the load-balanced decomposition: config 2 and config 3 --------------
+
+# config 2's steady state at the BASELINE size (BENCH_SCALE=32)
+C2_TOTAL = 32 * (1 << 21)
+C2_GRID = (4, 4, 4)
+# config 2's placement: 64 vranks of 2^17 rows (the bench's scale 1; its
+# cap is 2^20 at scale 8)
+C2_PLACE_N_BASE = 1 << 17
+# config 3: (8, 8, 1) as 64 vranks at the bench's default 2^17 slots
+C3_N_LOCAL = 1 << 17
+C3_GRID = (8, 8, 1)
+# the deposits under an assignment: config 2's layout at 2^20 rows
+C2_DEPOSIT_N_LOCAL = 1 << 16
+C2_DEPOSIT_MESH = (64, 64, 64)
+
+
+def fast_share(stats):
+    fp = stats.fast_path
+    return None if fp is None else float(fp[:, 0].float().mean())
+
+
+def config2_steady_phase(torch, nbody, migrate, _build, profiling,
+                         config2_clustered, profile_dir, rows):
+    """Config 2's steady state at 67,108,864 rows, the clustered and the
+    uniform workload, each LPT-assigned over the 4x4x4 cells onto 8
+    vranks, through ``make_migrate_loop`` with the default engine: timed,
+    a counted run (kernel 2 once a step, kernel 1 never: its key is the
+    canonical vrank's), one guard read a step, conservation, zero drops,
+    every live row on the vrank its cell is assigned to, and bit equality
+    with the plain-version run and with ``engine="planar"``. ``rows`` is
+    the host data (``steady_rows``), drawn while the kernels built."""
+    t1 = time.perf_counter()
+    setup = config2_clustered.steady_setup(C2_TOTAL, rows=rows)
+    total = setup["total"]
+    log(f"config2 steady state: {total} rows, binning "
+        f"{time.perf_counter() - t1:.1f} s; cell "
+        f"imbalance {setup['imbalance']:.4f}, balanced-bin "
+        f"imbalance {setup['balanced_bin_imbalance']:.4f}, {setup['n_slab']} "
+        f"slots a vrank, slot waste {setup['waste']:.4f}, capacity "
+        f"{setup['capacity']}, local_budget {setup['budget']}")
+    res = {}
+    for name in config2_clustered.WORKLOADS:
+        cfg, vgrid, args = config2_clustered.steady_workload(setup, name)
+        label = f"config2 {name}"
+
+        def make_run(S, plain=False, c=cfg, args=args, vgrid=vgrid):
+            loop = nbody.make_migrate_loop(c, S, vgrid=vgrid, plain=plain)
+            return lambda: loop(*args)
+
+        detail, _ = profiling.cuda_time_per_step_samples(
+            make_run, s1=4, s2=20, reps=3
+        )
+        per_step = detail["min"]
+        log(f"{label}: {per_step * 1e3:.4f} ms/step (min of "
+            f"k={detail['k']}, median {detail['median'] * 1e3:.4f}, spread "
+            f"{detail['spread'] * 100:.2f}%), {total / per_step:.6g} "
+            f"particles/s")
+        out, launches, syncs, guard = counted_run(torch, migrate, _build,
+                                                  make_run)
+        log(f"{label}: launches over {COUNTED_STEPS} steps: {launches}; "
+            f"host syncs per step {syncs:g} (sparse-guard reads {guard:g})")
+        check_launches(launches, ("overlay_scatter_planar",), label)
+        check(syncs == 1 and guard == 1,
+              f"{label}: {syncs:g} host syncs, {guard:g} guard reads a step")
+        pos_f, _, alive_f, stats = out
+        check_state(torch, label, pos_f, alive_f, stats, total,
+                    grid=C2_GRID, n_local=cfg.n_local,
+                    assignment=cfg.assignment)
+        share = fast_share(stats)
+        sent = stats.sent.sum(dim=1).tolist()
+        log(f"{label}: migrants per step {sent} ({np.mean(sent) / total:.4%}"
+            f"), backlog {int(stats.backlog.sum())}, fast-path share "
+            f"{share:.4f}; every live row on its assigned vrank")
+        ref = make_run(COUNTED_STEPS, plain=True)()
+        check_same_run(torch, label, out, ref, "the plain-version run")
+        del ref
+        planar = make_run(COUNTED_STEPS,
+                          c=dataclasses.replace(cfg, engine="planar"))()
+        check_same_run(torch, label, out, planar, "engine='planar'")
+        del planar
+        log(f"{label}: bit-equal to the plain-version run and to "
+            f"engine='planar'")
+        busy = None
+        if profile_dir and name == "imbalanced":
+            busy = write_profile(torch, make_run, profile_dir, per_step,
+                                 "config2_imbalanced")
+        res[name] = {
+            "ms_per_step": per_step * 1e3,
+            "median_ms_per_step": detail["median"] * 1e3,
+            "spread": detail["spread"],
+            "particles_per_s": total / per_step,
+            "host_syncs_per_step": syncs,
+            "fast_path_share": share,
+            "launches": launches,
+            "device_busy_ms_per_step": busy,
+        }
+        del out, stats, pos_f, alive_f, args, make_run
+        torch.cuda.empty_cache()
+    ratio = res["uniform"]["ms_per_step"] / res["imbalanced"]["ms_per_step"]
+    log(f"config2 steady state: imbalanced "
+        f"{res['imbalanced']['ms_per_step']:.4f} ms/step, uniform "
+        f"{res['uniform']['ms_per_step']:.4f} ms/step at {total} rows: "
+        f"imbalanced/uniform pps {ratio:.4f}")
+    res.update(
+        n_total=total, imbalanced_over_uniform=ratio,
+        ownership_imbalance=setup["imbalance"],
+        balanced_bin_imbalance=setup["balanced_bin_imbalance"],
+        slot_waste_factor=setup["waste"], n_slab=setup["n_slab"],
+    )
+    return res
+
+
+def config2_placement_phase(torch, nbody, migrate, _build,
+                            config2_clustered, stats_lib):
+    """Config 2's placement: 64 vranks, clustered rows not on their owners,
+    ``dt = 0`` loops of 8 steps until a loop's last step sends nothing:
+    rows placed, rounds, pps, nothing dropped, every live row on its
+    owner; a counted 6-step loop (kernels 1 and 2 once a step) bit-equal
+    to its plain-version run."""
+    label = "config2 placement"
+    cfg, vgrid, start = config2_clustered.placement_setup(C2_PLACE_N_BASE)
+    live = int(start[2].sum())
+
+    def make_run(S, plain=False):
+        loop = nbody.make_migrate_loop(cfg, S, vgrid=vgrid, plain=plain)
+        return lambda: loop(*start)
+
+    out, launches, syncs, guard = counted_run(torch, migrate, _build,
+                                              make_run)
+    check_launches(launches, MIGRATE_KERNELS, label)
+    ref = make_run(COUNTED_STEPS, plain=True)()
+    check_same_run(torch, label, out, ref, "the plain-version run")
+    check(int(out[3].dropped_recv.sum()) == 0, f"{label}: arrivals dropped")
+    dense = int((out[3].fast_path[:, 0] == 0).sum())
+    del out, ref
+    log(f"{label}: launches over {COUNTED_STEPS} steps: {launches}; host "
+        f"syncs per step {syncs:g}; {dense} of {COUNTED_STEPS} steps dense;"
+        f" bit-equal to the plain-version run")
+    last, placed, seconds, rounds, (p, _, a) = \
+        config2_clustered.placement(C2_PLACE_N_BASE)
+    summary = stats_lib.summarize_migrate(last)
+    check(summary["dropped_recv"] == 0, f"{label}: arrivals dropped")
+    check(int(a.sum()) == live, f"{label}: alive count not conserved")
+    check(int(last.backlog[-1].sum()) == 0,
+          f"{label}: backlog left after {rounds} rounds")
+    check_owned(torch, label, p, a, grid=C2_GRID, n_local=C2_PLACE_N_BASE)
+    log(f"{label}: {placed} rows placed in {rounds} rounds "
+        f"({seconds:.3f} s, {placed / seconds:.6g} rows/s) at 64 x "
+        f"{C2_PLACE_N_BASE} slots, {live} live rows, placement_dropped_recv "
+        f"{summary['dropped_recv']}, population imbalance "
+        f"{summary['population_imbalance']:.4f}; every live row on its "
+        f"owner")
+    return {"rows_placed": placed, "rounds": rounds, "seconds": seconds,
+            "placement_pps": placed / seconds,
+            "placement_dropped_recv": summary["dropped_recv"],
+            "n_base": C2_PLACE_N_BASE, "launches": launches,
+            "host_syncs_per_step": syncs}
+
+
+def config3_phase(torch, nbody, migrate, binning, _build, profiling,
+                  config3_slab, profile_dir):
+    """Config 3: (8, 8, 1) as 64 vranks, 2^17 slots a vrank at 90% fill,
+    through ``make_migrate_loop`` with the default engine: timed, a counted
+    run (kernels 1 and 2 once a step), the fast-path share, conservation,
+    zero drops, ownership, bit equality with the plain-version run."""
+    label = "config3"
+    cfg, vgrid, (pos, vel, alive) = config3_slab.build(n_local=C3_N_LOCAL)
+    args = tuple(torch.from_numpy(a).cuda()
+                 for a in (nbody.rows_to_planar(pos, 1),
+                           nbody.rows_to_planar(vel, 1), alive))
+    total = int(alive.sum())
+    chunk, cap = binning.sparse_select_params(cfg.n_local, cfg.local_budget)
+    selectable = binning.sparse_select_feasible(cfg.n_local, vgrid.nranks,
+                                                chunk=chunk, cap=cap)
+
+    def make_run(S, plain=False):
+        loop = nbody.make_migrate_loop(cfg, S, vgrid=vgrid, plain=plain)
+        return lambda: loop(*args)
+
+    detail, _ = profiling.cuda_time_per_step_samples(make_run, s1=4, s2=24,
+                                                     reps=4)
+    per_step = detail["min"]
+    out, launches, syncs, guard = counted_run(torch, migrate, _build,
+                                              make_run)
+    check_launches(launches, MIGRATE_KERNELS, label)
+    want = 1 if selectable else 0
+    check(syncs == want and guard == want,
+          f"{label}: {syncs:g} host syncs, {guard:g} guard reads a step")
+    pos_f, _, alive_f, stats = out
+    check_state(torch, label, pos_f, alive_f, stats, total, grid=C3_GRID,
+                n_local=cfg.n_local)
+    ref = make_run(COUNTED_STEPS, plain=True)()
+    check_same_run(torch, label, out, ref, "the plain-version run")
+    del ref
+    share = fast_share(stats)
+    log(f"{label}: {per_step * 1e3:.4f} ms/step (min of k={detail['k']}, "
+        f"median {detail['median'] * 1e3:.4f}, spread "
+        f"{detail['spread'] * 100:.2f}%), {total / per_step:.6g} "
+        f"particles/s, {total} particles on (8, 8, 1) as 64 vranks of "
+        f"{cfg.n_local} slots; launches a step "
+        f"{ {k: n / COUNTED_STEPS for k, n in launches.items()} }; host "
+        f"syncs per step {syncs:g}; sparse selection "
+        f"{'feasible' if selectable else 'infeasible (every step dense)'}, "
+        f"fast-path share {share:.4f}; bit-equal to the plain-version run")
+    busy = None
+    if profile_dir:
+        busy = write_profile(torch, make_run, profile_dir, per_step,
+                             "config3")
+    return {"ms_per_step": per_step * 1e3,
+            "median_ms_per_step": detail["median"] * 1e3,
+            "spread": detail["spread"], "particles_per_s": total / per_step,
+            "n_total": total, "host_syncs_per_step": syncs,
+            "fast_path_share": share, "launches": launches,
+            "device_busy_ms_per_step": busy}
+
+
+def segment_phase(torch, nbody, migrate, _build, profiling, config5_deposit,
+                  inputs, scan_rho, profile_dir, base_busy):
+    """The ``"segment"`` deposit on config 5's shape (the loop with the
+    scatter-add CIC deposit after every step): timed, kernels 1 and 2 once
+    a step and no deposit kernel (the reference's route reaches none), the
+    mass equal to the live count, and its largest difference from the
+    ``"scan"`` density of the same state."""
+    cfg, vgrid, _ = config5_deposit.build(n_local=N_LOCAL, method="segment")
+    total = int(inputs[2].sum().item())
+
+    def make_run(S):
+        loop = nbody.make_migrate_loop(cfg, S, vgrid=vgrid,
+                                       deposit_each_step=True)
+        return lambda: loop(*inputs)
+
+    detail, _ = profiling.cuda_time_per_step_samples(make_run, s1=4, s2=20,
+                                                     reps=3)
+    per_step = detail["min"]
+    out, launches, syncs, _ = counted_run(torch, migrate, _build, make_run)
+    check_launches(launches, MIGRATE_KERNELS, "config5 segment")
+    rho = out[4]
+    mass = float(rho.double().sum())
+    check(abs(mass - total) <= 1e-5 * total,
+          f"config5 segment: rho sums to {mass}, {total} live particles")
+    check(bool(torch.isfinite(rho).all()) and tuple(rho.shape) ==
+          cfg.deposit_shape, "config5 segment: rho not finite or shaped")
+    err = max_abs_err(rho, scan_rho)
+    check(bool(torch.allclose(rho, scan_rho, rtol=2e-4, atol=2e-4)),
+          f"config5 segment: rho vs scan rho beyond 2e-4 ({err})")
+    again = make_run(COUNTED_STEPS)()[4]
+    repeat = torch.equal(again.view(torch.int32), rho.view(torch.int32))
+    log(f"config5 segment: {per_step * 1e3:.4f} ms/step (min of "
+        f"k={detail['k']}, median {detail['median'] * 1e3:.4f}), host syncs "
+        f"per step {syncs:g}; mass {mass} for {total} live rows; rho vs the "
+        f"scan rho of the same state max abs err {err}; a second run "
+        f"{'bit-identical' if repeat else 'differs in the last bits'} "
+        f"(index_add_ adds with atomics)")
+    busy = None
+    if profile_dir:
+        ops, busy, _ = profile_steps(torch, make_run, profile_dir,
+                                     "config5_segment")
+        log(f"config5 segment profile: {ops:.1f} device operations/step, "
+            f"device busy {busy:.4f} ms/step of {per_step * 1e3:.4f} (idle "
+            f"{1 - busy / (per_step * 1e3):.2%}); deposit "
+            f"{busy - base_busy:.4f} ms/step of device time")
+    return {"ms_per_step": per_step * 1e3,
+            "median_ms_per_step": detail["median"] * 1e3,
+            "max_abs_err_vs_scan": err, "host_syncs_per_step": syncs,
+            "repeat_bit_identical": repeat,
+            "device_busy_ms_per_step": busy}
+
+
+def assignment_deposit_phase(torch, pt, nbody, binning, _build,
+                             config2_clustered):
+    """The mxu and scan deposits under an assignment, on config 2's layout
+    at 2^20 rows: the loop launches kernel 2 and the method's deposit
+    kernel once a step and never kernel 1; the density's mass equals the
+    live count and it is within 2e-5 of the density of the same particles
+    laid out canonically (2x2x2 vranks by position, deposited by the same
+    method: the slab engine for mxu)."""
+    setup = config2_clustered.steady_setup(
+        config2_clustered.steady_total(C2_DEPOSIT_N_LOCAL)
+    )
+    cfg, vgrid, args = config2_clustered.steady_workload(setup, "imbalanced")
+    res = {}
+    for method in ("mxu", "scan"):
+        label = f"config2 {method} deposit"
+        c = dataclasses.replace(cfg, deposit_shape=C2_DEPOSIT_MESH,
+                                deposit_method=method)
+        _build.reset_counts()
+        out = nbody.make_migrate_loop(c, COUNTED_STEPS, vgrid=vgrid,
+                                      deposit_each_step=True)(*args)
+        torch.cuda.synchronize()
+        launches = _build.counts()
+        check_launches(launches, ("overlay_scatter_planar",
+                                  DEPOSIT_KERNEL[method]), label)
+        rho = out[4]
+        live = int(out[2].sum())
+        mass = float(rho.double().sum())
+        check(abs(mass - live) <= 1e-5 * live,
+              f"{label}: rho sums to {mass}, {live} live particles")
+        # the same particles on the canonical 2x2x2 vrank slabs
+        rows = out[0].reshape(3, -1).T[out[2]]
+        vel = out[1].reshape(3, -1).T[out[2]]
+        owner = binning.rank_of_position(rows, c.domain, pt.ProcessGrid(
+            config2_clustered.SS_VGRID))
+        n_slab = -(-int(torch.bincount(owner).max()) // 4096) * 4096
+        state = config2_clustered.slab_state(rows, vel, owner, 8, n_slab)
+        canon = dataclasses.replace(c, cells=None, assignment=None,
+                                    n_local=n_slab)
+        ref = nbody.make_migrate_loop(canon, 0, vgrid=vgrid)(*state)[4]
+        err = max_abs_err(rho, ref)
+        check(bool(torch.allclose(rho, ref, rtol=2e-5, atol=2e-5)),
+              f"{label}: rho vs the canonical layout's beyond 2e-5 ({err})")
+        log(f"{label}: launches over {COUNTED_STEPS} steps {launches}; mass "
+            f"{mass} for {live} live rows; vs the canonical layout's "
+            f"density of the same particles max abs err {err}")
+        res[method] = {"launches": launches, "max_abs_err_vs_canonical": err}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None,
@@ -1394,14 +1755,22 @@ def main() -> int:
         return 3
     from mpi_grid_redistribute_tpu_torch import oracle
     from mpi_grid_redistribute_tpu_torch.bench import (
-        common, config1_oracle, config5_deposit, config6_halo, kernel_times,
+        common, config1_oracle, config2_clustered, config3_slab,
+        config5_deposit, config6_halo, kernel_times,
     )
     from mpi_grid_redistribute_tpu_torch.models import nbody
     from mpi_grid_redistribute_tpu_torch.ops import (
-        _build, deposit, dfscan, driftbin, overlay, scatter, segdep,
+        _build, binning, deposit, dfscan, driftbin, overlay, scatter, segdep,
     )
     from mpi_grid_redistribute_tpu_torch.parallel import migrate
     from mpi_grid_redistribute_tpu_torch.utils import profiling
+    from mpi_grid_redistribute_tpu_torch.utils import stats as stats_lib
+
+    # config 2's host data (4 x 0.8 GB, the reference's draws) is drawn
+    # in a thread while the kernels build, and only then: no timed phase
+    # shares the host with it
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    c2_future = pool.submit(config2_clustered.steady_rows, C2_TOTAL)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1420,6 +1789,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    c2_rows = c2_future.result()
+    pool.shutdown()
+    log(f"config 2's host data drawn; waited {time.perf_counter() - t0:.1f}"
+        f" s for it after the build")
     lap("set-up and build")
 
     v, cap, budget = common.drift_sizing(GRID, N_LOCAL, FILL, MIGRATION)
@@ -1495,6 +1869,9 @@ def main() -> int:
                               atol=2e-4)),
           f"config5: mxu rho vs scan rho beyond 2e-4 (max abs {err})")
     log(f"config5: mxu rho vs scan rho max abs err {err}")
+    segment = segment_phase(torch, nbody, migrate, _build, profiling,
+                            config5_deposit, inputs, rhos["scan"],
+                            args.profile, sparse["device_busy_ms_per_step"])
     del rhos
     lap("config 5")
 
@@ -1508,6 +1885,22 @@ def main() -> int:
                       profiling, args.profile, headline)
     del headline
     lap("halo")
+
+    # ---- the load-balanced decomposition (config 2) and config 3
+    del inputs
+    torch.cuda.empty_cache()
+    c2 = config2_steady_phase(torch, nbody, migrate, _build, profiling,
+                              config2_clustered, args.profile, c2_rows)
+    del c2_rows
+    lap("config 2 steady state")
+    c2["placement"] = config2_placement_phase(torch, nbody, migrate, _build,
+                                              config2_clustered, stats_lib)
+    c2["deposits"] = assignment_deposit_phase(torch, pt, nbody, binning,
+                                              _build, config2_clustered)
+    lap("config 2 placement and deposits")
+    c3 = config3_phase(torch, nbody, migrate, binning, _build, profiling,
+                       config3_slab, args.profile)
+    lap("config 3")
 
     kernels = []
     # rows 2 and 3 of the TPU table (_overlay_sorted, _overlay_sorted_i8)
@@ -1532,6 +1925,9 @@ def main() -> int:
     log(json.dumps({"planar_path": planar}))
     log(json.dumps({"rows_path": rows}))
     log(json.dumps({"config5": c5}))
+    log(json.dumps({"config5_segment": segment}))
+    log(json.dumps({"config2": c2}))
+    log(json.dumps({"config3": c3}))
     log(json.dumps({"canonical": canon}))
     log(json.dumps({"halo": halo}))
     log(smi)

@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and small
+constant tables kept on a device."""
 
 from __future__ import annotations
 
@@ -18,3 +19,19 @@ def resolve(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+class OnDevice:
+    """Small constant arrays, copied to a device once and reused (a copy
+    per call would be a host-to-device transfer per step)."""
+
+    def __init__(self, *arrays):
+        self._arrays = arrays
+        self._cache = {}
+
+    def get(self, device):
+        if device not in self._cache:
+            self._cache[device] = tuple(
+                torch.from_numpy(a).to(device) for a in self._arrays
+            )
+        return self._cache[device]

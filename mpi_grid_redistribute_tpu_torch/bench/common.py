@@ -38,6 +38,28 @@ def uniform_state(grid_shape, n_local: int, fill: float, rng, vel_scale=0.0):
     return pos, vel, alive
 
 
+def lognormal_state(grid_shape, n_local: int, fill: float, rng, sigma=1.0):
+    """Log-normal clustered global positions (BASELINE config 2): a heavy
+    density contrast across subdomains, so a heavy load imbalance. Rows
+    are NOT placed on their owners; the redistribution under test must
+    move them. Returns ``(pos [N, 3], alive [N])``, the reference's draws
+    from ``rng``."""
+    grid = ProcessGrid(grid_shape)
+    n = grid.nranks * n_local
+    raw = rng.lognormal(mean=0.0, sigma=sigma, size=(n, 3))
+    pos = (raw % 1.0).astype(np.float32)
+    alive = np.tile(np.arange(n_local) < int(fill * n_local), grid.nranks)
+    return pos, alive
+
+
+def pick_layout(grid_shape):
+    """Map an R-rank Cartesian grid onto the devices: the port runs on
+    one device, so the whole grid runs as vrank slabs of a one-rank
+    device grid. Returns ``(dev_grid, vgrid, n_chips)`` (the reference
+    returns its mesh too)."""
+    return ProcessGrid((1,) * len(grid_shape)), ProcessGrid(grid_shape), 1
+
+
 def drift_sizing(
     grid_shape, n_local: int, fill: float, migration: float,
     headroom: float = 1.3,

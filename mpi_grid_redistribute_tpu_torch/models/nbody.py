@@ -8,7 +8,10 @@ The loop carries the fused PLANAR int32 state ``[2D+1, V*n]`` (position
 rows, velocity rows, alive row) and runs each step as the fused drift-bin
 kernel followed by one migrate step (the mover-sparse engine by default,
 the dense planar step with ``engine="planar"``) and, for the config-5
-workload, the CIC deposit (``ops.deposit``). The reference's ``lax.scan``
+workload, the CIC deposit (``ops.deposit``). Under the load-balanced
+``cells``/``assignment`` decomposition the drift and wrap run as plain
+ops and the engine bins with the assignment table instead (the drift-bin
+kernel's key is the canonical vrank's). The reference's ``lax.scan``
 is a Python loop here; stats are stacked per step as ``[S, V]`` (``flow``
 as ``[S, V, V]``), exactly as in the reference. A step waits for the host
 only where the reference branches with ``lax.cond``: the sparse engine's
@@ -36,9 +39,11 @@ class DriftConfig:
     reference). ``engine`` ``"auto"`` (the default) and ``"sparse"`` run
     the mover-sparse engine on the single-device vrank path, ``"planar"``
     the dense step; ``mover_cap`` sizes the mover block (default
-    ``local_budget``, then ``V * capacity``). Of the deposit methods the
-    planar ``"scan"`` and ``"mxu"`` engines run; the load-balanced
-    ``cells``/``assignment`` decomposition is a later slice."""
+    ``local_budget``, then ``V * capacity``). ``deposit_method`` is
+    ``"scan"`` (the planar double-float engine), ``"mxu"`` (the segmented
+    sums) or ``"segment"`` (the row-major scatter-add, canonical vranks
+    only). ``cells`` with ``assignment`` is the load-balanced
+    decomposition (``parallel.migrate.balanced_assignment``)."""
 
     domain: Domain
     grid: ProcessGrid
@@ -55,8 +60,30 @@ class DriftConfig:
 
 
 def _check_supported(cfg: DriftConfig, vgrid) -> str:
-    """Raise on what the port does not run; return the resolved engine
+    """Raise the reference's ``ValueError``s, then on what the port does
+    not run (a multi-device grid); return the resolved engine
     (``resolve_engine`` rejects the canonical-only names)."""
+    balanced = cfg.cells is not None or cfg.assignment is not None
+    if vgrid is None and balanced:
+        raise ValueError(
+            "cells/assignment require the vrank path (pass vgrid)"
+        )
+    if (
+        vgrid is not None
+        and cfg.assignment is not None
+        and cfg.deposit_shape is not None
+        and not (cfg.deposit_method in ("scan", "mxu")
+                 and cfg.grid.nranks == 1)
+    ):
+        # the scan and mxu engines key by position, so on one device they
+        # compose with any cell -> vrank map; the per-vrank block deposit
+        # needs each vrank's rows inside its own block
+        raise ValueError(
+            "assignment-decomposed vranks own non-contiguous cell sets; "
+            "the block deposit assumes each vrank owns a contiguous "
+            "region -- deposit on the canonical layout, or use "
+            "deposit_method='scan'/'mxu' on a single device"
+        )
     eng = exchange.resolve_engine(
         cfg.engine, vranks=vgrid is not None, n_devices=cfg.grid.nranks
     )
@@ -66,21 +93,11 @@ def _check_supported(cfg: DriftConfig, vgrid) -> str:
             "grid and vgrid"
         )
     if cfg.deposit_shape is not None and cfg.deposit_method not in (
-        "scan", "mxu"
+        "scan", "mxu", "segment"
     ):
-        if cfg.deposit_method == "segment":
-            raise NotImplementedError(
-                "deposit_method='segment' (the row-major scatter-add route, "
-                "shard_deposit_vranks_fn) is not ported yet (ROADMAP A7); "
-                "use 'scan' or 'mxu'"
-            )
         raise ValueError(
             f"deposit_method must be 'scan', 'mxu' or 'segment', got "
             f"{cfg.deposit_method!r}"
-        )
-    if cfg.cells is not None or cfg.assignment is not None:
-        raise NotImplementedError(
-            "cells/assignment decompositions are not ported yet"
         )
     return eng
 
@@ -93,20 +110,33 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
 
 def _deposit_fn(cfg: DriftConfig, vgrid: ProcessGrid, plain: bool):
     """The per-device deposit the reference's loop builds for
-    ``cfg.deposit_shape`` (``None`` without one): the slab-keyed mxu
-    engine when the canonical vrank blocks divide the mesh, the flat
-    position-keyed one otherwise; the double-float scan engine for
-    ``"scan"``."""
+    ``cfg.deposit_shape`` (``None`` without one): for ``"mxu"`` the
+    slab-keyed engine when the canonical vrank blocks divide the mesh, the
+    flat position-keyed one otherwise and under ``cells``/``assignment``
+    (whose vranks own scattered cells, so the slab partition does not
+    hold); the double-float scan engine for ``"scan"``; the per-vrank
+    block deposit for ``"segment"``."""
     if cfg.deposit_shape is None:
         return None
     if cfg.deposit_method == "mxu":
-        slab_ok = all(
-            (m // g) % v == 0
-            for m, g, v in zip(cfg.deposit_shape, cfg.grid.shape, vgrid.shape)
+        slab_ok = (
+            cfg.assignment is None
+            and cfg.cells is None
+            and all(
+                (m // g) % v == 0
+                for m, g, v in zip(
+                    cfg.deposit_shape, cfg.grid.shape, vgrid.shape
+                )
+            )
         )
         return deposit.shard_deposit_device_mxu_fn(
             cfg.domain, cfg.grid, cfg.deposit_shape,
             vgrid=vgrid if slab_ok else None, plain=plain,
+        )
+    if cfg.deposit_method == "segment":
+        return deposit.shard_deposit_vranks_fn(
+            cfg.domain, cfg.grid, vgrid, cfg.deposit_shape,
+            method="segment", plain=plain,
         )
     return deposit.shard_deposit_device_planar_fn(
         cfg.domain, cfg.grid, cfg.deposit_shape, plain=plain
@@ -150,6 +180,10 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
         tuple(d * v for d, v in zip(cfg.grid.shape, vgrid.shape)),
         axis_names=cfg.grid.axis_names,
     )
+    # kernel 1 bins into the canonical vrank grid; under an assignment
+    # that key would land rows on the wrong slabs, so the step drifts
+    # with plain ops and the engine bins with the assignment table
+    use_driftbin = cfg.assignment is None
     mover_cap = None  # the sparse engine's mover block width
     if eng == "sparse":
         mover_cap = (
@@ -160,6 +194,7 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
     mig = migrate.shard_migrate_vranks_fn(
         cfg.domain, cfg.grid, vgrid, cfg.capacity,
         local_budget=cfg.local_budget, mover_cap=mover_cap, plain=plain,
+        cells=cfg.cells, assignment=cfg.assignment,
     )
     bin_fn = driftbin.drift_wrap_bin_plain if plain else driftbin.drift_wrap_bin
     dt = float(cfg.dt)
@@ -181,7 +216,11 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
         if cfg.deposit_method == "mxu":
             # unit mass: None drops the mass row from the payload sort
             return dep_fn(pos_rows, None, valid)
-        ones = torch.ones(pos_rows.shape[1:], dtype=torch.float32,
+        if cfg.deposit_method == "segment":
+            # the per-vrank block deposit takes row-major [V, n, D] slabs
+            pos_rows = pos_rows.reshape(D, V, -1).permute(1, 2, 0)
+            valid = valid.reshape(V, -1)
+        ones = torch.ones(valid.shape, dtype=torch.float32,
                           device=pos_rows.device)
         return dep_fn(pos_rows, ones, valid)
 
@@ -208,8 +247,13 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
         steps = []
         for _ in range(n_steps):
             with torch.profiler.record_function("mig:step"):
-                f, key = bin_fn(state.fused, dt, cfg.domain, full_grid, V, V)
-                state, stats = mig(state._replace(fused=f), key)
+                if use_driftbin:
+                    f, key = bin_fn(state.fused, dt, cfg.domain, full_grid,
+                                    V, V)
+                    state, stats = mig(state._replace(fused=f), key)
+                else:
+                    driftbin.drift_wrap(state.fused, dt, cfg.domain)
+                    state, stats = mig(state)
             steps.append(stats)
             if deposit_each_step:
                 with torch.profiler.record_function("dep:deposit"):

@@ -287,14 +287,22 @@ def dest_histogram_np(dest, nranks: int, valid=None) -> np.ndarray:
 
 
 def dest_key_planar(pos: torch.Tensor, alive: torch.Tensor, domain: Domain,
-                    full_grid: ProcessGrid, V: int,
-                    R_total: int) -> torch.Tensor:
+                    full_grid: ProcessGrid, V: int, R_total: int,
+                    assignment: torch.Tensor = None) -> torch.Tensor:
     """The single-device vrank engine's binning: ``[D, V*n]`` float32
     positions (already drift-wrapped) and ``[V*n]`` alive flags ->
     ``[V, n]`` int32 destination key. Periodic axes are wrapped once
     more (an identity for ``lo == 0``, replicated for bit equality),
     binned by floor-multiply + clip + stride; stayers and holes get the
-    sentinel ``R_total``."""
+    sentinel ``R_total``.
+
+    With ``assignment`` (an int32 ``[n_cells]`` table on ``pos``'s
+    device, cell -> global rank ``dev * V + v``) ``full_grid`` is the
+    CELL grid: the strides accumulate the row-major cell id, and one
+    gather from the table gives the rank, split as ``dev = g // V``,
+    ``v = g - dev * V`` (the division is kept on one device, where
+    ``dev`` is 0 for every valid table, so a target outside ``[0, V)``
+    cannot pass as a local vrank; the key is ``g`` itself)."""
     m = pos.shape[-1]
     n = m // V
     dv = torch.zeros((m,), dtype=torch.int32, device=pos.device)
@@ -306,9 +314,16 @@ def dest_key_planar(pos: torch.Tensor, alive: torch.Tensor, domain: Domain,
         cell = floor_to_int32((pd - _f32(lo, pd)) * _f32(inv_w, pd))
         cell = cell.clamp(0, full_grid.shape[d] - 1)
         dv = dv + cell * full_grid.strides[d]
-    dv = dv.reshape(V, n)
     me = torch.arange(V, dtype=torch.int32, device=pos.device)[:, None]
-    stay = dv == me
+    if assignment is None:
+        dv = dv.reshape(V, n)
+        stay = dv == me
+    else:
+        # every index is in range after the clip: a device gather, no
+        # host lookup
+        dv = assignment[dv].reshape(V, n)  # = dev * V + v
+        g_dev = torch.div(dv, V, rounding_mode="floor")
+        stay = (g_dev == 0) & (dv - g_dev * V == me)
     return torch.where(
         alive.reshape(V, n) & ~stay, dv, torch.full_like(dv, R_total)
     )

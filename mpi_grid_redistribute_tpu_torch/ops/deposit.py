@@ -1,13 +1,14 @@
 """Cloud-in-cell (CIC) particle-mesh deposit on one device (port of the
 JAX package's ``ops/deposit.py``: the planar scan and segmented-sum
-engines, their per-device wrappers and the ghost fold).
+engines, the row-major scatter-add and scan deposits of vrank slabs,
+their per-device wrappers and the ghost fold).
 
 Each particle spreads ``mass * w`` to the 2^D mesh nodes around it. The
-deposit keys every particle by its base cell, sorts, and sums per cell;
-the per-cell channel sums are then placed onto a +1-ghost node mesh
-(corner ``c`` lands at ``base + c``), whose ghost faces fold onto plane 0
-of periodic axes (:func:`fold_ghosts`) or stay as the clamp-edge planes
-of open axes (:func:`assemble_dense`). Two engines:
+sorted engines key every particle by its base cell, sort, and sum per
+cell; the per-cell channel sums are then placed onto a +1-ghost node
+mesh (corner ``c`` lands at ``base + c``), whose ghost faces fold onto
+plane 0 of periodic axes (:func:`fold_ghosts`) or stay as the clamp-edge
+planes of open axes (:func:`assemble_dense`). Three methods:
 
   * ``"scan"`` (:func:`cic_deposit_device_planar`): a stable sort by
     ``key``, the corner-weight channels, a two-level double-float prefix
@@ -20,7 +21,13 @@ of open axes (:func:`assemble_dense`). Two engines:
     kernel 4 (``ops.segdep``) directly. float32 accumulation; the
     reference's sort is unstable, so its per-cell summation order is not
     a contract and the two packages agree at float32 tolerance (bit for
-    bit on dyadic data).
+    bit on dyadic data);
+  * ``"segment"`` (:func:`shard_deposit_vranks_fn`): each vrank's
+    row-major slab is scattered onto its own +1-ghost block with
+    ``index_add_`` (:func:`cic_deposit_vranks_segment`, the reference's
+    ``segment_sum``; no kernel of the reference's is on this route) and
+    the blocks are added onto the device mesh. Bit-equal to the JAX
+    package on the CPU; atomics on the card.
 
 The reference's ``lax.sort((key, iota, payload...), num_keys=2)`` is a
 stable ``torch.sort`` on the key (the same permutation) followed by ONE
@@ -42,6 +49,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from mpi_grid_redistribute_tpu_torch._device import OnDevice
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import binning, dfscan, segdep
 from mpi_grid_redistribute_tpu_torch.ops.dfscan import (  # noqa: F401
@@ -390,6 +398,182 @@ def _slab_deposit_from_keys(key, rel, mass2, vblock, vgrid_shape,
     return _corner_ghost(per_cell, dev_block)
 
 
+def cic_deposit_vranks_segment(pos, mass, valid, lo_local, inv_h,
+                               vblock: Tuple[int, ...]) -> torch.Tensor:
+    """Scatter-add CIC deposit of V slabs (the reference's
+    ``cic_deposit_local`` under ``vmap``, the ``"segment"`` method):
+    ``pos [V, n, D]``, ``mass``/``valid`` ``[V, n]``, ``lo_local [V, D]``,
+    ``inv_h [D]``; each row's coordinates local to its slab's block lie in
+    ``[0, vblock)`` and the +1 ghost plane absorbs the upper-face spill.
+    Returns per-vrank ghost blocks ``[V, *(vblock + 1)]``.
+
+    Each corner's weights ``mass * ((w0 * w1) * w2)`` are added with
+    ``index_add_`` in row order, and the corners are combined in the order
+    XLA's CPU compiler gives the reference's ``total + segment_sum(...)``
+    chain: corner 0's sums, plus corner 1's sums, corner 2 added straight
+    into that total, plus corner 3's sums, and so on (odd corners summed
+    apart, even ones from 2 on scattered into the running total). On the
+    CPU this is the reference's bits; on the card ``index_add_``
+    accumulates with atomics in no fixed order, so repeated runs may
+    differ in the last bits (the reference has no deterministic variant
+    on this path either)."""
+    V, n, D = pos.shape
+    ghost = tuple(b + 1 for b in vblock)
+    n_nodes = math.prod(ghost)
+    strides = _row_major_strides(ghost)
+    rel = (pos - lo_local[:, None, :]) * inv_h
+    # holes may hold any bytes: zero their coordinates too, or a NaN
+    # position turns the masked weight into 0 * NaN = NaN
+    rel = torch.where(valid[..., None], rel, 0.0)
+    i0 = torch.stack(
+        [_base_cell(rel[..., d], vblock[d]) for d in range(D)], dim=-1
+    )
+    frac = (rel - i0.to(_F32)).clamp(0.0, 1.0)
+    w_valid = torch.where(valid, mass, 0.0).reshape(-1)
+    # vrank v's nodes are [v * n_nodes, (v + 1) * n_nodes) of one flat
+    # canvas, so one scatter serves every slab
+    base = torch.arange(V, dtype=torch.int64, device=pos.device)[:, None]
+    base = base * n_nodes
+    total = None
+    for k, corner in enumerate(itertools.product((0, 1), repeat=D)):
+        w = None
+        for d in range(D):
+            t = frac[..., d] if corner[d] == 1 else 1.0 - frac[..., d]
+            w = t if w is None else w * t
+        idx = base
+        for d in range(D):
+            idx = idx + (i0[..., d] + corner[d]).to(torch.int64) * strides[d]
+        upd = w_valid * w.reshape(-1)
+        if k >= 2 and k % 2 == 0:
+            total.index_add_(0, idx.reshape(-1), upd)
+            continue
+        part = torch.zeros((V * n_nodes,), dtype=_F32, device=pos.device)
+        part.index_add_(0, idx.reshape(-1), upd)
+        total = part if total is None else total + part
+    return total.reshape((V,) + ghost)
+
+
+def cic_deposit_local(pos, mass, valid, lo_local, inv_h,
+                      local_shape: Tuple[int, ...]) -> torch.Tensor:
+    """Scatter-add CIC deposit of one block: ``pos [N, D]``, ``mass``/
+    ``valid`` ``[N]``, ``lo_local``/``inv_h`` ``[D]``; returns the
+    +1-ghost block ``[*(local_shape + 1)]``
+    (:func:`cic_deposit_vranks_segment` of one slab)."""
+    return cic_deposit_vranks_segment(
+        pos[None], mass[None], valid[None], lo_local[None], inv_h,
+        local_shape,
+    )[0]
+
+
+def cic_deposit_vranks_sorted(pos, mass, valid, lo_local, inv_h,
+                              vblock: Tuple[int, ...], tile: int = 256,
+                              plain: bool = False) -> torch.Tensor:
+    """Double-float scan deposit of V row-major slabs (the reference's
+    ``cic_deposit_vranks_sorted``): ``pos [V, n, D]``, ``mass``/``valid``
+    ``[V, n]``, ``lo_local [V, D]``. The same keys, stable order, prefix
+    and differences as the planar core (:func:`cic_deposit_vranks_planar`,
+    kernel 5 on the card), which it runs on the transposed rows. Returns
+    ``[V, *(vblock + 1)]``."""
+    V, n, D = pos.shape
+    rows = pos.permute(2, 0, 1).reshape(D, V * n)
+    return cic_deposit_vranks_planar(
+        rows, mass.reshape(-1), valid.reshape(-1), lo_local, inv_h, vblock,
+        tile=tile, plain=plain,
+    )
+
+
+def cic_deposit_local_sorted(pos, mass, valid, lo_local, inv_h,
+                             local_shape: Tuple[int, ...], tile: int = 256,
+                             plain: bool = False) -> torch.Tensor:
+    """The scan deposit of one row-major block (the contract of
+    :func:`cic_deposit_local`): :func:`cic_deposit_vranks_sorted` of one
+    slab."""
+    return cic_deposit_vranks_sorted(
+        pos[None], mass[None], valid[None], lo_local[None], inv_h,
+        local_shape, tile=tile, plain=plain,
+    )[0]
+
+
+def _vrank_origins(domain: Domain, dev_grid: ProcessGrid,
+                   vgrid: ProcessGrid) -> np.ndarray:
+    """float32 ``[V, D]`` block origins of device 0's vranks, in the
+    reference's op order: ``lo + (0 * vgrid.shape + vcell) * vwidth``."""
+    full_grid = ProcessGrid(
+        tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
+        axis_names=dev_grid.axis_names,
+    )
+    vwidths = full_grid.cell_widths(domain)
+    vcells = np.asarray(
+        [vgrid.cell_of_rank(v) for v in range(vgrid.nranks)],
+        dtype=np.float32,
+    )
+    return np.stack(
+        [
+            np.float32(domain.lo[a])
+            + (np.float32(0) * np.float32(vgrid.shape[a]) + vcells[:, a])
+            * np.float32(vwidths[a])
+            for a in range(domain.ndim)
+        ],
+        axis=1,
+    ).astype(np.float32)
+
+
+def shard_deposit_vranks_fn(domain: Domain, dev_grid: ProcessGrid,
+                            vgrid: ProcessGrid, mesh_shape: Tuple[int, ...],
+                            method: str = "scan", plain: bool = False):
+    """Per-device CIC deposit of row-major vrank slabs: ``fn(pos [V, n,
+    D], mass [V, n], valid [V, n]) -> rho``. Each vrank deposits its slab
+    onto its own +1-ghost block (``"segment"``: the scatter-add of
+    :func:`cic_deposit_vranks_segment`; ``"scan"``: the double-float
+    :func:`cic_deposit_vranks_sorted`, kernel 5), the V blocks are added
+    onto the device's +1-ghost mesh in vrank order (each ghost face falls
+    on the next vrank's interior), then the ghost fold (fully periodic
+    domains) or the dense assembly. Rows must sit in their vrank's block,
+    as the canonical vrank layout keeps them. One device only."""
+    if dev_grid.nranks != 1:
+        raise NotImplementedError(
+            "the multi-device deposit (ghost-face ppermute, dense psum) is "
+            "not ported yet (ROADMAP A5); use a one-rank dev_grid"
+        )
+    full_grid = ProcessGrid(
+        tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
+        axis_names=dev_grid.axis_names,
+    )
+    _check_mesh_shape(domain, full_grid, mesh_shape)
+    if method not in ("segment", "scan"):
+        raise ValueError(f"method must be 'segment' or 'scan', got {method!r}")
+    dev_block = tuple(m // g for m, g in zip(mesh_shape, dev_grid.shape))
+    vblock = tuple(b // v for b, v in zip(dev_block, vgrid.shape))
+    consts = OnDevice(
+        _vrank_origins(domain, dev_grid, vgrid),
+        _device_consts(domain, dev_grid, mesh_shape)[1],
+    )
+
+    def fn(pos, mass, valid):
+        lo_all, inv_h = consts.get(pos.device)
+        if method == "scan":
+            rho_v = cic_deposit_vranks_sorted(
+                pos, mass, valid, lo_all, inv_h, vblock, plain=plain
+            )
+        else:
+            rho_v = cic_deposit_vranks_segment(
+                pos, mass, valid, lo_all, inv_h, vblock
+            )
+        total = torch.zeros(tuple(b + 1 for b in dev_block),
+                            dtype=rho_v.dtype, device=rho_v.device)
+        for v in range(vgrid.nranks):
+            idx = tuple(
+                slice(c * b, c * b + b + 1)
+                for c, b in zip(vgrid.cell_of_rank(v), vblock)
+            )
+            total[idx] += rho_v[v]
+        if all(domain.periodic):
+            return fold_ghosts(total, dev_grid)
+        return assemble_dense(total, dev_grid, domain)
+
+    return fn
+
+
 def _device_consts(domain: Domain, dev_grid: ProcessGrid, mesh_shape):
     """float32 ``inv_h [D]`` and the device origin ``dev_lo [D]`` (device
     0: ``lo + 0 * width``, in float32 as the reference computes it)."""
@@ -403,22 +587,6 @@ def _device_consts(domain: Domain, dev_grid: ProcessGrid, mesh_shape):
         np.float32,
     )
     return dev_lo, inv_h
-
-
-class _OnDevice:
-    """Small constant arrays, copied to a device once and reused (a copy
-    per call would be a host-to-device transfer per step)."""
-
-    def __init__(self, *arrays):
-        self._arrays = arrays
-        self._cache = {}
-
-    def get(self, device):
-        if device not in self._cache:
-            self._cache[device] = tuple(
-                torch.from_numpy(a).to(device) for a in self._arrays
-            )
-        return self._cache[device]
 
 
 def shard_deposit_device_planar_fn(domain: Domain, dev_grid: ProcessGrid,
@@ -441,7 +609,7 @@ def shard_deposit_device_planar_fn(domain: Domain, dev_grid: ProcessGrid,
             return cic_deposit_device_planar(*args, plain=plain)
     _check_mesh_shape(domain, dev_grid, mesh_shape)
     dev_block = tuple(m // g for m, g in zip(mesh_shape, dev_grid.shape))
-    consts = _OnDevice(*_device_consts(domain, dev_grid, mesh_shape))
+    consts = OnDevice(*_device_consts(domain, dev_grid, mesh_shape))
 
     def fn(pos_rows, mass, valid):
         dev_lo, inv_h = consts.get(pos_rows.device)
@@ -474,23 +642,7 @@ def shard_deposit_device_mxu_fn(domain: Domain, dev_grid: ProcessGrid,
         axis_names=dev_grid.axis_names,
     )
     _check_mesh_shape(domain, full_grid, mesh_shape)
-    V = vgrid.nranks
-    vwidths = full_grid.cell_widths(domain)
-    vcells = np.asarray(
-        [vgrid.cell_of_rank(v) for v in range(V)], dtype=np.float32
-    )
-    # vrank origins on device 0, in float32 and in the reference's op
-    # order: lo + (0 * vgrid.shape + vcell) * vwidth
-    lo_all = np.stack(
-        [
-            np.float32(domain.lo[a])
-            + (np.float32(0) * np.float32(vgrid.shape[a]) + vcells[:, a])
-            * np.float32(vwidths[a])
-            for a in range(domain.ndim)
-        ],
-        axis=1,
-    ).astype(np.float32)  # [V, D]
-    lo_dev = _OnDevice(lo_all)
+    lo_dev = OnDevice(_vrank_origins(domain, dev_grid, vgrid))
 
     def slab_core(pos_rows, mass, valid, dev_lo, inv_h, dev_block):
         vblock = tuple(b // v for b, v in zip(dev_block, vgrid.shape))

@@ -39,16 +39,26 @@ KERNEL = _build.register(_build.Kernel(
 ))
 
 
-def drift_wrap_bin_plain(flat: torch.Tensor, dt: float, domain: Domain,
-                         full_grid: ProcessGrid, V: int, R_total: int):
-    """Plain PyTorch version: drift + wrap the position rows of ``flat``
-    in place, then bin. Returns ``(flat, dest_key [V, n])``."""
+def drift_wrap(flat: torch.Tensor, dt: float, domain: Domain) -> torch.Tensor:
+    """Drift + wrap the position rows of the planar int32 state ``flat``
+    in place and return their float32 view: ``p = pf + vf * dt`` as two
+    separate ops (never a fused multiply-add, which would change the last
+    bit), then the periodic wrap."""
     D = domain.ndim
     pf = flat[:D].view(torch.float32)
     vf = flat[D : 2 * D].view(torch.float32)
     p = pf + vf * binning._f32(dt, pf)
     p = binning.wrap_periodic_planar(p, domain)
     flat[:D] = p.view(torch.int32)
+    return p
+
+
+def drift_wrap_bin_plain(flat: torch.Tensor, dt: float, domain: Domain,
+                         full_grid: ProcessGrid, V: int, R_total: int):
+    """Plain PyTorch version: drift + wrap the position rows of ``flat``
+    in place (:func:`drift_wrap`), then bin. Returns ``(flat, dest_key
+    [V, n])``."""
+    p = drift_wrap(flat, dt, domain)
     key = binning.dest_key_planar(
         p, flat[-1] > 0, domain, full_grid, V, R_total
     )

@@ -10,7 +10,9 @@ travel bitcast, so every bit pattern survives); the legacy float32 layout
 one device) owns columns ``[v * n, (v + 1) * n)``. One dense step:
 
   1. destination key per column (given by the fused drift-bin kernel, or
-     binned here);
+     binned here: the canonical vrank grid, or under a load-balanced
+     ``cells``/``assignment`` decomposition the cell id and one table
+     gather);
   2. one packed sort groups leavers by destination; counts by search;
   3. receiver-granted flow control on ``[V, V]`` tables: pairwise swaps
      (self-financing), a greedy share of free slots, a monotone fixpoint
@@ -48,8 +50,10 @@ from __future__ import annotations
 import os
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
+from mpi_grid_redistribute_tpu_torch._device import OnDevice
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import binning, overlay, scatter
 from mpi_grid_redistribute_tpu_torch.ops.pack import gather_plan_cols
@@ -452,6 +456,30 @@ def _fast_step(flat, free_stack, n_free, block_rows, loc_starts, allowed,
     return MigrateState(flat, free_stack, new_free), stats
 
 
+def balanced_assignment(cell_loads, n_ranks: int) -> tuple:
+    """Static cell -> rank map equalizing per-rank load (host-side LPT,
+    "longest processing time first"): cells heaviest first (a stable
+    order, so ties keep cell order), each to the first least-loaded rank.
+    ``cell_loads`` is the per-cell ownership histogram (``[n_cells]``
+    row-major). Returns a tuple of int for :func:`shard_migrate_vranks_fn`'s
+    ``assignment`` (paired with the cell grid as ``cells``); the largest
+    bin is at most 4/3 of the optimum, so slabs can be sized near the
+    mean load rather than the hottest cell's."""
+    loads = np.asarray(cell_loads, dtype=np.int64)
+    if loads.ndim != 1 or loads.size < n_ranks:
+        raise ValueError(
+            f"need >= {n_ranks} cells, got shape {loads.shape}"
+        )
+    order = np.argsort(-loads, kind="stable")
+    bins = np.zeros((n_ranks,), np.int64)
+    assign = np.zeros(loads.shape, np.int32)
+    for c in order:
+        r = int(np.argmin(bins))
+        assign[c] = r
+        bins[r] += loads[c]
+    return tuple(int(x) for x in assign)
+
+
 def shard_migrate_vranks_fn(
     domain: Domain,
     dev_grid: ProcessGrid,
@@ -461,6 +489,8 @@ def shard_migrate_vranks_fn(
     scatter_impl=None,
     mover_cap: int = None,
     plain: bool = False,
+    cells: ProcessGrid = None,
+    assignment: tuple = None,
 ):
     """Migration over ``V = vgrid.nranks`` vranks on ONE device, planar
     layout: ``fn(state, dest_key=None) -> (state, MigrateStats)`` with
@@ -482,22 +512,50 @@ def shard_migrate_vranks_fn(
     every kernel's plain PyTorch version even on the GPU (the reference
     run a kernel is held against).
 
+    ``cells`` (the spatial cell grid, e.g. 4x4x4) with ``assignment`` (a
+    tuple mapping each row-major cell id to a global rank ``dev * V + v``,
+    typically :func:`balanced_assignment` of a measured histogram) is the
+    load-balanced decomposition: each vrank owns a SET of cells, so the
+    slabs can be sized near the mean load. Only the binning changes (the
+    cell id, then one gather from the table); the grants and the landing
+    work on rank ids as before. A ``dest_key`` passed in must then come
+    from the same binning, never from the canonical vrank grid.
+
     Only ``dev_grid.nranks == 1`` is ported (the multi-device exchange
     over ``torch.distributed`` is a later slice)."""
+    V = vgrid.nranks
+    D = domain.ndim
+    R_total = dev_grid.nranks * V
+    if (cells is None) != (assignment is None):
+        raise ValueError("cells and assignment must be passed together")
+    if assignment is not None:
+        if len(assignment) != cells.nranks:
+            raise ValueError(
+                f"assignment has {len(assignment)} entries for "
+                f"{cells.nranks} cells"
+            )
+        bad = [g for g in assignment if not 0 <= g < R_total]
+        if bad:
+            raise ValueError(
+                f"assignment targets outside [0, {R_total}): {bad[:4]}"
+            )
     if dev_grid.nranks != 1:
         raise NotImplementedError(
             "the multi-device migrate engine is not ported yet; use a "
             "single-device dev_grid with vranks"
         )
-    V = vgrid.nranks
-    D = domain.ndim
     M = V * capacity if local_budget is None else int(local_budget)
     P = M  # Dev == 1: the send and arrival plans are both M wide
     impl = _resolve_scatter_impl(scatter_impl)
-    full_grid = ProcessGrid(
-        tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
-        axis_names=dev_grid.axis_names,
-    )
+    table = None  # the cell -> rank table, on the state's device
+    if assignment is not None:
+        full_grid = cells
+        table = OnDevice(np.asarray(assignment, np.int32))
+    else:
+        full_grid = ProcessGrid(
+            tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
+            axis_names=dev_grid.axis_names,
+        )
 
     def _step(flat, free_stack, n_free, dest_key):
         """One dense step, O(residents)."""
@@ -554,6 +612,7 @@ def shard_migrate_vranks_fn(
             dest_key = binning.dest_key_planar(
                 flat[:D].view(torch.float32), flat[-1] > 0, domain,
                 full_grid, V, V,
+                assignment=None if table is None else table.get(dev)[0],
             )
         B = None
         if mover_cap is not None:

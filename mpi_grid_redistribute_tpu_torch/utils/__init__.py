@@ -1,1 +1,1 @@
-"""Timing helpers."""
+"""Timing helpers and stats summaries."""

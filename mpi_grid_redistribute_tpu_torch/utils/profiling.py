@@ -12,6 +12,7 @@ is the capture's own noise floor.
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable
 
 import torch
@@ -27,6 +28,12 @@ def _event_seconds(fn: Callable[[], object]):
     return start.elapsed_time(end) / 1e3, out
 
 
+def _host_seconds(fn: Callable[[], object]):
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
 def cuda_time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
                                s1: int = 2, s2: int = 10, reps: int = 4):
     """Min-of-k seconds per step. ``make_run(S)`` returns a callable that
@@ -39,8 +46,19 @@ def cuda_time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
     last long run's output."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_per_step_samples needs a CUDA device")
+    return time_per_step_samples(make_run, s1, s2, reps, device="cuda")
+
+
+def time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
+                          s1: int = 2, s2: int = 10, reps: int = 4,
+                          device="cuda"):
+    """:func:`cuda_time_per_step_samples` on ``device``: CUDA events on
+    the card, the host's clock on the CPU (where the runs are
+    synchronous; the bench scripts' CPU runs in the tests)."""
     if s2 <= s1 or reps < 1:
         raise ValueError(f"need s2 > s1 and reps >= 1, got {s1}, {s2}, {reps}")
+    clock = (_event_seconds if torch.device(device).type == "cuda"
+             else _host_seconds)
 
     def run(s: int):
         fn = make_run(s)
@@ -48,7 +66,7 @@ def cuda_time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
         times = []
         for _ in range(reps):
             out = None  # free the previous run's state first
-            t, out = _event_seconds(fn)
+            t, out = clock(fn)
             times.append(t)
         return times, out
 

@@ -7,8 +7,11 @@ sparse and planar engines, and the row-store landing route), with and
 without the fused deposit, on the card against the port's CPU run; the
 canonical redistribute and the halo exchange (both vrank engines and the
 public ``halo()`` under each overflow policy) on the card against the
-port's CPU run, with no host sync in an engine exchange. They skip
-without a GPU.
+port's CPU run, with no host sync in an engine exchange; the
+load-balanced ``cells``/``assignment`` loop (both engines) against the
+CPU run, config 3's 64-vrank shape against the plain-version run, and the
+``"segment"`` deposit (atomics: within 2e-5 of the CPU run, its mass
+exact to rtol 1e-5). They skip without a GPU.
 
 This file imports no JAX, so it runs on a machine without it:
 
@@ -21,6 +24,9 @@ import torch
 
 from mpi_grid_redistribute_tpu_torch import Domain, GridRedistribute, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.bench import common
+from mpi_grid_redistribute_tpu_torch.bench import (
+    config2_clustered, config3_slab,
+)
 from mpi_grid_redistribute_tpu_torch.models import nbody
 from mpi_grid_redistribute_tpu_torch.ops import (
     deposit, dfscan, driftbin, overlay, scatter, segdep,
@@ -1010,3 +1016,81 @@ def test_halo_call_on_card_matches_cpu_run(cuda, policy):
         assert torch.equal(_u8(x), _u8(y))
     assert a._halo_caps == b._halo_caps
     assert (int(ha.overflow.sum()) > 0) == (policy == "ignore")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "planar"])
+def test_assignment_loop_on_card_matches_cpu_run(cuda, engine):
+    """Config 2's steady state at a small width: the LPT-assigned loop on
+    the card, bit-equal to the CPU run; kernel 1 never launches, kernel 2
+    once a step."""
+    total = config2_clustered.steady_total(1024)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        setup = config2_clustered.steady_setup(total, dev)
+        cfg, vgrid, state = config2_clustered.steady_workload(
+            setup, "imbalanced", engine=engine
+        )
+        k1, k2 = driftbin.KERNEL.launches, overlay.KERNEL.launches
+        out[dev] = nbody.make_migrate_loop(cfg, 5, vgrid=vgrid,
+                                           device=dev)(*state)
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert driftbin.KERNEL.launches == k1
+            assert overlay.KERNEL.launches == k2 + 5
+    a, b = out["cuda"], out["cpu"]
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x.cpu().view(torch.uint8), y.view(torch.uint8))
+    for f in ("sent", "received", "population", "backlog", "flow",
+              "fast_path"):
+        x, y = getattr(a[3], f), getattr(b[3], f)
+        assert (x is None and y is None) or torch.equal(x.cpu(), y), f
+    assert int(a[3].sent.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_config3_shape_on_card_matches_plain_run(cuda):
+    """(8, 8, 1) as 64 vranks: kernels 1 and 2 against the plain-version
+    run, bit for bit, and against the CPU run."""
+    cfg, vgrid, (pos, vel, alive) = config3_slab.build(n_local=4096)
+    runs = [nbody.make_migrate_loop(cfg, 4, vgrid=vgrid, plain=plain,
+                                    device=dev)(pos, vel, alive)
+            for plain, dev in ((False, None), (True, None), (False, "cpu"))]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for x, y in zip(runs[0][:3], other[:3]):
+            assert torch.equal(x.cpu().view(torch.uint8),
+                               y.cpu().view(torch.uint8))
+        for f in ("sent", "received", "population", "backlog", "flow"):
+            assert torch.equal(getattr(runs[0][3], f).cpu(),
+                               getattr(other[3], f).cpu()), f
+    assert int(runs[0][3].dropped_recv.sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("each_step", [True, False])
+def test_segment_deposit_loop_on_card_matches_cpu_run(cuda, each_step):
+    grid = (2, 2, 2)
+    n_local = 4096
+    v, cap, budget = common.drift_sizing(grid, n_local, 0.9, 0.02)
+    pos, vel, alive = common.uniform_state(
+        grid, n_local, 0.9, np.random.default_rng(4), vel_scale=4 * v
+    )
+    cfg = nbody.DriftConfig(
+        domain=Domain(0.0, 1.0, periodic=True), grid=ProcessGrid((1, 1, 1)),
+        dt=1.0, capacity=cap, n_local=n_local, local_budget=budget,
+        deposit_shape=(16, 16, 16), deposit_method="segment",
+    )
+    vgrid = ProcessGrid(grid)
+    a = nbody.make_migrate_loop(cfg, 4, vgrid=vgrid,
+                                deposit_each_step=each_step)(pos, vel, alive)
+    b = nbody.make_migrate_loop(cfg, 4, vgrid=vgrid, device="cpu",
+                                deposit_each_step=each_step)(pos, vel, alive)
+    torch.cuda.synchronize()
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x.cpu().view(torch.uint8), y.view(torch.uint8))
+    rho = a[4].cpu()
+    # index_add_ on the card adds with atomics, in no fixed order
+    torch.testing.assert_close(rho, b[4], rtol=2e-5, atol=2e-5)
+    live = int(alive.sum())
+    assert abs(float(rho.double().sum()) - live) <= 1e-5 * live

@@ -451,3 +451,115 @@ def test_config5_build_matches_reference_sizing():
     _bits(_t(pos), jpos)
     _bits(_t(vel), jvel)
     _bits(_t(alive), jalive)
+
+
+# ---- the "segment" and row-major "scan" deposits -------------------------
+#
+# ``cic_deposit_local`` and the segment route of ``shard_deposit_vranks_fn``
+# are BIT-equal on the CPU: XLA's CPU scatter-add adds the updates in row
+# order, and the port reproduces the order in which XLA's CPU compiler
+# combines the eight corners (see ``cic_deposit_vranks_segment``). The
+# row-major scan engine is bit-equal as the planar one is.
+
+
+def _vrank_slabs(r, vgrid_shape, n, with_mass):
+    """Row-major ``[V, n, 3]`` slabs inside their vranks' blocks, a few
+    NaN holes among the invalid rows, mass random or unit."""
+    V = int(np.prod(vgrid_shape))
+    pos = _slab_state(r, vgrid_shape, n).T.reshape(V, n, 3).copy()
+    valid = r.random((V, n)) > 0.1
+    pos[~valid] = np.where(r.random(((~valid).sum(), 1)) < 0.3, np.nan,
+                           pos[~valid])
+    mass = ((r.random((V, n)) + 0.5).astype(np.float32) if with_mass
+            else np.ones((V, n), np.float32))
+    return pos, mass, valid
+
+
+@pytest.mark.parametrize("with_mass", [False, True])
+@pytest.mark.parametrize("n,block", [(3000, (4, 4, 4)), (777, (3, 5, 2)),
+                                     (500, (6, 4))])
+def test_cic_deposit_local_matches_jax(n, block, with_mass):
+    r = np.random.default_rng(n + with_mass)
+    D = len(block)
+    pos = (r.random((n, D)) * np.asarray(block)).astype(np.float32)
+    mass = ((r.random(n) + 0.5).astype(np.float32) if with_mass
+            else np.ones(n, np.float32))
+    valid = r.random(n) > 0.1
+    lo = np.zeros(D, np.float32)
+    inv_h = np.ones(D, np.float32)
+    want = jax.jit(lambda p, m, v: jdep.cic_deposit_local(
+        p, m, v, jnp.asarray(lo), jnp.asarray(inv_h), block))(pos, mass, valid)
+    got = tdep.cic_deposit_local(_t(pos), _t(mass), _t(valid), _t(lo),
+                                 _t(inv_h), block)
+    _bits(got, want)
+    np.testing.assert_allclose(
+        got.numpy(), _oracle(pos.astype(np.float64), mass, valid, block),
+        rtol=2e-5, atol=2e-5,
+    )
+
+
+@pytest.mark.parametrize("with_mass", [False, True])
+def test_cic_deposit_local_sorted_matches_jax(with_mass):
+    r = np.random.default_rng(11 + with_mass)
+    n, block = 2000, (4, 4, 4)
+    pos = (r.random((n, 3)) * 4).astype(np.float32)
+    mass = ((r.random(n) + 0.5).astype(np.float32) if with_mass
+            else np.ones(n, np.float32))
+    valid = r.random(n) > 0.1
+    lo = np.zeros(3, np.float32)
+    inv_h = np.ones(3, np.float32)
+    want = jax.jit(lambda p, m, v: jdep.cic_deposit_local_sorted(
+        p, m, v, jnp.asarray(lo), jnp.asarray(inv_h), block,
+        tile=64))(pos, mass, valid)
+    got = tdep.cic_deposit_local_sorted(_t(pos), _t(mass), _t(valid),
+                                        _t(lo), _t(inv_h), block, tile=64)
+    _bits(got, want)
+
+
+@pytest.mark.parametrize("periodic", [True, (True, False, True)])
+@pytest.mark.parametrize("with_mass", [False, True])
+@pytest.mark.parametrize("method", ["segment", "scan"])
+@pytest.mark.parametrize("vgrid_shape", [(2, 2, 2), (2, 1, 1)])
+def test_shard_deposit_vranks_fn_matches_jax(vgrid_shape, method, with_mass,
+                                             periodic):
+    r = np.random.default_rng(len(vgrid_shape) + with_mass)
+    n = 1500
+    jgrid, mesh = _one_device_mesh()
+    jd = jdomain.Domain(0.0, 1.0, periodic=periodic)
+    td = tdomain.Domain(0.0, 1.0, periodic=periodic)
+    pos, mass, valid = _vrank_slabs(r, vgrid_shape, n, with_mass)
+    shape = (8, 8, 8)
+    jfn = jdep.shard_deposit_vranks_fn(
+        jd, jgrid, jdomain.ProcessGrid(vgrid_shape), shape, method=method
+    )
+    axes = jgrid.axis_names
+    want = np.asarray(jax.jit(compat.shard_map(
+        jfn, mesh=mesh, in_specs=(P(axes), P(axes), P(axes)),
+        out_specs=jdep.deposit_out_spec(jd, jgrid),
+    ))(pos, mass, valid))
+    tfn = tdep.shard_deposit_vranks_fn(
+        td, tdomain.ProcessGrid(GRID1), tdomain.ProcessGrid(vgrid_shape),
+        shape, method=method,
+    )
+    got = tfn(_t(pos), _t(mass), _t(valid))
+    _bits(got, want)
+    np.testing.assert_allclose(
+        got.double().sum().item(),
+        float(mass.astype(np.float64)[valid].sum()), rtol=1e-5,
+    )
+
+
+def test_shard_deposit_vranks_fn_raises():
+    td = tdomain.Domain(0.0, 1.0, periodic=True)
+    with pytest.raises(ValueError, match="method"):
+        tdep.shard_deposit_vranks_fn(td, tdomain.ProcessGrid(GRID1),
+                                     tdomain.ProcessGrid((2, 2, 2)),
+                                     (8, 8, 8), method="mxu")
+    with pytest.raises(ValueError, match="divisible"):
+        tdep.shard_deposit_vranks_fn(td, tdomain.ProcessGrid(GRID1),
+                                     tdomain.ProcessGrid((3, 1, 1)),
+                                     (8, 8, 8), method="segment")
+    with pytest.raises(NotImplementedError, match="A5"):
+        tdep.shard_deposit_vranks_fn(td, tdomain.ProcessGrid((2, 1, 1)),
+                                     tdomain.ProcessGrid((1, 1, 1)),
+                                     (8, 8, 8))

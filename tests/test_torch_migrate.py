@@ -445,9 +445,7 @@ def test_zero_steps_returns_the_zero_mesh():
     assert torch.equal(out[4], torch.zeros((4, 4, 4)))
 
 
-@pytest.mark.parametrize("method,exc", [
-    ("segment", NotImplementedError), ("bogus", ValueError),
-])
+@pytest.mark.parametrize("method,exc", [("bogus", ValueError)])
 def test_unported_deposit_methods_raise(method, exc):
     cfg = tnbody.DriftConfig(
         domain=tdomain.Domain(0.0, 1.0, periodic=True),
@@ -458,6 +456,31 @@ def test_unported_deposit_methods_raise(method, exc):
         tnbody.make_migrate_loop(
             cfg, 1, vgrid=tdomain.ProcessGrid(GRID), device="cpu"
         )
+
+
+@pytest.mark.parametrize("each_step", [True, False])
+@pytest.mark.parametrize("periodic", [True, (True, False, True)])
+def test_segment_deposit_loop_matches_jax(periodic, each_step):
+    """The ``"segment"`` route: the planar state as ``[V, n, D]`` rows,
+    unit mass, each vrank's scatter-add block, the ghost fold (or the
+    dense assembly). BIT-equal on the CPU (the port reproduces XLA's
+    corner order, ``ops.deposit.cic_deposit_vranks_segment``)."""
+    n_local = 512
+    v, cap, budget = tcommon.drift_sizing(GRID, n_local, 0.9, 0.02)
+    pos, vel, alive = tcommon.uniform_state(
+        GRID, n_local, 0.9, np.random.default_rng(21), vel_scale=4 * v
+    )
+    got, want = _run_both(GRID, n_local, 1.0, cap, budget, pos, vel, alive,
+                          3, periodic=periodic,
+                          deposit=((8, 8, 8), "segment"),
+                          deposit_each_step=each_step)
+    for g, w in zip(got[:3], want[:3]):
+        _assert_bits(g, w)
+    _assert_stats(got[3], want[3])
+    _assert_bits(got[4], want[4])
+    np.testing.assert_allclose(float(got[4].double().sum()),
+                               int(got[2].sum()), rtol=1e-5)
+    assert int(got[3].sent.sum()) > 0
 
 
 def test_deposit_each_step_needs_a_deposit_shape():
