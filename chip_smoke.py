@@ -93,6 +93,22 @@ started together), then, on the card:
      share, the plain-version run's bits; with ``--profile`` the device's
      busy and idle share of config 2's steady state and of config 3.
 
+  9. after item 4, the multi-rank paths (``bench.multirank``): NCCL at
+     world size 1 in this process (each collective of
+     ``parallel.collectives`` once, and ``GridRedistribute(mesh=)`` on
+     config 1's rows byte-equal to the call without a mesh); then one
+     gloo world of 8 processes sharing the card: the bench grid as 2
+     ranks x 4 vranks and as 8 ranks (the flat engine, with the mxu and
+     scan deposits each step) through ``make_migrate_loop(..., mesh=)``,
+     kernel 2 once a step on every rank and kernel 1 never, every slab's
+     multiset of live rows equal to the 8-vrank run of item 2;
+     ``GridRedistribute(mesh=)`` ``"auto"`` (sparse) and ``"planar"`` on
+     config 1's rows byte-equal to the oracle rank for rank; the mxu and
+     scan deposits across ranks within 2e-5 of one device's density; and
+     a small width on the card bit-equal to the CPU. Times there are
+     host-clock ms per step of processes sharing one card over gloo, not
+     multi-GPU figures.
+
 Any failed check raises; nothing is caught and carried on. The last
 lines are the ``nvidia-smi`` name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``. Exits
@@ -780,6 +796,138 @@ def small_width_phase(torch, pt, nbody):
             f", fast path on {int(a[3].fast_path[:, 0].sum())} of 5 steps")
         log(f"small width, {engine}: card loop == CPU run (bits, stats"
             f"{fast})")
+
+
+MULTIRANK_LABEL = ("{w} processes sharing one card over gloo; not a "
+                   "multi-GPU figure")
+
+
+def nccl_phase(torch, pt, config1_oracle, workdir):
+    """(a) NCCL at world size 1 on ``cuda:0``, in this process: each
+    collective of ``parallel.collectives`` once through the backend, and
+    ``GridRedistribute(mesh=)`` on config 1's rows (a one-rank grid)
+    byte-equal to the same call without a mesh."""
+    import torch.distributed as dist
+
+    from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
+    from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.initialize_distributed(
+        "nccl", init_method=f"file://{workdir}/nccl_rendezvous",
+        world_size=1, rank=0, timeout=120)
+    try:
+        mesh = mesh_lib.make_mesh(pt.ProcessGrid((1, 1, 1)))
+        check(mesh.backend == "nccl", f"backend {mesh.backend}")
+        x = torch.arange(12, dtype=torch.int32, device="cuda") - 5
+        f = torch.linspace(-1.0, 3.0, 12, device="cuda")
+        for name, got, want in (
+            ("all_to_all", col.all_to_all(x, mesh), x),
+            ("all_gather", col.all_gather(x, mesh)[0], x),
+            ("psum", col.psum(x, mesh), x),
+            ("psum_ordered", col.psum_ordered(f, mesh), f),
+            ("pmin", col.pmin(x, mesh), x),
+            ("ppermute", col.ppermute(x, mesh, [(0, 0)]), x),
+            ("broadcast", col.broadcast(x, mesh), x),
+        ):
+            check(torch.equal(got, want), f"nccl {name}: wrong result")
+        pos, vel, ids = config1_oracle.inputs(1 << 20)
+        kw = dict(lo=0.0, hi=1.0, periodic=True, grid=(1, 1, 1),
+                  capacity_factor=config1_oracle.CAPACITY_FACTOR)
+        rd_m = pt.GridRedistribute(mesh=mesh, **kw)
+        rd_v = pt.GridRedistribute(**kw)
+        a = rd_m.redistribute(pos, vel, ids)
+        b = rd_v.redistribute(pos, vel, ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = rd_m.redistribute(pos, vel, ids)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rd_m.flush_overflow_checks()
+        rd_v.flush_overflow_checks()
+        for name, u, w in (("positions", a.positions, b.positions),
+                           ("count", a.count, b.count),
+                           *((f"field {i}", u, w) for i, (u, w) in
+                             enumerate(zip(a.fields, b.fields))),
+                           *((f"stat {k}", getattr(a.stats, k),
+                              getattr(b.stats, k))
+                             for k in config1_oracle.STATS)):
+            check(torch.equal(u.view(torch.uint8), w.view(torch.uint8)),
+                  f"nccl GridRedistribute(mesh=): {name} differs from the "
+                  f"call without a mesh")
+        check(rd_m._last_engine == "planar", "nccl: engine not planar")
+    finally:
+        dist.destroy_process_group()
+    log(f"(a) NCCL at world size 1: 7 collectives through the backend, "
+        f"GridRedistribute(mesh=) at {1 << 20} rows byte-equal to the call "
+        f"without a mesh ({ms:.3f} ms a call, host clock, uploads "
+        f"included)")
+    return {"backend": "nccl", "world_size": 1, "collectives": 7,
+            "redistribute_rows": 1 << 20, "redistribute_ms": ms,
+            "byte_equal_to_one_device": True}
+
+
+def multirank_phase(torch, pt, config1_oracle, state, planar_out, smi,
+                    profile_dir):
+    """The multi-rank paths: (a) NCCL at world size 1 here, then (b)-(d)
+    in one gloo world of 8 processes sharing ``cuda:0``
+    (``bench.multirank``): the vranks loop across 2 ranks and the flat
+    loop across 8 at the bench width, GridRedistribute(mesh=) and the
+    deposits across 8 ranks, and card against CPU at a small width."""
+    import tempfile
+
+    from mpi_grid_redistribute_tpu_torch.bench import multirank
+    from mpi_grid_redistribute_tpu_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory() as wd:
+        nccl = nccl_phase(torch, pt, config1_oracle, wd)
+        spec = multirank.prepare(wd, N_LOCAL, FILL, MIGRATION, state=state)
+        spec["profile"] = bool(profile_dir)
+        spec["profile_dir"] = profile_dir
+        t0 = time.perf_counter()
+        results = launch.run_world(
+            "mpi_grid_redistribute_tpu_torch.bench.multirank:world_main", 8,
+            args=(spec,), backend="gloo", device="cuda", timeout=600,
+            pg_timeout=300)
+        world_s = time.perf_counter() - t0
+        ref = multirank.reference(spec, "cuda", single=planar_out)
+        try:
+            summary = multirank.verify(results, spec, ref, "cuda")
+        except AssertionError as e:
+            fail(f"multi-rank: {e}")
+    label = MULTIRANK_LABEL
+    vr, fl = summary["vranks"], summary["flat"]
+    log(f"(b) vranks across 2 ranks ({label.format(w=2)}; {smi}): "
+        f"{vr['slots']} slots, {vr['steps']} steps, ms/step per rank "
+        f"{[round(x, 3) for x in vr['ms_per_step']]} (raw "
+        f"{[round(x, 3) for x in vr['raw_ms_per_step']]}), kernel 2 a step per "
+        f"rank {vr['kernel2_launches_a_step']}, kernel 1 "
+        f"{vr['kernel1_launches']}, slab multisets equal to the "
+        f"8-vrank run ({vr['compared']})")
+    rd, cv = summary["redistribute"], summary["card_vs_cpu"]
+    log(f"(c) flat across 8 ranks ({label.format(w=8)}; {smi}): ms/step "
+        f"per rank with the mxu deposit "
+        f"{[round(x, 3) for x in fl['ms_per_step_mxu']]} (raw "
+        f"{[round(x, 3) for x in fl['raw_ms_per_step_mxu']]}), kernels 2/4/5 a "
+        f"step {fl['kernel2_launches_a_step'][0]}/"
+        f"{fl['kernel4_launches_a_step'][0]}/"
+        f"{fl['kernel5_launches_a_step'][0]}, multisets "
+        f"{fl['compared']}; GridRedistribute(mesh=) auto (sparse) and "
+        f"planar byte-equal to the oracle at {rd['rows']} rows; deposits' "
+        f"largest differences (kernel loop vs plain loop, kernel vs plain, "
+        f"vs one device's plain density; tolerance "
+        f"{multirank.DEPOSIT_TOL}): {fl['deposit_max_abs_err']}")
+    log(f"(d) card vs CPU at n_local={multirank.SMALL_N}, 2 ranks: "
+        f"bit-equal {cv['bit_equal']}; density max abs difference "
+        f"{cv['rho_max_abs_err']}")
+    if profile_dir:
+        for part, prof in (("(b) vranks", vr["profile"]),
+                           ("(c) flat + mxu", fl["profile_mxu"])):
+            log(f"{part} profile a step per rank (device busy ms, device "
+                f"operations, host ms in collectives, NCCL device ms): "
+                f"{[tuple(round(v, 3) for v in p) for p in prof]}")
+    log(f"multi-rank world of 8: {world_s:.1f} s including start-up")
+    return dict(summary, nccl=nccl, world_seconds=world_s,
+                label=label.format(w="W"), card=smi)
 
 
 def dfscan_phase(torch, dfscan, profiling):
@@ -1838,9 +1986,15 @@ def main() -> int:
     )
     rows = rows_route_phase(torch, pt, migrate, driftbin, _build, profiling,
                             inputs, cap, budget, planar_out, args.profile)
-    del planar_out
     small_width_phase(torch, pt, nbody)
     lap("loops")
+
+    # ---- the multi-rank paths: NCCL at world size 1, then one gloo world
+    # of 8 processes on this card, held against the 8-vrank run above
+    ranks = multirank_phase(torch, pt, config1_oracle, (pos, vel, alive),
+                            planar_out, smi, args.profile)
+    del planar_out
+    lap("multi-rank")
 
     # ---- config 5: the deposit kernels, then the fused loop
     cfg5, vgrid5, state5 = config5_deposit.build(n_local=N_LOCAL)
@@ -1930,6 +2084,7 @@ def main() -> int:
     log(json.dumps({"config3": c3}))
     log(json.dumps({"canonical": canon}))
     log(json.dumps({"halo": halo}))
+    log(json.dumps({"ranks": ranks}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,20 +1,43 @@
 """PyTorch/CUDA port of ``mpi_grid_redistribute_tpu`` for NVIDIA Hopper.
 
 The JAX package beside this one is the reference; this package imports
-neither it nor JAX. Ported so far, all on ONE device with the ranks of
-the grid as virtual ranks:
+neither it nor JAX. Ported so far, on ONE device with the ranks of the
+grid as virtual ranks, or with ``mesh=`` one rank a process:
 
   * the canonical :class:`GridRedistribute` ``.redistribute()`` (the
-    planar and row-major engines; ``engine="auto"`` picks planar) with its
-    NumPy oracle (:mod:`.oracle`) and non-uniform :class:`GridEdges`,
-    ``.apply_assignment()``, and the functional :func:`redistribute` and
-    :func:`.api.reshard`;
+    planar, row-major, count-driven ``"sparse"`` and stencil
+    ``"neighbor"`` engines; ``engine="auto"`` picks planar on one device
+    and sparse across ranks) with its NumPy oracle (:mod:`.oracle`) and
+    non-uniform :class:`GridEdges`, ``.apply_assignment()``, and the
+    functional :func:`redistribute` and :func:`.api.reshard`;
   * the halo exchange ``GridRedistribute.halo()`` (:class:`HaloResult`;
-    the planar and row-major vrank engines of :mod:`.parallel.halo`),
-    with the set-level ghost oracle ``oracle.brute_force_ghosts``;
+    the planar and row-major vrank engines of :mod:`.parallel.halo`, one
+    device), with the set-level ghost oracle ``oracle.brute_force_ghosts``;
   * the drift/migrate loop (:func:`.models.nbody.make_migrate_loop`, the
-    mover-sparse and planar engines, the row-store landing route) and the
-    config-5 CIC deposit fused into it.
+    mover-sparse and planar engines, the row-store landing route, the
+    flat engine and the vrank engine across ranks) and the CIC deposit
+    fused into it, on one device and across ranks.
+
+Ranks over ``torch.distributed`` (the reference is ONE program over a
+``jax.sharding.Mesh``; the port is one program a rank):
+
+  * a rank is a process; :func:`.parallel.mesh.make_mesh` gives its
+    :class:`~.parallel.mesh.RankMesh`. Rank ``r`` is row-major over
+    ``grid.shape``, the order of the reference's device mesh and of
+    ``lax.axis_index(axis_names)``; vrank ``v`` of device ``d`` is global
+    rank ``d * V + v`` (device-major);
+  * rank ``r`` holds the reference's shard ``r`` of every global array
+    (rows ``[r * n, (r + 1) * n)``, or lane-sharded planar columns) and
+    a scalar ``count``, and returns the reference's output shard ``r``;
+  * stats the reference returns as ``[R]`` (``[R, R]``, ``[S, R]``) come
+    back the same on every rank (gathered), so every decision a caller or
+    an engine takes from them (capacity growth, mover-block growth, the
+    count-driven engines' branch, the cycle rescue) is the same on every
+    rank, and every rank takes the same branch around a collective;
+  * the collectives (:mod:`.parallel.collectives`) use only what gloo and
+    NCCL both take; :func:`.parallel.launch.run_world` starts a world of
+    processes (the counterpart of ``mpirun``). Several ranks sharing one
+    card run over gloo; NCCL takes one rank a card.
 
 Every TPU kernel of the reference has a hand-written CUDA counterpart
 under ``csrc/``, compiled with ``nvcc`` at first use. Entry points run on

@@ -1,16 +1,23 @@
 """Public API: ``GridRedistribute`` with its ``redistribute()`` and
 ``halo()``, and the functional ``redistribute()`` and ``reshard()`` (port
-of the JAX package's ``api.py``, one device).
+of the JAX package's ``api.py``).
 
 Construct with domain bounds and a process-grid shape, then call
 ``redistribute(positions, *payload_arrays)``, and for ghosts
 ``halo(positions, *fields, width=..., count=...)``. Two backends: ``"torch"``
-(the default) runs the canonical exchange on one device, the R ranks of
-the grid as virtual ranks (what the reference does when it has fewer
-devices than ranks); ``"numpy"`` runs the rank-simulation oracle with the
-same padded layout and capacity semantics.
+(the default) runs the canonical exchange, either on one device with the
+R ranks of the grid as virtual ranks (what the reference does when it has
+fewer devices than ranks), or with ``mesh=`` one rank a process over
+``torch.distributed``; ``"numpy"`` runs the rank-simulation oracle with
+the same padded layout and capacity semantics.
 
-Global data layout (both backends):
+With ``mesh=`` (a :class:`~.parallel.mesh.RankMesh`), every rank calls
+with ITS shard of the layout below: ``positions [n_local, ndim]``, fields
+``[n_local, ...]`` and a scalar ``count``, and gets back its output shard
+(``[out_capacity, ...]`` arrays, ``count [1]``) with the stats of all the
+ranks (``[R, R]`` tables, ``[R]`` counters), the same on every rank.
+
+Global data layout (one device and the numpy backend):
   * ``positions``: ``[R * n_local, ndim]``; shard r owns rows
     ``[r * n_local, (r + 1) * n_local)``, the first ``count[r]`` valid;
   * ``count``: ``[R]`` int32 valid-row counts (``None``: all rows valid);
@@ -37,6 +44,7 @@ from mpi_grid_redistribute_tpu_torch import _device, oracle
 from mpi_grid_redistribute_tpu_torch.domain import Domain, GridEdges, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.parallel import exchange
 from mpi_grid_redistribute_tpu_torch.parallel import halo as halo_lib
+from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
 from mpi_grid_redistribute_tpu_torch.parallel.halo import HaloResult
 
 # 64-bit dtypes and what JAX (x64 off) narrows them to
@@ -81,7 +89,9 @@ class MoverCapacity:
     :meth:`update`. The per-step mover count is ``sent + backlog``; when
     its peak exceeds the cap, the cap ratchets to the next power of two
     (never shrinking; clipped to ``max_cap``) and ``update`` returns True,
-    so the caller rebuilds its loop. ``recorder=`` (journaling the growth)
+    so the caller rebuilds its loop. A loop across ranks returns the
+    stats of every rank on each, so every rank folds the same peak and
+    grows at the same step. ``recorder=`` (journaling the growth)
     raises ``NotImplementedError``: the telemetry plane is not ported
     (``ROADMAP.md`` A11)."""
 
@@ -190,7 +200,15 @@ def _rowmajor_call(engine, R: int, out_cap: int):
     return call
 
 
-def _accum_overflow_counters(cum, stats, count):
+def _needed_out(stats) -> torch.Tensor:
+    """The largest rank's unclipped output rows (count + dropped_recv):
+    each row of ``recv_counts`` sums what a rank received, its own rows
+    included, before the ``out_capacity`` clip. Read from the global
+    stats, so it is the same on every rank of a mesh."""
+    return stats.recv_counts.sum(dim=1, dtype=torch.int32).max()
+
+
+def _accum_overflow_counters(cum, stats):
     """Fold one call's overflow stats into the cumulative device-side
     counters ``[dropped_send, dropped_recv, needed_capacity,
     needed_out]`` (int32 ``[4]``): a few small device ops, no host read,
@@ -199,7 +217,7 @@ def _accum_overflow_counters(cum, stats, count):
         cum[0] + stats.dropped_send.sum(dtype=torch.int32),
         cum[1] + stats.dropped_recv.sum(dtype=torch.int32),
         torch.maximum(cum[2], stats.needed_capacity.max()),
-        torch.maximum(cum[3], (count + stats.dropped_recv).max()),
+        torch.maximum(cum[3], _needed_out(stats)),
     ])
 
 
@@ -211,9 +229,20 @@ def _as_domain(domain, lo=None, hi=None, periodic=False) -> Domain:
     raise TypeError(f"domain must be a Domain, got {type(domain)}")
 
 
+def _mesh_planar_call(engine, out_cap: int, specs):
+    """A rank's planar call: its ``[n, ...]`` arrays fused to ``[K, n]``,
+    one multi-rank engine ``(fused, count) -> (out [K, out_cap], count
+    [1], global stats)`` (``exchange.*_sharded``), the output unfused."""
+    def one(fused, count):
+        out, new_count, stats = engine(fused[0], count)
+        return out[None], new_count, stats
+
+    return _planar_call(one, 1, out_cap, specs)
+
+
 class GridRedistribute:
     """Spatial particle redistribution over a Cartesian grid of shards, on
-    one device.
+    one device or one rank a process.
 
     Args:
       domain: :class:`Domain` (or pass ``lo``/``hi``/``periodic``).
@@ -246,16 +275,28 @@ class GridRedistribute:
           every call);
         * ``"ignore"``: return at once, drops reported in ``stats``.
       check_every: the deferred check's cadence in calls (default 16).
-      engine: ``"auto"`` (default: ``"planar"`` on one device, or
-        ``"rowmajor"`` when an array is not 32-bit), ``"planar"`` or
-        ``"rowmajor"``. ``"sparse"``, ``"neighbor"`` and
-        ``"hierarchical"`` raise ``NotImplementedError`` (``ROADMAP.md``
-        A5, A9).
+      engine: ``"auto"`` (default: ``"sparse"`` across ranks of a mesh,
+        ``"planar"`` on one device, ``"rowmajor"`` when an array is not
+        32-bit), ``"planar"``, ``"rowmajor"``, ``"sparse"`` or
+        ``"neighbor"`` (the count-driven engines: a ``[K, R * mover_cap]``
+        wire, or one stencil shift a neighbor, falling back to the dense
+        pool when the movers do not fit; ``mover_cap`` starts at
+        ``capacity // 8`` rounded to a power of two and grows from the
+        measured need, and once it reaches ``capacity`` the planar
+        engine runs). ``"hierarchical"`` raises ``NotImplementedError``
+        (``ROADMAP.md`` A9).
+      mover_cap: the count-driven engines' first wire block (rounded up
+        to a power of two); ``None`` derives it as above.
       edges: optional :class:`GridEdges` (non-uniform or
         assignment-aware ownership), honoured by routing, the oracle and
         :func:`oracle.assert_ownership`.
-      mesh, dcn_shape, cross_cap: the multi-device and two-level planes;
-        not ported, they raise ``NotImplementedError``.
+      mesh: a :class:`~.parallel.mesh.RankMesh` shaped like ``grid``
+        (:func:`~.parallel.mesh.make_mesh`): run one rank a process, each
+        rank calling with its own shard (see the module docstring). Every
+        growth decision reads the gathered stats, so the ranks rebuild
+        together. The numpy backend ignores it, as the reference does.
+      dcn_shape, cross_cap: the two-level plane; not ported, they raise
+        ``NotImplementedError``.
 
     :meth:`halo` exchanges ghosts on the same grid (torch backend, uniform
     cells), with the same engine rule and its own overflow policy.
@@ -278,25 +319,15 @@ class GridRedistribute:
         on_overflow: str = "grow",
         check_every: int = 16,
         engine: str = "auto",
+        mover_cap: Optional[int] = None,
         dcn_shape=None,
         cross_cap: Optional[int] = None,
         edges=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the multi-device canonical exchange is not ported "
-                "yet (ROADMAP.md A5); the port runs the grid as virtual "
-                "ranks on one device"
-            )
         if dcn_shape is not None or cross_cap is not None:
             raise NotImplementedError(
                 "dcn_shape=/cross_cap=: the hierarchical two-level engine is "
                 "not ported yet (ROADMAP.md A9)"
-            )
-        if engine in ("sparse", "neighbor"):
-            raise NotImplementedError(
-                f"engine={engine!r}: the count-driven canonical engines are "
-                "not ported yet (ROADMAP.md A5)"
             )
         if engine == "hierarchical":
             raise NotImplementedError(
@@ -320,6 +351,14 @@ class GridRedistribute:
             )
         self.backend = backend
         self.device = _device.resolve(device) if backend == "torch" else None
+        self._mesh = mesh if backend == "torch" else None
+        if self._mesh is not None:
+            if not isinstance(self._mesh, mesh_lib.RankMesh):
+                raise TypeError(
+                    f"mesh must be a RankMesh (parallel.mesh.make_mesh), got "
+                    f"{type(self._mesh).__name__}"
+                )
+            mesh_lib.validate_mesh_for_grid(self._mesh, self.grid)
         for name, v in (("capacity", capacity),
                         ("out_capacity", out_capacity)):
             if v is not None and int(v) < 1:
@@ -358,10 +397,41 @@ class GridRedistribute:
         self._last_caps = None  # (cap, out_cap, n_local) of the last call
         self._last_stats = None
         self._halo_caps = {}  # widths tuple -> grown (pass_cap, ghost_cap)
+        # the count-driven engines' wire block: None = derived on first use
+        if mover_cap is not None and int(mover_cap) < 1:
+            raise ValueError(f"mover_cap must be >= 1, got {mover_cap}")
+        self._mover_cap = (None if mover_cap is None
+                           else _next_pow2(int(mover_cap)))
+        self._last_engine = None  # the engine the last call resolved to
 
     @property
     def nranks(self) -> int:
         return self.grid.nranks
+
+    @property
+    def mesh(self):
+        """The :class:`~.parallel.mesh.RankMesh` of a multi-rank instance,
+        ``None`` on one device."""
+        return self._mesh
+
+    def _mover_cap_for(self, cap: int) -> int:
+        """The count-driven engines' per-destination wire block: first
+        ``next_pow2(cap // 8)``, then only grown by
+        :meth:`_maybe_grow_mover_cap`."""
+        if self._mover_cap is None:
+            self._mover_cap = _next_pow2(max(1, cap // 8))
+        return self._mover_cap
+
+    def _maybe_grow_mover_cap(self, needed: int) -> None:
+        """Grow the wire block to the measured per-destination peak (the
+        smallest block that would have kept the count-driven branch). The
+        dense fallback already gave the same bits, so nothing re-runs;
+        the next call runs the grown block."""
+        if self._mover_cap is None or needed <= self._mover_cap:
+            return
+        if self._last_engine not in ("sparse", "neighbor"):
+            return
+        self._mover_cap = _next_pow2(int(needed))
 
     def _capacities(self, n_local: int) -> Tuple[int, int]:
         cap = self.capacity
@@ -386,6 +456,8 @@ class GridRedistribute:
         return a.to(_NARROW_TORCH.get(a.dtype, a.dtype))
 
     def _check_inputs(self, pos, fields, count):
+        if self._mesh is not None:
+            return self._check_rank_inputs(pos, fields, count)
         R = self.nranks
         canon = (self._canonical_np if self.backend == "numpy"
                  else self._canonical_torch)
@@ -434,29 +506,101 @@ class GridRedistribute:
                          self.device, non_blocking=True))
         return pos, fields, n_local, count
 
+    def _check_rank_inputs(self, pos, fields, count):
+        """One rank's shard: ``pos [n_local, ndim]``, fields ``[n_local,
+        ...]`` and a scalar (or ``[1]``) count; ``None`` means all rows."""
+        pos = self._canonical_torch(pos)
+        fields = tuple(self._canonical_torch(f) for f in fields)
+        if pos.ndim != 2 or pos.shape[1] != self.domain.ndim:
+            raise ValueError(
+                f"positions must be [n_local, {self.domain.ndim}] on each "
+                f"rank, got {tuple(pos.shape)}"
+            )
+        n_local = pos.shape[0]
+        for i, f in enumerate(fields):
+            if f.shape[0] != n_local:
+                raise ValueError(
+                    f"field {i} leading dim {f.shape[0]} != {n_local}"
+                )
+        if count is None:
+            count = n_local
+        if isinstance(count, torch.Tensor):
+            if count.numel() != 1:
+                raise ValueError(
+                    f"count must be a scalar on each rank, got "
+                    f"{tuple(count.shape)}")
+            count = count.reshape(1).to(self.device, torch.int32).clamp(
+                0, n_local)
+        else:
+            c = np.asarray(_host(count)).reshape(-1)
+            if c.size != 1:
+                raise ValueError(
+                    f"count must be a scalar on each rank, got {c.size} "
+                    f"values")
+            c = int(c[0])
+            if not 0 <= c <= n_local:
+                raise ValueError(
+                    f"count must be in [0, {n_local}], got {c}")
+            count = torch.full((1,), c, dtype=torch.int32,
+                               device=self.device)
+        return pos, fields, n_local, count
+
     def _engine_call(self, positions, fields, cap: int, out_cap: int):
         """The engine for these arrays and capacities, by the reference's
-        one dispatch rule (``exchange.resolve_engine``) on one device."""
+        one dispatch rule (``exchange.resolve_engine``): on one device the
+        vrank engines, across the ranks of a mesh the multi-rank ones."""
         specs = None
-        if self.engine in ("auto", "planar"):
+        if self.engine in ("auto", "planar", "sparse", "neighbor"):
             specs = _planar_specs(positions, fields)
-            if specs is None and self.engine == "planar":
+            if specs is None and self.engine != "auto":
                 raise TypeError(
-                    "engine='planar' requires 32-bit positions and fields "
-                    "(they ride as int32 rows); cast or use "
+                    f"engine={self.engine!r} requires 32-bit positions and "
+                    "fields (they ride as int32 rows); cast or use "
                     "engine='auto'/'rowmajor'"
                 )
+        mesh = self._mesh
         resolved = exchange.resolve_engine(
-            self.engine, vranks=True, n_devices=1,
+            self.engine, vranks=mesh is None,
+            n_devices=1 if mesh is None else mesh.size,
             planar_ok=specs is not None, canonical=True,
         )
+        if resolved in ("sparse", "neighbor"):
+            B = self._mover_cap_for(cap)
+            if B >= cap:
+                # the grown block reached the dense pool: run planar
+                resolved = "planar"
+        self._last_engine = resolved
+        grid, dom, edges = self.grid, self.domain, self.edges
+        if resolved in ("sparse", "neighbor"):
+            if mesh is None:
+                return _planar_call(
+                    exchange.build_redistribute_count_driven_vranks(
+                        dom, grid, cap, out_cap, B, dom.ndim, edges=edges,
+                        engine=resolved), self.nranks, out_cap, specs)
+            return _mesh_planar_call(
+                exchange.shard_redistribute_count_driven_sharded(
+                    mesh, dom, grid, cap, out_cap, B, dom.ndim, edges=edges,
+                    engine=resolved), out_cap, specs)
         if resolved == "planar":
-            return _planar_call(exchange.vrank_redistribute_planar_fn(
-                self.domain, self.grid, cap, out_cap, self.domain.ndim,
-                edges=self.edges), self.nranks, out_cap, specs)
-        return _rowmajor_call(exchange.vrank_redistribute_fn(
-            self.domain, self.grid, cap, out_cap, self.edges), self.nranks,
-            out_cap)
+            if mesh is None:
+                return _planar_call(exchange.vrank_redistribute_planar_fn(
+                    dom, grid, cap, out_cap, dom.ndim, edges=edges),
+                    self.nranks, out_cap, specs)
+            return _mesh_planar_call(
+                exchange.shard_redistribute_planar_sharded(
+                    mesh, dom, grid, cap, out_cap, dom.ndim, edges=edges),
+                out_cap, specs)
+        if mesh is None:
+            return _rowmajor_call(exchange.vrank_redistribute_fn(
+                dom, grid, cap, out_cap, edges), self.nranks, out_cap)
+        engine = exchange.build_redistribute(mesh, dom, grid, cap, out_cap,
+                                             edges=edges)
+
+        def call(positions, count, *fields):
+            out = engine(positions, count, *fields)
+            return out[0], out[1], tuple(out[2:-1]), out[-1]
+
+        return call
 
     def _run_once(self, positions, fields, count, cap: int,
                   out_cap: int) -> RedistributeResult:
@@ -485,7 +629,7 @@ class GridRedistribute:
                 "engine_fn requires backend='torch': the numpy oracle has "
                 "no engine to hand out"
             )
-        R = self.nranks
+        R = 1 if self._mesh is not None else self.nranks
         if positions.ndim != 2 or positions.shape[0] % R:
             raise ValueError(
                 f"positions must be [R*n_local, ndim] over {R} ranks, "
@@ -558,6 +702,11 @@ class GridRedistribute:
         32-bit, the row-major one otherwise; both give the same ghosts.
         "grow" and "raise" read ``overflow`` on the host once an attempt.
         """
+        if self._mesh is not None:
+            raise NotImplementedError(
+                "halo() across the ranks of a mesh is not ported yet "
+                "(ROADMAP.md A8); it runs on one device"
+            )
         if self.backend != "torch":
             raise ValueError(
                 "halo() runs on the torch backend; for NumPy-side "
@@ -655,7 +804,7 @@ class GridRedistribute:
             st.dropped_send.sum(dtype=torch.int32),
             st.dropped_recv.sum(dtype=torch.int32),
             st.needed_capacity.max(),
-            (result.count + st.dropped_recv).max(),
+            _needed_out(st),
         ]).tolist()
         return tuple(int(v) for v in vals)
 
@@ -676,7 +825,7 @@ class GridRedistribute:
                     self._cum_counters = torch.zeros(
                         (4,), dtype=torch.int32, device=self.device)
                 self._cum_counters = _accum_overflow_counters(
-                    self._cum_counters, result.stats, result.count
+                    self._cum_counters, result.stats
                 )
                 self._deferred_check(n_local, cap, out_cap)
                 return result
@@ -685,6 +834,7 @@ class GridRedistribute:
             if not dropped_send and not dropped_recv:
                 if self.on_overflow == "grow":
                     self._clean_checks += 1
+                    self._maybe_grow_mover_cap(needed)
                 return result
             self._clean_checks = 0
             if self.on_overflow == "raise":
@@ -693,6 +843,7 @@ class GridRedistribute:
                     f"dropped_recv={dropped_recv} — raise capacity / "
                     f"out_capacity or use on_overflow='grow'"
                 )
+            self._maybe_grow_mover_cap(needed)
             if not self._grow(dropped_send, dropped_recv, needed, needed_out,
                               n_local, cap, out_cap):
                 raise RuntimeError(
@@ -866,7 +1017,9 @@ def reshard(positions, *fields, domain: Domain, grid, n_local: int,
     contiguously over M input shards (any chunking works; the exchange
     routes by position) into the ``[M * n_local, ...]`` padded layout.
     ``fields`` ride the same permutation. Defaults to the numpy backend,
-    as the reference does; overflow heals by growing. ``telemetry=``
+    as the reference does; overflow heals by growing. With ``mesh=`` (torch
+    backend) every rank passes the same live rows and gets its output
+    shard. ``telemetry=``
     (journaling) raises ``NotImplementedError``: the telemetry plane is
     not ported (``ROADMAP.md`` A11)."""
     if telemetry is not None:
@@ -898,4 +1051,10 @@ def reshard(positions, *fields, domain: Domain, grid, n_local: int,
         domain, grid, backend=backend, capacity=in_rows,
         out_capacity=int(n_local), on_overflow="grow", **kwargs,
     )
+    if rd.mesh is not None:
+        # every rank passes the same live rows and routes its own chunk
+        r = rd.mesh.rank
+        rows = slice(r * in_rows, (r + 1) * in_rows)
+        return rd.redistribute(pos_in[rows], *(f[rows] for f in fields_in),
+                               count=int(count_in[r]))
     return rd.redistribute(pos_in, *fields_in, count=count_in)

@@ -1,5 +1,6 @@
 """Periodic N-body drift loop on the resident-slot migrate engine (port of
-the JAX package's ``models/nbody.py``, single-device vrank path).
+the JAX package's ``models/nbody.py``: the vrank path on one device, and
+with ``mesh=`` the flat and vrank paths with one device a process).
 
     for step in range(S): pos += vel*dt; wrap; migrate(pos, vel)
                           [rho = CIC deposit of the new state]
@@ -17,6 +18,18 @@ as ``[S, V, V]``), exactly as in the reference. A step waits for the host
 only where the reference branches with ``lax.cond``: the sparse engine's
 guard (one boolean per step) and the slab deposit's residence guard (one
 more with ``deposit_method="mxu"``).
+
+Across devices (``cfg.grid`` of several ranks, each a process of
+``mesh``) every rank runs the loop on its own shard: the reference's
+global rows ``[r * V * n_local, (r + 1) * V * n_local)`` for rank ``r``.
+It returns its shard of the output state, the stats of every rank
+(``[S, R]``, gathered, the same on each) and the density as the
+reference shards it (a fully periodic domain: this rank's block; else
+the whole node mesh on every rank). Kernel 1 is off there, as in the
+reference: the drift and the wrap run as separate ops, and the engine
+bins. A step across ranks waits on the host in its collectives (gloo
+moves a card's tensors through host memory) and in the remote landing's
+masked assignment.
 """
 
 from __future__ import annotations
@@ -29,8 +42,9 @@ import torch
 
 from mpi_grid_redistribute_tpu_torch import _device
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
-from mpi_grid_redistribute_tpu_torch.ops import deposit, driftbin
+from mpi_grid_redistribute_tpu_torch.ops import binning, deposit, driftbin
 from mpi_grid_redistribute_tpu_torch.parallel import exchange, migrate
+from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +74,7 @@ class DriftConfig:
 
 
 def _check_supported(cfg: DriftConfig, vgrid) -> str:
-    """Raise the reference's ``ValueError``s, then on what the port does
-    not run (a multi-device grid); return the resolved engine
+    """Raise the reference's ``ValueError``s; return the resolved engine
     (``resolve_engine`` rejects the canonical-only names)."""
     balanced = cfg.cells is not None or cfg.assignment is not None
     if vgrid is None and balanced:
@@ -87,11 +100,6 @@ def _check_supported(cfg: DriftConfig, vgrid) -> str:
     eng = exchange.resolve_engine(
         cfg.engine, vranks=vgrid is not None, n_devices=cfg.grid.nranks
     )
-    if vgrid is None or cfg.grid.nranks != 1:
-        raise NotImplementedError(
-            "only the single-device vrank path is ported: pass a one-rank "
-            "grid and vgrid"
-        )
     if cfg.deposit_shape is not None and cfg.deposit_method not in (
         "scan", "mxu", "segment"
     ):
@@ -108,19 +116,22 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _deposit_fn(cfg: DriftConfig, vgrid: ProcessGrid, plain: bool):
+def _deposit_fn(cfg: DriftConfig, vgrid: ProcessGrid, plain: bool,
+                mesh=None):
     """The per-device deposit the reference's loop builds for
     ``cfg.deposit_shape`` (``None`` without one): for ``"mxu"`` the
     slab-keyed engine when the canonical vrank blocks divide the mesh, the
     flat position-keyed one otherwise and under ``cells``/``assignment``
     (whose vranks own scattered cells, so the slab partition does not
     hold); the double-float scan engine for ``"scan"``; the per-vrank
-    block deposit for ``"segment"``."""
+    block deposit for ``"segment"`` (the masked row deposit on the flat
+    path)."""
     if cfg.deposit_shape is None:
         return None
     if cfg.deposit_method == "mxu":
         slab_ok = (
-            cfg.assignment is None
+            vgrid is not None
+            and cfg.assignment is None
             and cfg.cells is None
             and all(
                 (m // g) % v == 0
@@ -131,22 +142,29 @@ def _deposit_fn(cfg: DriftConfig, vgrid: ProcessGrid, plain: bool):
         )
         return deposit.shard_deposit_device_mxu_fn(
             cfg.domain, cfg.grid, cfg.deposit_shape,
-            vgrid=vgrid if slab_ok else None, plain=plain,
+            vgrid=vgrid if slab_ok else None, plain=plain, mesh=mesh,
         )
+    if cfg.deposit_method == "segment" and vgrid is None:
+        return deposit.shard_deposit_fn_masked(
+            cfg.domain, cfg.grid, cfg.deposit_shape, method="segment",
+            mesh=mesh, plain=plain,
+        )[0]
     if cfg.deposit_method == "segment":
         return deposit.shard_deposit_vranks_fn(
             cfg.domain, cfg.grid, vgrid, cfg.deposit_shape,
-            method="segment", plain=plain,
+            method="segment", plain=plain, mesh=mesh,
         )
     return deposit.shard_deposit_device_planar_fn(
-        cfg.domain, cfg.grid, cfg.deposit_shape, plain=plain
+        cfg.domain, cfg.grid, cfg.deposit_shape, plain=plain, mesh=mesh
     )
 
 
 def make_migrate_loop(cfg: DriftConfig, n_steps: int,
-                      vgrid: Optional[ProcessGrid] = None, device=None,
-                      plain: bool = False, deposit_each_step: bool = False):
-    """S drift + migrate steps on one device.
+                      vgrid: Optional[ProcessGrid] = None, mesh=None,
+                      device=None, plain: bool = False,
+                      deposit_each_step: bool = False):
+    """S drift + migrate steps, on one device or (``cfg.grid`` of several
+    ranks) one device a process.
 
     Returns ``loop(pos, vel, alive) -> (pos_planar, vel_planar, alive,
     stats)``, and ``rho`` appended when ``cfg.deposit_shape`` is set: the
@@ -165,25 +183,30 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
     (``flow`` ``[S, V, V]``; ``fast_path`` ``[S, V]`` when the engine
     resolved to the sparse one, else ``None``).
 
+    With ``vgrid=None`` each device is one rank (the flat engine); with
+    ``cfg.grid`` of several devices the loop runs one device a process
+    over ``mesh`` (default :func:`~..parallel.mesh.make_mesh` of
+    ``cfg.grid``): each rank passes its own ``V * n_local`` rows, gets
+    its rows back, and the stats of every rank (``[S, Dev * V]``).
+
     ``device=None`` means the GPU and raises without one; the tests pass
     ``"cpu"``, where each kernel runs as its plain version. ``plain=True``
     runs the plain versions on the GPU too (the reference run the kernels
     are held against)."""
     eng = _check_supported(cfg, vgrid)
     dev = _device.resolve(device)
-    dep_fn = _deposit_fn(cfg, vgrid, plain)
+    Dev = cfg.grid.nranks
+    if Dev > 1 or vgrid is None:
+        mesh = mesh_lib.mesh_for(cfg.grid, mesh)
+    dep_fn = _deposit_fn(cfg, vgrid, plain, mesh)
     if deposit_each_step and dep_fn is None:
         raise ValueError("cfg.deposit_shape is required for deposit")
     D = cfg.domain.ndim
-    V = vgrid.nranks
-    full_grid = ProcessGrid(
-        tuple(d * v for d, v in zip(cfg.grid.shape, vgrid.shape)),
-        axis_names=cfg.grid.axis_names,
-    )
-    # kernel 1 bins into the canonical vrank grid; under an assignment
-    # that key would land rows on the wrong slabs, so the step drifts
-    # with plain ops and the engine bins with the assignment table
-    use_driftbin = cfg.assignment is None
+    V = 1 if vgrid is None else vgrid.nranks
+    # kernel 1 bins into the canonical vrank grid of ONE device, as in
+    # the reference; under an assignment its key would land rows on the
+    # wrong slabs, and across devices the engine bins (device-major keys)
+    use_driftbin = vgrid is not None and Dev == 1 and cfg.assignment is None
     mover_cap = None  # the sparse engine's mover block width
     if eng == "sparse":
         mover_cap = (
@@ -191,11 +214,22 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
             else cfg.local_budget if cfg.local_budget is not None
             else V * cfg.capacity
         )
-    mig = migrate.shard_migrate_vranks_fn(
-        cfg.domain, cfg.grid, vgrid, cfg.capacity,
-        local_budget=cfg.local_budget, mover_cap=mover_cap, plain=plain,
-        cells=cfg.cells, assignment=cfg.assignment,
-    )
+    if vgrid is None:
+        mig = migrate.shard_migrate_fused_fn(cfg.domain, cfg.grid,
+                                             cfg.capacity, mesh=mesh,
+                                             plain=plain)
+    else:
+        mig = migrate.shard_migrate_vranks_fn(
+            cfg.domain, cfg.grid, vgrid, cfg.capacity,
+            local_budget=cfg.local_budget, mover_cap=mover_cap, plain=plain,
+            cells=cfg.cells, assignment=cfg.assignment, mesh=mesh,
+        )
+    full_grid = None
+    if use_driftbin:
+        full_grid = ProcessGrid(
+            tuple(d * v for d, v in zip(cfg.grid.shape, vgrid.shape)),
+            axis_names=cfg.grid.axis_names,
+        )
     bin_fn = driftbin.drift_wrap_bin_plain if plain else driftbin.drift_wrap_bin
     dt = float(cfg.dt)
 
@@ -216,7 +250,9 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
         if cfg.deposit_method == "mxu":
             # unit mass: None drops the mass row from the payload sort
             return dep_fn(pos_rows, None, valid)
-        if cfg.deposit_method == "segment":
+        if cfg.deposit_method == "segment" and vgrid is None:
+            pos_rows = pos_rows.T  # the masked row deposit: [n, D]
+        elif cfg.deposit_method == "segment":
             # the per-vrank block deposit takes row-major [V, n, D] slabs
             pos_rows = pos_rows.reshape(D, V, -1).permute(1, 2, 0)
             valid = valid.reshape(V, -1)
@@ -240,7 +276,8 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
              a.to(torch.int32)[None, :]],
             dim=0,
         )
-        state = migrate.init_state(fused, vranks=V, batched=True)
+        state = migrate.init_state(fused, vranks=V,
+                                   batched=vgrid is not None)
         if deposit_each_step:
             rho = torch.zeros(_rho_shape(cfg), dtype=torch.float32,
                               device=dev)
@@ -261,13 +298,50 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
         f = state.fused
         pos_f = f[:D].view(torch.float32).reshape(-1)
         vel_f = f[D : 2 * D].view(torch.float32).reshape(-1)
-        out = (pos_f, vel_f, f[-1] > 0,
-               _stack_stats(steps, V, dev, mover_cap is not None))
+        stats = _stack_stats(steps, V, Dev * V, dev, mover_cap is not None)
+        if mesh is not None and Dev > 1:
+            stats = migrate.gather_migrate_stats(stats, mesh)
+        out = (pos_f, vel_f, f[-1] > 0, stats)
         if dep_fn is None:
             return out
         return out + (rho if deposit_each_step else _deposit(f),)
 
     return loop
+
+
+def make_migrate_step(cfg: DriftConfig, mesh=None, device=None,
+                      plain: bool = False):
+    """One drift + migrate step on resident slots with the flat engine
+    (one device a rank): ``step(pos [n, D], vel [n, D], alive [n]) ->
+    (pos, vel, alive, stats[, rho])`` on this rank's rows, the stats of
+    every rank gathered (``[R]``, ``flow`` ``[R, R]``). Each call builds
+    the free stack anew; :func:`make_migrate_loop` carries it. With
+    ``cfg.deposit_shape`` the masked row deposit of the new state is
+    appended (``cfg.deposit_method`` ``"scan"`` or ``"segment"``)."""
+    dev = _device.resolve(device)
+    mesh = mesh_lib.mesh_for(cfg.grid, mesh)
+    mig = migrate.shard_migrate_fn(cfg.domain, cfg.grid, cfg.capacity,
+                                   mesh=mesh, plain=plain)
+    dep_fn = None
+    if cfg.deposit_shape is not None:
+        dep_fn, _ = deposit.shard_deposit_fn_masked(
+            cfg.domain, cfg.grid, cfg.deposit_shape,
+            method=cfg.deposit_method, mesh=mesh, plain=plain,
+        )
+
+    def step(pos, vel, alive):
+        pos, vel, alive = (_to_tensor(a, dev) for a in (pos, vel, alive))
+        pos = pos + vel * binning._f32(cfg.dt, pos)
+        pos = binning.wrap_periodic(pos, cfg.domain)
+        pos, alive, vel, stats = mig(pos, alive, vel)
+        if mesh.size > 1:
+            stats = migrate.gather_migrate_stats(stats, mesh)
+        if dep_fn is None:
+            return pos, vel, alive, stats
+        ones = torch.ones(pos.shape[:1], dtype=pos.dtype, device=dev)
+        return pos, vel, alive, stats, dep_fn(pos, ones, alive)
+
+    return step
 
 
 def _rho_shape(cfg: DriftConfig):
@@ -278,15 +352,17 @@ def _rho_shape(cfg: DriftConfig):
     return deposit.global_node_shape(cfg.domain, cfg.deposit_shape)
 
 
-def _stack_stats(steps, V: int, dev, fast_path: bool) -> migrate.MigrateStats:
-    """Stack per-step stats to ``[S, V]`` (``flow`` ``[S, V, V]``);
+def _stack_stats(steps, V: int, R_total: int, dev,
+                 fast_path: bool) -> migrate.MigrateStats:
+    """Stack per-step stats to ``[S, V]`` (``flow`` ``[S, V, R_total]``);
     ``fast_path`` is stacked when the sparse engine ran, else ``None``."""
     fields = migrate.MigrateStats._fields
     if not steps:
         empty = torch.zeros((0, V), dtype=torch.int32, device=dev)
         return migrate.MigrateStats(
             *[empty] * (len(fields) - 2),
-            flow=torch.zeros((0, V, V), dtype=torch.int32, device=dev),
+            flow=torch.zeros((0, V, R_total), dtype=torch.int32,
+                             device=dev),
             fast_path=empty if fast_path else None,
         )
     return migrate.MigrateStats(*[
@@ -299,9 +375,8 @@ def _stack_stats(steps, V: int, dev, fast_path: bool) -> migrate.MigrateStats:
 def rows_to_planar(a, n_blocks: int):
     """Host-side pack of row-major ``[N, D]`` particle data into the
     planar flat format: ``n_blocks`` device-major blocks, component-major
-    within each (all x's of the block, then all y's, ...). The port runs
-    on one device, so ``n_blocks`` is 1; it stays an argument to keep the
-    reference's format."""
+    within each (all x's of the block, then all y's, ...). A rank of a
+    multi-device loop packs its own rows as one block."""
     a = np.asarray(a)
     n, d = a.shape
     if n % n_blocks:

@@ -288,7 +288,8 @@ def dest_histogram_np(dest, nranks: int, valid=None) -> np.ndarray:
 
 def dest_key_planar(pos: torch.Tensor, alive: torch.Tensor, domain: Domain,
                     full_grid: ProcessGrid, V: int, R_total: int,
-                    assignment: torch.Tensor = None) -> torch.Tensor:
+                    assignment: torch.Tensor = None,
+                    me_dev: int = 0) -> torch.Tensor:
     """The single-device vrank engine's binning: ``[D, V*n]`` float32
     positions (already drift-wrapped) and ``[V*n]`` alive flags ->
     ``[V, n]`` int32 destination key. Periodic axes are wrapped once
@@ -300,9 +301,8 @@ def dest_key_planar(pos: torch.Tensor, alive: torch.Tensor, domain: Domain,
     device, cell -> global rank ``dev * V + v``) ``full_grid`` is the
     CELL grid: the strides accumulate the row-major cell id, and one
     gather from the table gives the rank, split as ``dev = g // V``,
-    ``v = g - dev * V`` (the division is kept on one device, where
-    ``dev`` is 0 for every valid table, so a target outside ``[0, V)``
-    cannot pass as a local vrank; the key is ``g`` itself)."""
+    ``v = g - dev * V`` (a row stays when ``dev`` is this device,
+    ``me_dev``, and ``v`` its vrank; the key is ``g`` itself)."""
     m = pos.shape[-1]
     n = m // V
     dv = torch.zeros((m,), dtype=torch.int32, device=pos.device)
@@ -323,10 +323,50 @@ def dest_key_planar(pos: torch.Tensor, alive: torch.Tensor, domain: Domain,
         # host lookup
         dv = assignment[dv].reshape(V, n)  # = dev * V + v
         g_dev = torch.div(dv, V, rounding_mode="floor")
-        stay = (g_dev == 0) & (dv - g_dev * V == me)
+        stay = (g_dev == me_dev) & (dv - g_dev * V == me)
     return torch.where(
         alive.reshape(V, n) & ~stay, dv, torch.full_like(dv, R_total)
     )
+
+
+def dest_key_planar_ranks(pos: torch.Tensor, alive: torch.Tensor,
+                          domain: Domain, dev_grid: ProcessGrid,
+                          vgrid: ProcessGrid, me_dev: int) -> torch.Tensor:
+    """The migrate engines' binning across ranks: ``[D, V*n]`` float32
+    positions (drift-wrapped) of device ``me_dev``'s ``V`` vranks ->
+    ``[V, n]`` int32 DEVICE-MAJOR key ``dev * V + v``, sentinel
+    ``dev_grid.nranks * V`` on stayers and holes. The full grid is
+    ``dev_grid.shape * vgrid.shape``; an axis's cell splits into the
+    device ``cell // vs`` and the vrank ``cell % vs`` (kept as the cell
+    itself on an axis with one device, as the reference does). With a
+    one-vrank ``vgrid`` this is the flat engine's ``dest = rank of the
+    cell``."""
+    V = vgrid.nranks
+    m = pos.shape[-1]
+    n = m // V
+    full = tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape))
+    d_dev = torch.zeros((m,), dtype=torch.int32, device=pos.device)
+    d_v = torch.zeros((m,), dtype=torch.int32, device=pos.device)
+    for d in range(domain.ndim):
+        pd = pos[d]
+        if domain.periodic[d]:
+            pd = _wrap_axis(pd, domain, d)
+        lo, _, _, _, inv_w = axis_consts(domain, full, d)
+        cell = floor_to_int32((pd - _f32(lo, pd)) * _f32(inv_w, pd))
+        cell = cell.clamp(0, full[d] - 1)
+        vs = vgrid.shape[d]
+        if dev_grid.shape[d] == 1:
+            d_v = d_v + cell * vgrid.strides[d]
+        else:
+            d_dev = d_dev + torch.div(cell, vs, rounding_mode="floor") * (
+                dev_grid.strides[d])
+            d_v = d_v + torch.remainder(cell, vs) * vgrid.strides[d]
+    d_dev = d_dev.reshape(V, n)
+    d_v = d_v.reshape(V, n)
+    me_v = torch.arange(V, dtype=torch.int32, device=pos.device)[:, None]
+    stay = (d_dev == me_dev) & (d_v == me_v)
+    return torch.where(alive.reshape(V, n) & ~stay, d_dev * V + d_v,
+                       torch.full_like(d_v, dev_grid.nranks * V))
 
 
 def sorted_dest_counts_batched(dest: torch.Tensor, n_dest: int):

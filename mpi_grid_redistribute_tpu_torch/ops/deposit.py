@@ -1,7 +1,8 @@
-"""Cloud-in-cell (CIC) particle-mesh deposit on one device (port of the
-JAX package's ``ops/deposit.py``: the planar scan and segmented-sum
-engines, the row-major scatter-add and scan deposits of vrank slabs,
-their per-device wrappers and the ghost fold).
+"""Cloud-in-cell (CIC) particle-mesh deposit (port of the JAX package's
+``ops/deposit.py``: the planar scan and segmented-sum engines, the
+row-major scatter-add and scan deposits of vrank slabs, their per-device
+wrappers, the ghost fold and the dense assembly, on one device or one
+rank a process).
 
 Each particle spreads ``mass * w`` to the 2^D mesh nodes around it. The
 sorted engines key every particle by its base cell, sort, and sum per
@@ -34,10 +35,16 @@ stable ``torch.sort`` on the key (the same permutation) followed by ONE
 gather of the stacked payload rows. Sorts here are always stable, so the
 port is deterministic even where the reference is not.
 
-Only one device is ported: ``lax.axis_index`` is 0, the ghost fold is
-the self-fold and ``assemble_dense``'s ``psum`` is the identity. The
-slab engine's residence guard (the reference's ``lax.cond``) reads one
-boolean on the host per call; :data:`HOST_SYNCS` counts those reads.
+On a grid of several devices each rank is a process of a
+:class:`~..parallel.mesh.RankMesh` (``mesh=``, default
+:func:`~..parallel.mesh.make_mesh` of the device grid): the block origin
+comes from the rank's cell, the ghost fold moves each upper ghost face to
+the next rank along its axis (one ``ppermute`` an axis), and the dense
+assembly sums the ranks' canvases in rank order
+(:func:`~..parallel.collectives.psum_ordered`, the order that gives the
+reference's bits). The slab engine's residence guard (the reference's
+``lax.cond``) reads one boolean on the host per call; :data:`HOST_SYNCS`
+counts those reads.
 """
 
 from __future__ import annotations
@@ -55,6 +62,8 @@ from mpi_grid_redistribute_tpu_torch.ops import binning, dfscan, segdep
 from mpi_grid_redistribute_tpu_torch.ops.dfscan import (  # noqa: F401
     _df_add, _df_cumsum, _two_sum,
 )
+from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
+from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
 
 # host reads of device values, by cause (the residence guard of the slab
 # engine is the only one on the deposit path)
@@ -494,10 +503,23 @@ def cic_deposit_local_sorted(pos, mass, valid, lo_local, inv_h,
     )[0]
 
 
+def _rank_of(dev_grid: ProcessGrid, mesh):
+    """``(mesh, coords)``: a multi-device grid's mesh (default
+    :func:`~..parallel.mesh.make_mesh`) and this rank's cell; one device
+    needs no mesh and sits at cell 0."""
+    if dev_grid.nranks == 1:
+        return None, (0,) * dev_grid.ndim
+    mesh = mesh_lib.mesh_for(dev_grid, mesh)
+    return mesh, tuple(mesh.coords)
+
+
 def _vrank_origins(domain: Domain, dev_grid: ProcessGrid,
-                   vgrid: ProcessGrid) -> np.ndarray:
-    """float32 ``[V, D]`` block origins of device 0's vranks, in the
-    reference's op order: ``lo + (0 * vgrid.shape + vcell) * vwidth``."""
+                   vgrid: ProcessGrid, coords=None) -> np.ndarray:
+    """float32 ``[V, D]`` block origins of the vranks of the device at
+    cell ``coords`` (default 0), in the reference's op order: ``lo +
+    (cell * vgrid.shape + vcell) * vwidth``."""
+    if coords is None:
+        coords = (0,) * dev_grid.ndim
     full_grid = ProcessGrid(
         tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
         axis_names=dev_grid.axis_names,
@@ -510,7 +532,8 @@ def _vrank_origins(domain: Domain, dev_grid: ProcessGrid,
     return np.stack(
         [
             np.float32(domain.lo[a])
-            + (np.float32(0) * np.float32(vgrid.shape[a]) + vcells[:, a])
+            + (np.float32(coords[a]) * np.float32(vgrid.shape[a])
+               + vcells[:, a])
             * np.float32(vwidths[a])
             for a in range(domain.ndim)
         ],
@@ -520,7 +543,8 @@ def _vrank_origins(domain: Domain, dev_grid: ProcessGrid,
 
 def shard_deposit_vranks_fn(domain: Domain, dev_grid: ProcessGrid,
                             vgrid: ProcessGrid, mesh_shape: Tuple[int, ...],
-                            method: str = "scan", plain: bool = False):
+                            method: str = "scan", plain: bool = False,
+                            mesh=None):
     """Per-device CIC deposit of row-major vrank slabs: ``fn(pos [V, n,
     D], mass [V, n], valid [V, n]) -> rho``. Each vrank deposits its slab
     onto its own +1-ghost block (``"segment"``: the scatter-add of
@@ -529,12 +553,9 @@ def shard_deposit_vranks_fn(domain: Domain, dev_grid: ProcessGrid,
     onto the device's +1-ghost mesh in vrank order (each ghost face falls
     on the next vrank's interior), then the ghost fold (fully periodic
     domains) or the dense assembly. Rows must sit in their vrank's block,
-    as the canonical vrank layout keeps them. One device only."""
-    if dev_grid.nranks != 1:
-        raise NotImplementedError(
-            "the multi-device deposit (ghost-face ppermute, dense psum) is "
-            "not ported yet (ROADMAP A5); use a one-rank dev_grid"
-        )
+    as the canonical vrank layout keeps them. With several devices this is
+    one rank's part (``mesh``)."""
+    mesh, coords = _rank_of(dev_grid, mesh)
     full_grid = ProcessGrid(
         tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
         axis_names=dev_grid.axis_names,
@@ -545,7 +566,7 @@ def shard_deposit_vranks_fn(domain: Domain, dev_grid: ProcessGrid,
     dev_block = tuple(m // g for m, g in zip(mesh_shape, dev_grid.shape))
     vblock = tuple(b // v for b, v in zip(dev_block, vgrid.shape))
     consts = OnDevice(
-        _vrank_origins(domain, dev_grid, vgrid),
+        _vrank_origins(domain, dev_grid, vgrid, coords),
         _device_consts(domain, dev_grid, mesh_shape)[1],
     )
 
@@ -568,22 +589,26 @@ def shard_deposit_vranks_fn(domain: Domain, dev_grid: ProcessGrid,
             )
             total[idx] += rho_v[v]
         if all(domain.periodic):
-            return fold_ghosts(total, dev_grid)
-        return assemble_dense(total, dev_grid, domain)
+            return fold_ghosts(total, dev_grid, mesh)
+        return assemble_dense(total, dev_grid, domain, mesh)
 
     return fn
 
 
-def _device_consts(domain: Domain, dev_grid: ProcessGrid, mesh_shape):
-    """float32 ``inv_h [D]`` and the device origin ``dev_lo [D]`` (device
-    0: ``lo + 0 * width``, in float32 as the reference computes it)."""
+def _device_consts(domain: Domain, dev_grid: ProcessGrid, mesh_shape,
+                   coords=None):
+    """float32 ``inv_h [D]`` and the origin ``dev_lo [D]`` of the device
+    at cell ``coords`` (default 0): ``lo + cell * width``, in float32 as
+    the reference computes it."""
+    if coords is None:
+        coords = (0,) * dev_grid.ndim
     inv_h = np.asarray(
         [m / e for m, e in zip(mesh_shape, domain.extent)], np.float32
     )
     widths = dev_grid.cell_widths(domain)
     dev_lo = np.asarray(
-        [np.float32(lo) + np.float32(0) * np.float32(w)
-         for lo, w in zip(domain.lo, widths)],
+        [np.float32(lo) + np.float32(c) * np.float32(w)
+         for lo, c, w in zip(domain.lo, coords, widths)],
         np.float32,
     )
     return dev_lo, inv_h
@@ -591,32 +616,30 @@ def _device_consts(domain: Domain, dev_grid: ProcessGrid, mesh_shape):
 
 def shard_deposit_device_planar_fn(domain: Domain, dev_grid: ProcessGrid,
                                    mesh_shape: Tuple[int, ...], core=None,
-                                   plain: bool = False):
+                                   plain: bool = False, mesh=None):
     """Per-device CIC deposit keyed by device-local cells: ``fn(pos_rows
     [D, m], mass [m], valid [m]) -> rho``. ``core`` selects the engine
     (default :func:`cic_deposit_device_planar`, the double-float scan),
     called as ``core(pos_rows, mass, valid, dev_lo, inv_h, dev_block)``;
     the ghost fold (fully periodic domains: the ``mesh_shape`` block) or
     the dense assembly (any open axis: the :func:`global_node_shape`
-    mesh) is shared. One device only (``dev_grid`` of one rank)."""
-    if dev_grid.nranks != 1:
-        raise NotImplementedError(
-            "the multi-device deposit (ghost-face ppermute, dense psum) is "
-            "not ported yet (ROADMAP A5); use a one-rank dev_grid"
-        )
+    mesh) is shared. With several devices this is one rank's part
+    (``mesh``): its block of the ``mesh_shape`` mesh, or the whole dense
+    mesh, the same on every rank."""
+    mesh, coords = _rank_of(dev_grid, mesh)
     if core is None:
         def core(*args):
             return cic_deposit_device_planar(*args, plain=plain)
     _check_mesh_shape(domain, dev_grid, mesh_shape)
     dev_block = tuple(m // g for m, g in zip(mesh_shape, dev_grid.shape))
-    consts = OnDevice(*_device_consts(domain, dev_grid, mesh_shape))
+    consts = OnDevice(*_device_consts(domain, dev_grid, mesh_shape, coords))
 
     def fn(pos_rows, mass, valid):
         dev_lo, inv_h = consts.get(pos_rows.device)
         rho = core(pos_rows, mass, valid, dev_lo, inv_h, dev_block)
         if all(domain.periodic):
-            return fold_ghosts(rho, dev_grid)
-        return assemble_dense(rho, dev_grid, domain)
+            return fold_ghosts(rho, dev_grid, mesh)
+        return assemble_dense(rho, dev_grid, domain, mesh)
 
     return fn
 
@@ -624,7 +647,7 @@ def shard_deposit_device_planar_fn(domain: Domain, dev_grid: ProcessGrid,
 def shard_deposit_device_mxu_fn(domain: Domain, dev_grid: ProcessGrid,
                                 mesh_shape: Tuple[int, ...],
                                 vgrid: ProcessGrid = None,
-                                plain: bool = False):
+                                plain: bool = False, mesh=None):
     """Per-device throughput deposit (``mass=None`` supported). With
     ``vgrid``, rows must arrive slab-ordered (slab ``v`` holding only
     vrank ``v``'s particles, the migrate loop's steady state) and the
@@ -635,14 +658,15 @@ def shard_deposit_device_mxu_fn(domain: Domain, dev_grid: ProcessGrid,
             return cic_deposit_device_mxu(*args, plain=plain)
 
         return shard_deposit_device_planar_fn(
-            domain, dev_grid, mesh_shape, core=flat_core
+            domain, dev_grid, mesh_shape, core=flat_core, mesh=mesh
         )
+    mesh, coords = _rank_of(dev_grid, mesh)
     full_grid = ProcessGrid(
         tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
         axis_names=dev_grid.axis_names,
     )
     _check_mesh_shape(domain, full_grid, mesh_shape)
-    lo_dev = OnDevice(_vrank_origins(domain, dev_grid, vgrid))
+    lo_dev = OnDevice(_vrank_origins(domain, dev_grid, vgrid, coords))
 
     def slab_core(pos_rows, mass, valid, dev_lo, inv_h, dev_block):
         vblock = tuple(b // v for b, v in zip(dev_block, vgrid.shape))
@@ -666,41 +690,59 @@ def shard_deposit_device_mxu_fn(domain: Domain, dev_grid: ProcessGrid,
         )
 
     return shard_deposit_device_planar_fn(
-        domain, dev_grid, mesh_shape, core=slab_core
+        domain, dev_grid, mesh_shape, core=slab_core, mesh=mesh
     )
 
 
-def fold_ghosts(rho_ghost: torch.Tensor, grid: ProcessGrid) -> torch.Tensor:
-    """Fold each axis's upper ghost face onto plane 0 (the periodic
-    self-fold of an axis with grid extent 1, in axis order, so edge and
-    corner ghost mass propagates exactly). One device only."""
-    if grid.nranks != 1:
-        raise NotImplementedError(
-            "fold_ghosts across devices (ppermute) is not ported yet "
-            "(ROADMAP A5)"
-        )
+def fold_ghosts(rho_ghost: torch.Tensor, grid: ProcessGrid,
+                mesh=None) -> torch.Tensor:
+    """Fold each axis's upper ghost face onto the +1 neighbor's plane 0,
+    in axis order (so edge and corner ghost mass propagates exactly): an
+    axis of grid extent 1 folds onto itself (the periodic self-fold), any
+    other moves the face to the next rank along it with one
+    ``ppermute`` over ``mesh`` (default :func:`~..parallel.mesh.make_mesh`
+    of ``grid``)."""
+    mesh, _ = _rank_of(grid, mesh)
     for a in range(grid.ndim):
         m = rho_ghost.shape[a] - 1
         ghost = rho_ghost.narrow(a, m, 1)
         body = rho_ghost.narrow(a, 0, m)
+        if grid.shape[a] > 1:
+            ghost = col.ppermute(ghost, mesh, _axis_shift(grid, a))
         first = body.narrow(a, 0, 1) + ghost
         rho_ghost = torch.cat([first, body.narrow(a, 1, m - 1)], dim=a)
     return rho_ghost
 
 
+def _axis_shift(grid: ProcessGrid, a: int):
+    """The ``(rank, next rank along axis a, periodic)`` permutation."""
+    perm = []
+    for r in range(grid.nranks):
+        c = list(grid.cell_of_rank(r))
+        c[a] = (c[a] + 1) % grid.shape[a]
+        perm.append((r, grid.rank_of_cell(tuple(c))))
+    return tuple(perm)
+
+
 def assemble_dense(rho_ghost: torch.Tensor, grid: ProcessGrid,
-                   domain: Domain) -> torch.Tensor:
-    """The +1-ghost block as the global node mesh (the non-periodic
-    alternative to :func:`fold_ghosts`): on one device the block IS the
-    canvas (offset 0, and the reference's ``psum`` is the identity);
-    periodic axes of a mixed domain then wrap their top plane onto plane
-    0. Returns the :func:`global_node_shape` mesh."""
-    if grid.nranks != 1:
-        raise NotImplementedError(
-            "assemble_dense across devices (psum) is not ported yet "
-            "(ROADMAP A5)"
-        )
+                   domain: Domain, mesh=None) -> torch.Tensor:
+    """Assemble the ranks' +1-ghost blocks into the global node mesh (the
+    non-periodic alternative to :func:`fold_ghosts`): each rank writes
+    its block into a zero canvas of ``cells + 1`` node planes per axis at
+    its own offset, the canvases are summed over the ranks in rank order
+    (the reference's ``psum``; on one device the block IS the canvas),
+    and periodic axes of a mixed domain wrap their top plane onto plane
+    0. Returns the :func:`global_node_shape` mesh, the same on every
+    rank."""
+    mesh, coords = _rank_of(grid, mesh)
     canvas = rho_ghost
+    if mesh is not None:
+        l = tuple(s - 1 for s in rho_ghost.shape)
+        canvas = torch.zeros(tuple(g * la + 1 for g, la in zip(grid.shape, l)),
+                             dtype=rho_ghost.dtype, device=rho_ghost.device)
+        canvas[tuple(slice(c * la, c * la + la + 1)
+                     for c, la in zip(coords, l))] = rho_ghost
+        canvas = col.psum_ordered(canvas, mesh)
     for a in range(canvas.dim()):
         if domain.periodic[a]:
             m = canvas.shape[a] - 1
@@ -708,3 +750,51 @@ def assemble_dense(rho_ghost: torch.Tensor, grid: ProcessGrid,
             first = canvas.narrow(a, 0, 1) + top
             canvas = torch.cat([first, canvas.narrow(a, 1, m - 1)], dim=a)
     return canvas
+
+
+def shard_deposit_fn_masked(domain: Domain, grid: ProcessGrid,
+                            mesh_shape: Tuple[int, ...], method: str = "scan",
+                            mesh=None, plain: bool = False):
+    """One rank's deposit of row-major rows with an explicit mask (the
+    flat migrate loop's live rows are a mask, not a prefix): ``fn(pos
+    [N, D], mass [N], valid [N]) -> rho``, and the rank's
+    ``local_shape``. ``"scan"`` is the double-float deposit (kernel 5 on
+    the card), ``"segment"`` the scatter-add; then the ghost fold (fully
+    periodic domains: this rank's ``local_shape`` block) or the dense
+    assembly (the :func:`global_node_shape` mesh on every rank)."""
+    if method not in ("segment", "scan"):
+        raise ValueError(f"method must be 'segment' or 'scan', got {method!r}")
+    _check_mesh_shape(domain, grid, mesh_shape)
+    mesh, coords = _rank_of(grid, mesh)
+    local_shape = tuple(m // g for m, g in zip(mesh_shape, grid.shape))
+    consts = OnDevice(*_device_consts(domain, grid, mesh_shape, coords))
+
+    def fn(pos, mass, valid):
+        lo_local, inv_h = consts.get(pos.device)
+        if method == "scan":
+            rho = cic_deposit_local_sorted(pos, mass, valid, lo_local, inv_h,
+                                           local_shape, plain=plain)
+        else:
+            rho = cic_deposit_local(pos, mass, valid, lo_local, inv_h,
+                                    local_shape)
+        if all(domain.periodic):
+            return fold_ghosts(rho, grid, mesh)
+        return assemble_dense(rho, grid, domain, mesh)
+
+    return fn, local_shape
+
+
+def shard_deposit_fn(domain: Domain, grid: ProcessGrid,
+                     mesh_shape: Tuple[int, ...], method: str = "scan",
+                     mesh=None, plain: bool = False):
+    """:func:`shard_deposit_fn_masked` with a count prefix: ``fn(pos [N,
+    D], mass [N], count) -> rho`` (rows below ``count`` are live)."""
+    masked, local_shape = shard_deposit_fn_masked(
+        domain, grid, mesh_shape, method=method, mesh=mesh, plain=plain)
+
+    def fn(pos, mass, count):
+        valid = (torch.arange(pos.shape[0], device=pos.device)
+                 < count.reshape(()))
+        return masked(pos, mass, valid)
+
+    return fn, local_shape

@@ -1,0 +1,157 @@
+"""The collectives the multi-rank engines run, over a :class:`RankMesh`:
+the counterparts of ``lax.all_to_all`` (tiled), ``lax.all_gather``,
+``lax.psum``/``pmin``, ``lax.ppermute`` and ``lax.axis_index``.
+
+Every one is built from the four operations both gloo and NCCL take:
+``all_to_all_single`` (with split sizes), list-form ``all_gather``,
+``all_reduce`` and ``broadcast``. ``ppermute`` is an ``all_to_all_single``
+whose splits are zero to every rank but the partner. A float sum across
+ranks (:func:`psum_ordered`) gathers and adds in rank order, so its bits do
+not depend on the backend's reduction tree; integer sums and all traffic
+are exact either way. A mesh without a process group (one rank, no
+``torch.distributed``) makes every collective the identity; with a group,
+every call goes through the backend, at world size 1 too. Each call is
+a ``coll:<name>`` profiler range, so a trace shows the time a rank spends
+in its collectives.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.profiler import record_function
+
+from mpi_grid_redistribute_tpu_torch.parallel.mesh import RankMesh
+
+
+# dtypes every backend moves as they are; any other travels as its bytes
+# (gloo refuses int16, for one), which moves the same bits
+_WIRE_DTYPES = (torch.float32, torch.float64, torch.float16, torch.int8,
+                torch.uint8, torch.int32, torch.int64)
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous()
+    return x if x.dtype in _WIRE_DTYPES else x.view(torch.uint8)
+
+
+def _local(mesh: RankMesh) -> bool:
+    return mesh.backend is None
+
+
+def axis_index(mesh: RankMesh) -> int:
+    """This rank's row-major index over all the mesh axes."""
+    return mesh.rank
+
+
+def all_to_all(x: torch.Tensor, mesh: RankMesh, dim: int = 0) -> torch.Tensor:
+    """Tiled all-to-all along ``dim``: the ``R`` equal chunks of ``x``
+    along ``dim`` go to ranks ``0..R-1`` in order, and the result holds
+    the chunks received, source-major, along the same ``dim``
+    (``lax.all_to_all(x, axes, dim, dim, tiled=True)``)."""
+    R = mesh.size
+    if _local(mesh):
+        return x.clone()
+    if x.shape[dim] % R:
+        raise ValueError(
+            f"all_to_all: dim {dim} of {tuple(x.shape)} is not divisible "
+            f"by {R} ranks"
+        )
+    c = x.shape[dim] // R
+    lead, tail = tuple(x.shape[:dim]), tuple(x.shape[dim + 1:])
+    # [lead, R, c, tail] -> [R, lead, c, tail]: chunk r contiguous
+    send = x.reshape(lead + (R, c) + tail).movedim(len(lead), 0).contiguous()
+    wire = _wire(send)
+    recv = torch.empty_like(wire)
+    with record_function("coll:all_to_all"):
+        dist.all_to_all_single(recv, wire, group=mesh.group)
+    recv = recv.view(x.dtype).reshape(send.shape)
+    return recv.movedim(0, len(lead)).reshape(x.shape)
+
+
+def all_gather(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    """``[R, *x.shape]``: every rank's ``x`` stacked in rank order."""
+    if _local(mesh):
+        return x[None].clone()
+    wire = _wire(x.reshape((1,) + tuple(x.shape)))
+    parts = [torch.empty_like(wire) for _ in range(mesh.size)]
+    with record_function("coll:all_gather"):
+        dist.all_gather(parts, wire, group=mesh.group)
+    return torch.cat(parts).view(x.dtype).reshape((mesh.size,)
+                                                   + tuple(x.shape))
+
+
+def _all_reduce(x: torch.Tensor, mesh: RankMesh, op) -> torch.Tensor:
+    out = x.clone()
+    if not _local(mesh):
+        with record_function("coll:all_reduce"):
+            dist.all_reduce(out, op=op, group=mesh.group)
+    return out
+
+
+def psum(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    """Sum over ranks of an INTEGER tensor (exact in any order)."""
+    if x.is_floating_point():
+        raise TypeError(
+            "psum takes integer tensors; a float sum across ranks is "
+            "psum_ordered (rank order, backend-independent bits)"
+        )
+    return _all_reduce(x, mesh, dist.ReduceOp.SUM)
+
+
+def psum_ordered(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    """Sum over ranks added in rank order, ``((x_0 + x_1) + x_2) + ...``,
+    identical on every rank (the order XLA's CPU all-reduce uses on the
+    reference's virtual-device mesh)."""
+    parts = all_gather(x, mesh)
+    out = parts[0].clone()
+    for r in range(1, mesh.size):
+        out = out + parts[r]
+    return out
+
+
+def pmin(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    return _all_reduce(x, mesh, dist.ReduceOp.MIN)
+
+
+def broadcast(x: torch.Tensor, mesh: RankMesh, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank (``src`` is a mesh rank)."""
+    out = x.clone().contiguous()
+    if not _local(mesh):
+        with record_function("coll:broadcast"):
+            dist.broadcast(out, src=_global_rank(mesh, src),
+                           group=mesh.group)
+    return out
+
+
+def _global_rank(mesh: RankMesh, r: int) -> int:
+    return r if mesh.group is None else dist.get_global_rank(mesh.group, r)
+
+
+def ppermute(x: torch.Tensor, mesh: RankMesh,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute``: for each ``(src, dst)`` in ``perm`` (an injective
+    map of mesh ranks), ``src``'s ``x`` arrives at ``dst``; a rank no pair
+    targets gets zeros. One ``all_to_all_single`` whose splits are zero to
+    every rank but the partner."""
+    me = mesh.rank
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if _local(mesh):
+        return x.clone() if src else torch.zeros_like(x)
+    wire = _wire(x.reshape(-1))
+    numel = wire.numel()
+    in_splits = [numel if r in dst else 0 for r in range(mesh.size)]
+    out_splits = [numel if r in src else 0 for r in range(mesh.size)]
+    recv = torch.empty((sum(out_splits),), dtype=wire.dtype, device=x.device)
+    with record_function("coll:ppermute"):
+        dist.all_to_all_single(
+            recv, wire.repeat(len(dst)),
+            output_split_sizes=out_splits, input_split_sizes=in_splits,
+            group=mesh.group,
+        )
+    if not src:
+        return torch.zeros_like(x)
+    return recv.view(x.dtype).reshape(x.shape)

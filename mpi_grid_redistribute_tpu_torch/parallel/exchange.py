@@ -1,26 +1,33 @@
-"""The canonical redistribute on one device (port of the JAX package's
+"""The canonical redistribute (port of the JAX package's
 ``parallel/exchange.py``): engine names and their resolution, the stats
-record, and the two single-device vrank engines that ``"auto"`` picks
-there, the planar ``[V, K, n]`` engine and the row-major one.
+record, the single-device vrank engines (planar ``[V, K, n]``, row-major,
+and the count-driven sparse and neighbor twins) and the multi-rank ones,
+one rank a process over a :class:`~.mesh.RankMesh` (the same four).
 
 The pipeline per virtual rank: bin every row to its destination rank,
 sort by destination (the rank's own rows stay local), pack the first
 ``capacity`` rows of each destination segment, exchange, and compact the
 received pool plus the kept rows into MPI ``Alltoallv`` receive order.
-The V ranks are the leading batch dimension of every tensor, and the
-wire is the transpose an all-to-all would perform. The multi-device,
-count-driven and hierarchical engines are not ported (``ROADMAP.md`` A5,
-A9).
+On one device the V ranks are the leading batch dimension of every
+tensor, and the wire is the transpose an all-to-all would perform; across
+ranks it is the all-to-all (:mod:`.collectives`). The count-driven
+engines decide their branch from a flag every rank agrees on (a MIN
+across ranks), read on the host. The hierarchical engine is not ported
+(``ROADMAP.md`` A9).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from mpi_grid_redistribute_tpu_torch import _device
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import binning, pack
+from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
+from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
 
 ENGINES = (
     "auto", "planar", "rowmajor", "sparse", "neighbor", "hierarchical"
@@ -49,8 +56,9 @@ def resolve_engine(
 
     Migrate loop (``canonical=False``): ``"auto"``/``"sparse"`` give the
     mover-sparse engine exactly on a single-device vrank step (``vranks``
-    and ``n_devices == 1``), ``"planar"`` otherwise; the canonical-only
-    names raise ``ValueError``.
+    and ``n_devices == 1``), ``"planar"`` otherwise (an explicit
+    ``"sparse"`` across devices degrades: cross-device steps stay
+    dense); the canonical-only names raise ``ValueError``.
 
     ``recorder`` (the reference journals the decision) raises
     ``NotImplementedError``: the telemetry plane is not ported yet."""
@@ -91,8 +99,10 @@ class RedistributeStats(NamedTuple):
     ``recv_counts`` its transpose, the drop counters ``[R]``, and
     ``needed_capacity [R]``, each rank's largest unclipped remote
     per-destination count (the smallest ``capacity`` that would have sent
-    everything). ``fallback``, ``pipeline`` and ``needed_cross`` belong to
-    engines not ported yet and stay ``None``."""
+    everything). ``fallback`` ``[R]`` is 1 where a count-driven engine
+    ran the dense width (``None`` from the dense engines); ``pipeline``
+    and ``needed_cross`` belong to engines not ported yet and stay
+    ``None``."""
 
     send_counts: torch.Tensor
     recv_counts: torch.Tensor
@@ -104,15 +114,19 @@ class RedistributeStats(NamedTuple):
     needed_cross: torch.Tensor = None
 
 
-def _route(dest: torch.Tensor, count: torch.Tensor, V: int, capacity: int):
-    """The shared routing prefix of both engines: ``dest [V, n]`` ranks ->
+def _route(dest: torch.Tensor, count: torch.Tensor, V: int, capacity: int,
+           me: torch.Tensor = None):
+    """The shared routing prefix of every engine: ``dest [B, n]`` ranks of
+    the ``B`` ranks ``me [B]`` (default: all ``V`` ranks of one device) ->
     ``(is_self, order, remote_counts, bounds, send_counts,
-    dropped_send)``. Rows past ``count`` and the rank's own rows take the
-    sentinel ``V`` and are not sent."""
+    dropped_send)``. Rows past ``count [B]`` and the rank's own rows take
+    the sentinel ``V`` and are not sent."""
     n = dest.shape[1]
     dev = dest.device
     valid = torch.arange(n, dtype=torch.int32, device=dev) < count[:, None]
-    me = torch.arange(V, dtype=torch.int32, device=dev)[:, None]
+    if me is None:
+        me = torch.arange(V, dtype=torch.int32, device=dev)
+    me = me[:, None]
     sentinel = torch.full((), V, dtype=torch.int32, device=dev)
     dest = torch.where(valid, dest, sentinel)
     is_self = valid & (dest == me)
@@ -245,3 +259,524 @@ def build_redistribute_planar_vranks(domain: Domain, grid: ProcessGrid,
     """:func:`vrank_redistribute_planar_fn`, as the reference's builder."""
     return vrank_redistribute_planar_fn(domain, grid, capacity, out_capacity,
                                         ndim, edges=edges)
+
+
+# ---------------------------------------------------------------------------
+# Count-driven engines on one device (vrank twins)
+# ---------------------------------------------------------------------------
+
+def _check_mover_cap(mover_cap, capacity):
+    B = int(mover_cap)
+    if not 1 <= B < int(capacity):
+        raise ValueError(
+            f"mover_cap must be in [1, capacity); got mover_cap={B}, "
+            f"capacity={capacity} — at mover_cap >= capacity the "
+            f"count-driven pool is no smaller than the dense one, build "
+            f"the planar engine instead"
+        )
+    return B
+
+
+def _planar_view(fused: torch.Tensor, D: int, lead: int):
+    """Validate a planar state of ``lead + 2`` dims (``[..., K >= D, n]``,
+    32-bit) and return ``(as_f32, int32 view, float32 position rows)``."""
+    if fused.dim() != lead + 2 or fused.shape[-2] < D:
+        want = "[V, K, n]" if lead else "[K, n] per rank"
+        raise ValueError(
+            f"fused must be {want} with K >= {D} (K rows: {D} position "
+            f"components first, then 32-bit fields), got "
+            f"{tuple(fused.shape)}"
+        )
+    if fused.dtype not in (torch.float32, torch.int32):
+        raise TypeError(
+            f"fused must be float32 or int32, got {fused.dtype}"
+        )
+    as_f32 = fused.dtype == torch.float32
+    fi = fused.view(torch.int32) if as_f32 else fused
+    return as_f32, fi, fi[..., :D, :].view(torch.float32)
+
+
+def vrank_redistribute_sparse_fn(domain: Domain, grid: ProcessGrid,
+                                 capacity: int, out_capacity: int,
+                                 mover_cap: int, ndim: int = None,
+                                 edges=None):
+    """COUNT-DRIVEN canonical exchange of R virtual ranks on one device:
+    the ``[V_src, K, V_dst, W]`` transpose shrinks from ``W = capacity``
+    to ``W = mover_cap`` when every pair's movers fit the block, and runs
+    at the dense width otherwise; the output is the same bits either way
+    as :func:`vrank_redistribute_planar_fn`'s. ``stats.fallback`` is 1
+    on every vrank when the dense width ran. The reference's branch is a
+    ``lax.cond``; here its guard is read on the host (one sync a call).
+    Signature as :func:`vrank_redistribute_planar_fn`."""
+    V = grid.nranks
+    C = capacity
+    B = _check_mover_cap(mover_cap, capacity)
+    D = domain.ndim if ndim is None else ndim
+
+    def fn(fused, count):
+        as_f32, fi, pos_f = _planar_view(fused, D, 1)
+        K = fused.shape[1]
+        dest = binning.rank_of_position_planar(pos_f, domain, grid,
+                                               edges=edges)
+        is_self, order, remote_counts, bounds, send_counts, dropped_send = (
+            _route(dest, count, V, C))
+        fast = bool(remote_counts.max() <= B)
+        W = B if fast else C
+        packed, _ = pack.pack_cols(fi, order, bounds[:, :V],
+                                   send_counts.clamp(max=W), V, W)
+        pool = (packed.reshape(V, K, V, W).permute(2, 1, 0, 3)
+                .reshape(V, K, V * W))
+        me = torch.arange(V, dtype=torch.int32, device=fused.device)
+        out, new_count, dropped_recv = pack.planar_compact_with_self(
+            pool, send_counts.T, me, is_self, fi, out_capacity)
+        if as_f32:
+            out = out.view(torch.float32)
+        stats = _stats(send_counts, is_self, remote_counts, dropped_send,
+                       dropped_recv)._replace(
+            fallback=torch.full((V,), int(not fast), dtype=torch.int32,
+                                device=fused.device))
+        return out, new_count, stats
+
+    return fn
+
+
+def _neighbor_schedule(grid: ProcessGrid, periodic):
+    """``(active offsets, perms, dst [R, n_act], src [R, n_act], member [R,
+    R])`` of the Moore-stencil schedule; raises on a grid with no
+    neighbor link."""
+    periodic = tuple(bool(p) for p in periodic)
+    _, dst_t, src_t, member = mesh_lib.neighbor_tables(grid, periodic)
+    perms_all = mesh_lib.neighbor_perms(grid, periodic)
+    active = tuple(o for o in range(dst_t.shape[1]) if perms_all[o])
+    if not active:
+        raise ValueError(
+            f"neighbor engine needs a grid with at least one neighbor "
+            f"link, got shape {grid.shape}"
+        )
+    return (active, tuple(perms_all[o] for o in active),
+            dst_t[:, active], src_t[:, active], member)
+
+
+def _stencil_plan(send_counts, bounds, order, d_o, B: int, n: int):
+    """Per offset, the first ``min(send_counts[d], B)`` sorted columns of
+    the destination ``d_o`` (``-1``: none): ``(plan [*, n_act * B]
+    resident columns, slot_valid)``."""
+    n_act = d_o.shape[-1]
+    dev = send_counts.device
+    d_safe = d_o.clamp(min=0).long()
+    cnt = torch.where(d_o >= 0, torch.gather(send_counts.clamp(max=B), -1,
+                                             d_safe), 0)
+    base = torch.gather(bounds, -1, d_safe)
+    c_idx = torch.arange(B, dtype=torch.int32, device=dev)
+    lead = tuple(d_o.shape[:-1])
+    slot_valid = (c_idx < cnt[..., None]).reshape(lead + (n_act * B,))
+    src_cols = (base[..., None] + c_idx).clamp(max=n - 1).reshape(
+        lead + (n_act * B,))
+    plan = torch.gather(order.long(), -1, src_cols.long())
+    return plan, slot_valid
+
+
+def _stencil_keys(recv_counts, s_o, B: int, is_self, me):
+    """Receive keys of the stencil pool: block ``o`` came from ``s_o[o]``
+    (``-1``: nobody); returns ``(invalid, source_key)`` over the pool and
+    the kept columns, the source-major order of the dense pool."""
+    dev = recv_counts.device
+    s_safe = s_o.clamp(min=0)
+    rc = torch.where(s_o >= 0, torch.gather(recv_counts, -1, s_safe.long()),
+                     0)
+    c_idx = torch.arange(B, dtype=torch.int32, device=dev)
+    lead = tuple(s_o.shape[:-1])
+    n_act = s_o.shape[-1]
+    valid_r = (c_idx < rc[..., None]).reshape(lead + (n_act * B,))
+    n = is_self.shape[-1]
+    invalid = ~torch.cat([valid_r, is_self], dim=-1)
+    source_key = torch.cat([
+        s_safe[..., None].expand(lead + (n_act, B)).reshape(
+            lead + (n_act * B,)),
+        me[..., None].expand(lead + (n,)),
+    ], dim=-1).to(torch.int32)
+    return invalid, source_key
+
+
+def vrank_redistribute_neighbor_fn(domain: Domain, grid: ProcessGrid,
+                                   capacity: int, out_capacity: int,
+                                   mover_cap: int, ndim: int = None,
+                                   edges=None):
+    """NEIGHBOR-STENCIL canonical exchange of R virtual ranks on one
+    device: the sharded engine's per-offset shifts become static
+    cross-vrank block gathers through the same
+    :func:`~.mesh.neighbor_tables`. A step whose movers all fit the block
+    and stay within the 3x3x3 stencil runs the stencil; any other runs
+    the dense width (``stats.fallback`` 1). Same bits as
+    :func:`vrank_redistribute_planar_fn`."""
+    V = grid.nranks
+    C = capacity
+    B = _check_mover_cap(mover_cap, capacity)
+    D = domain.ndim if ndim is None else ndim
+    _, _, dst_act, src_act, member = _neighbor_schedule(grid,
+                                                        domain.periodic)
+    n_act = dst_act.shape[1]
+    tables = _device.OnDevice(dst_act.astype(np.int32),
+                              src_act.astype(np.int32), member)
+
+    def fn(fused, count):
+        as_f32, fi, pos_f = _planar_view(fused, D, 1)
+        K, n = fused.shape[1], fused.shape[2]
+        dev = fused.device
+        d_t, s_t, mem = tables.get(dev)
+        dest = binning.rank_of_position_planar(pos_f, domain, grid,
+                                               edges=edges)
+        is_self, order, remote_counts, bounds, send_counts, dropped_send = (
+            _route(dest, count, V, C))
+        me = torch.arange(V, dtype=torch.int32, device=dev)
+        ok = torch.where(mem, remote_counts <= B, remote_counts == 0).all()
+        stencil = bool(ok)
+        if stencil:
+            plan, slot_valid = _stencil_plan(send_counts, bounds, order,
+                                             d_t, B, n)
+            send = pack._take_cols(fi, plan)
+            send = torch.where(slot_valid[:, None, :], send,
+                               torch.zeros((), dtype=send.dtype, device=dev))
+            blocks = send.reshape(V, K, n_act, B)
+            # block o at vrank v came from src_act[v, o]
+            o_idx = torch.arange(n_act, device=dev)[None, :]
+            recv = blocks[s_t.clamp(min=0).long(), :, o_idx, :]
+            pool = recv.permute(0, 2, 1, 3).reshape(V, K, n_act * B)
+            invalid, source_key = _stencil_keys(send_counts.T, s_t, B,
+                                                is_self, me)
+            new_full = (send_counts.T.sum(dim=1, dtype=torch.int32)
+                        + is_self.sum(dim=1, dtype=torch.int32))
+            out, new_count, dropped_recv = pack.planar_compact_keys(
+                torch.cat([pool, fi], dim=2), invalid, source_key, V,
+                new_full, out_capacity)
+        else:
+            packed, _ = pack.pack_cols(fi, order, bounds[:, :V],
+                                       send_counts, V, C)
+            pool = (packed.reshape(V, K, V, C).permute(2, 1, 0, 3)
+                    .reshape(V, K, V * C))
+            out, new_count, dropped_recv = pack.planar_compact_with_self(
+                pool, send_counts.T, me, is_self, fi, out_capacity)
+        if as_f32:
+            out = out.view(torch.float32)
+        stats = _stats(send_counts, is_self, remote_counts, dropped_send,
+                       dropped_recv)._replace(
+            fallback=torch.full((V,), int(not stencil), dtype=torch.int32,
+                                device=dev))
+        return out, new_count, stats
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Multi-rank engines: one rank a process, over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def _count1(count: torch.Tensor) -> torch.Tensor:
+    """A rank's count (a scalar or ``[1]``) as an int32 ``[1]`` tensor."""
+    return count.reshape(1).to(torch.int32)
+
+
+def _shard_stats(send_counts, recv_counts, is_self, me: int,
+                 remote_counts, dropped_send, dropped_recv, fallback=None):
+    """A rank's stats rows, as the reference's per-shard function returns
+    them: ``send_counts``/``recv_counts`` ``[1, R]``, the rest ``[1]``."""
+    R = send_counts.shape[0]
+    self_count = is_self.sum(dtype=torch.int32)
+    onehot = (torch.arange(R, dtype=torch.int32, device=is_self.device)
+              == me).to(torch.int32) * self_count
+    return RedistributeStats(
+        send_counts=(send_counts + onehot)[None],
+        recv_counts=(recv_counts + onehot)[None],
+        dropped_send=dropped_send.reshape(1).to(torch.int32),
+        dropped_recv=dropped_recv.reshape(1).to(torch.int32),
+        needed_capacity=remote_counts.max().reshape(1).to(torch.int32),
+        fallback=None if fallback is None else fallback.reshape(1),
+    )
+
+
+def gather_stats(stats: RedistributeStats, mesh) -> RedistributeStats:
+    """Every rank's stats rows stacked in rank order: the reference's
+    global stats (``[R, R]`` tables, ``[R]`` counters), the same on every
+    rank."""
+    def g(t):
+        if t is None:
+            return None
+        return col.all_gather(t, mesh).reshape((mesh.size,)
+                                               + tuple(t.shape[1:]))
+
+    return RedistributeStats(*(g(t) for t in stats))
+
+
+def _shard_route(fused, count, domain, grid, D, edges, mesh, C):
+    """Routing prefix of the planar-family multi-rank engines (validate,
+    int32 view, bin, stable by-destination order, capacity ``C``):
+    ``(as_f32, fi, me [1], is_self [n], order [n], remote_counts [R],
+    bounds [R + 1], send_counts [R], dropped_send)``."""
+    as_f32, fi, pos_f = _planar_view(fused, D, 0)
+    me = torch.full((1,), mesh.rank, dtype=torch.int32, device=fused.device)
+    dest = binning.rank_of_position_planar(pos_f, domain, grid, edges=edges)
+    is_self, order, remote_counts, bounds, send_counts, dropped_send = (
+        _route(dest[None], _count1(count), grid.nranks, C, me=me))
+    return (as_f32, fi, me, is_self[0], order[0], remote_counts[0],
+            bounds[0], send_counts[0], dropped_send[0])
+
+
+def _dense_pool_wire(fi, order, bounds, send_counts, R, C, mesh):
+    """The dense ``[K, R*C]`` pool: pack and one tiled all-to-all."""
+    packed, _ = pack.pack_cols(fi, order, bounds[:R], send_counts, R, C)
+    return col.all_to_all(packed, mesh, dim=1)
+
+
+def shard_redistribute_planar_fn(domain: Domain, grid: ProcessGrid,
+                                 capacity: int, out_capacity: int,
+                                 ndim: int = None, edges=None, mesh=None):
+    """PLANAR multi-rank canonical exchange, one rank's part (the
+    reference's ``shard_map`` body): ``fn(fused [K, n], count) ->
+    (fused_out [K, out_capacity], count_out [1], stats)`` with this
+    rank's stats rows (``[1, R]`` tables, ``[1]`` counters; see
+    :func:`gather_stats`). The same routing, pack and compaction as
+    :func:`vrank_redistribute_planar_fn`; the transpose is a tiled
+    all-to-all over ``mesh`` (default: :func:`~.mesh.make_mesh` of
+    ``grid``), which must be the same on every rank."""
+    R = grid.nranks
+    C = capacity
+    D = domain.ndim if ndim is None else ndim
+    mesh = mesh_lib.mesh_for(grid, mesh)
+
+    def fn(fused, count):
+        (as_f32, fi, me, is_self, order, remote_counts, bounds, send_counts,
+         dropped_send) = _shard_route(fused, count, domain, grid, D, edges,
+                                      mesh, C)
+        recv_counts = col.all_to_all(send_counts, mesh)
+        pool = _dense_pool_wire(fi, order, bounds, send_counts, R, C, mesh)
+        out, new_count, dropped_recv = pack.planar_compact_with_self(
+            pool, recv_counts, me[0], is_self, fi, out_capacity)
+        if as_f32:
+            out = out.view(torch.float32)
+        stats = _shard_stats(send_counts, recv_counts, is_self, mesh.rank,
+                             remote_counts, dropped_send, dropped_recv)
+        return out, new_count.reshape(1), stats
+
+    return fn
+
+
+def shard_redistribute_fn(domain: Domain, grid: ProcessGrid, capacity: int,
+                          out_capacity: int, edges=None, mesh=None):
+    """Row-major multi-rank canonical exchange, one rank's part:
+    ``fn(pos [n, D], count, *fields [n, ...]) -> (pos_out [out_capacity,
+    D], count_out [1], *fields_out, stats)`` (this rank's stats rows).
+    Fields of any dtype ride as integer words of their width, one tiled
+    all-to-all each."""
+    R = grid.nranks
+    mesh = mesh_lib.mesh_for(grid, mesh)
+
+    def fn(pos, count, *fields):
+        me = torch.full((1,), mesh.rank, dtype=torch.int32, device=pos.device)
+        dest = binning.rank_of_position(pos, domain, grid, edges=edges)[None]
+        is_self, order, remote_counts, _, send_counts, dropped_send = _route(
+            dest, _count1(count), R, capacity, me=me)
+        arrays = (pos,) + tuple(fields)
+        words = tuple(a.view(_WORD[a.element_size()]) for a in arrays)
+        packed = pack.pack_by_destination(
+            dest, remote_counts, tuple(w[None] for w in words), capacity,
+            order=order)  # [1, R, C, ...]
+        recv_counts = col.all_to_all(send_counts[0], mesh)
+        recv = tuple(col.all_to_all(a[0], mesh) for a in packed)
+        out, new_count, dropped_recv = pack.compact_with_self(
+            tuple(r[None] for r in recv), recv_counts[None],
+            tuple(w[None] for w in words), is_self, me, out_capacity)
+        out = tuple(o[0].view(a.dtype) for o, a in zip(out, arrays))
+        stats = _shard_stats(send_counts[0], recv_counts, is_self[0],
+                             mesh.rank, remote_counts[0], dropped_send[0],
+                             dropped_recv[0])
+        return (out[0], new_count.reshape(1)) + tuple(out[1:]) + (stats,)
+
+    return fn
+
+
+def shard_redistribute_sparse_fn(domain: Domain, grid: ProcessGrid,
+                                 capacity: int, out_capacity: int,
+                                 mover_cap: int, ndim: int = None,
+                                 edges=None, mesh=None):
+    """COUNT-DRIVEN multi-rank canonical exchange, one rank's part: the
+    pool on the wire is ``[K, R * mover_cap]`` when every rank's movers
+    fit the block, the dense ``[K, R * capacity]`` pool otherwise. Each
+    rank's fit is reduced with a MIN across ranks before anyone branches,
+    so every rank takes the same branch around its collectives (the
+    reference's ``pmin`` and ``lax.cond``; the agreed flag is read on the
+    host, one sync a call). Same bits as
+    :func:`shard_redistribute_planar_fn` either way; ``stats.fallback`` is
+    1 where the dense pool ran."""
+    R = grid.nranks
+    C = capacity
+    B = _check_mover_cap(mover_cap, capacity)
+    D = domain.ndim if ndim is None else ndim
+    mesh = mesh_lib.mesh_for(grid, mesh)
+
+    def fn(fused, count):
+        (as_f32, fi, me, is_self, order, remote_counts, bounds, send_counts,
+         dropped_send) = _shard_route(fused, count, domain, grid, D, edges,
+                                      mesh, C)
+        recv_counts = col.all_to_all(send_counts, mesh)
+        ok = (remote_counts.max() <= B).to(torch.int32).reshape(1)
+        fast = bool(col.pmin(ok, mesh)[0] == 1)
+        W = B if fast else C
+        pool = _dense_pool_wire(fi, order, bounds, send_counts.clamp(max=W),
+                                R, W, mesh)
+        out, new_count, dropped_recv = pack.planar_compact_with_self(
+            pool, recv_counts, me[0], is_self, fi, out_capacity)
+        if as_f32:
+            out = out.view(torch.float32)
+        stats = _shard_stats(
+            send_counts, recv_counts, is_self, mesh.rank, remote_counts,
+            dropped_send, dropped_recv,
+            fallback=torch.full((1,), int(not fast), dtype=torch.int32,
+                                device=fused.device))
+        return out, new_count.reshape(1), stats
+
+    return fn
+
+
+def shard_redistribute_neighbor_fn(domain: Domain, grid: ProcessGrid,
+                                   capacity: int, out_capacity: int,
+                                   mover_cap: int, ndim: int = None,
+                                   edges=None, mesh=None):
+    """NEIGHBOR-STENCIL multi-rank canonical exchange, one rank's part:
+    one ``ppermute`` of a ``[K, mover_cap]`` block per active Moore-stencil
+    offset (:func:`~.mesh.neighbor_perms`) instead of the dense
+    all-to-all, when every rank's movers fit the block and stay inside
+    the stencil (agreed by a MIN across ranks, as in
+    :func:`shard_redistribute_sparse_fn`); otherwise the dense pool. Same
+    bits as :func:`shard_redistribute_planar_fn`."""
+    R = grid.nranks
+    C = capacity
+    B = _check_mover_cap(mover_cap, capacity)
+    D = domain.ndim if ndim is None else ndim
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    _, perms, dst_act, src_act, member = _neighbor_schedule(grid,
+                                                            domain.periodic)
+    n_act = dst_act.shape[1]
+    me_np = mesh.rank
+    tables = _device.OnDevice(dst_act[me_np].astype(np.int32),
+                              src_act[me_np].astype(np.int32),
+                              member[me_np])
+
+    def fn(fused, count):
+        (as_f32, fi, me, is_self, order, remote_counts, bounds, send_counts,
+         dropped_send) = _shard_route(fused, count, domain, grid, D, edges,
+                                      mesh, C)
+        K, n = fi.shape
+        dev = fused.device
+        d_o, s_o, member_row = tables.get(dev)
+        recv_counts = col.all_to_all(send_counts, mesh)
+        ok = torch.where(member_row, remote_counts <= B,
+                         remote_counts == 0).all().to(torch.int32).reshape(1)
+        stencil = bool(col.pmin(ok, mesh)[0] == 1)
+        if stencil:
+            plan, slot_valid = _stencil_plan(send_counts, bounds, order, d_o,
+                                             B, n)
+            send = torch.where(slot_valid[None, :],
+                               pack._take_cols(fi, plan),
+                               torch.zeros((), dtype=fi.dtype, device=dev))
+            send = send.reshape(K, n_act, B)
+            pool = torch.cat([
+                col.ppermute(send[:, o, :].contiguous(), mesh, perms[o])
+                for o in range(n_act)
+            ], dim=1)
+            invalid, source_key = _stencil_keys(recv_counts, s_o, B, is_self,
+                                                me[0])
+            new_full = (recv_counts.sum(dtype=torch.int32)
+                        + is_self.sum(dtype=torch.int32))
+            out, new_count, dropped_recv = pack.planar_compact_keys(
+                torch.cat([pool, fi], dim=1), invalid, source_key, R,
+                new_full, out_capacity)
+        else:
+            pool = _dense_pool_wire(fi, order, bounds, send_counts, R, C,
+                                    mesh)
+            out, new_count, dropped_recv = pack.planar_compact_with_self(
+                pool, recv_counts, me[0], is_self, fi, out_capacity)
+        if as_f32:
+            out = out.view(torch.float32)
+        stats = _shard_stats(
+            send_counts, recv_counts, is_self, mesh.rank, remote_counts,
+            dropped_send, dropped_recv,
+            fallback=torch.full((1,), int(not stencil), dtype=torch.int32,
+                                device=dev))
+        return out, new_count.reshape(1), stats
+
+    return fn
+
+
+def _with_global_stats(fn, mesh):
+    def call(*args):
+        out = fn(*args)
+        return out[:-1] + (gather_stats(out[-1], mesh),)
+
+    return call
+
+
+def shard_redistribute_planar_sharded(mesh, domain: Domain,
+                                      grid: ProcessGrid, capacity: int,
+                                      out_capacity: int, ndim: int = None,
+                                      edges=None):
+    """The reference's global planar exchange, as each rank sees it. Its
+    global ``[K, R * n]`` state is lane-sharded with rank ``r`` owning
+    columns ``[r * n, (r + 1) * n)``; run as one process a rank, that
+    shard IS what rank ``r`` holds, so this is
+    :func:`shard_redistribute_planar_fn` itself, with the stats gathered
+    to the global ``[R, R]``/``[R]`` tables (:func:`gather_stats`):
+    ``fn(fused [K, n], count) -> (fused_out [K, out_capacity], count_out
+    [1], stats)``."""
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    return _with_global_stats(shard_redistribute_planar_fn(
+        domain, grid, capacity, out_capacity, ndim, edges=edges, mesh=mesh),
+        mesh)
+
+
+_COUNT_DRIVEN_SHARD_FNS = {
+    "sparse": shard_redistribute_sparse_fn,
+    "neighbor": shard_redistribute_neighbor_fn,
+}
+_COUNT_DRIVEN_VRANK_FNS = {
+    "sparse": vrank_redistribute_sparse_fn,
+    "neighbor": vrank_redistribute_neighbor_fn,
+}
+COUNT_DRIVEN_ENGINES = tuple(_COUNT_DRIVEN_SHARD_FNS)
+
+
+def shard_redistribute_count_driven_sharded(mesh, domain: Domain,
+                                            grid: ProcessGrid, capacity: int,
+                                            out_capacity: int, mover_cap: int,
+                                            ndim: int = None, edges=None,
+                                            engine: str = "sparse"):
+    """The count-driven exchange (``engine`` ``"sparse"`` or
+    ``"neighbor"``) as each rank sees the reference's global one: the
+    per-rank function with global stats, as
+    :func:`shard_redistribute_planar_sharded`; the stats carry
+    ``fallback``."""
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    return _with_global_stats(_COUNT_DRIVEN_SHARD_FNS[engine](
+        domain, grid, capacity, out_capacity, mover_cap, ndim, edges=edges,
+        mesh=mesh), mesh)
+
+
+def build_redistribute_count_driven_vranks(domain: Domain, grid: ProcessGrid,
+                                           capacity: int, out_capacity: int,
+                                           mover_cap: int, ndim: int = None,
+                                           edges=None,
+                                           engine: str = "sparse"):
+    """The count-driven vrank twins ([V, K, n] planar)."""
+    return _COUNT_DRIVEN_VRANK_FNS[engine](
+        domain, grid, capacity, out_capacity, mover_cap, ndim, edges=edges)
+
+
+def build_redistribute(mesh, domain: Domain, grid: ProcessGrid,
+                       capacity: int, out_capacity: int, n_fields: int = None,
+                       edges=None):
+    """The reference's global row-major exchange as each rank sees it:
+    :func:`shard_redistribute_fn` with global stats. ``n_fields`` is
+    accepted for the reference's signature (a rank takes any number)."""
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    return _with_global_stats(shard_redistribute_fn(
+        domain, grid, capacity, out_capacity, edges, mesh=mesh), mesh)

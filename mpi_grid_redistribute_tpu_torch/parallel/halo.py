@@ -44,7 +44,7 @@ Where the bits are decided (each pinned by ``tests/test_torch_halo.py``):
     gathers and scatters with device indices, so an exchange makes no
     host sync;
   * the multi-device ``shard_map`` engines are not ported
-    (``ROADMAP.md`` A5).
+    (``ROADMAP.md`` A8).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Resident-slot migration, single device (port of the JAX package's
-``parallel/migrate.py``, the vrank engine: dense planar step and
-mover-sparse fast path).
+"""Resident-slot migration (port of the JAX package's
+``parallel/migrate.py``: the vrank engine, with its dense planar step and
+mover-sparse fast path on one device and its receiver-granted exchange
+across devices, and the flat engine of one rank a process).
 
 State is a PLANAR matrix ``[K, V * n]``: position rows, payload rows and
 the alive row last. The canonical transport is int32 (float fields
@@ -36,8 +37,7 @@ correctness as set-equality per vrank, and this port reproduces the
 reference's bits exactly.
 
 Differences from the reference, none visible in any output: the
-multi-device (``Dev > 1``) branches are not ported yet; the unclipped
-vacated-plan shortcut (a ``lax.cond`` there) always takes the general
+unclipped vacated-plan shortcut (a ``lax.cond`` there) always takes the general
 plan, whose entries agree wherever they are read; the plan lookups are
 integer search + gather instead of the reference's float einsum
 workaround. The sparse engine's guard (the reference's ``lax.cond``) is
@@ -48,6 +48,7 @@ syncs.
 from __future__ import annotations
 
 import os
+import warnings
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -56,7 +57,9 @@ import torch
 from mpi_grid_redistribute_tpu_torch._device import OnDevice
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import binning, overlay, scatter
-from mpi_grid_redistribute_tpu_torch.ops.pack import gather_plan_cols
+from mpi_grid_redistribute_tpu_torch.ops.pack import gather_plan_cols, pack_cols
+from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
+from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
 
 _I32 = torch.int32
 
@@ -480,6 +483,48 @@ def balanced_assignment(cell_loads, n_ranks: int) -> tuple:
     return tuple(int(x) for x in assign)
 
 
+def _land_remote(flat, free_stack, n_free, pool, recv_counts, C: int):
+    """Land each vrank's arrivals from other devices into popped holes:
+    ``pool [V, K, S * C]`` holds ``C`` slots a global source, the first
+    ``recv_counts[v, s]`` of source ``s`` real. Arrival ``k`` takes the
+    stack entry ``n_free - 1 - k``; arrivals past the free slots drop and
+    are counted (they cannot happen under the grants). One masked indexed
+    assignment, as the reference's XLA scatter (not kernel 2, which lands
+    the local arrivals); the mask reads one count on the host. Returns
+    ``(flat, n_free, n_in, dropped)``."""
+    V, n = free_stack.shape
+    K = flat.shape[0]
+    S = recv_counts.shape[1]
+    P_rem = S * C
+    dev = flat.device
+    kr = torch.arange(P_rem, dtype=_I32, device=dev)
+    cum = torch.cat([
+        torch.zeros((V, 1), dtype=_I32, device=dev),
+        torch.cumsum(recv_counts, dim=1, dtype=_I32),
+    ], dim=1)  # [V, S + 1]
+    n_in = cum[:, -1]
+    src = torch.searchsorted(
+        cum[:, 1:].contiguous(), kr.expand(V, -1).contiguous(), right=True
+    ).clamp_max(S - 1)
+    slot = (src.to(_I32) * C + (kr[None, :] - torch.gather(cum, 1, src))
+            ).clamp(0, P_rem - 1)
+    arrivals = torch.gather(pool, 2, slot[:, None, :].long().expand(
+        V, K, P_rem))
+    n_pop = torch.minimum(n_in, n_free)
+    pop_i = (n_free[:, None] - 1 - kr[None, :]).clamp(0, n - 1)
+    tgt = torch.where(kr[None, :] < n_pop[:, None],
+                      torch.gather(free_stack, 1, pop_i.long()),
+                      torch.full((), n, dtype=_I32, device=dev))
+    my_v = torch.arange(V, dtype=_I32, device=dev)[:, None]
+    gtgt = torch.where(tgt >= n, torch.full((), V * n, dtype=_I32,
+                                            device=dev), my_v * n + tgt)
+    cols = torch.where((kr[None, :] < n_in[:, None])[:, None, :], arrivals,
+                       torch.zeros((), dtype=pool.dtype, device=dev))
+    flat = _land_scatter(flat, gtgt.reshape(-1),
+                         cols.permute(1, 0, 2).reshape(K, V * P_rem), "xla")
+    return flat, n_free - n_pop, n_in, (n_in - n_pop).to(_I32)
+
+
 def shard_migrate_vranks_fn(
     domain: Domain,
     dev_grid: ProcessGrid,
@@ -491,22 +536,38 @@ def shard_migrate_vranks_fn(
     plain: bool = False,
     cells: ProcessGrid = None,
     assignment: tuple = None,
+    mesh=None,
 ):
-    """Migration over ``V = vgrid.nranks`` vranks on ONE device, planar
+    """Migration over ``V = vgrid.nranks`` vranks a device, planar
     layout: ``fn(state, dest_key=None) -> (state, MigrateStats)`` with
     ``state.fused [K, V * n]`` (int32, or the legacy float32 layout),
     ``free_stack [V, n]``, ``n_free [V]``.
 
-    ``dest_key`` ``[V, n]`` (the destination vrank, sentinel ``V`` on
-    stayers and holes) is what the fused drift-bin kernel emits; without
-    it the step bins the position rows itself with the same arithmetic.
-    ``local_budget`` (default ``V * capacity``) bounds the rows a vrank
-    sends or receives per step; the landing scatter is sized to it.
-    ``scatter_impl`` picks the dense landing route (:func:`_resolve_scatter_impl`,
-    once, here). ``mover_cap`` builds the mover-sparse engine with a
-    ``[V, mover_cap]`` mover block (clamped to ``n``): each step reads its
-    guard on the host once (:data:`HOST_SYNCS`) and runs the fast branch
-    or the dense step, and the stats carry ``fast_path``; where the
+    The full grid is ``dev_grid.shape * vgrid.shape``. With one device
+    every vrank lives here; with ``dev_grid.nranks > 1`` each device is a
+    rank of ``mesh`` (default: :func:`~.mesh.make_mesh` of ``dev_grid``),
+    one process each, and this function is that rank's part. Traffic
+    between vranks of one device lands through the local plans; traffic
+    to other devices is RECEIVER-GRANTED over the mesh (desired counts
+    fly in one all-to-all, each destination vrank grants within its free
+    slots, grants fly back) and rides one ``[Dev, V_src, V_dst, K, C]``
+    all-to-all, ``capacity`` columns a (source vrank, destination vrank)
+    pair; arrivals from other devices land in popped holes. The global
+    cycle rescue (up to 128 ranks) gathers the pending matrix so rotation
+    cycles spanning devices drain too. Stats are this device's ``[V]``
+    rows (``flow`` ``[V, Dev * V]``, device-major global ranks).
+
+    ``dest_key`` ``[V, n]`` (the destination's device-major global rank,
+    sentinel ``Dev * V`` on stayers and holes) is what the fused drift-bin
+    kernel emits on one device; without it the step bins the position
+    rows itself with the same arithmetic. ``local_budget`` (default ``V *
+    capacity``) bounds the rows a vrank sends or receives on its device
+    per step; the landing scatter is sized to it. ``scatter_impl`` picks
+    the dense landing route (:func:`_resolve_scatter_impl`, once, here).
+    ``mover_cap`` builds the mover-sparse engine with a ``[V, mover_cap]``
+    mover block (clamped to ``n``), on one device only: each step reads
+    its guard on the host once (:data:`HOST_SYNCS`) and runs the fast
+    branch or the dense step, and the stats carry ``fast_path``; where the
     selection cannot be built for the shape (or ``MPI_GRID_SELECT=flat``)
     every step runs dense with ``fast_path`` all 0. ``plain=True`` runs
     every kernel's plain PyTorch version even on the GPU (the reference
@@ -519,13 +580,12 @@ def shard_migrate_vranks_fn(
     slabs can be sized near the mean load. Only the binning changes (the
     cell id, then one gather from the table); the grants and the landing
     work on rank ids as before. A ``dest_key`` passed in must then come
-    from the same binning, never from the canonical vrank grid.
-
-    Only ``dev_grid.nranks == 1`` is ported (the multi-device exchange
-    over ``torch.distributed`` is a later slice)."""
+    from the same binning, never from the canonical vrank grid."""
     V = vgrid.nranks
     D = domain.ndim
-    R_total = dev_grid.nranks * V
+    Dev = dev_grid.nranks
+    C = capacity
+    R_total = Dev * V
     if (cells is None) != (assignment is None):
         raise ValueError("cells and assignment must be passed together")
     if assignment is not None:
@@ -539,68 +599,195 @@ def shard_migrate_vranks_fn(
             raise ValueError(
                 f"assignment targets outside [0, {R_total}): {bad[:4]}"
             )
-    if dev_grid.nranks != 1:
-        raise NotImplementedError(
-            "the multi-device migrate engine is not ported yet; use a "
-            "single-device dev_grid with vranks"
+    M = V * C if local_budget is None else int(local_budget)
+    # static plan lengths: most rows a vrank can send / receive in a step
+    P = M + ((Dev - 1) * V * C if Dev > 1 else 0)
+    if Dev > 1 and R_total > 128:
+        warnings.warn(
+            f"global cycle_rescue disabled: {R_total} global ranks > 128 "
+            f"(the all-gathered [R, R] boolean-closure cost grows as "
+            f"R^2 log R). Per-device cycles still drain, but rotation "
+            f"cycles SPANNING devices will backlog -- watch "
+            f"utils.stats.detect_stall.",
+            stacklevel=2,
         )
-    M = V * capacity if local_budget is None else int(local_budget)
-    P = M  # Dev == 1: the send and arrival plans are both M wide
     impl = _resolve_scatter_impl(scatter_impl)
+    mesh = mesh_lib.mesh_for(dev_grid, mesh) if Dev > 1 else None
+    me_dev = 0 if mesh is None else mesh.rank
+    loc0 = me_dev * V
     table = None  # the cell -> rank table, on the state's device
     if assignment is not None:
-        full_grid = cells
         table = OnDevice(np.asarray(assignment, np.int32))
-    else:
-        full_grid = ProcessGrid(
-            tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
-            axis_names=dev_grid.axis_names,
+    full_grid = ProcessGrid(
+        tuple(d * v for d, v in zip(dev_grid.shape, vgrid.shape)),
+        axis_names=dev_grid.axis_names,
+    )
+
+    def _remote_grants(counts, n_free):
+        """The receiver-granted cross-device send table: ``(desired_rem,
+        rem_sent [V, R_total], recv_rem [V_dst, R_total])``."""
+        dev = counts.device
+        g = torch.arange(R_total, dtype=_I32, device=dev)
+        local = (g >= loc0) & (g < loc0 + V)
+        desired = torch.where(local[None, :], 0, counts.clamp(max=C))
+        # [V_src, Dev, V_dst] -> [Dev, V_src, V_dst]: chunk d to device d
+        recv_desired = col.all_to_all(
+            desired.reshape(V, Dev, V).permute(1, 0, 2), mesh
+        ).permute(2, 0, 1).reshape(V, R_total)  # [V_dst, S_global]
+        grants = _greedy_alloc(recv_desired.T, n_free.clamp_min(0)).T
+        grants_back = col.all_to_all(
+            grants.reshape(V, Dev, V).permute(1, 0, 2), mesh
+        ).permute(2, 0, 1).reshape(V, R_total)  # [V_src, G_dst]
+        # actual arrivals == my grants (each within its source's desire)
+        return desired, torch.minimum(desired, grants_back), grants
+
+    def _global_rescue(allowed, pending_loc, desired_rem, rem_sent,
+                       recv_rem, sent_remote):
+        """Force one row along every rotation cycle of the GLOBAL pending
+        matrix (cycles spanning devices included): returns the updated
+        ``(allowed, rem_sent, recv_rem)``."""
+        dev = allowed.device
+        pending_rows = desired_rem - rem_sent  # local columns are 0
+        pending_rows[:, loc0:loc0 + V] = pending_loc
+        sent_loc = allowed.sum(dim=1, dtype=_I32)
+        recv_loc = allowed.sum(dim=0, dtype=_I32)
+
+        def gat(x):
+            return col.all_gather(x, mesh).reshape((R_total,)
+                                                   + tuple(x.shape[1:]))
+
+        pending_g = gat(pending_rows)
+        sends_zero_g = gat(sent_loc + sent_remote) == 0
+        sent_loc_g = gat(sent_loc)
+        recv_loc_g = gat(recv_loc)
+        rem_sent_g = gat(rem_sent)
+        g_all = torch.arange(R_total, dtype=_I32, device=dev)
+        succ = torch.argmax((pending_g > 0).to(_I32), dim=1)
+        same_dev = torch.div(succ, V, rounding_mode="floor") == torch.div(
+            g_all, V, rounding_mode="floor")
+        # each member's guard on ITS forced edge: a local edge needs room
+        # in both [M] plans, a remote one a free slot of its pair buffer
+        ok = torch.where(
+            same_dev,
+            (sent_loc_g < M) & (recv_loc_g[succ] < M),
+            rem_sent_g[g_all.long(), succ] < C,
         )
+        F = _cycle_rescue(pending_g, sends_zero_g, ok)
+        F_rows = F[loc0:loc0 + V]  # my vranks' forced sends
+        local = (g_all >= loc0) & (g_all < loc0 + V)
+        allowed = allowed + F_rows[:, loc0:loc0 + V]
+        rem_sent = rem_sent + torch.where(local[None, :], 0, F_rows)
+        F_cols = F[:, loc0:loc0 + V]  # forced arrivals, by global source
+        recv_rem = recv_rem + torch.where(local[:, None], 0, F_cols).T
+        return allowed, rem_sent, recv_rem
+
+    def _remote_send(flat, order, bounds, rem_sent):
+        """Pack the granted cross-device rows and exchange them: the
+        ``[V_dst, K, Dev * V * C]`` arrival pools."""
+        dev = flat.device
+        K = flat.shape[0]
+        n = flat.shape[1] // V
+        my_v = torch.arange(V, dtype=_I32, device=dev)
+        c_i = torch.arange(C, dtype=_I32, device=dev)
+        valid = c_i[None, None, :] < rem_sent[:, :, None]  # [V, R_total, C]
+        pos = (bounds[:, :R_total, None] + c_i).clamp(0, n - 1)
+        row = order.reshape(-1)[
+            (my_v[:, None] * n + pos.reshape(V, -1)).reshape(-1).long()
+        ].reshape(V, R_total, C)
+        gsrc = my_v[:, None, None] * n + row
+        vals = torch.index_select(flat, 1, gsrc.reshape(-1).long()).reshape(
+            K, V, Dev, V, C)
+        send = torch.where(valid.reshape(V, Dev, V, C)[None], vals,
+                           torch.zeros((), dtype=flat.dtype, device=dev))
+        # [K, V_src, Dev, V_dst, C] -> [Dev, V_src, V_dst, K, C]
+        recv = col.all_to_all(send.permute(2, 1, 3, 0, 4).contiguous(), mesh)
+        return recv.permute(2, 3, 0, 1, 4).reshape(V, K, Dev * V * C)
 
     def _step(flat, free_stack, n_free, dest_key):
         """One dense step, O(residents)."""
         dev = flat.device
+        K = flat.shape[0]
         n = flat.shape[1] // V
         my_v = torch.arange(V, dtype=_I32, device=dev)
         with torch.profiler.record_function("mig:bin"):
             order, counts, bounds = binning.sorted_dest_counts_batched(
-                dest_key, V
-            )  # [V, n], [V, V], [V, V + 1]
+                dest_key, R_total
+            )  # [V, n], [V, R_total], [V, R_total + 1]
         leavers = counts.sum(dim=1, dtype=_I32)
-        loc_starts = bounds[:, :V]
-        allowed, pending = _grant_tables(counts, loc_starts, n_free, M)
-        # drain full-vrank rotation cycles (on one device the per-device
-        # rescue is complete); a cycle is forced only if every member
-        # stays within the [M] plans (+1 row)
-        sends_zero = allowed.sum(dim=1, dtype=_I32) == 0
-        ok = (allowed.sum(dim=1, dtype=_I32) < M) & (
-            allowed.sum(dim=0, dtype=_I32) < M
-        )
-        allowed = allowed + _cycle_rescue(pending, sends_zero, ok)
-        n_sent = allowed.sum(dim=1, dtype=_I32)
+        loc_counts = counts[:, loc0:loc0 + V]
+        loc_starts = bounds[:, loc0:loc0 + V]
+        zeros = torch.zeros((V,), dtype=_I32, device=dev)
+        sent_remote = zeros
+        n_free_local = n_free
+        if Dev > 1:
+            desired_rem, rem_sent, recv_rem = _remote_grants(counts, n_free)
+            sent_remote = rem_sent.sum(dim=1, dtype=_I32)
+            # free slots promised to remote arrivals are off the table for
+            # local ones; the receiver's own remote sends vacate slots
+            n_free_local = (n_free - recv_rem.sum(dim=1, dtype=_I32)
+                            + sent_remote)
+        allowed, pending = _grant_tables(loc_counts, loc_starts,
+                                         n_free_local, M)
+        if Dev == 1 or R_total > 128:
+            # drain full-vrank rotation cycles on this device; a cycle is
+            # forced only if every member stays within the [M] plans
+            sends_zero = (allowed.sum(dim=1, dtype=_I32) + sent_remote) == 0
+            ok = (allowed.sum(dim=1, dtype=_I32) < M) & (
+                allowed.sum(dim=0, dtype=_I32) < M
+            )
+            allowed = allowed + _cycle_rescue(pending, sends_zero, ok)
+        else:
+            allowed, rem_sent, recv_rem = _global_rescue(
+                allowed, pending, desired_rem, rem_sent, recv_rem,
+                sent_remote)
+            sent_remote = rem_sent.sum(dim=1, dtype=_I32)
         n_in = allowed.sum(dim=0, dtype=_I32)
-
-        vacated, _ = _plan_rows_batched(loc_starts, allowed, order, P)
+        n_sent = allowed.sum(dim=1, dtype=_I32) + sent_remote
+        if Dev > 1:
+            with torch.profiler.record_function("mig:exchange"):
+                pools = _remote_send(flat, order, bounds, rem_sent)
+            # segments: the V local pairs, then every global rank
+            vacated, _ = _plan_rows_batched(
+                torch.cat([loc_starts, bounds[:, :R_total]], dim=1),
+                torch.cat([allowed, rem_sent], dim=1), order, P)
+        else:
+            vacated, _ = _plan_rows_batched(loc_starts, allowed, order, P)
         with torch.profiler.record_function("mig:pack"):
             # dst w reads source s's sorted space at segment (s -> w)
             arr_src, _ = _plan_rows_batched(
                 loc_starts.T, allowed.T, order, M, seg_rows=my_v,
             )  # [V_dst, M] global source columns
             arr_cols = gather_plan_cols(flat, arr_src)  # [K, V, M]
+            if P > M:
+                arr_cols = torch.cat([arr_cols, torch.zeros(
+                    (K, V, P - M), dtype=arr_cols.dtype, device=dev)], dim=2)
         with torch.profiler.record_function("mig:unpack"):
             flat, free_stack, n_free = _land(
                 flat, free_stack, n_free, vacated, arr_cols, n_sent, n_in,
                 impl, plain,
             )
+            dropped_recv = zeros
+            if Dev > 1:
+                # arrivals from other devices pop holes, after the local
+                # landing pushed the slots its departures vacated
+                flat, n_free, n_in_rem, dropped_recv = _land_remote(
+                    flat, free_stack, n_free, pools, recv_rem, C)
+                n_in = n_in + n_in_rem
 
         population = (flat[-1, :].reshape(V, n) > 0).sum(dim=1, dtype=_I32)
+        flow = allowed
+        if Dev > 1:
+            # my rows of the global flow matrix: remote grants with the
+            # local block overlaid
+            flow = rem_sent.clone()
+            flow[:, loc0:loc0 + V] = allowed
         stats = MigrateStats(
             sent=n_sent,
             received=n_in,
             population=population,
             backlog=leavers - n_sent,
-            dropped_recv=torch.zeros((V,), dtype=_I32, device=dev),
-            flow=allowed,
+            dropped_recv=dropped_recv,
+            flow=flow,
         )
         return MigrateState(flat, free_stack, n_free), stats
 
@@ -609,13 +796,20 @@ def shard_migrate_vranks_fn(
         dev = flat.device
         n = flat.shape[1] // V
         if dest_key is None:
-            dest_key = binning.dest_key_planar(
-                flat[:D].view(torch.float32), flat[-1] > 0, domain,
-                full_grid, V, V,
-                assignment=None if table is None else table.get(dev)[0],
-            )
+            pos = flat[:D].view(torch.float32)
+            alive = flat[-1] > 0
+            if table is None and Dev > 1:
+                dest_key = binning.dest_key_planar_ranks(
+                    pos, alive, domain, dev_grid, vgrid, me_dev)
+            else:
+                dest_key = binning.dest_key_planar(
+                    pos, alive, domain,
+                    full_grid if table is None else cells, V, R_total,
+                    assignment=None if table is None else table.get(dev)[0],
+                    me_dev=me_dev,
+                )
         B = None
-        if mover_cap is not None:
+        if mover_cap is not None and Dev == 1:
             B = max(1, min(int(mover_cap), n))
             chunk, cap = binning.sparse_select_params(n, B)
             if not binning.sparse_select_feasible(n, V, chunk=chunk, cap=cap):
@@ -655,5 +849,178 @@ def shard_migrate_vranks_fn(
         return out, stats._replace(
             fast_path=torch.full((V,), int(taken), dtype=_I32, device=dev)
         )
+
+    return fn
+
+
+def _land_arrivals(fused, free_stack, n_free, recv, recv_counts, send_counts,
+                   gather_idx, capacity: int, impl: str, plain: bool):
+    """The flat engine's landing: arrivals into vacated slots, then popped
+    holes. ``recv`` is the planar ``[K, n_src * C]`` arrival pool (the
+    first ``recv_counts[s]`` of each source's ``C`` slots valid);
+    ``send_counts``/``gather_idx`` describe this rank's own sends, whose
+    slots are vacated. One landing scatter writes arrivals, hole markers
+    and the alive row; the free-stack push is a blend over the same plan.
+    Returns ``(fused, free_stack, n_free, n_in, dropped_recv)``."""
+    n = fused.shape[1]
+    C = capacity
+    dev = fused.device
+    n_dest = send_counts.shape[0]
+    n_src = recv_counts.shape[0]
+    P = max(n_src, n_dest) * C
+    n_sent = send_counts.sum(dtype=_I32)
+    n_in = recv_counts.sum(dtype=_I32)
+    zero = torch.zeros((1,), dtype=_I32, device=dev)
+    cum_send = torch.cat([zero, torch.cumsum(send_counts, 0, dtype=_I32)])
+    cum_recv = torch.cat([zero, torch.cumsum(recv_counts, 0, dtype=_I32)])
+    k = torch.arange(P, dtype=_I32, device=dev)
+    d = _segment_of(k, cum_send).long()
+    vacated = gather_idx[
+        (d.to(_I32) * C + (k - cum_send[d])).clamp(0, n_dest * C - 1).long()
+    ].to(_I32)  # first n_sent entries: vacated slot ids
+    s = _segment_of(k, cum_recv).long()
+    arrivals = recv[:, (s.to(_I32) * C + (k - cum_recv[s])).clamp(
+        0, n_src * C - 1).long()]
+    n_pop = (n_in - n_sent).clamp(min=0).minimum(n_free)
+    dropped_recv = (n_in - n_sent - n_free).clamp(min=0).to(_I32)
+    pop_idx = (n_free - 1 - (k - n_sent)).clamp(0, n - 1)
+    sentinel = torch.full((), n, dtype=_I32, device=dev)
+    target = torch.where(
+        k < torch.minimum(n_in, n_sent),
+        vacated,
+        torch.where(
+            (k >= n_sent) & (k < n_sent + n_pop),
+            free_stack[pop_idx.long()],
+            torch.where((k >= n_in) & (k < n_sent), vacated, sentinel),
+        ),
+    )
+    cols = torch.where((k < n_in)[None, :], arrivals,
+                       torch.zeros((), dtype=recv.dtype, device=dev))
+    fused = _land_scatter(fused, target, cols, impl, plain)
+    # push the net-excess departures (written as holes at vacated[n_in :
+    # n_sent]); n_pop and n_push exclude each other
+    n_push = (n_sent - n_in).clamp(min=0)
+    base = n_free - n_pop
+    s_idx = torch.arange(n, dtype=_I32, device=dev)
+    push_vals = vacated[(n_in + s_idx - base).clamp(0, P - 1).long()]
+    free_stack = torch.where((s_idx >= base) & (s_idx < base + n_push),
+                             push_vals, free_stack)
+    return fused, free_stack, base + n_push, n_in, dropped_recv
+
+
+def shard_migrate_fused_fn(domain: Domain, grid: ProcessGrid, capacity: int,
+                           mesh=None, plain: bool = False):
+    """Migration with one rank a process (the flat engine), one rank's
+    part: ``fn(state) -> (state, MigrateStats)`` on ``state.fused [K, n]``
+    (position rows ``0:ndim``, alive row last), ``free_stack [n]`` and a
+    scalar ``n_free`` (:func:`init_state` with ``batched=False``). Stats
+    are this rank's ``[1]`` entries (``flow`` ``[1, R]``).
+
+    Receiver-side flow control (lossless receive): desired counts (at most
+    ``capacity`` a destination) fly in one all-to-all, each receiver
+    grants pairwise swaps (self-financing) plus a greedy share of its free
+    slots, the grants fly back, and only granted rows are packed and
+    exchanged; the rest stay resident and retry (``backlog``). Up to 128
+    ranks the cycle rescue gathers every rank's pending row and forces
+    one row along each stalled rotation cycle. The landing route is
+    :func:`_resolve_scatter_impl`'s default. ``mesh`` defaults to
+    :func:`~.mesh.make_mesh` of ``grid``."""
+    R = grid.nranks
+    C = capacity
+    D = domain.ndim
+    rescue = R <= 128
+    if not rescue:
+        warnings.warn(
+            f"cycle_rescue disabled: {R} ranks > 128 (the all-gathered "
+            f"[R, R] boolean-closure cost grows as R^2 log R). Full-shard "
+            f"rotation cycles will backlog instead of draining -- watch "
+            f"utils.stats.detect_stall.",
+            stacklevel=2,
+        )
+    impl = _resolve_scatter_impl(None)
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    me = mesh.rank
+    one = ProcessGrid((1,) * grid.ndim, axis_names=grid.axis_names)
+
+    def fn(state: MigrateState):
+        fused, free_stack, n_free = state
+        K = fused.shape[0]
+        with torch.profiler.record_function("mig:bin"):
+            key = binning.dest_key_planar_ranks(
+                fused[:D].view(torch.float32), fused[-1] > 0, domain, grid,
+                one, me)  # [1, n]
+            order, full_counts, bounds = binning.sorted_dest_counts_batched(
+                key, R)
+            order, full_counts, bounds = order[0], full_counts[0], bounds[0]
+        desired = full_counts.clamp(max=C)
+        recv_desired = col.all_to_all(desired, mesh)
+        swap = torch.minimum(recv_desired, desired)
+        resid = _greedy_alloc((recv_desired - swap)[:, None],
+                              n_free.clamp(min=0).reshape(1))[:, 0]
+        grants = swap + resid  # what I allow each source to send me
+        send_counts = torch.minimum(desired,
+                                    col.all_to_all(grants, mesh))
+        recv_counts = grants  # each sender sends exactly what I granted
+        if rescue:
+            pend_all = col.all_gather(desired - send_counts, mesh)
+            sent_tot = col.all_gather(send_counts.sum(dtype=_I32), mesh)
+            F = _cycle_rescue(pend_all, sent_tot == 0)
+            send_counts = send_counts + F[me]
+            recv_counts = recv_counts + F[:, me]
+        backlog = (full_counts - send_counts).sum(dtype=_I32)
+        with torch.profiler.record_function("mig:pack"):
+            send, gather_idx = pack_cols(fused, order, bounds[:R],
+                                         send_counts, R, C)
+        with torch.profiler.record_function("mig:exchange"):
+            recv = col.all_to_all(send, mesh, dim=1)  # [K, R * C]
+        with torch.profiler.record_function("mig:unpack"):
+            fused, free_stack, n_free, n_in, dropped_recv = _land_arrivals(
+                fused, free_stack, n_free, recv, recv_counts, send_counts,
+                gather_idx, C, impl, plain,
+            )
+        stats = MigrateStats(
+            sent=send_counts.sum(dtype=_I32).reshape(1),
+            received=n_in.reshape(1),
+            population=(fused[-1, :] > 0).sum(dtype=_I32).reshape(1),
+            backlog=backlog.reshape(1),
+            dropped_recv=dropped_recv.reshape(1),
+            flow=send_counts[None],
+        )
+        return MigrateState(fused, free_stack, n_free), stats
+
+    return fn
+
+
+def gather_migrate_stats(stats: MigrateStats, mesh) -> MigrateStats:
+    """Every rank's stats rows stacked in rank order along the rank axis
+    (the last axis of the ``[S, V]`` leaves, the second-last of ``flow``):
+    the reference's global ``[S, R]`` stats, the same on every rank."""
+    def g(t, axis):
+        if t is None:
+            return None
+        parts = col.all_gather(t, mesh)  # [Dev, ...]
+        return torch.cat(list(parts.unbind(0)), dim=axis)
+
+    fields = MigrateStats._fields
+    return MigrateStats(*(
+        g(getattr(stats, f), -2 if f == "flow" else -1) for f in fields))
+
+
+def shard_migrate_fn(domain: Domain, grid: ProcessGrid, capacity: int,
+                     mesh=None, plain: bool = False):
+    """Per-field wrapper over the flat engine, one rank's part: ``fn(pos
+    [n, D], alive [n] bool, *fields) -> (pos, alive, *fields,
+    MigrateStats)`` with the same shapes (rows where ``alive`` is False
+    are holes; fields 32-bit, see :func:`fuse_fields`). Each call fuses,
+    builds the free stack and unfuses; a loop carries a
+    :class:`MigrateState` instead (``models.nbody.make_migrate_loop``)."""
+    fused_fn = shard_migrate_fused_fn(domain, grid, capacity, mesh=mesh,
+                                      plain=plain)
+
+    def fn(pos, alive, *fields):
+        fused, specs = fuse_fields((pos,) + tuple(fields), alive)
+        state, stats = fused_fn(init_state(fused))
+        out, alive_new = unfuse_fields(state.fused, specs)
+        return (out[0], alive_new) + tuple(out[1:]) + (stats,)
 
     return fn

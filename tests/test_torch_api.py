@@ -443,13 +443,17 @@ def test_mover_capacity_matches_reference():
 
 
 def test_unported_planes_raise():
-    for kw, item in ((dict(mesh=object()), "A5"), (dict(dcn_shape=(2, 1, 1)),
-                                                   "A9"),
-                     (dict(cross_cap=4), "A9"), (dict(engine="sparse"), "A5"),
-                     (dict(engine="neighbor"), "A5"),
+    for kw, item in ((dict(dcn_shape=(2, 1, 1)), "A9"),
+                     (dict(cross_cap=4), "A9"),
                      (dict(engine="hierarchical"), "A9")):
         with pytest.raises(NotImplementedError, match=item):
             tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", **kw)
+    # the multi-rank plane and the count-driven engines are ported: a mesh
+    # must be a RankMesh, and "sparse"/"neighbor" build on one device
+    with pytest.raises(TypeError, match="RankMesh"):
+        tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", mesh=object())
+    for engine in ("sparse", "neighbor"):
+        tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", engine=engine)
     rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         tgr.GridRedistribute(TDOM, (2, 2, 2), backend="jax")

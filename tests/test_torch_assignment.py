@@ -129,8 +129,9 @@ def test_migrate_assignment_validation():
     with pytest.raises(ValueError, match="deposit"):
         tnbody.make_migrate_loop(cfg4, 1, vgrid=tdomain.ProcessGrid((1, 2, 1)),
                                  device="cpu")
-    # without a deposit the multi-device grid is what is not ported
-    with pytest.raises(NotImplementedError):
+    # without a deposit a multi-device grid runs one device a process:
+    # it needs a process group (or a mesh) to be one of the ranks
+    with pytest.raises(ValueError, match="torch.distributed"):
         tnbody.make_migrate_loop(
             dataclasses.replace(cfg4, deposit_shape=None), 1,
             vgrid=tdomain.ProcessGrid((1, 2, 1)), device="cpu",

@@ -1094,3 +1094,35 @@ def test_segment_deposit_loop_on_card_matches_cpu_run(cuda, each_step):
     torch.testing.assert_close(rho, b[4], rtol=2e-5, atol=2e-5)
     live = int(alive.sum())
     assert abs(float(rho.double().sum()) - live) <= 1e-5 * live
+
+
+@pytest.mark.cuda
+def test_two_rank_gloo_world_on_card_matches_cpu_world(cuda):
+    """Two processes sharing the card over gloo (the multi-rank path on
+    one card): one migrate step with its scan deposit, bit-equal to the
+    same world on the CPU, kernel 2 and kernel 5 launched once on each
+    rank. Gloo moves the card's tensors itself (no staging): every
+    collective gives the CPU world's bits."""
+    from mpi_grid_redistribute_tpu_torch.parallel import launch
+
+    target = "mpi_grid_redistribute_tpu_torch.bench.multirank:small_loop"
+    card = launch.run_world(target, 2, device="cuda", timeout=300,
+                            pg_timeout=120)
+    cpu = launch.run_world(target, 2, device="cpu", timeout=300,
+                           pg_timeout=120)
+    for r in range(2):
+        (state_c, stats_c, rho_c, launches, coll_c), (
+            state_h, stats_h, rho_h, _, coll_h) = card[r], cpu[r]
+        # every collective, each backend operation beneath them included,
+        # moves the card's tensors as the CPU's
+        for k in coll_h:
+            assert coll_c[k].tobytes() == coll_h[k].tobytes(), k
+        for a, b in zip(state_c, state_h):
+            assert a.tobytes() == b.tobytes()
+        for k in stats_h:
+            np.testing.assert_array_equal(stats_c[k], stats_h[k])
+        assert rho_c.tobytes() == rho_h.tobytes()
+        assert launches["overlay_scatter_planar"] == 1
+        assert launches["tile_df_cumsum_rows"] == 1
+        assert launches["drift_wrap_bin"] == 0
+    assert int(cpu[0][1]["sent"].sum()) > 0

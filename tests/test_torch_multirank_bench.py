@@ -1,0 +1,52 @@
+"""The multi-rank bench world (``bench.multirank``, the world
+``chip_smoke.py`` starts on the card) at a small width on the CPU: 8 gloo
+ranks, every part run and verified against the one-process reference
+(the 8-vrank loop's slab multisets, the NumPy oracle, one device's plain
+densities). No kernel launches on the CPU."""
+
+from mpi_grid_redistribute_tpu_torch.bench import multirank
+from mpi_grid_redistribute_tpu_torch.parallel import launch
+
+
+def test_multirank_world_on_the_cpu(tmp_path):
+    spec = multirank.prepare(str(tmp_path), n_local=2048,
+                             deposit_shape=(16, 16, 16), config1_n=16384)
+    results = launch.run_world(
+        "mpi_grid_redistribute_tpu_torch.bench.multirank:world_main", 8,
+        args=(spec,), device="cpu", timeout=240, pg_timeout=120)
+    ref = multirank.reference(spec, "cpu")
+    summary = multirank.verify(results, spec, ref, "cpu")
+    assert summary["vranks"]["compared"] == "per slab"
+    assert summary["vranks"]["ranks"] == 2
+    assert summary["flat"]["compared"] == "per slab"
+    errs = summary["flat"]["deposit_max_abs_err"]
+    for method in ("mxu", "scan"):
+        assert errs["vs_one_device"][method] <= multirank.DEPOSIT_TOL
+        # on the CPU the kernels ARE their plain versions
+        assert errs["vs_plain"][method] == 0.0
+        assert errs["loop_vs_plain"][method] == 0.0
+    assert summary["redistribute"]["grid"] == multirank.GRID
+    assert "card_vs_cpu" not in summary
+
+
+def test_cards_world_on_the_cpu(tmp_path):
+    """The 4-rank world of ``bench.multirank.main`` (one card a rank on
+    the card, NCCL there; gloo on the CPU here): the vranks loop of dev
+    grid (2, 2, 1) x vgrid (1, 1, 2) with slab multisets equal to the
+    8-vrank run's, ``GridRedistribute(mesh=)`` byte-equal to the oracle
+    over the (2, 2, 1) grid."""
+    spec = multirank.prepare(
+        str(tmp_path), n_local=1024, deposit_shape=(16, 16, 16),
+        config1_n=8192, dev_grid=multirank.CARDS_DEV_GRID,
+        vgrid=multirank.CARDS_VGRID, world_grid=multirank.CARDS_DEV_GRID,
+        parts=("vranks",))
+    results = launch.run_world(
+        "mpi_grid_redistribute_tpu_torch.bench.multirank:world_main", 4,
+        args=(spec,), device="cpu", timeout=240, pg_timeout=120)
+    summary = multirank.verify(results, spec,
+                               multirank.reference(spec, "cpu"), "cpu")
+    assert summary["vranks"]["compared"] == "per slab"
+    assert summary["vranks"]["ranks"] == 4
+    assert summary["backend"] == "gloo"
+    assert summary["redistribute"]["grid"] == multirank.CARDS_DEV_GRID
+    assert "flat" not in summary

@@ -63,7 +63,7 @@ def test_import_does_not_load_jax():
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py"],
+    + ["chip_smoke.py", "tests/torch_rank_cases.py"],
 )
 def test_no_jax_import_in_source(path):
     bad = [m for m in _imports(ROOT / path) if _forbidden(m)]
