@@ -60,7 +60,11 @@ started together), then, on the card:
      zero drops and ownership; and the planar canonical step in a drift
      loop (2^20 rows per vrank, 1.25x slots, ~2% migration), ms/step and
      host syncs per step, with ``--profile`` the device's busy and idle
-     share of both;
+     share of both; then the hierarchical two-level engine on the same
+     headline input (``dcn_shape=(2, 1, 1)``, ``engine="hierarchical"``,
+     two pods of 4 vranks): byte-equal to the oracle and to the planar
+     call, ms per call (median), device busy and host syncs a call; and
+     one cross-block growth from ``cross_cap=1`` at config 1's width;
   7. drives the halo exchange (config 6: the 2x2x2 grid as 8 vranks on
      the periodic unit box, every slot filled, width 0.05, derived
      capacities): at 2^18 rows per vrank both vrank engines on the card
@@ -104,10 +108,21 @@ started together), then, on the card:
      multiset of live rows equal to the 8-vrank run of item 2;
      ``GridRedistribute(mesh=)`` ``"auto"`` (sparse) and ``"planar"`` on
      config 1's rows byte-equal to the oracle rank for rank; the mxu and
-     scan deposits across ranks within 2e-5 of one device's density; and
-     a small width on the card bit-equal to the CPU. Times there are
-     host-clock ms per step of processes sharing one card over gloo, not
-     multi-GPU figures.
+     scan deposits across ranks within 2e-5 of one device's density; the
+     canonical drift loop (``make_drift_loop``, 2^20 rows a rank, config
+     5's 128^3 deposit each step, ``"scan"`` then ``"mxu"``) against the
+     same loop on the plain versions and one process's plain density,
+     kernels 5 and 4 once a step on every rank; ``GridRedistribute(mesh=)
+     .halo()`` at config 6's width and size, both engines, each rank's
+     ghosts the one-card vrank engines' (whose sets are
+     ``oracle.brute_force_ghosts``'); ``GridRedistribute(mesh=,
+     dcn_shape=(2, 1, 1))`` (``"auto"``: the hierarchical engine) on
+     config 1's rows byte-equal to the oracle and to ``"planar"``; and a
+     small width on the card bit-equal to the CPU (the migrate loop; one
+     drift step with its scan deposit, a halo with each engine and a
+     hierarchical call on two ranks); NCCL at world size 1 also runs one
+     drift-loop step with its deposit. Times there are host-clock ms of
+     processes sharing one card over gloo, not multi-GPU figures.
 
 Any failed check raises; nothing is caught and carried on. The last
 lines are the ``nvidia-smi`` name and power limit, one JSON object with
@@ -713,11 +728,14 @@ def profile_steps(torch, make_run, profile_dir, label):
     """Profile runs of 2 and 6 steps; their difference gives the device
     operations, device-busy milliseconds and each hand-written kernel's
     device microseconds (``KERNEL_SYMBOLS``) of one step (set-up
-    cancels). Writes each run's kernel table to DIR."""
+    cancels). Writes each run's kernel table to DIR (none when DIR is
+    ``None``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    out = Path(profile_dir)
-    out.mkdir(parents=True, exist_ok=True)
+    out = None
+    if profile_dir:
+        out = Path(profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
     seen = {}
     for S in (2, 6):
         run = make_run(S)
@@ -740,10 +758,11 @@ def profile_steps(torch, make_run, profile_dir, label):
             for k, sym in KERNEL_SYMBOLS.items()
         }
         seen[S] = (len(dev), busy, per_kernel)
-        table = prof.key_averages().table(
-            sort_by="self_cuda_time_total", row_limit=80
-        )
-        (out / f"{label}_profile_{S}steps.txt").write_text(table)
+        if out is not None:
+            table = prof.key_averages().table(
+                sort_by="self_cuda_time_total", row_limit=80
+            )
+            (out / f"{label}_profile_{S}steps.txt").write_text(table)
     kernel_us = {k: (seen[6][2][k] - seen[2][2][k]) / 4
                  for k in KERNEL_SYMBOLS if seen[6][2][k] > 0}
     log(f"{label} profile: in-loop kernel us/step {kernel_us}")
@@ -855,15 +874,62 @@ def nccl_phase(torch, pt, config1_oracle, workdir):
                   f"nccl GridRedistribute(mesh=): {name} differs from the "
                   f"call without a mesh")
         check(rd_m._last_engine == "planar", "nccl: engine not planar")
+        drift_ms = nccl_drift_check(torch, pt, mesh, pos, vel)
     finally:
         dist.destroy_process_group()
     log(f"(a) NCCL at world size 1: 7 collectives through the backend, "
         f"GridRedistribute(mesh=) at {1 << 20} rows byte-equal to the call "
         f"without a mesh ({ms:.3f} ms a call, host clock, uploads "
-        f"included)")
+        f"included); one drift-loop step with its scan deposit byte-equal "
+        f"to the loop without a process group, kernel 5 once "
+        f"({drift_ms:.3f} ms, host clock)")
     return {"backend": "nccl", "world_size": 1, "collectives": 7,
             "redistribute_rows": 1 << 20, "redistribute_ms": ms,
-            "byte_equal_to_one_device": True}
+            "byte_equal_to_one_device": True, "drift_step_ms": drift_ms}
+
+
+def nccl_drift_check(torch, pt, mesh, pos, vel):
+    """One step of ``make_drift_loop`` with its scan deposit (config 5's
+    mesh) on a one-rank grid over ``mesh`` (NCCL), against the same loop
+    on a mesh without a process group: every output byte-equal, kernel 5
+    launched once. Returns the NCCL step's host-clock ms."""
+    from mpi_grid_redistribute_tpu_torch.models import nbody
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+    from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+
+    n = pos.shape[0]
+    grid = pt.ProcessGrid((1, 1, 1))
+    cfg = nbody.DriftConfig(domain=pt.Domain(0.0, 1.0, periodic=True),
+                            grid=grid, dt=0.0625, capacity=n, n_local=n,
+                            deposit_shape=(128, 128, 128))
+    local = mesh_lib.RankMesh(None, grid.shape, grid.axis_names, 1, 0,
+                              (0, 0, 0), None)
+    args = (torch.from_numpy(pos).cuda(), torch.from_numpy(vel).cuda(), n)
+    want = nbody.make_drift_loop(cfg, 1, mesh=local,
+                                 deposit_each_step=True)(*args)
+    loop = nbody.make_drift_loop(cfg, 1, mesh=mesh, deposit_each_step=True)
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    got = loop(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _build.counts()
+    check(launches.get("tile_df_cumsum_rows") == 1,
+          f"nccl drift step: kernel 5 launched {launches}")
+    for name, a, b in (("pos", got[0], want[0]), ("vel", got[1], want[1]),
+                       ("count", got[2], want[2]), ("rho", got[4], want[4]),
+                       *((f"stat {k}", getattr(got[3], k),
+                          getattr(want[3], k))
+                         for k in ("send_counts", "recv_counts",
+                                   "dropped_send", "dropped_recv",
+                                   "needed_capacity"))):
+        check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+              f"nccl drift step: {name} differs from the loop without a "
+              f"process group")
+    check(abs(float(got[4].double().sum()) - n) <= 1e-5 * n,
+          "nccl drift step: density mass")
+    return ms
 
 
 def multirank_phase(torch, pt, config1_oracle, state, planar_out, smi,
@@ -889,7 +955,9 @@ def multirank_phase(torch, pt, config1_oracle, state, planar_out, smi,
             args=(spec,), backend="gloo", device="cuda", timeout=600,
             pg_timeout=300)
         world_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         ref = multirank.reference(spec, "cuda", single=planar_out)
+        ref_s = time.perf_counter() - t0
         try:
             summary = multirank.verify(results, spec, ref, "cuda")
         except AssertionError as e:
@@ -916,6 +984,31 @@ def multirank_phase(torch, pt, config1_oracle, state, planar_out, smi,
         f"largest differences (kernel loop vs plain loop, kernel vs plain, "
         f"vs one device's plain density; tolerance "
         f"{multirank.DEPOSIT_TOL}): {fl['deposit_max_abs_err']}")
+    dr, hl, hi = summary["drift"], summary["halo"], summary["hier"]
+    log(f"(e) canonical drift loop across 8 ranks ({label.format(w=8)}; "
+        f"{smi}): {dr['rows']} rows, config 5's deposit each step; ms/step "
+        f"per rank, mxu {[round(x, 3) for x in dr['ms_per_step']['mxu']]} "
+        f"(raw {[round(x, 3) for x in dr['raw_ms_per_step']['mxu']]}), "
+        f"scan {[round(x, 3) for x in dr['ms_per_step']['scan']]} (raw "
+        f"{[round(x, 3) for x in dr['raw_ms_per_step']['scan']]}); kernel "
+        f"4/5 launches a step per rank {dr['kernel4_launches_a_step']}/"
+        f"{dr['kernel5_launches_a_step']}; state byte-equal to the plain "
+        f"loop, densities' largest differences (vs plain, vs one process's "
+        f"plain density; tolerance {multirank.DEPOSIT_TOL}): "
+        f"{dr['deposit_max_abs_err']}")
+    log(f"(f) halo() across 8 ranks ({label.format(w=8)}; {smi}): "
+        f"{hl['rows_a_rank']} rows a rank, width {hl['width']}, "
+        f"{hl['ghosts']} ghosts equal to the one-card vrank engines' and "
+        f"the oracle's sets; ms/exchange per rank planar "
+        f"{[round(x, 3) for x in hl['ms']['auto']]}, row-major "
+        f"{[round(x, 3) for x in hl['ms']['rowmajor']]}")
+    log(f"(g) hierarchical across 8 ranks ({label.format(w=8)}; {smi}): "
+        f"dcn_shape {hi['dcn_shape']} ({hi['n_pods']} pods), 'auto' -> "
+        f"hierarchical, byte-equal to the oracle and to 'planar' at "
+        f"{rd['rows']} rows; ms/call per rank "
+        f"{[round(x, 3) for x in hi['ms']]} (planar "
+        f"{[round(x, 3) for x in rd['ms']['planar']]}); cross_cap "
+        f"{hi['cross_cap']}, mover_cap {hi['mover_cap']}")
     log(f"(d) card vs CPU at n_local={multirank.SMALL_N}, 2 ranks: "
         f"bit-equal {cv['bit_equal']}; density max abs difference "
         f"{cv['rho_max_abs_err']}")
@@ -925,7 +1018,10 @@ def multirank_phase(torch, pt, config1_oracle, state, planar_out, smi,
             log(f"{part} profile a step per rank (device busy ms, device "
                 f"operations, host ms in collectives, NCCL device ms): "
                 f"{[tuple(round(v, 3) for v in p) for p in prof]}")
-    log(f"multi-rank world of 8: {world_s:.1f} s including start-up")
+    log(f"multi-rank world of 8: {world_s:.1f} s including start-up "
+        f"(rank 0's seconds a part: "
+        f"{ {k: round(v, 1) for k, v in results[0]['seconds'].items()} }); "
+        f"the one-process references {ref_s:.1f} s")
     return dict(summary, nccl=nccl, world_seconds=world_s,
                 label=label.format(w="W"), card=smi)
 
@@ -1365,6 +1461,100 @@ def canonical_phase(torch, pt, config1_oracle, oracle, profiling,
         "host_syncs_per_step": step_syncs,
         "device_busy_ms_per_step": step_busy,
     }, (rd, out)
+
+
+HIER_DCN = (2, 1, 1)  # two pods of 4 vranks
+HIER_CALLS = 10
+
+
+def hierarchical_phase(torch, pt, config1_oracle, profiling, headline):
+    """The hierarchical two-level engine on one card: the canonical
+    phase's headline input (2^20 rows a vrank, 8 vranks) with
+    ``dcn_shape=HIER_DCN`` and ``engine="hierarchical"``, byte-equal to
+    the port's NumPy oracle and to the planar call's output
+    (``headline``); ms per call (median of :data:`HIER_CALLS`, CUDA
+    events), device busy a call (a device-only profile of 2 and 6 calls,
+    differenced) and host syncs a call; then one growth of the cross
+    block from ``cross_cap=1`` at config 1's width, byte-equal to the
+    oracle after the re-run."""
+    V = int(np.prod(GRID))
+    N = V * N_LOCAL
+    kw = dict(lo=0.0, hi=1.0, periodic=True, grid=GRID,
+              capacity_factor=config1_oracle.CAPACITY_FACTOR)
+    host = config1_oracle.inputs(N)
+    args = tuple(torch.from_numpy(a).cuda() for a in host)
+    rd = pt.GridRedistribute(engine="hierarchical", dcn_shape=HIER_DCN,
+                             **kw)
+    for _ in range(3):  # calibration: the synchronous checks and growth
+        out = rd.redistribute(*args)
+    check(rd._last_engine == "hierarchical" and rd.n_pods == 2,
+          f"hierarchical: ran {rd._last_engine!r} over {rd.n_pods} pods")
+    times = []
+    for _ in range(HIER_CALLS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = rd.redistribute(*args)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    call_ms = sorted(a.elapsed_time(b) for a, b in times)
+    calls = 4
+    _, syncs = synced_run(
+        torch, lambda: [rd.redistribute(*args) for _ in range(calls)])
+    _, busy, _ = profile_steps(
+        torch, lambda S: (lambda: [rd.redistribute(*args)
+                                   for _ in range(S)]), None, "hier")
+    out = rd.redistribute(*args)
+    rd.flush_overflow_checks()
+    planar_rd, planar_out = headline
+    for name, a, b in (("positions", out.positions, planar_out.positions),
+                       ("count", out.count, planar_out.count),
+                       *((f"field {i}", a, b) for i, (a, b) in enumerate(
+                           zip(out.fields, planar_out.fields)))):
+        check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+              f"hierarchical: {name} differs from the planar call")
+    np_rd = pt.GridRedistribute(backend="numpy", **kw)
+    np_rd.capacity, np_rd.out_capacity = rd.capacity, rd.out_capacity
+    bad = config1_oracle.mismatches(out, np_rd.redistribute(*host))
+    check(not bad, f"hierarchical: {bad} differ from the oracle at {N} rows")
+    check(int(out.stats.dropped_send.sum()) == 0
+          and int(out.stats.dropped_recv.sum()) == 0,
+          "hierarchical: rows dropped")
+    med = statistics.median(call_ms)
+    log(f"hierarchical vranks: {med:.4f} ms/call (median of {HIER_CALLS}, "
+        f"min {call_ms[0]:.4f}) at {N} rows (2^20 per vrank), dcn_shape "
+        f"{HIER_DCN} (2 pods of 4 vranks), capacity "
+        f"{rd._capacities(N_LOCAL)[0]}, mover_cap {rd._mover_cap}, "
+        f"cross_cap {rd._cross_cap}, intra fallback "
+        f"{int(out.stats.fallback[0])}; device busy {busy:.4f} ms/call, "
+        f"host syncs {syncs / calls:g}/call (the intra guard); byte-equal "
+        f"to the planar call and the oracle (the planar canonical call's "
+        f"min is in the canonical line above)")
+    del args, out, host
+    # one growth of the cross block from cross_cap=1, at config 1's width
+    n1 = 1 << 20
+    small = config1_oracle.inputs(n1)
+    rd1 = pt.GridRedistribute(engine="hierarchical", dcn_shape=HIER_DCN,
+                              cross_cap=1, **kw)
+    res = rd1.redistribute(*small)
+    rd1.flush_overflow_checks()
+    check(rd1._cross_cap > 1 and rd1._blocking_fetches >= 2,
+          f"hierarchical: cross_cap {rd1._cross_cap} after "
+          f"{rd1._blocking_fetches} attempts")
+    bad = config1_oracle.mismatches(
+        res, pt.GridRedistribute(backend="numpy", **kw).redistribute(*small))
+    check(not bad, f"hierarchical (cross_cap grown): {bad} differ from the "
+                   f"oracle")
+    log(f"hierarchical cross_cap growth: 1 -> {rd1._cross_cap} in "
+        f"{rd1._blocking_fetches} attempts at {n1} rows, byte-equal to the "
+        f"oracle")
+    return {"ms_per_call_median": med, "ms_per_call_min": call_ms[0],
+            "device_busy_ms_per_call": busy,
+            "host_syncs_per_call": syncs / calls, "rows": N,
+            "dcn_shape": HIER_DCN, "cross_cap": rd._cross_cap,
+            "mover_cap": rd._mover_cap,
+            "cross_cap_grown_from_1": rd1._cross_cap}
 
 
 HALO_SMALL = 1 << 18  # config 6's own size, card against CPU
@@ -2033,6 +2223,8 @@ def main() -> int:
     canon, headline = canonical_phase(torch, pt, config1_oracle, oracle,
                                       profiling, args.profile)
     lap("canonical")
+    hier = hierarchical_phase(torch, pt, config1_oracle, profiling, headline)
+    lap("hierarchical")
 
     # ---- the halo exchange (config 6) and the public halo()
     halo = halo_phase(torch, pt, config6_halo, config1_oracle, oracle,
@@ -2083,6 +2275,7 @@ def main() -> int:
     log(json.dumps({"config2": c2}))
     log(json.dumps({"config3": c3}))
     log(json.dumps({"canonical": canon}))
+    log(json.dumps({"hierarchical": hier}))
     log(json.dumps({"halo": halo}))
     log(json.dumps({"ranks": ranks}))
     log(smi)

@@ -6,17 +6,25 @@ grid as virtual ranks, or with ``mesh=`` one rank a process:
 
   * the canonical :class:`GridRedistribute` ``.redistribute()`` (the
     planar, row-major, count-driven ``"sparse"`` and stencil
-    ``"neighbor"`` engines; ``engine="auto"`` picks planar on one device
-    and sparse across ranks) with its NumPy oracle (:mod:`.oracle`) and
-    non-uniform :class:`GridEdges`, ``.apply_assignment()``, and the
-    functional :func:`redistribute` and :func:`.api.reshard`;
+    ``"neighbor"`` engines, and the two-level ``"hierarchical"`` one over
+    the pods of ``dcn_shape=`` with its ``cross_cap=`` block;
+    ``engine="auto"`` picks planar on one device, hierarchical across
+    the ranks of several pods and sparse across ranks of one) with its
+    NumPy oracle (:mod:`.oracle`) and non-uniform :class:`GridEdges`,
+    ``.apply_assignment()``, and the functional :func:`redistribute` and
+    :func:`.api.reshard`;
   * the halo exchange ``GridRedistribute.halo()`` (:class:`HaloResult`;
-    the planar and row-major vrank engines of :mod:`.parallel.halo`, one
-    device), with the set-level ghost oracle ``oracle.brute_force_ghosts``;
+    the planar and row-major engines of :mod:`.parallel.halo`, on one
+    device and across ranks), with the set-level ghost oracle
+    ``oracle.brute_force_ghosts``;
   * the drift/migrate loop (:func:`.models.nbody.make_migrate_loop`, the
     mover-sparse and planar engines, the row-store landing route, the
     flat engine and the vrank engine across ranks) and the CIC deposit
-    fused into it, on one device and across ranks.
+    fused into it, on one device and across ranks;
+  * the canonical drift loop (:func:`.models.nbody.make_drift_loop` /
+    ``make_drift_step``: drift, wrap, the row-major canonical exchange
+    and the CIC deposit each step or once at the end), one rank a
+    process, or on a one-rank grid in one process.
 
 Ranks over ``torch.distributed`` (the reference is ONE program over a
 ``jax.sharding.Mesh``; the port is one program a rank):
@@ -29,15 +37,19 @@ Ranks over ``torch.distributed`` (the reference is ONE program over a
   * rank ``r`` holds the reference's shard ``r`` of every global array
     (rows ``[r * n, (r + 1) * n)``, or lane-sharded planar columns) and
     a scalar ``count``, and returns the reference's output shard ``r``;
-  * stats the reference returns as ``[R]`` (``[R, R]``, ``[S, R]``) come
-    back the same on every rank (gathered), so every decision a caller or
-    an engine takes from them (capacity growth, mover-block growth, the
-    count-driven engines' branch, the cycle rescue) is the same on every
-    rank, and every rank takes the same branch around a collective;
+  * stats the reference returns as ``[R]`` (``[R, R]``, ``[S, R]``; the
+    halo's ghost counts and overflow too) come back the same on every
+    rank (gathered), so every decision a caller or an engine takes from
+    them (capacity, mover-block, cross-block and halo growth, the
+    count-driven and hierarchical engines' branch, the cycle rescue) is
+    the same on every rank, and every rank takes the same branch around
+    a collective;
   * the collectives (:mod:`.parallel.collectives`) use only what gloo and
-    NCCL both take; :func:`.parallel.launch.run_world` starts a world of
-    processes (the counterpart of ``mpirun``). Several ranks sharing one
-    card run over gloo; NCCL takes one rank a card.
+    NCCL both take, a collective over a subset of the mesh axes (the
+    hierarchical engine's pod and pod-slot groups) being one world call;
+    :func:`.parallel.launch.run_world` starts a world of processes (the
+    counterpart of ``mpirun``). Several ranks sharing one card run over
+    gloo; NCCL takes one rank a card.
 
 Every TPU kernel of the reference has a hand-written CUDA counterpart
 under ``csrc/``, compiled with ``nvcc`` at first use. Entry points run on

@@ -208,16 +208,27 @@ def _needed_out(stats) -> torch.Tensor:
     return stats.recv_counts.sum(dim=1, dtype=torch.int32).max()
 
 
+def _needed_cross(stats) -> torch.Tensor:
+    """The hierarchical engine's peak unclipped cross-pod block (0 for
+    every other engine)."""
+    if stats.needed_cross is None:
+        return torch.zeros((), dtype=torch.int32,
+                           device=stats.needed_capacity.device)
+    return stats.needed_cross.max()
+
+
 def _accum_overflow_counters(cum, stats):
     """Fold one call's overflow stats into the cumulative device-side
-    counters ``[dropped_send, dropped_recv, needed_capacity,
-    needed_out]`` (int32 ``[4]``): a few small device ops, no host read,
-    so a window read every ``check_every`` calls covers every call."""
+    counters ``[dropped_send, dropped_recv, needed_capacity, needed_out,
+    needed_cross]`` (int32 ``[5]``): a few small device ops, no host
+    read, so a window read every ``check_every`` calls covers every
+    call."""
     return torch.stack([
         cum[0] + stats.dropped_send.sum(dtype=torch.int32),
         cum[1] + stats.dropped_recv.sum(dtype=torch.int32),
         torch.maximum(cum[2], stats.needed_capacity.max()),
         torch.maximum(cum[3], _needed_out(stats)),
+        torch.maximum(cum[4], _needed_cross(stats)),
     ])
 
 
@@ -275,16 +286,19 @@ class GridRedistribute:
           every call);
         * ``"ignore"``: return at once, drops reported in ``stats``.
       check_every: the deferred check's cadence in calls (default 16).
-      engine: ``"auto"`` (default: ``"sparse"`` across ranks of a mesh,
+      engine: ``"auto"`` (default: ``"hierarchical"`` across the ranks of
+        a mesh of several pods, ``"sparse"`` across ranks of one pod,
         ``"planar"`` on one device, ``"rowmajor"`` when an array is not
-        32-bit), ``"planar"``, ``"rowmajor"``, ``"sparse"`` or
+        32-bit), ``"planar"``, ``"rowmajor"``, ``"sparse"``,
         ``"neighbor"`` (the count-driven engines: a ``[K, R * mover_cap]``
         wire, or one stencil shift a neighbor, falling back to the dense
         pool when the movers do not fit; ``mover_cap`` starts at
         ``capacity // 8`` rounded to a power of two and grows from the
         measured need, and once it reaches ``capacity`` the planar
-        engine runs). ``"hierarchical"`` raises ``NotImplementedError``
-        (``ROADMAP.md`` A9).
+        engine runs) or ``"hierarchical"`` (the two-level engine over
+        the pods of ``dcn_shape``: the pod-local stencil inside a pod,
+        one ``cross_cap`` block a destination pod across them; on a
+        grid of one pod it resolves to ``"sparse"``).
       mover_cap: the count-driven engines' first wire block (rounded up
         to a power of two); ``None`` derives it as above.
       edges: optional :class:`GridEdges` (non-uniform or
@@ -295,8 +309,17 @@ class GridRedistribute:
         rank calling with its own shard (see the module docstring). Every
         growth decision reads the gathered stats, so the ranks rebuild
         together. The numpy backend ignores it, as the reference does.
-      dcn_shape, cross_cap: the two-level plane; not ported, they raise
-        ``NotImplementedError``.
+      dcn_shape: per-axis pod counts (:class:`~.parallel.mesh.
+        HierarchicalMesh`; each divides its grid extent): grid axis ``a``
+        splits into ``dcn_shape[a]`` pods. With more than one pod the
+        ``"hierarchical"`` engine is available, and ``"auto"`` takes it
+        across the ranks of a mesh. ``None`` (or all ones) is one pod.
+      cross_cap: the hierarchical engine's condensed cross-pod block, a
+        destination pod (rounded up to a power of two); ``None`` derives
+        ``capacity // 8``. It grows from the measured ``needed_cross``
+        and, because clipped cross rows are dropped (there is no dense
+        cross-pod fallback), a call that clipped re-runs on the same
+        inputs at the grown block under ``on_overflow="grow"``.
 
     :meth:`halo` exchanges ghosts on the same grid (torch backend, uniform
     cells), with the same engine rule and its own overflow policy.
@@ -324,15 +347,6 @@ class GridRedistribute:
         cross_cap: Optional[int] = None,
         edges=None,
     ):
-        if dcn_shape is not None or cross_cap is not None:
-            raise NotImplementedError(
-                "dcn_shape=/cross_cap=: the hierarchical two-level engine is "
-                "not ported yet (ROADMAP.md A9)"
-            )
-        if engine == "hierarchical":
-            raise NotImplementedError(
-                "engine='hierarchical' is not ported yet (ROADMAP.md A9)"
-            )
         self.domain = _as_domain(domain, lo, hi, periodic)
         if grid is None:
             raise ValueError("grid (ProcessGrid or shape tuple) is required")
@@ -402,11 +416,24 @@ class GridRedistribute:
             raise ValueError(f"mover_cap must be >= 1, got {mover_cap}")
         self._mover_cap = (None if mover_cap is None
                            else _next_pow2(int(mover_cap)))
+        # the two-level plane: pods of the grid, and the hierarchical
+        # engine's cross block (None = derived on first use)
+        self._hier = (None if dcn_shape is None
+                      else mesh_lib.HierarchicalMesh(self.grid, dcn_shape))
+        if cross_cap is not None and int(cross_cap) < 1:
+            raise ValueError(f"cross_cap must be >= 1, got {cross_cap}")
+        self._cross_cap = (None if cross_cap is None
+                           else _next_pow2(int(cross_cap)))
         self._last_engine = None  # the engine the last call resolved to
 
     @property
     def nranks(self) -> int:
         return self.grid.nranks
+
+    @property
+    def n_pods(self) -> int:
+        """Number of pods (1 without ``dcn_shape`` or with all ones)."""
+        return 1 if self._hier is None else self._hier.n_pods
 
     @property
     def mesh(self):
@@ -429,9 +456,30 @@ class GridRedistribute:
         the next call runs the grown block."""
         if self._mover_cap is None or needed <= self._mover_cap:
             return
-        if self._last_engine not in ("sparse", "neighbor"):
+        if self._last_engine not in ("sparse", "neighbor", "hierarchical"):
             return
         self._mover_cap = _next_pow2(int(needed))
+
+    def _cross_cap_for(self, cap: int) -> int:
+        """The hierarchical engine's cross block, a destination pod: first
+        ``next_pow2(cap // 8)``, then only grown by
+        :meth:`_maybe_grow_cross_cap`."""
+        if self._cross_cap is None:
+            self._cross_cap = _next_pow2(max(1, cap // 8))
+        return self._cross_cap
+
+    def _maybe_grow_cross_cap(self, needed: int) -> bool:
+        """Grow the cross block to the measured ``needed_cross`` (the
+        peak unclipped cross-pod rows to one destination pod: the
+        smallest block that would have carried every one). Clipped cross
+        rows are dropped, not sent densely, so on True the caller re-runs
+        the same call at the grown block."""
+        if self._cross_cap is None or needed <= self._cross_cap:
+            return False
+        if self._last_engine != "hierarchical":
+            return False
+        self._cross_cap = _next_pow2(int(needed))
+        return True
 
     def _capacities(self, n_local: int) -> Tuple[int, int]:
         cap = self.capacity
@@ -550,7 +598,8 @@ class GridRedistribute:
         one dispatch rule (``exchange.resolve_engine``): on one device the
         vrank engines, across the ranks of a mesh the multi-rank ones."""
         specs = None
-        if self.engine in ("auto", "planar", "sparse", "neighbor"):
+        if self.engine in ("auto", "planar", "sparse", "neighbor",
+                           "hierarchical"):
             specs = _planar_specs(positions, fields)
             if specs is None and self.engine != "auto":
                 raise TypeError(
@@ -563,14 +612,26 @@ class GridRedistribute:
             self.engine, vranks=mesh is None,
             n_devices=1 if mesh is None else mesh.size,
             planar_ok=specs is not None, canonical=True,
+            n_pods=self.n_pods,
         )
-        if resolved in ("sparse", "neighbor"):
+        if resolved in ("sparse", "neighbor", "hierarchical"):
             B = self._mover_cap_for(cap)
             if B >= cap:
                 # the grown block reached the dense pool: run planar
                 resolved = "planar"
         self._last_engine = resolved
         grid, dom, edges = self.grid, self.domain, self.edges
+        if resolved == "hierarchical":
+            B2 = self._cross_cap_for(cap)
+            if mesh is None:
+                return _planar_call(
+                    exchange.build_redistribute_hierarchical_vranks(
+                        dom, grid, self._hier, cap, out_cap, B, B2, dom.ndim,
+                        edges=edges), self.nranks, out_cap, specs)
+            return _mesh_planar_call(
+                exchange.build_redistribute_hierarchical(
+                    mesh, dom, grid, self._hier, cap, out_cap, B, B2,
+                    dom.ndim, edges=edges), out_cap, specs)
         if resolved in ("sparse", "neighbor"):
             if mesh is None:
                 return _planar_call(
@@ -701,12 +762,13 @@ class GridRedistribute:
         ``overflow [R]``. The planar engine runs when every array is
         32-bit, the row-major one otherwise; both give the same ghosts.
         "grow" and "raise" read ``overflow`` on the host once an attempt.
+
+        With ``mesh=`` each rank passes its shard (``positions [n_local,
+        ndim]``, a scalar ``count``) and gets its own ghosts
+        (``ghost_positions [ghost_capacity, ndim]``, fields alike) with
+        the ghost counts and overflow of every rank (``[R]``, gathered),
+        so every rank grows, retries or raises together.
         """
-        if self._mesh is not None:
-            raise NotImplementedError(
-                "halo() across the ranks of a mesh is not ported yet "
-                "(ROADMAP.md A8); it runs on one device"
-            )
         if self.backend != "torch":
             raise ValueError(
                 "halo() runs on the torch backend; for NumPy-side "
@@ -782,29 +844,37 @@ class GridRedistribute:
                     "(they ride as int32 rows); cast or use "
                     "engine='auto'/'rowmajor'"
                 )
-        if specs is not None:
+        mesh, dom, grid = self._mesh, self.domain, self.grid
+        if mesh is not None and specs is not None:
+            fn = _mesh_planar_call(halo_lib.build_halo_planar(
+                mesh, dom, grid, widths, pc, gc), gc, specs)
+        elif mesh is not None:
+            return halo_lib.build_halo_exchange(
+                mesh, dom, grid, widths, pass_capacity=pc,
+                ghost_capacity=gc)(positions, count, *fields)
+        elif specs is not None:
             fn = _planar_call(halo_lib.vrank_halo_planar_fn(
-                self.domain, self.grid, widths, pc, gc), self.nranks, gc,
-                specs)
+                dom, grid, widths, pc, gc), self.nranks, gc, specs)
         else:
             fn = _rowmajor_call(halo_lib.vrank_halo_fn(
-                self.domain, self.grid, widths, pc, gc), self.nranks, gc)
+                dom, grid, widths, pc, gc), self.nranks, gc)
         return HaloResult(*fn(positions, count, *fields))
 
-    def _read_overflow(self, result) -> Tuple[int, int, int, int]:
+    def _read_overflow(self, result) -> Tuple[int, int, int, int, int]:
         """One blocking read of ``(dropped_send, dropped_recv, needed,
-        needed_out)`` off a call's stats."""
+        needed_out, needed_cross)`` off a call's stats."""
         self._blocking_fetches += 1
         st = result.stats
         if self.backend == "numpy":
             return (int(st.dropped_send.sum()), int(st.dropped_recv.sum()),
                     int(st.needed_capacity.max()),
-                    int((result.count + st.dropped_recv).max()))
+                    int((result.count + st.dropped_recv).max()), 0)
         vals = torch.stack([
             st.dropped_send.sum(dtype=torch.int32),
             st.dropped_recv.sum(dtype=torch.int32),
             st.needed_capacity.max(),
             _needed_out(st),
+            _needed_cross(st),
         ]).tolist()
         return tuple(int(v) for v in vals)
 
@@ -823,18 +893,20 @@ class GridRedistribute:
                 # cumulative device totals, read one window later
                 if self._cum_counters is None:
                     self._cum_counters = torch.zeros(
-                        (4,), dtype=torch.int32, device=self.device)
+                        (5,), dtype=torch.int32, device=self.device)
                 self._cum_counters = _accum_overflow_counters(
                     self._cum_counters, result.stats
                 )
                 self._deferred_check(n_local, cap, out_cap)
                 return result
-            dropped_send, dropped_recv, needed, needed_out = (
+            dropped_send, dropped_recv, needed, needed_out, needed_cross = (
                 self._read_overflow(result))
             if not dropped_send and not dropped_recv:
                 if self.on_overflow == "grow":
                     self._clean_checks += 1
                     self._maybe_grow_mover_cap(needed)
+                    # clean: re-arm the cross block for the next call
+                    self._maybe_grow_cross_cap(needed_cross)
                 return result
             self._clean_checks = 0
             if self.on_overflow == "raise":
@@ -844,8 +916,12 @@ class GridRedistribute:
                     f"out_capacity or use on_overflow='grow'"
                 )
             self._maybe_grow_mover_cap(needed)
-            if not self._grow(dropped_send, dropped_recv, needed, needed_out,
-                              n_local, cap, out_cap):
+            # cross-pod clipping is healed by the cross block, not the
+            # capacity: True re-runs this call at the grown block
+            grew_cross = self._maybe_grow_cross_cap(needed_cross)
+            grew = self._grow(dropped_send, dropped_recv, needed, needed_out,
+                              n_local, cap, out_cap)
+            if not (grew or grew_cross):
                 raise RuntimeError(
                     f"overflow not resolvable by growth (capacity {cap}, "
                     f"out_capacity {out_cap} already at their maxima): "
@@ -916,10 +992,13 @@ class GridRedistribute:
         # pending, so a later resolve or flush still reports it
         if event is not None:
             event.synchronize()
-        total_send, total_recv, needed, needed_out = (
+        total_send, total_recv, needed, needed_out, needed_cross = (
             int(v) for v in host.tolist())
         self._pending_check = None
         self._resolved_through = max(self._resolved_through, call_idx)
+        # re-arm the count-driven and cross blocks from the window's peaks
+        self._maybe_grow_mover_cap(needed)
+        self._maybe_grow_cross_cap(needed_cross)
         dropped_send = total_send - self._seen_send
         dropped_recv = total_recv - self._seen_recv
         if not dropped_send and not dropped_recv:

@@ -19,8 +19,20 @@ of the first ranks:
     for the caller to hold against one device's plain density;
   * ``GridRedistribute(mesh=)`` over the world's grid with ``"auto"``
     (the sparse engine) and ``"planar"`` on config 1's rows, always;
+  * ``drift``: the canonical drift loop (``make_drift_loop``) on the
+    2x2x2 grid from the bench state (each rank's live rows are a prefix
+    of its rows), config 5's deposit each step with ``"mxu"`` and then
+    ``"scan"`` (counted runs, each held against the same loop with
+    ``plain=True``); the scan run's final rows are written for the
+    caller's one-process density;
+  * ``halo``: ``GridRedistribute(mesh=).halo()`` at config 6's width on
+    its state, both engines, a digest of each rank's ghosts;
+  * ``hier``: ``GridRedistribute(mesh=, dcn_shape=DCN_SHAPE)`` on
+    config 1's rows (``"auto"``: the hierarchical engine);
   * ``card_vs_cpu``: a small width on ranks 0-1 (dev grid (2, 1, 1) x
-    vgrid (1, 2, 2), the scan and then the mxu deposit each step) on the
+    vgrid (1, 2, 2), the scan and then the mxu deposit each step; then
+    on the (2, 1, 1) grid one drift step with its scan deposit, a halo
+    with each engine and a hierarchical call over two pods) on the
     ranks' device and on the CPU: the state and stats bit for bit, the
     density bit for bit (scan) or within :data:`DEPOSIT_TOL` (mxu).
 
@@ -46,6 +58,10 @@ SMALL_N = 4096
 DEPOSIT_SHAPE = (128, 128, 128)
 SMALL_DEPOSIT_SHAPE = (16, 16, 16)
 CONFIG1_N = 1 << 20
+HALO_N = 1 << 18  # config 6's rows a rank
+DCN_SHAPE = (2, 1, 1)  # the hierarchical part's pods
+DRIFT_STEPS = 4  # a method's counted drift run
+HALO_CALLS = 5  # timed halo() calls an engine
 
 
 # odd 64-bit multipliers of the additive multiset fingerprint
@@ -354,6 +370,213 @@ def _redistribute_part(spec, mesh, dev) -> dict:
     return out
 
 
+def _rank_rows(spec, prefix: str, ranks: int, i: int):
+    """Rank ``i`` of ``ranks``: its row-major rows of a state written by
+    :func:`prepare` (``pos``, ``vel``, ``alive``), live rows first in
+    their order, and the live count (the canonical layout)."""
+    return _live_first(*(np.ascontiguousarray(split_rows(np.load(
+        os.path.join(spec["workdir"], f"{prefix}{k}.npy"), mmap_mode="r"),
+        ranks)[i]) for k in ("pos", "vel", "alive")))
+
+
+def _live_first(pos, vel, alive):
+    """``(pos, vel, count)``: the live rows first, in their order."""
+    order = np.argsort(~alive, kind="stable")
+    return pos[order], vel[order], int(alive.sum())
+
+
+def _digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a.cpu().numpy() if hasattr(a, "cpu")
+                                      else a).tobytes())
+    return h.hexdigest()
+
+
+def _owned_rows(pos, count: int, grid, rank: int) -> bool:
+    """Every live row of a rank's row-major ``pos [n, 3]`` lies in the
+    rank's cell of ``grid`` on the unit box (float64)."""
+    import torch
+
+    p = pos[:count].double()
+    g = torch.tensor(grid, device=p.device)
+    cell = torch.minimum(torch.floor(p * g).long().clamp_min(0), g - 1)
+    owner = (cell[:, 0] * grid[1] + cell[:, 1]) * grid[2] + cell[:, 2]
+    return bool((owner == rank).all())
+
+
+def _drift_part(spec, mesh, dev, barrier) -> dict:
+    """The canonical drift loop across the 8 ranks from the bench state,
+    config 5's deposit each step: ``"mxu"`` then ``"scan"``, each a
+    counted run of :data:`DRIFT_STEPS` steps (ms a step raw and
+    differenced) held against the same loop with ``plain=True`` (state
+    byte-equal, density byte-equal for scan, within :data:`DEPOSIT_TOL`
+    for mxu). The scan run's final rows go to the workdir."""
+    import torch
+
+    from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+    from mpi_grid_redistribute_tpu_torch.models import nbody
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    r, n = mesh.rank, spec["n_local"]
+    pos, vel, count = _rank_rows(spec, "", mesh.size, r)
+    args = (torch.from_numpy(pos).to(dev), torch.from_numpy(vel).to(dev),
+            count)
+    out = {"count_in": count}
+    for method in ("mxu", "scan"):
+        cfg = nbody.DriftConfig(
+            domain=Domain(0.0, 1.0, periodic=True), grid=ProcessGrid(GRID),
+            dt=1.0, capacity=spec["capacity"], n_local=n,
+            deposit_shape=tuple(spec["deposit_shape"]),
+            deposit_method=method)
+
+        def loop(k, plain=False):
+            return nbody.make_drift_loop(cfg, k, mesh=mesh,
+                                         deposit_each_step=True, device=dev,
+                                         plain=plain)(*args)
+
+        loop(1)  # warm-up
+        res, launches, raw, per_step = _stepped(torch, _build, dev, loop,
+                                                DRIFT_STEPS, barrier)
+        want = loop(DRIFT_STEPS, plain=True)
+        c = int(res[2][0])
+        out[method] = dict(
+            launches=launches, ms_per_step=per_step, raw_ms_per_step=raw,
+            state_equals_plain=all(_same_bits(a, b)
+                                   for a, b in zip(res[:3], want[:3])),
+            rho_equals_plain=_same_bits(res[4], want[4]),
+            rho_err_vs_plain=_max_err(res[4], want[4]),
+            rho=res[4].cpu().numpy(), count=c,
+            owned=_owned_rows(res[0], c, GRID, r),
+            finite=bool(torch.isfinite(res[0][:c]).all()),
+            stats=_stats_np(res[3]))
+        if method == "scan":
+            np.save(os.path.join(spec["workdir"], f"drift_pos_{r}.npy"),
+                    res[0][:c].cpu().numpy())
+        del res, want
+    return out
+
+
+def _halo_part(spec, mesh, dev, barrier) -> dict:
+    """``GridRedistribute(mesh=).halo()`` at config 6's width on its
+    state (this rank's vrank slab), the planar (``"auto"``) and the
+    row-major engine: ms a call (the host clock over
+    :data:`HALO_CALLS` calls started together), each rank's ghost
+    digest and the gathered counters."""
+    import torch
+
+    from mpi_grid_redistribute_tpu_torch import api
+    from mpi_grid_redistribute_tpu_torch.bench import config6_halo
+
+    pos_v, count, w, pc, gc = config6_halo.setup(spec["halo_n"])
+    pos = torch.from_numpy(np.ascontiguousarray(pos_v[mesh.rank])).to(dev)
+    out = dict(width=w, pass_capacity=pc, ghost_capacity=gc)
+    for engine in ("auto", "rowmajor"):
+        rd = api.GridRedistribute(lo=0.0, hi=1.0, periodic=True, grid=GRID,
+                                  mesh=mesh, device=dev, engine=engine)
+        res = rd.halo(pos, width=w, count=int(count[mesh.rank]))
+        barrier()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(HALO_CALLS):
+            res = rd.halo(pos, width=w, count=int(count[mesh.rank]))
+        _sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3 / HALO_CALLS
+        g = int(res.ghost_count[mesh.rank])
+        out[engine] = dict(
+            ms=ms, ghost_count=res.ghost_count.cpu().numpy(),
+            overflow=res.overflow.cpu().numpy(),
+            ghost_capacity=int(res.ghost_positions.shape[0]),
+            digest=_digest(res.ghost_positions[:g]))
+    return out
+
+
+def _hier_part(spec, mesh, dev) -> dict:
+    """``GridRedistribute(mesh=, dcn_shape=DCN_SHAPE)`` on config 1's
+    rows with ``"auto"`` (several pods: the hierarchical engine),
+    timed as :func:`_redistribute_part` times its engines."""
+    import torch
+
+    from mpi_grid_redistribute_tpu_torch import api
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    c1 = [torch.from_numpy(np.ascontiguousarray(split_rows(np.load(
+        os.path.join(spec["workdir"], f"c1_{k}.npy"), mmap_mode="r"),
+        mesh.size)[mesh.rank])).to(dev) for k in ("pos", "vel", "ids")]
+    rd = api.GridRedistribute(lo=0.0, hi=1.0, periodic=True,
+                              grid=tuple(spec["world_grid"]),
+                              capacity_factor=4.0, mesh=mesh, device=dev,
+                              dcn_shape=DCN_SHAPE)
+    for _ in range(3):  # calibration: the synchronous checks and growth
+        rd.redistribute(*c1)
+    res, _, sec = _counted(torch, _build, dev, lambda: rd.redistribute(*c1))
+    rd.flush_overflow_checks()
+    return dict(engine=rd._last_engine, ms=sec * 1e3, n_pods=rd.n_pods,
+                cross_cap=rd._cross_cap, mover_cap=rd._mover_cap,
+                fallback=int(res.stats.fallback.sum()),
+                positions=res.positions.cpu().numpy(),
+                fields=[f.cpu().numpy() for f in res.fields],
+                count=res.count.cpu().numpy(), stats=_stats_np(res.stats))
+
+
+def _slice_small(pos, vel, count: int, mesh, dev) -> dict:
+    """On the (2, 1, 1) grid of ranks 0-1 (``mesh``) from this rank's rows
+    (the first ``count`` live): one drift step with its scan deposit, a
+    halo of its output with each engine, and a hierarchical call (two
+    pods of one rank) on the same rows; every output as numpy, and the
+    drift step's kernel launches."""
+    import torch
+
+    from mpi_grid_redistribute_tpu_torch import api
+    from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+    from mpi_grid_redistribute_tpu_torch.models import nbody
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    n = pos.shape[0]
+    dev = torch.device(dev)
+    cfg = nbody.DriftConfig(
+        domain=Domain(0.0, 1.0, periodic=True), grid=ProcessGrid(DEV_GRID),
+        dt=1.0, capacity=n, n_local=n, deposit_shape=SMALL_DEPOSIT_SHAPE,
+        deposit_method="scan")
+    step = nbody.make_drift_step(cfg, mesh, device=dev)
+    res, launches, _ = _counted(torch, _build, dev, lambda: step(
+        torch.from_numpy(pos).to(dev), torch.from_numpy(vel).to(dev),
+        count))
+    out = {"drift": (tuple(a.cpu().numpy() for a in res[:3]),
+                     _stats_np(res[3]), res[4].cpu().numpy()),
+           "launches": launches}
+    kw = dict(lo=0.0, hi=1.0, periodic=True, grid=DEV_GRID, mesh=mesh,
+              device=dev)
+    for engine in ("auto", "rowmajor"):
+        h = api.GridRedistribute(engine=engine, **kw).halo(
+            res[0], res[1], width=0.05, count=res[2])
+        out[f"halo_{engine}"] = (h.ghost_positions.cpu().numpy(),
+                                 h.ghost_fields[0].cpu().numpy(),
+                                 h.ghost_count.cpu().numpy(),
+                                 h.overflow.cpu().numpy())
+    rd = api.GridRedistribute(engine="hierarchical", dcn_shape=DEV_GRID,
+                              capacity=n, out_capacity=2 * n, **kw)
+    ids = torch.arange(n, dtype=torch.int32, device=dev) + mesh.rank * n
+    r = rd.redistribute(torch.from_numpy(pos).to(dev), ids, count=count)
+    out["hier"] = (r.positions.cpu().numpy(), r.fields[0].cpu().numpy(),
+                   r.count.cpu().numpy(), _stats_np(r.stats),
+                   rd._last_engine)
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    """Byte equality of nested tuples/dicts of numpy arrays and scalars."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_tree(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    return a == b
+
+
 def _card_vs_cpu_part(spec, mesh, dev) -> dict:
     """The small width as dev grid (2, 1, 1) x vgrid (1, 2, 2) over
     ``mesh`` (gloo, which takes both devices' tensors), each deposit
@@ -390,6 +613,16 @@ def _card_vs_cpu_part(spec, mesh, dev) -> dict:
                                                        runs[1][4]),
                            rows=int(runs[1][2].sum()),
                            moved=int(runs[1][3].sent.sum()))
+    rows = _rank_rows(spec, "small_", 2, mesh.rank)
+    card, cpu = (_slice_small(*rows, mesh, d) for d in (dev, "cpu"))
+    out["slice"] = dict(
+        same={k: _same_tree(card[k], cpu[k]) for k in cpu
+              if k != "launches"},
+        launches=card["launches"],
+        hier_engine=cpu["hier"][4],
+        ghosts=int(cpu["halo_auto"][2].sum()),
+        moved=int(cpu["drift"][1]["send_counts"].sum()
+                  - np.trace(cpu["drift"][1]["send_counts"])))
     return out
 
 
@@ -416,20 +649,45 @@ def world_main(ctx, spec):
            else dist.new_group(list(range(Wv))))
     if "card_vs_cpu" in parts:
         pair = sub if Wv == 2 else dist.new_group([0, 1])
+    seconds = out["seconds"] = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        t = time.perf_counter()
+        seconds[name] = t - t0
+        t0 = t
+
     if "vranks" in parts and r < Wv:
         out["vranks"] = _vranks_part(
             spec, mesh_lib.make_mesh(ProcessGrid(spec["dev_grid"]),
                                      group=sub),
             dev, lambda: dist.barrier(group=sub), "vranks")
     dist.barrier()
+    lap("vranks")
     if "flat" in parts:
         out["flat"] = _flat_part(spec, world, dev, dist.barrier)
+        lap("flat")
     out["redistribute"] = _redistribute_part(spec, world, dev)
     dist.barrier()
+    lap("redistribute")
+    if "drift" in parts:
+        out["drift"] = _drift_part(spec, world, dev, dist.barrier)
+        dist.barrier()
+        lap("drift")
+    if "halo" in parts:
+        out["halo"] = _halo_part(spec, world, dev, dist.barrier)
+        dist.barrier()
+        lap("halo")
+    if "hier" in parts:
+        out["hier"] = _hier_part(spec, world, dev)
+        dist.barrier()
+        lap("hier")
     if "card_vs_cpu" in parts and r < 2 and dev.type == "cuda":
         out["card_vs_cpu"] = _card_vs_cpu_part(
             spec, mesh_lib.make_mesh(ProcessGrid(DEV_GRID), group=pair), dev)
     dist.barrier()
+    lap("card_vs_cpu")
     return out
 
 
@@ -437,7 +695,8 @@ def prepare(workdir: str, n_local: int, fill: float = 0.9,
             migration: float = 0.02, state=None,
             deposit_shape=DEPOSIT_SHAPE, config1_n: int = CONFIG1_N,
             dev_grid=DEV_GRID, vgrid=VGRID, world_grid=GRID,
-            parts=("vranks", "flat", "card_vs_cpu")) -> dict:
+            parts=("vranks", "flat", "drift", "halo", "hier", "card_vs_cpu"),
+            halo_n: int = HALO_N) -> dict:
     """Write the world's inputs to ``workdir`` and return its ``spec``:
     the bench state (``common.uniform_state`` of the 2x2x2 grid from seed
     0 at the ``drift_sizing`` velocities, or ``state``, the same arrays
@@ -446,14 +705,17 @@ def prepare(workdir: str, n_local: int, fill: float = 0.9,
     the deposits' mesh (config 5's by default). The world has
     ``prod(world_grid)`` ranks (``GridRedistribute(mesh=)`` runs over
     that grid); the vranks part runs ``dev_grid`` x ``vgrid`` (which must
-    make the 2x2x2 grid) on its first ranks; ``"flat"`` needs
-    ``world_grid`` to be the 2x2x2 grid."""
+    make the 2x2x2 grid) on its first ranks; ``"flat"``, ``"drift"`` and
+    ``"halo"`` need ``world_grid`` to be the 2x2x2 grid; ``halo_n`` is
+    the halo part's rows a rank (config 6's by default)."""
     from mpi_grid_redistribute_tpu_torch.bench import common, config1_oracle
 
     if tuple(d * v for d, v in zip(dev_grid, vgrid)) != GRID:
         raise ValueError(f"dev grid {dev_grid} x vgrid {vgrid} is not {GRID}")
-    if "flat" in parts and tuple(world_grid) != GRID:
-        raise ValueError(f"the flat part runs on {GRID}, not {world_grid}")
+    for part in ("flat", "drift", "halo"):
+        if part in parts and tuple(world_grid) != GRID:
+            raise ValueError(f"the {part} part runs on {GRID}, not "
+                             f"{world_grid}")
     v, cap, budget = common.drift_sizing(GRID, n_local, fill, migration)
     if state is None:
         state = common.uniform_state(GRID, n_local, fill,
@@ -471,7 +733,8 @@ def prepare(workdir: str, n_local: int, fill: float = 0.9,
                 deposit_shape=tuple(deposit_shape), config1_n=config1_n,
                 small=dict(capacity=cap_s, local_budget=budget_s),
                 dev_grid=tuple(dev_grid), vgrid=tuple(vgrid),
-                world_grid=tuple(world_grid), parts=tuple(parts))
+                world_grid=tuple(world_grid), parts=tuple(parts),
+                halo_n=halo_n)
 
 
 def reference(spec, device, single=None) -> dict:
@@ -510,6 +773,18 @@ def reference(spec, device, single=None) -> dict:
     ref["oracle"] = api.GridRedistribute(
         lo=0.0, hi=1.0, periodic=True, grid=tuple(spec["world_grid"]),
         capacity_factor=4.0, backend="numpy").redistribute(*c1)
+    if "drift" in spec["parts"]:
+        # one process's plain density of the drift loop's final rows
+        rows = np.concatenate([np.load(os.path.join(wd, f"drift_pos_{r}.npy"))
+                               for r in range(8)])
+        p = torch.from_numpy(np.ascontiguousarray(rows.T)).to(device)
+        ones = torch.ones((rows.shape[0],), dtype=torch.float32,
+                          device=device)
+        ref["drift_rho"] = deposit.shard_deposit_device_planar_fn(
+            dom, one, tuple(spec["deposit_shape"]), plain=True)(
+                p, ones, ones > 0).cpu().numpy()
+    if "halo" in spec["parts"]:
+        ref["halo"] = _halo_reference(spec, device)
     if "flat" in spec["parts"]:
         p = torch.from_numpy(nbody.rows_to_planar(pos, 1)).to(
             device).reshape(3, -1)
@@ -523,6 +798,49 @@ def reference(spec, device, single=None) -> dict:
                 dom, one, shape, plain=True)(p, ones, a).cpu().numpy(),
         }
     return ref
+
+
+def _halo_reference(spec, device) -> dict:
+    """Config 6's state through the one-device vrank engines (planar and
+    row-major): each vrank's ghost digest and count, the engines' ghosts
+    held against each other and against ``oracle.brute_force_ghosts``
+    (rows sorted, float64 oracle, 1e-5)."""
+    import torch
+
+    from mpi_grid_redistribute_tpu_torch import oracle
+    from mpi_grid_redistribute_tpu_torch.bench import config6_halo
+    from mpi_grid_redistribute_tpu_torch.domain import ProcessGrid
+
+    pos_v, count, w, pc, gc = config6_halo.setup(spec["halo_n"])
+    fns = config6_halo.engines(w, pc, gc)
+    states, count_t = config6_halo.device_states(pos_v, count, device)
+    ghost, gcount, overflow = fns["planar"](states["planar"], count_t)
+    rows = ghost.transpose(1, 2)  # [V, G, 3]
+    r_ghost, r_count, r_over = fns["rowmajor"](states["rowmajor"], count_t)
+    gcount = gcount.cpu().numpy()
+    if (r_count.cpu().numpy() != gcount).any() or overflow.any() \
+            or r_over.any():
+        raise AssertionError("config 6 vrank engines: counts differ or "
+                             "overflow")
+    want = oracle.brute_force_ghosts(config6_halo.DOMAIN, ProcessGrid(GRID),
+                                     list(pos_v), w)
+    out = {"gcount": gcount, "digest": {"auto": [], "rowmajor": []}}
+    for v in range(len(gcount)):
+        g = int(gcount[v])
+        a = rows[v, :g].contiguous()
+        b = r_ghost[v, :g]
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"config 6 vrank {v}: engines differ")
+        got = a.cpu().numpy()
+        exp = want[v]
+        if len(exp) != g or not np.allclose(
+                got[np.lexsort(got.T[::-1])], exp[np.lexsort(exp.T[::-1])],
+                atol=1e-5):
+            raise AssertionError(f"config 6 vrank {v}: ghosts are not the "
+                                 f"oracle's set")
+        out["digest"]["auto"].append(_digest(a))
+        out["digest"]["rowmajor"].append(_digest(b))
+    return out
 
 
 def _oracle_shards(res, R: int) -> dict:
@@ -681,6 +999,75 @@ def verify(results, spec, ref, device_kind: str) -> dict:
                         for m in ("mxu", "scan")},
             profile_mxu=[x.get("profile") for x in fl])
 
+    if "drift" in parts:
+        dr = [results[r]["drift"] for r in range(8)]
+        total_in = sum(x["count_in"] for x in dr)
+        blocks = split_grid(ref["drift_rho"], GRID)
+        errs = {}
+        for method in ("mxu", "scan"):
+            kernel = ("segsum_sorted" if method == "mxu"
+                      else "tile_df_cumsum_rows")
+            one = 0.0
+            for r, x in enumerate(dr):
+                y = x[method]
+                launches(f"drift rank {r} ({method})", y["launches"],
+                         {kernel: DRIFT_STEPS})
+                check(y["state_equals_plain"], f"drift ({method}) rank {r}: "
+                      f"state differs from the plain loop's")
+                check(method != "scan" or y["rho_equals_plain"],
+                      f"drift (scan) rank {r}: density differs from the "
+                      f"plain loop's")
+                check(y["rho_err_vs_plain"] <= DEPOSIT_TOL,
+                      f"drift ({method}) rank {r}: density "
+                      f"{y['rho_err_vs_plain']} from the plain loop's")
+                check(y["owned"] and y["finite"], f"drift ({method}) rank "
+                      f"{r}: a row off its owner, or not finite")
+                check(all(np.array_equal(y["stats"][k],
+                                         dr[0][method]["stats"][k])
+                          for k in y["stats"]),
+                      f"drift ({method}): ranks disagree on stats")
+                one = max(one, float(np.abs(y["rho"] - blocks[r]).max()))
+            st = dr[0][method]["stats"]
+            check(int(st["dropped_send"].sum()) == 0
+                  and int(st["dropped_recv"].sum()) == 0,
+                  f"drift ({method}): rows dropped")
+            check(sum(x[method]["count"] for x in dr) == total_in,
+                  f"drift ({method}): rows not conserved")
+            check(one <= DEPOSIT_TOL, f"drift ({method}): density {one} "
+                                      f"from one process's plain density")
+            errs[method] = dict(vs_plain=max(x[method]["rho_err_vs_plain"]
+                                             for x in dr), vs_one=one)
+        summary["drift"] = dict(
+            ranks=8, rows=total_in, steps=DRIFT_STEPS,
+            ms_per_step={m: [x[m]["ms_per_step"] for x in dr]
+                         for m in ("mxu", "scan")},
+            raw_ms_per_step={m: [x[m]["raw_ms_per_step"] for x in dr]
+                             for m in ("mxu", "scan")},
+            kernel4_launches_a_step=[x["mxu"]["launches"].get(
+                "segsum_sorted", 0) / DRIFT_STEPS for x in dr],
+            kernel5_launches_a_step=[x["scan"]["launches"].get(
+                "tile_df_cumsum_rows", 0) / DRIFT_STEPS for x in dr],
+            deposit_max_abs_err=errs)
+
+    if "halo" in parts:
+        hl = [results[r]["halo"] for r in range(8)]
+        hr = ref["halo"]
+        for engine in ("auto", "rowmajor"):
+            for r, x in enumerate(hl):
+                y = x[engine]
+                check(np.array_equal(y["ghost_count"], hr["gcount"]),
+                      f"halo ({engine}) rank {r}: ghost counts differ from "
+                      f"the vrank engine's")
+                check(not y["overflow"].any(), f"halo ({engine}): overflow")
+                check(y["digest"] == hr["digest"][engine][r],
+                      f"halo ({engine}) rank {r}: ghosts differ from the "
+                      f"vrank engine's")
+        summary["halo"] = dict(
+            ranks=8, rows_a_rank=spec["halo_n"], width=hl[0]["width"],
+            ghosts=int(hr["gcount"].sum()),
+            ghost_capacity=hl[0]["auto"]["ghost_capacity"],
+            ms={e: [x[e]["ms"] for x in hl] for e in ("auto", "rowmajor")})
+
     W = len(results)
     o = _oracle_shards(ref["oracle"], W)
     for engine in ("auto", "planar"):
@@ -701,10 +1088,37 @@ def verify(results, spec, ref, device_kind: str) -> dict:
         ms={e: [x["redistribute"][e]["ms"] for x in results]
             for e in ("auto", "planar")})
 
+    if "hier" in parts:
+        for r, x in enumerate(results):
+            got = x["hier"]
+            check(got["engine"] == "hierarchical",
+                  f"hier: 'auto' resolved to {got['engine']!r}")
+            check(_same_shard(got, o, r), f"hier rank {r}: differs from "
+                                          f"the oracle")
+            planar = x["redistribute"]["planar"]
+            check(_same_tree([got[k] for k in ("positions", "fields",
+                                               "count")],
+                             [planar[k] for k in ("positions", "fields",
+                                                  "count")]),
+                  f"hier rank {r}: differs from the planar engine")
+            for f in ("send_counts", "recv_counts", "dropped_send",
+                      "dropped_recv", "needed_capacity"):
+                check(np.array_equal(got["stats"][f], o["stats"][f]),
+                      f"hier stat {f}")
+        summary["hier"] = dict(
+            ranks=W, dcn_shape=DCN_SHAPE,
+            n_pods=results[0]["hier"]["n_pods"],
+            cross_cap=results[0]["hier"]["cross_cap"],
+            mover_cap=results[0]["hier"]["mover_cap"],
+            fallback=results[0]["hier"]["fallback"],
+            ms=[x["hier"]["ms"] for x in results])
+
     if on_card and "card_vs_cpu" in parts:
         cv = [results[r]["card_vs_cpu"] for r in range(2)]
+        loops = ("scan", "mxu")
         for r, x in enumerate(cv):
-            for method, y in x.items():
+            for method in loops:
+                y = x[method]
                 # kernel 4 adds in another order than its plain version:
                 # the mxu density is held to the stated tolerance
                 bad = [k for k, ok in y["same"].items()
@@ -715,13 +1129,23 @@ def verify(results, spec, ref, device_kind: str) -> dict:
                       f"card vs CPU ({method}) rank {r}: density "
                       f"{y['rho_err']} apart")
                 check(y["moved"] > 0, "card vs CPU: no row moved")
+            sl = x["slice"]
+            bad = [k for k, ok in sl["same"].items() if not ok]
+            check(not bad, f"card vs CPU (drift step, halo, hierarchical) "
+                           f"rank {r}: {bad} differ")
+            launches(f"card vs CPU drift step rank {r}", sl["launches"],
+                     {"tile_df_cumsum_rows": 1})
+            check(sl["hier_engine"] == "hierarchical",
+                  f"card vs CPU: hierarchical ran {sl['hier_engine']!r}")
+            check(sl["moved"] > 0 and sl["ghosts"] > 0,
+                  "card vs CPU: no row moved or no ghost")
         summary["card_vs_cpu"] = dict(
             ranks=2, n_local=SMALL_N,
             bit_equal={m: sorted(k for k, ok in cv[0][m]["same"].items()
                                  if ok and all(x[m]["same"][k] for x in cv))
-                       for m in cv[0]},
+                       for m in loops + ("slice",)},
             rho_max_abs_err={m: max(x[m]["rho_err"] for x in cv)
-                             for m in cv[0]})
+                             for m in loops})
     return summary
 
 
@@ -729,7 +1153,9 @@ def small_loop(ctx):
     """One step of the small width's loop on this rank of a 2-rank world
     (dev grid (2, 1, 1) x vgrid (1, 2, 2), the scan deposit each step) on
     the rank's device, from the small state drawn here: ``(pos, vel,
-    alive, stats, rho)`` as numpy, and the kernel launches."""
+    alive, stats, rho)`` as numpy, the kernel launches, every collective
+    once, and :func:`_slice_small` of the same rows (a drift step with its
+    scan deposit, a halo with each engine, a hierarchical call)."""
     import torch
 
     from mpi_grid_redistribute_tpu_torch.bench import common
@@ -750,8 +1176,12 @@ def small_loop(ctx):
                                    device=ctx.device, deposit_each_step=True)
     res, launches, _ = _counted(torch, _build, ctx.device,
                                 lambda: loop(pos, vel, alive))
+    from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+
+    pair = mesh_lib.make_mesh(ProcessGrid(DEV_GRID))
     return (tuple(x.cpu().numpy() for x in res[:3]), _stats_np(res[3]),
-            res[4].cpu().numpy(), launches, _each_collective(ctx))
+            res[4].cpu().numpy(), launches, _each_collective(ctx),
+            _slice_small(*_live_first(pos, vel, alive), pair, ctx.device))
 
 
 def _each_collective(ctx) -> dict:
@@ -792,9 +1222,10 @@ def main(argv=None) -> int:
     """``python -m mpi_grid_redistribute_tpu_torch.bench.multirank
     [--backend nccl] [--device cuda] [--n-local N] [--profile DIR]``: the
     bench grid on 4 ranks, one card each (dev grid (2, 2, 1) x vgrid (1,
-    1, 2), and ``GridRedistribute(mesh=)`` over (2, 2, 1)), held against
-    the one-process 8-vrank run and the oracle; prints one JSON line.
-    Needs 4 cards with ``--device cuda``."""
+    1, 2), and ``GridRedistribute(mesh=)`` over (2, 2, 1): the planar and
+    sparse engines, and the hierarchical one over two pods of two cards),
+    held against the one-process 8-vrank run and the oracle; prints one
+    JSON line. Needs 4 cards with ``--device cuda``."""
     import argparse
     import json
     import subprocess
@@ -814,7 +1245,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as wd:
         spec = prepare(wd, args.n_local, dev_grid=CARDS_DEV_GRID,
                        vgrid=CARDS_VGRID, world_grid=CARDS_DEV_GRID,
-                       parts=("vranks",))
+                       parts=("vranks", "hier"))
         spec["profile"] = bool(args.profile)
         spec["profile_dir"] = args.profile
         t0 = time.perf_counter()

@@ -344,6 +344,146 @@ def make_migrate_step(cfg: DriftConfig, mesh=None, device=None,
     return step
 
 
+def build_deposit_step(cfg: DriftConfig, mesh=None, plain: bool = False):
+    """The standalone deposit of already-redistributed state (config 5):
+    ``fn(pos [n, D], mass [n], count) -> rho``, this rank's shard of the
+    density (:func:`~..ops.deposit.build_deposit`, ``cfg.deposit_method``
+    ``"scan"``, ``"segment"`` or ``"mxu"``)."""
+    if cfg.deposit_shape is None:
+        raise ValueError("cfg.deposit_shape is required for deposit")
+    return deposit.build_deposit(
+        mesh_lib.mesh_for(cfg.grid, mesh), cfg.domain, cfg.grid,
+        cfg.deposit_shape,
+        method=cfg.deposit_method, plain=plain)
+
+
+def build_deposit_masked(cfg: DriftConfig, mesh=None, plain: bool = False):
+    """The mask-input deposit of migrate-path state: ``fn(pos [n, D], mass
+    [n], valid [n]) -> rho`` (``"scan"`` or ``"segment"``)."""
+    if cfg.deposit_shape is None:
+        raise ValueError("cfg.deposit_shape is required for deposit")
+    return deposit.shard_deposit_fn_masked(
+        cfg.domain, cfg.grid, cfg.deposit_shape, method=cfg.deposit_method,
+        mesh=mesh_lib.mesh_for(cfg.grid, mesh), plain=plain)[0]
+
+
+def _count1(count, dev) -> torch.Tensor:
+    """A rank's count (an int, a ``[1]`` array or tensor) as int32 ``[1]``
+    on ``dev``."""
+    if not isinstance(count, torch.Tensor):
+        count = torch.from_numpy(np.asarray(count, dtype=np.int32).reshape(1))
+    return count.to(dev).reshape(1).to(torch.int32)
+
+
+def make_drift_step(cfg: DriftConfig, mesh=None, device=None,
+                    plain: bool = False):
+    """One step of the canonical drift loop, one rank a process (the
+    reference's ``shard_map`` step): ``step(pos [n, D], vel [n, D],
+    count) -> (pos, vel, count [1], stats[, rho])`` on this rank's rows
+    (``cfg.n_local`` of them). The drift is ``pos + vel * dt`` as two
+    rounded ops (a multiply, then an add), then the periodic wrap, then
+    the row-major canonical exchange with ``vel`` riding along
+    (``out_capacity = cfg.n_local``), then with ``cfg.deposit_shape``
+    the CIC deposit of the new state at unit mass (``"scan"``: kernel 5
+    on the card; ``"mxu"``: kernel 4; ``"segment"``). ``stats`` is the
+    five-leaf :class:`~..parallel.exchange.RedistributeStats` of every
+    rank (``[R, R]``/``[R]``, gathered), ``rho`` this rank's shard of
+    the density (:func:`~..ops.deposit.deposit_out_spec`). ``mesh``
+    defaults to :func:`~..parallel.mesh.make_mesh` of ``cfg.grid``; a
+    one-rank grid runs in one process without ``torch.distributed``.
+    The reference's step takes ``"scan"`` and ``"segment"``; ``"mxu"``
+    is the port's."""
+    dev = _device.resolve(device)
+    mesh = mesh_lib.mesh_for(cfg.grid, mesh)
+    redist = exchange.shard_redistribute_fn(
+        cfg.domain, cfg.grid, cfg.capacity, cfg.n_local, mesh=mesh)
+    dep = None
+    if cfg.deposit_shape is not None:
+        dep = build_deposit_step(cfg, mesh, plain=plain)
+
+    def step(pos, vel, count):
+        pos, vel = (_to_tensor(a, dev) for a in (pos, vel))
+        count = _count1(count, dev)
+        pos = pos + vel * binning._f32(cfg.dt, pos)
+        pos = binning.wrap_periodic(pos, cfg.domain)
+        pos, count, vel, stats = redist(pos, count, vel)
+        stats = exchange.gather_stats(stats, mesh)
+        if dep is None:
+            return pos, vel, count, stats
+        ones = torch.ones(pos.shape[:1], dtype=pos.dtype, device=dev)
+        return pos, vel, count, stats, dep(pos, ones, count)
+
+    return step
+
+
+def make_drift_loop(cfg: DriftConfig, n_steps: int, mesh=None,
+                    deposit_each_step: bool = False, device=None,
+                    plain: bool = False):
+    """``S`` steps of :func:`make_drift_step` (the reference's ``lax.scan``
+    as a Python loop): ``loop(pos, vel, count) -> (pos, vel, count,
+    stats[, rho])`` with the stats stacked per step (``[S, R, R]``/``[S,
+    R]``). With ``cfg.deposit_shape`` the density is appended: by default
+    one deposit of the final state; with ``deposit_each_step=True`` a
+    deposit inside every step, the last one returned (a zero mesh of the
+    rank's shard shape when ``n_steps`` is 0). ``plain=True`` runs the
+    deposit's plain PyTorch version on the card too (what its kernels
+    are held against)."""
+    if deposit_each_step and cfg.deposit_shape is None:
+        raise ValueError("cfg.deposit_shape is required for deposit")
+    dev = _device.resolve(device)
+    mesh = mesh_lib.mesh_for(cfg.grid, mesh)
+    step = make_drift_step(
+        dataclasses.replace(
+            cfg,
+            deposit_shape=cfg.deposit_shape if deposit_each_step else None),
+        mesh, device=dev, plain=plain)
+    dep = None
+    if cfg.deposit_shape is not None and not deposit_each_step:
+        dep = build_deposit_step(cfg, mesh, plain=plain)
+    R = cfg.grid.nranks
+
+    def loop(pos, vel, count):
+        p, v, c = pos, vel, count
+        rho = None
+        if deposit_each_step:
+            rho = torch.zeros(_rho_shape(cfg), dtype=torch.float32,
+                              device=dev)
+        steps = []
+        for _ in range(n_steps):
+            with torch.profiler.record_function("drift:step"):
+                out = step(p, v, c)
+            p, v, c, st = out[:4]
+            if deposit_each_step:
+                rho = out[4]
+            steps.append(st)
+        if not steps:
+            p, v = (_to_tensor(a, dev) for a in (pos, vel))
+            c = _count1(count, dev)
+        stats = _stack_redistribute_stats(steps, R, dev)
+        out = (p, v, c, stats)
+        if deposit_each_step:
+            return out + (rho,)
+        if dep is None:
+            return out
+        ones = torch.ones(p.shape[:1], dtype=p.dtype, device=dev)
+        return out + (dep(p, ones, c),)
+
+    return loop
+
+
+def _stack_redistribute_stats(steps, R: int, dev):
+    """Stack per-step canonical stats to ``[S, ...]`` (the five leaves the
+    row-major engine fills; the others stay ``None``)."""
+    if not steps:
+        z = torch.zeros((0, R), dtype=torch.int32, device=dev)
+        zz = torch.zeros((0, R, R), dtype=torch.int32, device=dev)
+        return exchange.RedistributeStats(zz, zz, z, z, z)
+    return exchange.RedistributeStats(*(
+        None if getattr(steps[0], f) is None
+        else torch.stack([getattr(s, f) for s in steps])
+        for f in exchange.RedistributeStats._fields))
+
+
 def _rho_shape(cfg: DriftConfig):
     """Shape of the loop's density output: the device's block for fully
     periodic domains (ghost-folded), the global node mesh otherwise."""

@@ -708,20 +708,11 @@ def fold_ghosts(rho_ghost: torch.Tensor, grid: ProcessGrid,
         ghost = rho_ghost.narrow(a, m, 1)
         body = rho_ghost.narrow(a, 0, m)
         if grid.shape[a] > 1:
-            ghost = col.ppermute(ghost, mesh, _axis_shift(grid, a))
+            ghost = col.ppermute(ghost, mesh,
+                                 mesh_lib.axis_shift_perm(grid, a))
         first = body.narrow(a, 0, 1) + ghost
         rho_ghost = torch.cat([first, body.narrow(a, 1, m - 1)], dim=a)
     return rho_ghost
-
-
-def _axis_shift(grid: ProcessGrid, a: int):
-    """The ``(rank, next rank along axis a, periodic)`` permutation."""
-    perm = []
-    for r in range(grid.nranks):
-        c = list(grid.cell_of_rank(r))
-        c[a] = (c[a] + 1) % grid.shape[a]
-        perm.append((r, grid.rank_of_cell(tuple(c))))
-    return tuple(perm)
 
 
 def assemble_dense(rho_ghost: torch.Tensor, grid: ProcessGrid,
@@ -798,3 +789,37 @@ def shard_deposit_fn(domain: Domain, grid: ProcessGrid,
         return masked(pos, mass, valid)
 
     return fn, local_shape
+
+
+def deposit_out_spec(domain: Domain, grid: ProcessGrid) -> Tuple[str, ...]:
+    """How the reference shards the deposit's density (its ``shard_map``
+    out_spec, as the tuple of mesh axes it is split over): a fully
+    periodic domain splits axis ``a`` of the mesh over grid axis ``a``
+    (each rank holds its ``local_shape`` block), a domain with an open
+    axis replicates the :func:`global_node_shape` mesh (``()``: every
+    rank holds all of it). :func:`shard_deposit_fn` returns exactly that
+    shard on each rank."""
+    return tuple(grid.axis_names) if all(domain.periodic) else ()
+
+
+def build_deposit(mesh, domain: Domain, grid: ProcessGrid,
+                  mesh_shape: Tuple[int, ...], method: str = "scan",
+                  plain: bool = False):
+    """The reference's global CIC deposit as each rank sees it: ``fn(pos
+    [n, D], mass [n], count) -> rho``, this rank's shard of the density
+    (:func:`deposit_out_spec`). ``method`` is ``"scan"`` (kernel 5 on the
+    card) or ``"segment"``, the reference's; the port adds ``"mxu"``, the
+    position-keyed segmented-sum deposit (kernel 4 on the card) that the
+    flat migrate loop runs, ``mass=None`` meaning unit mass."""
+    if method != "mxu":
+        return shard_deposit_fn(domain, grid, mesh_shape, method=method,
+                                mesh=mesh, plain=plain)[0]
+    fn = shard_deposit_device_mxu_fn(domain, grid, mesh_shape, plain=plain,
+                                     mesh=mesh)
+
+    def call(pos, mass, count):
+        valid = (torch.arange(pos.shape[0], device=pos.device)
+                 < count.reshape(()))
+        return fn(pos.T.contiguous(), mass, valid)
+
+    return call

@@ -13,6 +13,16 @@ are exact either way. A mesh without a process group (one rank, no
 every call goes through the backend, at world size 1 too. Each call is
 a ``coll:<name>`` profiler range, so a trace shows the time a rank spends
 in its collectives.
+
+Collectives over a SUBSET of the mesh axes (the reference's
+``lax.all_to_all(x, ici_axes)``, ``lax.ppermute(x, dcn_axes, perm)``, which
+run independently for each value of the other axes) are one world call
+each, not a call on a subgroup: :func:`all_to_all` takes ``group``, the
+caller's own group of mesh ranks in group order, and sends nothing to
+any rank outside it (zero split sizes, as :func:`ppermute` does); a
+sub-axis ``ppermute`` is the world permutation :func:`lift_perm` builds
+from the per-group one. Every rank makes the same calls in the same
+order, no process group is created, and gloo and NCCL take it alike.
 """
 
 from __future__ import annotations
@@ -41,32 +51,64 @@ def _local(mesh: RankMesh) -> bool:
     return mesh.backend is None
 
 
+def lift_perm(perm: Sequence[Tuple[int, int]], groups
+              ) -> Tuple[Tuple[int, int], ...]:
+    """A permutation over the members of a sub-axis group (``(src, dst)``
+    positions within a group), run in every group at once, as the world
+    permutation of mesh ranks :func:`ppermute` takes. ``groups`` lists
+    each group's mesh ranks in group order."""
+    return tuple((int(g[s]), int(g[d])) for g in groups for s, d in perm)
+
+
 def axis_index(mesh: RankMesh) -> int:
     """This rank's row-major index over all the mesh axes."""
     return mesh.rank
 
 
-def all_to_all(x: torch.Tensor, mesh: RankMesh, dim: int = 0) -> torch.Tensor:
-    """Tiled all-to-all along ``dim``: the ``R`` equal chunks of ``x``
-    along ``dim`` go to ranks ``0..R-1`` in order, and the result holds
-    the chunks received, source-major, along the same ``dim``
-    (``lax.all_to_all(x, axes, dim, dim, tiled=True)``)."""
-    R = mesh.size
-    if _local(mesh):
-        return x.clone()
-    if x.shape[dim] % R:
+def all_to_all(x: torch.Tensor, mesh: RankMesh, dim: int = 0,
+               group: Sequence[int] = None) -> torch.Tensor:
+    """Tiled all-to-all along ``dim``: the ``G`` equal chunks of ``x``
+    along ``dim`` go to the ranks of ``group`` in order (default: all
+    ``R`` mesh ranks), and the result holds the chunks received,
+    source-major, along the same ``dim`` (``lax.all_to_all(x, axes, dim,
+    dim, tiled=True)``; with ``group`` the caller's group of a sub-axis
+    all-to-all, ascending mesh ranks that hold the caller, the same list
+    on every rank of it)."""
+    ranks = range(mesh.size) if group is None else [int(g) for g in group]
+    G = len(ranks)
+    if x.shape[dim] % G:
         raise ValueError(
             f"all_to_all: dim {dim} of {tuple(x.shape)} is not divisible "
-            f"by {R} ranks"
+            f"by {G} ranks"
         )
-    c = x.shape[dim] // R
+    if group is not None and (mesh.rank not in ranks
+                              or list(ranks) != sorted(set(ranks))):
+        # the world call lays chunks out in mesh-rank order, so the
+        # group's order must be it
+        raise ValueError(
+            f"all_to_all: group {ranks} must hold rank {mesh.rank} and be "
+            f"ascending")
+    if _local(mesh):
+        return x.clone()
+    c = x.shape[dim] // G
     lead, tail = tuple(x.shape[:dim]), tuple(x.shape[dim + 1:])
-    # [lead, R, c, tail] -> [R, lead, c, tail]: chunk r contiguous
-    send = x.reshape(lead + (R, c) + tail).movedim(len(lead), 0).contiguous()
+    # [lead, G, c, tail] -> [G, lead, c, tail]: chunk g contiguous
+    send = x.reshape(lead + (G, c) + tail).movedim(len(lead), 0).contiguous()
     wire = _wire(send)
     recv = torch.empty_like(wire)
     with record_function("coll:all_to_all"):
-        dist.all_to_all_single(recv, wire, group=mesh.group)
+        if group is None:
+            dist.all_to_all_single(recv, wire, group=mesh.group)
+        else:
+            # one world call: zero splits to every rank outside the group
+            chunk = wire.numel() // G
+            splits = [0] * mesh.size
+            for r in ranks:
+                splits[r] = chunk
+            dist.all_to_all_single(
+                recv.reshape(-1), wire.reshape(-1),
+                output_split_sizes=splits, input_split_sizes=splits,
+                group=mesh.group)
     recv = recv.view(x.dtype).reshape(send.shape)
     return recv.movedim(0, len(lead)).reshape(x.shape)
 

@@ -12,12 +12,16 @@ On one device the V ranks are the leading batch dimension of every
 tensor, and the wire is the transpose an all-to-all would perform; across
 ranks it is the all-to-all (:mod:`.collectives`). The count-driven
 engines decide their branch from a flag every rank agrees on (a MIN
-across ranks), read on the host. The hierarchical engine is not ported
-(``ROADMAP.md`` A9).
+across ranks), read on the host. The hierarchical two-level engine
+splits the grid into pods (:class:`~.mesh.HierarchicalMesh`): the
+pod-local stencil inside a pod, one condensed block a destination pod
+across them, on one device (static gathers) and across ranks (sub-axis
+collectives, one world call each).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -100,8 +104,11 @@ class RedistributeStats(NamedTuple):
     ``needed_capacity [R]``, each rank's largest unclipped remote
     per-destination count (the smallest ``capacity`` that would have sent
     everything). ``fallback`` ``[R]`` is 1 where a count-driven engine
-    ran the dense width (``None`` from the dense engines); ``pipeline``
-    and ``needed_cross`` belong to engines not ported yet and stay
+    ran the dense width (``None`` from the dense engines);
+    ``needed_cross [R]`` is the hierarchical engine's per-rank peak over
+    destination pods of its unclipped cross-pod rows (the smallest
+    ``cross_cap`` that would have carried them; ``None`` elsewhere);
+    ``pipeline`` belongs to the two-phase exchange, not ported, and stays
     ``None``."""
 
     send_counts: torch.Tensor
@@ -780,3 +787,477 @@ def build_redistribute(mesh, domain: Domain, grid: ProcessGrid,
     mesh = mesh_lib.mesh_for(grid, mesh)
     return _with_global_stats(shard_redistribute_fn(
         domain, grid, capacity, out_capacity, edges, mesh=mesh), mesh)
+
+
+# ---------------------------------------------------------------------------
+# The hierarchical two-level engine (pods of ranks: ICI inside, DCN across)
+# ---------------------------------------------------------------------------
+
+
+def _check_cross_cap(cross_cap):
+    B2 = int(cross_cap)
+    if B2 < 1:
+        raise ValueError(
+            f"cross_cap must be >= 1, got {B2} — it is the per-(pod,pod) "
+            f"condensed DCN block width of the hierarchical engine"
+        )
+    return B2
+
+
+def _check_hier(hier, grid: ProcessGrid):
+    if hier.grid != grid:
+        raise ValueError(
+            f"hierarchical mesh wraps grid {hier.grid.shape}, engine "
+            f"built for {grid.shape}"
+        )
+    if hier.n_pods < 2:
+        raise ValueError(
+            "hierarchical engine needs a multi-pod mesh (n_pods >= 2); "
+            "resolve_engine degrades flat meshes to the sparse engine"
+        )
+
+
+def _int_matvec(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``x @ m`` over the last axis of ``x`` for small integer tables (CUDA
+    has no integer matmul): exact in int64, returned as int32."""
+    return (x.long().unsqueeze(-1) * m.long()).sum(dim=-2).to(torch.int32)
+
+
+class _HierTables(NamedTuple):
+    """The static tables of the two-level schedule, as NumPy arrays:
+    the pod-local Moore stencil (active offsets, their perms, ``dst``/
+    ``src`` ``[L, n_act]`` local ids, ``member [L, L]``), the segment
+    prefix matrix ``M [R, R]`` (``d' < d`` and the same pod) and the pod
+    one-hot ``[R, n_pods]``."""
+
+    n_act: int
+    perms: tuple
+    dst: np.ndarray
+    src: np.ndarray
+    member: np.ndarray
+    prefix_m: np.ndarray
+    pod_onehot: np.ndarray
+
+
+def _hier_tables(hier, periodic) -> _HierTables:
+    periodic_local = hier.local_periodic(tuple(periodic))
+    _, dst_t, src_t, member = mesh_lib.neighbor_tables(hier.local_grid,
+                                                       periodic_local)
+    perms_all = mesh_lib.neighbor_perms(hier.local_grid, periodic_local)
+    active = tuple(o for o in range(dst_t.shape[1]) if perms_all[o])
+    R = hier.grid.nranks
+    same = hier.pod_of[:, None] == hier.pod_of[None, :]
+    prefix_m = ((np.arange(R)[:, None] < np.arange(R)[None, :])
+                & same).astype(np.int32)
+    onehot = (hier.pod_of[:, None]
+              == np.arange(hier.n_pods)[None, :]).astype(np.int32)
+    L = hier.pod_size
+    return _HierTables(
+        len(active), tuple(perms_all[o] for o in active),
+        dst_t[:, active].reshape(L, len(active)).astype(np.int32),
+        src_t[:, active].reshape(L, len(active)).astype(np.int32),
+        member, prefix_m, onehot)
+
+
+def _cross_effective(sc, cross, prefix_m, onehot, B2: int):
+    """The cross clip: each rank's cross rows condensed per destination
+    pod into one ``B2``-column block, destination-ascending segments at
+    the prefix-summed offsets; what does not fit is clipped. Returns
+    ``(prefix, eff, needed_cross)``: the segment offsets and sends ``[...,
+    R]``, and the per-rank peak over destination pods of the unclipped
+    cross total."""
+    sc_cross = torch.where(cross, sc, torch.zeros_like(sc))
+    prefix = _int_matvec(sc_cross, prefix_m)
+    eff = torch.where(cross, torch.minimum((B2 - prefix).clamp(min=0), sc),
+                      sc).to(torch.int32)
+    needed_cross = _int_matvec(sc_cross, onehot).max(dim=-1).values
+    return prefix, eff, needed_cross
+
+
+def _condense_block(fi, order, bounds, prefix, eff, to_q, B2: int, n: int):
+    """One rank's condensed block for one destination pod (``to_q [..., R]``
+    marks its ranks): slot ``j`` holds the row of the destination whose
+    segment ``[prefix, prefix + eff)`` covers ``j``, zero past them.
+    Batched over the leading dims of ``fi [..., K, n]``."""
+    dev = fi.device
+    j = torch.arange(B2, dtype=torch.int32, device=dev)[:, None]
+    hit = (to_q.unsqueeze(-2) & (j >= prefix.unsqueeze(-2))
+           & (j < (prefix + eff).unsqueeze(-2)))           # [..., B2, R]
+    R = prefix.shape[-1]
+    src_col = torch.where(
+        hit, bounds[..., :R].unsqueeze(-2) + j - prefix.unsqueeze(-2),
+        torch.zeros((), dtype=torch.int32, device=dev)).sum(
+            dim=-1, dtype=torch.int32)
+    slot_valid = hit.any(dim=-1)
+    plan = torch.gather(order.long(), -1, src_col.clamp(max=n - 1).long())
+    blk = pack._take_cols(fi, plan)
+    return torch.where(slot_valid.unsqueeze(-2), blk, pack._zero(blk))
+
+
+def _blocks(L: int, W: int, device):
+    """``(m [L * W], j [L * W])``: the block and the slot within it of
+    each column of ``L`` blocks of ``W`` columns (computed on the device;
+    ``repeat_interleave`` would read its size on the host)."""
+    col_idx = torch.arange(L * W, dtype=torch.int64, device=device)
+    return col_idx // W, (col_idx % W).to(torch.int32)
+
+
+def _fan_out(mirror, cnt_loc, L: int, B2: int):
+    """Cut an arrived block ``[..., K, B2]`` into its ``L`` per-local-
+    destination segments (lengths ``cnt_loc [..., L]``, in order), each
+    at the front of its own ``B2`` columns: ``[..., K, L * B2]``."""
+    m_idx, jj = _blocks(L, B2, mirror.device)
+    start = torch.cumsum(cnt_loc, dim=-1, dtype=torch.int32) - cnt_loc
+    fan_valid = jj < cnt_loc[..., m_idx]
+    fan_col = (start[..., m_idx] + jj).clamp(max=B2 - 1)
+    fan = pack._take_cols(mirror, fan_col.long())
+    return torch.where(fan_valid.unsqueeze(-2), fan, pack._zero(fan))
+
+
+def _pod_gather(blocks, rows, slot, L: int, W: int):
+    """The intra-pod all-to-all of the vrank twin as one gather: vrank
+    ``v`` receives, from each rank ``rows[v, s]`` of its pod, that rank's
+    block ``slot[v]`` of ``W`` columns: ``blocks [V, K, L * W] -> [V, K,
+    L * W]`` (source-major, the tiled all-to-all's order)."""
+    V, K = blocks.shape[0], blocks.shape[1]
+    b4 = blocks.reshape(V, K, L, W)
+    out = b4[rows, :, slot[:, None], :]                  # [V, L, K, W]
+    return out.permute(0, 2, 1, 3).reshape(V, K, L * W)
+
+
+def vrank_redistribute_hierarchical_fn(domain: Domain, grid: ProcessGrid,
+                                       hier, capacity: int,
+                                       out_capacity: int, mover_cap: int,
+                                       cross_cap: int, ndim: int = None,
+                                       edges=None):
+    """HIERARCHICAL two-level canonical exchange of R virtual ranks on one
+    device, over the pods of ``hier`` (a
+    :class:`~.mesh.HierarchicalMesh`): rows that stay inside their pod
+    take the pod-local Moore stencil (``mover_cap`` columns an offset;
+    the dense intra-pod pool when any same-pod mover does not fit, a
+    flag over all vranks read on the host), rows that cross pods are
+    condensed into one ``cross_cap``-column block per destination pod,
+    moved one pod distance at a time and fanned out to their ranks
+    inside the pod. Cross rows past ``cross_cap`` are clipped and
+    counted (``dropped_send``, ``stats.needed_cross``), never densified.
+    The hops of the wire are static gathers through the tables the
+    multi-rank engine ships. Same bits as
+    :func:`vrank_redistribute_planar_fn` on every step that clips
+    nothing. Signature as :func:`vrank_redistribute_planar_fn`."""
+    V = grid.nranks
+    C = capacity
+    B = _check_mover_cap(mover_cap, capacity)
+    B2 = _check_cross_cap(cross_cap)
+    D = domain.ndim if ndim is None else ndim
+    _check_hier(hier, grid)
+    n_pods, L = hier.n_pods, hier.pod_size
+    t = _hier_tables(hier, domain.periodic)
+    n_act = t.n_act
+    pod_of, local_of, rank_table = hier.pod_of, hier.local_of, hier.rank_table
+    # the pod-local stencil lifted to global ranks, per vrank (-1: none)
+    dst_loc, src_loc = t.dst[local_of], t.src[local_of]      # [V, n_act]
+    lift = lambda loc: np.where(
+        loc >= 0, rank_table[pod_of[:, None], np.where(loc >= 0, loc, 0)],
+        -1).astype(np.int32)
+    dst_glob, src_glob = lift(dst_loc), lift(src_loc)
+    same = pod_of[:, None] == pod_of[None, :]
+    member = same & t.member[local_of[:, None], local_of[None, :]]
+    # per pod distance d: the destination-pod masks [V, V], the vrank
+    # whose block arrives at each vrank (pod - d, same slot), the
+    # destination pod's ranks and the source pod's ranks [V, L]; all
+    # small: the per-column tables are made on the device from them
+    deltas = range(1, n_pods)
+    to_q = np.stack([pod_of[None, :] == ((pod_of + d) % n_pods)[:, None]
+                     for d in deltas])
+    mirror_src = np.stack([rank_table[(pod_of - d) % n_pods, local_of]
+                           for d in deltas]).astype(np.int64)
+    dst_pod_ranks = np.stack([rank_table[(pod_of + d) % n_pods]
+                              for d in deltas]).astype(np.int64)
+    src_pod_ranks = np.stack([rank_table[(pod_of - d) % n_pods]
+                              for d in deltas]).astype(np.int64)
+    tables = _device.OnDevice(
+        dst_glob, src_glob, member, same, t.prefix_m, t.pod_onehot, to_q,
+        mirror_src, dst_pod_ranks, src_pod_ranks,
+        rank_table[pod_of].astype(np.int64), local_of.astype(np.int64))
+
+    def fn(fused, count):
+        as_f32, fi, pos_f = _planar_view(fused, D, 1)
+        K, n = fused.shape[1], fused.shape[2]
+        dev = fused.device
+        (d_glob, s_glob, member_t, same_t, prefix_m, onehot, to_q_t,
+         mirror_t, dpr_t, spr_t, pod_ranks, slot) = tables.get(dev)
+        dest = binning.rank_of_position_planar(pos_f, domain, grid,
+                                               edges=edges)
+        is_self, order, remote_counts, bounds, sc, _ = _route(dest, count,
+                                                              V, C)
+        prefix, eff, needed_cross = _cross_effective(sc, ~same_t, prefix_m,
+                                                     onehot, B2)
+        dropped_send = (remote_counts - eff).sum(dim=1, dtype=torch.int32)
+        recv_counts = eff.T
+        m_idx, jj = _blocks(L, B2, dev)
+        cross_pools, cross_keys, cross_valid = [], [], []
+        for i in range(n_pods - 1):
+            blk = _condense_block(fi, order, bounds, prefix, eff, to_q_t[i],
+                                  B2, n)                     # [V, K, B2]
+            # the DCN hop: vrank v's block came from (pod - delta, slot)
+            mirror = blk[mirror_t[i]]
+            cnt_loc = torch.gather(eff, 1, dpr_t[i])[mirror_t[i]]  # [V, L]
+            fan = _fan_out(mirror, cnt_loc, L, B2)           # [V, K, L*B2]
+            # the intra-pod fanout hop
+            cross_pools.append(_pod_gather(fan, pod_ranks, slot, L, B2))
+            keys = spr_t[i][:, m_idx]                        # [V, L*B2]
+            cross_keys.append(keys.to(torch.int32))
+            cross_valid.append(jj < torch.gather(recv_counts, 1, keys))
+        stencil = bool(torch.where(same_t, torch.where(
+            member_t, remote_counts <= B, remote_counts == 0),
+            True).all())
+        if stencil:
+            if n_act:
+                plan, slot_valid = _stencil_plan(sc, bounds, order, d_glob,
+                                                 B, n)
+                send = pack._take_cols(fi, plan)
+                send = torch.where(slot_valid[:, None, :], send,
+                                   pack._zero(send))
+                blocks = send.reshape(V, K, n_act, B)
+                o_idx = torch.arange(n_act, device=dev)[None, :]
+                recv = blocks[s_glob.clamp(min=0).long(), :, o_idx, :]
+                pool = recv.permute(0, 2, 1, 3).reshape(V, K, n_act * B)
+            else:  # one-rank pods: nothing stays in a pod but its rank
+                pool = fi.new_zeros((V, K, 0))
+            invalid, srckeys = _stencil_keys(
+                recv_counts, s_glob, B, is_self[:, :0],
+                torch.zeros((V,), dtype=torch.int32, device=dev))
+            valid_r = ~invalid
+        else:
+            m_all, cc = _blocks(L, C, dev)
+            dloc = pod_ranks[:, m_all]                       # [V, L*C]
+            cnt_all = torch.gather(torch.where(same_t, sc, 0), 1, dloc)
+            src_cols = (torch.gather(bounds, 1, dloc) + cc).clamp(max=n - 1)
+            plan = torch.gather(order.long(), 1, src_cols.long())
+            packed = pack._take_cols(fi, plan)
+            packed = torch.where((cc < cnt_all)[:, None, :], packed,
+                                 pack._zero(packed))
+            pool = _pod_gather(packed, pod_ranks, slot, L, C)
+            valid_r = cc < torch.gather(recv_counts, 1, dloc)
+            srckeys = dloc.to(torch.int32)
+        me = torch.arange(V, dtype=torch.int32, device=dev)
+        invalid = ~torch.cat([valid_r] + cross_valid + [is_self], dim=1)
+        source_key = torch.cat(
+            [srckeys] + cross_keys + [me[:, None].expand(V, n)],
+            dim=1).to(torch.int32)
+        new_full = (recv_counts.sum(dim=1, dtype=torch.int32)
+                    + is_self.sum(dim=1, dtype=torch.int32))
+        out, new_count, dropped_recv = pack.planar_compact_keys(
+            torch.cat([pool] + cross_pools + [fi], dim=2), invalid,
+            source_key, V, new_full, out_capacity)
+        if as_f32:
+            out = out.view(torch.float32)
+        stats = _stats(eff, is_self, remote_counts, dropped_send,
+                       dropped_recv)._replace(
+            fallback=torch.full((V,), int(not stencil), dtype=torch.int32,
+                                device=dev),
+            needed_cross=needed_cross)
+        return out, new_count, stats
+
+    return fn
+
+
+@functools.lru_cache(maxsize=64)
+def build_redistribute_hierarchical_vranks(domain: Domain, grid: ProcessGrid,
+                                           hier, capacity: int,
+                                           out_capacity: int, mover_cap: int,
+                                           cross_cap: int, ndim: int = None,
+                                           edges=None):
+    """:func:`vrank_redistribute_hierarchical_fn` under the reference's
+    name, made once for each set of arguments."""
+    return vrank_redistribute_hierarchical_fn(
+        domain, grid, hier, capacity, out_capacity, mover_cap, cross_cap,
+        ndim, edges=edges)
+
+
+def _dense_intra_wire(fi, plan, slot_valid, mesh, group):
+    """The hierarchical engine's dense intra-pod pool: a ``[K, L * C]``
+    per-local-destination pack and one all-to-all inside the pod only
+    (no byte leaves the pod)."""
+    packed = torch.where(slot_valid[None, :], pack.gather_plan_cols(fi, plan),
+                         torch.zeros((), dtype=fi.dtype, device=fi.device))
+    return col.all_to_all(packed, mesh, dim=1, group=group)
+
+
+def _hier_cross_stage(fi, order, bounds, prefix, eff, recv_counts, hier,
+                      mesh, B2: int, n: int, pod_of_t, rank_table_t):
+    """The staged cross-pod schedule of one rank. For each pod distance
+    ``delta`` in ``1..n_pods-1``: condense every row bound for pod
+    ``(pme + delta) % n_pods`` into one ``[K, B2]`` block
+    (destination-ascending segments at the prefix-summed offsets); move
+    every pod's block, and its per-local-destination segment lengths,
+    ``delta`` pods forward with one ``ppermute`` between the ranks of the
+    same pod-local slot (the only payload that leaves a pod); then fan
+    the arrived block out to its final ranks with one all-to-all inside
+    the pod. Returns per-delta lists ``(pools [K, L * B2], source-rank
+    keys, valid)`` for the shared compaction."""
+    L, n_pods = hier.pod_size, hier.n_pods
+    me = mesh.rank
+    pme = int(hier.pod_of[me])
+    m_idx, jj = _blocks(L, B2, fi.device)
+    ici = hier.ici_group(me)
+    pools, keys, valids = [], [], []
+    for delta in range(1, n_pods):
+        q_dst = (pme + delta) % n_pods
+        blk = _condense_block(fi, order, bounds, prefix, eff,
+                              pod_of_t == q_dst, B2, n)      # [K, B2]
+        eff_loc = eff[rank_table_t[q_dst]]                   # [L]
+        perm = col.lift_perm([(p, (p + delta) % n_pods)
+                              for p in range(n_pods)], hier.dcn_groups())
+        mirror = col.ppermute(blk, mesh, perm)
+        cnt_loc = col.ppermute(eff_loc, mesh, perm)
+        fan = _fan_out(mirror, cnt_loc, L, B2)               # [K, L*B2]
+        pools.append(col.all_to_all(fan, mesh, dim=1, group=ici))
+        # chunk s, slot j arrived from (pod pme - delta, local s)
+        src_ranks = rank_table_t[(pme - delta) % n_pods][m_idx]
+        keys.append(src_ranks.to(torch.int32))
+        valids.append(jj < recv_counts[src_ranks])
+    return pools, keys, valids
+
+
+def shard_redistribute_hierarchical_fn(domain: Domain, grid: ProcessGrid,
+                                       hier, capacity: int,
+                                       out_capacity: int, mover_cap: int,
+                                       cross_cap: int, ndim: int = None,
+                                       edges=None, mesh=None):
+    """HIERARCHICAL two-level multi-rank canonical exchange, one rank's
+    part, over the pods of ``hier`` (a :class:`~.mesh.HierarchicalMesh`
+    of ``grid``; ``mesh`` is the flat :class:`~.mesh.RankMesh`, whose
+    rank order the pods keep):
+
+      * intra-pod rows take the pod-local Moore stencil, one
+        ``ppermute`` of a ``[K, mover_cap]`` block an active offset
+        between ranks of one pod; when any same-pod mover of any rank
+        does not fit (a MIN across ranks, read on the host), the dense
+        intra-pod pool instead, one all-to-all inside each pod;
+      * cross-pod rows take :func:`_hier_cross_stage` (``cross_cap``
+        columns a destination pod; the excess is clipped and counted in
+        ``dropped_send`` and ``stats.needed_cross``, never densified).
+
+    Both feed the compaction with per-source keys, so the output is the
+    bits of :func:`shard_redistribute_planar_fn` on every step that clips
+    nothing. ``fn(fused [K, n], count) -> (fused_out [K, out_capacity],
+    count_out [1], stats)`` with this rank's stats rows, ``fallback``
+    (the intra stage) and ``needed_cross`` among them."""
+    R = grid.nranks
+    C = capacity
+    B = _check_mover_cap(mover_cap, capacity)
+    B2 = _check_cross_cap(cross_cap)
+    D = domain.ndim if ndim is None else ndim
+    _check_hier(hier, grid)
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    L = hier.pod_size
+    t = _hier_tables(hier, domain.periodic)
+    me = mesh.rank
+    pme, lme = int(hier.pod_of[me]), int(hier.local_of[me])
+    ici_groups = hier.ici_groups()
+    perms = tuple(col.lift_perm(p, ici_groups) for p in t.perms)
+    # this rank's stencil rows, lifted to global ranks (-1: none)
+    d_o, s_o = t.dst[lme], t.src[lme]
+    glob = lambda loc: np.where(loc >= 0, hier.rank_table[pme, np.where(
+        loc >= 0, loc, 0)], -1).astype(np.int32)
+    same = hier.pod_of == pme
+    member_row = t.member[lme][hier.local_of] & same
+    tables = _device.OnDevice(
+        glob(d_o), glob(s_o), member_row, same, t.prefix_m, t.pod_onehot,
+        hier.pod_of.astype(np.int64), hier.rank_table.astype(np.int64))
+
+    def fn(fused, count):
+        (as_f32, fi, me_t, is_self, order, remote_counts, bounds, sc,
+         _) = _shard_route(fused, count, domain, grid, D, edges, mesh, C)
+        K, n = fi.shape
+        dev = fused.device
+        (d_glob, s_glob, member_t, same_t, prefix_m, onehot, pod_of_t,
+         rank_table_t) = tables.get(dev)
+        prefix, eff, needed_cross = _cross_effective(sc, ~same_t, prefix_m,
+                                                     onehot, B2)
+        dropped_send = (remote_counts - eff).sum(dtype=torch.int32)
+        recv_counts = col.all_to_all(eff, mesh)
+        cross_pools, cross_keys, cross_valid = _hier_cross_stage(
+            fi, order, bounds, prefix, eff, recv_counts, hier, mesh, B2, n,
+            pod_of_t, rank_table_t)
+        ok = torch.where(same_t, torch.where(
+            member_t, remote_counts <= B, remote_counts == 0),
+            True).all().to(torch.int32).reshape(1)
+        stencil = bool(col.pmin(ok, mesh)[0] == 1)
+        if stencil:
+            if t.n_act:
+                plan, slot_valid = _stencil_plan(sc, bounds, order, d_glob,
+                                                 B, n)
+                send = torch.where(slot_valid[None, :],
+                                   pack._take_cols(fi, plan),
+                                   torch.zeros((), dtype=fi.dtype,
+                                               device=dev))
+                send = send.reshape(K, t.n_act, B)
+                pool = torch.cat([
+                    col.ppermute(send[:, o, :].contiguous(), mesh, perms[o])
+                    for o in range(t.n_act)
+                ], dim=1)
+            else:  # one-rank pods: nothing stays in a pod but its rank
+                pool = fi.new_zeros((K, 0))
+            invalid, srckeys = _stencil_keys(recv_counts, s_glob, B,
+                                             is_self[:0], me_t[0])
+            valid_r = ~invalid
+        else:
+            m_all, cc = _blocks(L, C, dev)
+            d_all_t = rank_table_t[pme][m_all]               # [L * C]
+            cnt_all = torch.where(same_t, sc, 0)[d_all_t]
+            src_cols = (bounds[d_all_t] + cc).clamp(max=n - 1)
+            pool = _dense_intra_wire(fi, order[src_cols.long()].long(),
+                                     cc < cnt_all, mesh,
+                                     hier.ici_group(me))
+            valid_r = cc < recv_counts[d_all_t]
+            srckeys = d_all_t.to(torch.int32)
+        invalid = ~torch.cat([valid_r] + cross_valid + [is_self])
+        source_key = torch.cat(
+            [srckeys] + cross_keys + [me_t.expand(n)]).to(torch.int32)
+        new_full = (recv_counts.sum(dtype=torch.int32)
+                    + is_self.sum(dtype=torch.int32))
+        out, new_count, dropped_recv = pack.planar_compact_keys(
+            torch.cat([pool] + cross_pools + [fi], dim=1), invalid,
+            source_key, R, new_full, out_capacity)
+        if as_f32:
+            out = out.view(torch.float32)
+        stats = _shard_stats(
+            eff, recv_counts, is_self, me, remote_counts, dropped_send,
+            dropped_recv,
+            fallback=torch.full((1,), int(not stencil), dtype=torch.int32,
+                                device=dev))._replace(
+            needed_cross=needed_cross.reshape(1))
+        return out, new_count.reshape(1), stats
+
+    return fn
+
+
+def shard_redistribute_hierarchical_sharded(mesh, domain: Domain,
+                                            grid: ProcessGrid, hier,
+                                            capacity: int, out_capacity: int,
+                                            mover_cap: int, cross_cap: int,
+                                            ndim: int = None, edges=None):
+    """The reference's global hierarchical exchange as each rank sees it
+    (its expanded mesh keeps the grid's rank order, so the layout is
+    :func:`shard_redistribute_planar_sharded`'s): the per-rank function
+    with the stats gathered, ``fallback`` and ``needed_cross`` among
+    them."""
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    return _with_global_stats(shard_redistribute_hierarchical_fn(
+        domain, grid, hier, capacity, out_capacity, mover_cap, cross_cap,
+        ndim, edges=edges, mesh=mesh), mesh)
+
+
+@functools.lru_cache(maxsize=64)
+def build_redistribute_hierarchical(mesh, domain: Domain, grid: ProcessGrid,
+                                    hier, capacity: int, out_capacity: int,
+                                    mover_cap: int, cross_cap: int,
+                                    ndim: int = None, edges=None):
+    """:func:`shard_redistribute_hierarchical_sharded`, built once for
+    each set of arguments (the reference caches its jit the same way),
+    so a caller that runs it every step uploads its tables once."""
+    return shard_redistribute_hierarchical_sharded(
+        mesh, domain, grid, hier, capacity, out_capacity, mover_cap,
+        cross_cap, ndim, edges=edges)

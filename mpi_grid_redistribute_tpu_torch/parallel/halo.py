@@ -1,5 +1,6 @@
-"""Halo / ghost-particle exchange on one device (port of the JAX package's
-``parallel/halo.py``, its single-device vrank engines).
+"""Halo / ghost-particle exchange (port of the JAX package's
+``parallel/halo.py``: the single-device vrank engines and the multi-rank
+ones).
 
 Stencil codes (short-range forces, SPH, CIC with force interpolation)
 need copies of the neighbour shards' particles within ``halo_width`` of
@@ -42,13 +43,22 @@ Where the bits are decided (each pinned by ``tests/test_torch_halo.py``):
   * each vrank's windows (the second band of the banded order, the start
     of an append) begin at a count computed on the device; they are
     gathers and scatters with device indices, so an exchange makes no
-    host sync;
-  * the multi-device ``shard_map`` engines are not ported
-    (``ROADMAP.md`` A8).
+    host sync.
+
+Across ranks (one rank a process over a :class:`~.mesh.RankMesh`) the
+same passes run on the rank's own columns or rows, its cell coordinate
+taking the place of the vrank's, and each send is one ``ppermute`` to
+the neighbour along the axis (:func:`shard_halo_planar_fn`,
+:func:`shard_halo_fn`); the global forms :func:`build_halo_planar` and
+:func:`build_halo_exchange` return the rank's ghosts with the ghost
+counts and overflow of every rank gathered. The -0.0 rule above holds
+there too: the reference's shard engines keep the sign on an open axis
+(planar) and turn it to +0.0 (row-major), as its vrank engines do.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -58,6 +68,8 @@ from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops.pack import (
     _mask_rows, _stable_order, _take, _take_cols, _take_rows,
 )
+from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
+from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
 from mpi_grid_redistribute_tpu_torch.parallel.exchange import _WORD
 
 # bits of a rank-axis iota that fit one int32 word beside a 2-bit band;
@@ -141,17 +153,34 @@ def _fill(value, dtype, device) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=device)
 
 
-def _face_bounds(domain: Domain, grid: ProcessGrid, a: int, cell_w_a: float,
-                 dtype, device):
-    """Per-vrank ``(coord [V], lo_a [V], hi_a [V])`` along axis ``a``:
-    row-major cell coordinates and the float thresholds in two rounded
-    steps (``lo + coord * cell_w``, then ``+ cell_w``), never fused."""
-    ranks = torch.arange(grid.nranks, dtype=torch.int32, device=device)
-    coord = (ranks // grid.strides[a]) % grid.shape[a]
+def _vrank_coords(grid: ProcessGrid):
+    """``coord_of(a, device) -> [V]``: the row-major cell coordinate of
+    every vrank along axis ``a``."""
+    def coord_of(a: int, device):
+        ranks = torch.arange(grid.nranks, dtype=torch.int32, device=device)
+        return (ranks // grid.strides[a]) % grid.shape[a]
+
+    return coord_of
+
+
+def _rank_coords(mesh):
+    """``coord_of(a, device) -> [1]``: this rank's cell coordinate along
+    axis ``a`` (``lax.axis_index`` of the axis)."""
+    def coord_of(a: int, device):
+        return torch.full((1,), mesh.coords[a], dtype=torch.int32,
+                          device=device)
+
+    return coord_of
+
+
+def _bounds_at(domain: Domain, a: int, cell_w_a: float, coord, dtype):
+    """``(lo_a, hi_a)`` of the ranks at cell coordinates ``coord`` along
+    axis ``a``: the float thresholds in two rounded steps (``lo + coord *
+    cell_w``, then ``+ cell_w``), never fused."""
+    device = coord.device
     cw = _fill(cell_w_a, dtype, device)
     lo_a = _fill(domain.lo[a], dtype, device) + coord.to(dtype) * cw
-    hi_a = lo_a + cw
-    return coord, lo_a, hi_a
+    return lo_a, lo_a + cw
 
 
 def _frame_shift(at_edge: torch.Tensor, periodic: bool, dirn: int,
@@ -163,11 +192,28 @@ def _frame_shift(at_edge: torch.Tensor, periodic: bool, dirn: int,
                                                        extent_a.device))
 
 
-def _roll(x: torch.Tensor, grid: ProcessGrid, dirn: int, a: int):
-    """The wire: receiver ``j`` gets sender ``j - dirn`` along grid axis
-    ``a`` (the reference's ``jnp.roll`` of the grid-shaped rank axis)."""
-    shaped = x.reshape(grid.shape + tuple(x.shape[1:]))
-    return torch.roll(shaped, dirn, dims=a).reshape(x.shape)
+def _roll_wire(grid: ProcessGrid):
+    """The vrank wire: receiver ``j`` gets sender ``j - dirn`` along grid
+    axis ``a`` (the reference's ``jnp.roll`` of the grid-shaped rank
+    axis)."""
+    def wire(x: torch.Tensor, dirn: int, a: int):
+        shaped = x.reshape(grid.shape + tuple(x.shape[1:]))
+        return torch.roll(shaped, dirn, dims=a).reshape(x.shape)
+
+    return wire
+
+
+def _ppermute_wire(grid: ProcessGrid, mesh):
+    """The multi-rank wire: this rank's ``[1, ...]`` send goes one step
+    along the axis (:func:`~.mesh.axis_shift_perm`), one ``ppermute`` a
+    send."""
+    perms = {(a, d): mesh_lib.axis_shift_perm(grid, a, d)
+             for a in range(grid.ndim) for d in (1, -1)}
+
+    def wire(x: torch.Tensor, dirn: int, a: int):
+        return col.ppermute(x, mesh, perms[(a, dirn)])
+
+    return wire
 
 
 def _band_mask(coord, valid, dirn, lo_a, hi_a, w):
@@ -231,27 +277,18 @@ def _append_recv(ghost, gcount, overflow, recv, recv_cnt, H, G):
     return tuple(out), (gcount + recv_cnt).clamp(max=G), overflow
 
 
-def vrank_halo_fn(
-    domain: Domain,
-    grid: ProcessGrid,
-    halo_width,
-    pass_capacity: int,
-    ghost_capacity: int,
-):
-    """Row-major V-rank halo exchange on one device.
-
-    Signature: ``(pos [V, n, D], count [V], *fields [V, n, ...]) ->
-    (ghost_pos [V, G, D], ghost_count [V], *ghost_fields, overflow [V])``.
-    Fields of any dtype ride along as integer words of their width; the
-    ghost arrays keep the inputs' dtypes. Rows past a rank's ghost count
-    are zero. Each axis selects from the rank's own rows and all ``G``
-    ghost rows (two sorts an axis)."""
+def _rowmajor_passes(domain: Domain, grid: ProcessGrid, halo_width, H: int,
+                     G: int, coord_of, wire):
+    """The row-major exchange over a batch of ranks: ``run(pos [B, n, D],
+    count [B], *fields [B, n, ...]) -> (ghost_pos [B, G, D], ghost_count
+    [B], *ghost_fields, overflow [B])``. ``coord_of(a, device)`` gives
+    the batch's cell coordinates along axis ``a`` and ``wire(x, dirn,
+    a)`` moves a send one step along it: every vrank of one device (a
+    roll) or this rank alone (a ``ppermute``)."""
     widths, cell_w = _validate_widths(domain, grid, halo_width)
-    H, G = pass_capacity, ghost_capacity
-    V = grid.nranks
 
-    def fn(pos, count, *fields):
-        n = pos.shape[1]
+    def run(pos, count, *fields):
+        V, n = pos.shape[0], pos.shape[1]
         dev = pos.device
         arrays = (pos,) + tuple(fields)
         words = tuple(x.view(_WORD[x.element_size()]) for x in arrays)
@@ -268,8 +305,8 @@ def vrank_halo_fn(
             g = grid.shape[a]
             w = _fill(widths[a], pos.dtype, dev)
             extent_a = _fill(domain.extent[a], pos.dtype, dev)
-            coord, lo_a, hi_a = _face_bounds(domain, grid, a, cell_w[a],
-                                             pos.dtype, dev)
+            coord = coord_of(a, dev)
+            lo_a, hi_a = _bounds_at(domain, a, cell_w[a], coord, pos.dtype)
             # snapshot before this axis's passes: both directions select
             # from it, so a ghost just received is never bounced back
             cand = tuple(torch.cat([own, gh[:, :G]], dim=1)
@@ -283,8 +320,8 @@ def vrank_halo_fn(
                     domain.periodic[a], extent_a, H,
                 )
                 overflow = overflow + ov
-                incoming.append((tuple(_roll(x, grid, dirn, a) for x in send),
-                                 _roll(send_cnt, grid, dirn, a)))
+                incoming.append((tuple(wire(x, dirn, a) for x in send),
+                                 wire(send_cnt, dirn, a)))
             for recv, recv_cnt in incoming:
                 ghost, gcount, overflow = _append_recv(
                     ghost, gcount, overflow, recv, recv_cnt, H, G)
@@ -292,7 +329,27 @@ def vrank_halo_fn(
         out = tuple(gh[:, :G].view(x.dtype) for gh, x in zip(ghost, arrays))
         return (out[0], gcount) + out[1:] + (overflow,)
 
-    return fn
+    return run
+
+
+def vrank_halo_fn(
+    domain: Domain,
+    grid: ProcessGrid,
+    halo_width,
+    pass_capacity: int,
+    ghost_capacity: int,
+):
+    """Row-major V-rank halo exchange on one device.
+
+    Signature: ``(pos [V, n, D], count [V], *fields [V, n, ...]) ->
+    (ghost_pos [V, G, D], ghost_count [V], *ghost_fields, overflow [V])``.
+    Fields of any dtype ride along as integer words of their width; the
+    ghost arrays keep the inputs' dtypes. Rows past a rank's ghost count
+    are zero. Each axis selects from the rank's own rows and all ``G``
+    ghost rows (two sorts an axis)."""
+    return _rowmajor_passes(domain, grid, halo_width, pass_capacity,
+                            ghost_capacity, _vrank_coords(grid),
+                            _roll_wire(grid))
 
 
 # The reference jits and caches these per width tuple; PyTorch runs
@@ -428,43 +485,17 @@ def _append_recv_cols(ghost, gcount, overflow, recv, recv_cnt, H, G):
     return ghost, (gcount + recv_cnt).clamp(max=G), overflow
 
 
-def vrank_halo_planar_fn(
-    domain: Domain,
-    grid: ProcessGrid,
-    halo_width,
-    pass_capacity: int,
-    ghost_capacity: int,
-):
-    """Planar V-rank halo exchange on one device: ``[V, K, n]`` state.
-
-    Same passes, predicate and append order as :func:`vrank_halo_fn` (the
-    same ghost set and order), with the payload component-major (``K``
-    rows: ``D`` position components first, then 32-bit fields) and an
-    int32 transport, so every 32-bit pattern arrives as it left.
-
-    Signature: ``(fused [V, K, n], count [V]) -> (ghost [V, K, G], gcount
-    [V], overflow [V])``; ``fused`` may be float32 or int32 (the output
-    matches it). Ghost columns past ``gcount[v]`` are zero. Before axis
-    ``a`` at most ``2aH`` ghost columns can be valid, so that axis selects
-    from the own columns and the first ``min(G, 2aH)`` ghost columns."""
+def _planar_passes(domain: Domain, grid: ProcessGrid, halo_width, H: int,
+                   G: int, coord_of, wire):
+    """The planar exchange over a batch of ranks: ``run(fi [B, K, n] int32,
+    count [B]) -> (ghost [B, K, G] int32, gcount [B], overflow [B])``,
+    with ``coord_of`` and ``wire`` as in :func:`_rowmajor_passes`."""
     widths, cell_w = _validate_widths(domain, grid, halo_width)
-    H, G = pass_capacity, ghost_capacity
-    V = grid.nranks
     nd = domain.ndim
 
-    def fn(fused, count):
-        if fused.dim() != 3 or fused.shape[0] != V or fused.shape[1] < nd:
-            raise ValueError(
-                f"fused must be [V={V}, K>={nd}, n], got {tuple(fused.shape)}"
-            )
-        if fused.dtype not in (torch.float32, torch.int32):
-            raise TypeError(
-                f"fused must be float32 or int32, got {fused.dtype}"
-            )
-        as_f32 = fused.dtype == torch.float32
-        fi = fused.view(torch.int32) if as_f32 else fused
+    def run(fi, count):
         dev = fi.device
-        K, n = fi.shape[1], fi.shape[2]
+        V, K, n = fi.shape
         valid = torch.arange(n, dtype=torch.int32,
                              device=dev)[None, :] < count[:, None]
         ghost = torch.zeros((V, K, G + H), dtype=torch.int32, device=dev)
@@ -475,8 +506,9 @@ def vrank_halo_planar_fn(
             g = grid.shape[a]
             w = _fill(widths[a], torch.float32, dev)
             extent_a = _fill(domain.extent[a], torch.float32, dev)
-            coord, lo_a, hi_a = _face_bounds(domain, grid, a, cell_w[a],
-                                             torch.float32, dev)
+            coord = coord_of(a, dev)
+            lo_a, hi_a = _bounds_at(domain, a, cell_w[a], coord,
+                                    torch.float32)
             Wa = min(G, 2 * a * H)
             cand = torch.cat([fi, ghost[:, :, :Wa]], dim=2)
             cand_valid = torch.cat([
@@ -502,19 +534,200 @@ def vrank_halo_planar_fn(
                     )
                     overflow = overflow + ov
                     sends.append((dirn, send, send_cnt))
-            incoming = [(_roll(send, grid, dirn, a),
-                         _roll(send_cnt, grid, dirn, a))
+            incoming = [(wire(send, dirn, a), wire(send_cnt, dirn, a))
                         for dirn, send, send_cnt in sends]
             for recv, recv_cnt in incoming:
                 ghost, gcount, overflow = _append_recv_cols(
                     ghost, gcount, overflow, recv, recv_cnt, H, G)
+        return ghost[:, :, :G], gcount, overflow
 
-        out = ghost[:, :, :G]
-        if as_f32:
-            out = out.view(torch.float32)
-        return out, gcount, overflow
+    return run
+
+
+def _planar_input(fused: torch.Tensor, nd: int, lead: int):
+    """Validate a planar state of ``lead + 2`` dims (``[..., K >= nd, n]``,
+    32-bit): ``(as_f32, int32 view)``."""
+    if fused.dim() != lead + 2 or fused.shape[-2] < nd:
+        want = "[V, K, n]" if lead else "[K, n] per rank"
+        raise ValueError(
+            f"fused must be {want} with K >= {nd}, got {tuple(fused.shape)}"
+        )
+    if fused.dtype not in (torch.float32, torch.int32):
+        raise TypeError(
+            f"fused must be float32 or int32, got {fused.dtype}"
+        )
+    as_f32 = fused.dtype == torch.float32
+    return as_f32, (fused.view(torch.int32) if as_f32 else fused)
+
+
+def vrank_halo_planar_fn(
+    domain: Domain,
+    grid: ProcessGrid,
+    halo_width,
+    pass_capacity: int,
+    ghost_capacity: int,
+):
+    """Planar V-rank halo exchange on one device: ``[V, K, n]`` state.
+
+    Same passes, predicate and append order as :func:`vrank_halo_fn` (the
+    same ghost set and order), with the payload component-major (``K``
+    rows: ``D`` position components first, then 32-bit fields) and an
+    int32 transport, so every 32-bit pattern arrives as it left.
+
+    Signature: ``(fused [V, K, n], count [V]) -> (ghost [V, K, G], gcount
+    [V], overflow [V])``; ``fused`` may be float32 or int32 (the output
+    matches it). Ghost columns past ``gcount[v]`` are zero. Before axis
+    ``a`` at most ``2aH`` ghost columns can be valid, so that axis selects
+    from the own columns and the first ``min(G, 2aH)`` ghost columns."""
+    V = grid.nranks
+    run = _planar_passes(domain, grid, halo_width, pass_capacity,
+                         ghost_capacity, _vrank_coords(grid),
+                         _roll_wire(grid))
+
+    def fn(fused, count):
+        if fused.dim() == 3 and fused.shape[0] != V:
+            raise ValueError(
+                f"fused must be [V={V}, K, n], got {tuple(fused.shape)}")
+        as_f32, fi = _planar_input(fused, domain.ndim, 1)
+        out, gcount, overflow = run(fi, count)
+        return (out.view(torch.float32) if as_f32 else out), gcount, overflow
 
     return fn
 
 
 build_halo_planar_vranks = vrank_halo_planar_fn
+
+
+# ---------------------------------------------------------------------------
+# Multi-rank engines: one rank a process, over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def shard_halo_planar_fn(
+    domain: Domain,
+    grid: ProcessGrid,
+    halo_width,
+    pass_capacity: int,
+    ghost_capacity: int,
+    mesh=None,
+):
+    """Planar multi-rank halo exchange, one rank's part (the reference's
+    ``shard_map`` body): the passes of :func:`vrank_halo_planar_fn` on
+    this rank's columns, each send one ``ppermute`` to the neighbour
+    along its axis over ``mesh`` (default :func:`~.mesh.make_mesh` of
+    ``grid``). ``fn(fused [K, n], count) -> (ghost [K, G], gcount [1],
+    overflow [1])``, this rank's rows."""
+    _validate_widths(domain, grid, halo_width)
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    run = _planar_passes(domain, grid, halo_width, pass_capacity,
+                         ghost_capacity, _rank_coords(mesh),
+                         _ppermute_wire(grid, mesh))
+
+    def fn(fused, count):
+        as_f32, fi = _planar_input(fused, domain.ndim, 0)
+        out, gcount, overflow = run(fi[None], count.reshape(1).to(
+            torch.int32))
+        out = out[0]
+        return (out.view(torch.float32) if as_f32 else out), gcount, overflow
+
+    return fn
+
+
+@functools.lru_cache(maxsize=64)
+def build_halo_planar(mesh, domain: Domain, grid: ProcessGrid, halo_width,
+                      pass_capacity: int, ghost_capacity: int):
+    """The reference's global planar halo (``[K, R * n]`` lane-sharded) as
+    each rank sees it: :func:`shard_halo_planar_fn` with the per-rank
+    counters gathered. ``fn(fused [K, n], count) -> (ghost [K, G], gcount
+    [R], overflow [R])``, the counters the same on every rank. Built once
+    for each set of arguments (``halo_width`` a float or a tuple), as the
+    reference caches its jit."""
+    _validate_widths(domain, grid, halo_width)
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    fn = shard_halo_planar_fn(domain, grid, halo_width, pass_capacity,
+                              ghost_capacity, mesh=mesh)
+
+    def call(fused, count):
+        ghost, gcount, overflow = fn(fused, count)
+        return (ghost, col.all_gather(gcount, mesh).reshape(-1),
+                col.all_gather(overflow, mesh).reshape(-1))
+
+    return call
+
+
+def shard_halo_fn(
+    domain: Domain,
+    grid: ProcessGrid,
+    halo_width,
+    pass_capacity: int,
+    ghost_capacity: int,
+    mesh=None,
+):
+    """Row-major multi-rank halo exchange, one rank's part: the passes of
+    :func:`vrank_halo_fn` on this rank's rows, one ``ppermute`` a send and
+    array. ``fn(pos [n, D], count, *fields [n, ...]) -> (ghost_pos [G,
+    D], ghost_count [1], *ghost_fields, overflow [1])``."""
+    _validate_widths(domain, grid, halo_width)
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    run = _rowmajor_passes(domain, grid, halo_width, pass_capacity,
+                           ghost_capacity, _rank_coords(mesh),
+                           _ppermute_wire(grid, mesh))
+
+    def fn(pos, count, *fields):
+        out = run(pos[None], count.reshape(1).to(torch.int32),
+                  *(f[None] for f in fields))
+        return ((out[0][0], out[1]) + tuple(f[0] for f in out[2:-1])
+                + (out[-1],))
+
+    return fn
+
+
+@functools.lru_cache(maxsize=64)
+def build_halo_exchange(
+    mesh,
+    domain: Domain,
+    grid: ProcessGrid,
+    halo_width,
+    pass_capacity: int = None,
+    ghost_capacity: int = None,
+    headroom: float = 2.0,
+):
+    """The reference's global row-major halo as each rank sees it:
+    ``wrapped(pos [n, D], count, *fields) -> HaloResult`` with this rank's
+    ghost rows ``[G, ...]`` and the ghost counts and overflow of every
+    rank (``[R]``, gathered). Capacities left ``None`` come from
+    :func:`default_capacities` of each call's row count, one engine a
+    distinct count, the last 16 kept (pass both to pin one engine for
+    every count); a rank takes any number of fields. Built once for each
+    set of arguments, as :func:`build_halo_planar` is."""
+    from collections import OrderedDict
+
+    _validate_widths(domain, grid, halo_width)
+    mesh = mesh_lib.mesh_for(grid, mesh)
+    built = OrderedDict()  # n_local -> engine, LRU-bounded
+    max_builds = 16
+
+    def _build(n_local: int):
+        pc, gc = pass_capacity, ghost_capacity
+        if pc is None or gc is None:
+            dpc, dgc = default_capacities(domain, grid, halo_width, n_local,
+                                          headroom)
+            pc = dpc if pc is None else pc
+            gc = dgc if gc is None else gc
+        return shard_halo_fn(domain, grid, halo_width, pc, gc, mesh=mesh)
+
+    def wrapped(pos, count, *fields):
+        key = (pos.shape[0] if pass_capacity is None
+               or ghost_capacity is None else 0)
+        if key in built:
+            built.move_to_end(key)
+        else:
+            built[key] = _build(key)
+            if len(built) > max_builds:
+                built.popitem(last=False)
+        out = built[key](pos, count, *fields)
+        return HaloResult(out[0], col.all_gather(out[1], mesh).reshape(-1),
+                          tuple(out[2:-1]),
+                          col.all_gather(out[-1], mesh).reshape(-1))
+
+    return wrapped

@@ -8,8 +8,14 @@ process: :func:`make_mesh` reads the caller's rank in a process group and
 returns a :class:`RankMesh`, whose ``rank`` is the grid rank (row-major over
 ``grid.shape``, the order of ``lax.axis_index(axis_names)``) and whose
 ``coords`` are its cell. The pure NumPy helpers (shape factoring, shrink
-ladder, Moore-stencil tables) are copied as they are. The hierarchical
-two-level mesh is not ported yet (``ROADMAP.md`` A9).
+ladder, Moore-stencil tables) are copied as they are.
+
+The two-level view (:class:`HierarchicalMesh`, ``dcn_shape``) splits each
+grid axis into pods; its tables say which pod and which pod-local slot a
+rank holds, and its sub-axis groups are lists of mesh ranks
+(:meth:`HierarchicalMesh.ici_groups`, :meth:`HierarchicalMesh.dcn_groups`)
+for the sub-axis collectives of :mod:`.collectives`. The ranks keep their
+grid order: placing pods on nodes is the launcher's job.
 """
 
 from __future__ import annotations
@@ -77,6 +83,127 @@ def mesh_for(grid: ProcessGrid, mesh=None) -> RankMesh:
         return make_mesh(grid)
     validate_mesh_for_grid(mesh, grid)
     return mesh
+
+
+def _validate_dcn_shape(
+    grid: ProcessGrid, dcn_shape: Optional[Sequence[int]]
+) -> Tuple[int, ...]:
+    """Per-axis pod counts: one a grid axis, each >= 1 and dividing the
+    grid's extent. ``None`` means all ones (a flat mesh)."""
+    if dcn_shape is None:
+        dcn_shape = (1,) * grid.ndim
+    dcn_shape = tuple(int(d) for d in dcn_shape)
+    if len(dcn_shape) != grid.ndim:
+        raise ValueError(
+            f"dcn_shape must have {grid.ndim} axes, got {dcn_shape}"
+        )
+    for a, (g, d) in enumerate(zip(grid.shape, dcn_shape)):
+        if d < 1:
+            raise ValueError(
+                f"axis {a}: dcn factor must be >= 1, got {d}"
+            )
+        if g % d:
+            raise ValueError(
+                f"axis {a}: grid extent {g} not divisible by dcn {d}"
+            )
+    return dcn_shape
+
+
+def make_hybrid_mesh(grid: ProcessGrid, dcn_shape=None, group=None
+                     ) -> RankMesh:
+    """The mesh of a job whose grid spans several nodes (``dcn_shape[a]``
+    pods along grid axis ``a``): ``dcn_shape`` is validated and the mesh
+    is :func:`make_mesh`'s, because a rank's grid rank does not depend on
+    where it runs. Putting the ranks of one pod on one node (so its
+    traffic stays on NVLink) is the launcher's job: start ranks
+    ``rank_table[p]`` of :class:`HierarchicalMesh` on node ``p``."""
+    _validate_dcn_shape(grid, dcn_shape)
+    return make_mesh(grid, group)
+
+
+class HierarchicalMesh:
+    """Two-level view of a process grid: ``dcn_shape[a]`` splits grid axis
+    ``a`` into ``d_a`` pods of ``g_a // d_a`` ranks.
+
+    A rank's cell is ``pod_a * ici_a + local_a`` on each axis, so the
+    row-major index over the interleaved ``(dcn_a, ici_a)`` axes is the
+    grid rank: the ranks keep their order, a collective over every axis
+    is the flat mesh's, the pod id is the row-major index over the dcn
+    digits and the pod-local rank the row-major index over the ici
+    digits.
+
+    Tables (NumPy, int32): ``pod_of [R]`` and ``local_of [R]``, the pod
+    and pod-local index of each grid rank; ``rank_table [n_pods,
+    pod_size]``, the grid rank of slot ``l`` of pod ``p`` (ascending in
+    ``l``, and in rank); ``local_grid``, the pod's :class:`ProcessGrid`
+    (the intra-pod stencil's)."""
+
+    def __init__(self, grid: ProcessGrid,
+                 dcn_shape: Optional[Sequence[int]] = None):
+        self.grid = grid
+        self.dcn_shape = _validate_dcn_shape(grid, dcn_shape)
+        self.ici_shape = tuple(
+            g // d for g, d in zip(grid.shape, self.dcn_shape)
+        )
+        self.n_pods = math.prod(self.dcn_shape)
+        self.pod_size = math.prod(self.ici_shape)
+        self.local_grid = ProcessGrid(self.ici_shape)
+        R = grid.nranks
+        pod_of = np.zeros(R, dtype=np.int32)
+        local_of = np.zeros(R, dtype=np.int32)
+        rank_table = np.zeros((self.n_pods, self.pod_size), dtype=np.int32)
+        for r in range(R):
+            cell = grid.cell_of_rank(r)
+            p = 0
+            l = 0
+            for a in range(grid.ndim):
+                p = p * self.dcn_shape[a] + cell[a] // self.ici_shape[a]
+                l = l * self.ici_shape[a] + cell[a] % self.ici_shape[a]
+            pod_of[r] = p
+            local_of[r] = l
+            rank_table[p, l] = r
+        self.pod_of = pod_of
+        self.local_of = local_of
+        self.rank_table = rank_table
+
+    def local_periodic(self, periodic: Sequence[bool]) -> Tuple[bool, ...]:
+        """Periodicity of the pod-local grid: a periodic axis wraps inside
+        the pod only when the pod spans it (``d_a == 1``); a split axis
+        wraps across pods, which the cross stage carries."""
+        return tuple(
+            bool(p) and d == 1 for p, d in zip(periodic, self.dcn_shape)
+        )
+
+    def ici_group(self, rank: int) -> Tuple[int, ...]:
+        """The mesh ranks of ``rank``'s pod, in pod-local order (the
+        group of a collective over the ici axes)."""
+        return tuple(int(r) for r in self.rank_table[self.pod_of[rank]])
+
+    def ici_groups(self) -> Tuple[Tuple[int, ...], ...]:
+        """Every pod's ranks, in pod order."""
+        return tuple(tuple(int(r) for r in row) for row in self.rank_table)
+
+    def dcn_groups(self) -> Tuple[Tuple[int, ...], ...]:
+        """For each pod-local slot, the ranks holding it in every pod, in
+        pod order (the groups of a collective over the dcn axes)."""
+        return tuple(tuple(int(r) for r in col) for col in
+                     self.rank_table.T)
+
+    def __eq__(self, other) -> bool:
+        return (
+            isinstance(other, HierarchicalMesh)
+            and self.grid == other.grid
+            and self.dcn_shape == other.dcn_shape
+        )
+
+    def __hash__(self) -> int:
+        return hash((HierarchicalMesh, self.grid, self.dcn_shape))
+
+    def __repr__(self) -> str:
+        return (
+            f"HierarchicalMesh(grid={self.grid.shape}, "
+            f"dcn={self.dcn_shape})"
+        )
 
 
 def near_cubic_shape(n: int, ndim: int = 3) -> Tuple[int, ...]:
@@ -168,6 +295,19 @@ def rank_device(device: str, local_rank: int) -> torch.device:
             raise RuntimeError("device='cuda' but no CUDA device is visible")
         return torch.device("cuda", local_rank % n)
     return torch.device(device)
+
+
+def axis_shift_perm(grid: ProcessGrid, a: int, dirn: int = 1):
+    """``lax.ppermute(x, axis_names[a], [(i, (i + dirn) % g)])`` as the
+    world permutation of grid ranks: each rank sends to its neighbour
+    ``dirn`` steps along axis ``a`` (wrapping), for every value of the
+    other axes."""
+    perm = []
+    for r in range(grid.nranks):
+        c = list(grid.cell_of_rank(r))
+        c[a] = (c[a] + dirn) % grid.shape[a]
+        perm.append((r, grid.rank_of_cell(tuple(c))))
+    return tuple(perm)
 
 
 def stencil_offsets(ndim: int) -> Tuple[Tuple[int, ...], ...]:

@@ -443,17 +443,26 @@ def test_mover_capacity_matches_reference():
 
 
 def test_unported_planes_raise():
-    for kw, item in ((dict(dcn_shape=(2, 1, 1)), "A9"),
-                     (dict(cross_cap=4), "A9"),
-                     (dict(engine="hierarchical"), "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", **kw)
-    # the multi-rank plane and the count-driven engines are ported: a mesh
-    # must be a RankMesh, and "sparse"/"neighbor" build on one device
+    # the telemetry plane (A11) is what is still refused
+    from mpi_grid_redistribute_tpu_torch.parallel import exchange as tex
+
+    with pytest.raises(NotImplementedError, match="A11"):
+        tgr.api.MoverCapacity(8, recorder=object())
+    with pytest.raises(NotImplementedError, match="A11"):
+        tex.resolve_engine("auto", canonical=True, recorder=object())
+    with pytest.raises(NotImplementedError, match="A11"):
+        tgr.api.reshard(np.zeros((4, 3), np.float32), domain=TDOM,
+                        grid=(2, 2, 2), n_local=4, telemetry=object())
+    # the multi-rank plane, the count-driven and the hierarchical engines
+    # are ported: a mesh must be a RankMesh, and "sparse"/"neighbor"/
+    # "hierarchical" (with dcn_shape= and cross_cap=) build on one device
     with pytest.raises(TypeError, match="RankMesh"):
         tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", mesh=object())
-    for engine in ("sparse", "neighbor"):
+    for engine in ("sparse", "neighbor", "hierarchical"):
         tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", engine=engine)
+    rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu",
+                              dcn_shape=(2, 1, 1), cross_cap=4)
+    assert rd.n_pods == 2 and rd._cross_cap == 4
     rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         tgr.GridRedistribute(TDOM, (2, 2, 2), backend="jax")

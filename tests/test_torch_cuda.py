@@ -1101,8 +1101,11 @@ def test_two_rank_gloo_world_on_card_matches_cpu_world(cuda):
     """Two processes sharing the card over gloo (the multi-rank path on
     one card): one migrate step with its scan deposit, bit-equal to the
     same world on the CPU, kernel 2 and kernel 5 launched once on each
-    rank. Gloo moves the card's tensors itself (no staging): every
-    collective gives the CPU world's bits."""
+    rank; then one canonical drift step with its scan deposit (kernel 5
+    once), a halo with each engine and a hierarchical call over two
+    pods, each bit-equal to the CPU world. Gloo moves the card's tensors
+    itself (no staging): every collective gives the CPU world's bits."""
+    from mpi_grid_redistribute_tpu_torch.bench import multirank
     from mpi_grid_redistribute_tpu_torch.parallel import launch
 
     target = "mpi_grid_redistribute_tpu_torch.bench.multirank:small_loop"
@@ -1111,8 +1114,16 @@ def test_two_rank_gloo_world_on_card_matches_cpu_world(cuda):
     cpu = launch.run_world(target, 2, device="cpu", timeout=300,
                            pg_timeout=120)
     for r in range(2):
-        (state_c, stats_c, rho_c, launches, coll_c), (
-            state_h, stats_h, rho_h, _, coll_h) = card[r], cpu[r]
+        (state_c, stats_c, rho_c, launches, coll_c, slice_c), (
+            state_h, stats_h, rho_h, _, coll_h, slice_h) = card[r], cpu[r]
+        # the drift step, the halo and the hierarchical call
+        assert slice_c["launches"]["tile_df_cumsum_rows"] == 1
+        assert not any(slice_h["launches"].values())
+        for k in slice_h:
+            if k != "launches":
+                assert multirank._same_tree(slice_c[k], slice_h[k]), k
+        assert slice_h["hier"][4] == "hierarchical"
+        assert int(slice_h["halo_auto"][2].sum()) > 0
         # every collective, each backend operation beneath them included,
         # moves the card's tensors as the CPU's
         for k in coll_h:

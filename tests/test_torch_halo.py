@@ -591,9 +591,9 @@ def test_select_cols_for_axis_equals_two_passes(rng):
     cand[:, 0, :] = torch.from_numpy(
         rng.random((V, m), dtype=np.float32)).view(torch.int32)
     cand_valid = torch.from_numpy(rng.random((V, m)) < 0.9)
-    coord, lo_a, hi_a = th._face_bounds(tgr.Domain(0.0, 1.0),
-                                        tgr.ProcessGrid((2, 2, 2)), 0, 0.5,
-                                        torch.float32, dev)
+    coord = th._vrank_coords(tgr.ProcessGrid((2, 2, 2)))(0, dev)
+    lo_a, hi_a = th._bounds_at(tgr.Domain(0.0, 1.0), 0, 0.5, coord,
+                               torch.float32)
     lo_a, hi_a = lo_a * 0, hi_a * 0 + 1.0  # every vrank sees [0, 1)
     w = th._fill(0.3, torch.float32, dev)
     ext = th._fill(1.0, torch.float32, dev)

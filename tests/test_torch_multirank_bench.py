@@ -10,7 +10,8 @@ from mpi_grid_redistribute_tpu_torch.parallel import launch
 
 def test_multirank_world_on_the_cpu(tmp_path):
     spec = multirank.prepare(str(tmp_path), n_local=2048,
-                             deposit_shape=(16, 16, 16), config1_n=16384)
+                             deposit_shape=(16, 16, 16), config1_n=16384,
+                             halo_n=2048)
     results = launch.run_world(
         "mpi_grid_redistribute_tpu_torch.bench.multirank:world_main", 8,
         args=(spec,), device="cpu", timeout=240, pg_timeout=120)
@@ -27,6 +28,15 @@ def test_multirank_world_on_the_cpu(tmp_path):
         assert errs["loop_vs_plain"][method] == 0.0
     assert summary["redistribute"]["grid"] == multirank.GRID
     assert "card_vs_cpu" not in summary
+    # the canonical drift loop, the halo and the hierarchical engine
+    # across the 8 ranks (verify raised on any difference)
+    for method in ("mxu", "scan"):
+        errs = summary["drift"]["deposit_max_abs_err"][method]
+        assert errs["vs_plain"] == 0.0
+        assert errs["vs_one"] <= multirank.DEPOSIT_TOL
+        assert len(summary["drift"]["ms_per_step"][method]) == 8
+    assert summary["halo"]["ghosts"] > 0
+    assert summary["hier"]["n_pods"] == 2
 
 
 def test_cards_world_on_the_cpu(tmp_path):
@@ -34,12 +44,13 @@ def test_cards_world_on_the_cpu(tmp_path):
     the card, NCCL there; gloo on the CPU here): the vranks loop of dev
     grid (2, 2, 1) x vgrid (1, 1, 2) with slab multisets equal to the
     8-vrank run's, ``GridRedistribute(mesh=)`` byte-equal to the oracle
-    over the (2, 2, 1) grid."""
+    over the (2, 2, 1) grid, the hierarchical engine over two pods of two
+    ranks among it."""
     spec = multirank.prepare(
         str(tmp_path), n_local=1024, deposit_shape=(16, 16, 16),
         config1_n=8192, dev_grid=multirank.CARDS_DEV_GRID,
         vgrid=multirank.CARDS_VGRID, world_grid=multirank.CARDS_DEV_GRID,
-        parts=("vranks",))
+        parts=("vranks", "hier"))
     results = launch.run_world(
         "mpi_grid_redistribute_tpu_torch.bench.multirank:world_main", 4,
         args=(spec,), device="cpu", timeout=240, pg_timeout=120)
@@ -50,3 +61,4 @@ def test_cards_world_on_the_cpu(tmp_path):
     assert summary["backend"] == "gloo"
     assert summary["redistribute"]["grid"] == multirank.CARDS_DEV_GRID
     assert "flat" not in summary
+    assert summary["hier"]["n_pods"] == 2

@@ -10,11 +10,13 @@ on the same inputs) and the ranks build the same arrays.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import fcntl
 import os
 import pickle
 import sys
+from typing import NamedTuple
 
 import numpy as np
 
@@ -111,6 +113,80 @@ def _np(x):
 
 def _stats_np(stats):
     return {k: _np(v) for k, v in stats._asdict().items() if v is not None}
+
+
+class Wire(NamedTuple):
+    """One ``torch.distributed`` call as this rank made it: the function
+    (``op``) and the elements it sent to (``sent``) and received from
+    (``recv``) each rank of the call's group, ranks with none left out."""
+
+    op: str
+    sent: dict
+    recv: dict
+
+
+def _per_rank(t, splits, size: int) -> dict:
+    if splits is None:  # equal chunks along dim 0
+        return {r: t.numel() // size for r in range(size) if t.numel()}
+    row = int(np.prod(tuple(t.shape[1:]), dtype=np.int64))
+    return {r: int(s) * row for r, s in enumerate(splits) if s}
+
+
+@contextlib.contextmanager
+def wire_recording():
+    """Record a :class:`Wire` for every ``all_to_all_single``,
+    ``all_gather``, ``all_reduce`` and ``broadcast`` this rank makes inside
+    the block (the four calls ``parallel.collectives`` is built from),
+    read off the tensors and split sizes the call is given."""
+    import torch.distributed as dist
+
+    records = []
+    real = {op: getattr(dist, op) for op in (
+        "all_to_all_single", "all_gather", "all_reduce", "broadcast")}
+
+    def all_to_all_single(output, input, output_split_sizes=None,
+                          input_split_sizes=None, group=None, **kw):
+        size = dist.get_world_size(group)
+        records.append(Wire("all_to_all_single",
+                            _per_rank(input, input_split_sizes, size),
+                            _per_rank(output, output_split_sizes, size)))
+        return real["all_to_all_single"](
+            output, input, output_split_sizes, input_split_sizes,
+            group=group, **kw)
+
+    def all_gather(tensor_list, tensor, group=None, **kw):
+        records.append(Wire(
+            "all_gather",
+            {r: tensor.numel() for r in range(len(tensor_list))},
+            {r: t.numel() for r, t in enumerate(tensor_list)}))
+        return real["all_gather"](tensor_list, tensor, group=group, **kw)
+
+    def all_reduce(tensor, *args, group=None, **kw):
+        every = {r: tensor.numel()
+                 for r in range(dist.get_world_size(group))}
+        records.append(Wire("all_reduce", every, dict(every)))
+        return real["all_reduce"](tensor, *args, group=group, **kw)
+
+    def broadcast(tensor, src, group=None, **kw):
+        me = dist.get_rank()
+        root = src if group is None else dist.get_group_rank(group, src)
+        records.append(Wire(
+            "broadcast",
+            {r: tensor.numel() for r in range(dist.get_world_size(group))}
+            if me == src else {},
+            {} if me == src else {root: tensor.numel()}))
+        return real["broadcast"](tensor, src, group=group, **kw)
+
+    patched = dict(all_to_all_single=all_to_all_single,
+                   all_gather=all_gather, all_reduce=all_reduce,
+                   broadcast=broadcast)
+    for op, fn in patched.items():
+        setattr(dist, op, fn)
+    try:
+        yield records
+    finally:
+        for op, fn in real.items():
+            setattr(dist, op, fn)
 
 
 def run_exchange(ctx):
@@ -570,3 +646,346 @@ def device_deposit_inputs(seed: int, name: str):
             pos[s, :, a] = (cell[a] + 0.999 * rng.random(n)) / full.shape[a]
     mass = rng.random(len(slabs) * n).astype(np.float32)
     return pos.reshape(-1, 3), mass
+
+
+# ------------------------------------------------------------------ halo
+
+# name: (grid, periodic, width, n_local, pass_capacity, ghost_capacity,
+#        domain lo, hi); None capacities: default_capacities per call
+HALO_CASES = {
+    "g222-periodic": ((2, 2, 2), True, 0.08, 64, 256, 1024, 0.0, 1.0),
+    "g222-open": ((2, 2, 2), False, 0.08, 64, 256, 1024, 0.0, 1.0),
+    "g421-periodic": ((4, 2, 1), True, 0.08, 64, 256, 1024, 0.0, 1.0),
+    "fields": ((2, 2, 2), True, 0.1, 32, 128, 512, 0.0, 1.0),
+    "overflow": ((2, 2, 2), True, 0.25, 64, 4, 8, 0.0, 1.0),
+    "auto": ((2, 2, 2), True, 0.08, 128, None, None, 0.0, 1.0),
+    "two-sort": ((2, 2, 2), True, 0.25, 256, None, None, 0.0, 1.0),
+    "two-sort-tight": ((2, 2, 2), True, 0.3, 256, 64, 160, 0.0, 1.0),
+    "open-wide": ((2, 2, 1), False, 0.2, 96, 128, 512, -1.0, 1.0),
+    "negzero-periodic": ((2, 2, 2), True, 0.2, 40, 128, 512, -1.0, 1.0),
+    "negzero-open": ((2, 2, 2), False, 0.2, 40, 128, 512, -1.0, 1.0),
+}
+# GridRedistribute(mesh=).halo(): (engine, on_overflow, headroom, pinned
+# (pass, ghost) or None)
+HALO_API_CASES = {
+    "auto": ("auto", "grow", 2.0, None),
+    "rowmajor": ("rowmajor", "grow", 2.0, None),
+    "grow": ("auto", "grow", 0.05, None),
+    "grow-rowmajor": ("rowmajor", "grow", 0.05, None),
+    "ignore": ("auto", "ignore", 0.05, None),
+    "raise": ("auto", "raise", 0.05, None),
+    "pinned": ("auto", "grow", 2.0, (4, 8)),
+}
+
+
+def halo_inputs(name: str):
+    """``(pos [R * n, 3] float32, count [R], ids [R * n] int32)``: each
+    rank's valid rows inside its own cell, padding rows random; the
+    ``negzero`` cases put a row of cell (1, 1, 1) at (-0.0, -0.0, 0.5) on
+    Domain(-1, 1), whose interior faces are at 0.0."""
+    shape, _, _, n, _, _, lo, hi = HALO_CASES[name]
+    rng = np.random.default_rng(list(HALO_CASES).index(name) + 300)
+    R = int(np.prod(shape))
+    strides = np.cumprod((1,) + shape[::-1])[:-1][::-1]
+    ext = hi - lo
+    pos = rng.random((R, n, 3), dtype=np.float32)
+    for r in range(R):
+        cell = np.asarray([(r // s) % g for s, g in zip(strides, shape)])
+        pos[r] = (lo + (cell + pos[r]) * (ext / np.asarray(shape))).astype(
+            np.float32)
+    count = rng.integers(n // 2, n + 1, R).astype(np.int32)
+    if name.startswith("negzero"):
+        count[:] = n
+        src = int(np.dot((1, 1, 1), strides))
+        pos[src, 0] = (-0.0, -0.0, 0.5)
+    for r in range(R):  # padding past the count: junk the engines skip
+        pos[r, count[r]:] = rng.random((n - count[r], 3)) * 7.0
+    ids = np.arange(R * n, dtype=np.int32)
+    return pos.reshape(R * n, 3), count, ids
+
+
+def run_halo(ctx):
+    """Every halo case on this rank (both engines, through the global forms
+    and the per-rank functions) and ``GridRedistribute(mesh=).halo()``;
+    returns ``{key: numpy}``."""
+    import torch
+
+    from mpi_grid_redistribute_tpu_torch import api
+    from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+    from mpi_grid_redistribute_tpu_torch.parallel import halo
+    from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+
+    r = ctx.rank
+    out = {}
+    groups = _subgroups([int(np.prod(c[0])) for c in HALO_CASES.values()])
+    for name, (shape, periodic, w, n, H, G, lo, hi) in HALO_CASES.items():
+        R = int(np.prod(shape))
+        if r >= R:
+            continue
+        grid = ProcessGrid(shape)
+        dom = Domain(lo, hi, periodic=periodic)
+        mesh = mesh_lib.make_mesh(grid, group=groups[R])
+        pos, count, ids = (torch.from_numpy(split_rows(a, R)[r].copy())
+                           for a in halo_inputs(name))
+        res = halo.build_halo_exchange(mesh, dom, grid, w, H, G)(
+            pos, count, ids)
+        out[(name, "rowmajor")] = (_np(res.ghost_positions),
+                                   _np(res.ghost_count),
+                                   _np(res.ghost_fields[0]),
+                                   _np(res.overflow))
+        if H is None:
+            H, G = halo.default_capacities(dom, grid, w, n)
+        fused = torch.cat([pos.T, ids.view(torch.float32)[None]])
+        ghost, gcount, overflow = halo.build_halo_planar(
+            mesh, dom, grid, w, H, G)(fused, count)
+        out[(name, "planar")] = (_np(ghost), _np(gcount), _np(overflow))
+        # the per-rank functions: this rank's counters only
+        pg = halo.shard_halo_planar_fn(dom, grid, w, H, G, mesh=mesh)(
+            fused, count)
+        rg = halo.shard_halo_fn(dom, grid, w, H, G, mesh=mesh)(pos, count,
+                                                               ids)
+        out[(name, "rows")] = (_np(pg[1]), _np(pg[2]), _np(rg[1]),
+                               _np(rg[-1]))
+    # the public API on the 2x2x2 mesh
+    grid = ProcessGrid((2, 2, 2))
+    mesh = mesh_lib.make_mesh(grid)
+    pos, count, ids = (split_rows(a, 8)[r] for a in halo_inputs("auto"))
+    for key, (engine, policy, headroom, pinned) in HALO_API_CASES.items():
+        rd = api.GridRedistribute(grid=(2, 2, 2), lo=0.0, hi=1.0,
+                                  periodic=True, device="cpu", mesh=mesh,
+                                  engine=engine, on_overflow=policy)
+        kw = {} if pinned is None else dict(pass_capacity=pinned[0],
+                                            ghost_capacity=pinned[1])
+        try:
+            res = rd.halo(pos, ids, width=0.12, count=int(count[0]),
+                          headroom=headroom, **kw)
+        except RuntimeError as err:
+            out[("api", key)] = ("raised", str(err))
+            continue
+        out[("api", key)] = (
+            _np(res.ghost_positions), _np(res.ghost_fields[0]),
+            _np(res.ghost_count), _np(res.overflow), dict(rd._halo_caps))
+    out[("imports",)] = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "mpi_grid_redistribute_tpu"))
+    return out
+
+
+# ------------------------------------------------------------ drift loop
+
+# name: (grid, periodic, n_local, n_fill, capacity, dt, steps,
+#        (deposit method, shape) or None, deposit_each_step).  dt is a
+#        power of two: the reference's jitted drift may fuse p + v*dt on
+#        the CPU, and v*dt is exact for a power of two, so both round once
+DRIFT_CASES = {
+    "step": ((2, 2, 2), True, 200, 150, 200, 0.0625, 1, None, False),
+    "loop4": ((2, 2, 2), True, 200, 150, 200, 0.0625, 4, None, False),
+    "scan-final": ((2, 2, 2), True, 200, 150, 200, 0.0625, 2,
+                   ("scan", (8, 8, 8)), False),
+    "scan-each": ((2, 2, 2), True, 64, 64, 16, 0.015625, 3,
+                  ("scan", (8, 8, 8)), True),
+    "mxu-final": ((2, 2, 2), True, 200, 150, 200, 0.0625, 2,
+                  ("mxu", (8, 8, 8)), False),
+    "mxu-each": ((2, 2, 2), True, 64, 64, 16, 0.015625, 3,
+                 ("mxu", (8, 8, 8)), True),
+    "open-scan-each": ((2, 2, 2), False, 200, 150, 200, 0.0625, 2,
+                       ("scan", (8, 8, 8)), True),
+    "g421-scan-each": ((4, 2, 1), True, 96, 80, 96, 0.0625, 2,
+                       ("scan", (8, 4, 4)), True),
+}
+
+
+def drift_inputs(name: str):
+    """``(pos [R * n, 3], vel [R * n, 3], count [R])`` float32 rows (the
+    reference's nbody test state: unique x-velocities)."""
+    shape, _, n, n_fill, _, _, _, _, _ = DRIFT_CASES[name]
+    rng = np.random.default_rng(list(DRIFT_CASES).index(name) + 700)
+    R = int(np.prod(shape))
+    pos = rng.uniform(0, 1, size=(R * n, 3)).astype(np.float32)
+    vel = rng.normal(scale=0.3, size=(R * n, 3)).astype(np.float32)
+    vel[:, 0] = np.linspace(-0.5, 0.5, R * n, dtype=np.float32)
+    if name.endswith("each") and n == n_fill:
+        vel[:] = 0.0  # the reference's deposit test: a scattered start
+    count = np.full((R,), n_fill, dtype=np.int32)
+    return pos, vel, count
+
+
+def drift_cfg(name: str):
+    from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+    from mpi_grid_redistribute_tpu_torch.models import nbody
+
+    shape, periodic, n, _, cap, dt, _, dep, _ = DRIFT_CASES[name]
+    kw = {} if dep is None else dict(deposit_method=dep[0],
+                                     deposit_shape=dep[1])
+    return nbody.DriftConfig(
+        domain=Domain(0.0, 1.0, periodic=periodic), grid=ProcessGrid(shape),
+        dt=dt, capacity=cap, n_local=n, **kw)
+
+
+def _redist_np(stats):
+    return {k: _np(v) for k, v in stats._asdict().items() if v is not None}
+
+
+def run_drift(ctx):
+    """Every drift case on this rank: ``make_drift_step`` once and
+    ``make_drift_loop`` (each also with ``plain=True``), the standalone
+    deposits; returns ``{key: numpy}``."""
+    import torch
+
+    from mpi_grid_redistribute_tpu_torch.models import nbody
+    from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+
+    r = ctx.rank
+    out = {}
+    groups = _subgroups([int(np.prod(c[0])) for c in DRIFT_CASES.values()])
+    for name, (shape, _, n, _, _, _, steps, dep, each) in (
+            DRIFT_CASES.items()):
+        R = int(np.prod(shape))
+        if r >= R:
+            continue
+        cfg = drift_cfg(name)
+        mesh = mesh_lib.make_mesh(cfg.grid, group=groups[R])
+        pos, vel, count = (split_rows(a, R)[r] for a in drift_inputs(name))
+        if steps == 1:
+            res = nbody.make_drift_step(cfg, mesh, device="cpu")(
+                pos, vel, count)
+        else:
+            res = nbody.make_drift_loop(cfg, steps, mesh=mesh,
+                                        deposit_each_step=each,
+                                        device="cpu")(pos, vel, count)
+        out[name] = (tuple(_np(a) for a in res[:3]), _redist_np(res[3]),
+                     None if dep is None else _np(res[4]))
+        if dep is not None:
+            plain = nbody.make_drift_loop(
+                cfg, steps, mesh=mesh, deposit_each_step=each, device="cpu",
+                plain=True)(pos, vel, count)
+            out[(name, "plain")] = _np(plain[4])
+    # the standalone deposits of the 2x2x2 scan case's input state
+    cfg = drift_cfg("scan-final")
+    mesh = mesh_lib.make_mesh(cfg.grid)
+    pos, _, count = (split_rows(a, 8)[r] for a in drift_inputs("scan-final"))
+    mass = np.random.default_rng(77).random(8 * 200).astype(np.float32)
+    mass = split_rows(mass, 8)[r]
+    p, m = torch.from_numpy(pos), torch.from_numpy(mass)
+    out["deposit_step"] = _np(nbody.build_deposit_step(cfg, mesh)(
+        p, m, torch.from_numpy(count)))
+    valid = torch.from_numpy(mass > 0.3)
+    out["deposit_masked"] = _np(nbody.build_deposit_masked(cfg, mesh)(
+        p, m, valid))
+    out[("imports",)] = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "mpi_grid_redistribute_tpu"))
+    return out
+
+
+# --------------------------------------------------------- hierarchical
+
+# name: (grid, dcn, periodic, n_local, cap, out_cap, mover_cap, cross_cap,
+#        drift): the reference's sharded cases, a clipping cross block,
+#        the dense intra fallback, one-rank pods and an open grid
+HIER_CASES = {
+    "2pods-122": ((2, 2, 2), (2, 1, 1), True, 120, 60, 300, 16, 16, 0.01),
+    "4pods-211": ((2, 2, 2), (1, 2, 2), True, 120, 60, 300, 16, 16, 0.01),
+    "clip": ((2, 2, 2), (2, 1, 1), True, 120, 60, 300, 16, 2, 0.05),
+    "fallback": ((2, 2, 2), (2, 1, 1), True, 120, 60, 300, 2, 64, 0.3),
+    "8pods": ((2, 2, 2), (2, 2, 2), True, 120, 60, 300, 16, 32, 0.05),
+    "open-421": ((4, 2, 1), (2, 1, 1), False, 100, 64, 300, 16, 16, 0.02),
+}
+# GridRedistribute(mesh=, dcn_shape=): (engine, dcn, drift, kwargs)
+HIER_API_CASES = {
+    "explicit": ("hierarchical", (2, 1, 1), 0.02,
+                 dict(capacity=96, out_capacity=256)),
+    "auto": ("auto", (1, 2, 2), 0.02, dict(capacity=96, out_capacity=256)),
+    "flat-none": ("hierarchical", None, 0.02,
+                  dict(capacity=96, out_capacity=256)),
+    "flat-ones": ("hierarchical", (1, 1, 1), 0.02,
+                  dict(capacity=96, out_capacity=256)),
+    "planar": ("planar", None, 0.02, dict(capacity=96, out_capacity=256)),
+    "ratchet": ("hierarchical", (2, 1, 1), 0.05,
+                dict(cross_cap=1, capacity=96)),
+    "ratchet-planar": ("planar", None, 0.05, dict(capacity=96)),
+}
+
+
+def hier_inputs(name: str, K: int = 7):
+    """``(fused [R, K, n] float32, count [R])``: shard-local particles plus
+    a gaussian drift (the reference's hierarchical test inputs)."""
+    shape, _, _, n, _, _, _, _, drift = HIER_CASES[name]
+    rng = np.random.default_rng(list(HIER_CASES).index(name) + 800)
+    R = int(np.prod(shape))
+    strides = np.cumprod((1,) + shape[::-1])[:-1][::-1]
+    pos = np.empty((R, 3, n), np.float32)
+    for r in range(R):
+        cell = [(r // s) % g for s, g in zip(strides, shape)]
+        for a in range(3):
+            pos[r, a] = (cell[a] + rng.random(n)) / shape[a]
+    pos = pos + rng.normal(0, drift, size=pos.shape).astype(np.float32)
+    pos = np.mod(pos, 1.0).astype(np.float32)
+    other = rng.standard_normal((R, K - 3, n)).astype(np.float32)
+    count = rng.integers(n // 2, n + 1, size=R).astype(np.int32)
+    return np.concatenate([pos, other], axis=1), count
+
+
+def run_hier(ctx):
+    """Every hierarchical case on this rank: the engine beside the port's
+    planar engine (with its collectives recorded), and
+    ``GridRedistribute(mesh=, dcn_shape=)``; returns ``{key: numpy}``."""
+    import torch
+
+    from mpi_grid_redistribute_tpu_torch import api
+    from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+    from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
+    from mpi_grid_redistribute_tpu_torch.parallel import exchange
+    from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+
+    r = ctx.rank
+    out = {}
+    for name, (shape, dcn, periodic, n, cap, oc, B, B2, _) in (
+            HIER_CASES.items()):
+        grid = ProcessGrid(shape)
+        dom = Domain((0.0,) * 3, (1.0,) * 3, periodic)
+        mesh = mesh_lib.make_hybrid_mesh(grid, dcn)
+        hier = mesh_lib.HierarchicalMesh(grid, dcn)
+        fused, count = hier_inputs(name)
+        f = torch.from_numpy(fused[r].copy())
+        c = torch.from_numpy(split_rows(count, len(count))[r])
+        with wire_recording() as traffic:
+            res = exchange.shard_redistribute_hierarchical_sharded(
+                mesh, dom, grid, hier, cap, oc, B, B2, 3)(f, c)
+        out[(name, "hier")] = (_np(res[0]), _np(res[1]), _stats_np(res[2]),
+                               list(traffic))
+        res = exchange.shard_redistribute_planar_sharded(
+            mesh, dom, grid, cap, oc, 3)(f, c)
+        out[(name, "planar")] = (_np(res[0]), _np(res[1]), _stats_np(res[2]))
+    grid = ProcessGrid((2, 2, 2))
+    mesh = mesh_lib.make_mesh(grid)
+    # the sub-axis collectives: an all-to-all inside each pod and a
+    # ppermute between the pods' same slots, each one world call
+    for dcn in ((2, 1, 1), (1, 2, 2)):
+        hier = mesh_lib.HierarchicalMesh(grid, dcn)
+        L, P = hier.pod_size, hier.n_pods
+        x = torch.arange(L * 3, dtype=torch.int32) + 100 * r
+        with wire_recording() as traffic:
+            a2a = col.all_to_all(x, mesh, group=hier.ici_group(r))
+            perm = col.lift_perm([(p, (p + 1) % P) for p in range(P)],
+                                 hier.dcn_groups())
+            pp = col.ppermute(x.to(torch.int16), mesh, perm)
+        out[("subaxis", dcn)] = (_np(a2a), _np(pp), list(traffic))
+    for key, (engine, dcn, drift, kw) in HIER_API_CASES.items():
+        pos, _, ids, _ = (split_rows(a, 8)[r] for a in rows_inputs(
+            8, 96, drift, 9))
+        rd = api.GridRedistribute(
+            grid=(2, 2, 2), lo=(0.0,) * 3, hi=(1.0,) * 3,
+            periodic=(True,) * 3, device="cpu", mesh=mesh, engine=engine,
+            dcn_shape=dcn, **kw)
+        res = rd.redistribute(pos, ids)
+        out[("api", key)] = (
+            _np(res.positions), _np(res.fields[0]), _np(res.count),
+            _stats_np(res.stats),
+            dict(engine=rd._last_engine, n_pods=rd.n_pods,
+                 cross_cap=rd._cross_cap, mover_cap=rd._mover_cap,
+                 capacity=rd.capacity, fetches=rd._blocking_fetches))
+    out[("imports",)] = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "mpi_grid_redistribute_tpu"))
+    return out
