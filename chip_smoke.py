@@ -60,7 +60,16 @@ started together), then, on the card:
      zero drops and ownership; and the planar canonical step in a drift
      loop (2^20 rows per vrank, 1.25x slots, ~2% migration), ms/step and
      host syncs per step, with ``--profile`` the device's busy and idle
-     share of both; then the hierarchical two-level engine on the same
+     share of both; then the telemetry of the headline instance
+     (``report()`` at the measured call time, ``flow()``, ``health()``,
+     ``metrics(render=True)``, ``to_perfetto()``: rows conserved, flow
+     row sums the send totals, status OK, one journaled ``redistribute``
+     a call, one read off the device for ``report()`` and one for
+     ``flow()``); then one short run of the headline bench
+     (``bench/headline.py``, ``bench.py``'s twin: S1 = 2, S2 = 6, one
+     long run, the CPU comparators at 2^18 rows), its keys
+     ``bench.py``'s and kernels 1 and 2 once a step; then the
+     hierarchical two-level engine on the same
      headline input (``dcn_shape=(2, 1, 1)``, ``engine="hierarchical"``,
      two pods of 4 vranks): byte-equal to the oracle and to the planar
      call, ms per call (median), device busy and host syncs a call; and
@@ -873,7 +882,8 @@ def nccl_phase(torch, pt, config1_oracle, workdir):
             check(torch.equal(u.view(torch.uint8), w.view(torch.uint8)),
                   f"nccl GridRedistribute(mesh=): {name} differs from the "
                   f"call without a mesh")
-        check(rd_m._last_engine == "planar", "nccl: engine not planar")
+        check(rd_m._last_wire["engine"] == "planar",
+              "nccl: engine not planar")
         drift_ms = nccl_drift_check(torch, pt, mesh, pos, vel)
     finally:
         dist.destroy_process_group()
@@ -1463,6 +1473,126 @@ def canonical_phase(torch, pt, config1_oracle, oracle, profiling,
     }, (rd, out)
 
 
+# the public calls canonical_phase makes on its headline instance:
+# calibration, the timed calls, the sync-counted ones and the last one
+CANON_HEADLINE_CALLS = 3 + 10 + CANON_CALLS + 1
+
+
+def telemetry_phase(torch, pt, headline, ms_per_call):
+    """The telemetry surface of the canonical phase's headline instance,
+    on the card: ``report()`` at the measured call time, ``flow()``,
+    ``health()``, ``metrics(render=True)`` and ``to_perfetto()``. Rows
+    conserved in the report, the flow's row sums the send totals, status
+    OK, the journal's ``redistribute`` count the calls made; one read off
+    the device each for ``report()`` and ``flow()``, none for the
+    others."""
+    rd, out = headline
+    V = int(np.prod(GRID))
+    t0 = time.perf_counter()
+    rep, rep_syncs = synced_run(
+        torch, lambda: rd.report(step_seconds=ms_per_call / 1e3))
+    fl, flow_syncs = synced_run(torch, lambda: rd.flow(k=3))
+    (health, text, trace), other_syncs = synced_run(torch, lambda: (
+        rd.health(), rd.metrics(render=True), rd.to_perfetto()))
+    seconds = time.perf_counter() - t0
+    counts = rd.telemetry.counts()
+    check(rep["stats"]["total_rows"] == V * N_LOCAL
+          and rep["stats"]["dropped_send"] == 0
+          and rep["stats"]["dropped_recv"] == 0,
+          f"telemetry: report rows {rep['stats']}")
+    check(rep["exchange_domain"] == "hbm" and rep["engine"] == "planar"
+          and rep["bw_util"] is not None and rep["bw_util"] > 0,
+          f"telemetry: report {rep['exchange_domain']} {rep['engine']} "
+          f"{rep['bw_util']}")
+    send = out.stats.send_counts.sum(dim=1).tolist()
+    check(fl["matrix"].sum(axis=1).tolist() == send,
+          f"telemetry: flow row sums {fl['matrix'].sum(axis=1).tolist()} "
+          f"are not the send totals {send}")
+    check(health["status"] == "OK", f"telemetry: health {health}")
+    # one journaled attempt a call, and one more a call that grew
+    calls = [e.data["call"] for e in rd.telemetry.events("redistribute")]
+    grown = {e.data["call"] for e in rd.telemetry.events("capacity_grow")}
+    check(rd._call_index == CANON_HEADLINE_CALLS
+          and sorted(set(calls)) == list(range(1, CANON_HEADLINE_CALLS + 1))
+          and len(calls) == CANON_HEADLINE_CALLS + len(grown),
+          f"telemetry: {len(calls)} redistribute events for "
+          f"{rd._call_index} calls ({CANON_HEADLINE_CALLS} made, "
+          f"{len(grown)} grew)")
+    check(text.endswith("# EOF\n") and
+          f'grid_journal_events_total{{kind="redistribute"}} '
+          f'{len(calls)}' in text,
+          "telemetry: the rendered metrics miss the redistribute count")
+    check(len(trace["traceEvents"]) > CANON_HEADLINE_CALLS,
+          "telemetry: the Perfetto trace misses journal events")
+    check((rep_syncs, flow_syncs, other_syncs) == (1, 1, 0),
+          f"telemetry: host syncs report/flow/others {rep_syncs}/"
+          f"{flow_syncs}/{other_syncs}, expected 1/1/0")
+    log(f"telemetry: report {rep['exchange_bytes_per_step'] / 1e6:.3f} "
+        f"MB/call, {rep['exchange_gb_per_sec']:.2f} GB/s, bw_util "
+        f"{rep['bw_util']:.4f} of HBM3 at {ms_per_call:.4f} ms/call; flow "
+        f"hot links {fl['hot_links']}; health {health['status']}; journal "
+        f"{counts}; {len(text.splitlines())} metric lines, "
+        f"{len(trace['traceEvents'])} trace events; {seconds:.3f} s for "
+        f"the five calls")
+    return {
+        "report_bw_util": rep["bw_util"],
+        "exchange_bytes_per_call": rep["exchange_bytes_per_step"],
+        "health": health["status"],
+        "journal": counts,
+        "host_syncs": [rep_syncs, flow_syncs, other_syncs],
+        "seconds": seconds,
+    }
+
+
+HEADLINE_BASELINE_N = 1 << 18  # the CPU comparators' rows in the smoke
+
+
+def bench_py_keys():
+    """The keys of the JSON line ``bench.py``'s ``main`` prints, read from
+    its source (it is never run here)."""
+    import ast
+
+    tree = ast.parse((HERE / "bench.py").read_text())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    for node in ast.walk(main):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+                == "dumps" and isinstance(node.args[0], ast.Dict)):
+            return [k.value for k in node.args[0].keys]
+    fail("no json.dumps({...}) in bench.py's main")
+
+
+def headline_phase(torch, _build, headline_bench):
+    """One short run of the headline bench (``bench/headline.py``) on the
+    card: S1 = 2, S2 = 6, one long run, a small CPU comparator; its keys
+    are ``bench.py``'s, and kernels 1 and 2 launch once a step (the bench
+    checks it too, as it checks drops and conservation)."""
+    s1, s2, reps = 2, 6, 1
+    t0 = time.perf_counter()
+    _build.reset_counts()
+    line = headline_bench.measure(n_local=N_LOCAL, device="cuda", s1=s1,
+                                  s2=s2, reps=reps,
+                                  baseline_n=HEADLINE_BASELINE_N)
+    launches = _build.counts()
+    seconds = time.perf_counter() - t0
+    steps = (reps + 1) * (s1 + s2)
+    for name in MIGRATE_KERNELS:
+        check(launches[name] == steps,
+              f"headline: {name} launched {launches[name]} times in "
+              f"{steps} steps")
+    keys = bench_py_keys()
+    check(list(line) == keys,
+          f"headline: keys {sorted(set(line) ^ set(keys))} differ from "
+          f"bench.py's")
+    check(line["value"] > 0 and line["vs_baseline"] > 0
+          and line["exchange_domain"] == "hbm",
+          f"headline: {line}")
+    log(f"headline (short run, S1={s1}, S2={s2}, reps={reps}, CPU "
+        f"comparators at {HEADLINE_BASELINE_N} rows): {json.dumps(line)}; "
+        f"{seconds:.1f} s")
+    return line
+
+
 HIER_DCN = (2, 1, 1)  # two pods of 4 vranks
 HIER_CALLS = 10
 
@@ -1487,8 +1617,9 @@ def hierarchical_phase(torch, pt, config1_oracle, profiling, headline):
                              **kw)
     for _ in range(3):  # calibration: the synchronous checks and growth
         out = rd.redistribute(*args)
-    check(rd._last_engine == "hierarchical" and rd.n_pods == 2,
-          f"hierarchical: ran {rd._last_engine!r} over {rd.n_pods} pods")
+    engine = rd._last_wire["engine"]
+    check(engine == "hierarchical" and rd.n_pods == 2,
+          f"hierarchical: ran {engine!r} over {rd.n_pods} pods")
     times = []
     for _ in range(HIER_CALLS):
         start = torch.cuda.Event(enable_timing=True)
@@ -2096,6 +2227,9 @@ def main() -> int:
         common, config1_oracle, config2_clustered, config3_slab,
         config5_deposit, config6_halo, kernel_times,
     )
+    from mpi_grid_redistribute_tpu_torch.bench import (
+        headline as headline_bench,
+    )
     from mpi_grid_redistribute_tpu_torch.models import nbody
     from mpi_grid_redistribute_tpu_torch.ops import (
         _build, binning, deposit, dfscan, driftbin, overlay, scatter, segdep,
@@ -2223,6 +2357,10 @@ def main() -> int:
     canon, headline = canonical_phase(torch, pt, config1_oracle, oracle,
                                       profiling, args.profile)
     lap("canonical")
+    tel = telemetry_phase(torch, pt, headline, canon["ms_per_call"])
+    lap("telemetry")
+    bench_line = headline_phase(torch, _build, headline_bench)
+    lap("headline bench")
     hier = hierarchical_phase(torch, pt, config1_oracle, profiling, headline)
     lap("hierarchical")
 
@@ -2275,6 +2413,8 @@ def main() -> int:
     log(json.dumps({"config2": c2}))
     log(json.dumps({"config3": c3}))
     log(json.dumps({"canonical": canon}))
+    log(json.dumps({"telemetry": tel}))
+    log(json.dumps({"headline": bench_line}))
     log(json.dumps({"hierarchical": hier}))
     log(json.dumps({"halo": halo}))
     log(json.dumps({"ranks": ranks}))

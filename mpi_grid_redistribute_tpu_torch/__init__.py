@@ -24,7 +24,12 @@ grid as virtual ranks, or with ``mesh=`` one rank a process:
   * the canonical drift loop (:func:`.models.nbody.make_drift_loop` /
     ``make_drift_step``: drift, wrap, the row-major canonical exchange
     and the CIC deposit each step or once at the end), one rank a
-    process, or on a one-rank grid in one process.
+    process, or on a one-rank grid in one process;
+  * the telemetry core (:mod:`.telemetry`): every ``GridRedistribute``
+    journals into ``rd.telemetry`` and reports through ``report()``,
+    ``flow()``, ``health()``, ``metrics()`` and ``to_perfetto()``; the
+    headline bench :mod:`.bench.headline` (``bench.py``'s twin) and the
+    C++ host runtime's binding :mod:`.utils.native`.
 
 Ranks over ``torch.distributed`` (the reference is ONE program over a
 ``jax.sharding.Mesh``; the port is one program a rank):

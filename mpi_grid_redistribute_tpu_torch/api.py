@@ -27,8 +27,19 @@ Global data layout (one device and the numpy backend):
 Inputs are NumPy arrays or tensors; 64-bit dtypes are narrowed at the
 boundary as JAX narrows them with x64 off (float64 -> float32, int64 ->
 int32, uint64 -> uint32, complex128 -> complex64), so both backends and
-the reference bin at the same precision. The torch backend returns
-tensors on its device, the numpy backend NumPy arrays.
+the reference bin at the same precision. Planar eligibility is decided
+on the caller's dtypes before that, as the reference decides it: an
+array that is not 32-bit makes ``"auto"`` take the row-major engine and
+an explicit planar-family engine raise ``TypeError``. The torch backend
+returns tensors on its device, the numpy backend NumPy arrays.
+
+Every instance journals into its ``telemetry`` recorder
+(:mod:`.telemetry`) the events the reference journals (calls, growth,
+engine resolution, the deferred check's windows), from host values it
+already holds: journaling never reads the device.
+:meth:`GridRedistribute.report`, ``flow()``, ``health()``, ``metrics()``
+and ``to_perfetto()`` read it; ``report()`` and ``flow()`` also read the
+last call's stats off the device, once.
 """
 
 from __future__ import annotations
@@ -46,6 +57,13 @@ from mpi_grid_redistribute_tpu_torch.parallel import exchange
 from mpi_grid_redistribute_tpu_torch.parallel import halo as halo_lib
 from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
 from mpi_grid_redistribute_tpu_torch.parallel.halo import HaloResult
+from mpi_grid_redistribute_tpu_torch.telemetry import context as context_lib
+from mpi_grid_redistribute_tpu_torch.telemetry import flow as flow_lib
+from mpi_grid_redistribute_tpu_torch.telemetry import health as health_lib
+from mpi_grid_redistribute_tpu_torch.telemetry import metrics as metrics_lib
+from mpi_grid_redistribute_tpu_torch.telemetry import recorder as telemetry_lib
+from mpi_grid_redistribute_tpu_torch.telemetry import report as report_lib
+from mpi_grid_redistribute_tpu_torch.telemetry import traceview as traceview_lib
 
 # 64-bit dtypes and what JAX (x64 off) narrows them to
 _NARROW_NP = {
@@ -91,22 +109,18 @@ class MoverCapacity:
     (never shrinking; clipped to ``max_cap``) and ``update`` returns True,
     so the caller rebuilds its loop. A loop across ranks returns the
     stats of every rank on each, so every rank folds the same peak and
-    grows at the same step. ``recorder=`` (journaling the growth)
-    raises ``NotImplementedError``: the telemetry plane is not ported
-    (``ROADMAP.md`` A11)."""
+    grows at the same step. Each growth journals a ``mover_cap_grow``
+    event to the optional ``recorder`` (a
+    :class:`~.telemetry.recorder.StepRecorder`)."""
 
     def __init__(self, initial: int, max_cap: int = None, recorder=None):
-        if recorder is not None:
-            raise NotImplementedError(
-                "MoverCapacity(recorder=...): journaling belongs to the "
-                "telemetry plane, which is not ported yet (ROADMAP.md A11)"
-            )
         if int(initial) < 1:
             raise ValueError(f"initial must be >= 1, got {initial}")
         self.max_cap = None if max_cap is None else int(max_cap)
         self.value = _next_pow2(int(initial))
         if self.max_cap is not None:
             self.value = min(self.value, self.max_cap)
+        self.recorder = recorder
         self.grow_count = 0
 
     def update(self, stats) -> bool:
@@ -121,9 +135,37 @@ class MoverCapacity:
             new = min(new, self.max_cap)
         if new <= self.value:
             return False
-        self.value = new
+        old, self.value = self.value, new
         self.grow_count += 1
+        if self.recorder is not None:
+            self.recorder.record(
+                "mover_cap_grow", old=old, new=new, peak_movers=peak
+            )
         return True
+
+
+def _itemsize(a) -> int:
+    if isinstance(a, torch.Tensor):
+        return a.element_size()
+    return np.asarray(a).dtype.itemsize
+
+
+def _caller_layout(positions, fields) -> Tuple[bool, int]:
+    """``(planar_ok, row_bytes)`` of the caller's arrays, before any
+    narrowing: the reference decides planar eligibility (every array
+    32-bit) and prices a row on what it was given."""
+    arrays = tuple(
+        a if isinstance(a, (torch.Tensor, np.ndarray)) else np.asarray(a)
+        for a in (positions,) + tuple(fields))
+    ok = all(_itemsize(a) == 4 for a in arrays)
+    return ok, report_lib.row_bytes_of(*arrays)
+
+
+def _neighbor_active_offsets(grid: ProcessGrid, periodic) -> int:
+    """Active links of ``grid``'s Moore stencil (the neighbor engine's
+    wire is ``n_active * mover_cap`` columns a rank)."""
+    return sum(1 for p in mesh_lib.neighbor_perms(grid, tuple(periodic))
+               if p)
 
 
 def _planar_specs(positions, fields):
@@ -323,6 +365,13 @@ class GridRedistribute:
 
     :meth:`halo` exchanges ghosts on the same grid (torch backend, uniform
     cells), with the same engine rule and its own overflow policy.
+
+    Telemetry: ``telemetry`` (a :class:`~.telemetry.recorder.StepRecorder`,
+    replaceable) journals every call, growth, engine resolution and
+    deferred window; ``flow_acc`` (a :class:`~.telemetry.flow.
+    FlowAccumulator`) and ``monitor`` (a :class:`~.telemetry.health.
+    HealthMonitor` over the journal) back :meth:`flow` and
+    :meth:`health`.
     """
 
     def __init__(
@@ -424,7 +473,20 @@ class GridRedistribute:
             raise ValueError(f"cross_cap must be >= 1, got {cross_cap}")
         self._cross_cap = (None if cross_cap is None
                            else _next_pow2(int(cross_cap)))
-        self._last_engine = None  # the engine the last call resolved to
+        # (requested engine, vranks, planar_ok, devices) of the last
+        # resolution: engine_resolved is journaled when it changes
+        self._last_resolution = None
+        # the scheduled wire of the last dispatch: engine, wire columns a
+        # rank, dense-pool columns, shards (the hierarchical engine also
+        # splits its columns into engine_cols_ici / engine_cols_dcn)
+        self._last_wire = None
+        self._hier_n_act = None  # active links of the pod-local stencil
+        # the telemetry journal, its flow gauge and its rule monitor:
+        # host-side, fed from values the instance already holds
+        self.telemetry = telemetry_lib.StepRecorder()
+        self._last_row_bytes = None
+        self.flow_acc = flow_lib.FlowAccumulator()
+        self.monitor = health_lib.HealthMonitor(self.telemetry)
 
     @property
     def nranks(self) -> int:
@@ -456,9 +518,14 @@ class GridRedistribute:
         the next call runs the grown block."""
         if self._mover_cap is None or needed <= self._mover_cap:
             return
-        if self._last_engine not in ("sparse", "neighbor", "hierarchical"):
-            return
+        wire = self._last_wire
+        if wire is None or wire.get("engine") not in (
+                "sparse", "neighbor", "hierarchical"):
+            return  # the dense engines do not use the block
+        old = self._mover_cap
         self._mover_cap = _next_pow2(int(needed))
+        self.telemetry.record("mover_cap_grow", old=old,
+                              new=self._mover_cap, peak_movers=int(needed))
 
     def _cross_cap_for(self, cap: int) -> int:
         """The hierarchical engine's cross block, a destination pod: first
@@ -476,9 +543,13 @@ class GridRedistribute:
         the same call at the grown block."""
         if self._cross_cap is None or needed <= self._cross_cap:
             return False
-        if self._last_engine != "hierarchical":
+        wire = self._last_wire
+        if wire is None or wire.get("engine") != "hierarchical":
             return False
+        old = self._cross_cap
         self._cross_cap = _next_pow2(int(needed))
+        self.telemetry.record("cross_cap_grow", old=old,
+                              new=self._cross_cap, peak_cross=int(needed))
         return True
 
     def _capacities(self, n_local: int) -> Tuple[int, int]:
@@ -593,14 +664,19 @@ class GridRedistribute:
                                device=self.device)
         return pos, fields, n_local, count
 
-    def _engine_call(self, positions, fields, cap: int, out_cap: int):
+    def _engine_call(self, positions, fields, cap: int, out_cap: int,
+                     planar_ok: bool = True):
         """The engine for these arrays and capacities, by the reference's
         one dispatch rule (``exchange.resolve_engine``): on one device the
-        vrank engines, across the ranks of a mesh the multi-rank ones."""
+        vrank engines, across the ranks of a mesh the multi-rank ones.
+        ``planar_ok`` is False when the caller's arrays were not all
+        32-bit before narrowing. Journals ``engine_resolved`` when the
+        routing inputs change, and sets the scheduled-wire model
+        ``_last_wire``."""
         specs = None
         if self.engine in ("auto", "planar", "sparse", "neighbor",
                            "hierarchical"):
-            specs = _planar_specs(positions, fields)
+            specs = _planar_specs(positions, fields) if planar_ok else None
             if specs is None and self.engine != "auto":
                 raise TypeError(
                     f"engine={self.engine!r} requires 32-bit positions and "
@@ -608,21 +684,58 @@ class GridRedistribute:
                     "engine='auto'/'rowmajor'"
                 )
         mesh = self._mesh
+        n_dev = 1 if mesh is None else mesh.size
+        res_key = (self.engine, mesh is None, specs is not None, n_dev)
+        rec = None
+        if res_key != self._last_resolution:
+            self._last_resolution = res_key
+            rec = self.telemetry
         resolved = exchange.resolve_engine(
-            self.engine, vranks=mesh is None,
-            n_devices=1 if mesh is None else mesh.size,
+            self.engine, vranks=mesh is None, n_devices=n_dev,
             planar_ok=specs is not None, canonical=True,
-            n_pods=self.n_pods,
+            n_pods=self.n_pods, recorder=rec,
         )
+        R = self.nranks
+        dense_cols = R * cap
         if resolved in ("sparse", "neighbor", "hierarchical"):
             B = self._mover_cap_for(cap)
             if B >= cap:
                 # the grown block reached the dense pool: run planar
+                if rec is None and self._last_wire is not None and (
+                        self._last_wire.get("engine") != "planar"):
+                    self.telemetry.record(
+                        "engine_resolved", requested=self.engine,
+                        resolved="planar",
+                        reason=(f"{resolved}: mover_cap {B} >= capacity "
+                                f"{cap}, count-driven pool no smaller than "
+                                f"dense"),
+                        canonical=True)
                 resolved = "planar"
-        self._last_engine = resolved
-        grid, dom, edges = self.grid, self.domain, self.edges
         if resolved == "hierarchical":
             B2 = self._cross_cap_for(cap)
+            hier = self._hier
+            if self._hier_n_act is None:
+                self._hier_n_act = exchange._hier_tables(
+                    hier, self.domain.periodic).n_act
+            cols_ici = (self._hier_n_act * B
+                        + (hier.n_pods - 1) * hier.pod_size * B2)
+            cols_dcn = (hier.n_pods - 1) * B2
+            self._last_wire = {
+                "engine": resolved, "engine_cols": cols_ici + cols_dcn,
+                "engine_cols_ici": cols_ici, "engine_cols_dcn": cols_dcn,
+                "dense_cols": dense_cols, "shards": R,
+            }
+        elif resolved in ("sparse", "neighbor"):
+            cols = (B * _neighbor_active_offsets(self.grid,
+                                                 self.domain.periodic)
+                    if resolved == "neighbor" else R * B)
+            self._last_wire = {"engine": resolved, "engine_cols": cols,
+                               "dense_cols": dense_cols, "shards": R}
+        else:
+            self._last_wire = {"engine": resolved, "engine_cols": dense_cols,
+                               "dense_cols": dense_cols, "shards": R}
+        grid, dom, edges = self.grid, self.domain, self.edges
+        if resolved == "hierarchical":
             if mesh is None:
                 return _planar_call(
                     exchange.build_redistribute_hierarchical_vranks(
@@ -663,8 +776,8 @@ class GridRedistribute:
 
         return call
 
-    def _run_once(self, positions, fields, count, cap: int,
-                  out_cap: int) -> RedistributeResult:
+    def _run_once(self, positions, fields, count, cap: int, out_cap: int,
+                  planar_ok: bool = True) -> RedistributeResult:
         if self.backend == "numpy":
             pos_out, counts_out, fields_out, stats = (
                 oracle.redistribute_oracle_padded(
@@ -674,7 +787,7 @@ class GridRedistribute:
             )
             return RedistributeResult(pos_out, tuple(fields_out), counts_out,
                                       exchange.RedistributeStats(**stats))
-        fn = self._engine_call(positions, fields, cap, out_cap)
+        fn = self._engine_call(positions, fields, cap, out_cap, planar_ok)
         pos_out, new_count, fields_out, stats = fn(positions, count, *fields)
         return RedistributeResult(pos_out, fields_out, new_count, stats)
 
@@ -684,7 +797,8 @@ class GridRedistribute:
         around it: ``fn(positions, count, *fields) -> (positions, count,
         fields, stats)``. The caller reads the drop counters and grows
         through :meth:`_grow`; a fresh ``engine_fn`` takes the grown
-        capacities."""
+        capacities. Resolution, its journal event and the scheduled-wire
+        model are those of one :meth:`redistribute` call."""
         if self.backend != "torch":
             raise ValueError(
                 "engine_fn requires backend='torch': the numpy oracle has "
@@ -697,7 +811,9 @@ class GridRedistribute:
                 f"got {tuple(positions.shape)}"
             )
         cap, out_cap = self._capacities(positions.shape[0] // R)
-        return self._engine_call(positions, fields, cap, out_cap), cap, out_cap
+        planar_ok, self._last_row_bytes = _caller_layout(positions, fields)
+        return (self._engine_call(positions, fields, cap, out_cap, planar_ok),
+                cap, out_cap)
 
     def redistribute(self, positions, *fields, count=None) -> RedistributeResult:
         """Bin, pack, exchange: every particle moves to its owner shard.
@@ -705,12 +821,20 @@ class GridRedistribute:
         Returns a :class:`RedistributeResult` in the global padded layout
         (leading dim ``R * out_capacity``). Under ``on_overflow="grow"`` an
         overflow is healed by rebuilding at the measured need and
-        re-running on the same inputs."""
+        re-running on the same inputs. Every event the call journals
+        carries its call index (``ctx_call``)."""
+        planar_ok, row_bytes = _caller_layout(positions, fields)
         positions, fields, n_local, count = self._check_inputs(
             positions, fields, count
         )
         self._call_index += 1
-        return self._redistribute_attempts(positions, fields, count, n_local)
+        # the numpy backend prices the narrowed rows, as the reference's
+        self._last_row_bytes = (
+            row_bytes if self.backend == "torch"
+            else report_lib.row_bytes_of(positions, *fields))
+        with context_lib.scoped(call=self._call_index):
+            return self._redistribute_attempts(positions, fields, count,
+                                               n_local, planar_ok)
 
     def apply_assignment(self, edges, positions, *fields,
                          count=None) -> RedistributeResult:
@@ -782,6 +906,7 @@ class GridRedistribute:
                 "widths — rebalance with GridEdges only on the "
                 "redistribute path, or rebuild without edges for ghosts"
             )
+        planar_ok = _caller_layout(positions, fields)[0]
         positions, fields, n_local, count = self._check_inputs(
             positions, fields, count
         )
@@ -797,7 +922,9 @@ class GridRedistribute:
         max_attempts = 5
         for attempt in range(1, max_attempts + 1):
             result = self._halo_once(positions, fields, count, widths, pc,
-                                     gc)
+                                     gc, planar_ok)
+            self.telemetry.record("halo", n_local=n_local, pass_capacity=pc,
+                                  ghost_capacity=gc)
             if self.on_overflow == "ignore":
                 return result  # no host read
             overflow = _host(result.overflow)
@@ -827,17 +954,22 @@ class GridRedistribute:
             # pass and ghost drops cascade into one counter: grow both by
             # at least the worst rank's overflow, in power-of-two buckets
             max_ov = int(overflow.max())
+            old_pc, old_gc = pc, gc
             if pass_capacity is None:
                 pc = _next_pow2(max(2 * pc, pc + max_ov))
             if ghost_capacity is None:
                 gc = _next_pow2(gc + max_ov)
             self._halo_caps[widths] = (max(pc, grown_pc), max(gc, grown_gc))
+            self.telemetry.record(
+                "halo_grow", old_pass_capacity=old_pc, new_pass_capacity=pc,
+                old_ghost_capacity=old_gc, new_ghost_capacity=gc,
+                overflow=total_ov)
 
     def _halo_once(self, positions, fields, count, widths, pc: int,
-                   gc: int) -> HaloResult:
+                   gc: int, planar_ok: bool = True) -> HaloResult:
         specs = None
         if self.engine in ("auto", "planar"):
-            specs = _planar_specs(positions, fields)
+            specs = _planar_specs(positions, fields) if planar_ok else None
             if specs is None and self.engine == "planar":
                 raise TypeError(
                     "engine='planar' requires 32-bit positions and fields "
@@ -878,13 +1010,25 @@ class GridRedistribute:
         ]).tolist()
         return tuple(int(v) for v in vals)
 
-    def _redistribute_attempts(self, positions, fields, count,
-                               n_local) -> RedistributeResult:
+    def _redistribute_attempts(self, positions, fields, count, n_local,
+                               planar_ok: bool = True) -> RedistributeResult:
         max_attempts = 5
         for _ in range(max_attempts):
             cap, out_cap = self._capacities(n_local)
-            result = self._run_once(positions, fields, count, cap, out_cap)
+            result = self._run_once(positions, fields, count, cap, out_cap,
+                                    planar_ok)
             self._last_stats = result.stats
+            wire = self._last_wire or {}
+            # scheduled wire bytes of this call's exchange (static pool
+            # width x row bytes x shards), whatever the occupancy
+            wire_bytes = (wire.get("engine_cols", 0)
+                          * (self._last_row_bytes or 0)
+                          * wire.get("shards", 0))
+            self.telemetry.record(
+                "redistribute", call=self._call_index, n_local=n_local,
+                capacity=cap, out_capacity=out_cap,
+                engine=wire.get("engine", self.engine), wire_bytes=wire_bytes,
+            )
             if self.on_overflow == "ignore":
                 return result  # no host read of the stats
             if (self.on_overflow == "grow" and self._clean_checks >= 2
@@ -949,6 +1093,10 @@ class GridRedistribute:
                 floor = last_cap if self.capacity is None else self.capacity
                 self.capacity = max(new_cap, floor)
                 grew = True
+                self.telemetry.record(
+                    "capacity_grow", which="send", old=cap,
+                    new=self.capacity, needed=needed, dropped=dropped_send,
+                    call=self._call_index)
         if dropped_recv:
             new_out = min(_next_pow2(needed_out), self.nranks * n_local)
             if new_out > out_cap:
@@ -956,6 +1104,10 @@ class GridRedistribute:
                          else self.out_capacity)
                 self.out_capacity = max(new_out, floor)
                 grew = True
+                self.telemetry.record(
+                    "capacity_grow", which="recv", old=out_cap,
+                    new=self.out_capacity, needed=needed_out,
+                    dropped=dropped_recv, call=self._call_index)
         return grew
 
     def _deferred_check(self, n_local, cap, out_cap) -> None:
@@ -970,6 +1122,9 @@ class GridRedistribute:
         self._resolve_pending()
         self._pending_check = self._snapshot() + (
             cap, out_cap, n_local, self._call_index)
+        self.telemetry.record("overflow_window_scheduled",
+                              through_call=self._call_index,
+                              window=self.check_every)
 
     def _snapshot(self):
         """``(host, event)``: the cumulative counters copied to the host
@@ -1002,8 +1157,13 @@ class GridRedistribute:
         dropped_send = total_send - self._seen_send
         dropped_recv = total_recv - self._seen_recv
         if not dropped_send and not dropped_recv:
+            self.telemetry.record("overflow_window_clean",
+                                  through_call=call_idx)
             return
         self._seen_send, self._seen_recv = total_send, total_recv
+        self.telemetry.record("overflow_window_loss", through_call=call_idx,
+                              dropped_send=dropped_send,
+                              dropped_recv=dropped_recv)
         # too late to heal (the results were consumed): grow for later
         # calls, then fail loudly
         self._grow(dropped_send, dropped_recv, needed, needed_out, n_local,
@@ -1035,6 +1195,107 @@ class GridRedistribute:
                 cap, out_cap, n_local, self._call_index)
             self._calls_since_check = 0
         self._resolve_pending()
+
+    def _exchange_topology(self) -> Tuple[str, int]:
+        """``(domain, n_chips)`` of the exchange: ``("hbm", 1)`` for the
+        vrank engines on one device (and the numpy oracle), ``("nvlink",
+        world)`` across the ranks of a mesh of several."""
+        if self._mesh is None or self._mesh.size == 1:
+            return "hbm", 1
+        return "nvlink", self._mesh.size
+
+    def report(self, step_seconds: Optional[float] = None) -> dict:
+        """One merged, JSON-serializable metrics dict
+        (:func:`~.telemetry.report.exchange_report`) from the LAST
+        redistribute call's stats: summary counters, exchange bytes a
+        step (total and moved), and with ``step_seconds`` the achieved
+        GB/s and ``bw_util`` against this instance's roof (HBM3 on one
+        card, NVLink across cards), the journal's event counts, the
+        scheduled wire and the instance's capacities.
+
+        Reads the last stats off the device once: call it at loop or
+        bench boundaries. Pass a length-differenced ``step_seconds``
+        (:func:`~.utils.profiling.time_per_step_samples`); without it the
+        rate and utilization fields are ``None``. Across ranks the stats
+        are the gathered ones, so every rank returns the same dict."""
+        if self._last_stats is None:
+            raise RuntimeError(
+                "report() needs at least one redistribute() call"
+            )
+        domain, n_chips = self._exchange_topology()
+        wire = self._last_wire or {}
+        out = report_lib.exchange_report(
+            self._last_stats, self._last_row_bytes,
+            step_seconds=step_seconds, domain=domain, n_chips=n_chips,
+            recorder=self.telemetry,
+            engine_wire_cols=wire.get("engine_cols"),
+            dense_wire_cols=wire.get("dense_cols"),
+            wire_shards=wire.get("shards"),
+        )
+        out["engine"] = wire.get("engine", self.engine)
+        if "engine_cols_dcn" in wire:
+            # the two-level engine: pod-crossing blocks over the slower
+            # tier, the stencil and the in-pod fan-out over the faster
+            rb = self._last_row_bytes or 0
+            shards = wire.get("shards", 0)
+            out["dcn_bytes_per_step"] = wire["engine_cols_dcn"] * rb * shards
+            out["ici_bytes_per_step"] = wire["engine_cols_ici"] * rb * shards
+        out["calls"] = self._call_index
+        out["capacity"] = self.capacity
+        out["out_capacity"] = self.out_capacity
+        out["blocking_fetches"] = self._blocking_fetches
+        out["unresolved_windows"] = bool(self._has_unresolved_windows())
+        return out
+
+    def flow(self, k: int = 5, update: bool = True) -> dict:
+        """Per-link flow view of the LAST redistribute call
+        (:mod:`~.telemetry.flow`): the ``[R, R]`` matrix (``[i, j]`` =
+        rows rank ``i`` sent rank ``j``; row sums are the send totals,
+        column sums the receive totals), the cumulative matrix and
+        imbalance gauge of ``flow_acc``, and the ``k`` hottest off-diagonal
+        links. ``update=True`` folds the stats into the gauge and
+        journals a ``flow_snapshot`` event. Reads the stats off the
+        device once; across ranks every rank returns the same view."""
+        if self._last_stats is None:
+            raise RuntimeError("flow() needs at least one redistribute() call")
+        steps = flow_lib.flow_matrix_of(self._last_stats)
+        if update:
+            # a redistribute's load is the rows each rank ended with
+            self.flow_acc.update(steps, population=steps.sum(axis=1))
+            flow_lib.record_flow_snapshot(self.telemetry, self.flow_acc, k=k)
+        return {
+            "matrix": steps[-1],
+            "cumulative": self.flow_acc.cumulative,
+            "imbalance": self.flow_acc.imbalance,
+            "hot_links": self.flow_acc.top_pairs(k=k),
+            "snapshot": self.flow_acc.snapshot(k=k),
+        }
+
+    def health(self) -> dict:
+        """Evaluate the health rules (:class:`~.telemetry.health.
+        HealthMonitor`) over this instance's journal: ``{"status":
+        "OK"|"WARN"|"ALERT", "findings": [...]}``. New findings are
+        journaled as ``alert`` events and fire the callbacks of
+        ``rd.monitor``. Host-side only."""
+        return self.monitor.evaluate()
+
+    def metrics(self, render: bool = False):
+        """The journal replayed into the grid metric families
+        (:mod:`~.telemetry.metrics`): the registry, or with
+        ``render=True`` its OpenMetrics text. Counters use the all-time
+        counts, exact after ring eviction. Host-side only."""
+        reg = metrics_lib.from_journal(self.telemetry)
+        return reg.render_openmetrics() if render else reg
+
+    def to_perfetto(self, path: Optional[str] = None, **kwargs):
+        """The journal as Chrome-trace/Perfetto JSON
+        (:mod:`~.telemetry.traceview`): written to ``path`` (returns the
+        event count) or returned as a dict. Extra kwargs
+        (``phase_timings``, ``step_seconds``) go to
+        :func:`~.telemetry.traceview.to_chrome_trace`."""
+        if path is not None:
+            return traceview_lib.write_trace(path, self.telemetry, **kwargs)
+        return traceview_lib.to_chrome_trace(self.telemetry, **kwargs)
 
     def __enter__(self) -> "GridRedistribute":
         """``with GridRedistribute(...) as rd``: the exit flushes the
@@ -1098,14 +1359,8 @@ def reshard(positions, *fields, domain: Domain, grid, n_local: int,
     ``fields`` ride the same permutation. Defaults to the numpy backend,
     as the reference does; overflow heals by growing. With ``mesh=`` (torch
     backend) every rank passes the same live rows and gets its output
-    shard. ``telemetry=``
-    (journaling) raises ``NotImplementedError``: the telemetry plane is
-    not ported (``ROADMAP.md`` A11)."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            "reshard(telemetry=...): journaling belongs to the telemetry "
-            "plane, which is not ported yet (ROADMAP.md A11)"
-        )
+    shard. ``telemetry=`` (a :class:`~.telemetry.recorder.StepRecorder`)
+    journals the call there."""
     grid = grid if isinstance(grid, ProcessGrid) else ProcessGrid(grid)
     positions = _host(positions)
     n = positions.shape[0]
@@ -1130,6 +1385,8 @@ def reshard(positions, *fields, domain: Domain, grid, n_local: int,
         domain, grid, backend=backend, capacity=in_rows,
         out_capacity=int(n_local), on_overflow="grow", **kwargs,
     )
+    if telemetry is not None:
+        rd.telemetry = telemetry
     if rd.mesh is not None:
         # every rank passes the same live rows and routes its own chunk
         r = rd.mesh.rank

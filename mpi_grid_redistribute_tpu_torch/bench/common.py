@@ -1,14 +1,39 @@
 """Benchmark state and sizing, the same policy as the JAX package's
 ``bench/common.py`` (numpy only, so both packages build identical
-inputs from one seed)."""
+inputs from one seed), and the journal shard a bench driver writes."""
 
 from __future__ import annotations
 
 import math
+import os
+import sys
+from typing import Optional
 
 import numpy as np
 
 from mpi_grid_redistribute_tpu_torch.domain import ProcessGrid
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def write_journal_shard(recorder, name: str) -> Optional[str]:
+    """Write a driver's recorder as a per-process JSONL journal shard.
+
+    ``BENCH_JOURNAL_DIR=dir`` opts in (stdout stays one JSON line either
+    way); the shard lands at ``dir/<name>.<host>.<pid>.jsonl``, every line
+    tagged with the recorder's ``host``/``pid``. Returns the path
+    written, or None when the variable is unset."""
+    out_dir = os.environ.get("BENCH_JOURNAL_DIR")
+    if not out_dir:
+        return None
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir,
+                        f"{name}.{recorder.host}.{recorder.pid}.jsonl")
+    n = recorder.to_jsonl(path)
+    log(f"journal shard: {path} ({n} events)")
+    return path
 
 
 def uniform_state(grid_shape, n_local: int, fill: float, rng, vel_scale=0.0):

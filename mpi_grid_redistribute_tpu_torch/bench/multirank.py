@@ -363,7 +363,7 @@ def _redistribute_part(spec, mesh, dev) -> dict:
                                lambda: rd.redistribute(*c1))
         rd.flush_overflow_checks()
         out[engine] = dict(
-            engine=rd._last_engine, ms=sec * 1e3,
+            engine=rd._last_wire["engine"], ms=sec * 1e3,
             positions=res.positions.cpu().numpy(),
             fields=[f.cpu().numpy() for f in res.fields],
             count=res.count.cpu().numpy(), stats=_stats_np(res.stats))
@@ -511,7 +511,8 @@ def _hier_part(spec, mesh, dev) -> dict:
         rd.redistribute(*c1)
     res, _, sec = _counted(torch, _build, dev, lambda: rd.redistribute(*c1))
     rd.flush_overflow_checks()
-    return dict(engine=rd._last_engine, ms=sec * 1e3, n_pods=rd.n_pods,
+    return dict(engine=rd._last_wire["engine"], ms=sec * 1e3,
+                n_pods=rd.n_pods,
                 cross_cap=rd._cross_cap, mover_cap=rd._mover_cap,
                 fallback=int(res.stats.fallback.sum()),
                 positions=res.positions.cpu().numpy(),
@@ -560,7 +561,7 @@ def _slice_small(pos, vel, count: int, mesh, dev) -> dict:
     r = rd.redistribute(torch.from_numpy(pos).to(dev), ids, count=count)
     out["hier"] = (r.positions.cpu().numpy(), r.fields[0].cpu().numpy(),
                    r.count.cpu().numpy(), _stats_np(r.stats),
-                   rd._last_engine)
+                   rd._last_wire["engine"])
     return out
 
 

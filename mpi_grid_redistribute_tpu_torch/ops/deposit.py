@@ -407,6 +407,29 @@ def _slab_deposit_from_keys(key, rel, mass2, vblock, vgrid_shape,
     return _corner_ghost(per_cell, dev_block)
 
 
+def _corner_groups(n_rows: int, n_nodes: int, n_corners: int):
+    """The order in which XLA's CPU compiler adds the corners of the
+    reference's ``total + segment_sum(...)`` chain, as a list of
+    ``(corners, into_total)``: ``K`` corners scattered as one update
+    stream (the first group into zeros, later ones into the running
+    total), one corner summed apart and added between two groups. XLA
+    joins consecutive scatters while their update rows stay below the
+    operand's nodes, so ``K`` is the largest count (at most ``n_corners``)
+    with ``K * n_rows < n_nodes``, and 1 when no such count exists. Read
+    off the compiled HLO of the reference's ``build_deposit``
+    (``tests/test_torch_deposit.py`` reads it again)."""
+    k = max(1, min(n_corners, -(-n_nodes // max(n_rows, 1)) - 1))
+    groups = [(tuple(range(min(k, n_corners))), False)]
+    c = k
+    while c < n_corners:
+        groups.append(((c,), False))
+        c += 1
+        if c < n_corners:
+            groups.append((tuple(range(c, min(c + k, n_corners))), True))
+            c += k
+    return groups
+
+
 def cic_deposit_vranks_segment(pos, mass, valid, lo_local, inv_h,
                                vblock: Tuple[int, ...]) -> torch.Tensor:
     """Scatter-add CIC deposit of V slabs (the reference's
@@ -419,13 +442,13 @@ def cic_deposit_vranks_segment(pos, mass, valid, lo_local, inv_h,
     Each corner's weights ``mass * ((w0 * w1) * w2)`` are added with
     ``index_add_`` in row order, and the corners are combined in the order
     XLA's CPU compiler gives the reference's ``total + segment_sum(...)``
-    chain: corner 0's sums, plus corner 1's sums, corner 2 added straight
-    into that total, plus corner 3's sums, and so on (odd corners summed
-    apart, even ones from 2 on scattered into the running total). On the
-    CPU this is the reference's bits; on the card ``index_add_``
-    accumulates with atomics in no fixed order, so repeated runs may
-    differ in the last bits (the reference has no deterministic variant
-    on this path either)."""
+    chain (:func:`_corner_groups`): with many rows a slab, corner 0's
+    sums, plus corner 1's sums, corner 2 added straight into that total,
+    plus corner 3's sums, and so on; with few rows, runs of corners
+    scattered as one stream. On the CPU this is the reference's bits; on
+    the card ``index_add_`` accumulates with atomics in no fixed order,
+    so repeated runs may differ in the last bits (the reference has no
+    deterministic variant on this path either)."""
     V, n, D = pos.shape
     ghost = tuple(b + 1 for b in vblock)
     n_nodes = math.prod(ghost)
@@ -443,8 +466,10 @@ def cic_deposit_vranks_segment(pos, mass, valid, lo_local, inv_h,
     # canvas, so one scatter serves every slab
     base = torch.arange(V, dtype=torch.int64, device=pos.device)[:, None]
     base = base * n_nodes
-    total = None
-    for k, corner in enumerate(itertools.product((0, 1), repeat=D)):
+    corners = list(itertools.product((0, 1), repeat=D))
+
+    def stream(k):
+        corner = corners[k]
         w = None
         for d in range(D):
             t = frac[..., d] if corner[d] == 1 else 1.0 - frac[..., d]
@@ -452,12 +477,18 @@ def cic_deposit_vranks_segment(pos, mass, valid, lo_local, inv_h,
         idx = base
         for d in range(D):
             idx = idx + (i0[..., d] + corner[d]).to(torch.int64) * strides[d]
-        upd = w_valid * w.reshape(-1)
-        if k >= 2 and k % 2 == 0:
-            total.index_add_(0, idx.reshape(-1), upd)
+        return idx.reshape(-1), w_valid * w.reshape(-1)
+
+    total = None
+    for group, into_total in _corner_groups(n, n_nodes, len(corners)):
+        parts = [stream(k) for k in group]
+        idx = torch.cat([p[0] for p in parts])
+        upd = torch.cat([p[1] for p in parts])
+        if into_total:
+            total.index_add_(0, idx, upd)
             continue
         part = torch.zeros((V * n_nodes,), dtype=_F32, device=pos.device)
-        part.index_add_(0, idx.reshape(-1), upd)
+        part.index_add_(0, idx, upd)
         total = part if total is None else total + part
     return total.reshape((V,) + ghost)
 

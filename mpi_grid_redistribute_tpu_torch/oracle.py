@@ -22,6 +22,7 @@ import numpy as np
 
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops.binning import _is_pow2
+from mpi_grid_redistribute_tpu_torch.utils import native
 
 
 def wrap_periodic(pos: np.ndarray, domain: Domain) -> np.ndarray:
@@ -146,6 +147,7 @@ def redistribute_oracle_padded(
     fields: Sequence[np.ndarray],
     capacity: int,
     out_capacity: int,
+    native_ok: bool = True,
     edges=None,
 ):
     """The padded-layout oracle, with the canonical engines' capacity
@@ -156,6 +158,11 @@ def redistribute_oracle_padded(
     clipped); each receiver keeps the first ``out_capacity`` rows of its
     Alltoallv-ordered stream and counts the rest in ``dropped_recv``.
     Padding rows are zero.
+
+    ``native_ok`` lets the binning and the per-destination sort run in
+    the C++ host runtime (:mod:`.utils.native`, uniform cells, when it is
+    built), bit-identical to the NumPy path; ``False`` pins NumPy (the
+    reference-equivalent CPU pipeline a benchmark baseline emulates).
 
     Returns ``(pos_out [R * out_capacity, ...], counts_out [R],
     fields_out, stats_dict)``."""
@@ -170,10 +177,23 @@ def redistribute_oracle_padded(
     send_rows: List[List[np.ndarray]] = []
     for s in range(R):
         sl = slice(s * n_local, s * n_local + int(counts[s]))
-        dest = rank_of_position(np.asarray(pos[sl]), domain, grid,
-                                edges=edges)
-        dcounts = np.bincount(dest, minlength=R + 1)[:R]
-        order = np.argsort(dest, kind="stable")
+        if native_ok and edges is None:
+            dest = native.bin_positions(np.asarray(pos[sl]), domain, grid)
+            dcounts, order = native.count_sort(dest, R)
+        elif (native_ok and edges.assignment is not None
+              and all(edges.uniform_axes)):
+            # uniform fine edges with an assignment: the fine lattice is a
+            # uniform grid, so its flat cell is the C++ digitize against
+            # it, and the rank one table gather
+            flat = native.bin_positions(np.asarray(pos[sl]), domain,
+                                        ProcessGrid(edges.cells_shape))
+            dest = np.asarray(edges.assignment, dtype=np.int32)[flat]
+            dcounts, order = native.count_sort(dest, R)
+        else:
+            dest = rank_of_position(np.asarray(pos[sl]), domain, grid,
+                                    edges=edges)
+            dcounts = np.bincount(dest, minlength=R + 1)[:R]
+            order = np.argsort(dest, kind="stable")
         bounds = np.concatenate([[0], np.cumsum(dcounts)])
         remote = np.asarray(dcounts[:R]).copy()
         remote[s] = 0

@@ -64,37 +64,59 @@ def resolve_engine(
     ``"sparse"`` across devices degrades: cross-device steps stay
     dense); the canonical-only names raise ``ValueError``.
 
-    ``recorder`` (the reference journals the decision) raises
-    ``NotImplementedError``: the telemetry plane is not ported yet."""
+    ``recorder`` (a :class:`~..telemetry.recorder.StepRecorder`) journals
+    the decision as an ``engine_resolved`` event: the engine and the
+    reason, the reference's words, degradations included."""
     if engine not in ENGINES:
         raise ValueError(
             f"engine must be one of {ENGINES}, got {engine!r}"
         )
-    if recorder is not None:
-        raise NotImplementedError(
-            "resolve_engine(recorder=...): engine journaling belongs to the "
-            "telemetry plane, which is not ported yet (ROADMAP.md A11)"
-        )
     if canonical:
-        if engine in ("rowmajor", "planar", "neighbor", "sparse"):
-            return engine
-        if engine == "hierarchical":
-            return "hierarchical" if n_pods > 1 else "sparse"
-        if not planar_ok:
-            return "rowmajor"
-        if n_devices > 1 and n_pods > 1:
-            return "hierarchical"
-        if n_devices > 1:
-            return "sparse"
-        return "planar"
-    if engine in ("rowmajor", "neighbor", "hierarchical"):
-        raise ValueError(
-            f"engine={engine!r} is a canonical-exchange engine; the "
-            "migrate loop accepts 'auto', 'sparse' or 'planar'"
-        )
-    if engine in ("auto", "sparse") and vranks and n_devices == 1:
-        return "sparse"
-    return "planar"
+        if engine == "rowmajor":
+            resolved, reason = "rowmajor", "explicit rowmajor"
+        elif engine == "planar":
+            resolved, reason = "planar", "explicit planar (dense pool)"
+        elif engine == "neighbor":
+            resolved, reason = "neighbor", "explicit neighbor stencil"
+        elif engine == "sparse":
+            resolved, reason = "sparse", "explicit count-driven sparse"
+        elif engine == "hierarchical":
+            resolved, reason = (
+                ("hierarchical", "explicit hierarchical two-level wire")
+                if n_pods > 1 else
+                ("sparse", "hierarchical -> sparse: flat mesh (no dcn "
+                           "domains)"))
+        elif not planar_ok:
+            resolved, reason = "rowmajor", "auto: payload not planar-eligible"
+        elif n_devices > 1 and n_pods > 1:
+            resolved, reason = (
+                "hierarchical",
+                "auto: multi-pod mesh -> hierarchical two-level wire")
+        elif n_devices > 1:
+            resolved, reason = (
+                "sparse", "auto: multi-device -> count-driven wire")
+        else:
+            resolved, reason = (
+                "planar", "auto: single device, no wire to shrink")
+    else:
+        if engine in ("rowmajor", "neighbor", "hierarchical"):
+            raise ValueError(
+                f"engine={engine!r} is a canonical-exchange engine; the "
+                "migrate loop accepts 'auto', 'sparse' or 'planar'"
+            )
+        if engine in ("auto", "sparse") and vranks and n_devices == 1:
+            resolved, reason = "sparse", "migrate: single-device vranks"
+        elif engine == "sparse":
+            resolved, reason = (
+                "planar",
+                "sparse -> planar: cross-device migrate steps stay dense")
+        else:
+            resolved, reason = "planar", "migrate: dense planar step"
+    if recorder is not None:
+        recorder.record("engine_resolved", requested=engine,
+                        resolved=resolved, reason=reason,
+                        canonical=bool(canonical))
+    return resolved
 
 
 class RedistributeStats(NamedTuple):

@@ -1,4 +1,5 @@
-"""Per-step timing on the GPU with CUDA events (min-of-k).
+"""Per-step timing on the GPU with CUDA events (min-of-k), and the
+exchange's bandwidth roofs on an H100.
 
 The protocol of the JAX package's ``utils/profiling.py``
 (``scan_time_per_step_samples``): runs of two lengths are differenced,
@@ -16,6 +17,8 @@ import time
 from typing import Callable
 
 import torch
+
+from mpi_grid_redistribute_tpu_torch.utils.stats import host_arrays
 
 
 def _event_seconds(fn: Callable[[], object]):
@@ -122,3 +125,50 @@ def cuda_graph_time_ms(fn: Callable[[], object], iters: int = 20,
     torch.cuda.synchronize()
     return min(_event_seconds(graph.replay)[0]
                for _ in range(reps)) * 1e3 / iters
+
+
+# Roofs of the utilization denominators, H100 SXM5 80 GB datasheet values
+# (never a TPU figure):
+#   * HBM3: 3.35 TB/s per card, the roof of the one-card vrank exchange,
+#     whose "wire" is the card's own gathers and scatters
+#     (exchange_domain "hbm");
+#   * NVLink 4: 900 GB/s per GPU bidirectional over 18 links, so 450 GB/s
+#     each way, the roof of the exchange across cards
+#     (exchange_domain "nvlink"). Through NVSwitch one pair of cards can
+#     use all of it, so it is also one link's roof in the per-link report
+#     (telemetry.flow.link_report).
+HBM_PEAK_BYTES_PER_SEC = 3.35e12
+NVLINK_BYTES_PER_SEC = 450e9
+
+
+def exchange_peak_bytes_per_sec(domain: str) -> float:
+    """Peak bytes/s of an exchange domain, per card: ``"hbm"`` when the
+    vrank exchange stays on one card, ``"nvlink"`` when rows cross
+    cards."""
+    if domain == "hbm":
+        return HBM_PEAK_BYTES_PER_SEC
+    if domain == "nvlink":
+        return NVLINK_BYTES_PER_SEC
+    raise ValueError(f"unknown exchange domain {domain!r}")
+
+
+def exchange_bw_util(bytes_per_sec: float, domain: str,
+                     n_chips: int = 1) -> float:
+    """Fraction of the domain's peak the exchange achieves: aggregate
+    ``bytes_per_sec`` over ``n_chips`` cards against one card's roof."""
+    return bytes_per_sec / n_chips / exchange_peak_bytes_per_sec(domain)
+
+
+def exchange_bytes_per_step(stats, row_bytes: int) -> float:
+    """Mean bytes crossing the exchange a step, from a stats tuple:
+    ``RedistributeStats`` (``send_counts [R, R]``, optionally stacked
+    ``[S, R, R]``) or ``MigrateStats`` (``sent [R]`` or ``[S, R]``); one
+    read of the leaf off the device."""
+    if hasattr(stats, "sent"):
+        sent = host_arrays([stats.sent])[0]
+        sent = sent.reshape(-1, sent.shape[-1])  # [S, R]
+    else:
+        sent = host_arrays([stats.send_counts])[0]
+        sent = sent.reshape((-1,) + sent.shape[-2:])  # [S, R, R]
+    per_step = sent.reshape(sent.shape[0], -1).sum(axis=-1)
+    return float(per_step.mean()) * row_bytes

@@ -14,15 +14,41 @@ import numpy as np
 import torch
 
 
+def host_arrays(values) -> list:
+    """``values`` (tensors, arrays, scalars or ``None``) as NumPy arrays,
+    ``None`` kept. The integer and bool tensors of one device come back
+    in ONE transfer (flattened into one int64 buffer), so a reader of a
+    stats tuple syncs the device once, not once a leaf."""
+    out = [None if v is None
+           else np.asarray(v) if not isinstance(v, torch.Tensor) else v
+           for v in values]
+    by_device = {}
+    for i, v in enumerate(out):
+        if isinstance(v, torch.Tensor):
+            exact = not (v.is_floating_point() or v.is_complex())
+            by_device.setdefault((v.device, exact), []).append(i)
+    for (_, exact), idx in by_device.items():
+        if not exact or len(idx) == 1:
+            for i in idx:
+                out[i] = out[i].detach().cpu().numpy()
+            continue
+        ts = [out[i] for i in idx]
+        flat = torch.cat([t.detach().reshape(-1).to(torch.int64)
+                          for t in ts]).cpu().numpy()
+        at = 0
+        for i, t in zip(idx, ts):
+            n = t.numel()
+            dtype = np.dtype(str(t.dtype).replace("torch.", ""))
+            out[i] = flat[at:at + n].reshape(tuple(t.shape)).astype(dtype)
+            at += n
+    return out
+
+
 def _host(stats) -> dict:
     """Every leaf of ``stats`` as a NumPy array (``None`` kept), read off
-    the device once."""
-    return {
-        f: None if v is None
-        else v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-        else np.asarray(v)
-        for f, v in stats._asdict().items()
-    }
+    the device in one transfer."""
+    d = stats._asdict()
+    return dict(zip(d, host_arrays(list(d.values()))))
 
 
 def _imbalance(per_rank: np.ndarray) -> float:

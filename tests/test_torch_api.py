@@ -12,6 +12,7 @@ The reference's ``backend="jax"`` runs its mesh engines on the tests'
 8-device CPU mesh (``"auto"`` is the count-driven sparse engine there),
 so stats are held against its oracle and vrank builders instead."""
 
+import types
 import warnings
 
 import numpy as np
@@ -66,6 +67,13 @@ def _inputs(r, R=8, n_local=300, clustered=False):
     vel = r.standard_normal((n, 3)).astype(np.float32)
     ids = np.arange(n, dtype=np.int32)
     return pos, vel, ids
+
+
+def _journal(rec):
+    """A recorder's events as ``(kind, payload)`` without the random trace
+    id of the call's step context."""
+    return [(e.kind, {k: v for k, v in e.data.items() if k != "trace"})
+            for e in rec.events()]
 
 
 def _pair(grid, **kw):
@@ -198,6 +206,53 @@ def test_narrow_fields_take_the_rowmajor_engine():
     with pytest.raises(TypeError, match="32-bit"):
         tgr.GridRedistribute(TDOM, (3, 2, 1), device="cpu",
                              engine="planar").redistribute(pos, tag)
+
+
+@pytest.mark.parametrize("wide", ["float64_positions", "int64_field",
+                                  "int16_field"])
+@pytest.mark.parametrize("engine", ["planar", "sparse", "neighbor",
+                                    "hierarchical", "auto"])
+def test_wide_inputs_choose_the_engine_as_the_reference_does(engine, wide):
+    """Planar eligibility is decided on the caller's dtypes, before the
+    narrowing: an array that is not 32-bit makes every explicit
+    planar-family engine raise ``TypeError`` (``halo(engine="planar")``
+    too), and ``"auto"`` take the row-major engine, as the reference's
+    ``backend="jax"`` does. The (4, 2, 2) grid has more ranks than the
+    tests' 8 devices, so the reference runs vranks, as the port does."""
+    r = np.random.default_rng(17)
+    grid = (4, 2, 2)
+    pos, vel, ids = _inputs(r, 16, 100)
+    if wide == "float64_positions":
+        args = (pos.astype(np.float64), ids)
+    elif wide == "int64_field":
+        args = (pos, ids.astype(np.int64))
+    else:
+        args = (pos, (ids % 30000).astype(np.int16))
+    kw = dict(engine=engine, capacity_factor=3.0)
+    t = tgr.GridRedistribute(TDOM, grid, device="cpu", **kw)
+    j = jgr.GridRedistribute(JDOM, grid, backend="jax", **kw)
+    assert j._vranks
+    if engine != "auto":
+        with pytest.raises(TypeError, match="32-bit"):
+            j.redistribute(*args)
+        with pytest.raises(TypeError, match="32-bit"):
+            t.redistribute(*args)
+        return
+    want, got = j.redistribute(*args), t.redistribute(*args)
+    assert t._last_wire["engine"] == j._last_wire["engine"] == "rowmajor"
+    for g, w in [(got.positions, want.positions), (got.count, want.count),
+                 (got.fields[0], want.fields[0])]:
+        _same(g, w)
+    for f in STATS:
+        _same(getattr(got.stats, f), getattr(want.stats, f))
+    halo = dict(width=0.05, count=want.count)
+    hp = dict(engine="planar")
+    with pytest.raises(TypeError, match="32-bit"):
+        jgr.GridRedistribute(JDOM, grid, backend="jax", **hp).halo(
+            *args, **halo)
+    with pytest.raises(TypeError, match="32-bit"):
+        tgr.GridRedistribute(TDOM, grid, device="cpu", **hp).halo(
+            *args, width=0.05, count=got.count)
 
 
 def test_64_bit_inputs_are_narrowed_as_jax_narrows_them():
@@ -430,29 +485,40 @@ def test_mover_capacity_matches_reference():
     seq = [_Stats(r.integers(0, hi, (4, 8)).astype(np.int32),
                   r.integers(0, 5, (4, 8)).astype(np.int32))
            for hi in (3, 40, 20, 300, 100, 1000)]
+    from mpi_grid_redistribute_tpu import telemetry as jtel
+    from mpi_grid_redistribute_tpu_torch import telemetry as ttel
+
     for max_cap in (None, 256):
-        t, j = tgr.MoverCapacity(5, max_cap), jgr.api.MoverCapacity(5, max_cap)
+        trec, jrec = ttel.StepRecorder(), jtel.StepRecorder()
+        t = tgr.MoverCapacity(5, max_cap, recorder=trec)
+        j = jgr.api.MoverCapacity(5, max_cap, recorder=jrec)
         for st in seq:
             tst = _Stats(torch.from_numpy(st.sent), torch.from_numpy(st.backlog))
             assert t.update(tst) == j.update(st)
             assert (t.value, t.grow_count) == (j.value, j.grow_count)
+        # the growth journal: the same mover_cap_grow events
+        assert [(e.kind, e.data) for e in trec.events()] == [
+            (e.kind, e.data) for e in jrec.events()]
+        assert trec.counts() == jrec.counts() and trec.counts()
     with pytest.raises(ValueError):
         tgr.MoverCapacity(0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tgr.MoverCapacity(4, recorder=object())
 
 
 def test_unported_planes_raise():
-    # the telemetry plane (A11) is what is still refused
+    # nothing is refused any more: the telemetry arguments journal
     from mpi_grid_redistribute_tpu_torch.parallel import exchange as tex
+    from mpi_grid_redistribute_tpu_torch.telemetry import StepRecorder
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        tgr.api.MoverCapacity(8, recorder=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        tex.resolve_engine("auto", canonical=True, recorder=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        tgr.api.reshard(np.zeros((4, 3), np.float32), domain=TDOM,
-                        grid=(2, 2, 2), n_local=4, telemetry=object())
+    rec = StepRecorder()
+    mc = tgr.api.MoverCapacity(8, recorder=rec)
+    assert mc.update(types.SimpleNamespace(
+        sent=torch.tensor([[3, 20]]), backlog=torch.zeros(1, 2)))
+    assert tex.resolve_engine("auto", canonical=True, recorder=rec) == "planar"
+    tgr.api.reshard(np.zeros((4, 3), np.float32), domain=TDOM,
+                    grid=(2, 2, 2), n_local=4, telemetry=rec)
+    assert [e.kind for e in rec.events()] == [
+        "mover_cap_grow", "engine_resolved", "redistribute"]
+    assert rec.events()[0].data == dict(old=8, new=32, peak_movers=20)
     # the multi-rank plane, the count-driven and the hierarchical engines
     # are ported: a mesh must be a RankMesh, and "sparse"/"neighbor"/
     # "hierarchical" (with dcn_shape= and cross_cap=) build on one device
@@ -514,9 +580,16 @@ def test_reshard_matches_reference(grid, backend):
     shards = [_np(got.positions)[i * n_local: i * n_local + int(got.count[i])]
               for i in range(R)]
     oracle.assert_ownership(TDOM, tgr.ProcessGrid(grid), shards)
-    with pytest.raises(NotImplementedError, match="A11"):
-        api.reshard(pos, domain=TDOM, grid=grid, n_local=n_local,
-                    telemetry=object())
+    # telemetry= journals the call into the caller's recorder, as the
+    # reference's does (numpy backend: no engine resolution)
+    from mpi_grid_redistribute_tpu import telemetry as jtel
+    from mpi_grid_redistribute_tpu_torch import telemetry as ttel
+
+    trec, jrec = ttel.StepRecorder(), jtel.StepRecorder()
+    api.reshard(pos, domain=TDOM, grid=grid, n_local=n_local, telemetry=trec)
+    japi.reshard(pos, domain=JDOM, grid=grid, n_local=n_local,
+                 telemetry=jrec)
+    assert _journal(trec) == _journal(jrec)
     with pytest.raises(ValueError, match="n_local"):
         api.reshard(pos, domain=TDOM, grid=grid, n_local=0)
 
@@ -606,3 +679,78 @@ def test_unsigned_and_complex_fields_match_reference_oracle():
     assert [f.dtype for f in got.fields] == [torch.uint32, torch.complex64,
                                              torch.float16]
     _compare(got, j.redistribute(pos, u, c, h))
+
+
+def test_journaling_reads_nothing_off_the_device():
+    """The journal is fed host values only: the same call sequence (a
+    growing capacity, the deferred windows, the count-driven block's
+    growth, a halo and a sparse migrate loop) with the journal on and with
+    a disabled recorder gives the same blocking stat fetches, the same
+    sparse-guard reads (``parallel.migrate.HOST_SYNCS``) and the same
+    scalar reads off tensors, and every payload handed to the recorder
+    holds plain host values."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from mpi_grid_redistribute_tpu_torch.bench import common
+    from mpi_grid_redistribute_tpu_torch.models import nbody
+    from mpi_grid_redistribute_tpu_torch.parallel import migrate
+    from mpi_grid_redistribute_tpu_torch.telemetry import StepRecorder
+
+    payloads = []
+
+    class Spy(StepRecorder):
+        def record(self, kind, **data):
+            payloads.append(data)
+            super().record(kind, **data)
+
+    class ScalarReads(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten._local_scalar_dense.default:
+                ScalarReads.n += 1
+            return func(*args, **(kwargs or {}))
+
+    r = np.random.default_rng(41)
+    calls = [_inputs(r, 8, 200, clustered=(i == 5)) for i in range(7)]
+    v, cap, budget = common.drift_sizing((2, 2, 2), 512, 0.9, 0.02)
+    state = common.uniform_state((2, 2, 2), 512, 0.9,
+                                 np.random.default_rng(0), vel_scale=v)
+    cfg = nbody.DriftConfig(domain=TDOM, grid=tgr.ProcessGrid((1, 1, 1)),
+                            dt=1.0, capacity=cap, n_local=512,
+                            local_budget=budget)
+
+    def run(rec):
+        ScalarReads.n = 0
+        guard = migrate.HOST_SYNCS["sparse_guard"]
+        rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu",
+                                  engine="sparse", capacity_factor=0.5,
+                                  check_every=2, mover_cap=2)
+        rd.telemetry = rec
+        with ScalarReads():
+            for args in calls:
+                try:
+                    res = rd.redistribute(*args)
+                except RuntimeError:  # the deferred window's loss
+                    pass
+            try:
+                rd.flush_overflow_checks()
+            except RuntimeError:
+                pass
+            rd.halo(res.positions, width=0.05, count=res.count,
+                    headroom=0.05)
+            loop = nbody.make_migrate_loop(
+                cfg, 3, vgrid=tgr.ProcessGrid((2, 2, 2)), device="cpu")
+            stats = loop(*state)[3]
+            tgr.MoverCapacity(4, recorder=rec).update(stats)
+        return (rd._blocking_fetches,
+                migrate.HOST_SYNCS["sparse_guard"] - guard, ScalarReads.n)
+
+    on = run(Spy())
+    assert len(payloads) > 10 and on[0] > 0 and on[1] == 3 and on[2] > 0
+    assert run(StepRecorder(enabled=False)) == on
+    host = (bool, int, float, str, type(None))
+    for data in payloads:
+        for v in data.values():
+            assert type(v) in host or (
+                type(v) is list and all(type(x) in host for x in v)), data

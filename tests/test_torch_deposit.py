@@ -19,6 +19,7 @@ Contracts held here, and why:
     poisoning each branch in turn, as the reference's test does)."""
 
 import itertools
+import re
 
 import numpy as np
 import pytest
@@ -565,3 +566,97 @@ def test_shard_deposit_vranks_fn_raises():
         tdep.shard_deposit_vranks_fn(td, tdomain.ProcessGrid((2, 1, 1)),
                                      tdomain.ProcessGrid((1, 1, 1)),
                                      (8, 8, 8))
+
+
+# ---- the corner order of the "segment" deposit at any row count ---------
+#
+# XLA's CPU compiler joins consecutive corner scatters of the reference's
+# ``total + segment_sum(...)`` chain while their update rows stay below
+# the node count, so the order depends on the rows a rank holds. The
+# tests read that order off the compiled HLO of the reference's one-device
+# ``build_deposit`` and hold the port's ``_corner_groups`` to it.
+
+_HLO_OP = re.compile(
+    r"^\s*(?:ROOT )?%(\S+) = (\S+) (\S+?)\((.*?)\).*?(?:calls=%(\S+?))?"
+    r"(?:, metadata|$)")
+
+
+def _hlo_corner_groups(text: str, n: int):
+    """``[(group size, into_total), ...]`` of the deposit's scatter chain
+    in the ENTRY computation of a compiled module: a scatter into the
+    zero canvas opens a fresh group, a scatter into an earlier result
+    adds its rows to the total, and a fresh one-corner scatter added to
+    the total (by a wrapped add, or inside the fold's fusion) is a group
+    summed apart."""
+    nodes = {}
+    for line in text[text.index("ENTRY"):].splitlines()[1:]:
+        m = _HLO_OP.match(line)
+        if m:
+            name, typ, op, args, calls = m.groups()
+            nodes[name] = (typ, op, re.findall(r"%([\w.\-]+)", args),
+                           calls or "")
+
+    def tree(name):
+        typ, op, args, calls = nodes[name]
+        if op == "copy":
+            return tree(args[0])
+        if "broadcast" in calls:
+            return "zeros"
+        if "scatter" in calls:
+            rows = int(re.match(r"f32\[(\d+),1\]", nodes[args[2]][0])[1])
+            return ("scatter", tree(args[0]), rows // n)
+        assert calls.startswith("wrapped_add"), (name, op, calls)
+        return ("add", tree(args[0]), tree(args[1]))
+
+    chain = [k for k, v in nodes.items()
+             if "scatter" in v[3] or v[3].startswith("wrapped_add")]
+    tops = [k for k in chain if not any(k in nodes[u][2] for u in chain)]
+    # two tops: the fold's fusion adds the corner summed apart last
+    t = (tree(tops[0]) if len(tops) == 1 else ("add",) + tuple(sorted(
+        map(tree, tops), key=lambda t: t[1] == "zeros" and t[2] == 1)))
+
+    def flat(t):
+        if t[0] == "add":
+            assert t[2][0] == "scatter" and t[2][1] == "zeros", t
+            return flat(t[1]) + [(t[2][2], False)]
+        if t[1] == "zeros":
+            return [(t[2], False)]
+        return flat(t[1]) + [(t[2], True)]
+
+    return flat(t)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8), (4, 6, 5)])
+@pytest.mark.parametrize("n", [40, 91, 92, 110, 130, 160, 200, 300, 364,
+                               365, 1000])
+def test_segment_corner_groups_follow_xla_hlo(n, shape):
+    jgrid, mesh = _one_device_mesh()
+    fn = jdep.build_deposit(mesh, jdomain.Domain(0.0, 1.0, periodic=True),
+                            jgrid, shape, method="segment")
+    text = fn.lower(np.zeros((n, 3), np.float32), np.ones(n, np.float32),
+                    np.asarray([n], np.int32)).compile().as_text()
+    n_nodes = int(np.prod([m + 1 for m in shape]))
+    got = [(len(g), into) for g, into in tdep._corner_groups(n, n_nodes, 8)]
+    assert got == _hlo_corner_groups(text, n)
+
+
+@pytest.mark.parametrize("with_mass", [False, True])
+@pytest.mark.parametrize("n", [60, 150, 300, 2000])
+def test_one_rank_segment_deposit_bit_equal(n, with_mass):
+    """A one-rank grid's ``"segment"`` density: all 512 cells bit-equal
+    to the reference's one-device ``build_deposit``, at row counts that
+    take each kind of corner order (300 is the drift test's state)."""
+    r = np.random.default_rng(n + with_mass)
+    pos = r.random((n, 3), dtype=np.float32)
+    mass = ((r.random(n) + 0.5).astype(np.float32) if with_mass
+            else np.ones(n, np.float32))
+    count = np.asarray([n - n // 6], np.int32)
+    jgrid, mesh = _one_device_mesh()
+    want = jdep.build_deposit(mesh, jdomain.Domain(0.0, 1.0, periodic=True),
+                              jgrid, (8, 8, 8), method="segment")(
+                                  pos, mass, count)
+    got = tdep.build_deposit(None, tdomain.Domain(0.0, 1.0, periodic=True),
+                             tdomain.ProcessGrid(GRID1), (8, 8, 8),
+                             method="segment")(_t(pos), _t(mass), _t(count))
+    assert got.shape == (8, 8, 8)
+    _bits(got, want)

@@ -239,7 +239,7 @@ def test_api_vranks_auto_planar_explicit_sparse():
         want = jrd.redistribute(pos, ids)
         trd = tapi.GridRedistribute(device="cpu", **kw)
         got = trd.redistribute(pos, ids)
-        assert trd._last_engine == resolved == jrd._last_wire["engine"]
+        assert trd._last_wire["engine"] == resolved == jrd._last_wire["engine"]
         assert got.positions.numpy().tobytes() == np.asarray(
             want.positions).tobytes()
         assert got.fields[0].numpy().tobytes() == np.asarray(

@@ -440,9 +440,10 @@ def test_api_halo_grow_retries_with_grown_caps(rng):
     attempts = []
     real_once = t._halo_once
 
-    def spy(positions, fields, count, widths, pc, gc):
+    def spy(positions, fields, count, widths, pc, gc, *planar_ok):
         attempts.append((pc, gc))
-        return real_once(positions, fields, count, widths, pc, gc)
+        return real_once(positions, fields, count, widths, pc, gc,
+                         *planar_ok)
 
     t._halo_once = spy
     got = t.halo(pos, width=0.12, count=count, headroom=0.05)
@@ -460,7 +461,8 @@ def test_api_halo_grow_nonconvergence_reports_run_caps(rng):
     t, _ = _api_pair()
     attempts = []
 
-    def always_overflow(positions, fields, count, widths, pc, gc):
+    def always_overflow(positions, fields, count, widths, pc, gc,
+                        *planar_ok):
         attempts.append((pc, gc))
         return th.HaloResult(positions, torch.zeros(8, dtype=torch.int32),
                              (), torch.ones(8, dtype=torch.int32))

@@ -382,7 +382,7 @@ def test_api_vranks_bitexact_and_ratchets():
     assert want._vranks and want._last_wire["engine"] == "hierarchical"
     assert res_h.positions.numpy().tobytes() == np.asarray(
         res_w.positions).tobytes()
-    assert rd_h._last_engine == "hierarchical" and rd_h.n_pods == 2
+    assert rd_h._last_wire["engine"] == "hierarchical" and rd_h.n_pods == 2
     assert res_h.positions.numpy().tobytes() == (
         res_p.positions.numpy().tobytes())
     assert res_h.positions.numpy().tobytes() == np.asarray(
@@ -403,11 +403,11 @@ def test_api_vranks_bitexact_and_ratchets():
     # degrades the hierarchical engine to planar too
     rd_a = tapi.GridRedistribute(dcn_shape=(1, 1, 2), device="cpu", **kw)
     rd_a.redistribute(pos, ids)
-    assert rd_a._last_engine == "planar"
+    assert rd_a._last_wire["engine"] == "planar"
     rd_m = tapi.GridRedistribute(engine="hierarchical", dcn_shape=(1, 1, 2),
                                  mover_cap=64, device="cpu", **kw)
     rd_m.redistribute(pos, ids)
-    assert rd_m._last_engine == "planar"
+    assert rd_m._last_wire["engine"] == "planar"
 
 
 def test_api_hierarchical_validation():

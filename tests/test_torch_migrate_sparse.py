@@ -151,8 +151,16 @@ def test_resolve_engine_matches_jax():
 
 
 def test_resolve_engine_recorder_is_not_ported():
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        texchange.resolve_engine("auto", vranks=True, recorder=object())
+    # the recorder is ported: the migrate loop's resolution journals the
+    # reference's engine_resolved event
+    from mpi_grid_redistribute_tpu import telemetry as jtel
+    from mpi_grid_redistribute_tpu_torch import telemetry as ttel
+
+    for kw in (dict(vranks=True), dict(vranks=False, n_devices=8)):
+        t, j = ttel.StepRecorder(), jtel.StepRecorder()
+        got = texchange.resolve_engine("sparse", recorder=t, **kw)
+        assert got == jexchange.resolve_engine("sparse", recorder=j, **kw)
+        assert [e.data for e in t.events()] == [e.data for e in j.events()]
 
 
 # ------------------------------------------------------ the sparse loop

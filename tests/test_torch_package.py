@@ -60,6 +60,31 @@ def test_import_does_not_load_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_every_module_imports_with_jax_blocked():
+    """Every module of the port imports with ``jax`` and the JAX package
+    made unimportable (``None`` in ``sys.modules``)."""
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PORT.rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'jaxlib', 'mpi_grid_redistribute_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "mpi_grid_redistribute_tpu_torch.telemetry.health" in mods
+    assert "mpi_grid_redistribute_tpu_torch.bench.headline" in mods
+
+
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))

@@ -257,8 +257,9 @@ def run_exchange(ctx):
             _np(res.positions), tuple(_np(a) for a in res.fields),
             _np(res.count), _stats_np(res.stats),
             dict(capacity=rd.capacity, out_capacity=rd.out_capacity,
-                 mover_cap=rd._mover_cap, engine=rd._last_engine,
+                 mover_cap=rd._mover_cap, engine=rd._last_wire["engine"],
                  fetches=rd._blocking_fetches))
+        out[("api-telemetry", key)] = telemetry_views(rd)
     # the functional forms and engine_fn on the mesh
     pos, vel, ids, _ = rows_inputs(8, n, 0.02, 7)
     mine = [split_rows(a, 8)[r] for a in (pos, vel, ids)]
@@ -278,7 +279,7 @@ def run_exchange(ctx):
     fn, cap, out_cap = rd.engine_fn(p_r, v_r)
     res = fn(p_r, torch.tensor([n]), v_r)
     out[("api", "engine_fn")] = (_np(res[0]), _np(res[1]), cap, out_cap,
-                                 rd._last_engine)
+                                 rd._last_wire["engine"])
     # what this interpreter imported: the port, never JAX
     out[("imports",)] = sorted(
         m for m in sys.modules
@@ -298,8 +299,20 @@ def run_exchange(ctx):
     out[("api", "rowmajor")] = (
         _np(res.positions), tuple(_np(a) for a in res.fields),
         _np(res.count), _stats_np(res.stats),
-        dict(out_capacity=rd.out_capacity, engine=rd._last_engine))
+        dict(out_capacity=rd.out_capacity, engine=rd._last_wire["engine"]))
     return out
+
+
+def telemetry_views(rd):
+    """What an instance's telemetry shows after its calls: the journal
+    (kind and payload, without the random trace id), ``report()`` at 1 ms
+    a step, ``flow()``, ``health()`` and the rendered ``metrics()``."""
+    journal = [(e.kind, {k: v for k, v in e.data.items() if k != "trace"})
+               for e in rd.telemetry.events()]
+    flow = rd.flow(k=3)
+    return dict(journal=journal, report=rd.report(step_seconds=1e-3),
+                flow=dict(flow, matrix=np.asarray(flow["matrix"])),
+                health=rd.health(), metrics=rd.metrics(render=True))
 
 
 def _collectives(mesh):
@@ -982,7 +995,7 @@ def run_hier(ctx):
         out[("api", key)] = (
             _np(res.positions), _np(res.fields[0]), _np(res.count),
             _stats_np(res.stats),
-            dict(engine=rd._last_engine, n_pods=rd.n_pods,
+            dict(engine=rd._last_wire["engine"], n_pods=rd.n_pods,
                  cross_cap=rd._cross_cap, mover_cap=rd._mover_cap,
                  capacity=rd.capacity, fetches=rd._blocking_fetches))
     out[("imports",)] = sorted(
