@@ -74,6 +74,17 @@ started together), then, on the card:
      two pods of 4 vranks): byte-equal to the oracle and to the planar
      call, ms per call (median), device busy and host syncs a call; and
      one cross-block growth from ``cross_cap=1`` at config 1's width;
+     between the headline and the hierarchical engine config 7's full
+     reshuffle (``bench/config7_stress.py`` at 2^20 rows: ms/step, GB/s,
+     utilization of the HBM3 roof, nothing dropped or lost; the
+     headline's ``stress``, ``hier`` and two-level byte split filled);
+     after it the chunked service step (``bench/service_chunk.py``: 8
+     vranks of 2^20 rows, chunks of 16): the sequential and the
+     pipelined macro with no host sync inside (sync debug "error"),
+     kernel 2 launched once a step by the pipelined one and held against
+     its plain version at that chunk's landings (K = 9 and 8), the two
+     macros' particle sets equal, both bit-equal to the CPU run at a
+     small width, and ms/step of each beside the eager loop;
   7. drives the halo exchange (config 6: the 2x2x2 grid as 8 vranks on
      the periodic unit box, every slot filled, width 0.05, derived
      capacities): at 2^18 rows per vrank both vrank engines on the card
@@ -1587,10 +1598,176 @@ def headline_phase(torch, _build, headline_bench):
     check(line["value"] > 0 and line["vs_baseline"] > 0
           and line["exchange_domain"] == "hbm",
           f"headline: {line}")
+    for k in ("stress", "hier", "exchange_dcn_bytes_per_step",
+              "exchange_ici_bytes_per_step"):
+        check(line[k] is not None, f"headline: {k} is null")
+    check(line["stress"]["migration_fraction"] > 0.8,
+          f"headline: stress migration {line['stress']['migration_fraction']}"
+          f" is not a full reshuffle")
+    check(line["hier"]["engine"] == "hierarchical"
+          and line["exchange_dcn_bytes_per_step"]
+          == line["hier"]["dcn_bytes_per_step"] > 0,
+          f"headline: hier {line['hier']}")
     log(f"headline (short run, S1={s1}, S2={s2}, reps={reps}, CPU "
         f"comparators at {HEADLINE_BASELINE_N} rows): {json.dumps(line)}; "
         f"{seconds:.1f} s")
     return line
+
+
+STRESS_ROWS = 1 << 20  # config 7's largest sweep size
+
+
+def config7_phase(torch, config7_stress):
+    """Config 7's full reshuffle at 2^20 total rows, one timed long run:
+    ms/step, GB/s and utilization of the HBM3 roof; the run itself
+    raises on a dropped or lost row."""
+    t0 = time.perf_counter()
+    out = config7_stress.run(n_total=STRESS_ROWS, reps=1, device="cuda")
+    check(out["migration_fraction"] > 0.8 and out["exchange_domain"] == "hbm",
+          f"config7: {out}")
+    log(f"config7 (full reshuffle, {out['rows']} rows, {out['row_bytes']} B "
+        f"a row): {out['ms_per_step']} ms/step, "
+        f"{out['exchange_gb_per_sec']} GB/s, bw_util {out['bw_util']} of "
+        f"the HBM3 roof, {out['migration_fraction']:.2%} of rows moved a "
+        f"step; nothing dropped, rows conserved; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+SERVICE_CHUNK = 16
+SERVICE_SMALL = 4096  # the card-against-CPU width
+
+
+def _same_tree(torch, a, b) -> bool:
+    """Bit equality of two chunk outputs (tensors, tuples, dicts), the
+    second on the CPU."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(
+            _same_tree(torch, a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(
+            _same_tree(torch, x, y) for x, y in zip(a, b))
+    if a is None:
+        return b is None
+    return tuple(a.shape) == tuple(b.shape) and torch.equal(
+        a.cpu().contiguous().view(torch.uint8),
+        b.contiguous().view(torch.uint8))
+
+
+def _sync_free(torch, _build, macro, state):
+    """``(out, launches)``: one macro under sync debug mode "error" (a
+    host sync raises), every kernel count set to 0 just before it and
+    read just after."""
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = macro(*state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, _build.counts()
+
+
+def service_phase(torch, _build, migrate, overlay, profiling, kernel_times,
+                  service_chunk, profile_dir):
+    """The chunked service step at the bench shape (``bench.
+    service_chunk``: 8 vranks of 2^20 rows, fill 0.9, ~2% migration at
+    dt 1.0, pos/vel/ids, ``out_capacity = n_local``, chunks of 16): the
+    sequential and the pipelined macro on the same inputs with zero host
+    syncs inside each (sync debug "error"), the pipelined one launching
+    kernel 2 once a step, no kernel in the sequential one; their particle
+    sets, counts, per-step counts and send tables equal, nothing dropped,
+    every pipelined step armed; kernel 2 held against its plain version
+    at the pipelined landing's own operands (K = 9 with the key row, K =
+    8 at the end) and timed there; both macros at a small width bit-equal
+    to the CPU run; ms/step of each and of the eager loop."""
+    t0 = time.perf_counter()
+    rd, state = service_chunk.prepare(N_LOCAL, "cuda")
+    seq, pipe = service_chunk.build(rd, state, SERVICE_CHUNK)
+    seq_out, seq_n = _sync_free(torch, _build, seq, state)
+    check(not any(seq_n.values()),
+          f"service: the sequential chunk launched {seq_n}")
+    pipe_out, pipe_n = _sync_free(torch, _build, pipe, state)
+    check(pipe_n["overlay_scatter_planar"] == SERVICE_CHUNK
+          and sum(pipe_n.values()) == SERVICE_CHUNK,
+          f"service: the pipelined chunk launched {pipe_n} in "
+          f"{SERVICE_CHUNK} steps")
+    try:
+        checked = service_chunk.check_pair(seq_out, pipe_out)
+    except RuntimeError as e:
+        fail(f"service: {e}")
+    del seq_out, pipe_out
+    # kernel 2 at the pipelined landing's operands
+    seen = []
+    orig = migrate._land_scatter
+
+    def rec(flat, targets, cols, impl="overlay", plain=False):
+        seen.append((flat.clone(), targets.clone(), cols.clone()))
+        del seen[1:-1]
+        return orig(flat, targets, cols, impl, plain)
+
+    migrate._land_scatter = rec
+    try:
+        pipe(*state)
+    finally:
+        migrate._land_scatter = orig
+    check([f.shape[0] for f, _, _ in seen] == [9, 8],
+          f"service: landings of K {[f.shape[0] for f, _, _ in seen]}")
+    landing = {}
+    for flat, t, cols in seen:
+        K = flat.shape[0]
+        a = overlay.overlay_scatter_planar(flat.clone(), t, cols)
+        b = overlay.overlay_scatter_planar_plain(flat.clone(), t, cols)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"service: kernel 2 != plain at K = {K}")
+        n_ok = int(((t >= 0) & (t < flat.shape[1])).sum())
+        times = kernel_times.time_overlay(overlay, profiling, flat, cols, t)
+        work = flat.clone()
+        plain_ms = profiling.cuda_time_ms(
+            lambda: overlay.overlay_scatter_planar_plain(work, t, cols))
+        P = t.shape[0]
+        # the data's own work: every target read, and the columns of the
+        # in-range ones read and written (a dropped column is never read)
+        b_ms, b_by = bound(4 * P + 8 * K * n_ok, 0)
+        landing[f"K{K}"] = {
+            "shape": list(flat.shape), "targets": P, "in_range": n_ok,
+            "max_abs_err": max_abs_err(a, b), "ms": times["kernel"]["graph"],
+            "eager_ms": times["kernel"]["eager"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": times["index_put_"]["graph"]}
+        del a, b, work
+    del seen
+    # card against the CPU at a small width
+    small = {}
+    for dev in ("cuda", "cpu"):
+        rd_s, st_s = service_chunk.prepare(SERVICE_SMALL, dev)
+        small[dev] = [m(*st_s) for m in service_chunk.build(
+            rd_s, st_s, SERVICE_CHUNK)]
+    for name, a, b in zip(("sequential", "pipelined"), small["cuda"],
+                          small["cpu"]):
+        check(_same_tree(torch, a, b),
+              f"service: the {name} chunk on the card differs from the CPU "
+              f"run at {SERVICE_SMALL} rows a vrank")
+    del small
+    times = service_chunk.time_paths(rd, state, SERVICE_CHUNK, reps=2,
+                                     busy=bool(profile_dir))
+    log(f"service chunk ({checked['rows']} rows, chunk {SERVICE_CHUNK}, "
+        f"{checked['migration_fraction']:.3%} migration a step): "
+        + "; ".join(f"{k} {v['ms_per_step']:.4f} ms/step (median "
+                    f"{v['median_ms_per_step']:.4f})"
+                    + (f", device busy {v['device_busy_ms_per_step']:.4f}, "
+                       f"idle {v['idle']:.2%}" if "idle" in v else "")
+                    for k, v in times.items())
+        + f"; 0 host syncs in each macro, kernel 2 {SERVICE_CHUNK} launches "
+        f"in the pipelined one; particle sets equal, nothing dropped, every "
+        f"step armed; card == CPU at {SERVICE_SMALL} rows a vrank; kernel 2 "
+        f"at the landing: "
+        + ", ".join(f"{k} {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, "
+                    f"index_put_ {v['library_ms']:.5f}, bound "
+                    f"{v['bound_ms']:.5f})" for k, v in landing.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    return dict(checked, launches=pipe_n, times=times, landing=landing)
 
 
 HIER_DCN = (2, 1, 1)  # two pods of 4 vranks
@@ -2225,7 +2402,8 @@ def main() -> int:
     from mpi_grid_redistribute_tpu_torch import oracle
     from mpi_grid_redistribute_tpu_torch.bench import (
         common, config1_oracle, config2_clustered, config3_slab,
-        config5_deposit, config6_halo, kernel_times,
+        config5_deposit, config6_halo, config7_stress, kernel_times,
+        service_chunk,
     )
     from mpi_grid_redistribute_tpu_torch.bench import (
         headline as headline_bench,
@@ -2361,8 +2539,13 @@ def main() -> int:
     lap("telemetry")
     bench_line = headline_phase(torch, _build, headline_bench)
     lap("headline bench")
+    stress = config7_phase(torch, config7_stress)
+    lap("config 7")
     hier = hierarchical_phase(torch, pt, config1_oracle, profiling, headline)
     lap("hierarchical")
+    service = service_phase(torch, _build, migrate, overlay, profiling,
+                            kernel_times, service_chunk, args.profile)
+    lap("service chunk")
 
     # ---- the halo exchange (config 6) and the public halo()
     halo = halo_phase(torch, pt, config6_halo, config1_oracle, oracle,
@@ -2399,6 +2582,11 @@ def main() -> int:
                     (k5, c5["scan"]["launches"]), (k6, rows["launches"])):
         k = dict(k)
         k["launches"] = path[k["name"]]
+        if k["name"] == "overlay_scatter_planar":
+            # kernel 2's other path of this run: the pipelined service
+            # chunk's landings (K = 9, then 8), counted there
+            k["launches_pipelined_chunk"] = service["launches"][k["name"]]
+            k["pipelined_landing"] = service["landing"]
         kernels.append(k)
     log(f"chip_smoke: every phase passed, {time.perf_counter() - T_START:.1f}"
         f" s since the script started (the kernels' build included); "
@@ -2416,6 +2604,8 @@ def main() -> int:
     log(json.dumps({"telemetry": tel}))
     log(json.dumps({"headline": bench_line}))
     log(json.dumps({"hierarchical": hier}))
+    log(json.dumps({"config7": stress}))
+    log(json.dumps({"service": service}))
     log(json.dumps({"halo": halo}))
     log(json.dumps({"ranks": ranks}))
     log(smi)

@@ -28,8 +28,18 @@ grid as virtual ranks, or with ``mesh=`` one rank a process:
   * the telemetry core (:mod:`.telemetry`): every ``GridRedistribute``
     journals into ``rd.telemetry`` and reports through ``report()``,
     ``flow()``, ``health()``, ``metrics()`` and ``to_perfetto()``; the
-    headline bench :mod:`.bench.headline` (``bench.py``'s twin) and the
-    C++ host runtime's binding :mod:`.utils.native`.
+    headline bench :mod:`.bench.headline` (``bench.py``'s twin, with
+    config 7's stress, :mod:`.bench.config7_stress`, and config 4's wire
+    captures, :mod:`.bench.config4_drift`) and the C++ host runtime's
+    binding :mod:`.utils.native`;
+  * the chunked service step (:mod:`.service`): ``chunk`` drift ->
+    redistribute steps with nothing read back to the host
+    (:func:`.service.make_chunk_fn`), its software-pipelined sibling over
+    the two-phase exchange (:func:`.service.make_pipelined_chunk_fn`,
+    :func:`.parallel.exchange.resolve_two_phase`,
+    :func:`.parallel.migrate.vrank_exchange_two_phase_fn`) and the
+    state-health probes (:mod:`.ops.statehealth`,
+    :mod:`.telemetry.probes`).
 
 Ranks over ``torch.distributed`` (the reference is ONE program over a
 ``jax.sharding.Mesh``; the port is one program a rank):

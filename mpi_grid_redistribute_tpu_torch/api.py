@@ -181,20 +181,28 @@ def _planar_specs(positions, fields):
     return tuple(specs)
 
 
-def _fuse_planar(positions, fields, R: int, n_local: int, specs):
+def _fuse_planar(positions, fields, R: int, n_local: int, specs,
+                 stacked: bool = True):
     """``[R * n, ...]`` row-major arrays -> ``[R, K, n]`` int32 planar
-    state (every array viewed as int32 words, one row per component)."""
+    state (every array viewed as int32 words, one row per component);
+    ``stacked=False`` gives ``[K, R * n]`` (rank ``r`` in columns ``[r *
+    n, (r + 1) * n)``)."""
     parts = []
     for a, (_, _, k) in zip((positions,) + tuple(fields), specs):
         flat = a.reshape(R, n_local, k)
         if flat.dtype != torch.int32:
             flat = flat.view(torch.int32)
         parts.append(flat.transpose(1, 2))  # [R, k, n]
-    return torch.cat(parts, dim=1)
+    fused = torch.cat(parts, dim=1)
+    if not stacked:
+        fused = fused.transpose(0, 1).reshape(fused.shape[1], R * n_local)
+    return fused
 
 
-def _unfuse_planar(fused, specs, R: int, out_cap: int):
+def _unfuse_planar(fused, specs, R: int, out_cap: int, stacked: bool = True):
     """Inverse of :func:`_fuse_planar`: ``(positions, fields)``."""
+    if not stacked:
+        fused = fused.reshape(fused.shape[0], R, out_cap).transpose(0, 1)
     outs = []
     row = 0
     for shape, dtype, k in specs:

@@ -24,10 +24,16 @@ reference-equivalent digitize + stable argsort pipeline) over
 ``vs_our_native_cpu`` and ``cpu_native_pps`` time the same loop on the
 C++ host runtime (:mod:`..utils.native`), ``null`` when it cannot be
 built. The exchange's bytes a step, rate and utilization are against the
-card's HBM3 roof (``exchange_domain`` ``"hbm"``). The captures
-``bench.py`` appends (``stress``, ``soak``, ``rebalance``, ``service``,
-``hier`` and the two-level byte split) are ``null``: their
-configurations are not ported. ``env`` fingerprints this machine;
+card's HBM3 roof (``exchange_domain`` ``"hbm"``). After the timed
+loop come two of the captures ``bench.py`` appends: ``stress``, config
+7's full reshuffle (:func:`.config7_stress.run`; ``BENCH_STRESS=0``
+skips it, ``BENCH_STRESS_N`` picks one size), and ``hier``, config 4's
+hierarchical wire capture on a virtual two-pod split ``(2, 1, 1)``
+(:func:`.config4_drift.hierarchical_wire_capture`; ``BENCH_HIER=0``
+skips it), whose ``dcn_bytes_per_step``/``ici_bytes_per_step`` fill
+``exchange_dcn_bytes_per_step``/``exchange_ici_bytes_per_step``.
+``soak``, ``rebalance`` and ``service`` are ``null``: they need the
+service driver, not ported. ``env`` fingerprints this machine;
 ``progprofile_hash`` and ``attribution_hash`` hash TPU programs and are
 ``null``.
 
@@ -52,7 +58,9 @@ import numpy as np
 import torch
 
 from mpi_grid_redistribute_tpu_torch import _device, oracle, telemetry
-from mpi_grid_redistribute_tpu_torch.bench import common
+from mpi_grid_redistribute_tpu_torch.bench import (
+    common, config4_drift, config7_stress,
+)
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.models import nbody
 from mpi_grid_redistribute_tpu_torch.ops import _build
@@ -75,9 +83,27 @@ def _initial_state(n_local: int, migration: float, rng):
     return common.uniform_state(GRID, n_local, FILL, rng, vel_scale=v_scale)
 
 
+def step_journal(stats, per_step: float):
+    """The loop's journal: migrate and fast-path steps, a flow snapshot
+    and the step time. Returns ``(recorder, flow accumulator, health
+    monitor)``."""
+    rec = telemetry.StepRecorder()
+    telemetry.record_migrate_steps(rec, stats, rank_totals=True)
+    if stats.fast_path is not None:
+        telemetry.record_fast_path_steps(rec, stats)
+    acc = telemetry.FlowAccumulator()
+    acc.update(stats)
+    telemetry.record_flow_snapshot(rec, acc)
+    monitor = telemetry.HealthMonitor(rec)
+    monitor.note_step_time(per_step)
+    return rec, acc, monitor
+
+
 def device_pipeline(n_local: int, migration: float, s1: int, s2: int,
-                    reps: int, device=None) -> dict:
-    """Time the drift loop on ``device`` and check its output. Returns
+                    reps: int, device=None, state=None) -> dict:
+    """Time the drift loop on ``device`` and check its output. ``state``
+    is the start ``(pos [N, 3], vel [N, 3], alive [N])`` as NumPy rows
+    (default: :func:`_initial_state` from ``default_rng(0)``). Returns
     ``per_step`` (s), the timing ``detail``, the long run's output
     ``out`` (planar pos, vel, alive, stats), ``total`` live rows and
     ``xbytes`` a step."""
@@ -89,8 +115,9 @@ def device_pipeline(n_local: int, migration: float, s1: int, s2: int,
         n_local=n_local, local_budget=budget,
     )
     vgrid = ProcessGrid(GRID)
-    pos, vel, alive = _initial_state(n_local, migration,
-                                     np.random.default_rng(0))
+    if state is None:
+        state = _initial_state(n_local, migration, np.random.default_rng(0))
+    pos, vel, alive = state
     inputs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                    for a in (nbody.rows_to_planar(pos, 1),
                              nbody.rows_to_planar(vel, 1), alive))
@@ -135,16 +162,6 @@ def device_pipeline(n_local: int, migration: float, s1: int, s2: int,
         for k, n in launches.items():
             if n != 1:
                 raise RuntimeError(f"kernel {k} launched {n} times a step")
-    if os.environ.get("BENCH_JOURNAL_DIR"):
-        rec = telemetry.StepRecorder()
-        telemetry.record_migrate_steps(rec, stats, rank_totals=True)
-        if stats.fast_path is not None:
-            telemetry.record_fast_path_steps(rec, stats)
-        acc = telemetry.FlowAccumulator()
-        acc.update(stats)
-        telemetry.record_flow_snapshot(rec, acc)
-        telemetry.HealthMonitor(rec).note_step_time(per_step)
-        common.write_journal_shard(rec, "bench_headline")
     return dict(per_step=per_step, detail=detail, out=out, total=total,
                 xbytes=xbytes)
 
@@ -248,6 +265,9 @@ def measure(n_local=None, device=None, migration=None, s1=None, s2=None,
 
     run = device_pipeline(n_local, migration, s1, s2, reps, dev)
     per_step, xbytes = run["per_step"], run["xbytes"]
+    if env.get("BENCH_JOURNAL_DIR"):
+        common.write_journal_shard(step_journal(run["out"][3], per_step)[0],
+                                   "bench_headline")
     pps = run["total"] / per_step
     common.log(f"device pipeline: {pps:.6e} particles/s")
     cpu_pps = time_cpu_oracle(baseline_n, migration, native_ok=False)
@@ -263,6 +283,17 @@ def measure(n_local=None, device=None, migration=None, s1=None, s2=None,
         common.log("C++ host runtime not built (g++ failed or "
                    "MPI_GRID_NO_NATIVE set): cpu_native_pps and "
                    "vs_our_native_cpu are null")
+    # the full-reshuffle stress (config 7): the exchange's utilization
+    # when nearly every row moves every step
+    stress = None
+    if env.get("BENCH_STRESS", "1") != "0":
+        stress = config7_stress.run(device=dev)
+    # the two-level wire of config 4's capture: the same ~2% drift
+    # workload on a virtual two-pod split of the grid
+    hier = None
+    if env.get("BENCH_HIER", "1") != "0":
+        hier = config4_drift.hierarchical_wire_capture(
+            (2, 2, 2), (2, 1, 1), migration, device=dev)
     n_chips = 1
     line = {
         "metric": "particles_per_sec_per_chip",
@@ -283,13 +314,15 @@ def measure(n_local=None, device=None, migration=None, s1=None, s2=None,
         "exchange_domain": "hbm",
         "exchange_bw_util": round(
             profiling.exchange_bw_util(xbytes / per_step, "hbm", n_chips), 6),
-        "stress": None,
+        "stress": stress,
         "soak": None,
         "rebalance": None,
         "service": None,
-        "hier": None,
-        "exchange_dcn_bytes_per_step": None,
-        "exchange_ici_bytes_per_step": None,
+        "hier": hier,
+        "exchange_dcn_bytes_per_step": (
+            hier.get("dcn_bytes_per_step") if hier else None),
+        "exchange_ici_bytes_per_step": (
+            hier.get("ici_bytes_per_step") if hier else None),
         "env": env_fingerprint(dev),
         "progprofile_hash": None,
         "attribution_hash": None,

@@ -375,6 +375,19 @@ def _count1(count, dev) -> torch.Tensor:
     return count.to(dev).reshape(1).to(torch.int32)
 
 
+def service_drift(pos: torch.Tensor, vel: torch.Tensor, dt) -> torch.Tensor:
+    """One service-loop drift: ``(pos + vel * dt) % 1`` as a multiply,
+    an add and ``jnp.remainder``'s arithmetic (fmod, then the sign fix;
+    :func:`~..ops.binning._remainder`), then the fold of a result that
+    rounded up to exactly 1.0 (a tiny negative plus 1) back to 0 by
+    subtracting 1: the reference's ``service_drift``, float32, any
+    shape. The canonical wrap is not used on purpose: its arithmetic
+    differs in the last ulp near cell edges."""
+    one = binning._f32(1.0, pos)
+    pos = binning._remainder(pos + vel * binning._f32(dt, pos), 1.0)
+    return torch.where(pos >= one, pos - one, pos)
+
+
 def make_drift_step(cfg: DriftConfig, mesh=None, device=None,
                     plain: bool = False):
     """One step of the canonical drift loop, one rank a process (the

@@ -16,7 +16,10 @@ across ranks), read on the host. The hierarchical two-level engine
 splits the grid into pods (:class:`~.mesh.HierarchicalMesh`): the
 pod-local stencil inside a pod, one condensed block a destination pod
 across them, on one device (static gathers) and across ranks (sub-axis
-collectives, one world call each).
+collectives, one world call each). The two-phase surface
+(:func:`resolve_two_phase`, :func:`start_exchange`,
+:func:`finish_exchange`) splits a migrate step into its issue and its
+landing for the pipelined service chunk.
 """
 
 from __future__ import annotations
@@ -130,8 +133,9 @@ class RedistributeStats(NamedTuple):
     ``needed_cross [R]`` is the hierarchical engine's per-rank peak over
     destination pods of its unclipped cross-pod rows (the smallest
     ``cross_cap`` that would have carried them; ``None`` elsewhere);
-    ``pipeline`` belongs to the two-phase exchange, not ported, and stays
-    ``None``."""
+    ``pipeline [R]`` is 1 where a step of the software-pipelined chunk
+    (``service.pipeline``) ran with every mover granted, 0 where its flow
+    control withheld some (``None`` from every other engine)."""
 
     send_counts: torch.Tensor
     recv_counts: torch.Tensor
@@ -1283,3 +1287,113 @@ def build_redistribute_hierarchical(mesh, domain: Domain, grid: ProcessGrid,
     return shard_redistribute_hierarchical_sharded(
         mesh, domain, grid, hier, capacity, out_capacity, mover_cap,
         cross_cap, ndim, edges=edges)
+
+
+# ---------------------------------------------------------------------------
+# The two-phase (issue / finish) exchange: the pipelined service chunk's
+# dispatch point
+# ---------------------------------------------------------------------------
+
+
+class TwoPhaseExchange(NamedTuple):
+    """The resolution of the two-phase exchange: ``armed`` is the
+    build-time verdict (the pipelined schedule is feasible, and
+    ``bundle`` is the engine: a :class:`~.migrate.VrankTwoPhase` on one
+    device, or anything with ``issue``/``complete``, such as the split
+    :func:`~.migrate.shard_migrate_fused_fn`); when it is False
+    ``bundle`` is None, the caller builds the sequential body, and
+    ``reason`` says why. Journaled as ``engine_resolved``, like
+    :func:`resolve_engine`'s decisions."""
+
+    engine: str
+    armed: bool
+    reason: str
+    bundle: object = None
+
+
+def resolve_two_phase(
+    engine: str,
+    *,
+    chunk: int,
+    planar_ok: bool = True,
+    ragged: bool = False,
+    vranks: bool = False,
+    n_devices: int = 1,
+    n_pods: int = 1,
+    build=None,
+    recorder=None,
+) -> TwoPhaseExchange:
+    """Whether the software-pipelined two-phase schedule may arm, by the
+    reference's rule: at least two steps a chunk (an exchange in flight
+    across a step boundary), a planar-eligible payload (``planar_ok``),
+    a rectangular receive side (``not ragged``: ``out_capacity ==
+    n_local``), one device (vranks, or ``n_devices == 1``) and one pod.
+    Any miss degrades to the sequential body when the chunk is built;
+    steps whose flow control withholds movers are the chunk's own
+    business (``stats.pipeline``).
+
+    ``build`` is a zero-argument callable making the engine, called only
+    when armed; ``recorder`` journals ``engine_resolved`` with
+    ``requested=engine``, ``resolved`` ``"pipeline"`` or
+    ``"sequential"`` and one of six ``"pipeline: ..."`` reasons."""
+    if engine not in ENGINES:
+        raise ValueError(
+            f"engine must be one of {ENGINES}, got {engine!r}"
+        )
+    if chunk < 2:
+        armed, reason = False, "pipeline: chunk < 2 — sequential body"
+    elif not planar_ok:
+        armed, reason = (
+            False,
+            "pipeline: payload not planar-eligible — sequential body")
+    elif ragged:
+        armed, reason = (
+            False,
+            "pipeline: ragged receive capacity — sequential body")
+    elif not (vranks or n_devices == 1):
+        armed, reason = (
+            False,
+            "pipeline: multi-device topology — sequential body")
+    elif n_pods > 1:
+        armed, reason = (
+            False,
+            "pipeline: hierarchical multi-pod topology — sequential "
+            "body")
+    else:
+        armed, reason = True, "pipeline: armed (vranks planar two-phase)"
+    if recorder is not None:
+        recorder.record("engine_resolved", requested=engine,
+                        resolved="pipeline" if armed else "sequential",
+                        reason=reason, canonical=False)
+    bundle = build() if (armed and build is not None) else None
+    return TwoPhaseExchange(engine, armed, reason, bundle)
+
+
+def _two_phase_impl(handle):
+    impl = handle.bundle if isinstance(handle, TwoPhaseExchange) else handle
+    if impl is None:
+        raise TypeError(
+            "two-phase exchange is not armed (degraded resolution: "
+            f"{getattr(handle, 'reason', 'no bundle')!r}) — build the "
+            "sequential body instead"
+        )
+    return impl
+
+
+def start_exchange(handle, *args):
+    """Phase 1: issue the routing plan (and put the payload in flight),
+    through a :class:`TwoPhaseExchange` or any engine with ``issue``.
+    It reads nothing the landing writes, so a pipelined caller may issue
+    step k+1 before step k lands."""
+    return _two_phase_impl(handle).issue(*args)
+
+
+def finish_exchange(handle, *args):
+    """Phase 2: land an issued exchange, through the engine's
+    ``complete`` (the flat migrate engine) or ``land`` (the vrank
+    two-phase engine)."""
+    impl = _two_phase_impl(handle)
+    finish = getattr(impl, "complete", None)
+    if finish is None:
+        finish = impl.land
+    return finish(*args)

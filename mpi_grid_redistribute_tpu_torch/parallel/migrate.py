@@ -31,6 +31,12 @@ arrivals within ``B``) a fast branch lands only the movers' columns and
 never touches a stayer. Otherwise the dense step runs. Both give the same
 bits.
 
+The two-phase form (:func:`vrank_exchange_two_phase_fn`) splits a vrank
+step into ``issue`` (key -> plan, reading no payload) and ``land`` (one
+scatter), so the pipelined service chunk can land step k after it has
+drifted and binned step k+1; the flat engine's ``fn.issue`` /
+``fn.complete`` split it the same way.
+
 Ungranted leavers stay resident and retry (``backlog``); nothing is ever
 dropped. Slot order is not the MPI canonical order; the reference defines
 correctness as set-equality per vrank, and this port reproduces the
@@ -153,6 +159,20 @@ class MigrateStats(NamedTuple):
     dropped_recv: torch.Tensor
     flow: torch.Tensor = None
     fast_path: torch.Tensor = None
+
+
+class InflightExchange(NamedTuple):
+    """What the issue half of a split flat-engine step hands its complete
+    half: the planar ``[K, n_src * C]`` arrival pool (after the wire),
+    the granted ``recv_counts``/``send_counts``, the send pool's resident
+    columns ``gather_idx`` (the sender's vacated slots) and ``backlog``,
+    the leavers the grants held back (they stay resident)."""
+
+    recv: torch.Tensor
+    recv_counts: torch.Tensor
+    send_counts: torch.Tensor
+    gather_idx: torch.Tensor
+    backlog: torch.Tensor
 
 
 class MigrateState(NamedTuple):
@@ -924,7 +944,11 @@ def shard_migrate_fused_fn(domain: Domain, grid: ProcessGrid, capacity: int,
     ranks the cycle rescue gathers every rank's pending row and forces
     one row along each stalled rotation cycle. The landing route is
     :func:`_resolve_scatter_impl`'s default. ``mesh`` defaults to
-    :func:`~.mesh.make_mesh` of ``grid``."""
+    :func:`~.mesh.make_mesh` of ``grid``.
+
+    ``fn.issue(state) -> InflightExchange`` and ``fn.complete(state,
+    inflight) -> (state, stats)`` are its two halves, and ``fn(state)``
+    is ``fn.complete(state, fn.issue(state))``."""
     R = grid.nranks
     C = capacity
     D = domain.ndim
@@ -942,7 +966,10 @@ def shard_migrate_fused_fn(domain: Domain, grid: ProcessGrid, capacity: int,
     me = mesh.rank
     one = ProcessGrid((1,) * grid.ndim, axis_names=grid.axis_names)
 
-    def fn(state: MigrateState):
+    def issue(state: MigrateState) -> InflightExchange:
+        """The issue half: bin, grant, pack and the wire. The resident
+        state is not touched (sent rows stay until the landing vacates
+        them)."""
         fused, free_stack, n_free = state
         K = fused.shape[0]
         with torch.profiler.record_function("mig:bin"):
@@ -973,22 +1000,170 @@ def shard_migrate_fused_fn(domain: Domain, grid: ProcessGrid, capacity: int,
                                          send_counts, R, C)
         with torch.profiler.record_function("mig:exchange"):
             recv = col.all_to_all(send, mesh, dim=1)  # [K, R * C]
+        return InflightExchange(recv, recv_counts, send_counts, gather_idx,
+                                backlog)
+
+    def complete(state: MigrateState, inflight: InflightExchange):
+        """The complete half: land the exchanged rows (the free-stack
+        update rides the landing) and assemble the stats."""
+        fused, free_stack, n_free = state
         with torch.profiler.record_function("mig:unpack"):
             fused, free_stack, n_free, n_in, dropped_recv = _land_arrivals(
-                fused, free_stack, n_free, recv, recv_counts, send_counts,
-                gather_idx, C, impl, plain,
+                fused, free_stack, n_free, inflight.recv,
+                inflight.recv_counts, inflight.send_counts,
+                inflight.gather_idx, C, impl, plain,
             )
         stats = MigrateStats(
-            sent=send_counts.sum(dtype=_I32).reshape(1),
+            sent=inflight.send_counts.sum(dtype=_I32).reshape(1),
             received=n_in.reshape(1),
             population=(fused[-1, :] > 0).sum(dtype=_I32).reshape(1),
-            backlog=backlog.reshape(1),
+            backlog=inflight.backlog.reshape(1),
             dropped_recv=dropped_recv.reshape(1),
-            flow=send_counts[None],
+            flow=inflight.send_counts[None],
         )
         return MigrateState(fused, free_stack, n_free), stats
 
+    def fn(state: MigrateState):
+        return complete(state, issue(state))
+
+    # the halves are the engine and fn their composition; the two-phase
+    # surface (exchange.start_exchange / finish_exchange) calls them
+    fn.issue = issue
+    fn.complete = complete
     return fn
+
+
+class VrankPlan(NamedTuple):
+    """One step's routing from :class:`VrankTwoPhase`'s ``issue``: the
+    senders' vacated-slot plan, the receivers' arrival plan (GLOBAL
+    columns of the ``[K, V * n]`` matrix), the granted and desired
+    ``[V_src, V_dst]`` tables and the per-source ``backlog`` (leavers the
+    grants held back). Plans are ``n`` wide, so the grant is the only
+    clip: ``backlog == 0`` means every leaver was granted."""
+
+    vacated: torch.Tensor  # [V, n] local vacated slots (first n_sent)
+    n_sent: torch.Tensor  # [V]
+    arr_plan: torch.Tensor  # [V, n] global arrival source columns
+    n_in: torch.Tensor  # [V]
+    allowed: torch.Tensor  # [V, V] granted sends [src, dst]
+    desired: torch.Tensor  # [V, V] leaver counts before the grants
+    backlog: torch.Tensor  # [V] leavers held back a source
+
+
+class VrankTwoPhase(NamedTuple):
+    """The two-phase exchange of V vranks on one device
+    (:func:`vrank_exchange_two_phase_fn`): ``bin_key`` gives each
+    column's destination key, ``issue`` a key's :class:`VrankPlan`,
+    ``land`` lands a gathered arrival payload in one scatter with the
+    free-stack update beside it. Step k's plan and payload can wait a
+    whole step while step k+1 drifts and bins."""
+
+    bin_key: object
+    issue: object
+    land: object
+    vranks: int
+    n_local: int
+
+
+def vrank_exchange_two_phase_fn(
+    domain: Domain, vgrid: ProcessGrid, n_local: int, ndim: int = None,
+    cycle_rescue: bool = True, scatter_impl=None,
+) -> VrankTwoPhase:
+    """The vrank planar two-phase exchange on one device: the ``V =
+    vgrid.nranks`` vranks are column blocks of ``[K, V * n]``, so the
+    wire is a column gather and the two halves may be a step apart. The
+    semantics are :func:`shard_migrate_fused_fn`'s (receiver-granted
+    flow control, the cycle rescue, one landing scatter) at plan width
+    ``n = n_local``: no plan clips, so ``backlog`` is exactly what the
+    grants held back.
+
+    The landing keeps :func:`_land_scatter`'s uniqueness invariant: per
+    vrank the targets are vacated slots (disjoint prefixes of a sort
+    permutation) and popped stack entries (distinct hole ids), on
+    disjoint column blocks. Its scatter is ``scatter_impl``'s route
+    (:func:`_resolve_scatter_impl`; kernel 2 on the card by default, at
+    any row count: the augmented payload of the pipelined chunk has
+    ``K = 9``)."""
+    V = vgrid.nranks
+    n = int(n_local)
+    D = domain.ndim if ndim is None else ndim
+    rescue = cycle_rescue and V <= 128
+    impl = _resolve_scatter_impl(scatter_impl)
+
+    def bin_key(fused: torch.Tensor) -> torch.Tensor:
+        """``[K, V * n]`` int32 -> ``[V, n]`` destination-vrank key, the
+        sentinel ``V`` on stayers and holes. Routing is
+        :func:`~..ops.binning.rank_of_position_planar`, the canonical
+        planar engines' own."""
+        m = fused.shape[1]
+        alive = fused[-1] > 0
+        me = torch.arange(m, dtype=_I32, device=fused.device) // n
+        dest = binning.rank_of_position_planar(
+            fused[:D].view(torch.float32), domain, vgrid)
+        return torch.where(alive & (dest != me), dest, V).reshape(V, n)
+
+    def issue(key: torch.Tensor, n_free: torch.Tensor) -> VrankPlan:
+        """Routing sort, receiver-granted flow control, the cycle rescue
+        and both plans. It reads the key and the free counts only, never
+        the payload."""
+        dev = key.device
+        order, counts, bounds = binning.sorted_dest_counts_batched(key, V)
+        desired = counts  # [V_src, V_dst]
+        swap = torch.minimum(desired, desired.T)
+        allowed = swap + _greedy_alloc(desired - swap, n_free.clamp_min(0))
+        if rescue:
+            F = _cycle_rescue(desired - allowed,
+                              allowed.sum(dim=1, dtype=_I32) == 0)
+            allowed = allowed + F
+        backlog = (desired - allowed).sum(dim=1, dtype=_I32)
+        starts = bounds[:, :-1]
+        vacated, n_sent = _plan_rows_batched(starts, allowed, order, n)
+        arr_plan, n_in = _plan_rows_batched(
+            starts.T, allowed.T, order, n,
+            seg_rows=torch.arange(V, dtype=_I32, device=dev))
+        return VrankPlan(vacated, n_sent, arr_plan, n_in, allowed, desired,
+                         backlog)
+
+    def land(fused, free_stack, n_free, arr, vacated, n_sent, n_in):
+        """Land a gathered ``[K, V, n]`` arrival payload: ONE scatter
+        writes payload, alive row and hole markers for every vrank (in
+        place on ``fused``), and the free stack takes the pushes as one
+        full-width blend. Any row count: the caller may land an augmented
+        matrix (an extra key row). Returns ``(fused, free_stack, n_free,
+        dropped [V])``."""
+        Kx = fused.shape[0]
+        dev = fused.device
+        k_idx = torch.arange(n, dtype=_I32, device=dev)[None, :]
+        ns = n_sent[:, None]
+        ni = n_in[:, None]
+        n_pop = torch.minimum((n_in - n_sent).clamp_min(0), n_free)
+        dropped = (n_in - n_sent - n_free).clamp_min(0).to(_I32)
+        pop_idx = (n_free[:, None] - 1 - (k_idx - ns)).clamp(0, n - 1)
+        popped = torch.gather(free_stack, 1, pop_idx.long())
+        target = torch.where(
+            k_idx < torch.minimum(ni, ns),
+            vacated,
+            torch.where(
+                (k_idx >= ns) & (k_idx < ns + n_pop[:, None]),
+                popped,
+                torch.where((k_idx >= ni) & (k_idx < ns), vacated, n),
+            ),
+        )  # [V, n] local targets, sentinel n
+        v_off = torch.arange(V, dtype=_I32, device=dev)[:, None]
+        gtarget = torch.where(target >= n, V * n, v_off * n + target)
+        cols = torch.where((k_idx < ni)[None], arr, torch.zeros_like(arr))
+        fused = _land_scatter(fused, gtarget.reshape(-1),
+                              cols.reshape(Kx, V * n), impl)
+        n_push = (n_sent - n_in).clamp_min(0)
+        base = n_free - n_pop
+        push_vals = torch.gather(
+            vacated, 1, (ni + k_idx - base[:, None]).clamp(0, n - 1).long())
+        free_stack = torch.where(
+            (k_idx >= base[:, None]) & (k_idx < (base + n_push)[:, None]),
+            push_vals, free_stack)
+        return fused, free_stack, base + n_push, dropped
+
+    return VrankTwoPhase(bin_key, issue, land, V, n)
 
 
 def gather_migrate_stats(stats: MigrateStats, mesh) -> MigrateStats:

@@ -12,7 +12,10 @@ JAX package's ``telemetry`` package, its host-side core).
 * :mod:`.report`: the merged metrics dict (``rd.report()``);
 * :mod:`.traceview`: Chrome-trace/Perfetto export (``rd.to_perfetto()``);
 * :mod:`.phases`: phase attribution and ``torch.profiler`` spans;
-* :mod:`.profiler`: a gated ``torch.profiler`` session.
+* :mod:`.profiler`: a gated ``torch.profiler`` session;
+* :mod:`.probes`: the host side of the service chunk's state-health
+  probes (``ops/statehealth.py``): :class:`~.probes.ProbeConfig`,
+  :func:`~.probes.record_probe_steps`, :func:`~.probes.summarize_host`.
 
 Journaling is host-side only and never reads the device; ``report()`` and
 ``flow()`` read the last call's stats once. Event kinds, payload keys and
@@ -92,4 +95,9 @@ from mpi_grid_redistribute_tpu_torch.telemetry.phases import (  # noqa: F401
 from mpi_grid_redistribute_tpu_torch.telemetry.profiler import (  # noqa: F401
     ProfilerSession,
     profile_dir_from_env,
+)
+from mpi_grid_redistribute_tpu_torch.telemetry.probes import (  # noqa: F401
+    ProbeConfig,
+    record_probe_steps,
+    summarize_host,
 )

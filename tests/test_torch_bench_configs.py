@@ -281,3 +281,155 @@ def test_redistribute_summary_matches_reference(stacked):
     assert tstats.summarize_redistribute(t) == want
     with pytest.raises(RuntimeError, match="dropped_send"):
         tstats.check_no_loss(t)
+
+
+# ----------------------------------------------------------- configs 7, 4
+
+from mpi_grid_redistribute_tpu.bench import config4_drift as jc4  # noqa: E402
+from mpi_grid_redistribute_tpu.bench import config7_stress as jc7  # noqa: E402
+from mpi_grid_redistribute_tpu_torch.bench import config4_drift as c4  # noqa: E402
+from mpi_grid_redistribute_tpu_torch.bench import config7_stress as c7  # noqa: E402
+
+# config 7's keys whose values are timings, or rates over a roof (the
+# port's is the H100's HBM3, the reference's a TPU's)
+C7_TIMED = {"value", "ms_per_step", "timing_spread", "pps",
+            "exchange_bytes_per_sec", "exchange_gb_per_sec", "bw_util"}
+
+
+def test_config7_run_one_matches_reference():
+    """``_run_one`` at 2^12 rows, ``reps`` 1: the same keys, and every
+    value the reference's but the timed and roof ones (its stats over
+    the same 20-step long run: bytes a step, moved bytes, migration
+    fraction, rows); nearly every row moves, none is dropped."""
+    got = c7._run_one(1 << 12, reps=1, device="cpu")
+    want = jc7._run_one(1 << 12, reps=1)
+    assert list(got) == list(want)
+    for k in set(got) - C7_TIMED:
+        assert got[k] == want[k], k
+    assert got["exchange_domain"] == "hbm"
+    assert got["migration_fraction"] > 0.8
+    assert got["bw_util"] == pytest.approx(
+        got["exchange_bytes_per_sec"] / 3.35e12, rel=1e-3, abs=1e-6)
+
+
+def test_config7_steps_bit_equal_to_reference():
+    """Three stress steps (wrap, planar exchange): the port's state and
+    stats bit for bit the reference's body on the same state."""
+    n = 1 << 12
+    fused, count, _ = c7.initial_state(n)
+    step, cap = c7.make_step(n)
+    dom = jdomain.Domain(0.0, 1.0, periodic=True)
+    xfn = jexchange.vrank_redistribute_planar_fn(
+        dom, jdomain.ProcessGrid((2, 2, 2)), cap, fused.shape[2])
+
+    @jax.jit
+    def jstep(f, c):
+        p = jbinning.wrap_periodic_planar(f[:, :3, :] + f[:, 3:6, :], dom)
+        return xfn(jax.numpy.concatenate([p, f[:, 3:, :]], axis=1), c)
+
+    f, c = torch.from_numpy(fused), torch.from_numpy(count)
+    jf, jcnt = jax.numpy.asarray(fused), jax.numpy.asarray(count)
+    for _ in range(3):
+        f, c, st = step(f, c)
+        jf, jcnt, jst = jstep(jf, jcnt)
+        assert _bits(f).tobytes() == _bits(jf).tobytes()
+        assert _bits(c).tobytes() == _bits(jcnt).tobytes()
+        for k in ("send_counts", "recv_counts", "dropped_send",
+                  "dropped_recv", "needed_capacity"):
+            np.testing.assert_array_equal(getattr(st, k).numpy(),
+                                          np.asarray(getattr(jst, k)), k)
+
+
+def test_config7_sweep_and_env(monkeypatch):
+    """The sweep reports its peak-utilization size with every size under
+    ``"sweep"``; ``BENCH_STRESS_N`` picks one size."""
+    calls = []
+
+    def fake(n, reps, device):
+        calls.append(n)
+        return {"rows": n, "bw_util": 1.0 / n, "ms_per_step": 1.0,
+                "exchange_gb_per_sec": 2.0}
+
+    monkeypatch.setattr(c7, "_run_one", fake)
+    monkeypatch.setenv("BENCH_SCALE", "0.0625")
+    out = c7.run()
+    assert calls == [1 << 14, 1 << 15, 1 << 16]
+    assert out["rows"] == 1 << 14 and len(out["sweep"]) == 3
+    monkeypatch.setenv("BENCH_STRESS_N", "5000")
+    assert c7.run()["rows"] == 5000
+
+
+@pytest.mark.parametrize("grid_shape", [(2, 2, 2), (2, 2, 4)])
+def test_config4_wire_captures_match_reference(grid_shape):
+    """The canonical and the hierarchical wire captures return the
+    reference's dicts (engine, scheduled and dense wire bytes, the
+    two-level split), on 8 ranks (the reference's mesh) and on 16 (its
+    vranks)."""
+    got = c4.canonical_wire_capture(grid_shape, 0.02, device="cpu")
+    want = jc4.canonical_wire_capture(grid_shape, 0.02)
+    assert got == want and got["engine"] == "sparse"
+    got = c4.hierarchical_wire_capture(grid_shape, (2, 1, 1), 0.02,
+                                       device="cpu")
+    want = jc4.hierarchical_wire_capture(grid_shape, (2, 1, 1), 0.02)
+    assert got == want and got["engine"] == "hierarchical"
+    assert got["dcn_bytes_per_step"] > 0 and got["ici_bytes_per_step"] > 0
+
+
+def _reference_config4_state(n_local, migration, bias, s2):
+    rng = np.random.default_rng(0)
+    v_scale, _, _ = jcommon.drift_sizing((2, 2, 2), n_local, 0.9, migration)
+    pos, _, alive = jcommon.uniform_state((2, 2, 2), n_local, 0.9, rng)
+    if bias:
+        sink = np.asarray([0.25, 0.25, 0.25], np.float32)
+        vel = ((sink[None, :] - pos) / s2 * 0.65).astype(np.float32)
+    else:
+        vel = (v_scale * (rng.random(pos.shape, dtype=np.float32) * 2.0
+                          - 1.0)).astype(np.float32)
+    return pos, vel, alive
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_config4_start_state_is_the_references(bias):
+    got = c4.start_state(2048, 0.02, bias, 16)
+    want = _reference_config4_state(2048, 0.02, bias, 16)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
+C4_KEYS = ["metric", "value", "unit", "n_total", "chips", "ms_per_step",
+           "report", "health", "flow", "fast_path_hit_rate"]
+
+
+def test_config4_run_small_on_cpu():
+    """The loop at 2^12 rows a vrank: the reference's keys, nothing
+    dropped, health OK, the wire captures under ``"report"``; with the
+    convergent bias the verdict is ALERT."""
+    res = c4.run(n_local=1 << 12, steps=16, device="cpu")
+    assert list(res) == C4_KEYS
+    assert res["health"]["status"] == "OK"
+    rep = res["report"]
+    assert rep["stats"]["dropped_recv"] == 0 and rep["exchange_domain"] == "hbm"
+    assert rep["wire_engine"] == "sparse"
+    assert rep["hier_wire_engine"] == "hierarchical"
+    assert rep["dcn_bytes_per_step"] > 0
+    assert res["fast_path_hit_rate"] == 1.0
+    biased = c4.run(n_local=1 << 12, steps=16, bias=True, device="cpu")
+    assert biased["metric"] == "config4_drift_bias_pps_per_chip"
+    assert biased["bias"] is True and "wire_engine" not in biased["report"]
+    assert biased["health"]["status"] == "ALERT"
+
+
+def test_config_entry_points_need_a_card_unless_asked_for_the_cpu():
+    """Config 7, config 4 (its loop and both captures) and the service
+    bench run on the GPU by default and raise without one."""
+    from mpi_grid_redistribute_tpu_torch.bench import service_chunk
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: device=None runs there")
+    for call in (lambda: c7._run_one(1 << 12, reps=1),
+                 lambda: c4.run(n_local=1 << 12, steps=16),
+                 lambda: c4.canonical_wire_capture((2, 2, 2), 0.02),
+                 lambda: c4.hierarchical_wire_capture((2, 2, 2)),
+                 lambda: service_chunk.prepare(64)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -11,7 +11,9 @@ port's CPU run, with no host sync in an engine exchange; the
 load-balanced ``cells``/``assignment`` loop (both engines) against the
 CPU run, config 3's 64-vrank shape against the plain-version run, and the
 ``"segment"`` deposit (atomics: within 2e-5 of the CPU run, its mass
-exact to rtol 1e-5). They skip without a GPU.
+exact to rtol 1e-5); the sequential and pipelined service chunks on the
+card against the CPU run, with no host sync inside and kernel 2 at the
+pipelined landing's K = 8 and 9. They skip without a GPU.
 
 This file imports no JAX, so it runs on a machine without it:
 
@@ -1137,3 +1139,94 @@ def test_two_rank_gloo_world_on_card_matches_cpu_world(cuda):
         assert launches["tile_df_cumsum_rows"] == 1
         assert launches["drift_wrap_bin"] == 0
     assert int(cpu[0][1]["sent"].sum()) > 0
+
+
+def _tree_on_cpu_equal(a, b) -> bool:
+    """Bit equality of two outputs (tensors, tuples, dicts; ``None``
+    leaves), the first from the card."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(
+            _tree_on_cpu_equal(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(
+            _tree_on_cpu_equal(x, y) for x, y in zip(a, b))
+    if a is None:
+        return b is None
+    return a.shape == b.shape and torch.equal(
+        a.cpu().contiguous().view(torch.uint8),
+        b.contiguous().view(torch.uint8))
+
+
+def _capture_landings(macro, state):
+    """Run ``macro`` once, copying the operands of its first and its last
+    landing scatter: ``[(flat, targets, cols), ...]``."""
+    seen = []
+    orig = migrate._land_scatter
+
+    def rec(flat, targets, cols, impl="overlay", plain=False):
+        seen.append((flat.clone(), targets.clone(), cols.clone()))
+        del seen[1:-1]
+        return orig(flat, targets, cols, impl, plain)
+
+    migrate._land_scatter = rec
+    try:
+        macro(*state)
+    finally:
+        migrate._land_scatter = orig
+    return seen
+
+
+@pytest.mark.cuda
+def test_overlay_kernel_at_the_pipelined_landing_k8_k9(cuda):
+    """Kernel 2 at the pipelined chunk's own landings: the augmented
+    state with the next-step key row (K = 9, every landing but the last)
+    and the final one (K = 8), bit-equal to the plain version."""
+    from mpi_grid_redistribute_tpu_torch.bench import service_chunk
+
+    rd, state = service_chunk.prepare(4096, cuda)
+    _, pipe = service_chunk.build(rd, state, 4)
+    seen = _capture_landings(pipe, state)
+    assert [f.shape[0] for f, _, _ in seen] == [9, 8]
+    for flat, t, cols in seen:
+        assert int(((t >= 0) & (t < flat.shape[1])).sum()) > 0
+        got = overlay.overlay_scatter_planar(flat.clone(), t, cols)
+        want = overlay.overlay_scatter_planar_plain(flat.clone(), t, cols)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_service_chunks_on_card_match_cpu_run(cuda):
+    """The sequential and the pipelined chunk (16 steps) on the card,
+    bit-equal to the CPU run (state and ys); no host sync inside either
+    (sync debug mode "error"); kernel 2 launched once a step by the
+    pipelined chunk, no kernel by the sequential one."""
+    from mpi_grid_redistribute_tpu_torch.bench import service_chunk
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        rd, state = service_chunk.prepare(4096, dev)
+        macros = service_chunk.build(rd, state, 16)
+        res = []
+        for macro in macros:
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                _build.reset_counts()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = macro(*state)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                res.append((out, _build.counts()))
+            else:
+                res.append((macro(*state), None))
+        outs[dev.type] = res
+    (seq_c, seq_n), (pipe_c, pipe_n) = outs["cuda"]
+    assert not any(seq_n.values())
+    assert pipe_n["overlay_scatter_planar"] == 16
+    assert sum(pipe_n.values()) == 16
+    for (card, _), (cpu, _) in zip(outs["cuda"], outs["cpu"]):
+        assert _tree_on_cpu_equal(card, cpu)
+    service_chunk.check_pair(seq_c, pipe_c)

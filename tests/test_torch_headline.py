@@ -51,17 +51,29 @@ def _bench_module():
     return mod
 
 
-def test_key_set_is_bench_pys():
+def test_key_set_is_bench_pys(monkeypatch):
+    """``bench.py``'s 25 keys; config 7's stress (one small size here)
+    and config 4's hierarchical capture filled, with the two-level byte
+    split read off the latter; the service-driver captures and the TPU
+    hashes null."""
+    monkeypatch.setenv("BENCH_STRESS_N", str(1 << 12))
     line = headline.measure(n_local=N_LOCAL, device="cpu", s1=1, s2=3,
                             reps=1)
     keys = _bench_py_keys()
     assert len(keys) == 25
     assert list(line) == keys
     json.loads(json.dumps(line))
-    for k in ("stress", "soak", "rebalance", "service", "hier",
-              "exchange_dcn_bytes_per_step", "exchange_ici_bytes_per_step",
-              "progprofile_hash", "attribution_hash"):
+    for k in ("soak", "rebalance", "service", "progprofile_hash",
+              "attribution_hash"):
         assert line[k] is None, k
+    stress, hier = line["stress"], line["hier"]
+    assert stress["metric"] == "config7_stress_bw_util"
+    assert stress["migration_fraction"] > 0.8
+    assert stress["exchange_domain"] == "hbm" and stress["rows"] == 7368
+    assert hier["engine"] == "hierarchical"
+    assert line["exchange_dcn_bytes_per_step"] == hier["dcn_bytes_per_step"]
+    assert line["exchange_ici_bytes_per_step"] == hier["ici_bytes_per_step"]
+    assert hier["dcn_bytes_per_step"] > 0 and hier["ici_bytes_per_step"] > 0
     assert line["metric"] == "particles_per_sec_per_chip"
     assert line["exchange_domain"] == "hbm"
     assert line["baseline_n"] == 8 * N_LOCAL
@@ -122,6 +134,8 @@ def test_journal_shard_and_native_fallback(monkeypatch, tmp_path):
     fast-path steps, a flow snapshot, the step time); without the C++
     runtime the native keys are null, never a NumPy figure."""
     monkeypatch.setenv("BENCH_JOURNAL_DIR", str(tmp_path))
+    monkeypatch.setenv("BENCH_STRESS", "0")
+    monkeypatch.setenv("BENCH_HIER", "0")
     monkeypatch.setattr(native, "build", lambda *a, **k: False)
     line = headline.measure(n_local=1024, device="cpu", s1=1, s2=2, reps=1,
                             baseline_n=8 * 512)
@@ -132,6 +146,9 @@ def test_journal_shard_and_native_fallback(monkeypatch, tmp_path):
     kinds = [json.loads(x)["kind"] for x in shard.read_text().splitlines()]
     assert kinds.count("migrate_step") == 2 and kinds.count("fast_path") == 2
     assert kinds[-2:] == ["flow_snapshot", "step_time"]
+    # the switches turn the captures off, as bench.py's do
+    assert line["stress"] is None and line["hier"] is None
+    assert line["exchange_dcn_bytes_per_step"] is None
 
 
 def test_headline_needs_a_card_unless_asked_for_the_cpu():

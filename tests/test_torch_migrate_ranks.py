@@ -23,13 +23,14 @@ from jax.sharding import PartitionSpec as P
 import torch_rank_cases as cases
 from mpi_grid_redistribute_tpu.compat import shard_map
 from mpi_grid_redistribute_tpu_torch.convert import (
-    split_flat, split_grid, split_rows,
+    split_flat, split_grid, split_lanes, split_rows,
 )
 from mpi_grid_redistribute_tpu.domain import Domain as JDomain
 from mpi_grid_redistribute_tpu.domain import ProcessGrid as JGrid
 from mpi_grid_redistribute_tpu.models import nbody as jnbody
 from mpi_grid_redistribute_tpu.ops import deposit as jdep
 from mpi_grid_redistribute_tpu.parallel import mesh as jmesh
+from mpi_grid_redistribute_tpu.parallel import migrate as jmig
 
 
 @pytest.fixture(scope="module")
@@ -213,3 +214,90 @@ def test_migrate_step_matches_reference(world, case):
         assert want[3].sent.sum() == 0
     else:
         assert want[3].sent.sum() > 0
+
+
+def _ref_flat_split():
+    """The reference's flat engine on its 8-device mesh, one step of case
+    ``flat-222`` from the drifted rows, run as its two halves
+    (``fn.complete(state, fn.issue(state))``) under ``shard_map``."""
+    _, _, n_local, cap, dt, _, _, _ = cases.MIGRATE_CASES["flat-222"]
+    pos, vel, alive = cases.migrate_inputs("flat-222")
+    pos = (pos + vel * np.float32(dt)) % np.float32(1.0)
+    grid = JGrid((2, 2, 2))
+    fused, _ = jmig.fuse_fields((jnp.asarray(pos), jnp.asarray(vel)),
+                                jnp.asarray(alive))
+    fn = jmig.shard_migrate_fused_fn(JDomain(0.0, 1.0, periodic=True), grid,
+                                     cap)
+    axes = grid.axis_names
+
+    def split(f):
+        st = jmig.init_state(f)
+        st2, stats = fn.complete(st, fn.issue(st))
+        return st2.fused, st2.free_stack, st2.n_free[None], stats
+
+    run = shard_map(split, mesh=_mesh((2, 2, 2)), in_specs=(P(None, axes),),
+                    out_specs=(P(None, axes), P(axes), P(axes), P(axes)))
+    return jax.tree.map(np.asarray, jax.jit(run)(fused))
+
+
+def test_flat_engine_split_bit_equal_to_whole_and_reference(world):
+    """``shard_migrate_fused_fn``'s halves (``fn.issue``/``fn.complete``,
+    and through ``exchange.start_exchange``/``finish_exchange``) give
+    the whole step's bits on every rank, and the reference's split on
+    its 8-device mesh: rank r's state columns, free stack and free
+    count, and its stats row."""
+    fused, stack, n_free, stats = _ref_flat_split()
+    w_fused = split_lanes(fused, 8)
+    w_stack = split_rows(stack, 8)
+    assert int(stats.sent.sum()) > 0
+    for r in range(8):
+        whole = world[r][("split", "whole")]
+        for how in ("halves", "surface"):
+            got = world[r][("split", how)]
+            for g, w in zip(got[0], whole[0]):
+                assert g.tobytes() == w.tobytes(), (r, how)
+            assert got[1].keys() == whole[1].keys()
+            for k in got[1]:
+                np.testing.assert_array_equal(got[1][k], whole[1][k])
+        (f, s, nf), st = whole
+        assert f.tobytes() == w_fused[r].tobytes(), r
+        assert s.tobytes() == w_stack[r].tobytes(), r
+        assert int(nf) == int(n_free[r]), r
+        for k, v in st.items():
+            np.testing.assert_array_equal(
+                v, np.asarray(getattr(stats, k))[r:r + 1], err_msg=k)
+
+
+def test_pipelined_chunk_degrades_across_ranks_as_the_reference(world):
+    """``make_pipelined_chunk_fn`` on a rank mesh of 8 degrades with the
+    reference's multi-device reason (its 8-rank grid on 8 devices), and
+    the sequential chunk it hands back runs rank for rank as the
+    reference's degraded macro on its mesh: each rank's rows, count and
+    the gathered per-step stats."""
+    from mpi_grid_redistribute_tpu import api as japi
+    from mpi_grid_redistribute_tpu.service import pipeline as jpipeline
+
+    grid = JGrid((2, 2, 2))
+    jrd = japi.GridRedistribute(grid=grid, lo=(0.0,) * 3, hi=(1.0,) * 3,
+                                periodic=(True,) * 3, engine="auto",
+                                mesh=_mesh((2, 2, 2)))
+    state = cases.service_state((2, 2, 2), 32)
+    macro, jcap, jout = jpipeline.make_pipelined_chunk_fn(
+        jrd, cases.SERVICE_DT, 4, *(jnp.asarray(a) for a in state[:3]))
+    want = jax.tree.map(np.asarray, macro(*(jnp.asarray(a) for a in state)))
+    reasons = [e.data["reason"] for e in jrd.telemetry.events(
+        "engine_resolved") if e.data["reason"].startswith("pipeline:")]
+    assert reasons == ["pipeline: multi-device topology — sequential body"]
+    w_rows = [split_rows(a, 8) for a in want[0]]
+    for r in range(8):
+        got = world[r]["service_degrade"]
+        assert got["reasons"] == reasons
+        assert got["caps"] == (jcap, jout)
+        for g, w in zip(got["state"], w_rows):
+            assert g.tobytes() == w[r].tobytes(), r
+        np.testing.assert_array_equal(got["count"][:, 0],
+                                      want[1]["count"][:, r])
+        assert "pipeline" not in got["stats"]
+        for k, v in got["stats"].items():
+            np.testing.assert_array_equal(
+                v, np.asarray(getattr(want[1]["stats"], k)), err_msg=k)

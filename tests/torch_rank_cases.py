@@ -542,6 +542,99 @@ def run_migrate(ctx):
              if v is not None},
             None if dep is None else _np(res[4]))
     out.update(_run_deposits(ctx, groups))
+    out.update(_run_split_and_service(ctx))
+    return out
+
+
+# ------------------------------------------ two-phase and service chunk
+
+SERVICE_DT = 0.0625  # a power of two: no FMA difference (ROADMAP C10)
+
+
+def service_state(grid_shape, n_local: int, seed: int = 11,
+                  fill: float = 0.75, vel: float = 0.2):
+    """``(pos [R*n, 3], vel [R*n, 3], ids [R*n], count [R])`` NumPy
+    arrays: positions on their owner rank, velocities uniform in
+    ``[-vel/2, vel/2)``, ``fill`` of every rank's rows live (the JAX
+    package's ``test_pipeline._template_state``)."""
+    from mpi_grid_redistribute_tpu_torch.domain import ProcessGrid
+
+    grid = ProcessGrid(tuple(grid_shape))
+    R = grid.nranks
+    shape = np.asarray(grid_shape, np.float32)
+    rng = np.random.default_rng(seed)
+    pos = np.empty((R * n_local, 3), np.float32)
+    for coords in np.ndindex(*grid_shape):
+        r = grid.rank_of_cell(coords)
+        pos[r * n_local:(r + 1) * n_local] = (
+            np.asarray(coords, np.float32)
+            + rng.random((n_local, 3), dtype=np.float32)) / shape
+    v = ((rng.random((R * n_local, 3), dtype=np.float32) - 0.5)
+         * np.float32(vel)).astype(np.float32)
+    ids = np.arange(R * n_local, dtype=np.int32)
+    count = np.full((R,), int(fill * n_local), np.int32)
+    return pos, v, ids, count
+
+
+def _run_split_and_service(ctx):
+    """On the world of 8: the flat engine whole, split into its halves
+    and through the two-phase surface (case ``flat-222``, one step); the
+    pipelined chunk's multi-device degrade and the sequential chunk it
+    hands back, across ranks."""
+    import torch
+
+    from mpi_grid_redistribute_tpu_torch import api
+    from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+    from mpi_grid_redistribute_tpu_torch.parallel import exchange, migrate
+    from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+    from mpi_grid_redistribute_tpu_torch.service import (
+        make_pipelined_chunk_fn,
+    )
+
+    r = ctx.rank
+    grid = ProcessGrid((2, 2, 2))
+    mesh = mesh_lib.make_mesh(grid)
+    dom = Domain(0.0, 1.0, periodic=True)
+    out = {}
+    _, _, n_local, cap, dt, _, _, _ = MIGRATE_CASES["flat-222"]
+    pos, vel, alive = (split_rows(a, 8)[r]
+                       for a in migrate_inputs("flat-222"))
+    pos = (pos + vel * np.float32(dt)) % np.float32(1.0)
+    fused, _ = migrate.fuse_fields(
+        (torch.from_numpy(pos), torch.from_numpy(vel)),
+        torch.from_numpy(alive))
+    fn = migrate.shard_migrate_fused_fn(dom, grid, cap, mesh=mesh)
+
+    def state():
+        return migrate.init_state(fused.clone())
+
+    def np_of(res):
+        st, stats = res
+        return (tuple(_np(a) for a in st), _stats_np(stats))
+
+    out[("split", "whole")] = np_of(fn(state()))
+    s0 = state()
+    out[("split", "halves")] = np_of(fn.complete(s0, fn.issue(s0)))
+    s1 = state()
+    out[("split", "surface")] = np_of(exchange.finish_exchange(
+        fn, s1, exchange.start_exchange(fn, s1)))
+
+    rd = api.GridRedistribute(grid=grid, lo=(0.0,) * 3, hi=(1.0,) * 3,
+                              periodic=(True,) * 3, engine="auto",
+                              mesh=mesh, device="cpu")
+    spos, svel, sids, scount = (
+        torch.from_numpy(np.ascontiguousarray(split_rows(a, 8)[r]))
+        for a in service_state((2, 2, 2), 32))
+    macro, cap_s, out_cap = make_pipelined_chunk_fn(rd, SERVICE_DT, 4, spos,
+                                                    svel, sids)
+    reasons = [e.data["reason"] for e in rd.telemetry.events(
+        "engine_resolved") if str(e.data.get("reason", "")).startswith(
+            "pipeline:")]
+    (p, v, i, c), ys = macro(spos, svel, sids, scount)
+    out["service_degrade"] = dict(
+        reasons=reasons, caps=(cap_s, out_cap),
+        state=tuple(_np(a) for a in (p, v, i, c)),
+        count=_np(ys["count"]), stats=_stats_np(ys["stats"]))
     return out
 
 
