@@ -68,7 +68,9 @@ started together), then, on the card:
      ``flow()``); then one short run of the headline bench
      (``bench/headline.py``, ``bench.py``'s twin: S1 = 2, S2 = 6, one
      long run, the CPU comparators at 2^18 rows), its keys
-     ``bench.py``'s and kernels 1 and 2 once a step; then the
+     ``bench.py``'s and kernels 1 and 2 once a step (its ``rebalance``
+     and ``service`` captures skipped here: the driver phase runs the
+     rebalance leg); then the
      hierarchical two-level engine on the same
      headline input (``dcn_shape=(2, 1, 1)``, ``engine="hierarchical"``,
      two pods of 4 vranks): byte-equal to the oracle and to the planar
@@ -84,7 +86,18 @@ started together), then, on the card:
      kernel 2 launched once a step by the pipelined one and held against
      its plain version at that chunk's landings (K = 9 and 8), the two
      macros' particle sets equal, both bit-equal to the CPU run at a
-     small width, and ms/step of each beside the eager loop;
+     small width, and ms/step of each beside the eager loop; then the
+     service driver (``service.ServiceDriver`` on the card, 8 vranks of
+     2^20 rows at fill 0.8): the same 16 steps eager, as one chunk of 16
+     (no host sync inside: sync debug "error") and pipelined (kernel 2
+     launched once a step), one particle set, ms/step of each; one
+     synchronous snapshot at step 8 (235 MB) and its restore into a
+     fresh driver byte-equal, both timed; a supervised run at 2^17 rows a
+     vrank (a snapshot every 4 steps, a crash at step 10, one restart)
+     with the uninterrupted run's particle set, and an elastic restore
+     of its last snapshot onto (2, 2, 1) with the same set; and config
+     4's rebalance leg on the torch backend (every clause of the
+     reference's gate);
   7. drives the halo exchange (config 6: the 2x2x2 grid as 8 vranks on
      the periodic unit box, every slot filled, width 0.05, derived
      capacities): at 2^18 rows per vrank both vrank engines on the card
@@ -160,9 +173,11 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -1260,7 +1275,7 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
         return lambda: loop(pos, vel, alive)
 
     detail, _ = profiling.cuda_time_per_step_samples(
-        make_run, s1=4, s2=20, reps=7
+        make_run, s1=4, s2=12, reps=2
     )
     per_step = detail["min"]
     log(f"config5 {method}: {per_step * 1e3:.4f} ms/step (min of "
@@ -1580,10 +1595,22 @@ def headline_phase(torch, _build, headline_bench):
     checks it too, as it checks drops and conservation)."""
     s1, s2, reps = 2, 6, 1
     t0 = time.perf_counter()
+    # the rebalance leg and config 10 run through the service driver in
+    # the driver phase (and fill these keys in the bench's own run)
+    skip = {"BENCH_REBALANCE": "0", "BENCH_SERVICE": "0"}
+    saved = {k: os.environ.get(k) for k in skip}
+    os.environ.update(skip)
     _build.reset_counts()
-    line = headline_bench.measure(n_local=N_LOCAL, device="cuda", s1=s1,
-                                  s2=s2, reps=reps,
-                                  baseline_n=HEADLINE_BASELINE_N)
+    try:
+        line = headline_bench.measure(n_local=N_LOCAL, device="cuda", s1=s1,
+                                      s2=s2, reps=reps,
+                                      baseline_n=HEADLINE_BASELINE_N)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     launches = _build.counts()
     seconds = time.perf_counter() - t0
     steps = (reps + 1) * (s1 + s2)
@@ -1601,6 +1628,8 @@ def headline_phase(torch, _build, headline_bench):
     for k in ("stress", "hier", "exchange_dcn_bytes_per_step",
               "exchange_ici_bytes_per_step"):
         check(line[k] is not None, f"headline: {k} is null")
+    check(line["rebalance"] is None and line["service"] is None,
+          "headline: BENCH_REBALANCE=0/BENCH_SERVICE=0 did not skip")
     check(line["stress"]["migration_fraction"] > 0.8,
           f"headline: stress migration {line['stress']['migration_fraction']}"
           f" is not a full reshuffle")
@@ -1750,7 +1779,7 @@ def service_phase(torch, _build, migrate, overlay, profiling, kernel_times,
               f"service: the {name} chunk on the card differs from the CPU "
               f"run at {SERVICE_SMALL} rows a vrank")
     del small
-    times = service_chunk.time_paths(rd, state, SERVICE_CHUNK, reps=2,
+    times = service_chunk.time_paths(rd, state, SERVICE_CHUNK, reps=1,
                                      busy=bool(profile_dir))
     log(f"service chunk ({checked['rows']} rows, chunk {SERVICE_CHUNK}, "
         f"{checked['migration_fraction']:.3%} migration a step): "
@@ -1768,6 +1797,219 @@ def service_phase(torch, _build, migrate, overlay, profiling, kernel_times,
                     f"{v['bound_ms']:.5f})" for k, v in landing.items())
         + f"; {time.perf_counter() - t0:.1f} s")
     return dict(checked, launches=pipe_n, times=times, landing=landing)
+
+
+DRIVER_STEPS = 16
+DRIVER_SUP_N_LOCAL = 1 << 17  # the supervised and elastic legs
+
+
+def _device_set(torch, state):
+    """The particle set of a driver state on the card: the live rows'
+    ``(ids, pos, vel)`` sorted by id, as one uint8 tensor (the bytes
+    ``service.particle_set`` compares, without the trip to the host)."""
+    pos, vel, ids, count = state
+    n = ids.shape[0] // count.shape[0]
+    live = (torch.arange(n, device=ids.device)[None, :]
+            < count[:, None]).reshape(-1)
+    i = ids[live]
+    order = torch.argsort(i, stable=True)
+    return torch.cat([t[live][order].contiguous().view(torch.uint8)
+                      .reshape(-1) for t in (ids, pos, vel)])
+
+
+def _driver_run(torch, _build, tservice, cfg, steps, sync_free=False,
+                state=None):
+    """``(driver, ms/step, kernel counts)``: a fresh driver of ``cfg`` run
+    ``steps`` steps from ``state`` (copies of its tensors; default: the
+    seeded one), every kernel count set to 0 just before the run and
+    read just after; with ``sync_free`` every chunk is issued under sync
+    debug "error" (a host read inside a chunk raises)."""
+    drv = tservice.ServiceDriver(cfg)
+    if state is None:
+        drv.init_state()
+    else:
+        drv.state = tuple(t.clone() for t in state)
+    if sync_free:
+        real = drv._macro_fn
+
+        def guarded(n):
+            macro, cap, out_cap = real(n)
+
+            def run(*state):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return macro(*state)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+
+            return run, cap, out_cap
+
+        drv._macro_fn = guarded
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    drv.run(max_steps=steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = _build.counts()
+    return drv, ms, counts
+
+
+def driver_phase(torch, _build, work):
+    """The service driver on the card (``service.ServiceDriver``,
+    ``device=None``): (a) 16 steps eager, as one chunk of 16 under sync
+    debug "error" and pipelined, one particle set, kernel 2 once a step
+    in the pipelined leg and no kernel elsewhere; (b) a synchronous
+    snapshot at step 8 and its restore into a fresh driver, byte-equal,
+    timed; (c) a supervised run at 2^17 rows a vrank with a crash at step
+    10 and one restart, the uninterrupted run's particle set, and an
+    elastic restore onto (2, 2, 1); (d) config 4's rebalance leg on the
+    torch backend, every clause of its gate."""
+    from mpi_grid_redistribute_tpu_torch import service as tservice
+    from mpi_grid_redistribute_tpu_torch.bench import config4_drift
+    from mpi_grid_redistribute_tpu_torch.telemetry import StepRecorder
+
+    t_phase = time.perf_counter()
+    out, laps = {}, {}
+    base = tservice.DriverConfig(grid_shape=GRID, n_local=N_LOCAL, fill=0.8,
+                                 steps=DRIVER_STEPS, seed=0)
+    # (a) the same 16 steps three ways; (b) the eager leg snapshots at 8
+    t0 = time.perf_counter()
+    snap_dir = work / "driver_snaps"
+    eager_cfg = dataclasses.replace(base, snapshot_dir=str(snap_dir),
+                                    snapshot_async=False)
+    seed = tservice.ServiceDriver(base)
+    seed.init_state()
+    start = seed.state  # the drivers replace a state, never write into it
+    del seed
+    drv, ms8, n_eager = _driver_run(torch, _build, tservice, eager_cfg, 8,
+                                    state=start)
+    t1 = time.perf_counter()
+    path = drv.snapshot()
+    snap_s = time.perf_counter() - t1
+    want = drv.host_state()
+    _build.reset_counts()
+    t2 = time.perf_counter()
+    drv.run()
+    torch.cuda.synchronize()
+    ms_eager = (ms8 * 8 + (time.perf_counter() - t2) * 1e3) / DRIVER_STEPS
+    for k, v in _build.counts().items():
+        n_eager[k] = n_eager.get(k, 0) + v
+    drv.close()
+    check(not any(n_eager.values()),
+          f"driver: the eager leg launched {n_eager}")
+    sets = {"eager": _device_set(torch, drv.state)}
+    fresh = tservice.ServiceDriver(eager_cfg)
+    t3 = time.perf_counter()
+    check(fresh.restore_latest() and fresh.step == 8,
+          "driver: restore_latest did not find the step-8 snapshot")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t3
+    got = fresh.host_state()
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(got, want)),
+          "driver: the restored state is not the snapshot's bytes")
+    snap_mb = sum(a.nbytes for a in want) / 1e6
+    del drv, fresh, got, want
+    laps["eager+snapshot"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    legs = {"eager": {"ms_per_step": ms_eager, "launches": n_eager}}
+    for name, kw in (("chunked", dict(chunk=DRIVER_STEPS)),
+                     ("pipelined", dict(chunk=DRIVER_STEPS, pipeline=True))):
+        drv, ms, n = _driver_run(
+            torch, _build, tservice, dataclasses.replace(base, **kw),
+            DRIVER_STEPS, sync_free=True, state=start)
+        sets[name] = _device_set(torch, drv.state)
+        dropped = sum(e.data["dropped"]
+                      for e in drv.recorder.events("step_latency"))
+        check(dropped == 0, f"driver: the {name} leg dropped {dropped}")
+        legs[name] = {"ms_per_step": ms, "launches": n}
+        drv.close()
+        del drv
+    check(legs["chunked"]["launches"].get("overlay_scatter_planar", 0) == 0
+          and not any(legs["chunked"]["launches"].values()),
+          f"driver: the chunked leg launched {legs['chunked']['launches']}")
+    n_pipe = legs["pipelined"]["launches"]
+    check(n_pipe.get("overlay_scatter_planar") == DRIVER_STEPS
+          and sum(n_pipe.values()) == DRIVER_STEPS,
+          f"driver: the pipelined leg launched {n_pipe} in {DRIVER_STEPS} "
+          f"steps")
+    check(torch.equal(sets["chunked"], sets["eager"])
+          and torch.equal(sets["pipelined"], sets["eager"]),
+          "driver: the three legs' particle sets differ")
+    del sets, start
+    laps["chunked+pipelined"] = time.perf_counter() - t0
+    # (c) supervised: a crash at step 10, one restart from step 8
+    t0 = time.perf_counter()
+    sup_dir = work / "driver_sup"
+    sup_cfg = dataclasses.replace(base, n_local=DRIVER_SUP_N_LOCAL, chunk=4,
+                                  snapshot_every=4, snapshot_dir=str(sup_dir))
+    rec = StepRecorder()
+    plan = tservice.FaultPlan([tservice.CrashFault(10)])
+    sup = tservice.Supervisor(
+        lambda: tservice.ServiceDriver(sup_cfg, recorder=rec, faults=plan),
+        policy=tservice.RestartPolicy(backoff_base_s=0.01,
+                                      backoff_cap_s=0.02),
+        recorder=rec)
+    verdict = sup.run()
+    check(verdict.ok and verdict.restarts == 1
+          and verdict.step == DRIVER_STEPS,
+          f"driver: supervised run {verdict}")
+    check(rec.last("restore").data["step"] == 8,
+          "driver: the restart did not restore the step-8 snapshot")
+    sup_set = tservice.particle_set(*sup.driver.state)
+    ref, _, _ = _driver_run(torch, _build, tservice,
+                            dataclasses.replace(sup_cfg, snapshot_every=0,
+                                                snapshot_dir=None),
+                            DRIVER_STEPS)
+    ref.close()
+    check(sup_set == tservice.particle_set(*ref.state),
+          "driver: the restarted run's particle set is not the "
+          "uninterrupted run's")
+    el = tservice.ServiceDriver(sup_cfg)
+    check(el.restore_latest(grid_shape=(2, 2, 1)) and el.step == DRIVER_STEPS,
+          "driver: no elastic restore of the step-16 snapshot")
+    reshard = el.recorder.last("reshard").data
+    check(tuple(el.cfg.grid_shape) == (2, 2, 1)
+          and tservice.particle_set(*el.state) == sup_set,
+          "driver: the elastic restore onto (2, 2, 1) changed the "
+          "particle set")
+    del sup, ref, el
+    laps["supervised+elastic"] = time.perf_counter() - t0
+    # (d) config 4's rebalance leg on the card
+    t0 = time.perf_counter()
+    reb = config4_drift.run_rebalance(backend="torch")
+    clauses = config4_drift.rebalance_checks(reb)
+    check(all(clauses.values()),
+          f"driver: rebalance clauses failed: "
+          f"{[k for k, v in clauses.items() if not v]}")
+    laps["rebalance"] = time.perf_counter() - t0
+    out = {
+        "legs": legs, "snapshot_s": snap_s, "restore_s": restore_s,
+        "snapshot_mb": snap_mb, "snapshot": path,
+        "supervised": {"restarts": verdict.restarts, "step": verdict.step,
+                       "n_local": DRIVER_SUP_N_LOCAL},
+        "elastic": {"new_grid": reshard["new_grid"],
+                    "moved": reshard["moved"], "rows": reshard["rows"]},
+        "rebalance": {k: reb[k] for k in (
+            "steady_ms_per_step", "baseline_steady_ms_per_step", "speedup",
+            "rebalances_applied", "post_rebalance_imbalance",
+            "rows_moved", "bit_identical")},
+        "seconds": laps,
+    }
+    log(f"service driver ({GRID} as 8 vranks of {N_LOCAL} rows, fill 0.8, "
+        f"{DRIVER_STEPS} steps): eager {ms_eager:.4f}, chunked "
+        f"{legs['chunked']['ms_per_step']:.4f}, pipelined "
+        f"{legs['pipelined']['ms_per_step']:.4f} ms/step (host clock, "
+        f"first builds included); one particle set; kernel 2 "
+        f"{n_pipe['overlay_scatter_planar']} launches in the pipelined leg; "
+        f"snapshot {snap_mb:.1f} MB in {snap_s:.3f} s, restore "
+        f"{restore_s:.3f} s, byte-equal; supervised crash/restart and the "
+        f"elastic restore onto (2, 2, 1) keep the particle set; rebalance "
+        f"{reb['steady_ms_per_step']} vs {reb['baseline_steady_ms_per_step']}"
+        f" ms/step, post-imbalance {reb['post_rebalance_imbalance']}; "
+        f"seconds " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+        + f"; {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 HIER_DCN = (2, 1, 1)  # two pods of 4 vranks
@@ -2110,7 +2352,7 @@ def config2_steady_phase(torch, nbody, migrate, _build, profiling,
             return lambda: loop(*args)
 
         detail, _ = profiling.cuda_time_per_step_samples(
-            make_run, s1=4, s2=20, reps=3
+            make_run, s1=4, s2=12, reps=2
         )
         per_step = detail["min"]
         log(f"{label}: {per_step * 1e3:.4f} ms/step (min of "
@@ -2240,7 +2482,7 @@ def config3_phase(torch, nbody, migrate, binning, _build, profiling,
         return lambda: loop(*args)
 
     detail, _ = profiling.cuda_time_per_step_samples(make_run, s1=4, s2=24,
-                                                     reps=4)
+                                                     reps=2)
     per_step = detail["min"]
     out, launches, syncs, guard = counted_run(torch, migrate, _build,
                                               make_run)
@@ -2546,6 +2788,10 @@ def main() -> int:
     service = service_phase(torch, _build, migrate, overlay, profiling,
                             kernel_times, service_chunk, args.profile)
     lap("service chunk")
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as work:
+        driver = driver_phase(torch, _build, Path(work))
+    lap("service driver")
 
     # ---- the halo exchange (config 6) and the public halo()
     halo = halo_phase(torch, pt, config6_halo, config1_oracle, oracle,
@@ -2587,6 +2833,9 @@ def main() -> int:
             # chunk's landings (K = 9, then 8), counted there
             k["launches_pipelined_chunk"] = service["launches"][k["name"]]
             k["pipelined_landing"] = service["landing"]
+            # and the service driver's pipelined leg, once a step
+            k["launches_driver_pipelined"] = (
+                driver["legs"]["pipelined"]["launches"][k["name"]])
         kernels.append(k)
     log(f"chip_smoke: every phase passed, {time.perf_counter() - T_START:.1f}"
         f" s since the script started (the kernels' build included); "
@@ -2606,6 +2855,7 @@ def main() -> int:
     log(json.dumps({"hierarchical": hier}))
     log(json.dumps({"config7": stress}))
     log(json.dumps({"service": service}))
+    log(json.dumps({"service_driver": driver}))
     log(json.dumps({"halo": halo}))
     log(json.dumps({"ranks": ranks}))
     log(smi)

@@ -336,6 +336,11 @@ class GridRedistribute:
           every call);
         * ``"ignore"``: return at once, drops reported in ``stats``.
       check_every: the deferred check's cadence in calls (default 16).
+      read_every_call: under ``"grow"``, keep reading every call's drop
+        counters after calibration too (one host read a call): a drop is
+        then healed in the same call, as a calibrating call's is, and the
+        deferred windows run over the clean calls only. For a caller that
+        reads every call's result anyway, such as the service driver.
       engine: ``"auto"`` (default: ``"hierarchical"`` across the ranks of
         a mesh of several pods, ``"sparse"`` across ranks of one pod,
         ``"planar"`` on one device, ``"rowmajor"`` when an array is not
@@ -398,6 +403,7 @@ class GridRedistribute:
         out_capacity: Optional[int] = None,
         on_overflow: str = "grow",
         check_every: int = 16,
+        read_every_call: bool = False,
         engine: str = "auto",
         mover_cap: Optional[int] = None,
         dcn_shape=None,
@@ -443,6 +449,7 @@ class GridRedistribute:
         if int(check_every) < 1:
             raise ValueError(f"check_every must be >= 1, got {check_every}")
         self.check_every = int(check_every)
+        self.read_every_call = bool(read_every_call)
         if engine not in exchange.ENGINES:
             raise ValueError(
                 f"engine must be one of {exchange.ENGINES}, got {engine!r}"
@@ -1039,22 +1046,20 @@ class GridRedistribute:
             )
             if self.on_overflow == "ignore":
                 return result  # no host read of the stats
-            if (self.on_overflow == "grow" and self._clean_checks >= 2
-                    and self.backend == "torch"):
-                # calibrated: every call folds its counters into the
-                # cumulative device totals, read one window later
-                if self._cum_counters is None:
-                    self._cum_counters = torch.zeros(
-                        (5,), dtype=torch.int32, device=self.device)
-                self._cum_counters = _accum_overflow_counters(
-                    self._cum_counters, result.stats
-                )
-                self._deferred_check(n_local, cap, out_cap)
+            calibrated = (self.on_overflow == "grow"
+                          and self._clean_checks >= 2
+                          and self.backend == "torch")
+            if calibrated and not self.read_every_call:
+                self._fold_into_window(result.stats, n_local, cap, out_cap)
                 return result
             dropped_send, dropped_recv, needed, needed_out, needed_cross = (
                 self._read_overflow(result))
             if not dropped_send and not dropped_recv:
-                if self.on_overflow == "grow":
+                if calibrated:
+                    # read_every_call: a clean call joins the windows
+                    self._fold_into_window(result.stats, n_local, cap,
+                                           out_cap)
+                elif self.on_overflow == "grow":
                     self._clean_checks += 1
                     self._maybe_grow_mover_cap(needed)
                     # clean: re-arm the cross block for the next call
@@ -1117,6 +1122,16 @@ class GridRedistribute:
                     new=self.out_capacity, needed=needed_out,
                     dropped=dropped_recv, call=self._call_index)
         return grew
+
+    def _fold_into_window(self, stats, n_local, cap, out_cap) -> None:
+        """Calibrated: fold a call's counters into the cumulative device
+        totals, read one window later."""
+        if self._cum_counters is None:
+            self._cum_counters = torch.zeros(
+                (5,), dtype=torch.int32, device=self.device)
+        self._cum_counters = _accum_overflow_counters(
+            self._cum_counters, stats)
+        self._deferred_check(n_local, cap, out_cap)
 
     def _deferred_check(self, n_local, cap, out_cap) -> None:
         """Every ``check_every``-th call: resolve the previous snapshot

@@ -20,8 +20,14 @@ The timing and checks are the headline's
 (:func:`.headline.device_pipeline`: CUDA-event samples of runs of 8 and
 ``min(72, max(16, steps))`` steps differenced, no drop, rows conserved,
 kernels 1 and 2 once a step on the card), over the reference's start
-state. ``run_rebalance`` and ``rebalance_smoke`` need the service
-driver, not ported yet.
+state.
+
+:func:`run_rebalance` is the closed-loop rebalance leg: twin
+:class:`~..service.driver.ServiceDriver` runs under one convergent drift
+bias, the loop off and on; :func:`rebalance_smoke` gates it
+(``python -m mpi_grid_redistribute_tpu_torch.bench.config4_drift
+--rebalance``: the torch backend on the GPU; ``--backend numpy`` runs the
+reference's host oracle loop instead).
 """
 
 from __future__ import annotations
@@ -216,5 +222,173 @@ def run(n_local: int = None, migration: float = 0.02, steps: int = 100,
     return res
 
 
+def run_rebalance(
+    n_local: int = 4096,
+    steps: int = 128,
+    backend: str = "torch",
+    threshold: float = 1.5,
+    device=None,
+) -> dict:
+    """Closed-loop adaptive-rebalance leg (the reference's): twin service
+    drivers share one seeded state and one convergent drift bias (slowed
+    so the cloud never collapses to a point), the loop off and on. It
+    proves the loop end to end: the ALERT fired and a ``rebalance``
+    applied, the imbalance after it is <= 1.1x, the particle SET is
+    bit-identical with the loop on and off, nothing dropped, and the
+    steady ms/step (median of the last quarter of the journaled step
+    walls) of both twins. The default ``backend="torch"`` runs the
+    drivers on ``device`` (``None``: the GPU, raising without one);
+    ``backend="numpy"`` is the reference's default, the host oracle
+    loop."""
+    from mpi_grid_redistribute_tpu_torch.service import elastic
+    from mpi_grid_redistribute_tpu_torch.service.driver import (
+        DriverConfig,
+        ServiceDriver,
+    )
+
+    def one(rebalance: bool):
+        cfg = DriverConfig(
+            grid_shape=(2, 2, 2),
+            n_local=n_local,
+            fill=0.5,
+            steps=steps,
+            backend=backend,
+            device=device,
+            health_every=4,
+            rebalance=rebalance,
+            rebalance_threshold=threshold,
+            rebalance_cells=8,
+            rebalance_cooldown=16,
+            # the saving is projected over the service horizon, not the
+            # short leg, so the guard can fire inside the run
+            rebalance_horizon=512,
+        )
+        drv = ServiceDriver(cfg)
+        drv.init_state()
+        pos, vel, ids, count = drv.host_state()
+        # convergent flight plan into one shard, slowed so rows are only
+        # ~60% of the way to the sink at run end
+        sink = np.asarray([0.25, 0.25, 0.25], np.float32)
+        vel = ((sink[None, :] - pos)
+               / np.float32(1.6 * steps)).astype(np.float32)
+        drv.state = drv._to_state(pos, vel, ids, count)
+        drv.run()
+        drv.close()
+        dropped = sum(
+            int(e.data.get("dropped", 0))
+            for e in drv.recorder.events("step_latency")
+        )
+        lat = [
+            float(e.data["seconds"])
+            for e in drv.recorder.events("step_latency")
+        ]
+        steady = (
+            float(np.median(lat[3 * len(lat) // 4:]))
+            if lat else float("nan")
+        )
+        counts = drv.host_state()[3].astype(np.float64)
+        return {
+            "driver": drv,
+            "steady_s": steady,
+            "dropped": dropped,
+            "final_imbalance": (
+                float(counts.max() / counts.mean())
+                if counts.mean() > 0 else 1.0
+            ),
+            "particle_set": elastic.particle_set(*drv.state),
+            "out_capacity": int(drv._rd.out_capacity or n_local),
+        }
+
+    base = one(False)
+    reb = one(True)
+    drv = reb["driver"]
+    events = [e.data for e in drv.recorder.events("rebalance")]
+    applied = [e for e in events if e.get("applied")]
+    alerts = [
+        e for e in drv.recorder.events("alert")
+        if e.data.get("rule") == "imbalance_ratio"
+    ]
+    res = {
+        "metric": "config4_rebalance_steady_ms",
+        "value": round(reb["steady_s"] * 1e3, 3),
+        "unit": "ms/step",
+        "steady_ms_per_step": round(reb["steady_s"] * 1e3, 3),
+        "baseline_steady_ms_per_step": round(base["steady_s"] * 1e3, 3),
+        "speedup": round(base["steady_s"] / reb["steady_s"], 3)
+        if reb["steady_s"] > 0 else None,
+        "alerts": len(alerts),
+        "rebalances": len(events),
+        "rebalances_applied": len(applied),
+        "post_rebalance_imbalance": (
+            max(float(e["realized_imbalance"]) for e in applied)
+            if applied else None
+        ),
+        "final_imbalance": round(reb["final_imbalance"], 4),
+        "baseline_final_imbalance": round(base["final_imbalance"], 4),
+        "rows_moved": sum(int(e.get("rows_moved", 0)) for e in applied),
+        "dropped": reb["dropped"] + base["dropped"],
+        "out_capacity": reb["out_capacity"],
+        "baseline_out_capacity": base["out_capacity"],
+        "bit_identical": bool(
+            reb["particle_set"] == base["particle_set"]
+        ),
+    }
+    common.log(
+        f"config4 rebalance: {res['steady_ms_per_step']:.3f} ms/step vs "
+        f"{res['baseline_steady_ms_per_step']:.3f} no-rebalance, "
+        f"{len(applied)} applied, post-imbalance "
+        f"{res['post_rebalance_imbalance']}, "
+        f"bit_identical={res['bit_identical']}"
+    )
+    return res
+
+
+def rebalance_checks(res: dict) -> dict:
+    """The rebalance leg's acceptance clauses, name -> held."""
+    return {
+        "imbalance_ratio ALERT fired": res["alerts"] >= 1,
+        "a rebalance applied": res["rebalances_applied"] >= 1,
+        "post-rebalance imbalance <= 1.1": (
+            res["post_rebalance_imbalance"] is not None
+            and res["post_rebalance_imbalance"] <= 1.1
+        ),
+        "zero dropped rows": res["dropped"] == 0,
+        "particle set bit-identical": res["bit_identical"],
+    }
+
+
+def rebalance_smoke(backend: str = "torch", device=None, **kwargs) -> int:
+    """The rebalance gate: run :func:`run_rebalance` and return 1 unless
+    every clause of :func:`rebalance_checks` holds. The ms/step itself
+    is not gated here (a smoke box's timing is noise)."""
+    res = run_rebalance(backend=backend, device=device, **kwargs)
+    print(json.dumps(res), flush=True)
+    failed = [name for name, ok in rebalance_checks(res).items() if not ok]
+    for name in failed:
+        common.log(f"rebalance-smoke FAIL: {name}")
+    if not failed:
+        common.log("rebalance-smoke: all gates green")
+    return 1 if failed else 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(prog="config4_drift")
+    p.add_argument("--rebalance", action="store_true",
+                   help="run the closed-loop rebalance gate instead")
+    p.add_argument("--backend", default="torch", choices=("torch", "numpy"),
+                   help="the rebalance leg's driver backend (numpy: the "
+                        "host oracle loop)")
+    p.add_argument("--device", default=None)
+    args = p.parse_args(argv)
+    if args.rebalance:
+        return rebalance_smoke(backend=args.backend, device=args.device)
+    print(json.dumps(run(device=args.device)), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    print(json.dumps(run()), flush=True)
+    import sys
+
+    sys.exit(main())

@@ -32,8 +32,14 @@ hierarchical wire capture on a virtual two-pod split ``(2, 1, 1)``
 (:func:`.config4_drift.hierarchical_wire_capture`; ``BENCH_HIER=0``
 skips it), whose ``dcn_bytes_per_step``/``ici_bytes_per_step`` fill
 ``exchange_dcn_bytes_per_step``/``exchange_ici_bytes_per_step``.
-``soak``, ``rebalance`` and ``service`` are ``null``: they need the
-service driver, not ported. ``env`` fingerprints this machine;
+``rebalance`` is config 4's closed-loop rebalance leg
+(:func:`.config4_drift.run_rebalance` on the torch backend on the same
+device, the reference's ``n_local`` 4096 and 128 steps;
+``BENCH_REBALANCE=0`` skips it) and ``service`` config 10's capture
+(:func:`.config10_service.run`, its ``BENCH_SERVICE_*`` knobs;
+``BENCH_SERVICE=0`` skips it). ``soak`` is ``null``: config 8 is not
+ported (it needs ``telemetry/incident.py``). ``env`` fingerprints this
+machine;
 ``progprofile_hash`` and ``attribution_hash`` hash TPU programs and are
 ``null``.
 
@@ -59,7 +65,7 @@ import torch
 
 from mpi_grid_redistribute_tpu_torch import _device, oracle, telemetry
 from mpi_grid_redistribute_tpu_torch.bench import (
-    common, config4_drift, config7_stress,
+    common, config4_drift, config7_stress, config10_service,
 )
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.models import nbody
@@ -294,6 +300,14 @@ def measure(n_local=None, device=None, migration=None, s1=None, s2=None,
     if env.get("BENCH_HIER", "1") != "0":
         hier = config4_drift.hierarchical_wire_capture(
             (2, 2, 2), (2, 1, 1), migration, device=dev)
+    # the closed-loop rebalance leg (config 4) and the chunked service
+    # capture (config 10), through the service driver on this device
+    rebalance = None
+    if env.get("BENCH_REBALANCE", "1") != "0":
+        rebalance = config4_drift.run_rebalance(backend="torch", device=dev)
+    service = None
+    if env.get("BENCH_SERVICE", "1") != "0":
+        service = config10_service.run(device=dev)
     n_chips = 1
     line = {
         "metric": "particles_per_sec_per_chip",
@@ -316,8 +330,8 @@ def measure(n_local=None, device=None, migration=None, s1=None, s2=None,
             profiling.exchange_bw_util(xbytes / per_step, "hbm", n_chips), 6),
         "stress": stress,
         "soak": None,
-        "rebalance": None,
-        "service": None,
+        "rebalance": rebalance,
+        "service": service,
         "hier": hier,
         "exchange_dcn_bytes_per_step": (
             hier.get("dcn_bytes_per_step") if hier else None),

@@ -388,6 +388,22 @@ def service_drift(pos: torch.Tensor, vel: torch.Tensor, dt) -> torch.Tensor:
     return torch.where(pos >= one, pos - one, pos)
 
 
+def eager_drift(pos: torch.Tensor, vel: torch.Tensor, dt) -> torch.Tensor:
+    """The service driver's eager drift: ``(pos + vel * dt) % 1`` with
+    NumPy's float ``%`` (the reference's eager loop drifts on the host in
+    NumPy): fmod, the sign fix, and a zero result made ``+0.0`` (NumPy's
+    ``copysign(0, 1)``), then the fold of a result that rounded up to
+    1.0. It differs from :func:`service_drift` (``jnp.remainder``) only
+    in the sign of a zero: an exact non-positive integer ``pos + vel *
+    dt`` gives ``+0.0`` here and ``-0.0`` in a chunk, as the reference's
+    two legs do (ROADMAP C13)."""
+    one = binning._f32(1.0, pos)
+    m = torch.fmod(pos + vel * binning._f32(dt, pos), one)
+    m = torch.where(m < 0, m + one, m)
+    m = torch.where(m == 0, torch.zeros_like(m), m)
+    return torch.where(m >= one, m - one, m)
+
+
 def make_drift_step(cfg: DriftConfig, mesh=None, device=None,
                     plain: bool = False):
     """One step of the canonical drift loop, one rank a process (the

@@ -417,6 +417,32 @@ def test_deferred_check_catches_an_unsampled_spike():
     rd.flush_overflow_checks()
 
 
+def test_read_every_call_heals_a_calibrated_drop_in_the_same_call():
+    """read_every_call=True: the same unsampled spike is read at once,
+    grown and re-run on the same inputs; the windows stay clean."""
+    r = np.random.default_rng(18)
+    placed, cnt = _placed_state(r)
+    rd = tgr.GridRedistribute(TDOM, (2, 2, 2), device="cpu", capacity=1,
+                              check_every=4, read_every_call=True)
+    for _ in range(4):
+        rd.redistribute(placed, count=cnt)
+    assert rd._clean_checks >= 2 and rd._cum_counters is not None
+    fetches = rd._blocking_fetches
+    clustered = np.full_like(placed, 0.1)
+    res = rd.redistribute(clustered, count=cnt)
+    assert int(res.stats.dropped_send.sum()) == 0
+    assert int(res.stats.dropped_recv.sum()) == 0
+    assert int(res.count.sum()) == int(cnt.sum())
+    assert rd.capacity > 1
+    assert [e.data["which"] for e in rd.telemetry.events("capacity_grow")]
+    assert rd._blocking_fetches > fetches
+    for _ in range(8):
+        rd.redistribute(placed, count=cnt)
+    rd.flush_overflow_checks()
+    assert not rd.telemetry.events("overflow_window_loss")
+    assert rd.telemetry.events("overflow_window_clean")
+
+
 def test_flush_covers_the_partial_window_and_context_exit():
     r = np.random.default_rng(19)
     placed, cnt = _placed_state(r)

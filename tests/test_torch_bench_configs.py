@@ -9,6 +9,7 @@ trace under an assignment on this jax, ROADMAP C1); each ``run()``
 returns the reference's keys, less its telemetry report, with nothing
 dropped. The stats summaries equal the reference's on the same stats."""
 
+import json
 import math
 
 import numpy as np
@@ -433,3 +434,29 @@ def test_config_entry_points_need_a_card_unless_asked_for_the_cpu():
                  lambda: service_chunk.prepare(64)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_rebalance_leg_runs_on_the_card_by_default():
+    """The rebalance leg, its gate and ``--rebalance`` take the torch
+    backend on the GPU unless the caller asks for the host loop or the
+    CPU, and raise without a GPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: device=None runs there")
+    for call in (lambda: c4.run_rebalance(n_local=512, steps=8),
+                 lambda: c4.rebalance_smoke(n_local=512, steps=8),
+                 lambda: c4.main(["--rebalance"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_rebalance_smoke_gate_on_cpu(backend, capsys):
+    """The reference's CI-sized gate (n_local 512, 48 steps, as its
+    ``test_config4_rebalance_smoke_gate``): every clause holds on the
+    host loop and on the torch backend on the CPU."""
+    kw = {} if backend == "numpy" else {"device": "cpu"}
+    assert c4.rebalance_smoke(backend=backend, n_local=512, steps=48,
+                              **kw) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert all(c4.rebalance_checks(res).values())
+    assert res["metric"] == "config4_rebalance_steady_ms"

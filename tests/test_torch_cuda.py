@@ -13,7 +13,10 @@ CPU run, config 3's 64-vrank shape against the plain-version run, and the
 ``"segment"`` deposit (atomics: within 2e-5 of the CPU run, its mass
 exact to rtol 1e-5); the sequential and pipelined service chunks on the
 card against the CPU run, with no host sync inside and kernel 2 at the
-pipelined landing's K = 8 and 9. They skip without a GPU.
+pipelined landing's K = 8 and 9; the service driver's three legs on the
+card against its CPU run, its chunks with no host sync, a snapshot from
+the card restored on the CPU, and the chunk overlap (chunk k's ys read
+while chunk k+1 still runs). They skip without a GPU.
 
 This file imports no JAX, so it runs on a machine without it:
 
@@ -1230,3 +1233,133 @@ def test_service_chunks_on_card_match_cpu_run(cuda):
     for (card, _), (cpu, _) in zip(outs["cuda"], outs["cpu"]):
         assert _tree_on_cpu_equal(card, cpu)
     service_chunk.check_pair(seq_c, pipe_c)
+
+
+def _driver_cfg(dev, **kw):
+    from mpi_grid_redistribute_tpu_torch.service import DriverConfig
+
+    base = dict(grid_shape=(2, 2, 2), n_local=4096, steps=24, seed=3,
+                device=dev)
+    base.update(kw)
+    return DriverConfig(**base)
+
+
+def _driver_state(cfg, steps=None):
+    from mpi_grid_redistribute_tpu_torch.service import ServiceDriver
+
+    drv = ServiceDriver(cfg)
+    drv.init_state()
+    drv.run(max_steps=steps)
+    drv.close()
+    return drv, drv.host_state()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,pipeline", [(1, False), (7, False),
+                                            (7, True)])
+def test_service_driver_on_card_matches_cpu_run(cuda, chunk, pipeline):
+    """The service driver's eager, chunked and pipelined legs on the
+    card, byte-equal to the same legs on the CPU at n_local 4096; the
+    state stays on the card."""
+    drv, got = _driver_state(_driver_cfg(None, chunk=chunk,
+                                         pipeline=pipeline))
+    assert all(t.is_cuda for t in drv.state)
+    _, want = _driver_state(_driver_cfg("cpu", chunk=chunk,
+                                        pipeline=pipeline))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_service_driver_chunk_has_no_host_sync(cuda, pipeline):
+    """Every chunk the driver issues (and the staging of its ys) runs
+    under sync debug mode "error"; kernel 2 once a step when
+    pipelined."""
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+    from mpi_grid_redistribute_tpu_torch.service import ServiceDriver
+
+    drv = ServiceDriver(_driver_cfg(None, chunk=8, steps=16,
+                                    pipeline=pipeline))
+    drv.init_state()
+    real_macro, real_stage = drv._macro_fn, drv._stage_ys
+    issued = []
+
+    def guarded(n):
+        macro, cap, out_cap = real_macro(n)
+
+        def run(*state):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = macro(*state)
+                issued.append(n)
+                return out
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        return run, cap, out_cap
+
+    def stage(ys, start):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_stage(ys, start)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    drv._macro_fn, drv._stage_ys = guarded, stage
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    drv.run()
+    torch.cuda.synchronize()
+    assert issued == [8, 8]
+    assert _build.counts()["overlay_scatter_planar"] == (16 if pipeline
+                                                         else 0)
+    drv.close()
+
+
+@pytest.mark.cuda
+def test_snapshot_from_the_card_restores_on_the_cpu(cuda, tmp_path):
+    from mpi_grid_redistribute_tpu_torch.service import ServiceDriver
+
+    cfg = _driver_cfg(None, chunk=4, snapshot_every=8, steps=16,
+                      snapshot_dir=str(tmp_path))
+    card, state = _driver_state(cfg)
+    cpu = ServiceDriver(_driver_cfg("cpu", snapshot_every=8,
+                                    snapshot_dir=str(tmp_path)))
+    assert cpu.restore_latest() and cpu.step == 16
+    assert all(t.device.type == "cpu" for t in cpu.state)
+    for a, b in zip(cpu.host_state(), state):
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.cuda
+def test_chunk_ys_reach_the_host_before_the_next_chunk_ends(cuda):
+    """The overlap: chunk k+1 is issued before chunk k's ys are read, and
+    those reads (waiting on chunk k's own event) finish while chunk k+1
+    is still running on the card."""
+    from mpi_grid_redistribute_tpu_torch.service import ServiceDriver
+
+    drv = ServiceDriver(_driver_cfg(None, n_local=1 << 18, chunk=8,
+                                    steps=40))
+    drv.init_state()
+    ends, seen = [], []
+    real_stage, real_wait = drv._stage_ys, drv._wait_staged
+
+    def stage(ys, start):
+        staged = real_stage(ys, start)
+        ends.append(staged[2])
+        return staged
+
+    def wait(staged):
+        out = real_wait(staged)
+        out[0]["block"].numpy().sum()  # the host read of chunk k's ys
+        i = ends.index(staged[2])
+        if i + 1 < len(ends):  # a successor was issued before the read
+            seen.append(ends[i + 1].query())
+        return out
+
+    drv._stage_ys, drv._wait_staged = stage, wait
+    drv.run()
+    drv.close()
+    assert len(seen) >= 3, seen
+    assert not any(seen), f"chunk k+1 had ended at chunk k's read: {seen}"

@@ -8,6 +8,7 @@ that drops nothing and ends bit-equal to the reference's loop
 on this jax, ROADMAP C1)."""
 
 import ast
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -22,7 +23,11 @@ from mpi_grid_redistribute_tpu.domain import Domain as JDomain
 from mpi_grid_redistribute_tpu.domain import ProcessGrid as JGrid
 from mpi_grid_redistribute_tpu.models import nbody as jnbody
 from mpi_grid_redistribute_tpu.parallel import mesh as jmesh
-from mpi_grid_redistribute_tpu_torch.bench import common, headline
+from mpi_grid_redistribute_tpu_torch.bench import (
+    common,
+    config4_drift,
+    headline,
+)
 from mpi_grid_redistribute_tpu_torch.utils import native
 
 torch.set_num_threads(1)
@@ -52,20 +57,31 @@ def _bench_module():
 
 
 def test_key_set_is_bench_pys(monkeypatch):
-    """``bench.py``'s 25 keys; config 7's stress (one small size here)
-    and config 4's hierarchical capture filled, with the two-level byte
-    split read off the latter; the service-driver captures and the TPU
-    hashes null."""
+    """``bench.py``'s 25 keys; config 7's stress (one small size here),
+    config 4's hierarchical capture (the two-level byte split read off
+    it), config 4's rebalance leg and config 10's service capture
+    filled (small sizes here); config 8's soak and the TPU hashes
+    null."""
     monkeypatch.setenv("BENCH_STRESS_N", str(1 << 12))
+    monkeypatch.setattr(config4_drift, "run_rebalance", functools.partial(
+        config4_drift.run_rebalance, n_local=512, steps=48))
+    for k, v in (("K", "1"), ("SEG", "4"), ("CHUNKS", "2,4")):
+        monkeypatch.setenv(f"BENCH_SERVICE_{k}", v)
     line = headline.measure(n_local=N_LOCAL, device="cpu", s1=1, s2=3,
                             reps=1)
     keys = _bench_py_keys()
     assert len(keys) == 25
     assert list(line) == keys
     json.loads(json.dumps(line))
-    for k in ("soak", "rebalance", "service", "progprofile_hash",
-              "attribution_hash"):
+    for k in ("soak", "progprofile_hash", "attribution_hash"):
         assert line[k] is None, k
+    reb, svc = line["rebalance"], line["service"]
+    assert reb["metric"] == "config4_rebalance_steady_ms"
+    assert reb["rebalances_applied"] >= 1 and reb["bit_identical"]
+    assert reb["dropped"] == 0 and reb["post_rebalance_imbalance"] <= 1.1
+    assert svc["metric"] == "service_pps" and svc["bit_identical"]
+    assert svc["chunk"] == 4 and svc["rows"] == 4096
+    assert svc["probe_events"] > 0 and svc["value"] > 0
     stress, hier = line["stress"], line["hier"]
     assert stress["metric"] == "config7_stress_bw_util"
     assert stress["migration_fraction"] > 0.8
@@ -136,6 +152,8 @@ def test_journal_shard_and_native_fallback(monkeypatch, tmp_path):
     monkeypatch.setenv("BENCH_JOURNAL_DIR", str(tmp_path))
     monkeypatch.setenv("BENCH_STRESS", "0")
     monkeypatch.setenv("BENCH_HIER", "0")
+    monkeypatch.setenv("BENCH_REBALANCE", "0")
+    monkeypatch.setenv("BENCH_SERVICE", "0")
     monkeypatch.setattr(native, "build", lambda *a, **k: False)
     line = headline.measure(n_local=1024, device="cpu", s1=1, s2=2, reps=1,
                             baseline_n=8 * 512)
@@ -149,6 +167,7 @@ def test_journal_shard_and_native_fallback(monkeypatch, tmp_path):
     # the switches turn the captures off, as bench.py's do
     assert line["stress"] is None and line["hier"] is None
     assert line["exchange_dcn_bytes_per_step"] is None
+    assert line["rebalance"] is None and line["service"] is None
 
 
 def test_headline_needs_a_card_unless_asked_for_the_cpu():
