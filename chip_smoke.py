@@ -68,9 +68,9 @@ started together), then, on the card:
      ``flow()``); then one short run of the headline bench
      (``bench/headline.py``, ``bench.py``'s twin: S1 = 2, S2 = 6, one
      long run, the CPU comparators at 2^18 rows), its keys
-     ``bench.py``'s and kernels 1 and 2 once a step (its ``rebalance``
-     and ``service`` captures skipped here: the driver phase runs the
-     rebalance leg); then the
+     ``bench.py``'s and kernels 1 and 2 once a step (its ``rebalance``,
+     ``service`` and ``soak`` captures skipped here: the driver phase
+     runs the rebalance leg, config 8 runs from its own script); then the
      hierarchical two-level engine on the same
      headline input (``dcn_shape=(2, 1, 1)``, ``engine="hierarchical"``,
      two pods of 4 vranks): byte-equal to the oracle and to the planar
@@ -95,9 +95,15 @@ started together), then, on the card:
      fresh driver byte-equal, both timed; a supervised run at 2^17 rows a
      vrank (a snapshot every 4 steps, a crash at step 10, one restart)
      with the uninterrupted run's particle set, and an elastic restore
-     of its last snapshot onto (2, 2, 1) with the same set; and config
+     of its last snapshot onto (2, 2, 1) with the same set; config
      4's rebalance leg on the torch backend (every clause of the
-     reference's gate);
+     reference's gate); and the history plane: a supervised run at 2^17
+     rows a vrank pipelined in chunks of 16 with a journal store, an
+     incident directory, the counters probes and a NaN burst at step 24
+     (one restart, one ``nan_detected`` bundle naming the step, a
+     restore from before it, the store verified with the recorder's
+     counts and no row twice, kernel 2 launched in the leg), with the
+     drains' seconds and their share of the leg;
   7. drives the halo exchange (config 6: the 2x2x2 grid as 8 vranks on
      the periodic unit box, every slot filled, width 0.05, derived
      capacities): at 2^18 rows per vrank both vrank engines on the card
@@ -968,13 +974,15 @@ def nccl_drift_check(torch, pt, mesh, pos, vel):
     return ms
 
 
-def multirank_phase(torch, pt, config1_oracle, state, planar_out, smi,
-                    profile_dir):
+def multirank_phase(torch, pt, config1_oracle, state, planar_out,
+                    halo_ghosts, smi, profile_dir):
     """The multi-rank paths: (a) NCCL at world size 1 here, then (b)-(d)
     in one gloo world of 8 processes sharing ``cuda:0``
     (``bench.multirank``): the vranks loop across 2 ranks and the flat
     loop across 8 at the bench width, GridRedistribute(mesh=) and the
-    deposits across 8 ranks, and card against CPU at a small width."""
+    deposits across 8 ranks, and card against CPU at a small width.
+    ``halo_ghosts`` is ``multirank.halo_oracle(multirank.HALO_N)``,
+    computed ahead."""
     import tempfile
 
     from mpi_grid_redistribute_tpu_torch.bench import multirank
@@ -992,7 +1000,8 @@ def multirank_phase(torch, pt, config1_oracle, state, planar_out, smi,
             pg_timeout=300)
         world_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ref = multirank.reference(spec, "cuda", single=planar_out)
+        ref = multirank.reference(spec, "cuda", single=planar_out,
+                                  halo_ghosts=halo_ghosts)
         ref_s = time.perf_counter() - t0
         try:
             summary = multirank.verify(results, spec, ref, "cuda")
@@ -1596,8 +1605,9 @@ def headline_phase(torch, _build, headline_bench):
     s1, s2, reps = 2, 6, 1
     t0 = time.perf_counter()
     # the rebalance leg and config 10 run through the service driver in
-    # the driver phase (and fill these keys in the bench's own run)
-    skip = {"BENCH_REBALANCE": "0", "BENCH_SERVICE": "0"}
+    # the driver phase, config 8 from its own script (and they fill
+    # these keys in the bench's own run)
+    skip = {"BENCH_REBALANCE": "0", "BENCH_SERVICE": "0", "BENCH_SOAK": "0"}
     saved = {k: os.environ.get(k) for k in skip}
     os.environ.update(skip)
     _build.reset_counts()
@@ -1628,8 +1638,10 @@ def headline_phase(torch, _build, headline_bench):
     for k in ("stress", "hier", "exchange_dcn_bytes_per_step",
               "exchange_ici_bytes_per_step"):
         check(line[k] is not None, f"headline: {k} is null")
-    check(line["rebalance"] is None and line["service"] is None,
-          "headline: BENCH_REBALANCE=0/BENCH_SERVICE=0 did not skip")
+    check(line["rebalance"] is None and line["service"] is None
+          and line["soak"] is None,
+          "headline: BENCH_REBALANCE/BENCH_SERVICE/BENCH_SOAK=0 did not "
+          "skip")
     check(line["stress"]["migration_fraction"] > 0.8,
           f"headline: stress migration {line['stress']['migration_fraction']}"
           f" is not a full reshuffle")
@@ -1800,7 +1812,9 @@ def service_phase(torch, _build, migrate, overlay, profiling, kernel_times,
 
 
 DRIVER_STEPS = 16
-DRIVER_SUP_N_LOCAL = 1 << 17  # the supervised and elastic legs
+DRIVER_SUP_N_LOCAL = 1 << 17  # the supervised, elastic and history legs
+HISTORY_STEPS = 48  # the history leg: 3 chunks of 16, snapshots every 16
+HISTORY_CORRUPT = 24  # the NaN burst, before step 25
 
 
 def _device_set(torch, state):
@@ -1864,7 +1878,12 @@ def driver_phase(torch, _build, work):
     timed; (c) a supervised run at 2^17 rows a vrank with a crash at step
     10 and one restart, the uninterrupted run's particle set, and an
     elastic restore onto (2, 2, 1); (d) config 4's rebalance leg on the
-    torch backend, every clause of its gate."""
+    torch backend, every clause of its gate; (e) the history plane: a
+    supervised pipelined run in chunks of 16 at 2^17 rows a vrank with a
+    journal store, an incident directory, ``probes="counters"`` and a NaN
+    burst: one restart, one bundle naming the step, the store verified
+    with the recorder's counts, kernel 2 launched in the leg, and the
+    drains' seconds beside the leg's."""
     from mpi_grid_redistribute_tpu_torch import service as tservice
     from mpi_grid_redistribute_tpu_torch.bench import config4_drift
     from mpi_grid_redistribute_tpu_torch.telemetry import StepRecorder
@@ -1983,6 +2002,10 @@ def driver_phase(torch, _build, work):
           f"driver: rebalance clauses failed: "
           f"{[k for k, v in clauses.items() if not v]}")
     laps["rebalance"] = time.perf_counter() - t0
+    # (e) the history plane under a corruption restart
+    t0 = time.perf_counter()
+    history = history_leg(torch, _build, tservice, base, work)
+    laps["store+incident"] = time.perf_counter() - t0
     out = {
         "legs": legs, "snapshot_s": snap_s, "restore_s": restore_s,
         "snapshot_mb": snap_mb, "snapshot": path,
@@ -1994,6 +2017,7 @@ def driver_phase(torch, _build, work):
             "steady_ms_per_step", "baseline_steady_ms_per_step", "speedup",
             "rebalances_applied", "post_rebalance_imbalance",
             "rows_moved", "bit_identical")},
+        "history": history,
         "seconds": laps,
     }
     log(f"service driver ({GRID} as 8 vranks of {N_LOCAL} rows, fill 0.8, "
@@ -2007,9 +2031,92 @@ def driver_phase(torch, _build, work):
         f"elastic restore onto (2, 2, 1) keep the particle set; rebalance "
         f"{reb['steady_ms_per_step']} vs {reb['baseline_steady_ms_per_step']}"
         f" ms/step, post-imbalance {reb['post_rebalance_imbalance']}; "
+        f"history leg: {history['restarts']} restart, bundle at step "
+        f"{history['nan_step']}, store verified ({history['drains']} drains, "
+        f"{history['drain_s']:.4f} s = {100 * history['drain_share']:.3f}% "
+        f"of the leg's {history['run_s']:.3f} s), kernel 2 "
+        f"{history['launches'].get('overlay_scatter_planar', 0)} launches; "
         f"seconds " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
         + f"; {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def history_leg(torch, _build, tservice, base, work):
+    """The driver's history plane on the card: a supervised run of
+    ``HISTORY_STEPS`` steps pipelined in chunks of 16 at 2^17 rows a vrank
+    with ``store_dir``, ``incident_dir``, ``probes="counters"`` and a NaN
+    burst at step ``HISTORY_CORRUPT``. Holds exactly one restart, one
+    ``nan_detected`` bundle naming the NaN step, a restore from before
+    it, ``StoreReader(verify=True)`` with the recorder's counts and no
+    duplicate row, and kernel 2's launches in the leg (counts set to 0
+    just before the run). Times every drain on the loop's thread."""
+    from mpi_grid_redistribute_tpu_torch.bench import service_driver
+    from mpi_grid_redistribute_tpu_torch.telemetry import (
+        StepRecorder,
+        incident,
+    )
+    from mpi_grid_redistribute_tpu_torch.telemetry.store import StoreReader
+
+    store_dir, inc_dir = work / "history_store", work / "history_incidents"
+    cfg = dataclasses.replace(
+        base, n_local=DRIVER_SUP_N_LOCAL, steps=HISTORY_STEPS, chunk=16,
+        pipeline=True, probes="counters", snapshot_every=16,
+        snapshot_dir=str(work / "history_snaps"), store_dir=str(store_dir),
+        incident_dir=str(inc_dir))
+    rec = StepRecorder()
+    plan = tservice.FaultPlan(
+        [tservice.StateCorruptionFault(HISTORY_CORRUPT, rows=8)])
+    timed = []  # one list of drain seconds per driver incarnation
+
+    def factory():
+        drv = tservice.ServiceDriver(cfg, recorder=rec, faults=plan)
+        timed.append(service_driver.time_drains(drv))
+        return drv
+
+    sup = tservice.Supervisor(
+        factory, policy=tservice.RestartPolicy(backoff_base_s=0.01,
+                                               backoff_cap_s=0.02),
+        recorder=rec)
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    verdict = sup.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _build.counts()
+    drains = [d for incarnation in timed for d in incarnation]
+    check(verdict.ok and verdict.restarts == 1
+          and verdict.step == HISTORY_STEPS,
+          f"history: supervised run {verdict}")
+    nan_steps = sorted(e.data["step"] for e in rec.events("state_health")
+                       if e.data.get("nan_pos") or e.data.get("nan_vel"))
+    check(bool(nan_steps), "history: no state_health event saw the NaNs")
+    named = [b for b in incident.list_bundles(inc_dir)
+             if b.get("rule") == "nan_detected"
+             and f"step {nan_steps[0]}" in str(b.get("reason", ""))]
+    check(len(named) == 1,
+          f"history: {len(named)} nan_detected bundles name step "
+          f"{nan_steps[0]}")
+    restores = [e for e in rec.events("restore")
+                if e.data.get("what") == "state"]
+    check(bool(restores) and restores[-1].data["step"] < nan_steps[0],
+          "history: the restart did not restore a pre-corruption snapshot")
+    reader = StoreReader(str(store_dir), verify=True)
+    check(reader.counts() == rec.counts(),
+          "history: the store's counts are not the recorder's")
+    keys = [(r["host"], r["pid"], r["seq"]) for r in reader.events()]
+    check(len(keys) == len(set(keys)), "history: the store holds a row twice")
+    check(launches.get("overlay_scatter_planar", 0) > 0,
+          f"history: kernel 2 was not launched in the leg ({launches})")
+    return {
+        "restarts": verdict.restarts, "nan_step": nan_steps[0],
+        "bundles": len(incident.list_bundles(inc_dir)),
+        "drains": len(drains), "drain_s": sum(drains),
+        "drain_max_s": max(drains), "run_s": run_s,
+        "drain_share": sum(drains) / run_s,
+        "store_rows": len(keys), "launches": launches,
+        "n_local": DRIVER_SUP_N_LOCAL, "steps": HISTORY_STEPS,
+    }
 
 
 HIER_DCN = (2, 1, 1)  # two pods of 4 vranks
@@ -2645,7 +2752,7 @@ def main() -> int:
     from mpi_grid_redistribute_tpu_torch.bench import (
         common, config1_oracle, config2_clustered, config3_slab,
         config5_deposit, config6_halo, config7_stress, kernel_times,
-        service_chunk,
+        multirank, service_chunk,
     )
     from mpi_grid_redistribute_tpu_torch.bench import (
         headline as headline_bench,
@@ -2658,11 +2765,13 @@ def main() -> int:
     from mpi_grid_redistribute_tpu_torch.utils import profiling
     from mpi_grid_redistribute_tpu_torch.utils import stats as stats_lib
 
-    # config 2's host data (4 x 0.8 GB, the reference's draws) is drawn
-    # in a thread while the kernels build, and only then: no timed phase
-    # shares the host with it
-    pool = concurrent.futures.ThreadPoolExecutor(1)
+    # config 2's host data (4 x 0.8 GB, the reference's draws) and the
+    # multi-rank world's halo oracle (config 6's ghost sets, float64 on
+    # the host) are computed in threads while the kernels build, and only
+    # then: no timed phase shares the host with them
+    pool = concurrent.futures.ThreadPoolExecutor(2)
     c2_future = pool.submit(config2_clustered.steady_rows, C2_TOTAL)
+    ghosts_future = pool.submit(multirank.halo_oracle, multirank.HALO_N)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2683,9 +2792,10 @@ def main() -> int:
     log(f"built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     c2_rows = c2_future.result()
+    halo_ghosts = ghosts_future.result()
     pool.shutdown()
-    log(f"config 2's host data drawn; waited {time.perf_counter() - t0:.1f}"
-        f" s for it after the build")
+    log(f"config 2's host data drawn and the multi-rank halo oracle run; "
+        f"waited {time.perf_counter() - t0:.1f} s for them after the build")
     lap("set-up and build")
 
     v, cap, budget = common.drift_sizing(GRID, N_LOCAL, FILL, MIGRATION)
@@ -2736,7 +2846,8 @@ def main() -> int:
     # ---- the multi-rank paths: NCCL at world size 1, then one gloo world
     # of 8 processes on this card, held against the 8-vrank run above
     ranks = multirank_phase(torch, pt, config1_oracle, (pos, vel, alive),
-                            planar_out, smi, args.profile)
+                            planar_out, halo_ghosts, smi, args.profile)
+    del halo_ghosts
     del planar_out
     lap("multi-rank")
 

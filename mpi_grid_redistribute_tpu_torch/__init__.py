@@ -39,7 +39,13 @@ grid as virtual ranks, or with ``mesh=`` one rank a process:
     :func:`.parallel.exchange.resolve_two_phase`,
     :func:`.parallel.migrate.vrank_exchange_two_phase_fn`) and the
     state-health probes (:mod:`.ops.statehealth`,
-    :mod:`.telemetry.probes`).
+    :mod:`.telemetry.probes`);
+  * the service driver (:class:`.service.ServiceDriver`, its supervisor
+    and fault injectors) and the telemetry history plane it drains into:
+    the journal store, the incident flight recorder, the pod merge, the
+    query plane, the regression guard and the thread sanitizer
+    (:mod:`.telemetry`), with their command-line tools (:mod:`.tools`)
+    and config 8's soak (:mod:`.bench.config8_soak`).
 
 Ranks over ``torch.distributed`` (the reference is ONE program over a
 ``jax.sharding.Mesh``; the port is one program a rank):

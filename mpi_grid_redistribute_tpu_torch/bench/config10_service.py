@@ -56,6 +56,7 @@ import time
 import numpy as np
 
 from mpi_grid_redistribute_tpu_torch.bench import common
+from mpi_grid_redistribute_tpu_torch.telemetry import regress
 
 
 def _knobs() -> dict:
@@ -103,23 +104,6 @@ def _make_driver(kn, chunk: int, steps: int, device, pipeline: bool = False,
     return ServiceDriver(cfg)
 
 
-def min_of_k(sample, k: int = 5) -> dict:
-    """``sample()`` k times: ``{min, max, mean, spread, k, values}``,
-    ``spread`` = (max - min) / min (the reference's ``regress.min_of_k``)."""
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    values = [float(sample()) for _ in range(k)]
-    lo, hi = min(values), max(values)
-    return {
-        "min": lo,
-        "max": hi,
-        "mean": sum(values) / k,
-        "spread": (hi - lo) / lo if lo > 0 else 0.0,
-        "k": k,
-        "values": values,
-    }
-
-
 def _measure_pps(kn, chunk: int, device, pipeline: bool = False) -> dict:
     """Min-of-k segment timing of the full driver loop at one chunk."""
     seg, k = kn["seg"], kn["k"]
@@ -139,7 +123,7 @@ def _measure_pps(kn, chunk: int, device, pipeline: bool = False) -> dict:
         drv.run(max_steps=seg)
         return (time.perf_counter() - t0) / seg
 
-    sample = min_of_k(_segment, k=k)
+    sample = regress.min_of_k(_segment, k=k)
     live = int(drv.cfg.fill * kn["n_local"]) * math.prod(kn["grid"])
     drv.close()
     return {

@@ -37,9 +37,10 @@ skips it), whose ``dcn_bytes_per_step``/``ici_bytes_per_step`` fill
 device, the reference's ``n_local`` 4096 and 128 steps;
 ``BENCH_REBALANCE=0`` skips it) and ``service`` config 10's capture
 (:func:`.config10_service.run`, its ``BENCH_SERVICE_*`` knobs;
-``BENCH_SERVICE=0`` skips it). ``soak`` is ``null``: config 8 is not
-ported (it needs ``telemetry/incident.py``). ``env`` fingerprints this
-machine;
+``BENCH_SERVICE=0`` skips it). ``soak`` is config 8's service soak
+(:func:`.config8_soak.run` on the same device, its ``BENCH_SOAK_*``
+knobs; ``BENCH_SOAK=0`` skips it). ``env`` fingerprints this machine
+(:func:`..telemetry.regress.env_fingerprint`);
 ``progprofile_hash`` and ``attribution_hash`` hash TPU programs and are
 ``null``.
 
@@ -55,8 +56,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import platform
-import subprocess
 import sys
 import time
 
@@ -65,11 +64,12 @@ import torch
 
 from mpi_grid_redistribute_tpu_torch import _device, oracle, telemetry
 from mpi_grid_redistribute_tpu_torch.bench import (
-    common, config4_drift, config7_stress, config10_service,
+    common, config4_drift, config7_stress, config8_soak, config10_service,
 )
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.models import nbody
 from mpi_grid_redistribute_tpu_torch.ops import _build
+from mpi_grid_redistribute_tpu_torch.telemetry import regress
 from mpi_grid_redistribute_tpu_torch.utils import native, profiling
 from mpi_grid_redistribute_tpu_torch.utils.stats import host_arrays
 
@@ -204,57 +204,6 @@ def time_cpu_oracle(n_total: int, migration: float, n_steps: int = 5,
     return (R * n_local) / ((time.perf_counter() - t0) / n_steps)
 
 
-def _cpu_model() -> str:
-    """The host CPU's model from ``/proc/cpuinfo`` (its vendor and family
-    where a virtual machine hides the model), else the architecture."""
-    fields = {}
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                key, _, value = line.partition(":")
-                fields.setdefault(key.strip().lower(), value.strip())
-    except OSError:
-        pass
-    fields = {k: v for k, v in fields.items() if v and v != "unknown"}
-    for key in ("model name", "cpu model", "hardware"):
-        if key in fields:
-            return fields[key]
-    parts = [fields.get(k) for k in ("vendor_id", "cpu family", "model")]
-    if any(parts):
-        return " ".join(f"{k} {v}" for k, v in zip(
-            ("vendor", "family", "model"), parts) if v)
-    return platform.machine()
-
-
-def env_fingerprint(device) -> dict:
-    """The machine the numbers came from: python, numpy, torch and its
-    CUDA, the device, the card's name and power limit (``nvidia-smi``),
-    the host CPU and its cores."""
-    dev = torch.device(device)
-    smi = None
-    if dev.type == "cuda":
-        try:
-            smi = subprocess.run(
-                ["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader"], capture_output=True, text=True,
-                check=True, timeout=30).stdout.strip().splitlines()[0]
-        except (OSError, subprocess.SubprocessError, IndexError):
-            smi = None
-    return {
-        "python": platform.python_version(),
-        "numpy": np.__version__,
-        "torch": torch.__version__,
-        "cuda": torch.version.cuda,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
-        "device_count": (torch.cuda.device_count() if dev.type == "cuda"
-                         else 0),
-        "gpu_name_power_limit": smi,
-        "host_cpu": _cpu_model(),
-        "host_cores": os.cpu_count(),
-    }
-
-
 def measure(n_local=None, device=None, migration=None, s1=None, s2=None,
             reps=None, baseline_n=None) -> dict:
     """The headline dict (``bench.py``'s keys); arguments left ``None``
@@ -308,6 +257,11 @@ def measure(n_local=None, device=None, migration=None, s1=None, s2=None,
     service = None
     if env.get("BENCH_SERVICE", "1") != "0":
         service = config10_service.run(device=dev)
+    # the service soak (config 8): the driver loop with snapshots on,
+    # and its crash, elastic and corruption legs
+    soak = None
+    if env.get("BENCH_SOAK", "1") != "0":
+        soak = config8_soak.run(device=dev)
     n_chips = 1
     line = {
         "metric": "particles_per_sec_per_chip",
@@ -329,7 +283,7 @@ def measure(n_local=None, device=None, migration=None, s1=None, s2=None,
         "exchange_bw_util": round(
             profiling.exchange_bw_util(xbytes / per_step, "hbm", n_chips), 6),
         "stress": stress,
-        "soak": None,
+        "soak": soak,
         "rebalance": rebalance,
         "service": service,
         "hier": hier,
@@ -337,7 +291,7 @@ def measure(n_local=None, device=None, migration=None, s1=None, s2=None,
             hier.get("dcn_bytes_per_step") if hier else None),
         "exchange_ici_bytes_per_step": (
             hier.get("ici_bytes_per_step") if hier else None),
-        "env": env_fingerprint(dev),
+        "env": regress.env_fingerprint(dev),
         "progprofile_hash": None,
         "attribution_hash": None,
     }

@@ -738,14 +738,16 @@ def prepare(workdir: str, n_local: int, fill: float = 0.9,
                 halo_n=halo_n)
 
 
-def reference(spec, device, single=None) -> dict:
+def reference(spec, device, single=None, halo_ghosts=None) -> dict:
     """What :func:`verify` holds the world against, on one process:
     ``digests`` of the single-process 8-vrank loop's slabs (``single``,
     the caller's ``(pos, vel, alive)`` output of ``spec["steps"]`` steps
     from the bench state, or run here with ``engine="planar"``), the
     port's NumPy oracle on config 1 over ``spec["world_grid"]``
     (``oracle``) and, with the flat part, the one-device mxu and scan
-    densities of the bench state from the plain versions (``rho``)."""
+    densities of the bench state from the plain versions (``rho``).
+    ``halo_ghosts`` is :func:`halo_oracle` of ``spec["halo_n"]`` when the
+    caller computed it ahead (it needs no card), else it runs here."""
     import torch
 
     from mpi_grid_redistribute_tpu_torch import api
@@ -785,7 +787,7 @@ def reference(spec, device, single=None) -> dict:
             dom, one, tuple(spec["deposit_shape"]), plain=True)(
                 p, ones, ones > 0).cpu().numpy()
     if "halo" in spec["parts"]:
-        ref["halo"] = _halo_reference(spec, device)
+        ref["halo"] = _halo_reference(spec, device, halo_ghosts)
     if "flat" in spec["parts"]:
         p = torch.from_numpy(nbody.rows_to_planar(pos, 1)).to(
             device).reshape(3, -1)
@@ -801,16 +803,29 @@ def reference(spec, device, single=None) -> dict:
     return ref
 
 
-def _halo_reference(spec, device) -> dict:
-    """Config 6's state through the one-device vrank engines (planar and
-    row-major): each vrank's ghost digest and count, the engines' ghosts
-    held against each other and against ``oracle.brute_force_ghosts``
-    (rows sorted, float64 oracle, 1e-5)."""
-    import torch
-
+def halo_oracle(halo_n: int) -> list:
+    """``oracle.brute_force_ghosts`` of config 6's state at ``halo_n`` rows
+    a vrank: each vrank's ghost rows. Host only (the longest part of
+    :func:`reference`, so a caller may compute it while the card is busy
+    elsewhere)."""
     from mpi_grid_redistribute_tpu_torch import oracle
     from mpi_grid_redistribute_tpu_torch.bench import config6_halo
     from mpi_grid_redistribute_tpu_torch.domain import ProcessGrid
+
+    pos_v, _, w, _, _ = config6_halo.setup(halo_n)
+    return oracle.brute_force_ghosts(config6_halo.DOMAIN, ProcessGrid(GRID),
+                                     list(pos_v), w)
+
+
+def _halo_reference(spec, device, want=None) -> dict:
+    """Config 6's state through the one-device vrank engines (planar and
+    row-major): each vrank's ghost digest and count, the engines' ghosts
+    held against each other and against ``oracle.brute_force_ghosts``
+    (rows sorted, float64 oracle, 1e-5; ``want``, :func:`halo_oracle`'s
+    result, when the caller has it)."""
+    import torch
+
+    from mpi_grid_redistribute_tpu_torch.bench import config6_halo
 
     pos_v, count, w, pc, gc = config6_halo.setup(spec["halo_n"])
     fns = config6_halo.engines(w, pc, gc)
@@ -823,8 +838,8 @@ def _halo_reference(spec, device) -> dict:
             or r_over.any():
         raise AssertionError("config 6 vrank engines: counts differ or "
                              "overflow")
-    want = oracle.brute_force_ghosts(config6_halo.DOMAIN, ProcessGrid(GRID),
-                                     list(pos_v), w)
+    if want is None:
+        want = halo_oracle(spec["halo_n"])
     out = {"gcount": gcount, "digest": {"auto": [], "rowmajor": []}}
     for v in range(len(gcount)):
         g = int(gcount[v])

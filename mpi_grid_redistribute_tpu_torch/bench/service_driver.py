@@ -13,6 +13,9 @@ state (~2% migration a step at dt = 1.0):
   ``torch.profiler`` trace of one segment; for the chunked legs, the
   chunk overlap read off a trace of host and device activity over two
   segments (:func:`_read_overlap`);
+* the chunked and pipelined legs again with a journal store on
+  (``store_dir``, drained at every chunk boundary): the same figures,
+  and each drain's ms on the loop's thread;
 * one synchronous snapshot (pos, vel, ids and count: 28 B a row), the
   loop's share of an asynchronous one (the host copy; the write runs on
   the writer thread), and ``restore_latest`` into a fresh driver, each
@@ -103,12 +106,34 @@ def _syncs(drv, steps: int) -> int:
     return sum("synchroniz" in str(w.message) for w in seen)
 
 
+def time_drains(drv) -> list:
+    """Time ``drv``'s journal-store drains on the loop's thread: the
+    returned list gets each drain's seconds on the host clock (it stays
+    empty when the driver has no store)."""
+    drains = []
+    store = drv._store
+    if store is None:
+        return drains
+    real = store.drain
+
+    def timed(recorder):
+        t = time.perf_counter()
+        try:
+            return real(recorder)
+        finally:
+            drains.append(time.perf_counter() - t)
+
+    store.drain = timed
+    return drains
+
+
 def time_leg(cfg, seg: int, reps: int) -> dict:
     from mpi_grid_redistribute_tpu_torch.service import ServiceDriver
 
     chunked = cfg.chunk > 1
     steps = seg * (reps + (5 if chunked else 3))
     drv = ServiceDriver(dataclasses.replace(cfg, steps=steps))
+    drains = time_drains(drv)
     drv.init_state()
     drv.run(max_steps=seg)  # first builds and the calibration
     samples = []
@@ -125,10 +150,14 @@ def time_leg(cfg, seg: int, reps: int) -> dict:
     dropped = sum(e.data["dropped"]
                   for e in drv.recorder.events("step_latency"))
     drv.close()
-    return {"ms_per_step": ms, "median_ms_per_step": sorted(samples)[
+    out = {"ms_per_step": ms, "median_ms_per_step": sorted(samples)[
         len(samples) // 2], "host_syncs_per_step": syncs / seg,
         "device_busy_ms_per_step": busy, "idle": 1 - busy / ms,
         "dropped": dropped, "overlap": overlap}
+    if drains:
+        out["drains"] = {"n": len(drains), "mean_ms": 1e3 * sum(drains)
+                         / len(drains), "max_ms": 1e3 * max(drains)}
+    return out
 
 
 def time_snapshot(cfg, workdir: str) -> dict:
@@ -178,13 +207,19 @@ def main() -> int:
     n_local = int(os.environ.get("BENCH_N_LOCAL", 1 << 20))
     cfg = DriverConfig(grid_shape=GRID, n_local=n_local, fill=0.8, seed=0)
     legs = {}
-    for name, kw in (("eager", dict(chunk=1)),
-                     ("chunked", dict(chunk=CHUNK)),
-                     ("pipelined", dict(chunk=CHUNK, pipeline=True))):
-        legs[name] = time_leg(dataclasses.replace(cfg, **kw), SEG, REPS)
-        common.log(f"service driver {name}: {json.dumps(legs[name])}")
     os.makedirs("build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="build") as work:
+        for name, kw in (
+                ("eager", dict(chunk=1)),
+                ("chunked", dict(chunk=CHUNK)),
+                ("pipelined", dict(chunk=CHUNK, pipeline=True)),
+                ("chunked_store", dict(chunk=CHUNK, store_dir=os.path.join(
+                    work, "store_c"))),
+                ("pipelined_store", dict(chunk=CHUNK, pipeline=True,
+                                         store_dir=os.path.join(
+                                             work, "store_p")))):
+            legs[name] = time_leg(dataclasses.replace(cfg, **kw), SEG, REPS)
+            common.log(f"service driver {name}: {json.dumps(legs[name])}")
         snap = time_snapshot(cfg, work)
     common.log(f"service driver snapshot: {json.dumps(snap)}")
     live = int(cfg.fill * n_local) * 8

@@ -15,7 +15,11 @@ cadence:
   degrades ``engine -> planar`` once if ``fast_path_fallback`` fires,
   raises :class:`~.faults.SLOBreachError` on an SLO rule, and with
   ``rebalance`` runs the closed loop (ALERT -> plan -> guard -> one
-  ``apply_assignment``).
+  ``apply_assignment``);
+* with ``store_dir``, drains the journal ring into a durable
+  :class:`~..telemetry.store.JournalStore` at every chunk boundary; with
+  ``incident_dir``, freezes an incident bundle
+  (:mod:`..telemetry.incident`) on every ALERT and injected fault.
 
 A wall-clock watchdog turns a stalled step into a
 :class:`~.faults.StallError`, a failure the supervisor restarts from a
@@ -146,15 +150,20 @@ class DriverConfig:
     rebalance_min_improvement: float = 0.05
     # one torch.profiler session a run() call (GRID_PROFILE_DIR too)
     profile_dir: Optional[str] = None
-    # the incident flight recorder and the durable journal store need
-    # telemetry/incident.py and telemetry/store.py (ROADMAP item 5):
-    # setting either raises ValueError until they are ported
+    # the incident flight recorder (telemetry/incident.py): every ALERT
+    # finding, and every injected fault scanned at boundaries and close,
+    # freezes a debounced bundle here; keyed on the shared journal, so
+    # its debounce and counter survive supervisor restarts
     incident_dir: Optional[str] = None
-    incident_debounce_s: float = 60.0
+    incident_debounce_s: float = 60.0  # per-rule bundle debounce window
+    # the durable journal store (telemetry/store.py): the ring is drained
+    # here at the end of every chunk (every step when eager) and at
+    # close(), never inside a chunk; a restarted driver resumes from the
+    # manifest's watermark
     store_dir: Optional[str] = None
-    store_segment_events: int = 4096
-    store_retain_bytes: int = 64 * 1024 * 1024
-    store_compact_after: int = 2
+    store_segment_events: int = 4096   # events per segment before rotation
+    store_retain_bytes: int = 64 * 1024 * 1024  # closed-segment disk budget
+    store_compact_after: int = 2       # newest raw segments kept uncompacted
     # multi-window burn-rate alerting over the SLO thresholds (alerting
     # only: no SLOBreachError)
     burn_rate_alerts: bool = False
@@ -182,13 +191,6 @@ class ServiceDriver:
             raise ValueError(
                 f"backend must be one of {BACKENDS}, got {cfg.backend!r}"
             )
-        for name, module in (("incident_dir", "incident"),
-                             ("store_dir", "store")):
-            if getattr(cfg, name):
-                raise ValueError(
-                    f"DriverConfig.{name} needs telemetry/{module}.py, "
-                    f"which is not ported yet (ROADMAP item 5)"
-                )
         if cfg.snapshot_every and not cfg.snapshot_dir:
             raise ValueError("snapshot_every set but snapshot_dir is None")
         if cfg.snapshot_every and cfg.keep_snapshots < 2:
@@ -231,6 +233,8 @@ class ServiceDriver:
         self._state_breach = False
         self._install_slo_rules()
         self._install_rebalance_rule()
+        self._flight = self._install_flight_recorder()
+        self._store = self._install_store()
 
     def _install_slo_rules(self) -> None:
         # the monitor is SHARED across supervisor restarts: install by
@@ -272,6 +276,40 @@ class ServiceDriver:
                     slow_window=slow,
                 )
             )
+
+    def _install_store(self):
+        # one JournalStore per store root; a supervisor-restarted driver
+        # re-opens the same root and the manifest's drain watermark (seq
+        # against the SHARED recorder) keeps drains exactly-once
+        if not self.cfg.store_dir:
+            return None
+        from mpi_grid_redistribute_tpu_torch.telemetry.store import (
+            JournalStore,
+        )
+
+        return JournalStore(
+            self.cfg.store_dir,
+            segment_events=self.cfg.store_segment_events,
+            retain_bytes=self.cfg.store_retain_bytes,
+            compact_after=self.cfg.store_compact_after,
+        )
+
+    def _install_flight_recorder(self):
+        # idempotent per shared recorder: a restarted driver re-registers
+        # the SAME flight recorder on its fresh monitor, so debounce
+        # clocks and the bundle counter survive the restart
+        if not self.cfg.incident_dir:
+            return None
+        from mpi_grid_redistribute_tpu_torch.telemetry import (
+            incident as incident_lib,
+        )
+
+        return incident_lib.install(
+            self.monitor,
+            self.recorder,
+            self.cfg.incident_dir,
+            debounce_s=self.cfg.incident_debounce_s,
+        )
 
     def _install_rebalance_rule(self) -> None:
         # the stock WARN imbalance_ratio rule becomes an ALERT copy at the
@@ -906,13 +944,25 @@ class ServiceDriver:
     def _run_boundary(self) -> None:
         # snapshot/health hooks at the step the chunk just ended at
         cfg = self.cfg
-        self._state_health_gate()
-        if cfg.snapshot_every and self.step % cfg.snapshot_every == 0:
-            path = self.snapshot()
-            self.faults.after_snapshot(self, path)
-            self._health_check()
-        elif cfg.health_every and self.step % cfg.health_every == 0:
-            self._health_check()
+        # freeze fault bundles BEFORE the health pass: a finding the fault
+        # provoked may raise (SLOBreachError) out of the check
+        if self._flight is not None:
+            self._flight.scan_faults()
+        try:
+            self._state_health_gate()
+            if cfg.snapshot_every and self.step % cfg.snapshot_every == 0:
+                path = self.snapshot()
+                self.faults.after_snapshot(self, path)
+                self._health_check()
+            elif cfg.health_every and self.step % cfg.health_every == 0:
+                self._health_check()
+        finally:
+            # drain AFTER the health pass (its alerts make this boundary's
+            # segment) and even when it raised: the evidence of a breach
+            # reaches disk before the restart. The ring holds host values
+            # only, so the drain reads nothing from the device.
+            if self._store is not None:
+                self._store.drain(self.recorder)
 
     def _run_chunk_eager(self, n: int, fire_faults: bool = True) -> None:
         """Advance ``n`` steps through the eager per-step path: the numpy
@@ -1149,6 +1199,14 @@ class ServiceDriver:
         self.join_snapshot_writer()
         if self._rd is not None:
             self._rd.flush_overflow_checks()
+        if self._flight is not None:
+            # a fault that crashed the attempt before the next boundary
+            # still leaves its incident bundle behind
+            self._flight.scan_faults()
+        if self._store is not None:
+            # final drain, rotate, compact and retention BEFORE the
+            # journal export, so the shard holds the last store_drain
+            self._store.close(self.recorder)
         self.export_journal()
 
     def abandon(self) -> Optional[str]:
@@ -1197,8 +1255,9 @@ def main(argv=None) -> int:
     p.add_argument("--journal-dir", default=None)
     p.add_argument(
         "--store-dir", default=None, metavar="DIR",
-        help="durable journal store root (needs telemetry/store.py, not "
-             "ported yet: refused)",
+        help="durable journal store root (telemetry/store.py): the "
+             "recorder ring is drained here at the end of every chunk "
+             "and at close",
     )
     p.add_argument("--keep-snapshots", type=int, default=4)
     p.add_argument("--sync-snapshots", action="store_true")
@@ -1268,8 +1327,9 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--incident-dir", default=None, metavar="DIR",
-        help="incident bundles (needs telemetry/incident.py, not ported "
-             "yet: refused)",
+        help="freeze a debounced incident bundle into DIR on every "
+             "ALERT / injected fault (telemetry/incident.py; inspect with "
+             "python -m mpi_grid_redistribute_tpu_torch.tools.incident)",
     )
     p.add_argument(
         "--final-out", default=None,

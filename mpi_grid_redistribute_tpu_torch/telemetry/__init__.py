@@ -17,6 +17,23 @@ JAX package's ``telemetry`` package, its host-side core).
   probes (``ops/statehealth.py``): :class:`~.probes.ProbeConfig`,
   :func:`~.probes.record_probe_steps`, :func:`~.probes.summarize_host`.
 
+The history plane:
+
+* :mod:`.aggregate`: merge per-process journal shards into one stream
+  (:func:`~.aggregate.merge_journals`, exact summed counts);
+* :mod:`.store`: the durable segmented journal store the service driver
+  drains into (:class:`~.store.JournalStore`, :class:`~.store.StoreReader`);
+* :mod:`.query`: filter / window / group over any journal source, the
+  ``/query`` and ``/events`` grammar;
+* :mod:`.incident`: the flight recorder that freezes an incident bundle
+  on an ALERT, an injected fault or a bench regression;
+* :mod:`.regress`: the min-of-k protocol, the regression classifier and
+  :func:`~.regress.env_fingerprint`;
+* :mod:`.tsan`: the runtime thread-access sanitizer of the recorder.
+
+``store``, ``query``, ``incident`` and ``regress`` import neither torch
+nor numpy (the scrape path stays off the device).
+
 Journaling is host-side only and never reads the device; ``report()`` and
 ``flow()`` read the last call's stats once. Event kinds, payload keys and
 metric families are the JAX package's (its ``telemetry/SCHEMA.md``).
@@ -100,4 +117,41 @@ from mpi_grid_redistribute_tpu_torch.telemetry.probes import (  # noqa: F401
     ProbeConfig,
     record_probe_steps,
     summarize_host,
+)
+from mpi_grid_redistribute_tpu_torch.telemetry.regress import (  # noqa: F401
+    check_capture,
+    classify_capture,
+    classify_delta,
+    env_fingerprint,
+    extract_metrics,
+    min_of_k,
+    noise_floor,
+)
+from mpi_grid_redistribute_tpu_torch.telemetry.aggregate import (  # noqa: F401
+    MergedJournal,
+    merge_journals,
+)
+from mpi_grid_redistribute_tpu_torch.telemetry.incident import (  # noqa: F401
+    FlightRecorder,
+    list_bundles,
+    load_bundle,
+)
+from mpi_grid_redistribute_tpu_torch.telemetry.tsan import (  # noqa: F401
+    ThreadAccess,
+    ThreadAccessTracer,
+)
+from mpi_grid_redistribute_tpu_torch.telemetry.store import (  # noqa: F401
+    JournalStore,
+    StoreCorruptError,
+    StoreReader,
+    list_stores,
+)
+from mpi_grid_redistribute_tpu_torch.telemetry.query import (  # noqa: F401
+    QueryError,
+    events_page,
+    filter_rows,
+    group_rows,
+    rows_of,
+    run_query,
+    window_aggregate,
 )

@@ -44,7 +44,6 @@ import time
 from typing import Dict, List, NamedTuple, Optional
 
 from mpi_grid_redistribute_tpu_torch.telemetry import context as context_lib
-from mpi_grid_redistribute_tpu_torch.utils.stats import host_arrays
 
 
 class Event(NamedTuple):
@@ -240,6 +239,8 @@ def record_migrate_steps(
     mismatched hand-built pytree raises a named ValueError here instead
     of silently reshaping into wrong per-step totals (or dying in numpy
     with an opaque broadcast error)."""
+    from mpi_grid_redistribute_tpu_torch.utils.stats import host_arrays
+
     names = ("received", "backlog", "dropped_recv", "population")
     sent0, *rest = host_arrays(
         [stats.sent] + [getattr(stats, name) for name in names])
@@ -305,6 +306,8 @@ def record_fast_path_steps(
             " mover_cap (no sparse path to journal); build it with"
             " engine='auto'/'sparse' on a sparse-eligible config first"
         )
+    from mpi_grid_redistribute_tpu_torch.utils.stats import host_arrays
+
     fp, sent, backlog = host_arrays(
         [stats.fast_path, stats.sent, stats.backlog])
     fp = fp.reshape(-1, fp.shape[-1])

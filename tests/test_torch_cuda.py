@@ -1363,3 +1363,55 @@ def test_chunk_ys_reach_the_host_before_the_next_chunk_ends(cuda):
     drv.close()
     assert len(seen) >= 3, seen
     assert not any(seen), f"chunk k+1 had ended at chunk k's read: {seen}"
+
+
+@pytest.mark.cuda
+def test_store_drain_reads_nothing_from_the_card(cuda, tmp_path):
+    """The history plane on the card: every store drain and an incident
+    capture run under sync debug mode "error" (a read of a device value
+    there raises); with a drain at the end of every chunk, each chunk
+    but the last still has its successor issued before its host reads
+    (whether the card is still busy then is timing, measured by
+    ``bench/service_driver.py``'s store legs); the store verifies with
+    the recorder's counts."""
+    from mpi_grid_redistribute_tpu_torch.service import ServiceDriver
+    from mpi_grid_redistribute_tpu_torch.telemetry.store import StoreReader
+
+    drv = ServiceDriver(_driver_cfg(
+        None, n_local=1 << 18, chunk=8, steps=40,
+        store_dir=str(tmp_path / "store"),
+        incident_dir=str(tmp_path / "inc")))
+    drv.init_state()
+    ends, ahead, drains = [], [], []
+    real_stage, real_wait = drv._stage_ys, drv._wait_staged
+    real_drain = drv._store.drain
+
+    def stage(ys, start):
+        staged = real_stage(ys, start)
+        ends.append(staged[2])
+        return staged
+
+    def wait(staged):
+        ahead.append(len(ends) - 1 - ends.index(staged[2]))
+        return real_wait(staged)
+
+    def drain(recorder):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            drains.append(real_drain(recorder))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    drv._stage_ys, drv._wait_staged = stage, wait
+    drv._store.drain = drain
+    drv.run()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        drv._flight.capture(rule="probe", reason="a capture on the card")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    drv.close()
+    assert len(drains) == 6  # the end of each chunk of 8, and close()
+    assert ahead == [1, 1, 1, 1, 0], ahead
+    reader = StoreReader(str(tmp_path / "store"), verify=True)
+    assert reader.counts() == drv.recorder.counts()

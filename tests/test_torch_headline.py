@@ -59,10 +59,12 @@ def _bench_module():
 def test_key_set_is_bench_pys(monkeypatch):
     """``bench.py``'s 25 keys; config 7's stress (one small size here),
     config 4's hierarchical capture (the two-level byte split read off
-    it), config 4's rebalance leg and config 10's service capture
-    filled (small sizes here); config 8's soak and the TPU hashes
-    null."""
+    it), config 4's rebalance leg, config 10's service capture and
+    config 8's soak filled (small sizes here); the TPU hashes null."""
     monkeypatch.setenv("BENCH_STRESS_N", str(1 << 12))
+    for k, v in (("N_LOCAL", "512"), ("K", "1"), ("EVERY", "4"),
+                 ("STEPS", "12")):
+        monkeypatch.setenv(f"BENCH_SOAK_{k}", v)
     monkeypatch.setattr(config4_drift, "run_rebalance", functools.partial(
         config4_drift.run_rebalance, n_local=512, steps=48))
     for k, v in (("K", "1"), ("SEG", "4"), ("CHUNKS", "2,4")):
@@ -73,8 +75,13 @@ def test_key_set_is_bench_pys(monkeypatch):
     assert len(keys) == 25
     assert list(line) == keys
     json.loads(json.dumps(line))
-    for k in ("soak", "progprofile_hash", "attribution_hash"):
+    for k in ("progprofile_hash", "attribution_hash"):
         assert line[k] is None, k
+    soak = line["soak"]
+    assert soak["metric"] == "soak_pps" and soak["value"] > 0
+    assert soak["rows"] == 8 * int(0.8 * 512) and soak["timing_k"] == 1
+    assert soak["bit_identical_resume"] and soak["elastic_set_identical"]
+    assert soak["corruption_recovered"] and soak["resharded"] >= 1
     reb, svc = line["rebalance"], line["service"]
     assert reb["metric"] == "config4_rebalance_steady_ms"
     assert reb["rebalances_applied"] >= 1 and reb["bit_identical"]
@@ -154,6 +161,7 @@ def test_journal_shard_and_native_fallback(monkeypatch, tmp_path):
     monkeypatch.setenv("BENCH_HIER", "0")
     monkeypatch.setenv("BENCH_REBALANCE", "0")
     monkeypatch.setenv("BENCH_SERVICE", "0")
+    monkeypatch.setenv("BENCH_SOAK", "0")
     monkeypatch.setattr(native, "build", lambda *a, **k: False)
     line = headline.measure(n_local=1024, device="cpu", s1=1, s2=2, reps=1,
                             baseline_n=8 * 512)
@@ -168,6 +176,7 @@ def test_journal_shard_and_native_fallback(monkeypatch, tmp_path):
     assert line["stress"] is None and line["hier"] is None
     assert line["exchange_dcn_bytes_per_step"] is None
     assert line["rebalance"] is None and line["service"] is None
+    assert line["soak"] is None
 
 
 def test_headline_needs_a_card_unless_asked_for_the_cpu():

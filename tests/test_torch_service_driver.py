@@ -11,7 +11,7 @@ engine: the particle set still agrees). Also: snapshots (restore, the
 reference loading the port's snapshots, cadence under a misaligned
 chunk), a chunk that overflows (grown, re-run eagerly), the chunk
 reading nothing back, the eager drift's zero (C13), the pacing and
-watchdog walls, the refusals and the CLI."""
+watchdog walls, the store and incident directories and the CLI."""
 
 import dataclasses
 import json
@@ -347,14 +347,31 @@ def test_step_sleep_still_counts_against_watchdog(chunk):
     assert evs[0].data["seconds"] < cfg.watchdog_s
 
 
-@pytest.mark.parametrize("field,module", [("store_dir", "store"),
-                                          ("incident_dir", "incident")])
-def test_store_and_incident_dirs_are_refused(tmp_path, field, module):
-    _, cfg = cfg_pair("torch", **{field: str(tmp_path)})
-    with pytest.raises(ValueError, match=(
-            f"DriverConfig.{field} needs telemetry/{module}.py.*"
-            r"ROADMAP item 5")):
-        tservice.ServiceDriver(cfg)
+@pytest.mark.parametrize("field", ["store_dir", "incident_dir"])
+def test_store_and_incident_dirs_work(tmp_path, field):
+    """``store_dir``: the ring drained at every boundary into a verified
+    store holding the recorder's counts. ``incident_dir``: an injected
+    fault leaves its bundle, scanned at the next boundary."""
+    from mpi_grid_redistribute_tpu_torch.telemetry import incident, store
+
+    _, cfg = cfg_pair("torch", steps=12, snapshot_every=4,
+                      snapshot_dir=str(tmp_path / "s"),
+                      **{field: str(tmp_path / field)})
+    drv = tservice.ServiceDriver(cfg, faults=tservice.FaultPlan(
+        [tservice.LatencySpikeFault(5, seconds=0.001, spikes=1)]))
+    drv.init_state()
+    drv.run()
+    drv.close()
+    if field == "store_dir":
+        reader = store.StoreReader(cfg.store_dir, verify=True)
+        assert reader.counts() == drv.recorder.counts()
+        assert reader.counts()["store_drain"] == 13  # every step, close
+        assert len(reader.events("step_latency")) == 13  # one spiked
+    else:
+        (bundle,) = incident.list_bundles(cfg.incident_dir)
+        assert bundle["rule"] == "fault_latency_spike"
+        assert bundle["trigger"] == "fault"
+        assert drv.recorder.last("incident").data["id"] == bundle["id"]
 
 
 def test_config_validation():
@@ -445,8 +462,20 @@ def test_cli_supervised_restart_and_breaker(tmp_path):
     assert r.returncode == 3, r.stderr
     verdict = json.loads(r.stdout.strip().splitlines()[-1])
     assert verdict["gave_up"] is True and verdict["restarts"] == 2
-    r = _cli("--steps", "2", "--store-dir", str(tmp_path))
-    assert r.returncode != 0 and "ROADMAP item 5" in r.stderr
+    # the history plane's flags: a store and the crash's bundle
+    from mpi_grid_redistribute_tpu_torch.telemetry import incident, store
+
+    r = _cli("--steps", "8", "--snapshot-every", "4", "--snapshot-dir",
+             str(tmp_path / "s2"), "--supervise", "--inject-crash", "6",
+             "--store-dir", str(tmp_path / "store"), "--incident-dir",
+             str(tmp_path / "inc"))
+    assert r.returncode == 0, r.stderr
+    verdict = json.loads(r.stdout.strip().splitlines()[-1])
+    assert verdict["ok"] is True and verdict["restarts"] == 1
+    reader = store.StoreReader(str(tmp_path / "store"), verify=True)
+    assert reader.counts()["restart"] == 1
+    rules = [b["rule"] for b in incident.list_bundles(tmp_path / "inc")]
+    assert rules == ["fault_crash"]
 
 
 def test_journal_export_heals_a_lost_shard(tmp_path):
