@@ -102,8 +102,21 @@ started together), then, on the card:
      incident directory, the counters probes and a NaN burst at step 24
      (one restart, one ``nan_detected`` bundle naming the step, a
      restore from before it, the store verified with the recorder's
-     counts and no row twice, kernel 2 launched in the leg), with the
-     drains' seconds and their share of the leg;
+     counts and no row twice, ``tools.storecheck``'s file-level checks
+     clean on it, kernel 2 launched in the leg), with the drains' seconds
+     and their share of the leg; then the counted rooflines and this
+     slice's tools: every one-device registered program
+     (``analysis.progcheck``) counted on the card and on the CPU with the
+     same bytes, flops and kernel counts (``telemetry.roofline.
+     count_cost``; the planar knockout step too), timed, and its
+     ``roofline_report`` row journaled and read back as the
+     ``roofline_achieved_fraction`` gauge; two of them counted and timed
+     again at 2^20 rows a vrank, where a share is real; every
+     ``achieved_fraction`` in (0, 1.05]; the knockout of the planar step (``bench/knockout_stages``)
+     cut after each phase, its phase 8 bit-equal to
+     ``make_migrate_loop(engine="planar")``; ``tools.trace_export
+     --demo``, ``examples.drift_demo --steps 3`` (both verdict lines) and
+     ``tools.incident_demo --check`` on the card;
   7. drives the halo exchange (config 6: the 2x2x2 grid as 8 vranks on
      the periodic unit box, every slot filled, width 0.05, derived
      capacities): at 2^18 rows per vrank both vrank engines on the card
@@ -270,7 +283,6 @@ def driftbin_phase(torch, pt, driftbin, profiling, state_np):
     domain = Domain(0.0, 1.0, periodic=True)
     grid = ProcessGrid(GRID)
     flat0 = torch.from_numpy(state_np).cuda()
-    m = flat0.shape[1]
     fk, kk = driftbin.drift_wrap_bin(flat0.clone(), DT, domain, grid, V, V)
     fp, kp = driftbin.drift_wrap_bin_plain(
         flat0.clone(), DT, domain, grid, V, V
@@ -316,12 +328,9 @@ def driftbin_phase(torch, pt, driftbin, profiling, state_np):
         lambda: driftbin.drift_wrap_bin_plain(work, DT, domain, grid, V, V),
         iters=5,
     )
-    D = 3
-    bytes_moved = m * 4 * ((2 * D + 1) + (D + 1))
-    # per column: D x (mul, add, sub, mul, floor, mul, compare/select,
-    # add) per wrap twice + the bin's sub, mul, floor, clip, mul-add
-    ops = m * D * (2 * 8 + 6)
-    b_ms, b_by = bound(bytes_moved, ops)
+    # the kernel's own count (ops/driftbin.kernel_cost), the one
+    # telemetry.roofline.count_cost adds for a call
+    b_ms, b_by = bound(*driftbin.kernel_cost(work, DT, domain, grid, V, V))
     return {
         "name": "drift_wrap_bin",
         "route": "cuda",
@@ -373,8 +382,9 @@ def overlay_phase(torch, overlay, profiling, kernel_times, budget):
     )
     n_ok = int(((targets >= 0) & (targets < m)).sum())
     P = targets.shape[0]
-    bytes_moved = 4 * P + 4 * K * P + 4 * K * n_ok
-    b_ms, b_by = bound(bytes_moved, 0)
+    # the kernel's own count (ops/overlay.kernel_cost): every target read,
+    # the in-range columns read and written
+    b_ms, b_by = bound(*overlay.kernel_cost(flat0, targets, cols))
     # every in-range word alone in its 32-byte sector, written (and, for a
     # partial sector, first read) once: the floor at sector granularity
     log(f"overlay_scatter_planar: {n_ok} in-range of {P}; bound "
@@ -468,9 +478,9 @@ def scatter_phase(torch, scatter, profiling, state_np, budget):
         f"ms eager; index_put_ {library_ms:.5f} ms as a graph, "
         f"{library_eager_ms:.5f} ms eager")
     n_ok = int(ok.sum())
-    # the targets, and the in-range rows read once and written once (the
-    # dropped rows are never needed)
-    b_ms, b_by = bound(4 * P + 2 * 4 * K * n_ok, 0)
+    # the kernel's own count (ops/scatter.kernel_cost): the targets, and
+    # the in-range rows read once and written once
+    b_ms, b_by = bound(*scatter.kernel_cost(work, targets, rows))
     log(f"scatter_rows: {n_ok} in-range of {P} targets into [{m}, {K}]")
     return {
         "name": "scatter_rows",
@@ -1120,15 +1130,13 @@ def dfscan_phase(torch, dfscan, profiling):
                   for u, v in zip(kb, pb)),
               f"tile_df_cumsum_rows block route != plain at "
               f"[{xb.shape[0]}, {bt}]")
-        bsteps = (bt - 1).bit_length()
         block[bt] = {
             "shape": list(xb.shape),
             "ms": profiling.cuda_time_ms(
                 lambda: dfscan.tile_df_cumsum_rows(xb)),
             "plain_ms": profiling.cuda_time_ms(
                 lambda: dfscan.tile_df_cumsum_rows_plain(xb), iters=3),
-            "bound_ms": bound(12 * xb.numel(),
-                              2 * 11 * bsteps * xb.numel())[0],
+            "bound_ms": bound(*dfscan.kernel_cost(xb))[0],
         }
         del kb, pb, hb
     log(json.dumps({"dfscan_block_route": block}))
@@ -1137,11 +1145,9 @@ def dfscan_phase(torch, dfscan, profiling):
     plain_ms = profiling.cuda_time_ms(
         lambda: dfscan.tile_df_cumsum_rows_plain(x), iters=5
     )
-    n = rows * tile
-    steps = (tile - 1).bit_length()
-    # read x once, write hi and lo once; 11 adds/subtracts per df_add,
-    # each taking an FMA's issue slot (2 of PEAK_F32's FLOPs)
-    b_ms, b_by = bound(12 * n, 2 * 11 * steps * n)
+    # the kernel's own count (ops/dfscan.kernel_cost): x read once, hi and
+    # lo written once; 11 adds/subtracts per df_add, each an FMA's slot
+    b_ms, b_by = bound(*dfscan.kernel_cost(x))
     return {
         "name": "tile_df_cumsum_rows",
         "route": "cuda",
@@ -1172,7 +1178,6 @@ def segdep_phase(torch, segdep, common, profiling, kernel_times, stream):
     n_cells = 8 * 64^3 cells, unit mass (the loop's mxu deposit); and on
     the streams that put runs across its tile edges."""
     keys, rel, n_cells, vblock = stream
-    N = keys.shape[0]
     # dyadic rel (multiples of 1/4): every weight is a multiple of 1/64 and
     # every per-cell sum exact, so any order gives the same bits
     rel_d = torch.floor(rel * 4) / 4
@@ -1237,7 +1242,8 @@ def segdep_phase(torch, segdep, common, profiling, kernel_times, stream):
     d4 = {
         "ms": profiling.cuda_graph_time_ms(
             lambda: segdep.segsum_sorted(keys, rel4, None, n_cells, vb4)),
-        "bound_ms": bound(N * 20 + 16 * n_cells * 4, N * (24 + 64 + 16))[0],
+        "bound_ms": bound(*segdep.kernel_cost(keys, rel4, None, n_cells,
+                                              vb4))[0],
     }
     log(json.dumps({"segdep_d4": d4}))
     del rel4
@@ -1251,9 +1257,10 @@ def segdep_phase(torch, segdep, common, profiling, kernel_times, stream):
         lambda: segdep.segsum_sorted_plain(keys, rel, None, n_cells, vblock),
         iters=5,
     )
-    # read keys + 3 rel rows once, write the [8, n_cells] canvas once;
-    # per row ~3 x 6 frac ops, 8 corners x 3 weight ops and 8 sum adds
-    b_ms, b_by = bound(N * 16 + 8 * n_cells * 4, N * (18 + 24 + 8))
+    # the kernel's own count (ops/segdep.kernel_cost): keys + 3 rel rows
+    # read once, the [8, n_cells] canvas written once
+    b_ms, b_by = bound(*segdep.kernel_cost(keys, rel, None, n_cells,
+                                           vblock))
     return {
         "name": "segsum_sorted",
         "route": "cuda",
@@ -1768,9 +1775,9 @@ def service_phase(torch, _build, migrate, overlay, profiling, kernel_times,
         plain_ms = profiling.cuda_time_ms(
             lambda: overlay.overlay_scatter_planar_plain(work, t, cols))
         P = t.shape[0]
-        # the data's own work: every target read, and the columns of the
-        # in-range ones read and written (a dropped column is never read)
-        b_ms, b_by = bound(4 * P + 8 * K * n_ok, 0)
+        # the kernel's own count (ops/overlay.kernel_cost): every target
+        # read, the in-range columns read and written
+        b_ms, b_by = bound(*overlay.kernel_cost(flat, t, cols))
         landing[f"K{K}"] = {
             "shape": list(flat.shape), "targets": P, "in_range": n_ok,
             "max_abs_err": max_abs_err(a, b), "ms": times["kernel"]["graph"],
@@ -2056,6 +2063,7 @@ def history_leg(torch, _build, tservice, base, work):
         incident,
     )
     from mpi_grid_redistribute_tpu_torch.telemetry.store import StoreReader
+    from mpi_grid_redistribute_tpu_torch.tools import storecheck
 
     store_dir, inc_dir = work / "history_store", work / "history_incidents"
     cfg = dataclasses.replace(
@@ -2108,6 +2116,9 @@ def history_leg(torch, _build, tservice, base, work):
     check(len(keys) == len(set(keys)), "history: the store holds a row twice")
     check(launches.get("overlay_scatter_planar", 0) > 0,
           f"history: kernel 2 was not launched in the leg ({launches})")
+    findings, _ = storecheck.check_store(str(store_dir))
+    check(not findings, "history: storecheck: "
+          + "; ".join(f"{f.rule} {f.message}" for f in findings))
     return {
         "restarts": verdict.restarts, "nan_step": nan_steps[0],
         "bundles": len(incident.list_bundles(inc_dir)),
@@ -2116,6 +2127,168 @@ def history_leg(torch, _build, tservice, base, work):
         "drain_share": sum(drains) / run_s,
         "store_rows": len(keys), "launches": launches,
         "n_local": DRIVER_SUP_N_LOCAL, "steps": HISTORY_STEPS,
+    }
+
+
+# the knockout's width on the card and the count-equality check's (its
+# CPU half runs the same loop)
+KNOCKOUT_N = 65536
+COUNT_N = 4096
+# timed at the card's width too (tools.attribution.WIDE_N_LOCAL): the two
+# highest shares of the attribution snapshot, where a count too high
+# reads above the roof (at the registry's width every share is ~1e-4)
+WIDE_ROOF_PROGRAMS = ("canonical_planar_vranks", "pipelined_macro_step")
+
+
+def tools_phase(torch, pt, nbody, work):
+    """The counted rooflines and this slice's tools on the card: (a)
+    every one-device registered program counted on the card and on the
+    CPU, the same bytes, flops and kernel counts both ways, and the
+    knockout's planar step too; (b) the knockout of the planar step cut
+    after each phase, phase 8 bit-equal to ``make_migrate_loop
+    (engine="planar")``; (c) the programs timed, one ``roofline`` event
+    a row, the gauge read back through ``metrics.from_journal``, and
+    :data:`WIDE_ROOF_PROGRAMS` counted and timed at 2^20 rows a vrank;
+    every ``achieved_fraction`` in (0, 1.05]; (d) ``tools.trace_export
+    --demo``,
+    ``examples.drift_demo --steps 3`` and ``tools.incident_demo
+    --check`` on the card."""
+    import contextlib
+    import io
+
+    from mpi_grid_redistribute_tpu_torch.analysis import progcheck
+    from mpi_grid_redistribute_tpu_torch.bench import knockout_stages
+    from mpi_grid_redistribute_tpu_torch.examples import drift_demo
+    from mpi_grid_redistribute_tpu_torch.telemetry import metrics, roofline
+    from mpi_grid_redistribute_tpu_torch.telemetry.recorder import (
+        StepRecorder,
+    )
+    from mpi_grid_redistribute_tpu_torch.tools import (
+        attribution,
+        incident_demo,
+        trace_export,
+    )
+
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(name, t0):
+        laps[name] = time.perf_counter() - t0
+
+    # (a) one count whatever implements the kernels
+    t0 = time.perf_counter()
+    programs = {k: v for k, v in progcheck.default_programs().items()
+                if v.topology == "vranks"}
+    card = progcheck.program_costs(programs, device="cuda")
+    cpu = progcheck.program_costs(programs, device="cpu")
+    ko_cost = {}
+    for dev in ("cuda", "cpu"):
+        st = knockout_stages.make_state(GRID, COUNT_N, dev)
+        ko_cost[dev] = roofline.count_cost(
+            knockout_stages.loop_builder(GRID, COUNT_N)(8, 2), tuple(st))
+    card["knockout_planar_step"] = ko_cost["cuda"]
+    cpu["knockout_planar_step"] = ko_cost["cpu"]
+    keys = ("bytes_accessed", "flops", "kernels", "collective_bytes")
+    for name in card:
+        check(all(card[name][k] == cpu[name][k] for k in keys),
+              f"roofline: {name} counts differently on the card "
+              f"({[card[name][k] for k in keys]}) and the CPU "
+              f"({[cpu[name][k] for k in keys]})")
+    for name in ("migrate_sparse_vranks", "pipelined_macro_step",
+                 "knockout_planar_step"):
+        check(card[name]["kernels"], f"roofline: {name} counted no kernel")
+    lap("count", t0)
+
+    # (b) the knockout: every cut runs, the full step is the loop's step
+    t0 = time.perf_counter()
+    C, M = knockout_stages.sizing(GRID, KNOCKOUT_N)
+    st = knockout_stages.make_state(GRID, KNOCKOUT_N, "cuda")
+    build = knockout_stages.loop_builder(GRID, KNOCKOUT_N)
+    for phase in knockout_stages.PHASES[:-1]:
+        build(phase, 2)(*st)
+    full = build(8, 2)(*st)
+    cfg = nbody.DriftConfig(
+        domain=pt.Domain(0.0, 1.0, periodic=True),
+        grid=pt.ProcessGrid((1, 1, 1)), dt=knockout_stages.DT, capacity=C,
+        n_local=KNOCKOUT_N, local_budget=M, engine="planar")
+    loop = nbody.make_migrate_loop(cfg, 2, vgrid=pt.ProcessGrid(GRID),
+                                   device="cuda")
+    f = st.fused
+    p, v, a, _ = loop(f[:3].view(torch.float32).reshape(-1).clone(),
+                      f[3:6].view(torch.float32).reshape(-1).clone(),
+                      f[6] > 0)
+    torch.cuda.synchronize()
+    check(torch.equal(full.fused[:3].reshape(-1),
+                      p.view(torch.int32).reshape(-1))
+          and torch.equal(full.fused[3:6].reshape(-1),
+                          v.view(torch.int32).reshape(-1))
+          and torch.equal(full.fused[6] > 0, a),
+          "knockout: phase 8 is not make_migrate_loop's planar step")
+    lap("knockout", t0)
+
+    # (c) the rooflines, measured: every program at the registry's width
+    # (one event a row, the gauge), the widest shares at the card's width
+    t0 = time.perf_counter()
+    measured = roofline.measure_programs(programs, device="cuda", s2=2,
+                                         reps=2)
+    rec = StepRecorder()
+    report = roofline.roofline_report(programs, measured, rec,
+                                      costs={k: card[k] for k in programs})
+    check(rec.counts().get("roofline") == len(programs),
+          f"roofline: {rec.counts().get('roofline')} events for "
+          f"{len(programs)} rows")
+    text = metrics.from_journal(rec).render_openmetrics()
+    for name in programs:
+        check(f'roofline_achieved_fraction{{program="{name}"' in text,
+              f"roofline: no gauge for {name}")
+    lap("roofline", t0)
+    t0 = time.perf_counter()
+    wide_programs = {k: programs[k] for k in WIDE_ROOF_PROGRAMS}
+    wide_costs = {}
+    wide_measured = roofline.measure_programs(
+        wide_programs, device="cuda", n_local=attribution.WIDE_N_LOCAL,
+        costs=wide_costs)
+    wide = roofline.roofline_report(wide_programs, wide_measured, None,
+                                    costs=wide_costs)
+    limit = roofline.ACHIEVED_FRACTION_MAX
+    for name, row in [*report.items(), *wide.items()]:
+        frac = row["achieved_fraction"]
+        check(frac is not None and 0 < frac <= limit,
+              f"roofline: {name} achieved_fraction {frac} outside (0, "
+              f"{limit}]")
+    lap("roofline_wide", t0)
+
+    # (d) the tools on the card
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    trace = work / "demo.trace.json"
+    with contextlib.redirect_stdout(out):
+        check(trace_export.main(["--demo", "--steps", "4", "--out",
+                                 str(trace)]) == 0, "trace_export --demo")
+        drift_demo.main(["--steps", "3"])
+        rc = incident_demo.main(["--check", "--keep",
+                                 str(work / "incident_demo")])
+    said = out.getvalue()
+    check(bool(json.loads(trace.read_text())["traceEvents"]),
+          "trace_export --demo wrote no events")
+    for line in ("every particle is inside its owner's subdomain",
+                 "no particles lost"):
+        check(line in said, f"drift_demo did not print {line!r}")
+    check(rc == 0 and "incident-demo: clean" in said,
+          f"incident_demo --check: {said[-500:]}")
+    lap("tools", t0)
+    log("tools: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+        + f"; {time.perf_counter() - t_phase:.1f} s")
+    keep = ("flops", "bytes_accessed", "t_predicted_s", "bound_by",
+            "measured_s", "achieved_fraction")
+    return {
+        "roofline": {name: {k: report[name][k] for k in keep}
+                     for name in report},
+        "roofline_wide": {name: {k: wide[name][k] for k in keep}
+                          for name in wide},
+        "counted_equal_on_cpu": sorted(card),
+        "kernels_counted": {name: card[name]["kernels"] for name in card},
+        "seconds": laps,
     }
 
 
@@ -2902,7 +3075,9 @@ def main() -> int:
     (HERE / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=HERE / "build") as work:
         driver = driver_phase(torch, _build, Path(work))
-    lap("service driver")
+        lap("service driver")
+        tools = tools_phase(torch, pt, nbody, Path(work))
+    lap("rooflines and tools")
 
     # ---- the halo exchange (config 6) and the public halo()
     halo = halo_phase(torch, pt, config6_halo, config1_oracle, oracle,
@@ -2967,6 +3142,7 @@ def main() -> int:
     log(json.dumps({"config7": stress}))
     log(json.dumps({"service": service}))
     log(json.dumps({"service_driver": driver}))
+    log(json.dumps({"rooflines_and_tools": tools}))
     log(json.dumps({"halo": halo}))
     log(json.dumps({"ranks": ranks}))
     log(smi)

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from mpi_grid_redistribute_tpu_torch.ops import _build
+from mpi_grid_redistribute_tpu_torch.utils.costcount import kernel_scope
 
 MAX_TILE = 1024  # DFSCAN_MAX_TILE in csrc/dfscan.cu: the register route
 # DFSCAN_MAX_BLOCK_TILE: the block route's two (hi, lo) buffers, 16 bytes
@@ -115,11 +116,24 @@ def _df_cumsum(x: torch.Tensor, axis: int, x_lo: torch.Tensor = None):
     return hi, lo
 
 
+def kernel_cost(x):
+    """``(bytes, flops)`` of one call, the count ``telemetry.roofline``
+    and the bound in ``chip_smoke.py`` share: ``x`` read once, ``hi`` and
+    ``lo`` written once; ``ceil(log2(tile))`` double-float adds an
+    element, 11 adds or subtracts each, each taking an FMA's issue slot
+    (2 flops)."""
+    rows, tile = x.shape
+    n = rows * tile
+    return 12 * n, 2 * 11 * (tile - 1).bit_length() * n
+
+
+@kernel_scope("tile_df_cumsum_rows", kernel_cost)
 def tile_df_cumsum_rows_plain(x: torch.Tensor):
     """Plain PyTorch version: ``_df_cumsum(x, axis=1)``."""
     return _df_cumsum(x, axis=1)
 
 
+@kernel_scope("tile_df_cumsum_rows", kernel_cost)
 def tile_df_cumsum_rows(x: torch.Tensor):
     """Inclusive double-float prefix along axis 1 of ``x [rows, tile]``
     float32 -> ``(hi, lo)``, each ``[rows, tile]``. CPU tensors run

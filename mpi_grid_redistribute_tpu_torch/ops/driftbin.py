@@ -26,6 +26,7 @@ import torch
 
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import _build, binning
+from mpi_grid_redistribute_tpu_torch.utils.costcount import kernel_scope
 
 MAX_D = 8  # DRIFTBIN_MAX_D in csrc/driftbin.cu
 
@@ -53,6 +54,19 @@ def drift_wrap(flat: torch.Tensor, dt: float, domain: Domain) -> torch.Tensor:
     return p
 
 
+def kernel_cost(flat, dt, domain, full_grid, V, R_total):
+    """``(bytes, flops)`` of one call, the count ``telemetry.roofline``
+    and the bound in ``chip_smoke.py`` share: the ``2D + 1`` position,
+    velocity and alive rows read and the ``D`` position rows and the key
+    written, 4-byte words; per column and axis the drift, the wrap twice
+    (mul, add, sub, mul, floor, mul, compare/select, add) and the bin's
+    sub, mul, floor, clip and mul-add: ``22 D`` flops."""
+    D = domain.ndim
+    m = flat.shape[1]
+    return m * 4 * ((2 * D + 1) + (D + 1)), m * D * (2 * 8 + 6)
+
+
+@kernel_scope("drift_wrap_bin", kernel_cost)
 def drift_wrap_bin_plain(flat: torch.Tensor, dt: float, domain: Domain,
                          full_grid: ProcessGrid, V: int, R_total: int):
     """Plain PyTorch version: drift + wrap the position rows of ``flat``
@@ -87,6 +101,7 @@ def _check(flat: torch.Tensor, domain: Domain, full_grid: ProcessGrid,
         )
 
 
+@kernel_scope("drift_wrap_bin", kernel_cost)
 def drift_wrap_bin(flat: torch.Tensor, dt: float, domain: Domain,
                    full_grid: ProcessGrid, V: int, R_total: int):
     """Fused drift + wrap + bin: ``[K, V*n]`` int32 planar state, updated

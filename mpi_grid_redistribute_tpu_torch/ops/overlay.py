@@ -26,6 +26,8 @@ import os
 import torch
 
 from mpi_grid_redistribute_tpu_torch.ops import _build
+from mpi_grid_redistribute_tpu_torch.utils import costcount
+from mpi_grid_redistribute_tpu_torch.utils.costcount import kernel_scope
 
 ENCODINGS = ("half", "quarter", "int8")
 
@@ -38,6 +40,19 @@ KERNEL = _build.register(_build.Kernel(
 ))
 
 
+def kernel_cost(flat, targets, cols, encoding=None):
+    """``(bytes, flops)`` of one call, the count ``telemetry.roofline``
+    and the bound in ``chip_smoke.py`` share: the ``P`` targets read, and
+    the ``K`` words of each in-range target's column read and written (a
+    dropped column is never read); no flops. The in-range count is read
+    off the device."""
+    K = flat.shape[0]
+    P = targets.shape[0]
+    n_ok = costcount.in_range(targets, flat.shape[1])
+    return 4 * P + 2 * flat.element_size() * K * n_ok, 0
+
+
+@kernel_scope("overlay_scatter_planar", kernel_cost)
 def overlay_scatter_planar_plain(flat: torch.Tensor, targets: torch.Tensor,
                                  cols: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``flat[:, t[ok]] = cols[:, ok]`` on the
@@ -63,6 +78,7 @@ def _raise_on_duplicate_targets(targets: torch.Tensor, m: int) -> None:
         )
 
 
+@kernel_scope("overlay_scatter_planar", kernel_cost)
 def overlay_scatter_planar(flat: torch.Tensor, targets: torch.Tensor,
                            cols: torch.Tensor,
                            encoding=None) -> torch.Tensor:

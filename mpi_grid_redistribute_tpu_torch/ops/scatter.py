@@ -29,6 +29,8 @@ import ctypes
 import torch
 
 from mpi_grid_redistribute_tpu_torch.ops import _build
+from mpi_grid_redistribute_tpu_torch.utils import costcount
+from mpi_grid_redistribute_tpu_torch.utils.costcount import kernel_scope
 
 KERNEL = _build.register(_build.Kernel(
     "scatter_rows", "scatter.cu", "scatter_launch",
@@ -52,6 +54,18 @@ def index_bits(n_rows: int, p: int, k: int) -> int:
     return 32 if max(n_rows, p) * k <= _I32_MAX else 64
 
 
+def kernel_cost(flat, targets, rows):
+    """``(bytes, flops)`` of one call, the count ``telemetry.roofline``
+    and the bound in ``chip_smoke.py`` share: the ``P`` targets read, and
+    each in-range row read once and written once (a dropped row is never
+    needed); no flops. The in-range count is read off the device."""
+    K = flat.shape[1]
+    P = targets.shape[0]
+    n_ok = costcount.in_range(targets, flat.shape[0])
+    return 4 * P + 2 * flat.element_size() * K * n_ok, 0
+
+
+@kernel_scope("scatter_rows", kernel_cost)
 def scatter_rows_plain(flat: torch.Tensor, targets: torch.Tensor,
                        rows: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``flat[t[ok]] = rows[ok]`` with ``ok = (t >=
@@ -62,6 +76,7 @@ def scatter_rows_plain(flat: torch.Tensor, targets: torch.Tensor,
     return flat
 
 
+@kernel_scope("scatter_rows", kernel_cost)
 def scatter_rows(flat: torch.Tensor, targets: torch.Tensor,
                  rows: torch.Tensor) -> torch.Tensor:
     """``flat[targets] = rows`` with targets outside ``[0, n_rows)``

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from mpi_grid_redistribute_tpu_torch.ops import _build
+from mpi_grid_redistribute_tpu_torch.utils.costcount import kernel_scope
 
 MAX_D = 4  # SEGDEP_MAX_D in csrc/segdep.cu
 TILE = 2048  # SEGDEP_TILE: rows per block of the first pass
@@ -131,6 +132,21 @@ def _check(keys, rel, mass, n_cells: int) -> None:
         )
 
 
+def kernel_cost(keys, rel, mass, n_cells: int, vblock):
+    """``(bytes, flops)`` of one call, the count ``telemetry.roofline``
+    and the bound in ``chip_smoke.py`` share: the keys, the ``D`` rel rows
+    (and the mass) read once and the ``[2^D, n_cells]`` canvas written
+    once, 4-byte words; per row ``6 D`` flops of fractions, ``D`` a
+    corner weight and one sum add a corner (and the mass multiply)."""
+    n = keys.shape[0]
+    d = rel.shape[0]
+    nch = 1 << d
+    words = 1 + d + (mass is not None)
+    flops = 6 * d + d * nch + nch + (nch if mass is not None else 0)
+    return 4 * n * words + 4 * nch * int(n_cells), n * flops
+
+
+@kernel_scope("segsum_sorted", kernel_cost)
 def segsum_sorted_plain(keys, rel, mass, n_cells: int, vblock):
     """Plain PyTorch version (the reference's ``_segsum_xla``): masked
     corner weights summed per cell by ``index_add_`` into ``n_cells + 1``
@@ -161,6 +177,7 @@ def _raise_on_decreasing_valid_keys(keys: torch.Tensor, n_cells: int) -> None:
         )
 
 
+@kernel_scope("segsum_sorted", kernel_cost)
 def segsum_sorted(keys, rel, mass, n_cells: int, vblock):
     """Per-cell corner-weight sums of a cell-sorted stream -> ``[2^D,
     n_cells]``. The valid keys must not decrease along the stream (see

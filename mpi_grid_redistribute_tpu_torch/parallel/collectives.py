@@ -12,7 +12,9 @@ are exact either way. A mesh without a process group (one rank, no
 ``torch.distributed``) makes every collective the identity; with a group,
 every call goes through the backend, at world size 1 too. Each call is
 a ``coll:<name>`` profiler range, so a trace shows the time a rank spends
-in its collectives.
+in its collectives, and reports its payload (the caller's tensor, once a
+call, under the reference's primitive name) to
+``utils.costcount.count_collective``.
 
 Collectives over a SUBSET of the mesh axes (the reference's
 ``lax.all_to_all(x, ici_axes)``, ``lax.ppermute(x, dcn_axes, perm)``, which
@@ -34,6 +36,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from mpi_grid_redistribute_tpu_torch.parallel.mesh import RankMesh
+from mpi_grid_redistribute_tpu_torch.utils.costcount import count_collective
 
 
 # dtypes every backend moves as they are; any other travels as its bytes
@@ -90,6 +93,7 @@ def all_to_all(x: torch.Tensor, mesh: RankMesh, dim: int = 0,
             f"ascending")
     if _local(mesh):
         return x.clone()
+    count_collective("all_to_all", x)
     c = x.shape[dim] // G
     lead, tail = tuple(x.shape[:dim]), tuple(x.shape[dim + 1:])
     # [lead, G, c, tail] -> [G, lead, c, tail]: chunk g contiguous
@@ -117,6 +121,7 @@ def all_gather(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
     """``[R, *x.shape]``: every rank's ``x`` stacked in rank order."""
     if _local(mesh):
         return x[None].clone()
+    count_collective("all_gather", x)
     wire = _wire(x.reshape((1,) + tuple(x.shape)))
     parts = [torch.empty_like(wire) for _ in range(mesh.size)]
     with record_function("coll:all_gather"):
@@ -125,9 +130,11 @@ def all_gather(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
                                                    + tuple(x.shape))
 
 
-def _all_reduce(x: torch.Tensor, mesh: RankMesh, op) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, mesh: RankMesh, op, name: str
+                ) -> torch.Tensor:
     out = x.clone()
     if not _local(mesh):
+        count_collective(name, x)
         with record_function("coll:all_reduce"):
             dist.all_reduce(out, op=op, group=mesh.group)
     return out
@@ -140,7 +147,7 @@ def psum(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
             "psum takes integer tensors; a float sum across ranks is "
             "psum_ordered (rank order, backend-independent bits)"
         )
-    return _all_reduce(x, mesh, dist.ReduceOp.SUM)
+    return _all_reduce(x, mesh, dist.ReduceOp.SUM, "psum")
 
 
 def psum_ordered(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
@@ -155,13 +162,14 @@ def psum_ordered(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
 
 
 def pmin(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
-    return _all_reduce(x, mesh, dist.ReduceOp.MIN)
+    return _all_reduce(x, mesh, dist.ReduceOp.MIN, "pmin")
 
 
 def broadcast(x: torch.Tensor, mesh: RankMesh, src: int = 0) -> torch.Tensor:
     """Rank ``src``'s ``x`` on every rank (``src`` is a mesh rank)."""
     out = x.clone().contiguous()
     if not _local(mesh):
+        count_collective("broadcast", x)
         with record_function("coll:broadcast"):
             dist.broadcast(out, src=_global_rank(mesh, src),
                            group=mesh.group)
@@ -183,6 +191,7 @@ def ppermute(x: torch.Tensor, mesh: RankMesh,
     src = [s for s, d in perm if d == me]
     if _local(mesh):
         return x.clone() if src else torch.zeros_like(x)
+    count_collective("ppermute", x)
     wire = _wire(x.reshape(-1))
     numel = wire.numel()
     in_splits = [numel if r in dst else 0 for r in range(mesh.size)]

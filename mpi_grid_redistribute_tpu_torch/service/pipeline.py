@@ -66,7 +66,7 @@ def _drift_compatible(specs, ndim) -> bool:
 
 
 def make_pipelined_chunk_fn(rd, dt, chunk, positions, *fields, unroll=8,
-                            probes=None):
+                            probes=None, _stop_after=None):
     """Build the software-pipelined macro-step: the arguments and return
     of :func:`..service.resident.make_chunk_fn`, ``(macro, cap,
     out_cap)`` with ``macro(pos, vel, ids, count) -> ((pos, vel, ids,
@@ -90,7 +90,17 @@ def make_pipelined_chunk_fn(rd, dt, chunk, positions, *fields, unroll=8,
     read the state at each step's issue point (after its drift, before
     its exchange) and ``live``/``residual`` the exact post-step counts,
     the ledger counting ``dropped_recv`` only.
+
+    ``_stop_after`` is the knockout cut (``bench/knockout_pipeline.py``),
+    not a public knob: every steady-state step runs its phases in order,
+    1 drift, 2 bin, 5 landing, 3 issue, 4 arrival gather (the reference
+    knockout's numbers), stops after the one named and drops what it
+    made, so the next step starts from the same state; ``None`` runs
+    whole steps.
     """
+    if _stop_after not in (None, 1, 2, 3, 5):
+        raise ValueError(f"_stop_after must be 1, 2, 3, 5 or None, got "
+                         f"{_stop_after}")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     R = 1 if rd.mesh is not None else rd.nranks
@@ -120,6 +130,8 @@ def make_pipelined_chunk_fn(rd, dt, chunk, positions, *fields, unroll=8,
         recorder=rd.telemetry,
     )
     if not handle.armed:
+        if _stop_after is not None:
+            raise ValueError("_stop_after cuts the armed pipelined step")
         return resident.make_chunk_fn(rd, dt, chunk, positions, *fields,
                                       unroll=unroll, probes=probes)
     tp = handle.bundle
@@ -180,7 +192,11 @@ def make_pipelined_chunk_fn(rd, dt, chunk, positions, *fields, unroll=8,
         arrivals are drifted in flight and their next-step key lands with
         them in the same scatter (no second pass)."""
         U = _drift(T)
+        if _stop_after == 1:
+            return None
         key_u = tp.bin_key(U)  # step k+1's binning, before the landing
+        if _stop_after == 2:
+            return None
         arr_u = _drift(arr)
         pos_a = arr_u[:D].view(torch.float32).transpose(0, 1)  # [V, D, n]
         dest_a = binning.rank_of_position_planar(pos_a, rd.domain, rd.grid)
@@ -213,11 +229,17 @@ def make_pipelined_chunk_fn(rd, dt, chunk, positions, *fields, unroll=8,
         steps = [ys]
         for _ in range(chunk - 1):
             with traced_span("pipe:land+drift"):
-                T, stack, nf, key = _pipe(T, stack, nf, arr, plan)
+                landed = _pipe(T, stack, nf, arr, plan)
+            if landed is None or _stop_after == 5:
+                continue  # a knockout cut: the next step starts as this did
+            T2, stack2, nf2, key = landed
             with traced_span("pipe:issue"):
-                plan = tp.issue(key, nf)
-                arr = pack.gather_plan_cols(T, plan.arr_plan)
-            ys = _step_ys(plan, nf)
+                plan2 = tp.issue(key, nf2)
+                ys = _step_ys(plan2, nf2)
+                if _stop_after == 3:
+                    continue
+                arr = pack.gather_plan_cols(T2, plan2.arr_plan)
+            T, stack, nf, plan = T2, stack2, nf2, plan2
             if armed:
                 with traced_span("pipe:probe"):
                     cum = cum + statehealth.step_dropped(ys["stats"],

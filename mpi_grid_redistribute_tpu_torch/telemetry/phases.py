@@ -38,13 +38,17 @@ class PhaseTiming(NamedTuple):
     """One row of an attribution run. ``cumulative_s`` is the truncated
     step's per-step time; ``delta_s`` the increment over the previous
     phase (the phase's attributed cost); roofline fields are populated
-    when logical bytes were supplied."""
+    when logical bytes were supplied; ``spread_s`` is how far the
+    reading may be off: the range of the per-step samples
+    ``cumulative_s`` is the least of, plus the range of the short runs
+    they are differenced against, per step."""
 
     phase: object
     cumulative_s: float
     delta_s: float
     logical_bytes: Optional[int] = None
     roofline_s: Optional[float] = None
+    spread_s: Optional[float] = None
 
     @property
     def x_roofline(self) -> Optional[float]:
@@ -104,7 +108,9 @@ def attribute_phases(
         delta = per_step if prev is None else per_step - prev
         lb = None if phase_bytes is None else phase_bytes.get(phase)
         roof = None if lb is None else lb / peak_bytes_per_sec
-        row = PhaseTiming(phase, per_step, delta, lb, roof)
+        row = PhaseTiming(phase, per_step, delta, lb, roof,
+                          detail["max"] - detail["min"]
+                          + detail["base_spread"])
         out.append(row)
         if progress is not None:
             progress(row)

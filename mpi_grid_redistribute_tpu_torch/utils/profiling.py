@@ -45,8 +45,10 @@ def cuda_time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
     against the best short run.
 
     Returns ``(detail, long_out)``: ``detail`` is ``{min, max, mean,
-    median, spread, k, values}`` of per-step seconds; ``long_out`` is the
-    last long run's output."""
+    median, spread, k, values}`` of per-step seconds, and
+    ``base_spread``, the range of the short runs per step (what the best
+    short run may be off by); ``long_out`` is the last long run's
+    output."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_per_step_samples needs a CUDA device")
     return time_per_step_samples(make_run, s1, s2, reps, device="cuda")
@@ -76,6 +78,7 @@ def time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
     times1 = run(s1)[0]
     times2, out2 = run(s2)
     t1 = min(times1)
+    base_spread = (max(times1) - t1) / (s2 - s1)
     samples = [(t2 - t1) / (s2 - s1) for t2 in times2]
     lo, hi = min(samples), max(samples)
     detail = {
@@ -86,6 +89,7 @@ def time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
         "spread": (hi - lo) / lo if lo > 0 else 0.0,
         "k": len(samples),
         "values": samples,
+        "base_spread": base_spread,
     }
     return detail, out2
 
@@ -136,9 +140,13 @@ def cuda_graph_time_ms(fn: Callable[[], object], iters: int = 20,
 #     each way, the roof of the exchange across cards
 #     (exchange_domain "nvlink"). Through NVSwitch one pair of cards can
 #     use all of it, so it is also one link's roof in the per-link report
-#     (telemetry.flow.link_report).
+#     (telemetry.flow.link_report);
+#   * FP32 outside the tensor cores: 67 TFLOP/s (the data sheet's "FP32"
+#     line), the compute roof of telemetry.roofline: nothing on these
+#     paths runs on the tensor cores.
 HBM_PEAK_BYTES_PER_SEC = 3.35e12
 NVLINK_BYTES_PER_SEC = 450e9
+PEAK_FLOPS_PER_SEC = 67e12
 
 
 def exchange_peak_bytes_per_sec(domain: str) -> float:

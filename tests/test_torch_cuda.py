@@ -1415,3 +1415,92 @@ def test_store_drain_reads_nothing_from_the_card(cuda, tmp_path):
     assert ahead == [1, 1, 1, 1, 0], ahead
     reader = StoreReader(str(tmp_path / "store"), verify=True)
     assert reader.counts() == drv.recorder.counts()
+
+
+# ------------------------------------------- counted rooflines (PR 15)
+
+
+def _count_keys(c):
+    return {k: c[k] for k in ("bytes_accessed", "flops", "kernels",
+                              "collective_bytes")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["migrate_sparse_vranks",
+                                  "pipelined_macro_step",
+                                  "resident_macro_step",
+                                  "canonical_planar_vranks"])
+def test_program_counts_the_same_on_card_and_cpu(cuda, name):
+    from mpi_grid_redistribute_tpu_torch.analysis import progcheck
+    from mpi_grid_redistribute_tpu_torch.telemetry import roofline
+
+    spec = progcheck.default_programs()[name]
+    counts = []
+    for dev in ("cuda", "cpu"):
+        fn, args = spec.build(device=dev)
+        counts.append(_count_keys(roofline.count_cost(fn, args)))
+    assert counts[0] == counts[1]
+
+
+@pytest.mark.cuda
+def test_planar_step_counts_the_same_on_card_and_cpu(cuda):
+    from mpi_grid_redistribute_tpu_torch.bench import knockout_stages
+    from mpi_grid_redistribute_tpu_torch.telemetry import roofline
+
+    counts = []
+    for dev in ("cuda", "cpu"):
+        st = knockout_stages.make_state((2, 2, 2), 4096, dev)
+        loop = knockout_stages.loop_builder((2, 2, 2), 4096)(8, 2)
+        counts.append(_count_keys(roofline.count_cost(loop, tuple(st))))
+    assert counts[0] == counts[1]
+    assert counts[0]["kernels"]["drift_wrap_bin"]["calls"] == 2
+    assert counts[0]["kernels"]["overlay_scatter_planar"]["calls"] == 2
+
+
+@pytest.mark.cuda
+def test_migrate_planar_sharded_counts_the_same_on_card_and_cpu(cuda):
+    from mpi_grid_redistribute_tpu_torch.analysis import progcheck
+
+    names = ["migrate_planar_sharded"]
+    card = progcheck.sharded_costs(names, device="cuda")
+    cpu = progcheck.sharded_costs(names, device="cpu")
+    assert _count_keys(card[names[0]]) == _count_keys(cpu[names[0]])
+    assert card[names[0]]["kernels"]  # kernel 2 lands the flat engine
+
+
+@pytest.mark.cuda
+def test_measured_roofline_fractions_are_at_most_1_05(cuda):
+    """At the card's width (2^20 rows a vrank), where a share is real and
+    a count too high would read above the roof."""
+    from mpi_grid_redistribute_tpu_torch.analysis import progcheck
+    from mpi_grid_redistribute_tpu_torch.telemetry import metrics, roofline
+    from mpi_grid_redistribute_tpu_torch.telemetry.recorder import (
+        StepRecorder,
+    )
+    from mpi_grid_redistribute_tpu_torch.tools import attribution
+
+    programs = {k: v for k, v in progcheck.default_programs().items()
+                if v.topology == "vranks"}
+    costs = {}
+    measured = roofline.measure_programs(
+        programs, device="cuda", n_local=attribution.WIDE_N_LOCAL,
+        costs=costs)
+    rec = StepRecorder()
+    report = roofline.roofline_report(programs, measured, rec, costs=costs)
+    assert rec.counts()["roofline"] == len(programs)
+    for name, row in report.items():
+        assert 0 < row["achieved_fraction"] <= 1.05, (name, row)
+    assert roofline.over_roof(report) == []
+    text = metrics.from_journal(rec).render_openmetrics()
+    assert all(f'roofline_achieved_fraction{{program="{n}"' in text
+               for n in programs)
+
+
+@pytest.mark.cuda
+def test_drift_demo_runs_on_the_card(cuda, capsys):
+    from mpi_grid_redistribute_tpu_torch.examples import drift_demo
+
+    drift_demo.main(["--n", "4096", "--steps", "3"])
+    out = capsys.readouterr().out
+    assert "every particle is inside its owner's subdomain" in out
+    assert "no particles lost" in out
