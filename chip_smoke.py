@@ -49,7 +49,11 @@ started together), then, on the card:
      bit-equal to the loop without deposit, and the density held against
      the plain-version run and across the two methods. Kernel 5 is also
      held at the tiles of its block route (2048 and 8192) and kernel 4 at
-     D = 4, both timed;
+     D = 4, both timed; then ``analysis.kernelcheck`` over the six
+     registered cases (K000 launches, K001 guard bands, K002 write sets,
+     K003 footprints against the committed baseline, K005 bit equality)
+     and the scan deposit's knockout cut (``bench/knockout_deposit.py``)
+     at a small width: every cut runs, phase 6 bit-equal to the deposit;
   6. drives the canonical ``GridRedistribute.redistribute`` (the 2x2x2
      grid as 8 vranks, engine ``"auto"``, which is the planar engine on
      one device): config 1 (1,048,576 uniform rows, seed 42, pos/vel/ids,
@@ -1161,6 +1165,69 @@ def dfscan_phase(torch, dfscan, profiling):
         # no single PyTorch call computes a double-float prefix
         "library_ms": None,
     }
+
+
+def kernelcheck_phase(torch, _build):
+    """``tools.kernelcheck --check``'s rules on the card over the six
+    registered cases (``analysis/kernelcheck.py``): K000 (each case
+    launches its kernel), K001 (guard bands intact), K002 (write sets,
+    three launches alike, duplicate refusal), K003 (Hopper limits, and
+    equal to the committed footprint baseline for this nvcc) and K005
+    (bit-equal to the plain twins)."""
+    from mpi_grid_redistribute_tpu_torch.analysis import kernelcheck as kc
+    from mpi_grid_redistribute_tpu_torch.analysis import rules_kernel
+    from mpi_grid_redistribute_tpu_torch.analysis.baseline import (
+        load_kernelcheck_baseline,
+    )
+
+    t0 = time.perf_counter()
+    cases = kc.default_kernels()
+    findings, footprints, _ = kc.run_kernelcheck(cases, device="cuda")
+    findings += rules_kernel.compare_footprints(
+        footprints, load_kernelcheck_baseline(), _build.nvcc_version(),
+        check_stale=True)
+    check(not findings, "kernelcheck: " + "; ".join(
+        f.render() for f in findings))
+    check(sorted(footprints) == sorted(cases),
+          f"kernelcheck: K003 read {sorted(footprints)}")
+    seconds = time.perf_counter() - t0
+    log(f"kernelcheck: K000-K003, K005 clean over {len(cases)} cases in "
+        f"{seconds:.2f} s")
+    return {"cases": sorted(cases), "footprints": footprints,
+            "seconds": round(seconds, 3)}
+
+
+def deposit_cut_phase(torch, _build, deposit, knockout_deposit):
+    """The scan deposit's knockout cut (``bench/knockout_deposit.py``) at
+    a small width: every cut runs, the full run (phase 6) is bit-equal to
+    config 5's scan deposit built on its own, and kernel 5 launched in
+    the cut and full runs. No timing."""
+    from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+
+    state = knockout_deposit.make_state((2, 2, 2), 1 << 14, "cuda")
+    build = knockout_deposit.loop_builder()
+    _build.reset_counts()
+    outs = [build(phase, 1)(*state) for phase in knockout_deposit.PHASES]
+    torch.cuda.synchronize()
+    launches = _build.counts()["tile_df_cumsum_rows"]
+    for phase, out in zip(knockout_deposit.PHASES, outs):
+        parts = out if isinstance(out, tuple) else (out,)
+        check(all(t.is_cuda and t.numel() > 0 for t in parts),
+              f"deposit cut: phase {phase!r} returned no device tensor")
+    ref = deposit.shard_deposit_device_planar_fn(
+        Domain(0.0, 1.0, periodic=True), ProcessGrid((1, 1, 1)),
+        (knockout_deposit.MESH_CELLS,) * 3)(*state)
+    check(torch.equal(outs[-1].view(torch.int32), ref.view(torch.int32)),
+          "deposit cut: phase 6 is not bit-equal to the scan deposit")
+    check(launches >= 3, f"deposit cut: kernel 5 launched {launches} "
+          "time(s) over the cuts 4, 5 and the full run")
+    mass = float(state[2].sum())
+    check(abs(float(outs[-1].double().sum()) - mass) <= 1e-3 * mass,
+          "deposit cut: the mesh does not hold the deposited mass")
+    log(f"deposit cut: 6 phases ran at {state[0].shape[1]} rows, phase 6 "
+        f"bit-equal to the scan deposit, kernel 5 launched {launches} "
+        "times")
+    return {"rows": int(state[0].shape[1]), "launches": launches}
 
 
 def _signed_zero_rows_t(torch, x):
@@ -2925,7 +2992,7 @@ def main() -> int:
     from mpi_grid_redistribute_tpu_torch.bench import (
         common, config1_oracle, config2_clustered, config3_slab,
         config5_deposit, config6_halo, config7_stress, kernel_times,
-        multirank, service_chunk,
+        knockout_deposit, multirank, service_chunk,
     )
     from mpi_grid_redistribute_tpu_torch.bench import (
         headline as headline_bench,
@@ -3056,6 +3123,10 @@ def main() -> int:
                             args.profile, sparse["device_busy_ms_per_step"])
     del rhos
     lap("config 5")
+    kcheck = kernelcheck_phase(torch, _build)
+    lap("kernelcheck")
+    cut = deposit_cut_phase(torch, _build, deposit, knockout_deposit)
+    lap("deposit cut")
 
     # ---- the canonical GridRedistribute.redistribute
     canon, headline = canonical_phase(torch, pt, config1_oracle, oracle,
@@ -3133,6 +3204,8 @@ def main() -> int:
     log(json.dumps({"rows_path": rows}))
     log(json.dumps({"config5": c5}))
     log(json.dumps({"config5_segment": segment}))
+    log(json.dumps({"kernelcheck": kcheck}))
+    log(json.dumps({"deposit_cut": cut}))
     log(json.dumps({"config2": c2}))
     log(json.dumps({"config3": c3}))
     log(json.dumps({"canonical": canon}))

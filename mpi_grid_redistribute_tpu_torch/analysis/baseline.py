@@ -11,7 +11,11 @@ own numbers, written by the port's own ``--update-baseline``:
   ``telemetry.roofline.count_cost`` (the counterpart of the reference's
   J004 ``collective_bytes_total``);
 * ``telemetry/attribution_baseline.json``: the knockout phase tables and
-  the roofline rows ``tools.attribution`` measured on the card.
+  the roofline rows ``tools.attribution`` measured on the card;
+* ``analysis/kernelcheck_baseline.json``: K003's footprint table, the
+  registers and shared bytes of every function each kernelcheck case
+  launches, read on the card, with the ``nvcc`` version that built them;
+* ``analysis/racecheck_baseline.json``: racecheck's justified findings.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ _PROGPROFILE_NAME = "progprofile_baseline.json"
 _STORECHECK_NAME = "storecheck_baseline.json"
 _INCIDENT_DEMO_NAME = "incident_demo_baseline.json"
 _ATTRIBUTION_NAME = "attribution_baseline.json"
+_KERNELCHECK_NAME = "kernelcheck_baseline.json"
+_RACECHECK_NAME = "racecheck_baseline.json"
 
 
 def storecheck_baseline_path() -> str:
@@ -38,6 +44,10 @@ def storecheck_baseline_path() -> str:
 
 def incident_demo_baseline_path() -> str:
     return os.path.join(_HERE, _INCIDENT_DEMO_NAME)
+
+
+def racecheck_baseline_path() -> str:
+    return os.path.join(_HERE, _RACECHECK_NAME)
 
 
 def load_baseline(path: str) -> Set[BaselineKey]:
@@ -210,3 +220,48 @@ def attribution_hash(path: Optional[str] = None) -> Optional[str]:
         return None
     with open(path, "rb") as fh:
         return hashlib.sha256(fh.read()).hexdigest()[:16]
+
+
+# -- the kernelcheck footprint table (K003) --------------------------------
+
+_KERNELCHECK_COMMENT = (
+    "K003's footprint table: for each kernelcheck case, every function "
+    "one call launches, with its registers a thread, static and dynamic "
+    "shared bytes a block, local (spill) bytes a thread, threads a block "
+    "and the most threads it can launch with, read with "
+    "cudaFuncGetAttributes on the card; 'nvcc' is the toolkit that built "
+    "them (another toolkit is reported as drift, never re-baselined "
+    "silently); 'device' the card. Refresh on the card with `python -m "
+    "mpi_grid_redistribute_tpu_torch.tools.kernelcheck --update-baseline` "
+    "and justify the delta in the commit message."
+)
+
+
+def kernelcheck_baseline_path() -> str:
+    return os.path.join(_HERE, _KERNELCHECK_NAME)
+
+
+def load_kernelcheck_baseline(path: Optional[str] = None) -> Optional[dict]:
+    """The whole footprint document (``nvcc``, ``footprints``), or
+    ``None`` when the file does not exist."""
+    path = path or kernelcheck_baseline_path()
+    if not os.path.exists(path):
+        return None
+    doc = _read_doc(path)
+    if not isinstance(doc.get("footprints"), dict):
+        raise SystemExit(
+            f"malformed footprint baseline {path}: expected a top-level "
+            "'footprints' object")
+    return doc
+
+
+def write_kernelcheck_baseline(path: Optional[str],
+                               footprints: Dict[str, dict], nvcc: str,
+                               device: Optional[str]) -> None:
+    path = path or kernelcheck_baseline_path()
+    _write_doc(path, {
+        "comment": _KERNELCHECK_COMMENT,
+        "device": device,
+        "nvcc": nvcc,
+        "footprints": {k: footprints[k] for k in sorted(footprints)},
+    })

@@ -144,18 +144,20 @@ def run(n: int, grid_shape=(2, 2, 2), phases=PHASES, device=None,
         progress=progress, device=dev.type)
 
 
-def cli(argv, prog, description, default_n, run_fn, shapes_line):
+def cli(argv, prog, description, default_n, run_fn, shapes_line,
+        default_grid="2,2,2"):
     """The knockouts' shared command line: ``n_local`` and ``--device``,
-    the grid from ``KNOCKOUT_GRID``, each row streamed as it is measured,
-    the rows dumped to ``KNOCKOUT_JSON``. ``run_fn(n, grid, device,
-    progress)`` measures; ``shapes_line(grid, n)`` heads the output."""
+    the grid from ``KNOCKOUT_GRID`` (default ``default_grid``), each row
+    streamed as it is measured, the rows dumped to ``KNOCKOUT_JSON``.
+    ``run_fn(n, grid, device, progress)`` measures; ``shapes_line(grid,
+    n)`` heads the output."""
     p = argparse.ArgumentParser(prog=prog, description=description)
     p.add_argument("n_local", nargs="?", type=int, default=default_n)
     p.add_argument("--device", default=None,
                    help="default: the GPU; 'cpu' runs on the host clock")
     args = p.parse_args(argv)
     grid = tuple(int(x) for x in
-                 os.environ.get("KNOCKOUT_GRID", "2,2,2").split(","))
+                 os.environ.get("KNOCKOUT_GRID", default_grid).split(","))
     print(shapes_line(grid, args.n_local), file=sys.stderr)
     for line in phases_lib.format_phase_table([]).splitlines():
         print(line, file=sys.stderr, flush=True)

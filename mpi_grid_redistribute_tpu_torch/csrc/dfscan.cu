@@ -53,6 +53,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "resource_usage.cuh"
 
 #define DFSCAN_MAX_TILE 1024
 #define DFSCAN_MAX_REGS (DFSCAN_MAX_TILE / 32)
@@ -212,6 +213,24 @@ static int launch_block(const float* x, float* hi, float* lo, long long rows,
   return (int)cudaGetLastError();
 }
 
+// the register route's instances (R = 1..DFSCAN_MAX_REGS) and the block
+// route's kernel
+#define DFSCAN_ROW(R) {"dfscan_kernel<" #R ">", (const void*)dfscan_kernel<R>}
+static const FnRow kDfscanFns[] = {
+    DFSCAN_ROW(1), DFSCAN_ROW(2), DFSCAN_ROW(3), DFSCAN_ROW(4),
+    DFSCAN_ROW(5), DFSCAN_ROW(6), DFSCAN_ROW(7), DFSCAN_ROW(8),
+    DFSCAN_ROW(9), DFSCAN_ROW(10), DFSCAN_ROW(11), DFSCAN_ROW(12),
+    DFSCAN_ROW(13), DFSCAN_ROW(14), DFSCAN_ROW(15), DFSCAN_ROW(16),
+    DFSCAN_ROW(17), DFSCAN_ROW(18), DFSCAN_ROW(19), DFSCAN_ROW(20),
+    DFSCAN_ROW(21), DFSCAN_ROW(22), DFSCAN_ROW(23), DFSCAN_ROW(24),
+    DFSCAN_ROW(25), DFSCAN_ROW(26), DFSCAN_ROW(27), DFSCAN_ROW(28),
+    DFSCAN_ROW(29), DFSCAN_ROW(30), DFSCAN_ROW(31), DFSCAN_ROW(32),
+    {"dfscan_block_kernel", (const void*)dfscan_block_kernel},
+};
+#undef DFSCAN_ROW
+static_assert(sizeof(kDfscanFns) / sizeof(FnRow) == DFSCAN_MAX_REGS + 1,
+              "one row per register-route instance, and the block route");
+
 extern "C" {
 
 // regs and rows_per_warp as ops/dfscan.geometry chose them. The register
@@ -231,6 +250,13 @@ int dfscan_launch(const void* x, void* hi, void* lo, long long rows, int tile,
     return (int)cudaErrorInvalidValue;
   return launch_r<1>(regs, (const float*)x, (float*)hi, (float*)lo, rows,
                      tile, rows_per_warp, (cudaStream_t)stream);
+}
+
+// Every __global__ function's footprint (resource_usage.cuh).
+int dfscan_resource_usage(int i, const char** name, int* out) {
+  return fill_resource_usage(kDfscanFns,
+                             (int)(sizeof(kDfscanFns) / sizeof(FnRow)), i,
+                             name, out);
 }
 
 const char* dfscan_error_string(int code) {

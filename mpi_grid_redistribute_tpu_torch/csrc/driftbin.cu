@@ -32,6 +32,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
+#include "resource_usage.cuh"
 
 #define DRIFTBIN_MAX_D 8
 
@@ -95,6 +96,10 @@ __global__ void driftbin_kernel(int32_t* __restrict__ flat,
   key[col] = (alive && dv != v) ? dv : R_total;
 }
 
+static const FnRow kDriftbinFns[] = {
+    {"driftbin_kernel", (const void*)driftbin_kernel},
+};
+
 extern "C" {
 
 // fconsts: D x (lo, ext, hi, inv_ext, inv_w); iconsts: D x (periodic, pow2,
@@ -122,6 +127,13 @@ int driftbin_launch(void* flat, void* key, long long m, long long n, int K,
                     (cudaStream_t)stream>>>(
       (int32_t*)flat, (int32_t*)key, m, n, K, D, dt, R_total, prm);
   return (int)cudaGetLastError();
+}
+
+// Every __global__ function's footprint (resource_usage.cuh).
+int driftbin_resource_usage(int i, const char** name, int* out) {
+  return fill_resource_usage(kDriftbinFns,
+                             (int)(sizeof(kDriftbinFns) / sizeof(FnRow)), i,
+                             name, out);
 }
 
 const char* driftbin_error_string(int code) {

@@ -28,6 +28,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "resource_usage.cuh"
 
 __global__ void overlay_kernel(int32_t* __restrict__ flat,
                                const int32_t* __restrict__ targets,
@@ -40,6 +41,10 @@ __global__ void overlay_kernel(int32_t* __restrict__ flat,
   for (int k = 0; k < K; ++k) flat[(long long)k * m + t] = cols[(long long)k * P + j];
 }
 
+static const FnRow kOverlayFns[] = {
+    {"overlay_kernel", (const void*)overlay_kernel},
+};
+
 extern "C" {
 
 int overlay_launch(void* flat, const void* targets, const void* cols,
@@ -50,6 +55,13 @@ int overlay_launch(void* flat, const void* targets, const void* cols,
   overlay_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
       (int32_t*)flat, (const int32_t*)targets, (const int32_t*)cols, m, P, K);
   return (int)cudaGetLastError();
+}
+
+// Every __global__ function's footprint (resource_usage.cuh).
+int overlay_resource_usage(int i, const char** name, int* out) {
+  return fill_resource_usage(kOverlayFns,
+                             (int)(sizeof(kOverlayFns) / sizeof(FnRow)), i,
+                             name, out);
 }
 
 const char* overlay_error_string(int code) {

@@ -33,6 +33,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "resource_usage.cuh"
 
 #define SCATTER_WARPS 8  // warps per block
 
@@ -128,6 +129,24 @@ static int launch_i(void* flat, const void* targets, const void* rows,
   }
 }
 
+// every instance launch_i/launch_w/launch_k can pick: word type W, K known
+// at compile time (1..8) or not (0), index type I
+#define SCATTER_ROW(W, KT, I)                                     \
+  {"scatter_rows_kernel<" #W "," #KT "," #I ">",                  \
+   (const void*)scatter_rows_kernel<W, KT, I>}
+#define SCATTER_KS(W, I)                                          \
+  SCATTER_ROW(W, 0, I), SCATTER_ROW(W, 1, I), SCATTER_ROW(W, 2, I), \
+      SCATTER_ROW(W, 3, I), SCATTER_ROW(W, 4, I), SCATTER_ROW(W, 5, I), \
+      SCATTER_ROW(W, 6, I), SCATTER_ROW(W, 7, I), SCATTER_ROW(W, 8, I)
+#define SCATTER_WS(I)                                             \
+  SCATTER_KS(uint8_t, I), SCATTER_KS(uint16_t, I), SCATTER_KS(uint32_t, I), \
+      SCATTER_KS(unsigned long long, I)
+static const FnRow kScatterFns[] = {SCATTER_WS(uint32_t),
+                                    SCATTER_WS(unsigned long long)};
+#undef SCATTER_WS
+#undef SCATTER_KS
+#undef SCATTER_ROW
+
 extern "C" {
 
 // index_bits: 32 or 64, as ops/scatter.index_bits chose it; 32 is refused
@@ -149,6 +168,13 @@ int scatter_launch(void* flat, const void* targets, const void* rows,
     return launch_i<unsigned long long>(flat, targets, rows, n_rows, P,
                                         (int)K, word_bytes, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Every __global__ function's footprint (resource_usage.cuh).
+int scatter_resource_usage(int i, const char** name, int* out) {
+  return fill_resource_usage(kScatterFns,
+                             (int)(sizeof(kScatterFns) / sizeof(FnRow)), i,
+                             name, out);
 }
 
 const char* scatter_error_string(int code) {

@@ -81,6 +81,7 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+#include "resource_usage.cuh"
 
 #define SEGDEP_MAX_D 4
 #define SEGDEP_THREADS 256
@@ -460,6 +461,19 @@ static int launch_d(const void* keys, const void* rel, const void* mass,
   return (int)cudaGetLastError();
 }
 
+// every instance launch_d can pick: the tile kernel at D = 1..4 with and
+// without a mass row, and the carry scan at 2^D channels
+#define SEGDEP_ROWS(D)                                                     \
+  {"segdep_tile_kernel<" #D ",false>",                                     \
+   (const void*)segdep_tile_kernel<D, false>},                             \
+      {"segdep_tile_kernel<" #D ",true>",                                  \
+       (const void*)segdep_tile_kernel<D, true>},                          \
+      {"segdep_carry_kernel<1<<" #D ">",                                   \
+       (const void*)segdep_carry_kernel<1 << D>}
+static const FnRow kSegdepFns[] = {SEGDEP_ROWS(1), SEGDEP_ROWS(2),
+                                   SEGDEP_ROWS(3), SEGDEP_ROWS(4)};
+#undef SEGDEP_ROWS
+
 extern "C" {
 
 // tile_meta: int32 [n_tiles, 2], tile_sums: float [n_tiles, 2 * 2^D]
@@ -498,6 +512,13 @@ int segdep_launch(const void* keys, const void* rel, const void* mass,
   SEGDEP_CASE(4)
 #undef SEGDEP_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// Every __global__ function's footprint (resource_usage.cuh).
+int segdep_resource_usage(int i, const char** name, int* out) {
+  return fill_resource_usage(kSegdepFns,
+                             (int)(sizeof(kSegdepFns) / sizeof(FnRow)), i,
+                             name, out);
 }
 
 const char* segdep_error_string(int code) {

@@ -63,10 +63,13 @@ class Kernel:
         self.launches = 0
         self._fn = None
         self._strerror = None
+        self._usage = None
         self._lock = threading.Lock()
 
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):  # what a source includes
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
@@ -107,8 +110,39 @@ class Kernel:
                 err = getattr(lib, f"{self.source.stem}_error_string")
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
-                self._fn, self._strerror = fn, err
+                usage = getattr(lib, f"{self.source.stem}_resource_usage")
+                usage.argtypes = [ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_char_p),
+                                  ctypes.POINTER(ctypes.c_int)]
+                usage.restype = ctypes.c_int
+                self._fn, self._strerror, self._usage = fn, err, usage
         return self._fn
+
+    def resource_usage(self) -> dict:
+        """``{function: attributes}`` for every ``__global__`` function of
+        the source (``csrc/resource_usage.cuh``): ``regs`` a thread,
+        ``static_smem`` and ``local_bytes`` (spills) in bytes,
+        ``max_threads`` a block and the binary's ``sm`` version, as
+        ``cudaFuncGetAttributes`` reads them on the current card."""
+        self.load()
+        out = {}
+        name = ctypes.c_char_p()
+        vals = (ctypes.c_int * 5)()
+        i = 0
+        while True:
+            code = self._usage(i, ctypes.byref(name), vals)
+            if name.value is None:
+                return out
+            if code != 0:
+                msg = self._strerror(code).decode()
+                fn = name.value.decode()
+                raise RuntimeError(
+                    f"{self.name}: cudaFuncGetAttributes({fn}) failed: CUDA "
+                    f"error {code} ({msg})")
+            out[name.value.decode()] = dict(zip(
+                ("regs", "static_smem", "local_bytes", "max_threads", "sm"),
+                (int(v) for v in vals)))
+            i += 1
 
     def launch(self, *args) -> None:
         """Launch through the C entry, raise on a CUDA error, count it."""
@@ -148,6 +182,19 @@ def build_all() -> None:
         k.load()
 
 
+def nvcc_version() -> str:
+    """The toolkit that builds the kernels, as ``nvcc --version``'s last
+    ``V<major>.<minor>.<patch>`` token (the whole last line when it has
+    none)."""
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    last = out.splitlines()[-1] if out else ""
+    for tok in reversed(out.replace(",", " ").split()):
+        if tok.startswith("V") and tok[1:2].isdigit():
+            return tok[1:]
+    return last
+
+
 def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
@@ -155,6 +202,33 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def out_tensor(_out, shape, dtype, like, what: str):
+    """The internal ``_out=`` hook of the kernels that allocate their
+    outputs (``analysis.kernelcheck`` places them inside guard bands):
+    ``torch.empty`` on ``like``'s device when ``_out`` is None, else
+    ``_out`` once it is checked to be a contiguous ``dtype`` ``shape``
+    there."""
+    import torch
+
+    if _out is None:
+        return torch.empty(shape, dtype=dtype, device=like.device)
+    if (tuple(_out.shape) != tuple(shape) or _out.dtype != dtype
+            or _out.device != like.device or not _out.is_contiguous()):
+        raise ValueError(
+            f"{what}: _out must be a contiguous {dtype} {tuple(shape)} on "
+            f"{like.device}, got {_out.dtype} {tuple(_out.shape)} on "
+            f"{_out.device}")
+    return _out
+
+
+def into(_out, t, what: str):
+    """The plain route's side of the ``_out=`` hook: ``t`` itself, or
+    ``t`` copied into the checked ``_out``."""
+    if _out is None:
+        return t
+    return out_tensor(_out, t.shape, t.dtype, t, what).copy_(t)
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

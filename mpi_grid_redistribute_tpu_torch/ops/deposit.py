@@ -124,10 +124,22 @@ def _tile_prefix_planar(wt: torch.Tensor, plain: bool = False):
     return hi.reshape(g, T, K), lo.reshape(g, T, K)
 
 
+# the scan deposit's phases, the reference knockout's numbering
+# (bench/knockout_deposit.py cuts the deposit after each)
+DEPOSIT_PHASES = (
+    "1 keys",
+    "2 payload sort",
+    "3 bounds",
+    "4 channel prefixes (kernel 5)",
+    "5 boundary gathers + differences",
+    "6 placement + ghost fold",
+)
+
+
 def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
                                local_shape, tile: int,
                                channel_group: int = None,
-                               plain: bool = False) -> torch.Tensor:
+                               plain: bool = False, _stop_after: int = None):
     """Scan-deposit core: stable sort by segment key, double-float prefix
     of the corner-weight channels, differences at the segment bounds.
 
@@ -135,7 +147,9 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
     ``rel_rows [D, N]`` block-local coordinates, ``mass [N]`` (already
     zero on invalid rows). Returns ``per_cell [2^D, n_segments]``.
     ``channel_group`` processes the channels in groups of that many to
-    bound the prefix temporaries; it changes no channel's arithmetic."""
+    bound the prefix temporaries; it changes no channel's arithmetic.
+    ``_stop_after`` (2, 3 or 4; internal, the knockout's cut) returns the
+    tensors the deposit holds after that phase instead."""
     n = key.shape[0]
     D = rel_rows.shape[0]
     keys_sorted, order = torch.sort(key, stable=True)
@@ -143,6 +157,8 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
     payload_s = torch.index_select(payload, 1, order)
     rel_s = payload_s[:D]
     mass_s = payload_s[D]
+    if _stop_after == 2:
+        return keys_sorted, rel_s, mass_s
     i0_s = torch.stack(
         [_base_cell(rel_s[d], local_shape[d]) for d in range(D)], dim=0
     )
@@ -153,12 +169,14 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
     K = max(1, min(tile, n))
     n_pad = -(-n // K) * K
     bounds = binning.bounds_dense(keys_sorted, n_segments + 1)
+    if _stop_after == 3:
+        return bounds, frac
     t_idx = (bounds // K).long()
     has_local = (bounds % K > 0)[None, :]
     lb = (bounds - 1).clamp(0, n_pad - 1).long()
     cg = nch if not channel_group else max(1, min(channel_group, nch))
 
-    def per_group(corner_list):
+    def per_group(corner_list, upto=None):
         # corner-weight rows [g, N] in sorted order: mass * ((f0 * f1) *
         # f2), the explicit left fold the reference pins
         rows = []
@@ -175,6 +193,8 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
         )
         lhi, llo = _tile_prefix_planar(wt, plain)  # within-tile prefixes
         thi, tlo = _df_cumsum(lhi[:, :, -1], axis=1, x_lo=llo[:, :, -1])
+        if upto == 4:
+            return lhi, llo, thi, tlo
         zg = torch.zeros((g, 1), dtype=_F32, device=wg.device)
         s_hi = torch.cat([zg, thi], dim=1)  # exclusive tile prefixes
         s_lo = torch.cat([zg, tlo], dim=1)  # [g, T + 1]
@@ -191,6 +211,9 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
         # the shared prefix, the lo difference restores what hi rounded
         return (g_hi[:, 1:] - g_hi[:, :-1]) + (g_lo[:, 1:] - g_lo[:, :-1])
 
+    if _stop_after == 4:
+        return tuple(t for g0 in range(0, nch, cg)
+                     for t in per_group(corners[g0 : g0 + cg], 4))
     if cg >= nch:
         return per_group(corners)
     return torch.cat(
@@ -214,11 +237,18 @@ def _place_corners(total: torch.Tensor, per_cell: torch.Tensor,
 
 def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
                               vblock: Tuple[int, ...], tile: int = 256,
-                              plain: bool = False) -> torch.Tensor:
+                              plain: bool = False, _stop_after: int = None):
     """Planar batched scan deposit of V slabs: ``pos_rows [D, V * n]``
     (vrank ``v`` owns columns ``[v*n, (v+1)*n)``), ``mass``/``valid``
     ``[V * n]``, ``lo_local [V, D]`` and ``inv_h [D]`` float32 tensors.
-    Returns per-vrank ghost blocks ``[V, *(vblock + 1)]``."""
+    Returns per-vrank ghost blocks ``[V, *(vblock + 1)]``.
+
+    ``_stop_after`` (internal; ``bench/knockout_deposit.py``'s cut)
+    returns after phase 1 to 5 of :data:`DEPOSIT_PHASES` the tensors the
+    deposit holds there; ``None`` runs it whole."""
+    if _stop_after not in (None, 1, 2, 3, 4, 5):
+        raise ValueError(f"_stop_after must be 1 to 5 or None, got "
+                         f"{_stop_after}")
     D, m = pos_rows.shape
     V = lo_local.shape[0]
     n = m // V
@@ -242,13 +272,19 @@ def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
     v_ids = torch.arange(V, dtype=_I32, device=pos_rows.device)[:, None]
     key = torch.where(valid2, v_ids * n_cells + cell, V * n_cells).to(_I32)
     mass_z = torch.where(valid, mass, 0.0)
+    rel_rows = torch.stack(rel, dim=0)
+    if _stop_after == 1:
+        return key, rel_rows, mass_z
     # above ~16M rows, process corner channels two at a time to bound the
     # double-float prefix temporaries, as the reference does
     cg = 2 if m > (1 << 24) else None
     per_cell = _sorted_per_segment_planar(
-        key.reshape(-1), torch.stack(rel, dim=0), mass_z, V * n_cells,
+        key.reshape(-1), rel_rows, mass_z, V * n_cells,
         vblock, tile, channel_group=cg, plain=plain,
+        _stop_after=None if _stop_after == 5 else _stop_after,
     )  # [2^D, V * n_cells]
+    if _stop_after is not None:
+        return per_cell
     per_cell = per_cell.reshape((per_cell.shape[0], V) + tuple(vblock))
     ghost = tuple(b + 1 for b in vblock)
     total = torch.zeros((V,) + ghost, dtype=mass.dtype, device=mass.device)
@@ -257,14 +293,16 @@ def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
 
 def cic_deposit_device_planar(pos_rows, mass, valid, dev_lo, inv_h,
                               dev_block: Tuple[int, ...], tile: int = 256,
-                              plain: bool = False) -> torch.Tensor:
+                              plain: bool = False, _stop_after: int = None):
     """Planar scan deposit keyed by DEVICE-local cell: the vrank core at
     ``V = 1``. ``pos_rows [D, n]``, ``mass``/``valid`` ``[n]``, ``dev_lo
-    [D]``. Returns the +1-ghost device mesh ``[*(dev_block + 1)]``."""
-    return cic_deposit_vranks_planar(
+    [D]``. Returns the +1-ghost device mesh ``[*(dev_block + 1)]``
+    (``_stop_after``: :func:`cic_deposit_vranks_planar`'s cut)."""
+    out = cic_deposit_vranks_planar(
         pos_rows, mass, valid, dev_lo[None, :], inv_h, dev_block,
-        tile=tile, plain=plain,
-    )[0]
+        tile=tile, plain=plain, _stop_after=_stop_after,
+    )
+    return out[0] if _stop_after is None else out
 
 
 def _device_keys_planar(pos_rows, valid, dev_lo, inv_h, dev_block):

@@ -116,7 +116,7 @@ def _df_cumsum(x: torch.Tensor, axis: int, x_lo: torch.Tensor = None):
     return hi, lo
 
 
-def kernel_cost(x):
+def kernel_cost(x, _out=None):
     """``(bytes, flops)`` of one call, the count ``telemetry.roofline``
     and the bound in ``chip_smoke.py`` share: ``x`` read once, ``hi`` and
     ``lo`` written once; ``ceil(log2(tile))`` double-float adds an
@@ -133,20 +133,41 @@ def tile_df_cumsum_rows_plain(x: torch.Tensor):
     return _df_cumsum(x, axis=1)
 
 
+def launch_functions(x):
+    """``[(function, threads a block, dynamic shared bytes)]`` of the
+    launch :func:`geometry` picks for ``x`` (``analysis.kernelcheck``'s
+    K003); empty on the plain route."""
+    tile = x.shape[1]
+    geo = geometry(tile)
+    if geo.route == "warp":
+        return [(f"dfscan_kernel<{geo.regs}>", 8 * 32, 0)]
+    if geo.route == "block":
+        return [("dfscan_block_kernel", 1024, 16 * tile)]
+    return []
+
+
+def _into_pair(_out, pair):
+    if _out is None:
+        return pair
+    return tuple(_build.into(o, t, "tile_df_cumsum_rows")
+                 for o, t in zip(_out, pair))
+
+
 @kernel_scope("tile_df_cumsum_rows", kernel_cost)
-def tile_df_cumsum_rows(x: torch.Tensor):
+def tile_df_cumsum_rows(x: torch.Tensor, _out=None):
     """Inclusive double-float prefix along axis 1 of ``x [rows, tile]``
     float32 -> ``(hi, lo)``, each ``[rows, tile]``. CPU tensors run
     :func:`tile_df_cumsum_rows_plain`; CUDA tensors launch the kernel on
     the route :func:`geometry` gives (the plain version for a tile above
-    :data:`MAX_BLOCK_TILE`), and raise on what it cannot take."""
+    :data:`MAX_BLOCK_TILE`), and raise on what it cannot take. ``_out``
+    (internal) is the ``(hi, lo)`` pair written to."""
     if x.dtype != torch.float32 or x.dim() != 2:
         raise TypeError(
             f"tile_df_cumsum_rows takes float32 [rows, tile], got {x.dtype} "
             f"{tuple(x.shape)}"
         )
     if x.device.type == "cpu":
-        return tile_df_cumsum_rows_plain(x)
+        return _into_pair(_out, tile_df_cumsum_rows_plain(x))
     if x.device.type != "cuda":
         raise ValueError(f"tile_df_cumsum_rows: unsupported device {x.device}")
     rows, tile = x.shape
@@ -154,9 +175,9 @@ def tile_df_cumsum_rows(x: torch.Tensor):
     if not x.is_contiguous():
         raise ValueError("tile_df_cumsum_rows: x must be contiguous")
     if geo.route == "plain":
-        return tile_df_cumsum_rows_plain(x)
-    hi = torch.empty_like(x)
-    lo = torch.empty_like(x)
+        return _into_pair(_out, tile_df_cumsum_rows_plain(x))
+    hi, lo = (_build.out_tensor(o, x.shape, x.dtype, x, "tile_df_cumsum_rows")
+              for o in (_out or (None, None)))
     if rows == 0:
         return hi, lo
     KERNEL.launch(

@@ -54,7 +54,7 @@ def drift_wrap(flat: torch.Tensor, dt: float, domain: Domain) -> torch.Tensor:
     return p
 
 
-def kernel_cost(flat, dt, domain, full_grid, V, R_total):
+def kernel_cost(flat, dt, domain, full_grid, V, R_total, _out=None):
     """``(bytes, flops)`` of one call, the count ``telemetry.roofline``
     and the bound in ``chip_smoke.py`` share: the ``2D + 1`` position,
     velocity and alive rows read and the ``D`` position rows and the key
@@ -101,19 +101,31 @@ def _check(flat: torch.Tensor, domain: Domain, full_grid: ProcessGrid,
         )
 
 
+def launch_functions(flat, V):
+    """``[(function, threads a block, dynamic shared bytes)]`` of the
+    launch at these shapes (``analysis.kernelcheck``'s K003)."""
+    return [("driftbin_kernel", 256, 0)]
+
+
 @kernel_scope("drift_wrap_bin", kernel_cost)
 def drift_wrap_bin(flat: torch.Tensor, dt: float, domain: Domain,
-                   full_grid: ProcessGrid, V: int, R_total: int):
+                   full_grid: ProcessGrid, V: int, R_total: int,
+                   _out: torch.Tensor = None):
     """Fused drift + wrap + bin: ``[K, V*n]`` int32 planar state, updated
     in place -> ``(flat, dest_key [V, n])``. CPU tensors run
-    :func:`drift_wrap_bin_plain`; CUDA tensors launch the kernel."""
+    :func:`drift_wrap_bin_plain`; CUDA tensors launch the kernel.
+    ``_out`` (internal) is the tensor the key is written to."""
     _check(flat, domain, full_grid, V)
     if flat.device.type == "cpu":
-        return drift_wrap_bin_plain(flat, dt, domain, full_grid, V, R_total)
+        flat, key = drift_wrap_bin_plain(flat, dt, domain, full_grid, V,
+                                         R_total)
+        return flat, _build.into(_out, key, "drift_wrap_bin")
     if flat.device.type != "cuda":
         raise ValueError(f"drift_wrap_bin: unsupported device {flat.device}")
     K, m = flat.shape
     n = m // V
+    key = _build.out_tensor(_out, (V, n), torch.int32, flat,
+                            "drift_wrap_bin")
     D = domain.ndim
     fc = np.zeros((D, 5), np.float32)
     ic = np.zeros((D, 4), np.int32)
@@ -125,7 +137,6 @@ def drift_wrap_bin(flat: torch.Tensor, dt: float, domain: Domain,
             full_grid.shape[d],
             full_grid.strides[d],
         )
-    key = torch.empty((V, n), dtype=torch.int32, device=flat.device)
     KERNEL.launch(
         flat.data_ptr(), key.data_ptr(), m, n, K, D,
         float(np.float32(dt)), int(R_total), fc.ctypes.data, ic.ctypes.data,

@@ -52,6 +52,12 @@ def kernel_cost(flat, targets, cols, encoding=None):
     return 4 * P + 2 * flat.element_size() * K * n_ok, 0
 
 
+def launch_functions(flat, targets, cols):
+    """``[(function, threads a block, dynamic shared bytes)]`` of the
+    launch (``analysis.kernelcheck``'s K003)."""
+    return [("overlay_kernel", 256, 0)]
+
+
 @kernel_scope("overlay_scatter_planar", kernel_cost)
 def overlay_scatter_planar_plain(flat: torch.Tensor, targets: torch.Tensor,
                                  cols: torch.Tensor) -> torch.Tensor:

@@ -65,6 +65,24 @@ def kernel_cost(flat, targets, rows):
     return 4 * P + 2 * flat.element_size() * K * n_ok, 0
 
 
+# the C type of each word size and index width (csrc/scatter.cu's names)
+_C_WORDS = {1: "uint8_t", 2: "uint16_t", 4: "uint32_t",
+            8: "unsigned long long"}
+_C_INDEX = {32: "uint32_t", 64: "unsigned long long"}
+
+
+def launch_functions(flat, targets, rows):
+    """``[(function, threads a block, dynamic shared bytes)]`` of the
+    launch at these shapes (``analysis.kernelcheck``'s K003): the
+    instance of the word size, of ``K`` (compiled in for 1..8) and of the
+    index width :func:`index_bits` picks."""
+    n_rows, K = flat.shape
+    bits = index_bits(n_rows, targets.shape[0], K)
+    kt = K if 1 <= K <= 8 else 0
+    return [(f"scatter_rows_kernel<{_C_WORDS[flat.element_size()]},{kt},"
+             f"{_C_INDEX[bits]}>", 8 * 32, 0)]
+
+
 @kernel_scope("scatter_rows", kernel_cost)
 def scatter_rows_plain(flat: torch.Tensor, targets: torch.Tensor,
                        rows: torch.Tensor) -> torch.Tensor:

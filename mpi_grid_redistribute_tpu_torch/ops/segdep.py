@@ -132,7 +132,7 @@ def _check(keys, rel, mass, n_cells: int) -> None:
         )
 
 
-def kernel_cost(keys, rel, mass, n_cells: int, vblock):
+def kernel_cost(keys, rel, mass, n_cells: int, vblock, _out=None):
     """``(bytes, flops)`` of one call, the count ``telemetry.roofline``
     and the bound in ``chip_smoke.py`` share: the keys, the ``D`` rel rows
     (and the mass) read once and the ``[2^D, n_cells]`` canvas written
@@ -177,20 +177,36 @@ def _raise_on_decreasing_valid_keys(keys: torch.Tensor, n_cells: int) -> None:
         )
 
 
+def launch_functions(keys, rel, mass):
+    """``[(function, threads a block, dynamic shared bytes)]`` of the
+    launch at these shapes (``analysis.kernelcheck``'s K003): the tile
+    pass and the carry scan; empty where :func:`geometry` sends the call
+    to the plain version."""
+    d = rel.shape[0]
+    if geometry(keys.shape[0], d) is None:
+        return []
+    with_mass = "true" if mass is not None else "false"
+    return [(f"segdep_tile_kernel<{d},{with_mass}>", 256, 0),
+            (f"segdep_carry_kernel<1<<{d}>", 1024, 0)]
+
+
 @kernel_scope("segsum_sorted", kernel_cost)
-def segsum_sorted(keys, rel, mass, n_cells: int, vblock):
+def segsum_sorted(keys, rel, mass, n_cells: int, vblock, _out=None):
     """Per-cell corner-weight sums of a cell-sorted stream -> ``[2^D,
     n_cells]``. The valid keys must not decrease along the stream (see
     the module note); with env ``MPI_GRID_SEGDEP_DEBUG=1`` that is
     checked, with a device sync, and a stream that breaks it raises.
     CPU tensors run :func:`segsum_sorted_plain`; CUDA tensors launch the
     kernel (``D`` up to 4; keys outside ``[0, n_cells)`` are dropped), take
-    the plain version where :func:`geometry` says so, or raise."""
+    the plain version where :func:`geometry` says so, or raise. ``_out``
+    (internal) is the ``[2^D, n_cells]`` canvas written to."""
     _check(keys, rel, mass, n_cells)
     if os.environ.get("MPI_GRID_SEGDEP_DEBUG") == "1":
         _raise_on_decreasing_valid_keys(keys, n_cells)
     if keys.device.type == "cpu":
-        return segsum_sorted_plain(keys, rel, mass, n_cells, vblock)
+        return _build.into(
+            _out, segsum_sorted_plain(keys, rel, mass, n_cells, vblock),
+            "segsum_sorted")
     if keys.device.type != "cuda":
         raise ValueError(f"segsum_sorted: unsupported device {keys.device}")
     d = rel.shape[0]
@@ -201,14 +217,17 @@ def segsum_sorted(keys, rel, mass, n_cells: int, vblock):
     n = keys.shape[0]
     geo = geometry(n, d)
     if geo is None:
-        return segsum_sorted_plain(keys, rel, mass, n_cells, vblock)
+        return _build.into(
+            _out, segsum_sorted_plain(keys, rel, mass, n_cells, vblock),
+            "segsum_sorted")
     tensors = (keys, rel) if mass is None else (keys, rel, mass)
     if any(t.device != keys.device for t in tensors):
         raise ValueError("segsum_sorted: tensors on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("segsum_sorted: tensors must be contiguous")
     nch = 1 << d
-    out = torch.empty((nch, n_cells), dtype=torch.float32, device=keys.device)
+    out = _build.out_tensor(_out, (nch, n_cells), torch.float32, keys,
+                            "segsum_sorted")
     if n == 0:
         return out.zero_()
     n_tiles, carry_floats = geo

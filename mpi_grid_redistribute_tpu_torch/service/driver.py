@@ -64,6 +64,8 @@ CLI (``python -m mpi_grid_redistribute_tpu_torch.service``)::
 
 from __future__ import annotations
 
+# gridlint: service-path
+
 import dataclasses
 import os
 import threading

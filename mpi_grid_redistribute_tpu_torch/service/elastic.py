@@ -16,6 +16,8 @@ gives the bytes two runs are held to.
 
 from __future__ import annotations
 
+# gridlint: service-path
+
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np

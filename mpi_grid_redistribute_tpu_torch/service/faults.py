@@ -37,6 +37,8 @@ from. The eight injectors:
 
 from __future__ import annotations
 
+# gridlint: service-path
+
 import os
 import time
 from typing import List, Optional, Sequence

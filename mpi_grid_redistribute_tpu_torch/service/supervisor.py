@@ -25,6 +25,8 @@ attempts.
 
 from __future__ import annotations
 
+# gridlint: service-path
+
 import dataclasses
 import time
 from typing import Callable, List, NamedTuple, Optional

@@ -130,7 +130,8 @@ class FlightRecorder:
         journal write below is why that thread is a declared writer).
         Returns the bundle directory, or None (non-ALERT / debounced).
         """
-        # capture journals an `incident` event into the ring it freezes
+        # racecheck: recorder-writer — capture journals an `incident`
+        # event into the ring it freezes
         if getattr(finding, "severity", None) != "ALERT":
             return None
         return self.capture(

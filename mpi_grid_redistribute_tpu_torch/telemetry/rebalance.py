@@ -27,6 +27,8 @@ and runs the LPT on the host; it runs only at a health boundary.
 
 from __future__ import annotations
 
+# gridlint: service-path
+
 from typing import NamedTuple, Optional
 
 import numpy as np

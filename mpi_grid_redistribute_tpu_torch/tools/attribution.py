@@ -15,16 +15,20 @@ markers, and a structural gate keeps the two in step.
         --check [--format=sarif|json|github]
 
 * ``--update-baseline`` RE-MEASURES on the card (``--device``; default
-  the GPU): the two knockouts (``bench/knockout_stages.py``, the migrate
-  step; ``bench/knockout_pipeline.py``, the pipelined step) at both
-  committed shapes on grid (2, 2, 2), and the roofline report
+  the GPU): the three knockouts (``bench/knockout_stages.py``, the
+  migrate step, and ``bench/knockout_pipeline.py``, the pipelined step,
+  at both committed shapes on grid (2, 2, 2); ``bench/knockout_deposit.
+  py``, the scan deposit, at (4, 4, 4) and (2, 2, 2) x 2^20 rows), and
+  the roofline report
   (``telemetry.roofline.roofline_report``: every registered program
   counted, the vrank and macro-step programs timed) at the registry's
   width (``roofline``) and at ``n_local`` 2^20 for the one-device
   programs (``roofline_wide``). The card's name and power limit are
   written beside them (``device``). A row whose ``achieved_fraction``
   exceeds ``roofline.ACHIEVED_FRACTION_MAX`` (1.05) means a count too
-  high: the snapshot is not written and the command exits 1.
+  high: the snapshot is not written and the command exits 1. With
+  ``--engines deposit`` (any of the knockouts) only those tables are
+  re-measured and merged into the snapshot, each with its card.
 * ``--render`` regenerates the ``PERF.md`` tables from the snapshot:
   each cumulative reading with its spread (the range of its samples),
   and a negative delta larger than the two readings' spreads marked
@@ -74,7 +78,10 @@ STAGE_LABELS = {
     8: "8 free-stack update (**full step**)",
 }
 
-ENGINES = ("migrate", "pipeline")
+ENGINES = ("migrate", "pipeline", "deposit")
+# the deposit knockout's shapes: (vrank grid, rows a vrank), the
+# reference's default and config 5's
+DEPOSIT_SHAPES = (("4,4,4", 2**20), ("2,2,2", 2**20))
 ROOFLINE_SECTIONS = ("roofline", "roofline_wide")
 
 RULE_DOCS = {
@@ -96,6 +103,10 @@ def _live_phases(engine):
         from mpi_grid_redistribute_tpu_torch.bench import knockout_stages
 
         return list(knockout_stages.PHASES)
+    if engine == "deposit":
+        from mpi_grid_redistribute_tpu_torch.bench import knockout_deposit
+
+        return list(knockout_deposit.PHASES)
     from mpi_grid_redistribute_tpu_torch.bench import knockout_pipeline
 
     return list(knockout_pipeline.PHASES)
@@ -106,25 +117,36 @@ def _live_phases(engine):
 # ---------------------------------------------------------------------
 
 
-def _run_knockout(engine, n_local, device):
+def _run_knockout(engine, n_local, device, grid_text=GRID):
     from mpi_grid_redistribute_tpu_torch.bench import (
+        knockout_deposit,
         knockout_pipeline,
         knockout_stages,
     )
 
-    grid = tuple(int(x) for x in GRID.split(","))
+    grid = tuple(int(x) for x in grid_text.split(","))
     print(f"attribution: measuring {engine} @ n_local={n_local} (grid "
-          f"{GRID}) ...", file=sys.stderr, flush=True)
+          f"{grid_text}) ...", file=sys.stderr, flush=True)
     if engine == "migrate":
         rows = knockout_stages.run(n_local, grid, device=device)
+    elif engine == "deposit":
+        rows = knockout_deposit.run(n_local, grid, device=device)
     else:
         rows = knockout_pipeline.run(n_local, grid, device=device)
     return [r._asdict() for r in rows]
 
 
-def _measure_phase_tables(device):
+def _measure_phase_tables(device, engines=ENGINES):
     tables = {}
-    for engine in ENGINES:
+    for engine in engines:
+        if engine == "deposit":
+            shapes = {f"{g}x{n}": {"grid": g, "n": n,
+                                   "rows": _run_knockout(engine, n, device, g)}
+                      for g, n in DEPOSIT_SHAPES}
+            tables[engine] = {"grid": None, "phases": _live_phases(engine),
+                              "shapes": shapes,
+                              "device": _device_label(device)}
+            continue
         shapes = {str(n): {"rows": _run_knockout(engine, n, device)}
                   for n in SHAPES}
         tables[engine] = {"grid": GRID, "phases": _live_phases(engine),
@@ -227,13 +249,26 @@ def _row_label(engine, phase, last):
     return f"{phase} (**full**)" if last else str(phase)
 
 
+def _shapes(table):
+    """``[(key, grid, n)]`` of a table's shapes, smallest first: a shape
+    names its own grid (the deposit's) or takes the table's."""
+    out = []
+    for key, shape in table["shapes"].items():
+        grid = shape.get("grid") or table["grid"]
+        n = int(shape.get("n", key))
+        v = 1
+        for x in grid.split(","):
+            v *= int(x)
+        out.append((v * n, key, grid, n))
+    return [(key, grid, n) for _, key, grid, n in sorted(out)]
+
+
 def render_table(engine, table):
     """Deterministic markdown for one engine's committed phase table."""
-    grid = table["grid"]
-    ns = sorted(int(k) for k in table["shapes"])
+    shapes = _shapes(table)
     header = "| phase (cumulative) |"
     rule = "|---|"
-    for n in ns:
+    for _, grid, n in shapes:
         header += f" {_shape_label(grid, n)} ms | ± | delta |"
         rule += "---|---|---|"
     lines = [header, rule]
@@ -241,8 +276,8 @@ def render_table(engine, table):
     for i, phase in enumerate(phases):
         last = i == len(phases) - 1
         cells = [_row_label(engine, phase, last)]
-        for n in ns:
-            rows = table["shapes"][str(n)]["rows"]
+        for key, _, _ in shapes:
+            rows = table["shapes"][key]["rows"]
             cells.append(_fmt_ms(rows[i]["cumulative_s"], bold=last))
             cells.append(_fmt_spread(rows[i].get("spread_s")))
             cells.append(_fmt_delta(rows, i))
@@ -429,6 +464,17 @@ def _emit(findings, fmt):
             print("attribution: clean")
 
 
+def _flag_non_monotone(tables):
+    for engine, table in tables.items():
+        for n, shape in table["shapes"].items():
+            flagged = [r["phase"] for i, r in enumerate(shape["rows"])
+                       if non_monotone(shape["rows"], i)]
+            if flagged:
+                print(f"attribution: {engine} at {n}: non-monotone phases "
+                      f"{flagged} (a negative delta beyond the readings' "
+                      "spread)", file=sys.stderr)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="mpi_grid_redistribute_tpu_torch.tools.attribution",
@@ -443,11 +489,31 @@ def main(argv=None) -> int:
                    help="regenerate the PERF.md tables from the snapshot")
     p.add_argument("--check", action="store_true",
                    help="structural gate (never re-measures)")
+    p.add_argument("--engines", default=None, metavar="ENGINE[,ENGINE]",
+                   help="with --update-baseline: re-measure only these "
+                   f"knockouts ({', '.join(ENGINES)}) and keep the rest of "
+                   "the snapshot")
     p.add_argument("--format", default="text",
                    choices=("text", "json", "sarif", "github"), dest="fmt")
     args = p.parse_args(argv)
+    engines = None
+    if args.engines:
+        engines = [e.strip() for e in args.engines.split(",") if e.strip()]
+        unknown = [e for e in engines if e not in ENGINES]
+        if unknown or not args.update_baseline:
+            print(f"attribution: --engines takes {', '.join(ENGINES)} with "
+                  "--update-baseline", file=sys.stderr)
+            return 2
 
-    if args.update_baseline:
+    if args.update_baseline and engines:
+        tables = dict((load_attribution_baseline() or {}).get(
+            "phase_tables") or {})
+        tables.update(_measure_phase_tables(args.device, engines))
+        _flag_non_monotone(tables)
+        write_attribution_baseline(None, phase_tables=tables)
+        print(f"attribution: re-measured {', '.join(engines)} into "
+              f"{_BASELINE_REL}", file=sys.stderr)
+    elif args.update_baseline:
         from mpi_grid_redistribute_tpu_torch.telemetry.recorder import (
             StepRecorder,
         )
@@ -468,14 +534,7 @@ def main(argv=None) -> int:
                   f"{roofline.ACHIEVED_FRACTION_MAX} (a count too high), "
                   f"the snapshot is not written: {over}", file=sys.stderr)
             return 1
-        for engine, table in tables.items():
-            for n, shape in table["shapes"].items():
-                flagged = [r["phase"] for i, r in enumerate(shape["rows"])
-                           if non_monotone(shape["rows"], i)]
-                if flagged:
-                    print(f"attribution: {engine} at n_local {n}: "
-                          f"non-monotone phases {flagged} (a negative delta "
-                          "beyond the readings' spread)", file=sys.stderr)
+        _flag_non_monotone(tables)
         write_attribution_baseline(
             None, device=label, phase_tables=tables, roofline=narrow,
             roofline_wide=wide)

@@ -40,6 +40,8 @@ Journal sources, one of:
 
 from __future__ import annotations
 
+# gridlint: service-path
+
 import argparse
 import http.server
 import json
@@ -168,7 +170,7 @@ def demo_snapshotter(steps: int = 200, device=None):
     rng = np.random.default_rng(0)
     stop = threading.Event()
 
-    def drive():
+    def drive():  # racecheck: recorder-writer
         # the drive thread is the recorder's single writer; the HTTP
         # handlers only snapshot events()/counts()
         n = 4096

@@ -7,7 +7,12 @@ so the fixed cost of a run (state set-up, the first launch) cancels and
 what remains is the cost of a step, host launch gaps included. Each
 length is warmed up once, then timed ``k`` times; interference only adds
 time, so the minimum is the estimate and ``spread = (max - min) / min``
-is the capture's own noise floor.
+is the capture's own noise floor. A step costs time: when the best long
+run reads no slower than the best short one, interference swamped the
+difference, so both lengths are timed again (the minima can only fall
+toward the truth) until it is positive, and a step time <= 0 is refused
+(a knockout's cut step, which may cost less than the noise at a toy
+size, asks for its readings as they are).
 """
 
 from __future__ import annotations
@@ -54,12 +59,21 @@ def cuda_time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
     return time_per_step_samples(make_run, s1, s2, reps, device="cuda")
 
 
+# rounds of ``reps`` more runs of each length taken, at most, when the
+# difference is not positive, before the measurement is refused
+MAX_EXTRA_ROUNDS = 8
+
+
 def time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
                           s1: int = 2, s2: int = 10, reps: int = 4,
-                          device="cuda"):
+                          device="cuda", require_positive: bool = True):
     """:func:`cuda_time_per_step_samples` on ``device``: CUDA events on
     the card, the host's clock on the CPU (where the runs are
-    synchronous; the bench scripts' CPU runs in the tests)."""
+    synchronous; the bench scripts' CPU runs in the tests).
+    ``require_positive`` re-times both lengths (at most
+    :data:`MAX_EXTRA_ROUNDS` more rounds of ``reps``) while the best long
+    run is no slower than the best short one, then raises; without it
+    the first readings are returned as they are."""
     if s2 <= s1 or reps < 1:
         raise ValueError(f"need s2 > s1 and reps >= 1, got {s1}, {s2}, {reps}")
     clock = (_event_seconds if torch.device(device).type == "cuda"
@@ -77,6 +91,19 @@ def time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
 
     times1 = run(s1)[0]
     times2, out2 = run(s2)
+    for _ in range(MAX_EXTRA_ROUNDS if require_positive else 0):
+        if min(times2) > min(times1):
+            break
+        out2 = None
+        times1 += run(s1)[0]
+        more, out2 = run(s2)
+        times2 += more
+    if require_positive and min(times2) <= min(times1):
+        raise RuntimeError(
+            f"time_per_step_samples: the best {s2}-step run "
+            f"({min(times2):.6g} s) was no slower than the best {s1}-step "
+            f"run ({min(times1):.6g} s) after {len(times2)} reps: the "
+            "difference is noise, not a step; time longer runs")
     t1 = min(times1)
     base_spread = (max(times1) - t1) / (s2 - s1)
     samples = [(t2 - t1) / (s2 - s1) for t2 in times2]

@@ -1504,3 +1504,76 @@ def test_drift_demo_runs_on_the_card(cuda, capsys):
     out = capsys.readouterr().out
     assert "every particle is inside its owner's subdomain" in out
     assert "no particles lost" in out
+
+
+@pytest.mark.cuda
+def test_kernelcheck_is_clean_on_the_card(cuda):
+    """K000-K003 and K005 over the six registered cases, K003 against
+    the committed footprint baseline and its nvcc."""
+    from mpi_grid_redistribute_tpu_torch.analysis import kernelcheck as kc
+    from mpi_grid_redistribute_tpu_torch.analysis import rules_kernel
+    from mpi_grid_redistribute_tpu_torch.analysis.baseline import (
+        load_kernelcheck_baseline,
+    )
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    cases = kc.default_kernels()
+    findings, footprints, _ = kc.run_kernelcheck(cases, device="cuda")
+    findings += rules_kernel.compare_footprints(
+        footprints, load_kernelcheck_baseline(), _build.nvcc_version(),
+        check_stale=True)
+    assert findings == []
+    assert sorted(footprints) == sorted(cases)
+
+
+@pytest.mark.cuda
+def test_kernelcheck_catches_a_write_past_a_tensor_on_the_card(cuda):
+    """K001 on the card: a launch writing one row past its output (the
+    scatter kernel handed a view shifted one row) hits the guard band."""
+    from mpi_grid_redistribute_tpu_torch.analysis import kernelcheck as kc
+
+    spec = kc.default_kernels()["scatter_rows_16384x7"]
+
+    # the interior shifted one row down: row n - 1 of that view is the
+    # first 28 bytes of the guard band after the tensor
+    def build_past():
+        case = spec.build()
+        real = case.run
+
+        def run(t):
+            flat = t["flat"]
+            n = flat.shape[0]
+            past = torch.as_strided(flat, (n, 7), (7, 1),
+                                    flat.storage_offset() + 7)
+            tg = t["targets"].clone()
+            tg[1] = n - 1
+            scatter.scatter_rows(past, tg, t["rows"])
+            return real(t)
+
+        case.run = run
+        return case
+
+    broken = {spec.name: kc.KernelSpec(spec.name, build_past, "",
+                                       spec.kernel, spec.op, spec.plain_op,
+                                       launches=2, scatter=True)}
+    findings, _, _ = kc.run_kernelcheck(broken, rules=["K001"],
+                                        device="cuda", partial=True)
+    assert [f.rule for f in findings] == ["K001"]
+    assert "'flat'" in findings[0].message and "28 after" in \
+        findings[0].message
+
+
+@pytest.mark.cuda
+def test_deposit_knockout_phase_6_is_the_deposit_on_the_card(cuda):
+    from mpi_grid_redistribute_tpu_torch.bench import knockout_deposit
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    state = knockout_deposit.make_state((2, 2, 2), 1 << 12, cuda)
+    build = knockout_deposit.loop_builder(mesh_cells=32)
+    _build.reset_counts()
+    outs = [build(p, 2)(*state) for p in knockout_deposit.PHASES]
+    torch.cuda.synchronize()
+    assert _build.counts()["tile_df_cumsum_rows"] == 6  # cuts 4, 5, full
+    full, _ = knockout_deposit.deposit_fns(mesh_cells=32, plain=True)
+    want = full(*state)
+    assert torch.equal(outs[-1].view(torch.int32), want.view(torch.int32))

@@ -110,6 +110,39 @@ def test_key_set_is_bench_pys(monkeypatch):
         line["exchange_bytes_per_sec"] / 3.35e12, abs=1e-6)
 
 
+def test_step_time_is_never_reported_non_positive(monkeypatch):
+    """What made ``test_key_set_is_bench_pys`` unsteady: on a loaded
+    host one short run (1 step, one rep) can read slower than the long
+    one (3 steps), and the differenced step time came out negative, so
+    the headline's ``value`` did. The differencing now times both
+    lengths again until the long run reads slower (interference only adds
+    time), and refuses to return a step time <= 0."""
+    from mpi_grid_redistribute_tpu_torch.utils import profiling
+
+    def scripted(times):
+        it = iter(times)
+        monkeypatch.setattr(profiling, "_host_seconds",
+                            lambda fn: (next(it), fn()))
+
+    # the 1-step run hiccups (50 ms) and the 3-step run reads 30 ms; the
+    # second round reads 10 ms and 30 ms: 10 ms a step
+    scripted([0.050, 0.030, 0.010, 0.030])
+    detail, _ = profiling.time_per_step_samples(
+        lambda s: (lambda: s), s1=1, s2=3, reps=1, device="cpu")
+    assert detail["min"] == pytest.approx(0.010) and detail["k"] == 2
+    # never consistent: refused, never a negative time
+    scripted([0.050, 0.030] * (profiling.MAX_EXTRA_ROUNDS + 1))
+    with pytest.raises(RuntimeError, match="noise"):
+        profiling.time_per_step_samples(
+            lambda s: (lambda: s), s1=1, s2=3, reps=1, device="cpu")
+    # a knockout's cut asks for its first readings as they are
+    scripted([0.050, 0.030])
+    detail, _ = profiling.time_per_step_samples(
+        lambda s: (lambda: s), s1=1, s2=3, reps=1, device="cpu",
+        require_positive=False)
+    assert detail["min"] == pytest.approx(-0.010)
+
+
 def test_population_and_sizing_are_bench_pys():
     bench = _bench_module()
     for n_local, mig in ((N_LOCAL, 0.02), (2 ** 20, 0.02), (5000, 0.1)):

@@ -1,10 +1,15 @@
 """The knockout twins (``bench/knockout_stages.py``,
-``bench/knockout_pipeline.py``) on the CPU: every phase runs, a cut
-before the landing leaves the state the drift made, and the last phase's
-state is bit-equal to the reference's step on the same state: the JAX
-package's ``make_migrate_loop(engine="planar")`` for the migrate step,
-and its ``service.pipeline`` chunk for the pipelined step (dt a power of
-two: no FMA can change a bit)."""
+``bench/knockout_pipeline.py``, ``bench/knockout_deposit.py``) on the
+CPU: every phase runs, a cut before the landing leaves the state the
+drift made, and the last phase's state is bit-equal to the reference's
+step on the same state: the JAX package's
+``make_migrate_loop(engine="planar")`` for the migrate step, and its
+``service.pipeline`` chunk for the pipelined step (dt a power of two: no
+FMA can change a bit). The deposit's cuts hold what each phase made (the
+keys, the sorted payload, the bounds, the prefixes, the per-cell sums),
+and its last phase is ``cic_deposit_vranks_planar`` and the ghost fold,
+bit for bit (the port's deposit is held against the reference's in
+``tests/test_torch_deposit.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -19,10 +24,10 @@ from mpi_grid_redistribute_tpu.models import nbody as jnbody
 from mpi_grid_redistribute_tpu.parallel import mesh as jmesh
 from mpi_grid_redistribute_tpu.service import pipeline as jpipeline
 from mpi_grid_redistribute_tpu_torch.bench import (
-    knockout_pipeline, knockout_stages,
+    knockout_deposit, knockout_pipeline, knockout_stages,
 )
-from mpi_grid_redistribute_tpu_torch.domain import Domain
-from mpi_grid_redistribute_tpu_torch.ops import driftbin
+from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+from mpi_grid_redistribute_tpu_torch.ops import deposit, driftbin
 from mpi_grid_redistribute_tpu_torch.telemetry import phases as phases_lib
 
 GRID = (2, 2, 2)
@@ -160,9 +165,11 @@ def test_pipeline_last_phase_is_the_references_step():
     assert int(ys["stats"].send_counts.sum()) > 0
 
 
-@pytest.mark.parametrize("mod", [knockout_stages, knockout_pipeline])
+@pytest.mark.parametrize("mod", [knockout_stages, knockout_pipeline,
+                                 knockout_deposit])
 def test_attribution_rows_on_the_cpu(mod):
-    rows = mod.run(256, GRID, device="cpu", s1=1, s2=2, reps=1)
+    kw = {"mesh_cells": MESH} if mod is knockout_deposit else {}
+    rows = mod.run(256, GRID, device="cpu", s1=1, s2=2, reps=1, **kw)
     assert [r.phase for r in rows] == list(mod.PHASES)
     assert all(isinstance(r, phases_lib.PhaseTiming) for r in rows)
     assert all(r.logical_bytes is not None for r in rows)
@@ -183,3 +190,63 @@ def test_stages_cut_refuses_the_sparse_engine():
     st = knockout_stages.make_state(GRID, N, "cpu")
     with pytest.raises(ValueError, match="one-device dense step"):
         fn(st, _stop_after=3)
+
+
+MESH = 16  # the deposit's mesh cells per axis at the CPU's size
+
+
+@pytest.mark.parametrize("phase", knockout_deposit.PHASES)
+def test_deposit_every_cut_runs(phase):
+    st = knockout_deposit.make_state(GRID, N, "cpu")
+    k = knockout_deposit.PHASES.index(phase) + 1
+    out = knockout_deposit.loop_builder(MESH)(phase, 2)(*st)
+    m, n_cells = st[0].shape[1], MESH ** 3
+    live = int(st[2].sum())
+    if k == 1:
+        key, rel, mass_z = out
+        key = key.reshape(-1)  # [V = 1, m]
+        assert key.shape == (m,) and rel.shape == (3, m)
+        assert int((key < n_cells).sum()) == live
+        assert float(mass_z.sum()) == live
+    elif k == 2:
+        keys_s, rel_s, mass_s = out
+        assert bool((keys_s[1:] >= keys_s[:-1]).all())
+        assert rel_s.shape == (3, m) and float(mass_s.sum()) == live
+    elif k == 3:
+        bounds, frac = out
+        assert bounds.shape == (n_cells + 1,)
+        assert bool((bounds[1:] >= bounds[:-1]).all())
+        assert int(bounds[-1]) == live and bool((frac >= 0).all())
+    elif k == 4:
+        assert len(out) == 4  # (hi, lo) tile prefixes, tile-total scans
+        assert out[0].shape[0] == 8 and out[0].shape[-1] == 256
+    elif k == 5:
+        assert out.shape == (8, n_cells)
+        assert float(out.double().sum()) == pytest.approx(live)
+    else:
+        assert out.shape == (MESH,) * 3
+        assert float(out.double().sum()) == pytest.approx(live)
+    # the deposit reads its inputs only
+    assert all(torch.equal(a, b) for a, b in zip(
+        st, knockout_deposit.make_state(GRID, N, "cpu")))
+
+
+def test_deposit_phase_6_is_the_deposit_and_its_fold():
+    st = knockout_deposit.make_state(GRID, N, "cpu")
+    out = knockout_deposit.loop_builder(MESH)(knockout_deposit.PHASES[-1],
+                                              1)(*st)
+    lo = torch.zeros((1, 3), dtype=torch.float32)
+    inv_h = torch.full((3,), float(MESH), dtype=torch.float32)
+    ghost = deposit.cic_deposit_vranks_planar(
+        st[0], st[1], st[2], lo, inv_h, (MESH,) * 3)[0]
+    want = deposit.fold_ghosts(ghost, ProcessGrid((1, 1, 1)))
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+def test_deposit_cut_refuses_an_unknown_phase():
+    st = knockout_deposit.make_state(GRID, 64, "cpu")
+    lo = torch.zeros((1, 3), dtype=torch.float32)
+    inv_h = torch.full((3,), float(MESH), dtype=torch.float32)
+    with pytest.raises(ValueError, match="_stop_after must be 1 to 5"):
+        deposit.cic_deposit_vranks_planar(st[0], st[1], st[2], lo, inv_h,
+                                          (MESH,) * 3, _stop_after=6)

@@ -17,20 +17,30 @@ and its numpy oracle) drains at the reference numpy driver's boundaries
 with the same manifest counts (the torch engine journals its own
 ``engine_resolved`` and overflow-window events besides, which the numpy
 backend has none of), and a supervised restart leaves no row twice.
-The reference's wall-clock drain-overhead gate is not copied (a CPU test
+Both drivers' step clock is pinned there: the two host-timed health
+rules (``snapshot_staleness``'s cadence and ``step_time_spike``'s EMA)
+read it, so an unpinned clock lets the host's load decide whether an
+``alert`` lands in one run and not the other; under one clock that makes
+them fire, the two drivers journal the same staleness alerts at the same
+steps. The reference's wall-clock drain-overhead gate is not copied (a CPU test
 under a parallel run cannot hold a 2% wall bound); the drain's cost is
 measured on the card by ``chip_smoke.py``."""
 
 import dataclasses
 import os
+import time
 import types
 
 import pytest
 
 from mpi_grid_redistribute_tpu import service as jservice
+from mpi_grid_redistribute_tpu.service import driver as jdriver
+from mpi_grid_redistribute_tpu.telemetry import health as jhealth
 from mpi_grid_redistribute_tpu.telemetry import recorder as jrecorder
 from mpi_grid_redistribute_tpu.telemetry import store as jstore
 from mpi_grid_redistribute_tpu_torch import service as tservice
+from mpi_grid_redistribute_tpu_torch.service import driver as tdriver
+from mpi_grid_redistribute_tpu_torch.telemetry import health as thealth
 from mpi_grid_redistribute_tpu_torch.telemetry import recorder as trecorder
 from mpi_grid_redistribute_tpu_torch.telemetry import store as tstore
 from torch_service_cases import GRID, run_driver
@@ -262,12 +272,17 @@ DRIVER_LEGS = {
 }
 
 
-@pytest.mark.parametrize("leg", list(DRIVER_LEGS))
-def test_driver_drains_at_reference_boundaries(tmp_path, leg):
-    """The port's driver drains where the reference numpy driver drains
-    (the ``ctx_step`` of every ``store_drain``), its store verifies, and
-    its manifest counts equal its recorder's and the reference's on every
-    kind the reference journals."""
+def _pin_step_clock(monkeypatch, perf_counter):
+    """``time.perf_counter`` of both service drivers (their step clock,
+    and nothing else's) replaced by ``perf_counter``."""
+    fake = types.SimpleNamespace(perf_counter=perf_counter, sleep=time.sleep)
+    for mod in (jdriver, tdriver):
+        monkeypatch.setattr(mod, "time", fake)
+
+
+def _driver_pair(tmp_path, leg):
+    """The reference numpy driver's and the port's ``leg`` driver's
+    configs over one run (24 steps, a snapshot every 4)."""
     base = dict(grid_shape=GRID, n_local=256, steps=24, seed=3,
                 snapshot_every=4, store_segment_events=64,
                 chunk=DRIVER_LEGS[leg].get("chunk", 7))
@@ -278,6 +293,18 @@ def test_driver_drains_at_reference_boundaries(tmp_path, leg):
     tcfg = tservice.DriverConfig(
         snapshot_dir=str(tmp_path / "ts"), store_dir=str(tmp_path / "tst"),
         **port_kw, **base)
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("leg", list(DRIVER_LEGS))
+def test_driver_drains_at_reference_boundaries(tmp_path, monkeypatch, leg):
+    """The port's driver drains where the reference numpy driver drains
+    (the ``ctx_step`` of every ``store_drain``), its store verifies, and
+    its manifest counts equal its recorder's and the reference's on every
+    kind the reference journals. The step clock is pinned (a constant),
+    so neither run's host-timed rules fire on the host's load."""
+    _pin_step_clock(monkeypatch, lambda: 0.0)
+    jcfg, tcfg = _driver_pair(tmp_path, leg)
     jdrv, _ = run_driver(jservice, jcfg)
     tdrv, _ = run_driver(tservice, tcfg)
     jr = jstore.StoreReader(jcfg.store_dir, verify=True)
@@ -293,6 +320,36 @@ def test_driver_drains_at_reference_boundaries(tmp_path, leg):
         assert tr.counts() == jr.counts()
     assert sorted(r["step"] for r in tr.events("step_latency")) == list(
         range(1, 25))
+
+
+@pytest.mark.parametrize("leg", ["numpy", "torch_eager"])
+def test_driver_staleness_alerts_match_reference_under_one_clock(
+        tmp_path, monkeypatch, leg):
+    """What made the boundary comparison unsteady: ``snapshot_staleness``
+    compares the age of the last ``snapshot`` event (its health check
+    runs right after the snapshot, behind the writer thread's start, the
+    prune and the journal export) with twice the cadence ``snapshot_every
+    x`` the step-time EMA, so on a loaded host it fires in one run and
+    not the other. Under one clock that ticks a fixed 1 ms a read and a
+    health clock 1000 s ahead, it fires at every health check after the
+    first snapshot, in both drivers, at the same steps."""
+    ticks = iter(range(10**9))
+    _pin_step_clock(monkeypatch, lambda: next(ticks) * 1e-3)
+    ahead = types.SimpleNamespace(time=lambda: time.time() + 1000.0)
+    for mod in (jhealth, thealth):
+        monkeypatch.setattr(mod, "time", ahead)
+    jcfg, tcfg = _driver_pair(tmp_path, leg)
+    jdrv, _ = run_driver(jservice, jcfg)
+    tdrv, _ = run_driver(tservice, tcfg)
+
+    def stale(drv):
+        return [e.data.get("ctx_step") for e in drv.recorder.events("alert")
+                if e.data.get("rule") == "snapshot_staleness"]
+
+    # one alert a snapshot boundary (steps 4, 8, ..., 24), each stamped
+    # with the step its chunk started at
+    assert stale(jdrv) == stale(tdrv)
+    assert len(stale(tdrv)) == 6
 
 
 def test_supervised_restart_store_no_duplicates(tmp_path):
