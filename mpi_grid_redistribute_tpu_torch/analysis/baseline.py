@@ -8,8 +8,12 @@ own numbers, written by the port's own ``--update-baseline``:
   Entries match on the line-insensitive :meth:`Finding.baseline_key`;
 * ``analysis/progprofile_baseline.json``: the ``profiles`` section, the
   collective bytes each registered program sends a call, counted by
-  ``telemetry.roofline.count_cost`` (the counterpart of the reference's
-  J004 ``collective_bytes_total``);
+  ``telemetry.roofline.count_cost``, and its recorded peak live bytes
+  (progcheck's J004); ``wire_attribution``, those bytes billed to the
+  mesh axes and the ICI/DCN domains they cross (shardcheck's S004);
+  ``reference_profiles`` and ``reference_wire_attribution``, copies of
+  the JAX package's committed sections, and ``reference_differences``,
+  the justified list of numbers in which the port differs from them;
 * ``telemetry/attribution_baseline.json``: the knockout phase tables and
   the roofline rows ``tools.attribution`` measured on the card;
 * ``analysis/kernelcheck_baseline.json``: K003's footprint table, the
@@ -125,14 +129,21 @@ def _write_doc(path: str, doc: dict) -> None:
 # -- the collective-bytes profile (the reference's J004 ``profiles``) ------
 
 _PROGPROFILE_COMMENT = (
-    "The collective bytes of every registered program "
-    "(analysis/progcheck.py), one call at the registry's shapes, counted "
-    "by telemetry.roofline.count_cost: each all_to_all, all_gather, "
-    "all_reduce, ppermute and broadcast payload once a call, on rank 0 of "
-    "the program's world. The counterpart of the JAX package's J004 "
-    "collective_bytes_total. Refresh with `python -m "
+    "progcheck's J004 and shardcheck's S004 baseline. 'profiles': the "
+    "collective bytes of every registered program (analysis/progcheck.py), "
+    "one call at the registry's shapes on rank 0 of the program's world, "
+    "a primitive and in total, the count of collective calls, and the "
+    "recorded peak live bytes (utils/costcount.py's liveness model); "
+    "'wire_attribution': those bytes billed to each mesh axis a "
+    "collective crosses and once to the ICI or DCN domain "
+    "(analysis/shardcheck.py); 'reference_profiles' and "
+    "'reference_wire_attribution': copies of the JAX package's committed "
+    "sections; 'reference_differences': every number in which the port "
+    "differs from them, each with its justification (a difference not on "
+    "the list is a finding). Refresh with `python -m "
     "mpi_grid_redistribute_tpu_torch.analysis.progcheck --update-baseline` "
-    "and justify the delta in the commit message."
+    "and `python -m mpi_grid_redistribute_tpu_torch.tools.shardcheck "
+    "--update-baseline` and justify the delta in the commit message."
 )
 
 
@@ -155,12 +166,40 @@ def load_progprofile_baseline(
     return profiles
 
 
+def load_progprofile_doc(path: Optional[str] = None) -> dict:
+    """The whole baseline document (``profiles``, ``wire_attribution``,
+    the reference's copied sections and the justified differences),
+    ``{}`` when the file does not exist."""
+    return _read_doc(path or progprofile_baseline_path())
+
+
 def write_progprofile_baseline(path: Optional[str],
                                profiles: Dict[str, dict]) -> None:
     path = path or progprofile_baseline_path()
     doc = _read_doc(path)
     doc["comment"] = _PROGPROFILE_COMMENT
     doc["profiles"] = {k: profiles[k] for k in sorted(profiles)}
+    _write_doc(path, doc)
+
+
+def load_wire_baseline(path: Optional[str] = None
+                       ) -> Optional[Dict[str, dict]]:
+    """shardcheck's S004 ``wire_attribution`` section (name -> per-axis
+    and per-domain bytes), ``None`` when absent."""
+    wires = _read_doc(path or progprofile_baseline_path()).get(
+        "wire_attribution")
+    if wires is not None and not isinstance(wires, dict):
+        raise SystemExit(
+            f"malformed wire baseline {path}: expected a "
+            "'wire_attribution' object")
+    return wires
+
+
+def write_wire_baseline(path: Optional[str],
+                        wires: Dict[str, dict]) -> None:
+    path = path or progprofile_baseline_path()
+    doc = _read_doc(path)
+    doc["wire_attribution"] = {k: wires[k] for k in sorted(wires)}
     _write_doc(path, doc)
 
 

@@ -1,16 +1,27 @@
-"""The finding record the port's checkers share, their exit codes, and
-the AST project model ``analysis.racecheck`` reads (the port's copy of
-the JAX package's ``analysis/core.py``: ``Finding``, then
-``FunctionInfo``, ``ModuleInfo``, ``Project``, ``build_project``,
-``iter_py_files`` and the name helpers).
+"""The finding record the port's checkers share, their exit codes, the
+AST project model ``analysis.racecheck`` and gridlint read, and
+gridlint's rule driver (the port's copy of the JAX package's
+``analysis/core.py``: ``Finding``, ``FunctionInfo``, ``ModuleInfo``,
+``Project``, ``build_project``, ``iter_py_files``, the name helpers, the
+taint pass, ``rule`` and ``run_gridlint``).
 
 Everything in the model is plain ``ast``: a scanned module is never
 imported. Call edges resolve module-locally by simple name and across
 modules through ``from pkg.mod import name`` / ``pkg.mod.name``
 attribute calls over the scanned file set, an approximation (no dynamic
 dispatch) that is fast, has no import side effects and never invents a
-reachability it cannot see. The reference's jit/shard_map scope
-inference and its gridlint G rules are jax's and are not here.
+reachability it cannot see.
+
+The reference's scope facts are jax's: what ``jax.jit`` traces and what
+runs in a ``shard_map`` body. The port has neither; its counterpart of
+the traced scope is the **step path** (:meth:`Project.step_functions`):
+every function marked ``# gridlint: resident-path`` (a chunk's
+macro-step) or ``# gridlint: fastpath-engine`` (a fast branch) on the
+line above its ``def``, and every function they reach. A host read there
+waits for the device (G002, G003). A line ending in ``# gridlint:
+disable=G00x[,G00y]`` suppresses those rules on it, and ``# gridlint:
+disable-file=G00x`` in a module suppresses them in the whole file
+(``all`` names every rule).
 """
 
 from __future__ import annotations
@@ -18,12 +29,49 @@ from __future__ import annotations
 import ast
 import dataclasses
 import os
-from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
+import re
+from typing import (
+    Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple,
+)
 
 # the exit-code convention of every checker CLI
 EXIT_CLEAN = 0
 EXIT_FINDINGS = 1
 EXIT_USAGE = 2
+
+RULE_IDS = (
+    "G001", "G002", "G003", "G004", "G005", "G006", "G007", "G008",
+    "G009", "G010",
+)
+# jax's rules, with no counterpart in the port (listed, never run)
+NOT_APPLICABLE = ("G001", "G005")
+
+_SUPPRESS_RE = re.compile(
+    r"#\s*gridlint:\s*disable(?P<file>-file)?\s*=\s*"
+    r"(?P<rules>(?:G\d{3}|all)(?:\s*,\s*(?:G\d{3}|all))*)"
+)
+
+
+def marker_re(tag: str) -> "re.Pattern[str]":
+    """The opt-in marker ``# gridlint: <tag>``."""
+    return re.compile(rf"#\s*gridlint:\s*{re.escape(tag)}\b")
+
+
+# the markers of the step path: a chunk's macro-step and a fast branch
+_STEP_RE = re.compile(r"#\s*gridlint:\s*(?:resident-path|fastpath-engine)\b")
+
+
+def marked(fi: "FunctionInfo", pattern: "re.Pattern[str]") -> bool:
+    """Does the line directly above ``fi``'s ``def`` (above its
+    decorators) carry ``pattern``?"""
+    node = fi.node
+    if isinstance(node, ast.Lambda):
+        return False
+    first = min([node.lineno] + [d.lineno for d in node.decorator_list])
+    lines = fi.module.lines
+    if first < 2 or first - 2 >= len(lines):
+        return False
+    return bool(pattern.search(lines[first - 2]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +133,9 @@ class ModuleInfo:
         self.source = source
         self.lines = source.splitlines()
         self.tree = ast.parse(source, filename=path)
+        self.line_suppressions: Dict[int, Set[str]] = {}
+        self.file_suppressions: Set[str] = set()
+        self._scan_suppressions()
         self.functions: Dict[str, FunctionInfo] = {}
         self.by_name: Dict[str, List[FunctionInfo]] = {}
         # import alias -> dotted module ("np" -> "numpy"); from-imports
@@ -92,6 +143,30 @@ class ModuleInfo:
         self.import_aliases: Dict[str, str] = {}
         self.from_imports: Dict[str, str] = {}
         self._index()
+
+    # -- gridlint suppressions -----------------------------------------
+
+    def _scan_suppressions(self) -> None:
+        for i, line in enumerate(self.lines, start=1):
+            m = _SUPPRESS_RE.search(line)
+            if not m:
+                continue
+            rules = {r.strip() for r in m.group("rules").split(",")}
+            if "all" in rules:
+                rules = set(RULE_IDS)
+            if m.group("file"):
+                self.file_suppressions |= rules
+            else:
+                self.line_suppressions.setdefault(i, set()).update(rules)
+
+    def suppressed(self, rule: str, line: int) -> bool:
+        if rule in self.file_suppressions:
+            return True
+        return rule in self.line_suppressions.get(line, set())
+
+    def marked_module(self, pattern: "re.Pattern[str]") -> bool:
+        """Does any line of the module carry ``pattern``?"""
+        return any(pattern.search(line) for line in self.lines)
 
     # -- indexing -------------------------------------------------------
 
@@ -195,8 +270,8 @@ def get_arg(
 
 class Project:
     """The scanned file set, indexed by path and dotted module name, with
-    call-target resolution (the reference's jit/shard_map scope inference
-    is jax's and is not here)."""
+    call-target resolution and the step path (the port's counterpart of
+    the reference's jit-reachable scope)."""
 
     def __init__(self, modules: Sequence[ModuleInfo]):
         self.modules = list(modules)
@@ -347,6 +422,26 @@ class Project:
             if isinstance(node, ast.Call):
                 yield node
 
+    # -- the step path ---------------------------------------------------
+
+    def step_functions(self) -> List[FunctionInfo]:
+        """Functions marked on the step path (``resident-path`` or
+        ``fastpath-engine``) and
+        every function they reach, sorted by path and name (computed
+        once)."""
+        cached = getattr(self, "_step_functions", None)
+        if cached is not None:
+            return cached
+        roots = {(m.relpath, fi.qualname) for m in self.modules
+                 for fi in m.functions.values() if marked(fi, _STEP_RE)}
+        out = []
+        for relpath, qual in sorted(self._close_over_calls(roots)):
+            mod = self.by_relpath.get(relpath)
+            if mod and qual in mod.functions:
+                out.append(mod.functions[qual])
+        self._step_functions = out
+        return out
+
 
 def iter_py_files(paths: Sequence[str], root: str) -> List[str]:
     out: List[str] = []
@@ -379,3 +474,142 @@ def build_project(paths: Sequence[str], root: Optional[str] = None) -> Project:
         except (SyntaxError, UnicodeDecodeError) as e:
             raise SystemExit(f"cannot parse {rel}: {e}")
     return Project(modules)
+
+
+# -- taint: which local names carry tensors ------------------------------
+
+# annotations that mark a parameter as host-side configuration, never a
+# tensor: builtin scalars and the port's static descriptors
+_STATIC_ANNOTATIONS = frozenset({
+    "int", "float", "bool", "str", "bytes", "Domain", "GridEdges",
+    "ProcessGrid", "RankMesh", "HierarchicalMesh",
+})
+# tensor metadata that needs no device read
+_STATIC_ATTRS = ("shape", "ndim", "dtype", "device", "itemsize",
+                 "is_cuda", "layout")
+_STATIC_CALLS = ("len", "isinstance", "range", "enumerate", "size", "dim",
+                 "numel", "element_size")
+
+
+def _annotation_is_static(ann: Optional[ast.AST]) -> bool:
+    if ann is None:
+        return False
+    for n in ast.walk(ann):
+        if isinstance(n, ast.Name) and n.id in _STATIC_ANNOTATIONS:
+            return True
+        if isinstance(n, ast.Attribute) and n.attr in _STATIC_ANNOTATIONS:
+            return True
+        if (isinstance(n, ast.Constant) and isinstance(n.value, str)
+                and n.value in _STATIC_ANNOTATIONS):
+            return True
+    return False
+
+
+def _static_params(fi: FunctionInfo) -> Set[str]:
+    out: Set[str] = set()
+    args = getattr(fi.node, "args", None)
+    if args is None:
+        return out
+    for a in list(args.posonlyargs) + list(args.args) + list(args.kwonlyargs):
+        if _annotation_is_static(getattr(a, "annotation", None)):
+            out.add(a.arg)
+    return out
+
+
+def tainted_names(fi: FunctionInfo) -> Set[str]:
+    """Forward may-taint over a function's assignments: parameters may
+    be tensors; a name assigned from an expression mentioning a tainted
+    name (or a ``torch`` call) is tainted. ``.shape``/``.dtype``/
+    ``len()``/``.numel()`` of a tensor need no device read and break the
+    chain, as do parameters annotated with a host type (``dt: float``,
+    ``domain: Domain``)."""
+    tainted: Set[str] = set(fi.params) - _static_params(fi)
+    for _ in range(2):
+        for stmt in ast.walk(fi.node):
+            if isinstance(stmt, ast.Assign):
+                if expr_mentions_tainted(stmt.value, tainted):
+                    for t in stmt.targets:
+                        for n in ast.walk(t):
+                            if isinstance(n, ast.Name):
+                                tainted.add(n.id)
+            elif isinstance(stmt, ast.AugAssign):
+                if (expr_mentions_tainted(stmt.value, tainted)
+                        and isinstance(stmt.target, ast.Name)):
+                    tainted.add(stmt.target.id)
+            elif isinstance(stmt, (ast.For, ast.comprehension)):
+                if expr_mentions_tainted(stmt.iter, tainted):
+                    for n in ast.walk(stmt.target):
+                        if isinstance(n, ast.Name):
+                            tainted.add(n.id)
+    return tainted
+
+
+def expr_mentions_tainted(expr: ast.AST, tainted: Set[str]) -> bool:
+    """May the value of ``expr`` be (or hold) a tensor's data?"""
+    if isinstance(expr, ast.Name):
+        return expr.id in tainted
+    if isinstance(expr, ast.Attribute):
+        if expr.attr in _STATIC_ATTRS:
+            return False
+        return expr_mentions_tainted(expr.value, tainted)
+    if isinstance(expr, ast.Call):
+        name = call_name(expr) or ""
+        if last_attr(name) in _STATIC_CALLS:
+            return False
+        if name.split(".", 1)[0] == "torch":
+            return True
+        parts = [expr.func] + list(expr.args) + [k.value
+                                                 for k in expr.keywords]
+        return any(expr_mentions_tainted(p, tainted) for p in parts)
+    return any(expr_mentions_tainted(c, tainted)
+               for c in ast.iter_child_nodes(expr))
+
+
+def finding_at(fi: FunctionInfo, node: ast.AST, rule_id: str,
+               msg: str) -> Finding:
+    return Finding(rule_id, fi.module.relpath, node.lineno,
+                   node.col_offset, msg, fi.qualname)
+
+
+# -- gridlint's rule registry and driver ---------------------------------
+
+RuleFn = Callable[[Project], List[Finding]]
+_RULES: List[Tuple[str, RuleFn]] = []
+
+
+def rule(rule_id: str):
+    """Register a gridlint rule body (``project -> findings``)."""
+    def deco(fn: RuleFn) -> RuleFn:
+        _RULES.append((rule_id, fn))
+        return fn
+
+    return deco
+
+
+def run_gridlint(paths: Sequence[str], root: Optional[str] = None,
+                 rules: Optional[Iterable[str]] = None) -> List[Finding]:
+    """Scan ``paths`` and return the unsuppressed findings, sorted."""
+    # the rule modules register on import
+    from mpi_grid_redistribute_tpu_torch.analysis import (  # noqa: F401
+        rules_fastpath, rules_jit, rules_planar, rules_resident,
+        rules_scrape, rules_service, rules_spans,
+    )
+
+    project = build_project(paths, root)
+    wanted = set(rules) if rules else set(RULE_IDS)
+    findings: List[Finding] = []
+    seen: Set[Tuple] = set()
+    for rule_id, fn in _RULES:
+        if rule_id not in wanted:
+            continue
+        for f in fn(project):
+            mod = project.by_relpath.get(f.path)
+            if mod is not None and mod.suppressed(f.rule, f.line):
+                continue
+            key = (f.rule, f.path, f.line, f.col, f.message)
+            if key in seen:
+                continue
+            seen.add(key)
+            findings.append(f)
+    findings.sort(key=lambda f: (f.path, f.line, f.col, f.rule))
+    return findings

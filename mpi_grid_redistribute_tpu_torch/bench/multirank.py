@@ -29,6 +29,9 @@ of the first ranks:
     its state, both engines, a digest of each rank's ghosts;
   * ``hier``: ``GridRedistribute(mesh=, dcn_shape=DCN_SHAPE)`` on
     config 1's rows (``"auto"``: the hierarchical engine);
+  * ``registry``: ``analysis.progcheck.world_records`` of the sharded
+    registry programs ``spec["registry"]`` names (every rank's recorded
+    runs: what progcheck's J001-J004 and shardcheck's S004 judge);
   * ``card_vs_cpu``: a small width on ranks 0-1 (dev grid (2, 1, 1) x
     vgrid (1, 2, 2), the scan and then the mxu deposit each step; then
     on the (2, 1, 1) grid one drift step with its scan deposit, a halo
@@ -629,7 +632,11 @@ def _card_vs_cpu_part(spec, mesh, dev) -> dict:
 
 def world_main(ctx, spec):
     """One rank of the world (see the module docstring): the parts
-    ``spec["parts"]`` names, on the inputs :func:`prepare` wrote."""
+    ``spec["parts"]`` names, on the inputs :func:`prepare` wrote. With
+    ``spec["go_file"]`` (a world started ahead of its turn, maybe before
+    the kernels are built) the rank makes the card's context, then waits
+    until that file exists before it loads the kernels; it fails when
+    ``go_file + ".abort"`` appears or its parent process ends first."""
     import torch
     import torch.distributed as dist
 
@@ -637,12 +644,31 @@ def world_main(ctx, spec):
     from mpi_grid_redistribute_tpu_torch.ops import _build
     from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
 
+    entered, parent = time.time(), os.getppid()
     r, dev = ctx.rank, ctx.device
+    parts = spec["parts"]
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    go = spec.get("go_file")
+    if go:
+        # started ahead (the caller may still be building the kernels):
+        # make the card's context and the recording's first-use imports
+        # now, then wait for the caller's go
+        if dev.type == "cuda":
+            torch.zeros(1, device=dev)
+        if "registry" in parts:
+            import torch._dynamo  # noqa: F401
+    set_up = time.time()
+    if go:
+        while not os.path.exists(go):
+            if os.path.exists(go + ".abort") or os.getppid() != parent:
+                raise RuntimeError("the world's caller stopped before its go")
+            time.sleep(0.01)
+    ready = time.time()
+    if dev.type == "cuda":
         _build.build_all()  # loads the libraries the caller built
-    parts = spec["parts"]
-    out = {"device": str(dev), "backend": ctx.backend}
+    out = {"device": str(dev), "backend": ctx.backend,
+           "niceness": os.nice(0)}
     world = mesh_lib.make_mesh(ProcessGrid(spec["world_grid"]))
     # subgroups of the first ranks, created on every rank
     Wv = int(np.prod(spec["dev_grid"]))
@@ -651,6 +677,11 @@ def world_main(ctx, spec):
     if "card_vs_cpu" in parts:
         pair = sub if Wv == 2 else dist.new_group([0, 1])
     seconds = out["seconds"] = {}
+    # host-clock instants (time.time): the rank's target entered, its
+    # set-up before the go done, the go seen, its parts started and done;
+    # the caller splits the world's seconds
+    out["clock"] = {"entered": entered, "set_up": set_up, "ready": ready,
+                    "parts_from": time.time()}
     t0 = time.perf_counter()
 
     def lap(name):
@@ -684,11 +715,20 @@ def world_main(ctx, spec):
         out["hier"] = _hier_part(spec, world, dev)
         dist.barrier()
         lap("hier")
+    if "registry" in parts:
+        # progcheck's recorded runs of the sharded registry programs
+        # (``spec["registry"]`` names them) in this world
+        from mpi_grid_redistribute_tpu_torch.analysis import progcheck
+
+        out["registry"] = progcheck.world_records(ctx, spec["registry"])
+        dist.barrier()
+        lap("registry")
     if "card_vs_cpu" in parts and r < 2 and dev.type == "cuda":
         out["card_vs_cpu"] = _card_vs_cpu_part(
             spec, mesh_lib.make_mesh(ProcessGrid(DEV_GRID), group=pair), dev)
     dist.barrier()
     lap("card_vs_cpu")
+    out["clock"]["parts_to"] = time.time()
     return out
 
 
@@ -697,7 +737,7 @@ def prepare(workdir: str, n_local: int, fill: float = 0.9,
             deposit_shape=DEPOSIT_SHAPE, config1_n: int = CONFIG1_N,
             dev_grid=DEV_GRID, vgrid=VGRID, world_grid=GRID,
             parts=("vranks", "flat", "drift", "halo", "hier", "card_vs_cpu"),
-            halo_n: int = HALO_N) -> dict:
+            halo_n: int = HALO_N, registry=()) -> dict:
     """Write the world's inputs to ``workdir`` and return its ``spec``:
     the bench state (``common.uniform_state`` of the 2x2x2 grid from seed
     0 at the ``drift_sizing`` velocities, or ``state``, the same arrays
@@ -708,12 +748,13 @@ def prepare(workdir: str, n_local: int, fill: float = 0.9,
     that grid); the vranks part runs ``dev_grid`` x ``vgrid`` (which must
     make the 2x2x2 grid) on its first ranks; ``"flat"``, ``"drift"`` and
     ``"halo"`` need ``world_grid`` to be the 2x2x2 grid; ``halo_n`` is
-    the halo part's rows a rank (config 6's by default)."""
+    the halo part's rows a rank (config 6's by default); ``registry``
+    names the programs the ``"registry"`` part records."""
     from mpi_grid_redistribute_tpu_torch.bench import common, config1_oracle
 
     if tuple(d * v for d, v in zip(dev_grid, vgrid)) != GRID:
         raise ValueError(f"dev grid {dev_grid} x vgrid {vgrid} is not {GRID}")
-    for part in ("flat", "drift", "halo"):
+    for part in ("flat", "drift", "halo", "registry"):
         if part in parts and tuple(world_grid) != GRID:
             raise ValueError(f"the {part} part runs on {GRID}, not "
                              f"{world_grid}")
@@ -735,7 +776,7 @@ def prepare(workdir: str, n_local: int, fill: float = 0.9,
                 small=dict(capacity=cap_s, local_budget=budget_s),
                 dev_grid=tuple(dev_grid), vgrid=tuple(vgrid),
                 world_grid=tuple(world_grid), parts=tuple(parts),
-                halo_n=halo_n)
+                halo_n=halo_n, registry=tuple(registry))
 
 
 def reference(spec, device, single=None, halo_ghosts=None) -> dict:

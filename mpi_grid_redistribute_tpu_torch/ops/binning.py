@@ -38,7 +38,7 @@ def _is_pow2(x: float) -> bool:
     return mant == 0.5
 
 
-def _f32(x, like: torch.Tensor) -> torch.Tensor:
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     """0-d float32 constant on ``like``'s device (a Python float operand
     would be a weakly typed scalar; a tensor pins float32 arithmetic).
     Filled on the device: the value is float32-exact, so nothing rounds,

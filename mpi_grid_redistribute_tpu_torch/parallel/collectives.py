@@ -14,7 +14,10 @@ every call goes through the backend, at world size 1 too. Each call is
 a ``coll:<name>`` profiler range, so a trace shows the time a rank spends
 in its collectives, and reports its payload (the caller's tensor, once a
 call, under the reference's primitive name) to
-``utils.costcount.count_collective``.
+``utils.costcount.count_collective`` with the mesh axes the call is
+declared over: every axis of the mesh, or the ``axes`` a sub-axis caller
+names (the reference's ``ici_axes``/``dcn_axes`` of a
+:class:`~.mesh.HierarchicalMesh`).
 
 Collectives over a SUBSET of the mesh axes (the reference's
 ``lax.all_to_all(x, ici_axes)``, ``lax.ppermute(x, dcn_axes, perm)``, which
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
@@ -54,6 +58,14 @@ def _local(mesh: RankMesh) -> bool:
     return mesh.backend is None
 
 
+def _group_axes(mesh: RankMesh, ranks: Sequence[int]) -> Tuple[str, ...]:
+    """The grid axes along which the ranks of a group differ (the axes of
+    a sub-axis call whose caller names none)."""
+    cells = [np.unravel_index(int(r), mesh.shape) for r in ranks]
+    return tuple(name for a, name in enumerate(mesh.axis_names)
+                 if len({c[a] for c in cells}) > 1)
+
+
 def lift_perm(perm: Sequence[Tuple[int, int]], groups
               ) -> Tuple[Tuple[int, int], ...]:
     """A permutation over the members of a sub-axis group (``(src, dst)``
@@ -69,14 +81,16 @@ def axis_index(mesh: RankMesh) -> int:
 
 
 def all_to_all(x: torch.Tensor, mesh: RankMesh, dim: int = 0,
-               group: Sequence[int] = None) -> torch.Tensor:
+               group: Sequence[int] = None,
+               axes: Sequence[str] = None) -> torch.Tensor:
     """Tiled all-to-all along ``dim``: the ``G`` equal chunks of ``x``
     along ``dim`` go to the ranks of ``group`` in order (default: all
     ``R`` mesh ranks), and the result holds the chunks received,
     source-major, along the same ``dim`` (``lax.all_to_all(x, axes, dim,
     dim, tiled=True)``; with ``group`` the caller's group of a sub-axis
     all-to-all, ascending mesh ranks that hold the caller, the same list
-    on every rank of it)."""
+    on every rank of it). ``axes`` names the sub-axes a ``group`` call
+    is declared over (default: the axes its ranks differ along)."""
     ranks = range(mesh.size) if group is None else [int(g) for g in group]
     G = len(ranks)
     if x.shape[dim] % G:
@@ -93,7 +107,11 @@ def all_to_all(x: torch.Tensor, mesh: RankMesh, dim: int = 0,
             f"ascending")
     if _local(mesh):
         return x.clone()
-    count_collective("all_to_all", x)
+    if group is None:
+        count_collective("all_to_all", x, mesh.axis_names)
+    else:
+        count_collective("all_to_all", x, tuple(
+            _group_axes(mesh, ranks) if axes is None else axes), world=False)
     c = x.shape[dim] // G
     lead, tail = tuple(x.shape[:dim]), tuple(x.shape[dim + 1:])
     # [lead, G, c, tail] -> [G, lead, c, tail]: chunk g contiguous
@@ -121,7 +139,7 @@ def all_gather(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
     """``[R, *x.shape]``: every rank's ``x`` stacked in rank order."""
     if _local(mesh):
         return x[None].clone()
-    count_collective("all_gather", x)
+    count_collective("all_gather", x, mesh.axis_names)
     wire = _wire(x.reshape((1,) + tuple(x.shape)))
     parts = [torch.empty_like(wire) for _ in range(mesh.size)]
     with record_function("coll:all_gather"):
@@ -134,7 +152,7 @@ def _all_reduce(x: torch.Tensor, mesh: RankMesh, op, name: str
                 ) -> torch.Tensor:
     out = x.clone()
     if not _local(mesh):
-        count_collective(name, x)
+        count_collective(name, x, mesh.axis_names)
         with record_function("coll:all_reduce"):
             dist.all_reduce(out, op=op, group=mesh.group)
     return out
@@ -169,7 +187,7 @@ def broadcast(x: torch.Tensor, mesh: RankMesh, src: int = 0) -> torch.Tensor:
     """Rank ``src``'s ``x`` on every rank (``src`` is a mesh rank)."""
     out = x.clone().contiguous()
     if not _local(mesh):
-        count_collective("broadcast", x)
+        count_collective("broadcast", x, mesh.axis_names)
         with record_function("coll:broadcast"):
             dist.broadcast(out, src=_global_rank(mesh, src),
                            group=mesh.group)
@@ -181,17 +199,22 @@ def _global_rank(mesh: RankMesh, r: int) -> int:
 
 
 def ppermute(x: torch.Tensor, mesh: RankMesh,
-             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+             perm: Sequence[Tuple[int, int]],
+             axes: Sequence[str] = None) -> torch.Tensor:
     """``lax.ppermute``: for each ``(src, dst)`` in ``perm`` (an injective
     map of mesh ranks), ``src``'s ``x`` arrives at ``dst``; a rank no pair
     targets gets zeros. One ``all_to_all_single`` whose splits are zero to
-    every rank but the partner."""
+    every rank but the partner. ``axes`` names the sub-axes of a
+    :func:`lift_perm` permutation (default: every mesh axis)."""
     me = mesh.rank
     dst = [d for s, d in perm if s == me]
     src = [s for s, d in perm if d == me]
     if _local(mesh):
         return x.clone() if src else torch.zeros_like(x)
-    count_collective("ppermute", x)
+    if axes is None:
+        count_collective("ppermute", x, mesh.axis_names)
+    else:
+        count_collective("ppermute", x, tuple(axes), world=False)
     wire = _wire(x.reshape(-1))
     numel = wire.numel()
     in_splits = [numel if r in dst else 0 for r in range(mesh.size)]

@@ -35,6 +35,7 @@ from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import binning, pack
 from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
 from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+from mpi_grid_redistribute_tpu_torch.telemetry.phases import traced_span
 
 ENGINES = (
     "auto", "planar", "rowmajor", "sparse", "neighbor", "hierarchical"
@@ -325,7 +326,8 @@ def _planar_view(fused: torch.Tensor, D: int, lead: int):
             f"fused must be float32 or int32, got {fused.dtype}"
         )
     as_f32 = fused.dtype == torch.float32
-    fi = fused.view(torch.int32) if as_f32 else fused
+    # viewed only when float32, a 4-byte dtype (gridlint G004)
+    fi = fused.view(torch.int32) if as_f32 else fused  # gridlint: disable=G004
     return as_f32, fi, fi[..., :D, :].view(torch.float32)
 
 
@@ -557,8 +559,39 @@ def _shard_route(fused, count, domain, grid, D, edges, mesh, C):
 
 def _dense_pool_wire(fi, order, bounds, send_counts, R, C, mesh):
     """The dense ``[K, R*C]`` pool: pack and one tiled all-to-all."""
-    packed, _ = pack.pack_cols(fi, order, bounds[:R], send_counts, R, C)
-    return col.all_to_all(packed, mesh, dim=1)
+    with traced_span("rd:dense_wire"):
+        packed, _ = pack.pack_cols(fi, order, bounds[:R], send_counts, R, C)
+        return col.all_to_all(packed, mesh, dim=1)
+
+
+# gridlint: fastpath-engine
+def _sparse_wire(fi, order, bounds, send_counts, R, B, mesh):
+    """The count-driven wire: pack ``[K, R*B]`` mover blocks through the
+    by-destination order and one tiled all-to-all. O(movers) work only:
+    no sort, no gather at an ``arange`` index (the gridlint G006 region;
+    the selection sort runs before, in the routing prefix)."""
+    with traced_span("rd:sparse_wire"):
+        packed, _ = pack.pack_cols(fi, order, bounds[:R], send_counts, R, B)
+        return col.all_to_all(packed, mesh, dim=1)
+
+
+# gridlint: fastpath-engine
+def _neighbor_wire(fi, plan, slot_valid, mesh, perms, n_act, B, axes=None):
+    """The neighbor-stencil wire: one plan-indexed gather of every
+    outgoing mover column, then one ``ppermute`` of a ``[K, B]`` block an
+    active stencil offset, instead of the dense all-to-all. O(movers)
+    work only (the gridlint G006 region). ``axes``: the sub-axes of a
+    lifted permutation (the hierarchical engine's intra-pod stencil)."""
+    K = fi.shape[0]
+    with traced_span("rd:neighbor_wire"):
+        send = torch.where(slot_valid[None, :], pack._take_cols(fi, plan),
+                           torch.zeros((), dtype=fi.dtype, device=fi.device))
+        send = send.reshape(K, n_act, B)
+        return torch.cat([
+            col.ppermute(send[:, o, :].contiguous(), mesh, perms[o],
+                         axes=axes)
+            for o in range(n_act)
+        ], dim=1)
 
 
 def shard_redistribute_planar_fn(domain: Domain, grid: ProcessGrid,
@@ -654,9 +687,12 @@ def shard_redistribute_sparse_fn(domain: Domain, grid: ProcessGrid,
         recv_counts = col.all_to_all(send_counts, mesh)
         ok = (remote_counts.max() <= B).to(torch.int32).reshape(1)
         fast = bool(col.pmin(ok, mesh)[0] == 1)
-        W = B if fast else C
-        pool = _dense_pool_wire(fi, order, bounds, send_counts.clamp(max=W),
-                                R, W, mesh)
+        if fast:
+            pool = _sparse_wire(fi, order, bounds, send_counts.clamp(max=B),
+                                R, B, mesh)
+        else:
+            pool = _dense_pool_wire(fi, order, bounds,
+                                    send_counts.clamp(max=C), R, C, mesh)
         out, new_count, dropped_recv = pack.planar_compact_with_self(
             pool, recv_counts, me[0], is_self, fi, out_capacity)
         if as_f32:
@@ -709,14 +745,8 @@ def shard_redistribute_neighbor_fn(domain: Domain, grid: ProcessGrid,
         if stencil:
             plan, slot_valid = _stencil_plan(send_counts, bounds, order, d_o,
                                              B, n)
-            send = torch.where(slot_valid[None, :],
-                               pack._take_cols(fi, plan),
-                               torch.zeros((), dtype=fi.dtype, device=dev))
-            send = send.reshape(K, n_act, B)
-            pool = torch.cat([
-                col.ppermute(send[:, o, :].contiguous(), mesh, perms[o])
-                for o in range(n_act)
-            ], dim=1)
+            pool = _neighbor_wire(fi, plan, slot_valid, mesh, perms, n_act,
+                                  B)
             invalid, source_key = _stencil_keys(recv_counts, s_o, B, is_self,
                                                 me[0])
             new_full = (recv_counts.sum(dtype=torch.int32)
@@ -1101,13 +1131,13 @@ def build_redistribute_hierarchical_vranks(domain: Domain, grid: ProcessGrid,
         ndim, edges=edges)
 
 
-def _dense_intra_wire(fi, plan, slot_valid, mesh, group):
+def _dense_intra_wire(fi, plan, slot_valid, mesh, group, axes):
     """The hierarchical engine's dense intra-pod pool: a ``[K, L * C]``
     per-local-destination pack and one all-to-all inside the pod only
-    (no byte leaves the pod)."""
+    (no byte leaves the pod; ``axes`` the pod's ici axes)."""
     packed = torch.where(slot_valid[None, :], pack.gather_plan_cols(fi, plan),
                          torch.zeros((), dtype=fi.dtype, device=fi.device))
-    return col.all_to_all(packed, mesh, dim=1, group=group)
+    return col.all_to_all(packed, mesh, dim=1, group=group, axes=axes)
 
 
 def _hier_cross_stage(fi, order, bounds, prefix, eff, recv_counts, hier,
@@ -1135,10 +1165,11 @@ def _hier_cross_stage(fi, order, bounds, prefix, eff, recv_counts, hier,
         eff_loc = eff[rank_table_t[q_dst]]                   # [L]
         perm = col.lift_perm([(p, (p + delta) % n_pods)
                               for p in range(n_pods)], hier.dcn_groups())
-        mirror = col.ppermute(blk, mesh, perm)
-        cnt_loc = col.ppermute(eff_loc, mesh, perm)
+        mirror = col.ppermute(blk, mesh, perm, axes=hier.dcn_axes)
+        cnt_loc = col.ppermute(eff_loc, mesh, perm, axes=hier.dcn_axes)
         fan = _fan_out(mirror, cnt_loc, L, B2)               # [K, L*B2]
-        pools.append(col.all_to_all(fan, mesh, dim=1, group=ici))
+        pools.append(col.all_to_all(fan, mesh, dim=1, group=ici,
+                                    axes=hier.ici_axes))
         # chunk s, slot j arrived from (pod pme - delta, local s)
         src_ranks = rank_table_t[(pme - delta) % n_pods][m_idx]
         keys.append(src_ranks.to(torch.int32))
@@ -1215,15 +1246,8 @@ def shard_redistribute_hierarchical_fn(domain: Domain, grid: ProcessGrid,
             if t.n_act:
                 plan, slot_valid = _stencil_plan(sc, bounds, order, d_glob,
                                                  B, n)
-                send = torch.where(slot_valid[None, :],
-                                   pack._take_cols(fi, plan),
-                                   torch.zeros((), dtype=fi.dtype,
-                                               device=dev))
-                send = send.reshape(K, t.n_act, B)
-                pool = torch.cat([
-                    col.ppermute(send[:, o, :].contiguous(), mesh, perms[o])
-                    for o in range(t.n_act)
-                ], dim=1)
+                pool = _neighbor_wire(fi, plan, slot_valid, mesh, perms,
+                                      t.n_act, B, axes=hier.ici_axes)
             else:  # one-rank pods: nothing stays in a pod but its rank
                 pool = fi.new_zeros((K, 0))
             invalid, srckeys = _stencil_keys(recv_counts, s_glob, B,
@@ -1236,7 +1260,7 @@ def shard_redistribute_hierarchical_fn(domain: Domain, grid: ProcessGrid,
             src_cols = (bounds[d_all_t] + cc).clamp(max=n - 1)
             pool = _dense_intra_wire(fi, order[src_cols.long()].long(),
                                      cc < cnt_all, mesh,
-                                     hier.ici_group(me))
+                                     hier.ici_group(me), hier.ici_axes)
             valid_r = cc < recv_counts[d_all_t]
             srckeys = d_all_t.to(torch.int32)
         invalid = ~torch.cat([valid_r] + cross_valid + [is_self])

@@ -68,7 +68,7 @@ def _tail(path: str, limit: int = 4000) -> str:
 def run_world(target: str, world_size: int, *, args: Sequence = (),
               backend: str = "gloo", device: str = "cuda",
               timeout: float = 120.0,
-              pg_timeout: float = None) -> List[Any]:
+              pg_timeout: float = None, nice: int = 0) -> List[Any]:
     """Run ``target`` (``"module:function"``, importable in a fresh
     interpreter) on ``world_size`` ranks; return their results in rank
     order. ``args`` (picklable) go to every rank after the
@@ -76,7 +76,9 @@ def run_world(target: str, world_size: int, *, args: Sequence = (),
     device_count}``) unless ``device`` says otherwise (``"cpu"``); without
     a visible GPU ``device="cuda"`` raises before any rank starts.
     ``timeout`` bounds the whole world in seconds; ``pg_timeout``
-    (default: ``timeout``) bounds each collective. Raises
+    (default: ``timeout``) bounds each collective; ``nice`` raises the
+    ranks' niceness (they start on the cores the caller leaves idle).
+    Raises
     :class:`RankFailed` if any rank fails or the world outlasts
     ``timeout``; no process outlives the call."""
     world_size = int(world_size)
@@ -100,6 +102,7 @@ def run_world(target: str, world_size: int, *, args: Sequence = (),
         "pg_timeout": float(timeout if pg_timeout is None else pg_timeout),
         "sys_path": list(sys.path),
         "workdir": workdir,
+        "nice": int(nice),
     }
     spec_path = os.path.join(workdir, "spec.pkl")
     with open(spec_path, "wb") as f:
@@ -179,6 +182,8 @@ def _error_of(workdir: str, r: int) -> str:
 def _child(spec_path: str, rank: int) -> int:
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
+    if spec.get("nice"):
+        os.nice(spec["nice"])
     for p in reversed(spec["sys_path"]):
         if p not in sys.path:
             sys.path.insert(0, p)

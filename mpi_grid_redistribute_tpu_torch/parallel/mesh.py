@@ -147,6 +147,18 @@ class HierarchicalMesh:
         )
         self.n_pods = math.prod(self.dcn_shape)
         self.pod_size = math.prod(self.ici_shape)
+        # the reference's expanded axis names: a ``dcn_<name>`` axis in
+        # front of each split grid axis; a sub-axis collective is declared
+        # over ``ici_axes`` (inside a pod) or ``dcn_axes`` (across pods)
+        names, dcn_axes = [], []
+        for name, d in zip(grid.axis_names, self.dcn_shape):
+            if d > 1:
+                names.append("dcn_" + name)
+                dcn_axes.append("dcn_" + name)
+            names.append(name)
+        self.axis_names = tuple(names)
+        self.dcn_axes = tuple(dcn_axes)
+        self.ici_axes = tuple(grid.axis_names)
         self.local_grid = ProcessGrid(self.ici_shape)
         R = grid.nranks
         pod_of = np.zeros(R, dtype=np.int32)

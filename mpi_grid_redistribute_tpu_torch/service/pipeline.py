@@ -112,8 +112,11 @@ def make_pipelined_chunk_fn(rd, dt, chunk, positions, *fields, unroll=8,
     n_local = positions.shape[0] // R
     cap, out_cap = rd._capacities(n_local)
     specs = api._planar_specs(positions, fields)
+    # the fused planar carry moves rows as 32-bit words: the 4-byte
+    # contract _planar_specs guarantees, asserted on this path too (G004)
     planar_ok = (
         specs is not None
+        and all(s[1].itemsize == 4 for s in specs)
         and rd.edges is None
         and _drift_compatible(specs, rd.domain.ndim)
     )
@@ -210,6 +213,7 @@ def make_pipelined_chunk_fn(rd, dt, chunk, positions, *fields, unroll=8,
         key2 = torch.where(T2[-1] > 0, aug2[KP + 1], V).reshape(V, n)
         return T2, stack2, nf2, key2
 
+    # gridlint: resident-path
     def macro(pos, vel, ids, count):
         fused_p = api._fuse_planar(pos, (vel, ids), V, n, specs,
                                    stacked=False)

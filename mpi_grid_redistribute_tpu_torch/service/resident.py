@@ -103,6 +103,7 @@ def make_chunk_fn(rd, dt, chunk, positions, *fields, unroll=8, probes=None):
     unroll = min(max(1, int(unroll)), chunk)
     armed = probes is not None and probes.armed
 
+    # gridlint: resident-path
     def macro(pos, vel, ids, count):
         if armed:
             cum = torch.zeros((), dtype=torch.int32, device=count.device)

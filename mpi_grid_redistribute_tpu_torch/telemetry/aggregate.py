@@ -28,6 +28,8 @@ Host code only: it uses NumPy for :meth:`MergedJournal.pod_stats` and
 never imports torch.
 """
 
+# gridlint: scrape-path
+
 from __future__ import annotations
 
 import json

@@ -22,6 +22,8 @@ id.
 This module imports neither torch nor numpy.
 """
 
+# gridlint: scrape-path
+
 from __future__ import annotations
 
 import threading

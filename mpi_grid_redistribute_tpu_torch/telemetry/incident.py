@@ -47,6 +47,8 @@ This module is on the capture path and imports neither torch nor numpy
 them).
 """
 
+# gridlint: scrape-path
+
 from __future__ import annotations
 
 import json

@@ -22,6 +22,8 @@ Everything here is host code and imports neither torch nor numpy: a
 scrape never touches the device.
 """
 
+# gridlint: scrape-path
+
 from __future__ import annotations
 
 import math

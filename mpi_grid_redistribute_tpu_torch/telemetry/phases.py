@@ -18,7 +18,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
-from mpi_grid_redistribute_tpu_torch.utils import profiling
+from mpi_grid_redistribute_tpu_torch.utils import costcount, profiling
 
 
 def span(name: str):
@@ -27,11 +27,35 @@ def span(name: str):
     return torch.profiler.record_function(name)
 
 
+class _RecordedSpan:
+    """A ``record_function`` range that is also a region of the
+    recording ``utils.costcount`` block around it."""
+
+    def __init__(self, name: str, region):
+        self._range = torch.profiler.record_function(name)
+        self._region = region
+
+    def __enter__(self):
+        self._range.__enter__()
+        self._region.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._region.__exit__(*exc)
+        return self._range.__exit__(*exc)
+
+
 def traced_span(name: str):
     """Span around an engine's own phases (``'rd:bin'``, ``'rd:pack'``):
     the same ``record_function`` range as :func:`span`; the JAX package
-    needs a separate kind inside ``jit``, the port does not."""
-    return torch.profiler.record_function(name)
+    needs a separate kind inside ``jit``, the port does not. While a
+    ``utils.costcount.counting(record=True)`` block records on this
+    thread, the span is also a region of its record (what progcheck's
+    J003 reads)."""
+    region = costcount.region(name)
+    if region is None:
+        return torch.profiler.record_function(name)
+    return _RecordedSpan(name, region)
 
 
 class PhaseTiming(NamedTuple):

@@ -13,6 +13,8 @@ The ``nan_detected``, ``conservation_drift`` and ``bounds_violation``
 health rules (:mod:`.health`) read these events. NumPy only.
 """
 
+# gridlint: scrape-path
+
 from __future__ import annotations
 
 import dataclasses

@@ -31,6 +31,8 @@ Host code only: the standard library and :mod:`.metrics` (and
 :mod:`.store` for its sketches); neither torch nor numpy.
 """
 
+# gridlint: scrape-path
+
 from __future__ import annotations
 
 import json

@@ -50,6 +50,8 @@ Host code only: the standard library and :mod:`.metrics`. It imports
 neither torch nor numpy, so a drain never touches the device.
 """
 
+# gridlint: scrape-path
+
 from __future__ import annotations
 
 import hashlib

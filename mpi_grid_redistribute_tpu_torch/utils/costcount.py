@@ -34,11 +34,33 @@ The rules, whichever device runs the program:
   mode sees, so a program counts the same on either route.
 * **collectives**: ``parallel/collectives.py`` reports each payload it
   puts on the wire (:func:`count_collective`), once a call, under the
-  reference's primitive name; a mesh without a process group issues
-  none and reports nothing.
+  reference's primitive name, with the mesh axes the call is declared
+  over; a mesh without a process group issues none and reports nothing.
+
+A counting block may also **record** (``counting(record=True)``): the
+counter then keeps, in order, one :class:`Event` an aten op (outside
+kernel scopes) with its output shapes, one a kernel scope, one a
+collective with its bytes and axes, and one at each entry to and exit
+from a :func:`region` (``telemetry.phases.traced_span`` opens one), and
+the high-water mark of the bytes the recorded ops allocated that are
+still live (``peak_live_bytes``, :meth:`CostCounter.peak`): each fresh
+output's storage is live from the op that makes it to the last recorded
+op that reads it (a view reads its base), or to the end for what the
+program returns. That is a liveness model over the record, like the
+reference's over a jaxpr, not the allocator's view: when a tensor really
+dies depends on who else holds it (a process group's work object frees
+its tensors on its own thread), and the model does not. Views, aliases
+of an input and copies between the host and the device allocate
+nothing, and a kernel scope allocates its fresh outputs, not its
+intermediates, so the card and the CPU read alike. A recording block
+holds every fresh output until it ends (the memory of a recorded run is
+the sum of its allocations). Recording changes none of the counts, and
+``as_dict`` is the same with or without it (the analyzers of
+``analysis/`` read the record).
 
 Counting is per thread: only the thread inside :func:`counting` counts,
-and a kernel scope costs one attribute read when nothing counts.
+and a kernel scope costs two attribute reads when nothing counts or
+watches (:func:`watching_kernels`).
 """
 
 from __future__ import annotations
@@ -46,7 +68,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
-from typing import Callable, Dict
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -96,16 +118,83 @@ _REDUCE = {
 }
 
 
-class CostCounter:
-    """What one :func:`counting` block saw."""
+class Event(NamedTuple):
+    """One recorded event. ``kind`` is ``"op"`` (``name`` the aten op,
+    ``shapes`` its tensor outputs' shapes), ``"kernel"`` (a kernel scope:
+    ``name`` the kernel, ``shapes`` its outputs'), ``"coll"`` (``name``
+    the primitive, ``nbytes`` its payload, ``axes`` the mesh axes it is
+    declared over, ``world`` whether it spans the whole mesh), ``"enter"``
+    or ``"exit"`` (a :func:`region` named ``name``)."""
 
-    def __init__(self):
+    kind: str
+    name: str
+    shapes: Tuple[Tuple[int, ...], ...] = ()
+    nbytes: int = 0
+    axes: Tuple[str, ...] = ()
+    world: bool = True
+
+
+class CostCounter:
+    """What one :func:`counting` block saw (``events`` and :meth:`peak`
+    only when it records)."""
+
+    def __init__(self, record: bool = False):
         self.bytes_accessed = 0
         self.flops = 0
         self.ops = 0
         self.collective_bytes: Dict[str, int] = {}
         self.collective_count = 0
         self.kernels: Dict[str, dict] = {}
+        self.record = record
+        self.events: List[Event] = []
+        # the liveness model: storage pointer -> index into _spans, each
+        # span [first op, last op reading it, bytes]
+        self._clock = 0
+        self._storages: Dict[int, int] = {}
+        self._spans: List[list] = []
+        # every fresh output is held until the block ends, so no storage
+        # is freed and its pointer reused: a pointer names one storage
+        self._held: list = []
+
+    def collective_sequence(self) -> List[Tuple[str, int]]:
+        """The recorded collectives in order, ``(name, bytes)`` each."""
+        return [(e.name, e.nbytes) for e in self.events if e.kind == "coll"]
+
+    def _use(self, tensors, fresh) -> None:
+        """One recorded op read ``tensors`` and made ``fresh``."""
+        self._clock += 1
+        for t in tensors:
+            if t.numel():
+                i = self._storages.get(t.untyped_storage().data_ptr())
+                if i is not None:
+                    self._spans[i][1] = self._clock
+        for t in fresh:
+            n = _nbytes(t)
+            if n:
+                self._storages[t.untyped_storage().data_ptr()] = len(
+                    self._spans)
+                self._spans.append([self._clock, self._clock, n])
+                self._held.append(t)
+
+    def peak(self, outputs=()) -> int:
+        """The most bytes live at once under the liveness model, the
+        storages of ``outputs`` (what the program returned) live to the
+        end."""
+        end = self._clock + 1
+        for t in _leaves(outputs):
+            if t.numel():
+                i = self._storages.get(t.untyped_storage().data_ptr())
+                if i is not None:
+                    self._spans[i][1] = end
+        delta = [0] * (end + 2)
+        for first, last, n in self._spans:
+            delta[first] += n
+            delta[last + 1] -= n
+        peak = live = 0
+        for d in delta:
+            live += d
+            peak = max(peak, live)
+        return peak
 
     def as_dict(self) -> dict:
         return {
@@ -124,6 +213,7 @@ class _State(threading.local):
     def __init__(self):
         self.counters = []
         self.depth = 0  # nesting of kernel scopes
+        self.watch = 0  # watching_kernels() blocks open
 
 
 _STATE = _State()
@@ -131,6 +221,47 @@ _STATE = _State()
 
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
+
+
+def _leaves(v) -> list:
+    """Every tensor in a (nested) tuple or list."""
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, (list, tuple)):
+        return [t for x in v for t in _leaves(x)]
+    return []
+
+
+def _recorders() -> List[CostCounter]:
+    return [c for c in _STATE.counters if c.record]
+
+
+def _shapes(outs) -> Tuple[Tuple[int, ...], ...]:
+    return tuple(tuple(int(d) for d in t.shape) for t in outs)
+
+
+def _fresh(func, args, kwargs, out) -> list:
+    """The tensors an op returns that hold memory of their own: not a
+    view or a declared alias of an input, not sharing an input's
+    storage, not a copy onto another device."""
+    if func.is_view:
+        return []
+    outs = out if isinstance(out, (list, tuple)) else (out,)
+    returns = func._schema.returns
+    ins = [t for v in list(args) + list(kwargs.values()) for t in _tensors(v)]
+    in_ptrs = {t.untyped_storage().data_ptr() for t in ins if t.numel()}
+    in_devices = {t.device for t in ins}
+    fresh = []
+    for i, v in enumerate(outs):
+        if i < len(returns) and returns[i].alias_info is not None:
+            continue
+        for t in _tensors(v):
+            if not t.numel() or t.untyped_storage().data_ptr() in in_ptrs:
+                continue
+            if func in _COPY and in_devices and t.device not in in_devices:
+                continue
+            fresh.append(t)
+    return fresh
 
 
 def _tensors(v):
@@ -266,20 +397,31 @@ class _CountMode(TorchDispatchMode):
                 c.ops += 1
                 c.bytes_accessed += b
                 c.flops += f
+            recorders = _recorders()
+            if recorders:
+                outs = out if isinstance(out, (list, tuple)) else (out,)
+                ev = Event("op", func._schema.name,
+                           _shapes(t for v in outs for t in _tensors(v)))
+                fresh = _fresh(func, args, kwargs, out)
+                ins = _leaves(list(args) + list(kwargs.values()))
+                for c in recorders:
+                    c.events.append(ev)
+                    c._use(ins, fresh)
         return out
 
 
 @contextlib.contextmanager
-def counting():
+def counting(record: bool = False):
     """Count everything this thread does inside the block; yields the
-    :class:`CostCounter`."""
-    counter = CostCounter()
+    :class:`CostCounter` (which also records when ``record``)."""
+    counter = CostCounter(record)
     _STATE.counters.append(counter)
     try:
         with _CountMode():
             yield counter
     finally:
         _STATE.counters.remove(counter)
+        counter._held = []
 
 
 def kernel_scope(name: str, cost: Callable[..., tuple]):
@@ -291,21 +433,36 @@ def kernel_scope(name: str, cost: Callable[..., tuple]):
     def deco(fn):
         @functools.wraps(fn)
         def scoped(*args, **kwargs):
-            if not _STATE.counters:
+            if not _STATE.counters and not _STATE.watch:
                 return fn(*args, **kwargs)
             _STATE.depth += 1
             try:
                 out = fn(*args, **kwargs)
-                if _STATE.depth == 1:
+                if _STATE.depth == 1 and _STATE.counters:
                     b, f = cost(*args, **kwargs)
+                    # the formula's host ints, read only while counting
+                    b, f = int(b), int(f)  # gridlint: disable=G002
                     for c in _STATE.counters:
                         k = c.kernels.setdefault(
                             name, {"calls": 0, "bytes": 0, "flops": 0})
                         k["calls"] += 1
-                        k["bytes"] += int(b)
-                        k["flops"] += int(f)
-                        c.bytes_accessed += int(b)
-                        c.flops += int(f)
+                        k["bytes"] += b
+                        k["flops"] += f
+                        c.bytes_accessed += b
+                        c.flops += f
+                    recorders = _recorders()
+                    if recorders:
+                        outs = _leaves(out)
+                        ins = [t for v in list(args) + list(kwargs.values())
+                               for t in _tensors(v)]
+                        ptrs = {t.untyped_storage().data_ptr() for t in ins
+                                if t.numel()}
+                        fresh = [t for t in outs if t.numel() and
+                                 t.untyped_storage().data_ptr() not in ptrs]
+                        for c in recorders:
+                            c.events.append(Event("kernel", name,
+                                                  _shapes(outs)))
+                            c._use(ins, fresh)
             finally:
                 _STATE.depth -= 1
             return out
@@ -315,13 +472,61 @@ def kernel_scope(name: str, cost: Callable[..., tuple]):
     return deco
 
 
-def count_collective(name: str, x: torch.Tensor) -> None:
+@contextlib.contextmanager
+def watching_kernels():
+    """Track kernel scopes on this thread inside the block without
+    counting anything (:func:`in_kernel_scope` reads it)."""
+    _STATE.watch += 1
+    try:
+        yield
+    finally:
+        _STATE.watch -= 1
+
+
+def in_kernel_scope() -> bool:
+    """Is this thread inside a kernel's scope (its wrapper, or its plain
+    version standing in for it)? Known only while something counts or
+    watches."""
+    return _STATE.depth > 0
+
+
+def count_collective(name: str, x: torch.Tensor,
+                     axes: Tuple[str, ...] = (), world: bool = True) -> None:
     """A collective put ``x`` on the wire (called by
-    ``parallel.collectives`` once a call, only where it issues one)."""
+    ``parallel.collectives`` once a call, only where it issues one).
+    ``axes`` are the mesh axes it is declared over and ``world`` whether
+    it spans the whole mesh (a sub-axis call is not)."""
+    n = _nbytes(x)
     for c in _STATE.counters:
-        c.collective_bytes[name] = (c.collective_bytes.get(name, 0)
-                                    + _nbytes(x))
+        c.collective_bytes[name] = c.collective_bytes.get(name, 0) + n
         c.collective_count += 1
+        if c.record:
+            c.events.append(Event("coll", name, (), n, tuple(axes),
+                                  bool(world)))
+
+
+class _Region:
+    def __init__(self, name: str, recorders):
+        self.name = name
+        self.recorders = recorders
+
+    def __enter__(self):
+        for c in self.recorders:
+            c.events.append(Event("enter", self.name))
+        return self
+
+    def __exit__(self, *exc):
+        for c in self.recorders:
+            c.events.append(Event("exit", self.name))
+        return False
+
+
+def region(name: str) -> Optional[_Region]:
+    """A named region of the record (``with region("mig:fast"): ...``),
+    or ``None`` when nothing records on this thread (the caller then
+    opens nothing)."""
+    recorders = _recorders()
+    return _Region(name, recorders) if recorders else None
 
 
 def in_range(targets: torch.Tensor, n: int) -> int:

@@ -1,5 +1,8 @@
-"""Per-step timing on the GPU with CUDA events (min-of-k), and the
-exchange's bandwidth roofs on an H100.
+"""Per-step timing on the GPU with CUDA events (min-of-k), the
+reference's length-differenced loop timing (:func:`scan_time_per_step`,
+:func:`scan_time_per_step_samples`: the host's clock around calls that
+end in a one-element read), and the exchange's bandwidth roofs on an
+H100.
 
 The protocol of the JAX package's ``utils/profiling.py``
 (``scan_time_per_step_samples``): runs of two lengths are differenced,
@@ -119,6 +122,109 @@ def time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
         "base_spread": base_spread,
     }
     return detail, out2
+
+
+def _first_tensor(out):
+    if isinstance(out, torch.Tensor):
+        return out
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        for v in out:
+            t = _first_tensor(v)
+            if t is not None:
+                return t
+    return None
+
+
+def fetch_barrier(out) -> None:
+    """Hard barrier: read one element of the first tensor in ``out`` to
+    the host (the device has then finished everything issued before)."""
+    t = _first_tensor(out)
+    if t is not None and t.numel():
+        t.reshape(-1)[:1].cpu()
+
+
+def scan_time_per_step(make_loop: Callable[[int], Callable], args,
+                       s1: int = 8, s2: int = 72, reps: int = 2,
+                       clock: Callable[[], float] = time.perf_counter):
+    """Per-step seconds of ``make_loop(S)(*args)`` by length differencing
+    (the reference's ``scan_time_per_step``, whose loop is one
+    ``lax.scan``; ``make_loop(S)`` returns a callable that runs S steps,
+    and :func:`fetch_barrier` ends each call). Returns
+    ``(per_step_seconds, fixed_overhead_seconds, long_loop_output)``:
+    the overhead is the per-call cost the differencing removed, and the
+    long loop's output lets a caller read its stats without another
+    call. ``clock`` is the host clock read around each call. As in
+    :func:`time_per_step_samples`, a step time <= 0 is never returned:
+    both lengths are timed again while the best long call is no slower
+    than the best short one, and then it raises."""
+    per_step, overhead, out, _ = _scan_time_impl(make_loop, args, s1, s2,
+                                                 reps, clock)
+    return per_step, overhead, out
+
+
+def scan_time_per_step_samples(make_loop: Callable[[int], Callable], args,
+                               s1: int = 8, s2: int = 72, reps: int = 4,
+                               clock: Callable[[], float] = time.perf_counter):
+    """Min-of-k :func:`scan_time_per_step` with its spread: each loop is
+    built once and warmed up once, then ``reps`` long calls each give one
+    per-step sample against the best short call. Returns ``(detail,
+    long_out)``, ``detail`` the reference's ``{min, max, mean, spread, k,
+    values}`` of per-step seconds."""
+    _per_step, _overhead, out, samples = _scan_time_impl(
+        make_loop, args, s1, s2, reps, clock)
+    lo, hi = min(samples), max(samples)
+    detail = {
+        "min": lo,
+        "max": hi,
+        "mean": sum(samples) / len(samples),
+        "spread": (hi - lo) / lo if lo > 0 else 0.0,
+        "k": len(samples),
+        "values": samples,
+    }
+    return detail, out
+
+
+def _scan_time_impl(make_loop, args, s1, s2, reps, clock):
+    if s2 <= s1:
+        raise ValueError(f"need s2 > s1 for differencing, got {s1} >= {s2}")
+    loops = {s: make_loop(s) for s in (s1, s2)}
+
+    def run(s: int, warm: bool):
+        out = None
+        if warm:
+            out = loops[s](*args)
+            fetch_barrier(out)
+        times = []
+        for _ in range(reps):
+            out = None  # free the previous call's state first
+            t0 = clock()
+            out = loops[s](*args)
+            fetch_barrier(out)
+            times.append(clock() - t0)
+        return times, out
+
+    times1, out1 = run(s1, True)
+    del out1
+    times2, out2 = run(s2, True)
+    for _ in range(MAX_EXTRA_ROUNDS):
+        if min(times2) > min(times1):
+            break
+        out2 = None
+        times1 += run(s1, False)[0]
+        more, out2 = run(s2, False)
+        times2 += more
+    if min(times2) <= min(times1):
+        raise RuntimeError(
+            f"scan_time_per_step: the best {s2}-step call "
+            f"({min(times2):.6g} s) was no slower than the best {s1}-step "
+            f"call ({min(times1):.6g} s) after {len(times2)} reps: the "
+            "difference is noise, not a step; time longer loops")
+    t1 = min(times1)
+    samples = [(t2 - t1) / (s2 - s1) for t2 in times2]
+    per_step = min(samples)
+    return per_step, t1 - per_step * s1, out2, samples
 
 
 def cuda_time_ms(fn: Callable[[], object], iters: int = 20,

@@ -300,7 +300,8 @@ def test_committed_profile_is_the_live_count(sharded_counts):
     assert sorted(committed) == sorted(progcheck.default_programs())
     live = progcheck.collective_profiles(sharded_counts[0])
     for name in SHARDED:
-        assert committed[name] == live[name]
+        # the committed profile also holds J004's peak live bytes
+        assert {k: committed[name][k] for k in live[name]} == live[name]
     for name, prof in committed.items():
         if name not in SHARDED:
             assert prof["collective_bytes_total"] == 0

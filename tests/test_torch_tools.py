@@ -343,6 +343,17 @@ def test_attribution_a002_on_a_stale_perf_table(tmp_path):
     assert attribution.check_findings(doc, perf_md=str(stale)) == []
 
 
+def test_attribution_check_without_perf_md(tmp_path):
+    # a checkout of the program files alone: A002 has no table to hold,
+    # A001 and A003 still fire
+    missing = str(tmp_path / "PERF.md")
+    assert attribution.check_findings(_doc(), perf_md=missing) == []
+    doc = _doc()
+    doc["device"] = {"name": "cpu"}
+    assert {f.rule for f in attribution.check_findings(
+        doc, perf_md=missing)} == {"A001"}
+
+
 def test_attribution_a003_on_a_missing_program():
     doc = _doc()
     del doc["roofline"]["pipelined_macro_step"]
@@ -459,3 +470,91 @@ def test_entry_points_raise_without_a_gpu(argv, tmp_path):
         cwd=str(tmp_path))
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr
+
+
+# ------------------------------------- utils.profiling.scan_time_per_step*
+
+
+class _FakeLoop:
+    """A loop of S steps on an injected clock: each call advances the
+    clock by ``overhead + S * step`` (plus the next jitter of the
+    ``noise`` list), never by the wall clock."""
+
+    def __init__(self, overhead, step, noise=()):
+        self.now = 0.0
+        self.overhead, self.step = overhead, step
+        self.noise = list(noise)
+        self.built = []
+
+    def clock(self):
+        return self.now
+
+    def make_loop(self, S):
+        self.built.append(S)
+
+        def run(x):
+            jitter = self.noise.pop(0) if self.noise else 0.0
+            self.now += self.overhead + S * self.step + jitter
+            return (x + S, {"stats": x})
+
+        return run
+
+
+def test_scan_time_per_step_returns_the_references_shape():
+    from mpi_grid_redistribute_tpu_torch.utils import profiling
+
+    loop = _FakeLoop(overhead=0.5, step=0.01)
+    per_step, overhead, out = profiling.scan_time_per_step(
+        loop.make_loop, (torch.zeros(4),), clock=loop.clock)
+    assert loop.built == [8, 72]  # s1=8, s2=72 by default, built once
+    assert per_step == pytest.approx(0.01)
+    assert overhead == pytest.approx(0.5)
+    assert torch.equal(out[0], torch.full((4,), 72.0))
+
+
+def test_scan_time_per_step_samples_detail():
+    from mpi_grid_redistribute_tpu_torch.utils import profiling
+
+    # warm-ups, then reps=4 long calls: jitter only on the long ones
+    loop = _FakeLoop(overhead=0.2, step=0.001,
+                     noise=[0, 0, 0, 0, 0, 0.0, 0.064, 0.0, 0.128])
+    detail, out = profiling.scan_time_per_step_samples(
+        loop.make_loop, (torch.zeros(2),), s1=8, s2=72, clock=loop.clock)
+    assert sorted(detail) == ["k", "max", "mean", "min", "spread", "values"]
+    assert detail["k"] == 4 and len(detail["values"]) == 4
+    assert detail["min"] == pytest.approx(0.001)
+    assert detail["max"] == pytest.approx(0.001 + 0.128 / 64)
+    assert detail["spread"] == pytest.approx(
+        (detail["max"] - detail["min"]) / detail["min"])
+    assert detail["mean"] == pytest.approx(sum(detail["values"]) / 4)
+
+
+@pytest.mark.parametrize("s1,s2", [(8, 8), (72, 8)])
+def test_scan_time_per_step_raises_on_s2_not_above_s1(s1, s2):
+    from mpi_grid_redistribute_tpu_torch.utils import profiling
+
+    loop = _FakeLoop(0.1, 0.01)
+    with pytest.raises(ValueError, match="s2 > s1"):
+        profiling.scan_time_per_step(loop.make_loop, (torch.zeros(1),),
+                                     s1=s1, s2=s2, clock=loop.clock)
+    with pytest.raises(ValueError, match="s2 > s1"):
+        profiling.scan_time_per_step_samples(
+            loop.make_loop, (torch.zeros(1),), s1=s1, s2=s2,
+            clock=loop.clock)
+
+
+def test_scan_time_per_step_never_reports_a_non_positive_step():
+    """C14's repair carried over: a long loop no slower than the short
+    one is timed again, and a step time <= 0 is refused."""
+    from mpi_grid_redistribute_tpu_torch.utils import profiling
+
+    flat = _FakeLoop(overhead=0.25, step=0.0)  # exact: every call 0.25 s
+    with pytest.raises(RuntimeError, match="noise, not a step"):
+        profiling.scan_time_per_step(flat.make_loop, (torch.zeros(1),),
+                                     clock=flat.clock)
+    # one slow short call at first: re-timed until the difference shows
+    loop = _FakeLoop(overhead=0.3, step=0.001,
+                     noise=[0, 1.0, 1.0, 0, 0, 0])
+    per_step, _, _ = profiling.scan_time_per_step(
+        loop.make_loop, (torch.zeros(1),), clock=loop.clock)
+    assert per_step == pytest.approx(0.001)
