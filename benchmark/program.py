@@ -1,0 +1,86 @@
+"""The system under test: the drift loop of ``mpi_grid_redistribute_tpu_torch``
+as a cell configures it. The only module of the benchmark that imports the
+program.
+
+:func:`build` returns ``step(state) -> (state, rho)``: one call of
+``models.nbody.make_migrate_loop(cfg, S, vgrid=..., mesh=...)`` whose
+planar ``(pos, vel, alive)`` outputs are the next call's inputs, and its
+density (``None`` without a deposit). :func:`emit` gives a state's live
+rows with the slab that holds each; :func:`stats_arrays` the counts of
+``MigrateStats`` a metric reads.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from benchmark.spec import Cell
+
+
+def build(cell: Cell, device, mesh=None):
+    from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+    from mpi_grid_redistribute_tpu_torch.models import nbody
+
+    cfg = nbody.DriftConfig(
+        domain=Domain(0.0, 1.0, periodic=True),
+        grid=ProcessGrid(cell.dev_grid), dt=cell.dt,
+        capacity=cell.capacity, n_local=cell.n_local,
+        local_budget=cell.budget, engine=cell.config.get("engine", "auto"),
+        deposit_shape=cell.deposit_shape,
+        deposit_method=cell.deposit_method or "scan",
+    )
+    loop = nbody.make_migrate_loop(
+        cfg, cell.steps_per_call, vgrid=ProcessGrid(cell.vgrid), mesh=mesh,
+        device=device, deposit_each_step=cell.deposit_shape is not None,
+    )
+
+    def step(state):
+        out = loop(state[0].reshape(-1), state[1].reshape(-1), state[2])
+        rho = out[4] if len(out) > 4 else None
+        return (out[0], out[1], out[2], out[3]), rho
+
+    return step
+
+
+def make_mesh(cell: Cell):
+    """The port's rank mesh over the default process group."""
+    from mpi_grid_redistribute_tpu_torch.domain import ProcessGrid
+    from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+
+    return mesh_lib.make_mesh(ProcessGrid(cell.dev_grid))
+
+
+def initialize_distributed(port: int, world: int, rank: int) -> None:
+    from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.initialize_distributed(
+        "nccl", init_method=f"tcp://localhost:{port}", world_size=world,
+        rank=rank, timeout=300.0)
+
+
+def emit(cell: Cell, state, rank: int):
+    """``(pos [3, k], vel [3, k], slab [k])`` of the live rows of this
+    card's state: slot column ``c`` lies on slab ``rank * V + c //
+    n_local``."""
+    pos, vel, alive = state[0], state[1], state[2]
+    cols = alive.nonzero().squeeze(1)
+    slab = rank * cell.V + torch.div(cols, cell.n_local, rounding_mode="floor")
+    return (pos.reshape(3, -1)[:, cols], vel.reshape(3, -1)[:, cols],
+            slab.to(torch.int64))
+
+
+def stats_arrays(stats_list):
+    """The traced calls' ``MigrateStats`` as host arrays, steps stacked:
+    ``sent``/``received`` ``[steps, R]``, ``flow`` ``[steps, R, R]``."""
+    out = {}
+    for f in ("sent", "received", "flow"):
+        out[f] = np.concatenate(
+            [getattr(s, f).cpu().numpy() for s in stats_list], axis=0)
+    return out
+
+
+def kernel_launches() -> dict:
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    return dict(_build.counts())

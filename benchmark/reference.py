@@ -1,0 +1,137 @@
+"""The plain reference the timed path is judged against, in PyTorch.
+
+It imports nothing of the program. From the same seed it makes the same
+rows (:mod:`.state`), follows each particle through every step the program
+ran, and says where each one must be and what the density is:
+
+* drift and wrap: ``p = wrap(p + v * dt)`` in float32, the product and the
+  sum as two roundings, ``wrap(x) = x - floor(x)`` and a result that
+  rounds to 1 folded to 0 (the periodic unit box);
+* ownership: a particle belongs to grid cell ``clip(floor(x * g), 0, g-1)``
+  on each axis, and so to the slab that holds that cell;
+* density: cloud-in-cell onto nodes ``i / M`` of the periodic ``M^3``
+  mesh, unit mass, each particle giving ``prod(1 - f)`` or ``prod(f)`` to
+  the 8 nodes around it, summed in float64.
+
+:func:`digests` condenses a set of rows into one count and one 64-bit
+fingerprint a slab: the sum (wrapping) of a mixing hash of each row's six
+float32 bit patterns, so the fingerprint of a slab does not depend on the
+order of its rows, and those of the cards add up to the whole.
+
+``precision="bf16"`` is the control: the same arithmetic rounded through
+bfloat16, the nearest precision below the float32 the configuration
+states. It has to come out not correct.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import torch
+
+from benchmark.spec import Cell
+
+# odd 64-bit multipliers of the row hash, as signed int64
+_MIX = tuple(m - (1 << 64) if m >= 1 << 63 else m for m in (
+    0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+    0xD6E8FEB86659FD93, 0xFF51AFD7ED558CCD, 0xC4CEB9FE1A85EC53))
+BLOCK = 1 << 24  # rows a block, to bound the temporaries
+
+
+def wrap_unit(x: torch.Tensor) -> torch.Tensor:
+    """``x - floor(x)`` in place, a result of 1 folded to 0."""
+    x.sub_(torch.floor(x))
+    return x.masked_fill_(x >= 1.0, 0.0)
+
+
+class Drift:
+    """Every particle of some rows, followed step by step."""
+
+    def __init__(self, pos, vel, alive, dt: float, precision: str = "f32"):
+        if precision not in ("f32", "bf16"):
+            raise ValueError(f"precision {precision!r}: 'f32' or 'bf16'")
+        self.precision = precision
+        keep = alive.nonzero().squeeze(1)
+        self.pos = pos[:, keep].contiguous()
+        self.vel = vel[:, keep].contiguous()
+        dt = torch.tensor(dt, dtype=torch.float32, device=pos.device)
+        if precision == "bf16":
+            self.pos = self.pos.bfloat16().float()
+            self.vdt = (self.vel.bfloat16() * dt.bfloat16()).float()
+        else:
+            self.vdt = self.vel * dt
+        self.steps = 0
+
+    def advance(self, steps: int) -> None:
+        for _ in range(steps):
+            if self.precision == "bf16":
+                q = (self.pos.bfloat16() + self.vdt.bfloat16())
+                q = q - torch.floor(q)
+                self.pos = q.float().masked_fill_(q.float() >= 1.0, 0.0)
+            else:
+                self.pos.add_(self.vdt)
+                wrap_unit(self.pos)
+        self.steps += steps
+
+
+def owner_slab(cell: Cell, pos: torch.Tensor) -> torch.Tensor:
+    """``[n]`` int64 slab owning each position of ``pos [3, n]``."""
+    idx = torch.zeros(pos.shape[1], dtype=torch.int64, device=pos.device)
+    acc = 1
+    for a in reversed(range(3)):
+        g = cell.grid[a]
+        c = torch.floor(pos[a] * float(g)).to(torch.int64).clamp_(0, g - 1)
+        idx += c * acc
+        acc *= g
+    table = torch.as_tensor(cell.slab_of_cell_table(), device=pos.device)
+    return table[idx]
+
+
+def row_hash(pos: torch.Tensor, vel: torch.Tensor) -> torch.Tensor:
+    """``[n]`` int64 mixing hash of the bit patterns of ``pos``/``vel``
+    ``[3, n]`` float32."""
+    words = torch.cat([pos, vel]).contiguous().view(torch.int32)
+    h = torch.zeros(words.shape[1], dtype=torch.int64, device=pos.device)
+    for c in range(6):
+        w = words[c].to(torch.int64) & 0xFFFFFFFF
+        h = (h ^ w) * _MIX[c]
+        h = h ^ (h >> 29)
+    return h
+
+
+def digests(pos, vel, slab, n_slabs: int):
+    """``(count [n_slabs], fingerprint [n_slabs])`` int64 of the rows
+    ``pos``/``vel`` ``[3, n]`` placed on slabs ``slab [n]``."""
+    dev = pos.device
+    count = torch.zeros(n_slabs, dtype=torch.int64, device=dev)
+    fp = torch.zeros(n_slabs, dtype=torch.int64, device=dev)
+    for b in range(0, pos.shape[1], BLOCK):
+        s = slab[b:b + BLOCK]
+        count.index_add_(0, s, torch.ones_like(s))
+        fp.index_add_(0, s, row_hash(pos[:, b:b + BLOCK], vel[:, b:b + BLOCK]))
+    return count, fp
+
+
+def cic_density(pos: torch.Tensor, mesh, dtype=torch.float64):
+    """Cloud-in-cell density of unit masses at ``pos [3, n]`` (float32)
+    onto the periodic ``mesh`` node grid, accumulated in ``dtype``."""
+    M = tuple(int(m) for m in mesh)
+    rho = torch.zeros(M[0] * M[1] * M[2], dtype=dtype, device=pos.device)
+    for b in range(0, pos.shape[1], BLOCK):
+        p = pos[:, b:b + BLOCK].to(dtype)
+        base, frac = [], []
+        for a in range(3):
+            r = p[a] * M[a]
+            i0 = torch.floor(r).clamp_(0, M[a] - 1)
+            frac.append((r - i0).clamp_(0.0, 1.0))
+            base.append(i0.to(torch.int64))
+        for corner in itertools.product((0, 1), repeat=3):
+            w = None
+            node = None
+            for a in range(3):
+                t = frac[a] if corner[a] else 1.0 - frac[a]
+                w = t if w is None else w * t
+                i = (base[a] + corner[a]) % M[a]
+                node = i if node is None else node * M[a] + i
+            rho.index_add_(0, node, w)
+    return rho.reshape(M)

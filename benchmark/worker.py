@@ -1,0 +1,270 @@
+"""One card's part of a run: set-up, the timed (or traced) window, and the
+comparison with the reference.
+
+:func:`run_rank` makes this card's rows from the seed, builds the loop
+(:mod:`.program`; with ``control`` the reference in a lower precision
+stands in its place), warms up every shape the window uses, and calls the
+loop back to back for ``seconds``: each call's outputs are the next
+call's inputs.
+Then it frees the program's state and judges the final rows, and the
+densities of a few calls drawn from the seed, against the reference
+(:mod:`.reference`), which follows every step the program ran.
+"""
+
+from __future__ import annotations
+
+import gc
+import sys
+import time
+
+import numpy as np
+import torch
+
+from benchmark import program, reference, state, trace
+from benchmark.spec import Cell
+
+WARM_CALLS = 2  # the first builds and loads the kernels, the second is warm
+TRACE_SECONDS = 2.0  # the traced window, at most
+RHO_SAMPLES = 2  # densities drawn from the seed, besides the last
+# the limit of rho_gap; the other numbers are exact, with the limit 0
+RHO_GAP_LIMIT = 8e-7
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+class Solo:
+    """The collective calls of a run on one card."""
+
+    world = 1
+
+    def decide(self, flag: bool) -> bool:
+        return flag
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+
+class Group:
+    """The same over a gloo group of the cards' processes (host tensors, so
+    the harness adds no work to the cards' streams): rank 0 decides when
+    the window ends, sums go to every rank."""
+
+    def __init__(self, rank: int, world: int):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.world = world
+        self.group = dist.new_group(backend="gloo")
+
+    def decide(self, flag: bool) -> bool:
+        t = torch.tensor([int(flag)], dtype=torch.int64)
+        self.dist.broadcast(t, 0, group=self.group)
+        return bool(t[0])
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.cpu()
+        self.dist.all_reduce(t, group=self.group)
+        return t
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+CONTROLS = ("drift_bf16", "deposit_f32")
+
+
+def control_step(cell: Cell, pos, vel, alive, control: str):
+    """The reference in the program's place, one stage computed in the
+    nearest precision below the configuration's: ``drift_bf16``, the drift
+    and wrap in bfloat16 (positions are float32); ``deposit_f32``, the
+    density summed in float32 (the scan engine sums in double-float)."""
+    if control not in CONTROLS:
+        raise ValueError(f"control {control!r}: one of {CONTROLS}")
+    drift = reference.Drift(pos, vel, alive, cell.dt, precision="bf16"
+                            if control == "drift_bf16" else "f32")
+
+    def step(st):
+        drift.advance(cell.steps_per_call)
+        rho = None
+        if cell.deposit_shape is not None:
+            rho = reference.cic_density(drift.pos, cell.deposit_shape,
+                                        dtype=torch.float32)
+        return drift, rho
+
+    return step, drift
+
+
+def _emit(cell: Cell, st, rank: int):
+    if isinstance(st, reference.Drift):
+        return st.pos, st.vel, reference.owner_slab(cell, st.pos)
+    return program.emit(cell, st, rank)
+
+
+def _window(step, st, seconds: float, comm, device, sample: set,
+            keep_stats: bool):
+    """Call ``step`` back to back until rank 0 has seen ``seconds`` pass.
+    Returns the state, the number of calls, the window's seconds, each
+    call's milliseconds, the sampled densities and the calls' stats."""
+    cuda = device.type == "cuda"
+    _sync(device)
+    events, host = [], []
+    if cuda:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[0].record()
+    t0 = time.perf_counter()
+    calls, rhos, stats = 0, {}, []
+    rho = None
+    while True:
+        with torch.profiler.record_function(trace.CALL):
+            st, rho = step(st)
+        if cuda:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        else:
+            host.append(time.perf_counter())
+        if rho is not None and calls in sample:
+            rhos[calls] = rho.clone()
+        if keep_stats and not isinstance(st, reference.Drift):
+            stats.append(st[3])
+        calls += 1
+        if comm.decide(time.perf_counter() - t0 >= seconds):
+            break
+    _sync(device)
+    t1 = time.perf_counter()
+    if cuda:
+        call_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    else:
+        call_ms = list(np.diff([t0] + host) * 1e3)
+    if rho is not None:
+        rhos[calls - 1] = rho
+    return st, calls, t1 - t0, call_ms, rhos, stats
+
+
+def run_rank(cell: Cell, seed: int, seconds: float, traced: bool, rank: int,
+             comm, device, control: str = None, mesh=None) -> dict:
+    """This card's run; returns what the line needs from it. ``control``
+    names the control (:data:`CONTROLS`) run in the program's place."""
+    device = torch.device(device)
+    S = cell.steps_per_call
+    step = None if control else program.build(cell, device, mesh)
+    pos, vel, alive = state.card_state(cell, seed, rank, device)
+    if control:
+        step, st = control_step(cell, pos, vel, alive, control)
+    else:
+        st = (pos, vel, alive, None)
+    del pos, vel, alive
+    warm_s = 0.0
+    for _ in range(WARM_CALLS):
+        _sync(device)
+        t = time.perf_counter()
+        st, _ = step(st)
+        _sync(device)
+        warm_s = time.perf_counter() - t
+    rng = np.random.default_rng(state.card_seed(seed, 1 << 20))
+    n_est = max(1, int(seconds / max(warm_s, 1e-3)))
+    sample = set(int(c) for c in
+                 rng.choice(n_est, size=min(RHO_SAMPLES, n_est),
+                            replace=False))
+    launches0 = {} if control else program.kernel_launches()
+    out = {"rank": rank, "setup_end": time.time(), "warm_call_s": warm_s}
+    if device.type == "cuda":
+        out["kind"] = torch.cuda.get_device_name(device)
+        out["mem_setup"] = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    if traced:
+        def traced_window():
+            with torch.profiler.record_function(trace.WINDOW):
+                res = _window(step, st, min(seconds, TRACE_SECONDS), comm,
+                              device, sample, keep_stats=True)
+            return res
+
+        res, tr = trace.profile(traced_window)
+    else:
+        res = _window(step, st, seconds, comm, device, sample, False)
+    st, calls, window_s, call_ms, rhos, stats = res
+    out.update(calls=calls, window_s=window_s, call_ms=call_ms,
+               steps=calls * S)
+    if device.type == "cuda":
+        out["mem_window"] = torch.cuda.max_memory_allocated(device)
+    if not control:
+        launches = program.kernel_launches()
+        out["launches_per_step"] = {
+            k: (launches.get(k, 0) - launches0.get(k, 0)) / (calls * S)
+            for k in launches if launches.get(k, 0) != launches0.get(k, 0)}
+    if traced:
+        busy, win = tr.busy_us()
+        both = torch.zeros(2 * comm.world, dtype=torch.float64)
+        both[2 * rank:2 * rank + 2] = torch.tensor([busy, win])
+        both = comm.sum(both).tolist()
+        ctx = trace.Context(
+            cell=cell, kind=out.get("kind", "cpu"), trace=tr, rank=rank,
+            stats=program.stats_arrays(stats) if stats else {},
+            cards=list(zip(both[::2], both[1::2])))
+        linked = sum(1 for d in tr.device if d[3] in tr.launches)
+        log(f"trace: {len(tr.device)} device operations, {linked} with "
+            f"their launch, {len(tr.ranges)} host ranges, window "
+            f"{win * 1e-6:.3f} s, busy {busy * 1e-6:.3f} s")
+        out.update(metrics=trace.read_all(ctx), busy_s=busy * 1e-6,
+                   trace_window_s=win * 1e-6, breakdown=tr.breakdown())
+        del tr, ctx, stats
+    prog = digest(cell, st, rank)
+    del st, res, step  # the program's state, freed before the reference
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["checks"] = judge(cell, seed, rank, comm, device, prog, rhos,
+                          (WARM_CALLS + calls) * S)
+    return out
+
+
+def digest(cell: Cell, st, rank: int) -> torch.Tensor:
+    """This card's output condensed on the host: the count and the
+    fingerprint of every slab, then the live rows that lie on a slab
+    that does not own their position."""
+    p, v, slab = _emit(cell, st, rank)
+    count, fp = reference.digests(p, v, slab, cell.n_slabs)
+    misplaced = (reference.owner_slab(cell, p) != slab).sum().reshape(1)
+    return torch.cat([count, fp, misplaced]).cpu()
+
+
+def judge(cell: Cell, seed: int, rank: int, comm, device, prog, rhos: dict,
+          total_steps: int) -> dict:
+    """The compared numbers, each summed over the cards: ``count_gap``,
+    the live rows a slab holds against what the reference puts there,
+    summed over slabs as absolute differences; ``misplaced_rows``, live
+    rows on a slab that does not own their position; ``slabs_differing``,
+    slabs whose count or fingerprint differs from the reference's;
+    ``rho_gap`` (with a deposit), the largest difference of a sampled
+    call's density from the reference's, over the reference's mean.
+    ``prog`` is :func:`digest` of the program's output."""
+    n = cell.n_slabs
+    pos0, vel0, alive0 = state.card_state(cell, seed, rank, device)
+    drift = reference.Drift(pos0, vel0, alive0, cell.dt)
+    del pos0, vel0, alive0
+    S = cell.steps_per_call
+    rho_gap = None
+    for c in sorted(rhos):
+        drift.advance((WARM_CALLS + c + 1) * S - drift.steps)
+        ref = reference.cic_density(drift.pos, cell.deposit_shape)
+        gap = float((rhos[c].double() - ref).abs().max() / ref.mean())
+        rho_gap = gap if rho_gap is None else max(rho_gap, gap)
+    drift.advance(total_steps - drift.steps)
+    rslab = reference.owner_slab(cell, drift.pos)
+    rcount, rfp = reference.digests(drift.pos, drift.vel, rslab, n)
+    both = comm.sum(torch.cat([prog, rcount.cpu(), rfp.cpu()]))
+    count, fp, mis = both[:n], both[n:2 * n], both[2 * n]
+    rcount, rfp = both[2 * n + 1:3 * n + 1], both[3 * n + 1:]
+    checks = {
+        "count_gap": {"value": int((count - rcount).abs().sum()), "limit": 0},
+        "misplaced_rows": {"value": int(mis), "limit": 0},
+        "slabs_differing": {
+            "value": int(((count != rcount) | (fp != rfp)).sum()),
+            "limit": 0},
+    }
+    if rho_gap is not None:
+        checks["rho_gap"] = {"value": rho_gap, "limit": RHO_GAP_LIMIT}
+    return checks
