@@ -812,6 +812,10 @@ def profile_steps(torch, make_run, profile_dir, label):
     ``None``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from mpi_grid_redistribute_tpu_torch.telemetry.phases import (
+        SPAN_PREFIXES,
+    )
+
     out = None
     if profile_dir:
         out = Path(profile_dir)
@@ -831,7 +835,7 @@ def profile_steps(torch, make_run, profile_dir, label):
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith(("mig:", "dep:"))]
+               and not e.name.startswith(SPAN_PREFIXES)]
         busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
         per_kernel = {
             k: sum(e.time_range.elapsed_us() for e in dev if sym in e.name)

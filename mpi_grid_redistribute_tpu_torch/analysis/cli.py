@@ -33,7 +33,8 @@ RULE_DOCS = {
     "literals (the port has no shard_map; progcheck's J001 checks every "
     "rank's collective sequence on recorded runs)",
     "G002": "no host reads (.item/.tolist/.cpu/.numpy, int()/float()/"
-    "bool() of a tensor, torch.cuda.synchronize) on the step path",
+    "bool() of a tensor, telemetry.phases.host_read, "
+    "torch.cuda.synchronize) on the step path",
     "G003": "no data-dependent shapes (nonzero/unique/masked_select, "
     "one-argument torch.where, boolean-mask indexing) on the step path",
     "G004": "fuse_fields/_fuse_planar and .view to a 32-bit dtype on "

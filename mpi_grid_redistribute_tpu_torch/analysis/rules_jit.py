@@ -10,7 +10,8 @@ serializes the host's issue of every later step behind the device:
 * ``x.item()``, ``x.tolist()``, ``x.cpu()``, ``x.numpy()``;
 * ``torch.cuda.synchronize()``;
 * ``int()`` / ``float()`` / ``bool()`` of a tensor (the taint pass of
-  :func:`.core.tainted_names`).
+  :func:`.core.tainted_names`);
+* ``telemetry.phases.host_read``, the counted read of a guard.
 
 G003: a data-dependent output shape makes the host wait for the size
 (and cannot be captured in a CUDA graph), the dynamic-shape escape the
@@ -65,6 +66,12 @@ def check_host_reads(project: Project) -> List[Finding]:
                     f"device from the host and waits for it; keep the "
                     f"value on the device and read it at the chunk "
                     f"boundary"))
+            elif last_attr(name) == "host_read":
+                findings.append(finding_at(
+                    fi, node, "G002",
+                    "host_read() on the step path reads the device from "
+                    "the host and waits for it; keep the value on the "
+                    "device and read it at the chunk boundary"))
             elif name == "torch.cuda.synchronize":
                 findings.append(finding_at(
                     fi, node, "G002",

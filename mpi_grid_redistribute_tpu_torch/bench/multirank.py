@@ -161,6 +161,10 @@ def _profile(torch, device, make_run, barrier, table: str = None):
     for the 6-step run's op table (host and device time by op)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from mpi_grid_redistribute_tpu_torch.telemetry.phases import (
+        SPAN_PREFIXES,
+    )
+
     seen = {}
     for steps in (2, 6):
         run = make_run(steps)
@@ -177,7 +181,7 @@ def _profile(torch, device, make_run, barrier, table: str = None):
         dev = [e for e in ev
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith(("mig:", "dep:", "coll:"))]
+               and not e.name.startswith(SPAN_PREFIXES)]
         nccl = [e for e in dev if "nccl" in e.name.lower()]
         work = [e for e in dev if "nccl" not in e.name.lower()]
         coll = [e for e in ev if e.name.startswith("coll:")

@@ -45,6 +45,7 @@ from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import binning, deposit, driftbin
 from mpi_grid_redistribute_tpu_torch.parallel import exchange, migrate
 from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+from mpi_grid_redistribute_tpu_torch.telemetry.phases import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,20 +246,23 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
 
     def _deposit(fused):
         """CIC density of the planar fused state ``[K, V*n]``."""
-        pos_rows = fused[:D].view(torch.float32)
-        valid = fused[-1] > 0
-        if cfg.deposit_method == "mxu":
-            # unit mass: None drops the mass row from the payload sort
-            return dep_fn(pos_rows, None, valid)
-        if cfg.deposit_method == "segment" and vgrid is None:
-            pos_rows = pos_rows.T  # the masked row deposit: [n, D]
-        elif cfg.deposit_method == "segment":
-            # the per-vrank block deposit takes row-major [V, n, D] slabs
-            pos_rows = pos_rows.reshape(D, V, -1).permute(1, 2, 0)
-            valid = valid.reshape(V, -1)
-        ones = torch.ones(valid.shape, dtype=torch.float32,
-                          device=pos_rows.device)
-        return dep_fn(pos_rows, ones, valid)
+        with span("dep:deposit"):
+            with span("dep:keys"):  # the valid rows and the unit mass
+                pos_rows = fused[:D].view(torch.float32)
+                valid = fused[-1] > 0
+                # None drops the mass row from the mxu payload sort
+                mass = None
+                if cfg.deposit_method == "segment" and vgrid is None:
+                    pos_rows = pos_rows.T  # the masked row deposit: [n, D]
+                elif cfg.deposit_method == "segment":
+                    # the per-vrank block deposit takes row-major
+                    # [V, n, D] slabs
+                    pos_rows = pos_rows.reshape(D, V, -1).permute(1, 2, 0)
+                    valid = valid.reshape(V, -1)
+                if cfg.deposit_method != "mxu":
+                    mass = torch.ones(valid.shape, dtype=torch.float32,
+                                      device=pos_rows.device)
+            return dep_fn(pos_rows, mass, valid)
 
     def loop(pos, vel, alive):
         p = _to_tensor(to_planar(pos), dev).reshape(D, -1)
@@ -271,19 +275,20 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
                 f"make_migrate_loop: {p.shape[1]} rows, expected "
                 f"V * n_local = {V * cfg.n_local}"
             )
-        fused = torch.cat(
-            [p.view(torch.int32), v.view(torch.int32),
-             a.to(torch.int32)[None, :]],
-            dim=0,
-        )
-        state = migrate.init_state(fused, vranks=V,
-                                   batched=vgrid is not None)
-        if deposit_each_step:
-            rho = torch.zeros(_rho_shape(cfg), dtype=torch.float32,
-                              device=dev)
+        with span("mig:init"):  # the per-call set-up
+            fused = torch.cat(
+                [p.view(torch.int32), v.view(torch.int32),
+                 a.to(torch.int32)[None, :]],
+                dim=0,
+            )
+            state = migrate.init_state(fused, vranks=V,
+                                       batched=vgrid is not None)
+            if deposit_each_step:
+                rho = torch.zeros(_rho_shape(cfg), dtype=torch.float32,
+                                  device=dev)
         steps = []
         for _ in range(n_steps):
-            with torch.profiler.record_function("mig:step"):
+            with span("mig:step"):
                 if use_driftbin:
                     f, key = bin_fn(state.fused, dt, cfg.domain, full_grid,
                                     V, V)
@@ -293,8 +298,7 @@ def make_migrate_loop(cfg: DriftConfig, n_steps: int,
                     state, stats = mig(state)
             steps.append(stats)
             if deposit_each_step:
-                with torch.profiler.record_function("dep:deposit"):
-                    rho = _deposit(state.fused)
+                rho = _deposit(state.fused)
         f = state.fused
         pos_f = f[:D].view(torch.float32).reshape(-1)
         vel_f = f[D : 2 * D].view(torch.float32).reshape(-1)
@@ -479,8 +483,7 @@ def make_drift_loop(cfg: DriftConfig, n_steps: int, mesh=None,
                               device=dev)
         steps = []
         for _ in range(n_steps):
-            with torch.profiler.record_function("drift:step"):
-                out = step(p, v, c)
+            out = step(p, v, c)
             p, v, c, st = out[:4]
             if deposit_each_step:
                 rho = out[4]

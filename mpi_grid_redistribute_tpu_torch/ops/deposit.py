@@ -64,9 +64,11 @@ from mpi_grid_redistribute_tpu_torch.ops.dfscan import (  # noqa: F401
 )
 from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
 from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
+from mpi_grid_redistribute_tpu_torch.telemetry.phases import host_read, span
 
 # host reads of device values, by cause (the residence guard of the slab
-# engine is the only one on the deposit path)
+# engine is the only one on the deposit path); telemetry.phases.host_read
+# counts each and labels its wait "sync:residence_guard"
 HOST_SYNCS = {"residence_guard": 0}
 
 _F32 = torch.float32
@@ -125,7 +127,9 @@ def _tile_prefix_planar(wt: torch.Tensor, plain: bool = False):
 
 
 # the scan deposit's phases, the reference knockout's numbering
-# (bench/knockout_deposit.py cuts the deposit after each)
+# (bench/knockout_deposit.py cuts the deposit after each); its spans
+# "dep:keys", "dep:sort", "dep:bounds", "dep:prefix" and "dep:place"
+# (phases 5 and 6) cover every operation it launches
 DEPOSIT_PHASES = (
     "1 keys",
     "2 payload sort",
@@ -152,74 +156,78 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
     tensors the deposit holds after that phase instead."""
     n = key.shape[0]
     D = rel_rows.shape[0]
-    keys_sorted, order = torch.sort(key, stable=True)
-    payload = torch.cat([rel_rows, mass[None, :]], dim=0)  # [D + 1, N]
-    payload_s = torch.index_select(payload, 1, order)
-    rel_s = payload_s[:D]
-    mass_s = payload_s[D]
+    with span("dep:sort"):
+        keys_sorted, order = torch.sort(key, stable=True)
+        payload = torch.cat([rel_rows, mass[None, :]], dim=0)  # [D + 1, N]
+        payload_s = torch.index_select(payload, 1, order)
+        rel_s = payload_s[:D]
+        mass_s = payload_s[D]
     if _stop_after == 2:
         return keys_sorted, rel_s, mass_s
-    i0_s = torch.stack(
-        [_base_cell(rel_s[d], local_shape[d]) for d in range(D)], dim=0
-    )
-    frac = (rel_s - i0_s.to(_F32)).clamp(0.0, 1.0)  # [D, N]
-
     corners = list(itertools.product((0, 1), repeat=D))
     nch = len(corners)
     K = max(1, min(tile, n))
     n_pad = -(-n // K) * K
-    bounds = binning.bounds_dense(keys_sorted, n_segments + 1)
-    if _stop_after == 3:
-        return bounds, frac
-    t_idx = (bounds // K).long()
-    has_local = (bounds % K > 0)[None, :]
-    lb = (bounds - 1).clamp(0, n_pad - 1).long()
+    with span("dep:bounds"):
+        i0_s = torch.stack(
+            [_base_cell(rel_s[d], local_shape[d]) for d in range(D)], dim=0
+        )
+        frac = (rel_s - i0_s.to(_F32)).clamp(0.0, 1.0)  # [D, N]
+        bounds = binning.bounds_dense(keys_sorted, n_segments + 1)
+        if _stop_after == 3:
+            return bounds, frac
+        t_idx = (bounds // K).long()
+        has_local = (bounds % K > 0)[None, :]
+        lb = (bounds - 1).clamp(0, n_pad - 1).long()
     cg = nch if not channel_group else max(1, min(channel_group, nch))
 
     def per_group(corner_list, upto=None):
-        # corner-weight rows [g, N] in sorted order: mass * ((f0 * f1) *
-        # f2), the explicit left fold the reference pins
-        rows = []
-        for corner in corner_list:
-            w = None
-            for d in range(D):
-                t = frac[d] if corner[d] == 1 else 1.0 - frac[d]
-                w = t if w is None else w * t
-            rows.append(mass_s * w)
-        wg = torch.stack(rows, dim=0)
-        g = wg.shape[0]
-        wt = torch.nn.functional.pad(wg, (0, n_pad - n)).reshape(
-            g, n_pad // K, K
-        )
-        lhi, llo = _tile_prefix_planar(wt, plain)  # within-tile prefixes
-        thi, tlo = _df_cumsum(lhi[:, :, -1], axis=1, x_lo=llo[:, :, -1])
+        with span("dep:prefix"):
+            # corner-weight rows [g, N] in sorted order: mass * ((f0 * f1)
+            # * f2), the explicit left fold the reference pins
+            rows = []
+            for corner in corner_list:
+                w = None
+                for d in range(D):
+                    t = frac[d] if corner[d] == 1 else 1.0 - frac[d]
+                    w = t if w is None else w * t
+                rows.append(mass_s * w)
+            wg = torch.stack(rows, dim=0)
+            g = wg.shape[0]
+            wt = torch.nn.functional.pad(wg, (0, n_pad - n)).reshape(
+                g, n_pad // K, K
+            )
+            lhi, llo = _tile_prefix_planar(wt, plain)  # within-tile prefixes
+            thi, tlo = _df_cumsum(lhi[:, :, -1], axis=1, x_lo=llo[:, :, -1])
         if upto == 4:
             return lhi, llo, thi, tlo
-        zg = torch.zeros((g, 1), dtype=_F32, device=wg.device)
-        s_hi = torch.cat([zg, thi], dim=1)  # exclusive tile prefixes
-        s_lo = torch.cat([zg, tlo], dim=1)  # [g, T + 1]
-        l_pack = torch.cat(
-            [lhi.reshape(g, n_pad), llo.reshape(g, n_pad)], dim=0
-        )  # [2 g, n_pad]
-        s_pack = torch.cat([s_hi, s_lo], dim=0)  # [2 g, T + 1]
-        l_at = torch.where(
-            has_local, torch.index_select(l_pack, 1, lb), 0.0
-        )
-        s_at = torch.index_select(s_pack, 1, t_idx)
-        g_hi, g_lo = _df_add(s_at[:g], s_at[g:], l_at[:g], l_at[g:])
-        # run sum over [bounds[c], bounds[c+1]): the hi difference cancels
-        # the shared prefix, the lo difference restores what hi rounded
-        return (g_hi[:, 1:] - g_hi[:, :-1]) + (g_lo[:, 1:] - g_lo[:, :-1])
+        with span("dep:place"):
+            zg = torch.zeros((g, 1), dtype=_F32, device=wg.device)
+            s_hi = torch.cat([zg, thi], dim=1)  # exclusive tile prefixes
+            s_lo = torch.cat([zg, tlo], dim=1)  # [g, T + 1]
+            l_pack = torch.cat(
+                [lhi.reshape(g, n_pad), llo.reshape(g, n_pad)], dim=0
+            )  # [2 g, n_pad]
+            s_pack = torch.cat([s_hi, s_lo], dim=0)  # [2 g, T + 1]
+            l_at = torch.where(
+                has_local, torch.index_select(l_pack, 1, lb), 0.0
+            )
+            s_at = torch.index_select(s_pack, 1, t_idx)
+            g_hi, g_lo = _df_add(s_at[:g], s_at[g:], l_at[:g], l_at[g:])
+            # run sum over [bounds[c], bounds[c+1]): the hi difference
+            # cancels the shared prefix, the lo difference restores what
+            # hi rounded
+            return ((g_hi[:, 1:] - g_hi[:, :-1])
+                    + (g_lo[:, 1:] - g_lo[:, :-1]))
 
     if _stop_after == 4:
         return tuple(t for g0 in range(0, nch, cg)
                      for t in per_group(corners[g0 : g0 + cg], 4))
     if cg >= nch:
         return per_group(corners)
-    return torch.cat(
-        [per_group(corners[g0 : g0 + cg]) for g0 in range(0, nch, cg)],
-        dim=0,
-    )
+    groups = [per_group(corners[g0 : g0 + cg]) for g0 in range(0, nch, cg)]
+    with span("dep:place"):
+        return torch.cat(groups, dim=0)
 
 
 def _place_corners(total: torch.Tensor, per_cell: torch.Tensor,
@@ -261,18 +269,20 @@ def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
             f"fewer vranks per device."
         )
     strides = _row_major_strides(vblock)
-    valid2 = valid.reshape(V, n)
-    rel = []
-    cell = torch.zeros((V, n), dtype=_I32, device=pos_rows.device)
-    for d in range(D):
-        r = (pos_rows[d].reshape(V, n) - lo_local[:, d, None]) * inv_h[d]
-        r = torch.where(valid2, r, 0.0)
-        cell = cell + _base_cell(r, vblock[d]) * strides[d]
-        rel.append(r.reshape(m))
-    v_ids = torch.arange(V, dtype=_I32, device=pos_rows.device)[:, None]
-    key = torch.where(valid2, v_ids * n_cells + cell, V * n_cells).to(_I32)
-    mass_z = torch.where(valid, mass, 0.0)
-    rel_rows = torch.stack(rel, dim=0)
+    with span("dep:keys"):
+        valid2 = valid.reshape(V, n)
+        rel = []
+        cell = torch.zeros((V, n), dtype=_I32, device=pos_rows.device)
+        for d in range(D):
+            r = (pos_rows[d].reshape(V, n) - lo_local[:, d, None]) * inv_h[d]
+            r = torch.where(valid2, r, 0.0)
+            cell = cell + _base_cell(r, vblock[d]) * strides[d]
+            rel.append(r.reshape(m))
+        v_ids = torch.arange(V, dtype=_I32, device=pos_rows.device)[:, None]
+        key = torch.where(valid2, v_ids * n_cells + cell,
+                          V * n_cells).to(_I32)
+        mass_z = torch.where(valid, mass, 0.0)
+        rel_rows = torch.stack(rel, dim=0)
     if _stop_after == 1:
         return key, rel_rows, mass_z
     # above ~16M rows, process corner channels two at a time to bound the
@@ -285,10 +295,12 @@ def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
     )  # [2^D, V * n_cells]
     if _stop_after is not None:
         return per_cell
-    per_cell = per_cell.reshape((per_cell.shape[0], V) + tuple(vblock))
-    ghost = tuple(b + 1 for b in vblock)
-    total = torch.zeros((V,) + ghost, dtype=mass.dtype, device=mass.device)
-    return _place_corners(total, per_cell, vblock)
+    with span("dep:place"):
+        per_cell = per_cell.reshape((per_cell.shape[0], V) + tuple(vblock))
+        ghost = tuple(b + 1 for b in vblock)
+        total = torch.zeros((V,) + ghost, dtype=mass.dtype,
+                            device=mass.device)
+        return _place_corners(total, per_cell, vblock)
 
 
 def cic_deposit_device_planar(pos_rows, mass, valid, dev_lo, inv_h,
@@ -706,9 +718,10 @@ def shard_deposit_device_planar_fn(domain: Domain, dev_grid: ProcessGrid,
     def fn(pos_rows, mass, valid):
         dev_lo, inv_h = consts.get(pos_rows.device)
         rho = core(pos_rows, mass, valid, dev_lo, inv_h, dev_block)
-        if all(domain.periodic):
-            return fold_ghosts(rho, dev_grid, mesh)
-        return assemble_dense(rho, dev_grid, domain, mesh)
+        with span("dep:place"):
+            if all(domain.periodic):
+                return fold_ghosts(rho, dev_grid, mesh)
+            return assemble_dense(rho, dev_grid, domain, mesh)
 
     return fn
 
@@ -749,8 +762,7 @@ def shard_deposit_device_mxu_fn(domain: Domain, dev_grid: ProcessGrid,
         key, rel, mass2, in_block = _slab_keys_mxu(
             pos_rows, mass, valid, lo_v, inv_h, vblock
         )
-        HOST_SYNCS["residence_guard"] += 1
-        if bool(in_block):
+        if host_read(HOST_SYNCS, "residence_guard", in_block):
             return _slab_deposit_from_keys(
                 key, rel, mass2, vblock, vgrid.shape, plain=plain
             )

@@ -11,8 +11,9 @@ not depend on the backend's reduction tree; integer sums and all traffic
 are exact either way. A mesh without a process group (one rank, no
 ``torch.distributed``) makes every collective the identity; with a group,
 every call goes through the backend, at world size 1 too. Each call is
-a ``coll:<name>`` profiler range, so a trace shows the time a rank spends
-in its collectives, and reports its payload (the caller's tensor, once a
+a ``coll:<name>`` span (``telemetry.phases.span``: a profiler range while
+a profiler records), so a trace shows the time a rank spends in its
+collectives, and reports its payload (the caller's tensor, once a
 call, under the reference's primitive name) to
 ``utils.costcount.count_collective`` with the mesh axes the call is
 declared over: every axis of the mesh, or the ``axes`` a sub-axis caller
@@ -37,9 +38,9 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from mpi_grid_redistribute_tpu_torch.parallel.mesh import RankMesh
+from mpi_grid_redistribute_tpu_torch.telemetry.phases import span
 from mpi_grid_redistribute_tpu_torch.utils.costcount import count_collective
 
 
@@ -118,7 +119,7 @@ def all_to_all(x: torch.Tensor, mesh: RankMesh, dim: int = 0,
     send = x.reshape(lead + (G, c) + tail).movedim(len(lead), 0).contiguous()
     wire = _wire(send)
     recv = torch.empty_like(wire)
-    with record_function("coll:all_to_all"):
+    with span("coll:all_to_all"):
         if group is None:
             dist.all_to_all_single(recv, wire, group=mesh.group)
         else:
@@ -142,7 +143,7 @@ def all_gather(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
     count_collective("all_gather", x, mesh.axis_names)
     wire = _wire(x.reshape((1,) + tuple(x.shape)))
     parts = [torch.empty_like(wire) for _ in range(mesh.size)]
-    with record_function("coll:all_gather"):
+    with span("coll:all_gather"):
         dist.all_gather(parts, wire, group=mesh.group)
     return torch.cat(parts).view(x.dtype).reshape((mesh.size,)
                                                    + tuple(x.shape))
@@ -153,7 +154,7 @@ def _all_reduce(x: torch.Tensor, mesh: RankMesh, op, name: str
     out = x.clone()
     if not _local(mesh):
         count_collective(name, x, mesh.axis_names)
-        with record_function("coll:all_reduce"):
+        with span("coll:all_reduce"):
             dist.all_reduce(out, op=op, group=mesh.group)
     return out
 
@@ -188,7 +189,7 @@ def broadcast(x: torch.Tensor, mesh: RankMesh, src: int = 0) -> torch.Tensor:
     out = x.clone().contiguous()
     if not _local(mesh):
         count_collective("broadcast", x, mesh.axis_names)
-        with record_function("coll:broadcast"):
+        with span("coll:broadcast"):
             dist.broadcast(out, src=_global_rank(mesh, src),
                            group=mesh.group)
     return out
@@ -220,7 +221,7 @@ def ppermute(x: torch.Tensor, mesh: RankMesh,
     in_splits = [numel if r in dst else 0 for r in range(mesh.size)]
     out_splits = [numel if r in src else 0 for r in range(mesh.size)]
     recv = torch.empty((sum(out_splits),), dtype=wire.dtype, device=x.device)
-    with record_function("coll:ppermute"):
+    with span("coll:ppermute"):
         dist.all_to_all_single(
             recv, wire.repeat(len(dst)),
             output_split_sizes=out_splits, input_split_sizes=in_splits,

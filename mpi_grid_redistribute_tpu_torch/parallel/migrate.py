@@ -66,12 +66,15 @@ from mpi_grid_redistribute_tpu_torch.ops import binning, overlay, scatter
 from mpi_grid_redistribute_tpu_torch.ops.pack import gather_plan_cols, pack_cols
 from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
 from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
-from mpi_grid_redistribute_tpu_torch.telemetry.phases import traced_span
+from mpi_grid_redistribute_tpu_torch.telemetry.phases import (
+    host_read, span, traced_span,
+)
 
 _I32 = torch.int32
 
 # host reads of device values, by cause (the mover-sparse engine's guard
-# is the only one on the migrate path)
+# is the only one on the migrate path); telemetry.phases.host_read counts
+# each and labels its wait "sync:sparse_guard"
 HOST_SYNCS = {"sparse_guard": 0}
 
 SCATTER_IMPLS = ("overlay", "xla", "rows")
@@ -369,26 +372,29 @@ def _grant_tables(counts, starts, n_free, M: int):
     departures vacate. Returns ``(allowed, pending)``: the grants, and
     the rows each pair still wants after them (what the cycle rescue
     reads). The dense step and the sparse engine share it, so under the
-    sparse guard both grant the same table."""
-    V = counts.shape[0]
-    dev = counts.device
-    rel_start = starts - starts[:, :1]
-    rel_end = rel_start + counts
-    eff = (
-        torch.clamp_max(rel_end, M) - torch.clamp_max(rel_start, M)
-    ).clamp_min(0)
-    swap = torch.minimum(eff, eff.T)
-    swap = _greedy_alloc(swap, torch.full((V,), M, dtype=_I32, device=dev))
-    swap = torch.minimum(swap, swap.T)
-    res_eff = eff - swap
-    res = torch.zeros_like(eff)
-    recv_room = M - swap.sum(dim=0, dtype=_I32)
-    for _ in range(V):
-        cap_res = torch.minimum(
-            recv_room, n_free + res.sum(dim=1, dtype=_I32)
-        )
-        res = _greedy_alloc(res_eff, cap_res.clamp_min(0))
-    return swap + res, res_eff - res
+    sparse guard both grant the same table. Its ``mig:grant`` span holds
+    the fixpoint's ``V`` host iterations."""
+    with span("mig:grant"):
+        V = counts.shape[0]
+        dev = counts.device
+        rel_start = starts - starts[:, :1]
+        rel_end = rel_start + counts
+        eff = (
+            torch.clamp_max(rel_end, M) - torch.clamp_max(rel_start, M)
+        ).clamp_min(0)
+        swap = torch.minimum(eff, eff.T)
+        swap = _greedy_alloc(swap, torch.full((V,), M, dtype=_I32,
+                                              device=dev))
+        swap = torch.minimum(swap, swap.T)
+        res_eff = eff - swap
+        res = torch.zeros_like(eff)
+        recv_room = M - swap.sum(dim=0, dtype=_I32)
+        for _ in range(V):
+            cap_res = torch.minimum(
+                recv_room, n_free + res.sum(dim=1, dtype=_I32)
+            )
+            res = _greedy_alloc(res_eff, cap_res.clamp_min(0))
+        return swap + res, res_eff - res
 
 
 def _land(flat, free_stack, n_free, vacated, arr_cols, n_sent, n_in,
@@ -465,13 +471,13 @@ def _fast_step_body(flat, free_stack, n_free, block_rows, loc_starts,
     V, n = free_stack.shape
     B = block_rows.shape[1]
     dev = flat.device
-    with torch.profiler.record_function("mig:pack"):
+    with span("mig:pack"):
         arr_src, _ = _plan_rows_batched(
             loc_starts.T, allowed.T, block_rows, B,
             seg_rows=torch.arange(V, dtype=_I32, device=dev), row_stride=n,
         )  # [V_dst, B] global source columns
         arr_cols = gather_plan_cols(flat, arr_src)  # [K, V, B]
-    with torch.profiler.record_function("mig:unpack"):
+    with span("mig:unpack"):
         # kernel 2, where the reference takes its XLA scatter: the TPU
         # overlay is O(n * plan), but kernel 2 writes each update straight
         # to its column, O(plan) — the same flat[:, targets] = cols with
@@ -752,7 +758,7 @@ def shard_migrate_vranks_fn(
         K = flat.shape[0]
         n = flat.shape[1] // V
         my_v = torch.arange(V, dtype=_I32, device=dev)
-        with torch.profiler.record_function("mig:bin"):
+        with span("mig:bin"):
             order, counts, bounds = binning.sorted_dest_counts_batched(
                 dest_key, R_total
             )  # [V, n], [V, R_total], [V, R_total + 1]
@@ -791,7 +797,7 @@ def shard_migrate_vranks_fn(
         if stop_after == 3:
             return cut()
         if Dev > 1:
-            with torch.profiler.record_function("mig:exchange"):
+            with span("mig:exchange"):
                 pools = _remote_send(flat, order, bounds, rem_sent)
             # segments: the V local pairs, then every global rank
             vacated, _ = _plan_rows_batched(
@@ -801,7 +807,7 @@ def shard_migrate_vranks_fn(
             vacated, _ = _plan_rows_batched(loc_starts, allowed, order, P)
         if stop_after == 4:
             return cut()
-        with torch.profiler.record_function("mig:pack"):
+        with span("mig:pack"):
             # dst w reads source s's sorted space at segment (s -> w)
             arr_src, _ = _plan_rows_batched(
                 loc_starts.T, allowed.T, order, M, seg_rows=my_v,
@@ -812,7 +818,7 @@ def shard_migrate_vranks_fn(
                     (K, V, P - M), dtype=arr_cols.dtype, device=dev)], dim=2)
         if stop_after == 5:
             return cut()
-        with torch.profiler.record_function("mig:unpack"):
+        with span("mig:unpack"):
             flat, free_stack, n_free = _land(
                 flat, free_stack, n_free, vacated, arr_cols, n_sent, n_in,
                 impl, plain, stop_after,
@@ -883,7 +889,7 @@ def shard_migrate_vranks_fn(
                 )
             return out, stats
 
-        with torch.profiler.record_function("mig:select"):
+        with span("mig:select"):
             block_rows, counts, bounds, ok_sel = binning.sorted_mover_block(
                 dest_key, V, B, chunk=chunk, cap=cap
             )  # [V, B], [V, V], [V, V + 1]
@@ -898,9 +904,9 @@ def shard_migrate_vranks_fn(
         # lax.cond has no sync-free eager form: read it once, run one
         # branch.
         guard = ok_sel & (allowed == counts).all() & (n_in <= B).all()
-        HOST_SYNCS["sparse_guard"] += 1
         # the one guard read a step (gridlint G002 sanctions it here)
-        taken = bool(guard)  # gridlint: disable=G002
+        taken = host_read(HOST_SYNCS, "sparse_guard",  # gridlint: disable=G002
+                          guard)
         if taken:
             out, stats = _fast_step(
                 flat, free_stack, n_free, block_rows, loc_starts, allowed,
@@ -1015,13 +1021,12 @@ def shard_migrate_fused_fn(domain: Domain, grid: ProcessGrid, capacity: int,
         them)."""
         fused, free_stack, n_free = state
         K = fused.shape[0]
-        with torch.profiler.record_function("mig:bin"):
-            key = binning.dest_key_planar_ranks(
-                fused[:D].view(torch.float32), fused[-1] > 0, domain, grid,
-                one, me)  # [1, n]
-            order, full_counts, bounds = binning.sorted_dest_counts_batched(
-                key, R)
-            order, full_counts, bounds = order[0], full_counts[0], bounds[0]
+        key = binning.dest_key_planar_ranks(
+            fused[:D].view(torch.float32), fused[-1] > 0, domain, grid,
+            one, me)  # [1, n]
+        order, full_counts, bounds = binning.sorted_dest_counts_batched(
+            key, R)
+        order, full_counts, bounds = order[0], full_counts[0], bounds[0]
         desired = full_counts.clamp(max=C)
         recv_desired = col.all_to_all(desired, mesh)
         swap = torch.minimum(recv_desired, desired)
@@ -1038,11 +1043,9 @@ def shard_migrate_fused_fn(domain: Domain, grid: ProcessGrid, capacity: int,
             send_counts = send_counts + F[me]
             recv_counts = recv_counts + F[:, me]
         backlog = (full_counts - send_counts).sum(dtype=_I32)
-        with torch.profiler.record_function("mig:pack"):
-            send, gather_idx = pack_cols(fused, order, bounds[:R],
-                                         send_counts, R, C)
-        with torch.profiler.record_function("mig:exchange"):
-            recv = col.all_to_all(send, mesh, dim=1)  # [K, R * C]
+        send, gather_idx = pack_cols(fused, order, bounds[:R], send_counts,
+                                     R, C)
+        recv = col.all_to_all(send, mesh, dim=1)  # [K, R * C]
         return InflightExchange(recv, recv_counts, send_counts, gather_idx,
                                 backlog)
 
@@ -1050,12 +1053,10 @@ def shard_migrate_fused_fn(domain: Domain, grid: ProcessGrid, capacity: int,
         """The complete half: land the exchanged rows (the free-stack
         update rides the landing) and assemble the stats."""
         fused, free_stack, n_free = state
-        with torch.profiler.record_function("mig:unpack"):
-            fused, free_stack, n_free, n_in, dropped_recv = _land_arrivals(
-                fused, free_stack, n_free, inflight.recv,
-                inflight.recv_counts, inflight.send_counts,
-                inflight.gather_idx, C, impl, plain,
-            )
+        fused, free_stack, n_free, n_in, dropped_recv = _land_arrivals(
+            fused, free_stack, n_free, inflight.recv, inflight.recv_counts,
+            inflight.send_counts, inflight.gather_idx, C, impl, plain,
+        )
         stats = MigrateStats(
             sent=inflight.send_counts.sum(dtype=_I32).reshape(1),
             received=n_in.reshape(1),

@@ -9,22 +9,43 @@ logical-bytes roofline; :func:`format_phase_table` prints the table.
 
 :func:`span` and :func:`traced_span` label regions for
 ``torch.profiler`` traces (``record_function`` ranges: they show on the
-host timeline and group the kernels launched inside them).
+host timeline, on the same clock as the device's events, and group the
+kernels launched inside them). They cost one check when nothing
+records: a ``record_function`` range costs ~10 us of host time even with
+no profiler running, so they open one only while a profiler or a
+``utils.costcount`` recording is active, and otherwise return one shared
+no-op context. :func:`host_read` is the one way the loop reads a device
+value on the host: it counts the read and labels its wait ``sync:<site>``.
+
+The drift loop's span names begin with one of :data:`SPAN_PREFIXES`; a
+trace's reader tells the loop's ranges from device work by them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from mpi_grid_redistribute_tpu_torch.utils import costcount, profiling
 
+# the prefixes of the drift loop's span names: the migrate step ("mig:"),
+# the deposit ("dep:"), the collectives ("coll:") and the host reads
+# ("sync:")
+SPAN_PREFIXES = ("mig:", "dep:", "coll:", "sync:")
+
+_NOOP = contextlib.nullcontext()
+
 
 def span(name: str):
     """Host-side profiler span: ``with span('exchange'): out = fn(x)``, a
-    ``torch.profiler.record_function`` range."""
-    return torch.profiler.record_function(name)
+    ``torch.profiler.record_function`` range while a profiler or a
+    ``costcount`` recording is active, else a shared no-op context."""
+    if (torch.autograd._profiler_enabled()
+            or costcount.region(name) is not None):
+        return torch.profiler.record_function(name)
+    return _NOOP
 
 
 class _RecordedSpan:
@@ -47,15 +68,30 @@ class _RecordedSpan:
 
 def traced_span(name: str):
     """Span around an engine's own phases (``'rd:bin'``, ``'rd:pack'``):
-    the same ``record_function`` range as :func:`span`; the JAX package
+    the same range as :func:`span`, gated the same way; the JAX package
     needs a separate kind inside ``jit``, the port does not. While a
     ``utils.costcount.counting(record=True)`` block records on this
     thread, the span is also a region of its record (what progcheck's
     J003 reads)."""
     region = costcount.region(name)
-    if region is None:
+    if region is not None:
+        return _RecordedSpan(name, region)
+    if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
-    return _RecordedSpan(name, region)
+    return _NOOP
+
+
+def host_read(counter: dict, site: str, flag: torch.Tensor) -> bool:
+    """``bool(flag)``, read on the host: the one way the loop waits for
+    the device. Counts the read in ``counter[site]`` (the module's
+    ``HOST_SYNCS``) every time, and while something records labels the
+    wait with a ``sync:<site>`` span, so a trace shows how long the host
+    waited there and how many reads a step made."""
+    counter[site] += 1
+    with span("sync:" + site):
+        # the read this helper exists for; each caller's line carries
+        # its own gridlint sanction
+        return bool(flag)  # gridlint: disable=G002
 
 
 class PhaseTiming(NamedTuple):

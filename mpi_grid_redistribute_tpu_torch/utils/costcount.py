@@ -390,7 +390,9 @@ class _CountMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if _STATE.depth == 0:
+        # a span's profiler range (the profiler:: ops) is bookkeeping, so
+        # a count does not depend on whether a span opened one
+        if _STATE.depth == 0 and func.namespace != "profiler":
             b = op_bytes(func, args, kwargs, out)
             f = op_flops(func, args, kwargs, out)
             for c in _STATE.counters:

@@ -128,6 +128,31 @@ def test_g002_reaches_through_builders_and_helpers(tmp_path):
     assert port[0].symbol == "helper"
 
 
+def test_g002_fires_on_an_unsanctioned_counted_read(tmp_path):
+    """The port's counted guard read (``telemetry.phases.host_read``) is a
+    host read like ``bool()``: on the step path it needs a sanction of
+    its own, the reference's counterpart a ``device_get``."""
+    port = assert_same(tmp_path, {"mod.py": """
+        import jax
+
+        @jax.jit
+        def step(x):
+            jax.device_get(x)
+            return x
+        """}, {"mod.py": """
+        from phases import host_read
+
+        SYNCS = {"guard": 0}
+
+        # gridlint: fastpath-engine
+        def step(x):
+            host_read(SYNCS, "guard", x)
+            host_read(SYNCS, "guard", x)  # gridlint: disable=G002
+            return x
+        """}, ["G002"], 1)
+    assert port[0].symbol == "step"
+
+
 # ---------------------------------------------------------------- G003
 
 
