@@ -1484,13 +1484,20 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
     _build.reset_counts()
     out, syncs, guard = synced(COUNTED_STEPS)
     launches = _build.counts()
+    routes = dict(deposit.dfscan.ROUTES)
     syncs = (syncs - syncs2) / (COUNTED_STEPS - 2)
     guard = (guard - guard2) / (COUNTED_STEPS - 2)
     log(f"config5 {method}: launches over {COUNTED_STEPS} steps: "
-        f"{launches}; host syncs per step {syncs:g} (residence-guard "
-        f"reads {guard:g}; the engine's sparse guard is the other)")
+        f"{launches}, kernel 5 by route {routes}; host syncs per step "
+        f"{syncs:g} (residence-guard reads {guard:g}; the engine's sparse "
+        f"guard is the other)")
     check_launches(launches, MIGRATE_KERNELS + (DEPOSIT_KERNEL[method],),
                    f"config5 {method}")
+    # below 2^24 rows the scan deposit takes all 8 channels in one fused
+    # launch of kernel 5
+    want_cic = COUNTED_STEPS if method == "scan" else 0
+    check(routes == {"rows": 0, "cic": want_cic},
+          f"config5 {method}: kernel 5 launched {routes} by route")
     stats, rho = out[3], out[4]
     check(int(stats.dropped_recv.sum()) == 0, "config5: arrivals dropped")
     check(int(out[2].sum()) == total, "config5: alive count not conserved")
@@ -1541,6 +1548,7 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
         "host_syncs_per_step": syncs,
         "guard_reads_per_step": guard,
         "launches": launches,
+        "dfscan_routes": routes,
         "device_busy_ms_per_step": busy,
     }, rho
 

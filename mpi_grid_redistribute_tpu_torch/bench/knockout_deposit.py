@@ -17,9 +17,11 @@ bit.
 Phases (the reference's numbering, ``ops.deposit.DEPOSIT_PHASES``):
 1 keys (block-local coordinates, cell keys, masked mass), 2 the payload
 sort (stable key sort and the gather of the rel and mass rows), 3 the
-bounds (the fractions and ``bounds_dense``), 4 the channel prefixes
-(corner weights, kernel 5, the tile-total scan), 5 the boundary gathers
-and differences, 6 placement of the corner channels and the ghost fold.
+bounds (``bounds_dense``; the cut also computes the fractions it
+returns), 4 the channel prefixes (fractions, corner weights and kernel
+5, one fused launch a channel group on the card; the tile-total scan), 5
+the boundary gathers and differences, 6 placement of the corner channels
+and the ghost fold.
 
     python -m mpi_grid_redistribute_tpu_torch.bench.knockout_deposit [n]
     KNOCKOUT_GRID=2,2,2 KNOCKOUT_JSON=rows.json \\

@@ -50,6 +50,44 @@
 //
 // The power-of-two and size gates of the TPU path are tiling constraints
 // of that machine, not semantics: any tile from 1 to 14,528 is accepted.
+//
+// The fused route (dfscan_kernel_cic, entry dfscan_cic_launch) is the
+// scan deposit's use of this kernel with the stages in front of it and
+// the pack after it taken in. It replaces no further TPU kernel: the
+// reference computes the base cells, the fractions and the corner-weight
+// rows in XLA, pads them into tiles, calls the TPU kernel, and
+// concatenates hi and lo. Here a warp takes one tile of the sorted stream
+// (payload [D + 1, n]: D block-local coordinates and the mass, row stride
+// n) and makes one pass a pair of the group's channels: it reads each
+// row's coordinates and mass, computes the base cell and fraction as
+// ops/dfscan.cic_frac does (torch.clamp's bits, NaN and signed zeros
+// included), builds the two corner weights mass * ((t0 * t1) * t2) with
+// t = frac or 1 - frac, zero past n, runs the doubling loop on both
+// channels side by side in registers, and writes hi into row j and lo
+// into row g + j of one [2 g, n_pad] pack: the layout the deposit gathers
+// from. Products are explicit round-to-nearest intrinsics too, so nothing
+// contracts into an FMA, and the bits are those of the plain stages
+// (ops/dfscan.cic_tile_prefix_plain).
+//
+// Bound of the fused route: device memory bandwidth, (D + 1) * 4 bytes
+// read a row (16 at D = 3) for the whole group, and 8 bytes written an
+// element (hi and lo) of each channel: 16 + 8 g bytes a row at D = 3, or
+// 16 bytes an element of a group of 2 channels, against the rows route's
+// 12 an element plus the plain stages' own passes (the base cells,
+// fractions, weight rows, the pad and the pack, each a full pass over the
+// channels in device memory). The scan deposit's groups of 2 (above 2^24
+// rows) take one pass; a group of 8 takes four, the later ones reading
+// the tile again from the cache, where it still lies, and recomputing
+// its fractions: that keeps no coordinate live across passes, so a lane
+// holds the two channels' (hi, lo) and little else, and the card keeps
+// enough warps in flight to hide the shuffles' and adds' latency (the
+// fractions kept live for a whole group take over 100 registers a thread
+// at D = 3, R = 8). A pass issues all its loads before it computes
+// anything: with each load beside the fraction it feeds, a warp waits
+// out one load after another, which doubles the launch's time on an
+// H100. D is a template parameter (1 to 3) as R is; the fused route
+// takes R = 1, 2, 4, ..., 32, a tile padded with zeros up to the next
+// one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +100,9 @@
 // the largest row whose two (hi, lo) buffers fit one block's 232,448
 // bytes of shared memory
 #define DFSCAN_MAX_BLOCK_TILE (232448 / 16)
+#define DFSCAN_CIC_DIMS 3  // the fused route's D = 1..3
+#define DFSCAN_CIC_REGS 6  // and its R = 1, 2, 4, ..., 32
+#define DFSCAN_CIC_PASS 2  // the fused route's channels a pass
 
 // deposit._df_add(a_hi, a_lo, b_hi, b_lo), its _two_sum written out in
 // the same operation order
@@ -80,6 +121,53 @@ __host__ __device__ constexpr int ceil_log2(int n) {
   return n <= 1 ? 0 : 1 + ceil_log2((n + 1) / 2);
 }
 
+// The doubling loop over the R registers of each lane (lane, its column
+// col in register 0, the tile) for C rows side by side, one a channel:
+// the rows route scans one (C = 1), the fused route two channels at once,
+// which gives each step twice the independent adds. R and C are template
+// parameters, so every register index is a constant and the arrays stay
+// in registers.
+template <int C, int R>
+__device__ __forceinline__ void warp_df_scan(float (&h)[C][R],
+                                             float (&l)[C][R], int lane,
+                                             int col, int tile) {
+#pragma unroll
+  for (int e = 0; e < ceil_log2(R * 32); ++e) {
+    const int s = 1 << e;
+    if (s >= tile) break;  // warp-uniform
+    if (s >= 32) {
+      // register move; descending k keeps register k - d unmodified
+      const int d = s / 32;
+#pragma unroll
+      for (int k = R - 1; k >= 0; --k) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float sh = k >= d ? h[c][k >= d ? k - d : 0] : 0.0f;
+          const float sl = k >= d ? l[c][k >= d ? k - d : 0] : 0.0f;
+          df_add(h[c][k], l[c][k], sh, sl);
+        }
+      }
+    } else {
+      const int src = (lane - s) & 31;
+      const bool own = col >= s;
+      float ph[C], pl[C];  // register k - 1 from lane src
+#pragma unroll
+      for (int c = 0; c < C; ++c) ph[c] = pl[c] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float ch = __shfl_sync(0xffffffffu, h[c][k], src);
+          const float cl = __shfl_sync(0xffffffffu, l[c][k], src);
+          df_add(h[c][k], l[c][k], own ? ch : ph[c], own ? cl : pl[c]);
+          ph[c] = ch;
+          pl[c] = cl;
+        }
+      }
+    }
+  }
+}
+
 template <int R>
 __global__ void __launch_bounds__(DFSCAN_WARPS * 32)
     dfscan_kernel(const float* __restrict__ x, float* __restrict__ hi_out,
@@ -96,49 +184,23 @@ __global__ void __launch_bounds__(DFSCAN_WARPS * 32)
   const bool active = sub < rows_per_warp && row < rows;
   const long long off = row * tile;
 
-  float h[R], l[R];
+  float h[1][R], l[1][R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const int c = k * 32 + col;
-    h[k] = active && c < tile ? x[off + c] : 0.0f;
-    l[k] = 0.0f;
+    h[0][k] = active && c < tile ? x[off + c] : 0.0f;
+    l[0][k] = 0.0f;
   }
 
-#pragma unroll
-  for (int e = 0; e < ceil_log2(R * 32); ++e) {
-    const int s = 1 << e;
-    if (s >= tile) break;  // warp-uniform
-    if (s >= 32) {
-      // register move; descending k keeps register k - d unmodified
-      const int d = s / 32;
-#pragma unroll
-      for (int k = R - 1; k >= 0; --k) {
-        const float sh = k >= d ? h[k >= d ? k - d : 0] : 0.0f;
-        const float sl = k >= d ? l[k >= d ? k - d : 0] : 0.0f;
-        df_add(h[k], l[k], sh, sl);
-      }
-    } else {
-      const int src = (lane - s) & 31;
-      const bool own = col >= s;
-      float ph = 0.0f, pl = 0.0f;  // register k - 1 from lane src
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const float ch = __shfl_sync(0xffffffffu, h[k], src);
-        const float cl = __shfl_sync(0xffffffffu, l[k], src);
-        df_add(h[k], l[k], own ? ch : ph, own ? cl : pl);
-        ph = ch;
-        pl = cl;
-      }
-    }
-  }
+  warp_df_scan<1, R>(h, l, lane, col, tile);
 
   if (!active) return;
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const int c = k * 32 + col;
     if (c < tile) {
-      hi_out[off + c] = h[k];
-      lo_out[off + c] = l[k];
+      hi_out[off + c] = h[0][k];
+      lo_out[off + c] = l[0][k];
     }
   }
 }
@@ -213,9 +275,149 @@ static int launch_block(const float* x, float* hi, float* lo, long long rows,
   return (int)cudaGetLastError();
 }
 
-// the register route's instances (R = 1..DFSCAN_MAX_REGS) and the block
-// route's kernel
+// ---- the fused route: the scan deposit's channel groups ----------------
+
+// torch.clamp(v, lo, hi) as PyTorch computes it on the card: NaN passes
+// through, anything else is min(max(v, lo), hi). fmaxf and fminf alone
+// would turn a NaN into a bound.
+__device__ __forceinline__ float torch_clamp(float v, float lo, float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// ops/dfscan.cic_frac for one coordinate r on an axis of `cells` cells:
+// the base cell clip(int32(floor(r)), 0, cells - 1) with
+// binning.floor_to_int32's saturating conversion, then
+// clamp(r - float(cell), 0, 1). The conversion to an integer rounding
+// down saturates and takes NaN to 0 on the card, as floor_to_int32 does,
+// and its range ends clip to the same cells.
+__device__ __forceinline__ float cic_frac(float r, int cells) {
+  const int i = min(max(__float2int_rd(r), 0), cells - 1);
+  return torch_clamp(__fsub_rn(r, __int2float_rn(i)), 0.0f, 1.0f);
+}
+
+struct CicShape {
+  int cells[3];  // local_shape, axis by axis (unused axes 1)
+};
+
+// payload [D + 1, n] (block-local coordinates, then mass; row stride n),
+// pack [2 g, tiles * tile]: rows [0, g) the hi words, rows [g, 2 g) the lo
+// words of corner channels c0 .. c0 + g - 1. Tile t is rows
+// [t * tile, (t + 1) * tile) of the stream, zero past n; the warp geometry
+// is the rows route's.
+template <int D, int R>
+__global__ void __launch_bounds__(DFSCAN_WARPS * 32)
+    dfscan_kernel_cic(const float* __restrict__ payload, long long n,
+                      float* __restrict__ pack, long long tiles, int tile,
+                      int rows_per_warp, int c0, int g, CicShape shape) {
+  const int lane = threadIdx.x & 31;
+  const long long row0 =
+      ((long long)blockIdx.x * DFSCAN_WARPS + (threadIdx.x >> 5)) *
+      rows_per_warp;
+  if (row0 >= tiles) return;  // warp-uniform
+  const int sub = R == 1 ? lane / tile : 0;  // the lane's tile in the warp
+  const int col = lane - sub * tile;         // its column in register 0
+  const long long row = row0 + sub;
+  const bool active = sub < rows_per_warp && row < tiles;
+  const long long off = row * tile;
+  const long long n_pad = tiles * tile;
+
+  // two channels a pass; each pass reads the rows' coordinates and mass
+  // (from device memory once, from the cache after), computes their
+  // fractions and the two corner weights, zero past n (a zero mass and
+  // coordinate, so the weight is +0.0, as the pad writes), and scans
+  // both channels side by side
+#pragma unroll 1
+  for (int j = 0; j < g; j += DFSCAN_CIC_PASS) {
+    const int nc = min(DFSCAN_CIC_PASS, g - j);  // channels it writes
+    float h[DFSCAN_CIC_PASS][R], l[DFSCAN_CIC_PASS][R];
+    // every load first, so that they are in flight together
+    float raw[D + 1][R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int c = k * 32 + col;
+      const long long e = off + c;
+      const bool in = active && c < tile && e < n;
+#pragma unroll
+      for (int d = 0; d <= D; ++d) raw[d][k] = in ? payload[d * n + e] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float m = raw[D][k];
+      float f[D];  // the fraction of +0.0 is +0.0
+#pragma unroll
+      for (int d = 0; d < D; ++d) f[d] = cic_frac(raw[d][k], shape.cells[d]);
+#pragma unroll
+      for (int q = 0; q < DFSCAN_CIC_PASS; ++q) {
+        // bit D - 1 - d of the corner is its axis d (an odd last pass
+        // computes its one channel twice and writes it once)
+        const int corner = c0 + j + (q < nc ? q : 0);
+        // mass * ((t0 * t1) * t2), the left fold the reference pins
+        float w = 0.0f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          const float t = (corner >> (D - 1 - d)) & 1
+                              ? f[d]
+                              : __fsub_rn(1.0f, f[d]);
+          w = d == 0 ? t : __fmul_rn(w, t);
+        }
+        h[q][k] = __fmul_rn(m, w);
+        l[q][k] = 0.0f;
+      }
+    }
+
+    warp_df_scan<DFSCAN_CIC_PASS, R>(h, l, lane, col, tile);
+
+    if (active) {
+#pragma unroll
+      for (int q = 0; q < DFSCAN_CIC_PASS; ++q) {
+        if (q >= nc) break;
+        float* hi_out = pack + (long long)(j + q) * n_pad + off;
+        float* lo_out = pack + (long long)(g + j + q) * n_pad + off;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const int c = k * 32 + col;
+          if (c < tile) {
+            hi_out[c] = h[q][k];
+            lo_out[c] = l[q][k];
+          }
+        }
+      }
+    }
+  }
+}
+
+// the fused route's register counts: powers of two, a tile padded up to
+// the next one with zeros (which change no earlier prefix)
+template <int D, int R>
+static int launch_cic_r(int regs, const float* payload, long long n,
+                        float* pack, long long tiles, int tile,
+                        int rows_per_warp, int c0, int g, CicShape shape,
+                        cudaStream_t stream) {
+  if (regs != R) {
+    if constexpr (R < DFSCAN_MAX_REGS) {
+      return launch_cic_r<D, R * 2>(regs, payload, n, pack, tiles, tile,
+                                    rows_per_warp, c0, g, shape, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long warps = (tiles + rows_per_warp - 1) / rows_per_warp;
+  const long long blocks = (warps + DFSCAN_WARPS - 1) / DFSCAN_WARPS;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  dfscan_kernel_cic<D, R>
+      <<<(unsigned int)blocks, DFSCAN_WARPS * 32, 0, stream>>>(
+          payload, n, pack, tiles, tile, rows_per_warp, c0, g, shape);
+  return (int)cudaGetLastError();
+}
+
+// the register route's instances (R = 1..DFSCAN_MAX_REGS), the block
+// route's kernel and the fused route's instances (D = 1..3, R = 1..32 by
+// powers of two)
 #define DFSCAN_ROW(R) {"dfscan_kernel<" #R ">", (const void*)dfscan_kernel<R>}
+#define DFSCAN_CIC_ROW(D, R) \
+  {"dfscan_kernel_cic<" #D "," #R ">", (const void*)dfscan_kernel_cic<D, R>}
+#define DFSCAN_CIC_ROWS(D)                                         \
+  DFSCAN_CIC_ROW(D, 1), DFSCAN_CIC_ROW(D, 2), DFSCAN_CIC_ROW(D, 4), \
+      DFSCAN_CIC_ROW(D, 8), DFSCAN_CIC_ROW(D, 16), DFSCAN_CIC_ROW(D, 32)
 static const FnRow kDfscanFns[] = {
     DFSCAN_ROW(1), DFSCAN_ROW(2), DFSCAN_ROW(3), DFSCAN_ROW(4),
     DFSCAN_ROW(5), DFSCAN_ROW(6), DFSCAN_ROW(7), DFSCAN_ROW(8),
@@ -226,10 +428,15 @@ static const FnRow kDfscanFns[] = {
     DFSCAN_ROW(25), DFSCAN_ROW(26), DFSCAN_ROW(27), DFSCAN_ROW(28),
     DFSCAN_ROW(29), DFSCAN_ROW(30), DFSCAN_ROW(31), DFSCAN_ROW(32),
     {"dfscan_block_kernel", (const void*)dfscan_block_kernel},
+    DFSCAN_CIC_ROWS(1), DFSCAN_CIC_ROWS(2), DFSCAN_CIC_ROWS(3),
 };
 #undef DFSCAN_ROW
-static_assert(sizeof(kDfscanFns) / sizeof(FnRow) == DFSCAN_MAX_REGS + 1,
-              "one row per register-route instance, and the block route");
+#undef DFSCAN_CIC_ROW
+#undef DFSCAN_CIC_ROWS
+static_assert(sizeof(kDfscanFns) / sizeof(FnRow) ==
+                  DFSCAN_MAX_REGS + 1 + DFSCAN_CIC_DIMS * DFSCAN_CIC_REGS,
+              "one row per register-route instance, the block route, and "
+              "one per fused-route instance");
 
 extern "C" {
 
@@ -250,6 +457,39 @@ int dfscan_launch(const void* x, void* hi, void* lo, long long rows, int tile,
     return (int)cudaErrorInvalidValue;
   return launch_r<1>(regs, (const float*)x, (float*)hi, (float*)lo, rows,
                      tile, rows_per_warp, (cudaStream_t)stream);
+}
+
+// The fused route (ops/dfscan.cic_tile_prefix): payload [d + 1, n] float32,
+// pack [2 g, tiles * tile]; corner channels c0 .. c0 + g - 1 of 2^d, the
+// axes' cell counts in cells0..2. Refused unless tiles = ceil(n / tile)
+// (n >= 1), 1 <= d <= 3, the channels lie in [0, 2^d), each used axis has
+// a cell, regs is a power of two from 1 to 32 with regs * 32 >= tile,
+// tile <= 1024, and rows_per_warp follows the rows route's rule.
+int dfscan_cic_launch(const void* payload, long long n, void* pack,
+                      long long tiles, int tile, int regs, int rows_per_warp,
+                      int d, int c0, int g, int cells0, int cells1,
+                      int cells2, void* stream) {
+  const CicShape shape = {{cells0, cells1, cells2}};
+  if (n < 1 || tile < 1 || tile > DFSCAN_MAX_TILE || tiles < 1 ||
+      (tiles - 1) * tile >= n || tiles * tile < n || regs < 1 ||
+      regs > DFSCAN_MAX_REGS || (regs & (regs - 1)) != 0 ||
+      regs * 32 < tile || rows_per_warp < 1 ||
+      (rows_per_warp > 1 && (regs != 1 || rows_per_warp * tile > 32)) ||
+      d < 1 || d > DFSCAN_CIC_DIMS || c0 < 0 || g < 1 || c0 + g > (1 << d))
+    return (int)cudaErrorInvalidValue;
+  for (int a = 0; a < d; ++a)
+    if (shape.cells[a] < 1) return (int)cudaErrorInvalidValue;
+  const float* p = (const float*)payload;
+  float* out = (float*)pack;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d == 1)
+    return launch_cic_r<1, 1>(regs, p, n, out, tiles, tile, rows_per_warp,
+                              c0, g, shape, st);
+  if (d == 2)
+    return launch_cic_r<2, 1>(regs, p, n, out, tiles, tile, rows_per_warp,
+                              c0, g, shape, st);
+  return launch_cic_r<3, 1>(regs, p, n, out, tiles, tile, rows_per_warp, c0,
+                            g, shape, st);
 }
 
 // Every __global__ function's footprint (resource_usage.cuh).

@@ -12,7 +12,8 @@ Every C entry returns ``cudaGetLastError()`` after its launch;
 :meth:`Kernel.launch` raises when that is not 0 (a refused launch never
 runs, and a later synchronize would not report it). Each kernel counts
 its launches, so a run can show that its main path went through the
-kernel (:func:`reset_counts`, :func:`counts`).
+kernel (:func:`reset_counts`, :func:`counts`), and, where one source has
+several routes, its launches by route (``Kernel.routes``).
 """
 
 from __future__ import annotations
@@ -28,9 +29,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+# -split-compile=0: nvcc optimizes a source's kernels on every core at once
+# (dfscan.cu's 51 template instances build in ~20 s instead of ~34 on the
+# card's 8 cores)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
 )
 
 
@@ -53,14 +57,20 @@ class Kernel:
 
     ``argtypes`` are the ctypes types of the entry's arguments (pointers
     and the stream as ``c_void_p``, so 64-bit values are not cut); the
-    entry returns an ``int`` CUDA error code."""
+    entry returns an ``int`` CUDA error code. ``entries`` names further C
+    entries of the same source with their argtypes (a launch picks one by
+    ``entry=``), and ``routes`` the routes whose launches ``routes``
+    counts apart; :attr:`launches` counts them all."""
 
-    def __init__(self, name: str, source: str, entry: str, argtypes):
+    def __init__(self, name: str, source: str, entry: str, argtypes,
+                 entries: dict = None, routes=()):
         self.name = name
         self.source = CSRC / source
         self.entry = entry
         self.argtypes = list(argtypes)
+        self.entries = {entry: self.argtypes, **(entries or {})}
         self.launches = 0
+        self.routes = dict.fromkeys(routes, 0)
         self._fn = None
         self._strerror = None
         self._usage = None
@@ -104,9 +114,11 @@ class Kernel:
                 if job is not None:
                     self._finish_build(job)
                 lib = ctypes.CDLL(str(self.lib_path()))
-                fn = getattr(lib, self.entry)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
+                fn = {}
+                for entry, argtypes in self.entries.items():
+                    fn[entry] = getattr(lib, entry)
+                    fn[entry].argtypes = argtypes
+                    fn[entry].restype = ctypes.c_int
                 err = getattr(lib, f"{self.source.stem}_error_string")
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
@@ -144,14 +156,16 @@ class Kernel:
                 (int(v) for v in vals)))
             i += 1
 
-    def launch(self, *args) -> None:
-        """Launch through the C entry, raise on a CUDA error, count it."""
-        fn = self.load()
-        code = fn(*args)
+    def launch(self, *args, entry: str = None, route: str = None) -> None:
+        """Launch through the C entry (``entry``, default the first),
+        raise on a CUDA error, count it (and under ``route``)."""
+        code = self.load()[entry or self.entry](*args)
         if code != 0:
             msg = self._strerror(code).decode()
             raise RuntimeError(f"{self.name}: CUDA error {code} ({msg})")
         self.launches += 1
+        if route is not None:
+            self.routes[route] += 1
 
 
 KERNELS: dict = {}
@@ -198,6 +212,8 @@ def nvcc_version() -> str:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        for route in k.routes:
+            k.routes[route] = 0
 
 
 def counts() -> dict:

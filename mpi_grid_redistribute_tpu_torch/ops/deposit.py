@@ -13,7 +13,8 @@ planes of open axes (:func:`assemble_dense`). Three methods:
 
   * ``"scan"`` (:func:`cic_deposit_device_planar`): a stable sort by
     ``key``, the corner-weight channels, a two-level double-float prefix
-    sum (kernel 5, ``ops.dfscan``, within 256-row tiles; plain PyTorch
+    sum (kernel 5, ``ops.dfscan``, within 256-row tiles, computing the
+    fractions and corner weights in its load on the card; plain PyTorch
     over the tile totals) and differences at the run bounds. Per-cell
     error ~ulp(cell value); bit-equal to the JAX package on the same
     inputs;
@@ -60,7 +61,7 @@ from mpi_grid_redistribute_tpu_torch._device import OnDevice
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import binning, dfscan, segdep
 from mpi_grid_redistribute_tpu_torch.ops.dfscan import (  # noqa: F401
-    _df_add, _df_cumsum, _two_sum,
+    _base_cell, _df_add, _df_cumsum, _two_sum,
 )
 from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
 from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
@@ -107,25 +108,6 @@ def _row_major_strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
     return tuple(reversed(strides))
 
 
-def _base_cell(r: torch.Tensor, n: int) -> torch.Tensor:
-    """``clip(int32(floor(r)), 0, n - 1)``, with XLA's saturating
-    float-to-int32 conversion."""
-    return binning.floor_to_int32(r).clamp(0, n - 1)
-
-
-def _tile_prefix_planar(wt: torch.Tensor, plain: bool = False):
-    """Within-tile double-float prefix of ``wt [g, T, K]`` along K:
-    kernel 5 on the card (any K; the reference's TPU size gates do not
-    apply, and ``dfscan.geometry``'s shape rule sends a K beyond one
-    block's shared memory to the plain version), its plain version on
-    the CPU or when ``plain``."""
-    g, T, K = wt.shape
-    fn = (dfscan.tile_df_cumsum_rows_plain if plain
-          else dfscan.tile_df_cumsum_rows)
-    hi, lo = fn(wt.reshape(g * T, K))
-    return hi.reshape(g, T, K), lo.reshape(g, T, K)
-
-
 # the scan deposit's phases, the reference knockout's numbering
 # (bench/knockout_deposit.py cuts the deposit after each); its spans
 # "dep:keys", "dep:sort", "dep:bounds", "dep:prefix" and "dep:place"
@@ -152,6 +134,9 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
     zero on invalid rows). Returns ``per_cell [2^D, n_segments]``.
     ``channel_group`` processes the channels in groups of that many to
     bound the prefix temporaries; it changes no channel's arithmetic.
+    The corner weights and their within-tile prefixes come from
+    ``dfscan.cic_tile_prefix`` (one fused kernel 5 launch a group on the
+    card), its plain version on the CPU or when ``plain``.
     ``_stop_after`` (2, 3 or 4; internal, the knockout's cut) returns the
     tensors the deposit holds after that phase instead."""
     n = key.shape[0]
@@ -160,54 +145,37 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
         keys_sorted, order = torch.sort(key, stable=True)
         payload = torch.cat([rel_rows, mass[None, :]], dim=0)  # [D + 1, N]
         payload_s = torch.index_select(payload, 1, order)
-        rel_s = payload_s[:D]
-        mass_s = payload_s[D]
     if _stop_after == 2:
-        return keys_sorted, rel_s, mass_s
-    corners = list(itertools.product((0, 1), repeat=D))
-    nch = len(corners)
+        return keys_sorted, payload_s[:D], payload_s[D]
+    nch = 1 << D
     K = max(1, min(tile, n))
     n_pad = -(-n // K) * K
     with span("dep:bounds"):
-        i0_s = torch.stack(
-            [_base_cell(rel_s[d], local_shape[d]) for d in range(D)], dim=0
-        )
-        frac = (rel_s - i0_s.to(_F32)).clamp(0.0, 1.0)  # [D, N]
         bounds = binning.bounds_dense(keys_sorted, n_segments + 1)
         if _stop_after == 3:
-            return bounds, frac
+            return bounds, dfscan.cic_frac(payload_s[:D], local_shape)
         t_idx = (bounds // K).long()
         has_local = (bounds % K > 0)[None, :]
         lb = (bounds - 1).clamp(0, n_pad - 1).long()
     cg = nch if not channel_group else max(1, min(channel_group, nch))
+    prefix = (dfscan.cic_tile_prefix_plain if plain
+              else dfscan.cic_tile_prefix)
 
-    def per_group(corner_list, upto=None):
+    def per_group(c0, upto=None):
+        g = min(cg, nch - c0)
         with span("dep:prefix"):
-            # corner-weight rows [g, N] in sorted order: mass * ((f0 * f1)
-            # * f2), the explicit left fold the reference pins
-            rows = []
-            for corner in corner_list:
-                w = None
-                for d in range(D):
-                    t = frac[d] if corner[d] == 1 else 1.0 - frac[d]
-                    w = t if w is None else w * t
-                rows.append(mass_s * w)
-            wg = torch.stack(rows, dim=0)
-            g = wg.shape[0]
-            wt = torch.nn.functional.pad(wg, (0, n_pad - n)).reshape(
-                g, n_pad // K, K
-            )
-            lhi, llo = _tile_prefix_planar(wt, plain)  # within-tile prefixes
-            thi, tlo = _df_cumsum(lhi[:, :, -1], axis=1, x_lo=llo[:, :, -1])
+            # within-tile prefixes of the group's corner channels, hi rows
+            # above lo rows: [2 g, n_pad]
+            l_pack = prefix(payload_s, local_shape, c0, g, K)
+            tiles = l_pack.view(2 * g, n_pad // K, K)
+            thi, tlo = _df_cumsum(tiles[:g, :, -1], axis=1,
+                                  x_lo=tiles[g:, :, -1])
         if upto == 4:
-            return lhi, llo, thi, tlo
+            return tiles[:g], tiles[g:], thi, tlo
         with span("dep:place"):
-            zg = torch.zeros((g, 1), dtype=_F32, device=wg.device)
+            zg = torch.zeros((g, 1), dtype=_F32, device=l_pack.device)
             s_hi = torch.cat([zg, thi], dim=1)  # exclusive tile prefixes
             s_lo = torch.cat([zg, tlo], dim=1)  # [g, T + 1]
-            l_pack = torch.cat(
-                [lhi.reshape(g, n_pad), llo.reshape(g, n_pad)], dim=0
-            )  # [2 g, n_pad]
             s_pack = torch.cat([s_hi, s_lo], dim=0)  # [2 g, T + 1]
             l_at = torch.where(
                 has_local, torch.index_select(l_pack, 1, lb), 0.0
@@ -221,11 +189,11 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
                     + (g_lo[:, 1:] - g_lo[:, :-1]))
 
     if _stop_after == 4:
-        return tuple(t for g0 in range(0, nch, cg)
-                     for t in per_group(corners[g0 : g0 + cg], 4))
+        return tuple(t for c0 in range(0, nch, cg)
+                     for t in per_group(c0, 4))
     if cg >= nch:
-        return per_group(corners)
-    groups = [per_group(corners[g0 : g0 + cg]) for g0 in range(0, nch, cg)]
+        return per_group(0)
+    groups = [per_group(c0) for c0 in range(0, nch, cg)]
     with span("dep:place"):
         return torch.cat(groups, dim=0)
 

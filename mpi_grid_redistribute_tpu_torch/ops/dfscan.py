@@ -22,22 +22,37 @@ The double-float arithmetic itself (:func:`_two_sum`, :func:`_df_add`,
 :func:`_df_cumsum`) lives here as the kernel's plain version;
 ``ops.deposit`` uses it for the level-2 scan over tile totals, which
 stays plain PyTorch as it stays XLA in the reference.
+
+The scan deposit calls the kernel through :func:`cic_tile_prefix`: from
+the sorted ``payload [D + 1, n]`` (block-local coordinates, then mass)
+to one ``[2 g, n_pad]`` pack of the within-tile prefixes of ``g`` corner
+channels, hi words above lo words. On the card, for a tile of the
+register route and D of 1 to 3, that is one launch of the fused route
+(``csrc/dfscan.cu``'s ``dfscan_kernel_cic``), which computes the base
+cells, fractions and corner weights in its load and writes the pack
+itself; otherwise, and on the CPU, the plain stages
+(:func:`cic_tile_prefix_plain`) compute them in PyTorch around
+:func:`tile_df_cumsum_rows`. :data:`ROUTES` counts the launches of
+either route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import NamedTuple
 
 import torch
 
-from mpi_grid_redistribute_tpu_torch.ops import _build
+from mpi_grid_redistribute_tpu_torch.ops import _build, binning
 from mpi_grid_redistribute_tpu_torch.utils.costcount import kernel_scope
 
 MAX_TILE = 1024  # DFSCAN_MAX_TILE in csrc/dfscan.cu: the register route
 # DFSCAN_MAX_BLOCK_TILE: the block route's two (hi, lo) buffers, 16 bytes
 # an element, in one block's 232,448 bytes of shared memory
 MAX_BLOCK_TILE = 232448 // 16
+
+CIC_MAX_DIMS = 3  # DFSCAN_CIC_DIMS: the fused route's D = 1..3
 
 KERNEL = _build.register(_build.Kernel(
     "tile_df_cumsum_rows", "dfscan.cu", "dfscan_launch",
@@ -46,7 +61,17 @@ KERNEL = _build.register(_build.Kernel(
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ],
+    entries={"dfscan_cic_launch": [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]},
+    routes=("rows", "cic"),
 ))
+# launches by route: "rows" (x [rows, tile]) and "cic" (the fused route);
+# _build.reset_counts() zeroes them
+ROUTES = KERNEL.routes
 
 
 class Geometry(NamedTuple):
@@ -54,7 +79,9 @@ class Geometry(NamedTuple):
     ``"warp"`` (the register route, ``regs`` elements a lane and
     ``rows_per_warp`` rows a warp), ``"block"`` (a block per row in
     shared memory; ``regs = rows_per_warp = 0``) or ``"plain"`` (the
-    plain version: the row does not fit one block's shared memory)."""
+    plain version: the row does not fit one block's shared memory); and
+    from :func:`cic_geometry`, ``"cic"`` (the fused route, with the
+    register route's fields)."""
 
     route: str
     regs: int
@@ -76,6 +103,20 @@ def geometry(tile: int) -> Geometry:
     if tile <= MAX_BLOCK_TILE:
         return Geometry("block", 0, 0)
     return Geometry("plain", 0, 0)
+
+
+def cic_geometry(tile: int, D: int) -> Geometry:
+    """The shape rule of :func:`cic_tile_prefix` on the card: route
+    ``"cic"`` (the fused launch) for a tile of the register route and D
+    of 1 to :data:`CIC_MAX_DIMS`, with :func:`geometry`'s rows a warp and
+    its registers rounded up to a power of two (the instances the source
+    holds); otherwise :func:`geometry`'s own route, which the plain
+    stages take around :func:`tile_df_cumsum_rows`."""
+    geo = geometry(tile)
+    if geo.route != "warp" or not 1 <= D <= CIC_MAX_DIMS:
+        return geo
+    return Geometry("cic", 1 << (geo.regs - 1).bit_length(),
+                    geo.rows_per_warp)
 
 
 def _two_sum(a: torch.Tensor, b: torch.Tensor):
@@ -182,6 +223,122 @@ def tile_df_cumsum_rows(x: torch.Tensor, _out=None):
         return hi, lo
     KERNEL.launch(
         x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, tile, geo.regs,
-        geo.rows_per_warp, _build.stream_ptr(x),
+        geo.rows_per_warp, _build.stream_ptr(x), route="rows",
     )
     return hi, lo
+
+
+def _base_cell(r: torch.Tensor, n: int) -> torch.Tensor:
+    """``clip(int32(floor(r)), 0, n - 1)``, with XLA's saturating
+    float-to-int32 conversion."""
+    return binning.floor_to_int32(r).clamp(0, n - 1)
+
+
+def cic_frac(rel_s: torch.Tensor, local_shape) -> torch.Tensor:
+    """The CIC fractions ``[D, n]`` of block-local coordinates ``rel_s
+    [D, n]``: ``clamp(rel - float(base cell), 0, 1)`` on each axis."""
+    D = rel_s.shape[0]
+    i0_s = torch.stack(
+        [_base_cell(rel_s[d], local_shape[d]) for d in range(D)], dim=0
+    )
+    return (rel_s - i0_s.to(torch.float32)).clamp(0.0, 1.0)
+
+
+def _cic_stages(payload_s, local_shape, c0: int, g: int, tile: int, scan):
+    """The plain stages of :func:`cic_tile_prefix`: fractions, the corner
+    weight rows, the pad to whole tiles, ``scan`` on ``[g * T, tile]`` and
+    the pack of its hi and lo."""
+    D, n = payload_s.shape[0] - 1, payload_s.shape[1]
+    frac = cic_frac(payload_s[:D], local_shape)
+    mass_s = payload_s[D]
+    n_pad = -(-n // tile) * tile
+    # corner-weight rows [g, n] in sorted order: mass * ((f0 * f1) * f2),
+    # the explicit left fold the reference pins
+    rows = []
+    for corner in list(itertools.product((0, 1), repeat=D))[c0:c0 + g]:
+        w = None
+        for d in range(D):
+            t = frac[d] if corner[d] == 1 else 1.0 - frac[d]
+            w = t if w is None else w * t
+        rows.append(mass_s * w)
+    wg = torch.stack(rows, dim=0)
+    wt = torch.nn.functional.pad(wg, (0, n_pad - n))
+    lhi, llo = scan(wt.reshape(g * n_pad // tile, tile))
+    return torch.cat([lhi.reshape(g, n_pad), llo.reshape(g, n_pad)], dim=0)
+
+
+def cic_kernel_cost(payload_s, local_shape, c0, g, tile, _out=None):
+    """``(bytes, flops)`` of one :func:`cic_tile_prefix` call, the fused
+    route's real traffic: the payload read once (``4 (D + 1)`` bytes a
+    row, whatever ``g`` is) and the pack written once (hi and lo, 8 bytes
+    an element of each channel, the pad included); a double-float add of
+    11 operations a doubling step, and ``2 D`` operations of the weight
+    (its D products and at most D subtracts), an element, each taking an
+    FMA's issue slot (2 flops)."""
+    d1, n = payload_s.shape
+    elems = g * -(-n // tile) * tile
+    return (4 * d1 * n + 8 * elems,
+            2 * (11 * (tile - 1).bit_length() + 2 * (d1 - 1)) * elems)
+
+
+@kernel_scope("tile_df_cumsum_rows", cic_kernel_cost)
+def cic_tile_prefix_plain(payload_s: torch.Tensor, local_shape, c0: int,
+                          g: int, tile: int):
+    """Plain PyTorch version of :func:`cic_tile_prefix`: the scan
+    deposit's stages as they are written in the reference, around
+    :func:`tile_df_cumsum_rows_plain`."""
+    return _cic_stages(payload_s, local_shape, c0, g, tile,
+                       tile_df_cumsum_rows_plain)
+
+
+@kernel_scope("tile_df_cumsum_rows", cic_kernel_cost)
+def cic_tile_prefix(payload_s: torch.Tensor, local_shape, c0: int, g: int,
+                    tile: int, _out=None):
+    """Within-tile double-float prefixes of the scan deposit's corner
+    channels ``c0 .. c0 + g - 1`` (of ``2^D``, in
+    ``itertools.product((0, 1), repeat=D)`` order) from the sorted
+    ``payload_s [D + 1, n]`` float32 (block-local coordinates on an axis
+    of ``local_shape[d]`` cells, then the mass): the weights ``mass *
+    ((t0 * t1) * t2)`` with ``t`` the fraction or one less it, zero-padded
+    to ``n_pad = ceil(n / tile) * tile`` and scanned tile by tile. Returns
+    the pack ``[2 g, n_pad]``: row ``j`` the hi words of channel ``c0 +
+    j``, row ``g + j`` its lo words. CPU tensors run
+    :func:`cic_tile_prefix_plain`; CUDA tensors take the route
+    :func:`cic_geometry` gives: one fused launch, or the plain stages
+    around :func:`tile_df_cumsum_rows`. ``_out`` (internal) is the pack
+    written to on the fused route."""
+    if payload_s.dtype != torch.float32 or payload_s.dim() != 2:
+        raise TypeError(
+            f"cic_tile_prefix takes float32 [D + 1, n], got "
+            f"{payload_s.dtype} {tuple(payload_s.shape)}")
+    D, n = payload_s.shape[0] - 1, payload_s.shape[1]
+    if (D < 1 or len(local_shape) != D or tile < 1 or g < 1 or c0 < 0
+            or c0 + g > 1 << D):
+        raise ValueError(
+            f"cic_tile_prefix: channels {c0}..{c0 + g - 1} of D = {D}, "
+            f"local_shape {tuple(local_shape)}, tile {tile}")
+    if payload_s.device.type == "cpu":
+        return _build.into(_out, cic_tile_prefix_plain(
+            payload_s, local_shape, c0, g, tile), "cic_tile_prefix")
+    if payload_s.device.type != "cuda":
+        raise ValueError(
+            f"cic_tile_prefix: unsupported device {payload_s.device}")
+    if not payload_s.is_contiguous():
+        raise ValueError("cic_tile_prefix: payload_s must be contiguous")
+    geo = cic_geometry(tile, D)
+    if geo.route != "cic":
+        return _build.into(_out, _cic_stages(
+            payload_s, local_shape, c0, g, tile, tile_df_cumsum_rows),
+            "cic_tile_prefix")
+    tiles = -(-n // tile)
+    pack = _build.out_tensor(_out, (2 * g, tiles * tile), torch.float32,
+                             payload_s, "cic_tile_prefix")
+    if n == 0:
+        return pack
+    cells = [int(c) for c in local_shape] + [1] * (CIC_MAX_DIMS - D)
+    KERNEL.launch(
+        payload_s.data_ptr(), n, pack.data_ptr(), tiles, tile, geo.regs,
+        geo.rows_per_warp, D, c0, g, *cells, _build.stream_ptr(payload_s),
+        entry="dfscan_cic_launch", route="cic",
+    )
+    return pack

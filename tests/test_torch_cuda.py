@@ -357,6 +357,72 @@ def test_dfscan_kernel_raises_on_bad_input(cuda):
         dfscan.tile_df_cumsum_rows(torch.zeros((8, 8), device=cuda)[:, ::2])
 
 
+
+def _cic_payload(r, D, n, local_shape):
+    """A sorted scan-deposit payload ``[D + 1, n]`` with the rows the fused
+    route must get right: at the far face, a few ulp below 0, +-0.0, huge,
+    NaN, masses that are not 1, and a tail of invalid rows (coordinates 0,
+    mass 0)."""
+    rel = (r.random((D, n)) * np.asarray(local_shape)[:, None]).astype(
+        np.float32)
+    mass = r.uniform(0.25, 3.0, n).astype(np.float32)
+    for d in range(D):
+        rel[d, 3 + d] = np.float32(local_shape[d])
+        rel[d, 20 + d] = np.nextafter(np.float32(0), np.float32(-1))
+        rel[d, 30 + d] = -0.0
+        rel[d, 50 + d] = np.nextafter(np.float32(local_shape[d]),
+                                      np.float32(0))
+        rel[d, 60 + d] = np.float32(3e38)
+    rel[0, 70] = np.nan
+    mass[80] = -0.0
+    rel[:, n - n // 10:] = 0.0
+    mass[n - n // 10:] = 0.0
+    return torch.from_numpy(np.concatenate([rel, mass[None]], axis=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["pairs", "all"])
+@pytest.mark.parametrize("D,local_shape", [
+    (1, (16,)), (2, (8, 5)), (3, (8, 8, 8)),
+])
+@pytest.mark.parametrize("tile", [
+    1, 3, 5, 31, 33, 64, 100, 256, 257, 1000, 1024,
+])
+def test_dfscan_cic_route_matches_plain(cuda, D, local_shape, tile, group):
+    """The fused route (every instance: D = 1..3, R = 1..32) against its
+    plain twin, channel group by channel group, with a ragged last tile
+    and a partly filled last warp and block: bit for bit, one "cic"
+    launch a group."""
+    n = 77 * max(tile, 32) + 13
+    payload = _cic_payload(np.random.default_rng(tile * 10 + D), D, n,
+                           local_shape).to(cuda)
+    g = 2 if group == "pairs" else 1 << D
+    for c0 in range(0, 1 << D, g):
+        before = (dfscan.KERNEL.launches, dfscan.ROUTES["cic"],
+                  dfscan.ROUTES["rows"])
+        got = dfscan.cic_tile_prefix(payload, local_shape, c0, g, tile)
+        want = dfscan.cic_tile_prefix_plain(payload, local_shape, c0, g,
+                                            tile)
+        torch.cuda.synchronize()
+        assert (dfscan.KERNEL.launches, dfscan.ROUTES["cic"],
+                dfscan.ROUTES["rows"]) == (before[0] + 1, before[1] + 1,
+                                           before[2])
+        assert got.shape == want.shape == (2 * g, -(-n // tile) * tile)
+        assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_dfscan_cic_route_refuses_what_it_cannot_take(cuda):
+    payload = torch.zeros((4, 100), device=cuda)
+    with pytest.raises(ValueError):
+        dfscan.cic_tile_prefix(payload[:, ::2], (8, 8, 8), 0, 2, 256)
+    with pytest.raises(ValueError):
+        dfscan.cic_tile_prefix(payload, (8, 8, 8), 6, 4, 256)
+    with pytest.raises(TypeError):
+        dfscan.cic_tile_prefix(payload.double(), (8, 8, 8), 0, 2, 256)
+    assert dfscan.cic_tile_prefix(payload[:, :0].contiguous(), (8, 8, 8), 0,
+                                  2, 1).shape == (4, 0)
+
 def _segdep_stream(r, kind, n, n_cells):
     """Sorted key streams: uniform with a sentinel tail, clustered (a few
     hot cells whose runs cross many 256-row blocks, and empty gaps),
@@ -594,12 +660,48 @@ def test_scan_deposit_at_tile_2048_launches_kernel_5(cuda):
         r.random((3, n), dtype=np.float32), r.random(n, dtype=np.float32),
         r.random(n) < 0.9)] + [torch.zeros(3), torch.full((3,), 8.0)]
     before = dfscan.KERNEL.launches
+    routes = dict(dfscan.ROUTES)
     got = deposit.cic_deposit_device_planar(
         *(a.to(cuda) for a in args), block, tile=2048)
     torch.cuda.synchronize()
     assert dfscan.KERNEL.launches == before + 1
+    # the fused route serves the register route's tiles: this one keeps
+    # the plain stages around the rows route
+    assert dfscan.ROUTES == {"rows": routes["rows"] + 1,
+                             "cic": routes["cic"]}
     want = deposit.cic_deposit_device_planar(*args, block, tile=2048)
     assert _bits_equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,groups", [(3_000_017, 1), ((1 << 24) + 4099, 4)])
+def test_scan_deposit_fused_route_bit_equal_to_plain(cuda, n, groups):
+    """``cic_deposit_device_planar`` on the card against ``plain=True``
+    (the plain stages, on the card too): below 2^24 rows all 8 channels
+    in one fused launch, above it 4 launches of 2; no rows-route launch;
+    bit for bit, with masses that are not 1, invalid rows and rows on the
+    block's faces."""
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    r = np.random.default_rng(n)
+    block = (64, 64, 64)
+    pos = r.random((3, n), dtype=np.float32)
+    pos[:, :5] = 0.0
+    pos[0, 5:9] = np.float32(1.0) - np.float32(2 ** -24)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        pos, r.uniform(0.5, 2.0, n).astype(np.float32), r.random(n) < 0.9)]
+    args += [torch.zeros(3, device=cuda), torch.full((3,), 64.0, device=cuda)]
+    _build.reset_counts()
+    got = deposit.cic_deposit_device_planar(*args, block)
+    torch.cuda.synchronize()
+    assert dfscan.ROUTES == {"rows": 0, "cic": groups}
+    assert dfscan.KERNEL.launches == groups
+    want = deposit.cic_deposit_device_planar(*args, block, plain=True)
+    torch.cuda.synchronize()
+    assert dfscan.ROUTES == {"rows": 0, "cic": groups}  # plain: no launch
+    assert _bits_equal(got, want)
+    total = float(args[1][args[2]].double().sum())
+    assert abs(float(got.double().sum()) - total) <= 1e-6 * total
 
 
 @pytest.mark.cuda

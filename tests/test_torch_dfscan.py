@@ -14,6 +14,7 @@ afterwards. On the card the kernel and its plain version both follow
 IEEE, and ``tests/test_torch_cuda.py`` holds them bit-equal there."""
 
 import functools
+import itertools
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ import torch
 
 from mpi_grid_redistribute_tpu.ops import deposit as jdeposit
 from mpi_grid_redistribute_tpu.ops import pallas_dfscan
+from mpi_grid_redistribute_tpu_torch.ops import binning
 from mpi_grid_redistribute_tpu_torch.ops import deposit as tdeposit
 from mpi_grid_redistribute_tpu_torch.ops import dfscan
 
@@ -230,3 +232,149 @@ def test_df_cumsum_with_lo_input_matches_jax(axis):
     got = tdeposit._two_sum(torch.from_numpy(a), torch.from_numpy(b))
     for g, w in zip(got, jax.jit(jdeposit._two_sum)(a, b)):
         _assert_bits(g, w)
+
+
+# ---- the scan deposit's entry: dfscan.cic_tile_prefix --------------------
+
+
+def _frozen_deposit_stages(payload_s, local_shape, corners, K):
+    """The scan deposit's stages around kernel 5 as ``ops/deposit.py``
+    wrote them before they moved behind ``dfscan.cic_tile_prefix``, kept
+    here unchanged: the base cells and fractions, the corner-weight rows,
+    the stack, the pad, the within-tile prefixes and the pack."""
+    D, n = payload_s.shape[0] - 1, payload_s.shape[1]
+    rel_s, mass_s = payload_s[:D], payload_s[D]
+    n_pad = -(-n // K) * K
+    i0_s = torch.stack([
+        binning.floor_to_int32(rel_s[d]).clamp(0, local_shape[d] - 1)
+        for d in range(D)], dim=0)
+    frac = (rel_s - i0_s.to(torch.float32)).clamp(0.0, 1.0)
+    rows = []
+    for corner in corners:
+        w = None
+        for d in range(D):
+            t = frac[d] if corner[d] == 1 else 1.0 - frac[d]
+            w = t if w is None else w * t
+        rows.append(mass_s * w)
+    wg = torch.stack(rows, dim=0)
+    g = wg.shape[0]
+    wt = torch.nn.functional.pad(wg, (0, n_pad - n)).reshape(
+        g, n_pad // K, K)
+    lhi, llo = dfscan.tile_df_cumsum_rows_plain(wt.reshape(g * n_pad // K,
+                                                           K))
+    return torch.cat([lhi.reshape(g, n_pad), llo.reshape(g, n_pad)], dim=0)
+
+
+def _deposit_payload(r, D, n, local_shape):
+    """A sorted scan-deposit payload ``[D + 1, n]``: coordinates in
+    ``[0, local_shape]``, with rows exactly at ``local_shape`` (the last
+    cell's far face), a few ulp below 0, at +-0.0, NaN and huge, masses
+    that are not 1, and a tail of invalid rows (coordinates 0, mass 0) as
+    the sentinel keys leave them."""
+    rel = (r.random((D, n)) * np.asarray(local_shape)[:, None]).astype(
+        np.float32)
+    mass = r.uniform(0.25, 3.0, n).astype(np.float32)
+    for d in range(D):
+        rel[d, 3 + d] = np.float32(local_shape[d])
+        rel[d, 10 + d] = -np.float32(1e-7) * (d + 1)
+        rel[d, 20 + d] = np.nextafter(np.float32(0), np.float32(-1))
+        rel[d, 30 + d] = -0.0
+        rel[d, 40 + d] = 0.0
+        rel[d, 50 + d] = np.nextafter(np.float32(local_shape[d]),
+                                      np.float32(0))
+        rel[d, 60 + d] = np.float32(3e38)
+    rel[0, 70] = np.nan
+    mass[80] = -0.0
+    mass[81] = 1e-30
+    tail = n // 10
+    rel[:, n - tail:] = 0.0
+    mass[n - tail:] = 0.0
+    return torch.from_numpy(np.concatenate([rel, mass[None]], axis=0))
+
+
+@pytest.mark.parametrize("group", ["pairs", "all"])
+@pytest.mark.parametrize("D,local_shape", [
+    (1, (16,)), (2, (8, 5)), (3, (8, 8, 8)),
+])
+@pytest.mark.parametrize("n,tile", [(1000, 256), (300, 64), (257, 256)])
+def test_cic_plain_twin_matches_the_frozen_stages(D, local_shape, group, n,
+                                                  tile):
+    """``cic_tile_prefix_plain`` (and the entry on the CPU) is bit-equal to
+    the deposit's former stages, channel group by channel group: in pairs,
+    as the deposit takes them above 2^24 rows, or all 2^D at once."""
+    payload = _deposit_payload(np.random.default_rng(D * 100 + n), D, n,
+                               local_shape)
+    corners = list(itertools.product((0, 1), repeat=D))
+    g = 2 if group == "pairs" else 1 << D
+    for c0 in range(0, 1 << D, g):
+        want = _frozen_deposit_stages(payload, local_shape,
+                                      corners[c0:c0 + g], tile)
+        got = dfscan.cic_tile_prefix_plain(payload, local_shape, c0, g, tile)
+        assert got.shape == (2 * g, -(-n // tile) * tile)
+        _assert_bits(got, want.numpy())
+        _assert_bits(dfscan.cic_tile_prefix(payload, local_shape, c0, g,
+                                            tile), want.numpy())
+
+
+def test_cic_entry_launches_nothing_on_the_cpu_and_checks_its_input():
+    payload = _deposit_payload(np.random.default_rng(1), 3, 500, (8, 8, 8))
+    before = (dfscan.KERNEL.launches, dict(dfscan.ROUTES))
+    got = dfscan.cic_tile_prefix(payload, (8, 8, 8), 2, 2, 256)
+    assert (dfscan.KERNEL.launches, dict(dfscan.ROUTES)) == before
+    want = dfscan.cic_tile_prefix_plain(payload, (8, 8, 8), 2, 2, 256)
+    _assert_bits(got, want.numpy())  # NaN rows: compare bits
+    out = torch.empty((4, 512))
+    assert dfscan.cic_tile_prefix(payload, (8, 8, 8), 2, 2, 256,
+                                  _out=out) is out
+    _assert_bits(out, want.numpy())
+    with pytest.raises(TypeError):
+        dfscan.cic_tile_prefix(payload.double(), (8, 8, 8), 0, 2, 256)
+    for shape, c0, g in (((8, 8), 0, 2), ((8, 8, 8), 7, 2),
+                         ((8, 8, 8), 0, 0)):
+        with pytest.raises(ValueError):
+            dfscan.cic_tile_prefix(payload, shape, c0, g, 256)
+
+
+@pytest.mark.parametrize("tile,D,want", [
+    (256, 3, ("cic", 8, 1)), (1, 3, ("cic", 1, 32)), (5, 2, ("cic", 1, 6)),
+    (33, 1, ("cic", 2, 1)), (100, 3, ("cic", 4, 1)),
+    (257, 3, ("cic", 16, 1)), (1000, 2, ("cic", 32, 1)),
+    (1024, 3, ("cic", 32, 1)), (1025, 3, ("block", 0, 0)),
+    (2048, 1, ("block", 0, 0)), (14529, 3, ("plain", 0, 0)),
+    (256, 4, ("warp", 8, 1)),
+])
+def test_cic_shape_rule(tile, D, want):
+    """The fused route takes the register route's tiles at D = 1..3, its
+    registers rounded up to a power of two; other shapes keep
+    ``geometry``'s route, which the plain stages take on the card."""
+    assert dfscan.cic_geometry(tile, D) == want
+
+
+def test_cic_shape_rule_covers_every_register_tile():
+    for tile in range(1, dfscan.MAX_TILE + 1):
+        route, regs, rpw = dfscan.cic_geometry(tile, 3)
+        assert route == "cic" and regs & (regs - 1) == 0
+        assert regs * 32 >= tile and regs < 2 * -(-tile // 32)
+        assert (route, rpw) == ("cic", dfscan.geometry(tile).rows_per_warp)
+
+
+def test_cic_kernel_cost_counts_the_fused_traffic():
+    """16 bytes a row read for the group at D = 3, 8 bytes written an
+    element of each channel, the pad included; and the rows route's count
+    is unchanged."""
+    payload = torch.zeros((4, 1000))
+    b, f = dfscan.cic_kernel_cost(payload, (8, 8, 8), 0, 2, 256)
+    assert b == 16 * 1000 + 8 * 2 * 1024
+    assert f == 2 * (11 * 8 + 6) * 2 * 1024
+    assert dfscan.kernel_cost(torch.zeros((8, 256))) == (
+        12 * 2048, 2 * 11 * 8 * 2048)
+
+
+def test_reset_counts_zeroes_the_routes():
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    assert set(dfscan.ROUTES) == {"rows", "cic"}
+    dfscan.ROUTES["cic"] += 3
+    _build.reset_counts()
+    assert dfscan.ROUTES == {"rows": 0, "cic": 0}
+    assert dfscan.ROUTES is dfscan.KERNEL.routes
