@@ -28,8 +28,8 @@ With ``mover_cap`` the step first selects the leavers into a ``[V, B]``
 mover block (two-level selection, no full sort) and computes the same
 grant tables; when the guard holds (selection exact, nothing clipped,
 arrivals within ``B``) a fast branch lands only the movers' columns and
-never touches a stayer. Otherwise the dense step runs. Both give the same
-bits.
+never touches a stayer. Otherwise the dense step runs, inside a
+``mig:fallback`` span. Both give the same bits.
 
 The two-phase form (:func:`vrank_exchange_two_phase_fn`) splits a vrank
 step into ``issue`` (key -> plan, reading no payload) and ``land`` (one
@@ -913,7 +913,10 @@ def shard_migrate_vranks_fn(
                 n_sent, n_in, plain,
             )
         else:
-            out, stats = _step(flat, free_stack, n_free, dest_key)
+            # the guard read false: the dense step, a span of its own so a
+            # trace counts the fallbacks and labels their device time
+            with span("mig:fallback"):
+                out, stats = _step(flat, free_stack, n_free, dest_key)
         return out, stats._replace(
             fast_path=torch.full((V,), 1 if taken else 0, dtype=_I32,
                                  device=dev)
