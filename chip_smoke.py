@@ -49,7 +49,11 @@ started together), then, on the card:
      bit-equal to the loop without deposit, and the density held against
      the plain-version run and across the two methods. Kernel 5 is also
      held at the tiles of its block route (2048 and 8192) and kernel 4 at
-     D = 4, both timed; then ``analysis.kernelcheck`` over the six
+     D = 4, both timed; the scan deposit's payload sort
+     (``ops/rowsort.sort_rows``) and kernel 5's fused route on the sorted
+     rows at the CIC cell's deposit shape (67.1M rows, 22-bit keys, 4
+     groups of 2 channels), each bit for bit against its plain version
+     and timed; then ``analysis.kernelcheck`` over the seven
      registered cases (K000 launches, K001 guard bands, K002 write sets,
      K003 footprints against the committed baseline, K005 bit equality)
      and the scan deposit's knockout cut (``bench/knockout_deposit.py``)
@@ -237,8 +241,10 @@ COUNTED_STEPS = 6
 MIGRATE_KERNELS = ("drift_wrap_bin", "overlay_scatter_planar")
 # kernels the row-store landing route launches once per step
 ROWS_KERNELS = ("drift_wrap_bin", "scatter_rows")
-# config 5: the deposit kernel each method launches once per step
-DEPOSIT_KERNEL = {"mxu": "segsum_sorted", "scan": "tile_df_cumsum_rows"}
+# config 5: the deposit kernels each method launches once per step (the
+# scan deposit's payload sort and kernel 5)
+DEPOSIT_KERNELS = {"mxu": ("segsum_sorted",),
+                   "scan": ("sort_rows", "tile_df_cumsum_rows")}
 # a substring of each kernel's device function names (csrc/*.cu), for its
 # device time in the profiles (kernel 4's memset is not counted)
 KERNEL_SYMBOLS = {
@@ -1272,8 +1278,135 @@ def dfscan_phase(torch, dfscan, profiling):
     }
 
 
+# the CIC cell's deposit (benchmark cell uniform_2x2x2_cic128.m2_s1): 8
+# vranks of 2^23 slots, each a 64^3 block of the 128^3 mesh
+CIC_CELL_VRANKS = 8
+CIC_CELL_ROWS = CIC_CELL_VRANKS * (1 << 23)
+CIC_CELL_VBLOCK = (64, 64, 64)
+CIC_CELL_GROUP = 2  # the deposit's channel group above 2^24 rows
+# cub's kernels of the payload sort, which rowsort.KERNEL.resource_usage()
+# lists beside the pack (csrc/rowsort.cu's table, written for cub 2.8)
+ROWSORT_CUB_KERNELS = (
+    "cub::DeviceRadixSortHistogramKernel",
+    "cub::DeviceRadixSortExclusiveSumKernel",
+    "cub::DeviceRadixSortOnesweepKernel",
+    "cub::DeviceRadixSortSingleTileKernel",
+)
+
+
+def cic_rows_phase(torch, dfscan, rowsort, profiling):
+    """The scan deposit's payload sort and kernel 5's fused route at the
+    CIC cell's deposit shape: 67.1M rows over 8 vranks of 64^3 cells
+    (22-bit keys, ~10% of the rows on the sentinel, masses that are not
+    1). ``rowsort.sort_rows`` against ``sort_rows_plain`` and, on the
+    sorted rows, ``dfscan.cic_tile_prefix_rows`` against
+    ``cic_tile_prefix_plain`` in the cell's 4 groups of 2 channels (one
+    "packed" launch each), bit for bit; both timed beside their plain
+    versions and their bounds. Returns the kernels line's entries of the
+    two kernels (``launches`` filled in by the caller)."""
+    m, vblock = CIC_CELL_ROWS, CIC_CELL_VBLOCK
+    n_cells = 1
+    for b in vblock:
+        n_cells *= b
+    n_seg = CIC_CELL_VRANKS * n_cells
+    bits = n_seg.bit_length()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    valid = torch.rand(m, device="cuda", generator=gen) < 0.9
+    rel = torch.where(valid, torch.rand((3, m), device="cuda",
+                                        generator=gen) * 64.0, 0.0)
+    mass = torch.where(valid, torch.rand(m, device="cuda", generator=gen)
+                       * 1.5 + 0.5, 0.0)
+    cell = rel.floor().to(torch.int32).clamp(0, 63)
+    vrank = torch.arange(m, device="cuda", dtype=torch.int32) // (
+        m // CIC_CELL_VRANKS)
+    key = torch.where(valid, vrank * n_cells
+                      + (cell[0] * vblock[1] + cell[1]) * vblock[2]
+                      + cell[2], n_seg).to(torch.int32)
+    del valid, cell, vrank
+
+    launches0 = rowsort.KERNEL.launches
+    keys_s, rows_s = rowsort.sort_rows(key, rel, mass, bits)
+    keys_p, rows_p = rowsort.sort_rows_plain(key, rel, mass, bits)
+    torch.cuda.synchronize()
+    check(rowsort.KERNEL.launches == launches0 + 1,
+          "sort_rows: not one launch a call")
+    check(torch.equal(keys_s, keys_p)
+          and torch.equal(rows_s.view(torch.int32), rows_p.view(torch.int32)),
+          f"sort_rows != plain at {m} rows over {bits} bits")
+    del keys_p, rows_p
+    usage = rowsort.KERNEL.resource_usage()
+    check(all(k in usage for k in ROWSORT_CUB_KERNELS),
+          f"sort_rows: resource_usage() lists {sorted(usage)}, not cub's "
+          f"kernels {ROWSORT_CUB_KERNELS} (another cub than 2.8?)")
+    b_ms, b_by = bound(*rowsort.kernel_cost(key, rel, mass, bits))
+    sort = {
+        "name": "sort_rows",
+        "route": "cuda",
+        "source": "mpi_grid_redistribute_tpu_torch/csrc/rowsort.cu",
+        "replaces": None,  # the reference's lax.sort, no TPU kernel
+        "shape": [m],
+        "bits": bits,
+        "max_abs_err": 0.0,
+        "ms": profiling.cuda_time_ms(
+            lambda: rowsort.sort_rows(key, rel, mass, bits), iters=5),
+        "plain_ms": profiling.cuda_time_ms(
+            lambda: rowsort.sort_rows_plain(key, rel, mass, bits), iters=3),
+        # the call's own count (ops/rowsort.kernel_cost): the key and the
+        # payload read once, the sorted key and row written once
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        # the plain version is PyTorch's own stable sort and gather
+        "library_ms": None,
+        "regs": {k: usage[k]["regs"] for k in
+                 ("rowsort_pack_kernel<3>",) + ROWSORT_CUB_KERNELS},
+    }
+    del key, rel, mass, keys_s
+
+    payload = rowsort.rows_as_payload(rows_s, 3).contiguous()
+    g = CIC_CELL_GROUP
+    for c0 in range(0, 1 << 3, g):
+        routes0 = dict(dfscan.ROUTES)
+        got = dfscan.cic_tile_prefix_rows(rows_s, vblock, c0, g, 256)
+        want = dfscan.cic_tile_prefix_plain(payload, vblock, c0, g, 256)
+        torch.cuda.synchronize()
+        check(dfscan.ROUTES == dict(routes0, packed=routes0["packed"] + 1),
+              f"cic_tile_prefix_rows: launched {dfscan.ROUTES} by route, "
+              f"from {routes0}")
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"cic_tile_prefix_rows != plain at {m} rows, channels "
+              f"{c0}..{c0 + g - 1}")
+        del got, want
+    b_ms, b_by = bound(*dfscan.cic_rows_kernel_cost(rows_s, vblock, 0, g,
+                                                    256))
+    fused = {
+        "name": "tile_df_cumsum_rows",
+        "route": "cuda, fused on the sorted rows (\"packed\")",
+        "source": "mpi_grid_redistribute_tpu_torch/csrc/dfscan.cu",
+        "replaces": "mpi_grid_redistribute_tpu/ops/pallas_dfscan.py:70",
+        "shape": [m],
+        "tile": 256,
+        "group": g,
+        "max_abs_err": 0.0,
+        "ms": profiling.cuda_time_ms(
+            lambda: dfscan.cic_tile_prefix_rows(rows_s, vblock, 0, g, 256),
+            iters=5),
+        "plain_ms": profiling.cuda_time_ms(
+            lambda: dfscan.cic_tile_prefix_plain(payload, vblock, 0, g, 256),
+            iters=2),
+        # the launch's own count (ops/dfscan.cic_rows_kernel_cost): a row
+        # read once a particle, hi and lo written once an element
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        # no single PyTorch call computes a double-float prefix
+        "library_ms": None,
+    }
+    del rows_s, payload
+    torch.cuda.empty_cache()
+    return sort, fused
+
+
 def kernelcheck_phase(torch, _build):
-    """``tools.kernelcheck --check``'s rules on the card over the six
+    """``tools.kernelcheck --check``'s rules on the card over the seven
     registered cases (``analysis/kernelcheck.py``): K000 (each case
     launches its kernel), K001 (guard bands intact), K002 (write sets,
     three launches alike, duplicate refusal), K003 (Hopper limits, and
@@ -1491,12 +1624,13 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
         f"{launches}, kernel 5 by route {routes}; host syncs per step "
         f"{syncs:g} (residence-guard reads {guard:g}; the engine's sparse "
         f"guard is the other)")
-    check_launches(launches, MIGRATE_KERNELS + (DEPOSIT_KERNEL[method],),
+    check_launches(launches, MIGRATE_KERNELS + DEPOSIT_KERNELS[method],
                    f"config5 {method}")
-    # below 2^24 rows the scan deposit takes all 8 channels in one fused
-    # launch of kernel 5
-    want_cic = COUNTED_STEPS if method == "scan" else 0
-    check(routes == {"rows": 0, "cic": want_cic},
+    # the scan deposit sorts its payload as rows (one sort_rows launch)
+    # and, below 2^24 rows, takes all 8 channels in one fused launch of
+    # kernel 5 on those rows
+    want_packed = COUNTED_STEPS if method == "scan" else 0
+    check(routes == {"rows": 0, "packed": want_packed},
           f"config5 {method}: kernel 5 launched {routes} by route")
     stats, rho = out[3], out[4]
     check(int(stats.dropped_recv.sum()) == 0, "config5: arrivals dropped")
@@ -3164,8 +3298,8 @@ def assignment_deposit_phase(torch, pt, nbody, binning, _build,
                                       deposit_each_step=True)(*args)
         torch.cuda.synchronize()
         launches = _build.counts()
-        check_launches(launches, ("overlay_scatter_planar",
-                                  DEPOSIT_KERNEL[method]), label)
+        check_launches(launches, ("overlay_scatter_planar",)
+                       + DEPOSIT_KERNELS[method], label)
         rho = out[4]
         live = int(out[2].sum())
         mass = float(rho.double().sum())
@@ -3224,7 +3358,8 @@ def main() -> int:
     )
     from mpi_grid_redistribute_tpu_torch.models import nbody
     from mpi_grid_redistribute_tpu_torch.ops import (
-        _build, binning, deposit, dfscan, driftbin, overlay, scatter, segdep,
+        _build, binning, deposit, dfscan, driftbin, overlay, rowsort,
+        scatter, segdep,
     )
     from mpi_grid_redistribute_tpu_torch.parallel import migrate
     from mpi_grid_redistribute_tpu_torch.utils import profiling
@@ -3327,10 +3462,19 @@ def main() -> int:
     check(all(np.array_equal(a, b) for a, b in zip(state5, (pos, vel, alive)))
           and (cfg5.capacity, cfg5.local_budget) == (cap, budget),
           "config 5 does not start from the bench state")
-    k5 = dfscan_phase(torch, dfscan, profiling)
-    log(f"tile_df_cumsum_rows: {k5['ms']:.5f} ms (bound "
-        f"{k5['bound_ms']:.5f}, plain {k5['plain_ms']:.5f}) bit-equal at "
-        f"[262144, 256]")
+    k5_rows = dfscan_phase(torch, dfscan, profiling)
+    log(f"tile_df_cumsum_rows: {k5_rows['ms']:.5f} ms (bound "
+        f"{k5_rows['bound_ms']:.5f}, plain {k5_rows['plain_ms']:.5f}) "
+        f"bit-equal at [262144, 256]")
+    k_sort, k5 = cic_rows_phase(torch, dfscan, rowsort, profiling)
+    # kernel 5's entry in the kernels line is its fused route, which the
+    # scan deposit launches; its rows route's numbers go beside it
+    k5["rows_route"] = {key: k5_rows[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    for k in (k_sort, k5):
+        log(f"{k['name']} at the CIC cell's {CIC_CELL_ROWS} rows: "
+            f"{k['ms']:.5f} ms (bound {k['bound_ms']:.5f}, plain "
+            f"{k['plain_ms']:.5f}) bit-equal to plain")
     k4 = segdep_phase(torch, segdep, common, profiling, kernel_times,
                       kernel_times.config5_slab_stream(
                           deposit, cfg5, vgrid5, inputs[0], inputs[2]))
@@ -3419,7 +3563,9 @@ def main() -> int:
     main_launches = sparse["launches"]
     for k, path in ((k1, main_launches), (row2, main_launches),
                     (k2, main_launches), (k4, c5["mxu"]["launches"]),
-                    (k5, c5["scan"]["launches"]), (k6, rows["launches"])):
+                    (k5, c5["scan"]["launches"]),
+                    (k_sort, c5["scan"]["launches"]),
+                    (k6, rows["launches"])):
         k = dict(k)
         k["launches"] = path[k["name"]]
         if k["name"] == "overlay_scatter_planar":

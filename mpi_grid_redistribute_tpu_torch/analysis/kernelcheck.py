@@ -6,8 +6,9 @@ trace time and interprets them abstractly. A CUDA kernel has no such
 anatomy to read: its addressing is arithmetic inside a ``.cu`` file. So
 the port checks what each kernel DOES, at the reference's registered
 shapes: a registry of the reference's six cases (names, shapes and
-seeded inputs), each calling the port's public op with its plain twin
-beside it, and the rules
+seeded inputs) and one case of each kernel the port has beyond them
+(:data:`PORT_CASES`: the scan deposit's payload sort), each calling the
+port's public op with its plain twin beside it, and the rules
 
 - **K000** registry completeness: every kernel in ``ops._build.KERNELS``
   has a case, and on the card each case raises its kernel's launch count
@@ -347,14 +348,56 @@ def _build_segdep() -> KernelCase:
                                                     None))
 
 
+# -- the port's own kernels, which replace no TPU kernel ----------------
+
+
+def _build_rowsort() -> KernelCase:
+    from mpi_grid_redistribute_tpu_torch.ops import rowsort
+
+    n, d, n_cells = 5000, 3, 512
+    r = np.random.default_rng(17)
+    # dense keys with ties, a sentinel tail shuffled in, and payload bits
+    # that only a move keeps (-0.0, NaN)
+    key = r.integers(0, n_cells, size=n).astype(np.int32)
+    key[r.choice(n, size=400, replace=False)] = n_cells
+    rel = (r.random((d, n)) * 8).astype(np.float32)
+    rel[0, 7] = -0.0
+    rel[1, 8] = np.nan
+    mass = r.uniform(0.5, 2.0, n).astype(np.float32)
+    bits = n_cells.bit_length()
+
+    def run(t):
+        k, rows = rowsort.sort_rows(t["key"], t["rel"], t["mass"], bits,
+                                    _out=(t["keys_s"], t["rows_s"]))
+        return {"keys_s": k, "rows_s": rows}
+
+    def plain(t):
+        k, rows = rowsort.sort_rows_plain(t["key"], t["rel"], t["mass"],
+                                          bits)
+        return {"keys_s": k, "rows_s": rows}
+
+    return KernelCase(
+        inputs={"key": key, "rel": rel, "mass": mass},
+        roles={"key": "in", "rel": "in", "mass": "in", "keys_s": "out",
+               "rows_s": "out"},
+        out_specs={"keys_s": ((n,), "int32"),
+                   "rows_s": ((n, rowsort.ROW_FLOATS), "float32")},
+        run=run, plain=plain,
+        functions=lambda t: rowsort.launch_functions(t["key"], t["rel"]))
+
+
+# the cases of the port's own kernels, beside the reference's six
+PORT_CASES = ("rowsort_3d_5000",)
+
 _DEFAULTS_BUILT = False
 
 
 def _register_defaults() -> None:
-    """Register the six cases (and, by importing their ops, the kernels
-    of ``ops._build.KERNELS`` they launch)."""
+    """Register the reference's six cases and :data:`PORT_CASES` (and, by
+    importing their ops, the kernels of ``ops._build.KERNELS`` they
+    launch)."""
     from mpi_grid_redistribute_tpu_torch.ops import (  # noqa: F401
-        dfscan, driftbin, overlay, scatter, segdep,
+        dfscan, driftbin, overlay, rowsort, scatter, segdep,
     )
 
     global _DEFAULTS_BUILT
@@ -398,6 +441,13 @@ def _register_defaults() -> None:
         "into 512 cells, D = 2, unit mass (kernel 4)",
         "segsum_sorted", f"{ops}.segdep.segsum_sorted",
         f"{ops}.segdep.segsum_sorted_plain"))
+    register_kernel(KernelSpec(
+        "rowsort_3d_5000", _build_rowsort,
+        "stable key-value radix sort of the scan deposit's payload rows, "
+        "5000 int32 keys in [0, 512] with ties and 400 sentinels, D = 3, "
+        "over the key's 10 bits (the port's own kernel)",
+        "sort_rows", f"{ops}.rowsort.sort_rows",
+        f"{ops}.rowsort.sort_rows_plain"))
 
 
 def default_kernels() -> Dict[str, KernelSpec]:

@@ -1011,7 +1011,8 @@ def verify(results, spec, ref, device_kind: str) -> dict:
                      {"overlay_scatter_planar": S, "segsum_sorted": S})
             k = x["scan"]["steps"]
             launches(f"flat rank {r} (scan)", x["scan"]["launches"],
-                     {"overlay_scatter_planar": k, "tile_df_cumsum_rows": k})
+                     {"overlay_scatter_planar": k, "sort_rows": k,
+                      "tile_df_cumsum_rows": k})
             check(x["owned"], f"flat rank {r}: a row off its owner")
         state_ok("flat", fl[0]["stats"])
         backlog_f = int(fl[0]["stats"]["backlog"].sum())
@@ -1036,8 +1037,8 @@ def verify(results, spec, ref, device_kind: str) -> dict:
                 one = max(one, float(np.abs(d["rho"] - blocks[r]).max()))
                 plain = max(plain, d["err_vs_plain"])
                 launches(f"deposit {method} rank {r}", d["launches"],
-                         {"segsum_sorted" if method == "mxu"
-                          else "tile_df_cumsum_rows": 1})
+                         {"segsum_sorted": 1} if method == "mxu" else
+                         {"sort_rows": 1, "tile_df_cumsum_rows": 1})
             check(plain <= DEPOSIT_TOL, f"deposit {method} across ranks: "
                                         f"{plain} from its plain version")
             check(one <= DEPOSIT_TOL, f"deposit {method} across ranks: {one} "
@@ -1066,13 +1067,13 @@ def verify(results, spec, ref, device_kind: str) -> dict:
         blocks = split_grid(ref["drift_rho"], GRID)
         errs = {}
         for method in ("mxu", "scan"):
-            kernel = ("segsum_sorted" if method == "mxu"
-                      else "tile_df_cumsum_rows")
+            kernels = (("segsum_sorted",) if method == "mxu"
+                       else ("sort_rows", "tile_df_cumsum_rows"))
             one = 0.0
             for r, x in enumerate(dr):
                 y = x[method]
                 launches(f"drift rank {r} ({method})", y["launches"],
-                         {kernel: DRIFT_STEPS})
+                         dict.fromkeys(kernels, DRIFT_STEPS))
                 check(y["state_equals_plain"], f"drift ({method}) rank {r}: "
                       f"state differs from the plain loop's")
                 check(method != "scan" or y["rho_equals_plain"],
@@ -1195,7 +1196,7 @@ def verify(results, spec, ref, device_kind: str) -> dict:
             check(not bad, f"card vs CPU (drift step, halo, hierarchical) "
                            f"rank {r}: {bad} differ")
             launches(f"card vs CPU drift step rank {r}", sl["launches"],
-                     {"tile_df_cumsum_rows": 1})
+                     {"sort_rows": 1, "tile_df_cumsum_rows": 1})
             check(sl["hier_engine"] == "hierarchical",
                   f"card vs CPU: hierarchical ran {sl['hier_engine']!r}")
             check(sl["moved"] > 0 and sl["ghosts"] > 0,

@@ -51,29 +51,29 @@
 // The power-of-two and size gates of the TPU path are tiling constraints
 // of that machine, not semantics: any tile from 1 to 14,528 is accepted.
 //
-// The fused route (dfscan_kernel_cic, entry dfscan_cic_launch) is the
-// scan deposit's use of this kernel with the stages in front of it and
-// the pack after it taken in. It replaces no further TPU kernel: the
+// The fused route (dfscan_kernel_cic_rows, entry dfscan_cic_rows_launch)
+// is the scan deposit's use of this kernel with the stages in front of it
+// and the pack after it taken in. It replaces no further TPU kernel: the
 // reference computes the base cells, the fractions and the corner-weight
 // rows in XLA, pads them into tiles, calls the TPU kernel, and
 // concatenates hi and lo. Here a warp takes one tile of the sorted stream
-// (payload [D + 1, n]: D block-local coordinates and the mass, row stride
-// n) and makes one pass a pair of the group's channels: it reads each
-// row's coordinates and mass, computes the base cell and fraction as
-// ops/dfscan.cic_frac does (torch.clamp's bits, NaN and signed zeros
-// included), builds the two corner weights mass * ((t0 * t1) * t2) with
-// t = frac or 1 - frac, zero past n, runs the doubling loop on both
-// channels side by side in registers, and writes hi into row j and lo
-// into row g + j of one [2 g, n_pad] pack: the layout the deposit gathers
-// from. Products are explicit round-to-nearest intrinsics too, so nothing
-// contracts into an FMA, and the bits are those of the plain stages
-// (ops/dfscan.cic_tile_prefix_plain).
+// (the rows [n] of 16 bytes that ops/rowsort's key-value sort leaves: the
+// D block-local coordinates, then the mass, then zeros) and makes one pass
+// a pair of the group's channels: it reads each row's coordinates and mass
+// in one 16-byte load (a warp's load is 512 contiguous bytes), computes
+// the base cell and fraction as ops/dfscan.cic_frac does (torch.clamp's
+// bits, NaN and signed zeros included), builds the two corner weights
+// mass * ((t0 * t1) * t2) with t = frac or 1 - frac, zero past n, runs
+// the doubling loop on both channels side by side in registers, and
+// writes hi into row j and lo into row g + j of one [2 g, n_pad] pack:
+// the layout the deposit gathers from. Products are explicit
+// round-to-nearest intrinsics too, so nothing contracts into an FMA, and
+// the bits are those of the plain stages (ops/dfscan.cic_tile_prefix_plain).
 //
-// Bound of the fused route: device memory bandwidth, (D + 1) * 4 bytes
-// read a row (16 at D = 3) for the whole group, and 8 bytes written an
-// element (hi and lo) of each channel: 16 + 8 g bytes a row at D = 3, or
-// 16 bytes an element of a group of 2 channels, against the rows route's
-// 12 an element plus the plain stages' own passes (the base cells,
+// Bound of the fused route: device memory bandwidth, 16 bytes read a row
+// for the whole group, and 8 bytes written an element (hi and lo) of each
+// channel: 16 + 8 g bytes a row, or 16 bytes an element of a group of 2
+// channels, against the rows route's 12 an element plus the plain stages' own passes (the base cells,
 // fractions, weight rows, the pad and the pack, each a full pass over the
 // channels in device memory). The scan deposit's groups of 2 (above 2^24
 // rows) take one pass; a group of 8 takes four, the later ones reading
@@ -299,16 +299,17 @@ struct CicShape {
   int cells[3];  // local_shape, axis by axis (unused axes 1)
 };
 
-// payload [D + 1, n] (block-local coordinates, then mass; row stride n),
-// pack [2 g, tiles * tile]: rows [0, g) the hi words, rows [g, 2 g) the lo
-// words of corner channels c0 .. c0 + g - 1. Tile t is rows
+// rows [n] float4, sorted (coordinates, then mass, one 16-byte load a
+// row); pack [2 g, tiles * tile]: rows [0, g) the hi words, rows [g, 2 g)
+// the lo words of corner channels c0 .. c0 + g - 1. Tile t is rows
 // [t * tile, (t + 1) * tile) of the stream, zero past n; the warp geometry
 // is the rows route's.
 template <int D, int R>
 __global__ void __launch_bounds__(DFSCAN_WARPS * 32)
-    dfscan_kernel_cic(const float* __restrict__ payload, long long n,
-                      float* __restrict__ pack, long long tiles, int tile,
-                      int rows_per_warp, int c0, int g, CicShape shape) {
+    dfscan_kernel_cic_rows(const float4* __restrict__ rows, long long n,
+                           float* __restrict__ pack, long long tiles,
+                           int tile, int rows_per_warp, int c0, int g,
+                           CicShape shape) {
   const int lane = threadIdx.x & 31;
   const long long row0 =
       ((long long)blockIdx.x * DFSCAN_WARPS + (threadIdx.x >> 5)) *
@@ -337,8 +338,10 @@ __global__ void __launch_bounds__(DFSCAN_WARPS * 32)
       const int c = k * 32 + col;
       const long long e = off + c;
       const bool in = active && c < tile && e < n;
+      const float4 v = in ? rows[e] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float lanes[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int d = 0; d <= D; ++d) raw[d][k] = in ? payload[d * n + e] : 0.0f;
+      for (int d = 0; d <= D; ++d) raw[d][k] = lanes[d];
     }
 #pragma unroll
     for (int k = 0; k < R; ++k) {
@@ -389,13 +392,13 @@ __global__ void __launch_bounds__(DFSCAN_WARPS * 32)
 // the fused route's register counts: powers of two, a tile padded up to
 // the next one with zeros (which change no earlier prefix)
 template <int D, int R>
-static int launch_cic_r(int regs, const float* payload, long long n,
+static int launch_cic_r(int regs, const float4* rows, long long n,
                         float* pack, long long tiles, int tile,
                         int rows_per_warp, int c0, int g, CicShape shape,
                         cudaStream_t stream) {
   if (regs != R) {
     if constexpr (R < DFSCAN_MAX_REGS) {
-      return launch_cic_r<D, R * 2>(regs, payload, n, pack, tiles, tile,
+      return launch_cic_r<D, R * 2>(regs, rows, n, pack, tiles, tile,
                                     rows_per_warp, c0, g, shape, stream);
     }
     return (int)cudaErrorInvalidValue;
@@ -403,9 +406,9 @@ static int launch_cic_r(int regs, const float* payload, long long n,
   const long long warps = (tiles + rows_per_warp - 1) / rows_per_warp;
   const long long blocks = (warps + DFSCAN_WARPS - 1) / DFSCAN_WARPS;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  dfscan_kernel_cic<D, R>
+  dfscan_kernel_cic_rows<D, R>
       <<<(unsigned int)blocks, DFSCAN_WARPS * 32, 0, stream>>>(
-          payload, n, pack, tiles, tile, rows_per_warp, c0, g, shape);
+          rows, n, pack, tiles, tile, rows_per_warp, c0, g, shape);
   return (int)cudaGetLastError();
 }
 
@@ -413,8 +416,9 @@ static int launch_cic_r(int regs, const float* payload, long long n,
 // route's kernel and the fused route's instances (D = 1..3, R = 1..32 by
 // powers of two)
 #define DFSCAN_ROW(R) {"dfscan_kernel<" #R ">", (const void*)dfscan_kernel<R>}
-#define DFSCAN_CIC_ROW(D, R) \
-  {"dfscan_kernel_cic<" #D "," #R ">", (const void*)dfscan_kernel_cic<D, R>}
+#define DFSCAN_CIC_ROW(D, R)                        \
+  {"dfscan_kernel_cic_rows<" #D "," #R ">",         \
+   (const void*)dfscan_kernel_cic_rows<D, R>}
 #define DFSCAN_CIC_ROWS(D)                                         \
   DFSCAN_CIC_ROW(D, 1), DFSCAN_CIC_ROW(D, 2), DFSCAN_CIC_ROW(D, 4), \
       DFSCAN_CIC_ROW(D, 8), DFSCAN_CIC_ROW(D, 16), DFSCAN_CIC_ROW(D, 32)
@@ -459,27 +463,30 @@ int dfscan_launch(const void* x, void* hi, void* lo, long long rows, int tile,
                      tile, rows_per_warp, (cudaStream_t)stream);
 }
 
-// The fused route (ops/dfscan.cic_tile_prefix): payload [d + 1, n] float32,
-// pack [2 g, tiles * tile]; corner channels c0 .. c0 + g - 1 of 2^d, the
-// axes' cell counts in cells0..2. Refused unless tiles = ceil(n / tile)
-// (n >= 1), 1 <= d <= 3, the channels lie in [0, 2^d), each used axis has
-// a cell, regs is a power of two from 1 to 32 with regs * 32 >= tile,
+// The fused route (ops/dfscan.cic_tile_prefix_rows): rows [n] of 16
+// bytes, 16-byte aligned (coordinates, then mass), pack [2 g, tiles *
+// tile] float32; corner channels c0 .. c0 + g - 1 of 2^d, the axes' cell
+// counts in cells0..2. Refused unless tiles = ceil(n / tile) (n >= 1),
+// 1 <= d <= 3, the channels lie in [0, 2^d), each used axis has a cell,
+// regs is a power of two from 1 to 32 with regs * 32 >= tile,
 // tile <= 1024, and rows_per_warp follows the rows route's rule.
-int dfscan_cic_launch(const void* payload, long long n, void* pack,
-                      long long tiles, int tile, int regs, int rows_per_warp,
-                      int d, int c0, int g, int cells0, int cells1,
-                      int cells2, void* stream) {
+int dfscan_cic_rows_launch(const void* rows, long long n, void* pack,
+                           long long tiles, int tile, int regs,
+                           int rows_per_warp, int d, int c0, int g,
+                           int cells0, int cells1, int cells2,
+                           void* stream) {
   const CicShape shape = {{cells0, cells1, cells2}};
   if (n < 1 || tile < 1 || tile > DFSCAN_MAX_TILE || tiles < 1 ||
       (tiles - 1) * tile >= n || tiles * tile < n || regs < 1 ||
       regs > DFSCAN_MAX_REGS || (regs & (regs - 1)) != 0 ||
       regs * 32 < tile || rows_per_warp < 1 ||
       (rows_per_warp > 1 && (regs != 1 || rows_per_warp * tile > 32)) ||
-      d < 1 || d > DFSCAN_CIC_DIMS || c0 < 0 || g < 1 || c0 + g > (1 << d))
+      d < 1 || d > DFSCAN_CIC_DIMS || c0 < 0 || g < 1 || c0 + g > (1 << d) ||
+      (uintptr_t)rows % sizeof(float4) != 0)
     return (int)cudaErrorInvalidValue;
   for (int a = 0; a < d; ++a)
     if (shape.cells[a] < 1) return (int)cudaErrorInvalidValue;
-  const float* p = (const float*)payload;
+  const float4* p = (const float4*)rows;
   float* out = (float*)pack;
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 1)

@@ -156,13 +156,19 @@ class Kernel:
                 (int(v) for v in vals)))
             i += 1
 
-    def launch(self, *args, entry: str = None, route: str = None) -> None:
-        """Launch through the C entry (``entry``, default the first),
-        raise on a CUDA error, count it (and under ``route``)."""
+    def call(self, *args, entry: str = None) -> None:
+        """Call a C entry (``entry``, default the first) and raise on a
+        CUDA error; counts nothing, as for an entry that launches nothing
+        (a size query)."""
         code = self.load()[entry or self.entry](*args)
         if code != 0:
             msg = self._strerror(code).decode()
             raise RuntimeError(f"{self.name}: CUDA error {code} ({msg})")
+
+    def launch(self, *args, entry: str = None, route: str = None) -> None:
+        """Launch through the C entry (``entry``, default the first),
+        raise on a CUDA error, count it (and under ``route``)."""
+        self.call(*args, entry=entry)
         self.launches += 1
         if route is not None:
             self.routes[route] += 1

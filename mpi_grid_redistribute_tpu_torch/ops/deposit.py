@@ -12,7 +12,9 @@ plane 0 of periodic axes (:func:`fold_ghosts`) or stay as the clamp-edge
 planes of open axes (:func:`assemble_dense`). Three methods:
 
   * ``"scan"`` (:func:`cic_deposit_device_planar`): a stable sort by
-    ``key``, the corner-weight channels, a two-level double-float prefix
+    ``key`` (on the card one key-value radix sort that moves each
+    particle's payload with its key, ``ops.rowsort``), the corner-weight
+    channels, a two-level double-float prefix
     sum (kernel 5, ``ops.dfscan``, within 256-row tiles, computing the
     fractions and corner weights in its load on the card; plain PyTorch
     over the tile totals) and differences at the run bounds. Per-cell
@@ -33,8 +35,9 @@ planes of open axes (:func:`assemble_dense`). Three methods:
 
 The reference's ``lax.sort((key, iota, payload...), num_keys=2)`` is a
 stable ``torch.sort`` on the key (the same permutation) followed by ONE
-gather of the stacked payload rows. Sorts here are always stable, so the
-port is deterministic even where the reference is not.
+gather of the stacked payload rows; the scan engine's radix sort on the
+card gives the same bits. Sorts here are always stable, so the port is
+deterministic even where the reference is not.
 
 On a grid of several devices each rank is a process of a
 :class:`~..parallel.mesh.RankMesh` (``mesh=``, default
@@ -59,7 +62,9 @@ import torch
 
 from mpi_grid_redistribute_tpu_torch._device import OnDevice
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
-from mpi_grid_redistribute_tpu_torch.ops import binning, dfscan, segdep
+from mpi_grid_redistribute_tpu_torch.ops import (
+    binning, dfscan, rowsort, segdep,
+)
 from mpi_grid_redistribute_tpu_torch.ops.dfscan import (  # noqa: F401
     _base_cell, _df_add, _df_cumsum, _two_sum,
 )
@@ -122,6 +127,21 @@ DEPOSIT_PHASES = (
 )
 
 
+def _payload_route(device: torch.device, n: int, D: int, tile: int,
+                   plain: bool) -> str:
+    """How the scan deposit sorts its payload and feeds kernel 5:
+    ``"rows"`` (``rowsort.sort_rows``, the payload as 16-byte rows moved
+    with the keys, and kernel 5's fused route on those rows) on a CUDA
+    device for D of 1 to 3, a tile the fused route takes and 1 to 2^31 - 1
+    rows; else ``"planar"`` (a stable ``torch.sort`` and a gather of the
+    planar payload), which ``plain`` always takes."""
+    if (plain or device.type != "cuda" or not 1 <= D <= rowsort.MAX_DIMS
+            or not 1 <= n <= rowsort.MAX_ROWS
+            or dfscan.cic_geometry(tile, D).route != "cic"):
+        return "planar"
+    return "rows"
+
+
 def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
                                local_shape, tile: int,
                                channel_group: int = None,
@@ -129,26 +149,36 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
     """Scan-deposit core: stable sort by segment key, double-float prefix
     of the corner-weight channels, differences at the segment bounds.
 
-    ``key [N]`` int32 (sentinel ``n_segments`` for invalid rows),
-    ``rel_rows [D, N]`` block-local coordinates, ``mass [N]`` (already
-    zero on invalid rows). Returns ``per_cell [2^D, n_segments]``.
-    ``channel_group`` processes the channels in groups of that many to
-    bound the prefix temporaries; it changes no channel's arithmetic.
-    The corner weights and their within-tile prefixes come from
-    ``dfscan.cic_tile_prefix`` (one fused kernel 5 launch a group on the
-    card), its plain version on the CPU or when ``plain``.
-    ``_stop_after`` (2, 3 or 4; internal, the knockout's cut) returns the
-    tensors the deposit holds after that phase instead."""
+    ``key [N]`` int32 in ``[0, n_segments]`` (sentinel ``n_segments`` for
+    invalid rows), ``rel_rows [D, N]`` block-local coordinates, ``mass
+    [N]`` (already zero on invalid rows). Returns ``per_cell [2^D,
+    n_segments]``. ``channel_group`` processes the channels in groups of
+    that many to bound the prefix temporaries; it changes no channel's
+    arithmetic. The sort takes the route :func:`_payload_route` gives: on
+    the card one ``rowsort.sort_rows`` launch over the key's
+    ``n_segments.bit_length()`` bits, the payload riding along as rows
+    that ``dfscan.cic_tile_prefix_rows`` reads (one fused kernel 5 launch
+    a group); otherwise ``torch.sort`` and a gather of the planar payload
+    into ``dfscan.cic_tile_prefix`` (its plain version on the CPU or when
+    ``plain``). Both give the same bits. ``_stop_after`` (2, 3 or 4;
+    internal, the knockout's cut) returns the tensors the deposit holds
+    after that phase instead."""
     n = key.shape[0]
     D = rel_rows.shape[0]
+    K = max(1, min(tile, n))
+    rows_route = _payload_route(key.device, n, D, K, plain) == "rows"
     with span("dep:sort"):
-        keys_sorted, order = torch.sort(key, stable=True)
-        payload = torch.cat([rel_rows, mass[None, :]], dim=0)  # [D + 1, N]
-        payload_s = torch.index_select(payload, 1, order)
+        if rows_route:
+            keys_sorted, rows_s = rowsort.sort_rows(
+                key, rel_rows, mass, n_segments.bit_length())
+            payload_s = rowsort.rows_as_payload(rows_s, D)  # [D + 1, N]
+        else:
+            keys_sorted, order = torch.sort(key, stable=True)
+            payload = torch.cat([rel_rows, mass[None, :]], dim=0)
+            payload_s = torch.index_select(payload, 1, order)
     if _stop_after == 2:
         return keys_sorted, payload_s[:D], payload_s[D]
     nch = 1 << D
-    K = max(1, min(tile, n))
     n_pad = -(-n // K) * K
     with span("dep:bounds"):
         bounds = binning.bounds_dense(keys_sorted, n_segments + 1)
@@ -158,15 +188,22 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
         has_local = (bounds % K > 0)[None, :]
         lb = (bounds - 1).clamp(0, n_pad - 1).long()
     cg = nch if not channel_group else max(1, min(channel_group, nch))
-    prefix = (dfscan.cic_tile_prefix_plain if plain
-              else dfscan.cic_tile_prefix)
+    if rows_route:
+        def prefix(c0, g):
+            return dfscan.cic_tile_prefix_rows(rows_s, local_shape, c0, g, K)
+    else:
+        planar = (dfscan.cic_tile_prefix_plain if plain
+                  else dfscan.cic_tile_prefix)
+
+        def prefix(c0, g):
+            return planar(payload_s, local_shape, c0, g, K)
 
     def per_group(c0, upto=None):
         g = min(cg, nch - c0)
         with span("dep:prefix"):
             # within-tile prefixes of the group's corner channels, hi rows
             # above lo rows: [2 g, n_pad]
-            l_pack = prefix(payload_s, local_shape, c0, g, K)
+            l_pack = prefix(c0, g)
             tiles = l_pack.view(2 * g, n_pad // K, K)
             thi, tlo = _df_cumsum(tiles[:g, :, -1], axis=1,
                                   x_lo=tiles[g:, :, -1])

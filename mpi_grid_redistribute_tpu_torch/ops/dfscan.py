@@ -23,17 +23,18 @@ The double-float arithmetic itself (:func:`_two_sum`, :func:`_df_add`,
 ``ops.deposit`` uses it for the level-2 scan over tile totals, which
 stays plain PyTorch as it stays XLA in the reference.
 
-The scan deposit calls the kernel through :func:`cic_tile_prefix`: from
-the sorted ``payload [D + 1, n]`` (block-local coordinates, then mass)
-to one ``[2 g, n_pad]`` pack of the within-tile prefixes of ``g`` corner
-channels, hi words above lo words. On the card, for a tile of the
-register route and D of 1 to 3, that is one launch of the fused route
-(``csrc/dfscan.cu``'s ``dfscan_kernel_cic``), which computes the base
-cells, fractions and corner weights in its load and writes the pack
-itself; otherwise, and on the CPU, the plain stages
-(:func:`cic_tile_prefix_plain`) compute them in PyTorch around
-:func:`tile_df_cumsum_rows`. :data:`ROUTES` counts the launches of
-either route.
+The scan deposit calls the kernel through :func:`cic_tile_prefix_rows`:
+from the sorted 16-byte rows that ``ops.rowsort.sort_rows`` leaves
+(block-local coordinates, then mass) to one ``[2 g, n_pad]`` pack of the
+within-tile prefixes of ``g`` corner channels, hi words above lo words.
+On the card, for a tile of the register route and D of 1 to 3, that is
+one launch of the fused route (``csrc/dfscan.cu``'s
+``dfscan_kernel_cic_rows``), which loads a row a particle, computes the
+base cells, fractions and corner weights in its load and writes the pack
+itself. Otherwise, and from the planar payload ``[D + 1, n]``
+(:func:`cic_tile_prefix`), the plain stages compute them in PyTorch
+around :func:`tile_df_cumsum_rows` (:func:`cic_tile_prefix_plain` around
+its plain version). :data:`ROUTES` counts the launches of each route.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from typing import NamedTuple
 
 import torch
 
-from mpi_grid_redistribute_tpu_torch.ops import _build, binning
+from mpi_grid_redistribute_tpu_torch.ops import _build, binning, rowsort
 from mpi_grid_redistribute_tpu_torch.utils.costcount import kernel_scope
 
 MAX_TILE = 1024  # DFSCAN_MAX_TILE in csrc/dfscan.cu: the register route
@@ -61,16 +62,16 @@ KERNEL = _build.register(_build.Kernel(
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ],
-    entries={"dfscan_cic_launch": [
+    entries={"dfscan_cic_rows_launch": [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]},
-    routes=("rows", "cic"),
+    routes=("rows", "packed"),
 ))
-# launches by route: "rows" (x [rows, tile]) and "cic" (the fused route);
-# _build.reset_counts() zeroes them
+# launches by route: "rows" (x [rows, tile]) and "packed" (the fused route
+# on the sorted rows of ops/rowsort); _build.reset_counts() zeroes them
 ROUTES = KERNEL.routes
 
 
@@ -106,7 +107,7 @@ def geometry(tile: int) -> Geometry:
 
 
 def cic_geometry(tile: int, D: int) -> Geometry:
-    """The shape rule of :func:`cic_tile_prefix` on the card: route
+    """The shape rule of :func:`cic_tile_prefix_rows` on the card: route
     ``"cic"`` (the fused launch) for a tile of the register route and D
     of 1 to :data:`CIC_MAX_DIMS`, with :func:`geometry`'s rows a warp and
     its registers rounded up to a power of two (the instances the source
@@ -268,8 +269,8 @@ def _cic_stages(payload_s, local_shape, c0: int, g: int, tile: int, scan):
 
 
 def cic_kernel_cost(payload_s, local_shape, c0, g, tile, _out=None):
-    """``(bytes, flops)`` of one :func:`cic_tile_prefix` call, the fused
-    route's real traffic: the payload read once (``4 (D + 1)`` bytes a
+    """``(bytes, flops)`` of one :func:`cic_tile_prefix` call, counted as
+    one pass would do it: the payload read once (``4 (D + 1)`` bytes a
     row, whatever ``g`` is) and the pack written once (hi and lo, 8 bytes
     an element of each channel, the pad included); a double-float add of
     11 operations a doubling step, and ``2 D`` operations of the weight
@@ -279,6 +280,16 @@ def cic_kernel_cost(payload_s, local_shape, c0, g, tile, _out=None):
     elems = g * -(-n // tile) * tile
     return (4 * d1 * n + 8 * elems,
             2 * (11 * (tile - 1).bit_length() + 2 * (d1 - 1)) * elems)
+
+
+def cic_rows_kernel_cost(rows_s, local_shape, c0, g, tile, _out=None):
+    """``(bytes, flops)`` of one :func:`cic_tile_prefix_rows` call, the
+    fused route's real traffic: :func:`cic_kernel_cost` with a 16-byte row
+    read once a particle, whatever ``D`` is."""
+    n, D = rows_s.shape[0], len(local_shape)
+    elems = g * -(-n // tile) * tile
+    return (16 * n + 8 * elems,
+            2 * (11 * (tile - 1).bit_length() + 2 * D) * elems)
 
 
 @kernel_scope("tile_df_cumsum_rows", cic_kernel_cost)
@@ -302,43 +313,68 @@ def cic_tile_prefix(payload_s: torch.Tensor, local_shape, c0: int, g: int,
     ((t0 * t1) * t2)`` with ``t`` the fraction or one less it, zero-padded
     to ``n_pad = ceil(n / tile) * tile`` and scanned tile by tile. Returns
     the pack ``[2 g, n_pad]``: row ``j`` the hi words of channel ``c0 +
-    j``, row ``g + j`` its lo words. CPU tensors run
-    :func:`cic_tile_prefix_plain`; CUDA tensors take the route
-    :func:`cic_geometry` gives: one fused launch, or the plain stages
-    around :func:`tile_df_cumsum_rows`. ``_out`` (internal) is the pack
-    written to on the fused route."""
+    j``, row ``g + j`` its lo words. The plain stages around
+    :func:`tile_df_cumsum_rows` (its plain version on the CPU); the fused
+    launch reads the sorted rows (:func:`cic_tile_prefix_rows`).
+    ``_out`` (internal) is the pack written to."""
     if payload_s.dtype != torch.float32 or payload_s.dim() != 2:
         raise TypeError(
             f"cic_tile_prefix takes float32 [D + 1, n], got "
             f"{payload_s.dtype} {tuple(payload_s.shape)}")
-    D, n = payload_s.shape[0] - 1, payload_s.shape[1]
+    D = payload_s.shape[0] - 1
     if (D < 1 or len(local_shape) != D or tile < 1 or g < 1 or c0 < 0
             or c0 + g > 1 << D):
         raise ValueError(
             f"cic_tile_prefix: channels {c0}..{c0 + g - 1} of D = {D}, "
             f"local_shape {tuple(local_shape)}, tile {tile}")
-    if payload_s.device.type == "cpu":
-        return _build.into(_out, cic_tile_prefix_plain(
-            payload_s, local_shape, c0, g, tile), "cic_tile_prefix")
-    if payload_s.device.type != "cuda":
+    return _build.into(_out, _cic_stages(
+        payload_s, local_shape, c0, g, tile, tile_df_cumsum_rows),
+        "cic_tile_prefix")
+
+
+@kernel_scope("tile_df_cumsum_rows", cic_rows_kernel_cost)
+def cic_tile_prefix_rows(rows_s: torch.Tensor, local_shape, c0: int, g: int,
+                         tile: int, _out=None):
+    """:func:`cic_tile_prefix` on the sorted rows ``rows_s [n, 4]``
+    float32 of ``ops.rowsort.sort_rows`` (row ``i``: particle ``i``'s ``D
+    = len(local_shape)`` block-local coordinates, then its mass): the same
+    pack, bit for bit, as from the planar payload those rows hold. CUDA
+    tensors take one launch of the fused route, which loads a 16-byte row
+    a particle (route ``"packed"``), for the tiles :func:`cic_geometry`
+    sends to it; CPU tensors and other tiles run :func:`cic_tile_prefix`
+    on that payload."""
+    D = len(local_shape)
+    if (rows_s.dtype != torch.float32 or rows_s.dim() != 2
+            or rows_s.shape[1] != rowsort.ROW_FLOATS):
+        raise TypeError(
+            f"cic_tile_prefix_rows takes float32 [n, "
+            f"{rowsort.ROW_FLOATS}], got {rows_s.dtype} "
+            f"{tuple(rows_s.shape)}")
+    if not 1 <= D <= CIC_MAX_DIMS:
         raise ValueError(
-            f"cic_tile_prefix: unsupported device {payload_s.device}")
-    if not payload_s.is_contiguous():
-        raise ValueError("cic_tile_prefix: payload_s must be contiguous")
+            f"cic_tile_prefix_rows: local_shape {tuple(local_shape)} has "
+            f"D = {D}, not 1 to {CIC_MAX_DIMS}")
     geo = cic_geometry(tile, D)
-    if geo.route != "cic":
-        return _build.into(_out, _cic_stages(
-            payload_s, local_shape, c0, g, tile, tile_df_cumsum_rows),
-            "cic_tile_prefix")
+    if rows_s.device.type != "cuda" or geo.route != "cic":
+        return cic_tile_prefix(rowsort.rows_as_payload(rows_s, D),
+                               local_shape, c0, g, tile, _out=_out)
+    if g < 1 or c0 < 0 or c0 + g > 1 << D:
+        raise ValueError(
+            f"cic_tile_prefix_rows: channels {c0}..{c0 + g - 1} of D = {D}")
+    if not rows_s.is_contiguous() or rows_s.data_ptr() % 16:
+        raise ValueError(
+            "cic_tile_prefix_rows: rows_s must be contiguous and 16-byte "
+            "aligned")
+    n = rows_s.shape[0]
     tiles = -(-n // tile)
     pack = _build.out_tensor(_out, (2 * g, tiles * tile), torch.float32,
-                             payload_s, "cic_tile_prefix")
+                             rows_s, "cic_tile_prefix_rows")
     if n == 0:
         return pack
     cells = [int(c) for c in local_shape] + [1] * (CIC_MAX_DIMS - D)
     KERNEL.launch(
-        payload_s.data_ptr(), n, pack.data_ptr(), tiles, tile, geo.regs,
-        geo.rows_per_warp, D, c0, g, *cells, _build.stream_ptr(payload_s),
-        entry="dfscan_cic_launch", route="cic",
+        rows_s.data_ptr(), n, pack.data_ptr(), tiles, tile, geo.regs,
+        geo.rows_per_warp, D, c0, g, *cells, _build.stream_ptr(rows_s),
+        entry="dfscan_cic_rows_launch", route="packed",
     )
     return pack

@@ -34,7 +34,7 @@ from mpi_grid_redistribute_tpu_torch.bench import (
 )
 from mpi_grid_redistribute_tpu_torch.models import nbody
 from mpi_grid_redistribute_tpu_torch.ops import (
-    deposit, dfscan, driftbin, overlay, scatter, segdep,
+    deposit, dfscan, driftbin, overlay, rowsort, scatter, segdep,
 )
 from mpi_grid_redistribute_tpu_torch.parallel import halo, migrate
 
@@ -389,39 +389,215 @@ def _cic_payload(r, D, n, local_shape):
     1, 3, 5, 31, 33, 64, 100, 256, 257, 1000, 1024,
 ])
 def test_dfscan_cic_route_matches_plain(cuda, D, local_shape, tile, group):
-    """The fused route (every instance: D = 1..3, R = 1..32) against its
-    plain twin, channel group by channel group, with a ragged last tile
-    and a partly filled last warp and block: bit for bit, one "cic"
-    launch a group."""
+    """The planar entry on the card (the plain stages around the rows
+    route) against its plain twin, channel group by channel group, with a
+    ragged last tile and a partly filled last warp and block: bit for bit,
+    one "rows" launch a group and no fused one."""
     n = 77 * max(tile, 32) + 13
     payload = _cic_payload(np.random.default_rng(tile * 10 + D), D, n,
                            local_shape).to(cuda)
     g = 2 if group == "pairs" else 1 << D
     for c0 in range(0, 1 << D, g):
-        before = (dfscan.KERNEL.launches, dfscan.ROUTES["cic"],
-                  dfscan.ROUTES["rows"])
+        before = dict(dfscan.ROUTES)
         got = dfscan.cic_tile_prefix(payload, local_shape, c0, g, tile)
         want = dfscan.cic_tile_prefix_plain(payload, local_shape, c0, g,
                                             tile)
         torch.cuda.synchronize()
-        assert (dfscan.KERNEL.launches, dfscan.ROUTES["cic"],
-                dfscan.ROUTES["rows"]) == (before[0] + 1, before[1] + 1,
-                                           before[2])
+        assert dfscan.ROUTES == dict(before, rows=before["rows"] + 1)
         assert got.shape == want.shape == (2 * g, -(-n // tile) * tile)
         assert _bits_equal(got, want)
 
 
 @pytest.mark.cuda
 def test_dfscan_cic_route_refuses_what_it_cannot_take(cuda):
-    payload = torch.zeros((4, 100), device=cuda)
+    """The fused route's entry refuses strided or misaligned rows, channels
+    outside ``2^D`` and another dtype, and takes no rows."""
+    rows = torch.zeros((100, 4), device=cuda)
     with pytest.raises(ValueError):
-        dfscan.cic_tile_prefix(payload[:, ::2], (8, 8, 8), 0, 2, 256)
+        dfscan.cic_tile_prefix_rows(rows[::2], (8, 8, 8), 0, 2, 256)
+    with pytest.raises(ValueError):  # 4-byte aligned, not 16
+        dfscan.cic_tile_prefix_rows(rows.view(-1)[1:397].view(99, 4),
+                                    (8, 8, 8), 0, 2, 256)
     with pytest.raises(ValueError):
-        dfscan.cic_tile_prefix(payload, (8, 8, 8), 6, 4, 256)
+        dfscan.cic_tile_prefix_rows(rows, (8, 8, 8), 6, 4, 256)
     with pytest.raises(TypeError):
-        dfscan.cic_tile_prefix(payload.double(), (8, 8, 8), 0, 2, 256)
-    assert dfscan.cic_tile_prefix(payload[:, :0].contiguous(), (8, 8, 8), 0,
-                                  2, 1).shape == (4, 0)
+        dfscan.cic_tile_prefix_rows(rows.double(), (8, 8, 8), 0, 2, 256)
+    before = dict(dfscan.ROUTES)
+    assert dfscan.cic_tile_prefix_rows(rows[:0], (8, 8, 8), 0, 2,
+                                       1).shape == (4, 0)
+    assert dfscan.ROUTES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["pairs", "all"])
+@pytest.mark.parametrize("D,local_shape", [
+    (1, (16,)), (2, (8, 5)), (3, (8, 8, 8)),
+])
+@pytest.mark.parametrize("tile", [
+    1, 3, 5, 31, 33, 64, 100, 256, 257, 1000, 1024,
+])
+def test_dfscan_cic_rows_route_matches_plain(cuda, D, local_shape, tile,
+                                             group):
+    """The fused route on the sorted rows (every instance: D = 1..3, R =
+    1..32) against the plain twin on the planar payload those rows hold:
+    bit for bit, one "packed" launch a group."""
+    n = 77 * max(tile, 32) + 13
+    payload = _cic_payload(np.random.default_rng(tile * 10 + D), D, n,
+                           local_shape)
+    rows = torch.zeros((n, 4))
+    rows[:, :D + 1] = payload.t()
+    rows, payload = rows.to(cuda), payload.to(cuda)
+    g = 2 if group == "pairs" else 1 << D
+    for c0 in range(0, 1 << D, g):
+        before = dict(dfscan.ROUTES)
+        got = dfscan.cic_tile_prefix_rows(rows, local_shape, c0, g, tile)
+        want = dfscan.cic_tile_prefix_plain(payload, local_shape, c0, g,
+                                            tile)
+        torch.cuda.synchronize()
+        assert dfscan.ROUTES == dict(before, packed=before["packed"] + 1)
+        assert got.shape == want.shape == (2 * g, -(-n // tile) * tile)
+        assert _bits_equal(got, want)
+
+
+def _sort_keys(r, n, bits):
+    """Keys for a sort over ``bits`` bits: ``n_seg = 2^(bits - 1)``
+    segments (so ``n_seg.bit_length() == bits``), drawn from a pool a
+    quarter of ``n`` wide so that ties are dense, both ends of the range,
+    and the sentinel ``n_seg`` on ~15% of the rows."""
+    n_seg = 1 << (bits - 1)
+    pool = r.integers(0, n_seg, size=max(1, n // 4))
+    key = r.choice(pool, n).astype(np.int32)
+    key[r.random(n) < 0.15] = n_seg
+    if n > 2:
+        key[:2] = (0, n_seg - 1)
+    return key, n_seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 22, 28])
+@pytest.mark.parametrize("n", [1, 1_000_003, (1 << 24) + 1])
+def test_sort_rows_bit_equal_to_the_stable_sort_and_gather(cuda, n, bits):
+    """``sort_rows`` on the card (one launch: the pack and cub's passes
+    over the key's own bits) against ``torch.sort(stable=True)`` and
+    ``index_select`` on the card: keys and rows bit for bit, on keys
+    dense with ties and the sentinel; the rows' NaN and signed zeros
+    kept; the inputs untouched."""
+    r = np.random.default_rng(n + bits)
+    key, n_seg = _sort_keys(r, n, bits)
+    assert n_seg.bit_length() == bits
+    rel = (r.random((3, n)) * 64).astype(np.float32)
+    mass = r.uniform(0.5, 2.0, n).astype(np.float32)
+    if n > 4:
+        rel[0, 2:5] = (-0.0, np.nan, np.float32(3e38))
+        mass[3] = -0.0
+    key_t, rel_t, mass_t = (torch.from_numpy(a).to(cuda)
+                            for a in (key, rel, mass))
+    before = rowsort.KERNEL.launches
+    keys_s, rows_s = rowsort.sort_rows(key_t, rel_t, mass_t, bits)
+    want_k, want_r = rowsort.sort_rows_plain(key_t, rel_t, mass_t, bits)
+    torch.cuda.synchronize()
+    assert rowsort.KERNEL.launches == before + 1
+    assert torch.equal(keys_s, want_k)
+    assert _bits_equal(rows_s, want_r)
+    assert torch.equal(key_t.cpu(), torch.from_numpy(key))
+    out = (torch.empty_like(keys_s), torch.empty_like(rows_s))
+    got = rowsort.sort_rows(key_t, rel_t, mass_t, bits, _out=out)
+    torch.cuda.synchronize()
+    assert got[0] is out[0] and got[1] is out[1]
+    assert torch.equal(out[0], want_k) and _bits_equal(out[1], want_r)
+
+
+@pytest.mark.cuda
+def test_sort_rows_refuses_what_it_cannot_take(cuda):
+    key = torch.zeros(10, dtype=torch.int32, device=cuda)
+    rel = torch.zeros((3, 10), device=cuda)
+    mass = torch.zeros(10, device=cuda)
+    with pytest.raises(ValueError):
+        rowsort.sort_rows(key, rel.t().contiguous().t(), mass, 4)
+    with pytest.raises(TypeError):
+        rowsort.sort_rows(key, torch.zeros((4, 10), device=cuda), mass, 4)
+    k, rows = rowsort.sort_rows(key[:0], rel[:, :0], mass[:0], 4)
+    assert k.shape == (0,) and rows.shape == (0, 4)
+    with pytest.raises(ValueError):  # rows 4 bytes off a 16-byte line
+        dfscan.cic_tile_prefix_rows(
+            torch.zeros(45, device=cuda)[1:].view(11, 4), (8, 8, 8), 0, 2,
+            256)
+
+
+@pytest.mark.cuda
+def test_sort_rows_resource_usage_lists_cub_kernels(cuda):
+    """``rowsort.KERNEL.resource_usage()`` lists the pack's instances and
+    cub's four kernels of the sort, none spilling: ``csrc/rowsort.cu``
+    names cub's kernels as cub 2.8 instantiates them, and another cub
+    fails here rather than leave them out of the table."""
+    usage = rowsort.KERNEL.resource_usage()
+    assert set(usage) == {f"rowsort_pack_kernel<{d}>" for d in (1, 2, 3)} | {
+        f"cub::DeviceRadixSort{k}Kernel"
+        for k in ("Histogram", "ExclusiveSum", "Onesweep", "SingleTile")}
+    assert all(u["local_bytes"] == 0 for u in usage.values())
+
+
+def _vrank_deposit_args(r, D, n_per, cuda):
+    """The CIC cell's vrank shape cut to D axes: 8 vranks of 64^D cells
+    (a (2, 2, 2), (4, 2) or (8,) vrank grid over the unit box), ``n_per``
+    rows a vrank in its own block, 90% valid, masses that are not 1,
+    rows on the block's faces."""
+    vgrid = {1: (8,), 2: (4, 2), 3: (2, 2, 2)}[D]
+    V, vblock = 8, (64,) * D
+    cells = np.array(list(np.ndindex(*vgrid)), np.float32)  # [V, D]
+    width = 1.0 / np.asarray(vgrid, np.float32)
+    lo = (cells * width).astype(np.float32)
+    u = r.random((D, V, n_per), dtype=np.float32)
+    u[:, :, :3] = 0.0
+    u[0, :, 3:6] = np.float32(1.0) - np.float32(2 ** -24)
+    pos = (lo.T[:, :, None] + u * width[:, None, None]).astype(np.float32)
+    m = V * n_per
+    args = [pos.reshape(D, m), r.uniform(0.5, 2.0, m).astype(np.float32),
+            r.random(m) < 0.9, lo,
+            (np.asarray(vblock, np.float32) / width).astype(np.float32)]
+    return [torch.from_numpy(a).to(cuda) for a in args], vblock
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_vrank_deposit_rows_route_bit_equal_to_plain(cuda, D):
+    """``cic_deposit_vranks_planar`` at the CIC cell's vrank shape, 2^21
+    rows a vrank (2^24 in all: the 8 channels in one group): the payload
+    sort and kernel 5 on the sorted rows, bit-equal to ``plain=True``."""
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    args, vblock = _vrank_deposit_args(np.random.default_rng(D), D, 1 << 21,
+                                       cuda)
+    _build.reset_counts()
+    got = deposit.cic_deposit_vranks_planar(*args, vblock)
+    torch.cuda.synchronize()
+    assert rowsort.KERNEL.launches == 1
+    assert dfscan.ROUTES == {"rows": 0, "packed": 1}
+    want = deposit.cic_deposit_vranks_planar(*args, vblock, plain=True)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    total = float(args[1][args[2]].double().sum())
+    assert abs(float(got.double().sum()) - total) <= 1e-6 * total
+
+
+@pytest.mark.cuda
+def test_vrank_deposit_counts_one_sort_and_four_packed_launches(cuda):
+    """Above 2^24 rows (the CIC cell's deposit), a deposit makes 1 payload
+    sort launch and 4 packed kernel-5 launches (groups of 2), no planar or
+    rows-route one, bit-equal to ``plain=True``."""
+    from mpi_grid_redistribute_tpu_torch.ops import _build
+
+    args, vblock = _vrank_deposit_args(np.random.default_rng(3), 3,
+                                       (1 << 21) + 1, cuda)
+    _build.reset_counts()
+    got = deposit.cic_deposit_vranks_planar(*args, vblock)
+    torch.cuda.synchronize()
+    counts = _build.counts()
+    assert counts["sort_rows"] == 1 and counts["tile_df_cumsum_rows"] == 4
+    assert dfscan.ROUTES == {"rows": 0, "packed": 4}
+    want = deposit.cic_deposit_vranks_planar(*args, vblock, plain=True)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
 
 def _segdep_stream(r, kind, n, n_cells):
     """Sorted key streams: uniform with a sentinel tail, clustered (a few
@@ -666,9 +842,9 @@ def test_scan_deposit_at_tile_2048_launches_kernel_5(cuda):
     torch.cuda.synchronize()
     assert dfscan.KERNEL.launches == before + 1
     # the fused route serves the register route's tiles: this one keeps
-    # the plain stages around the rows route
+    # the plain stages around the rows route, and the planar payload sort
     assert dfscan.ROUTES == {"rows": routes["rows"] + 1,
-                             "cic": routes["cic"]}
+                             "packed": routes["packed"]}
     want = deposit.cic_deposit_device_planar(*args, block, tile=2048)
     assert _bits_equal(got.cpu(), want)
 
@@ -677,10 +853,11 @@ def test_scan_deposit_at_tile_2048_launches_kernel_5(cuda):
 @pytest.mark.parametrize("n,groups", [(3_000_017, 1), ((1 << 24) + 4099, 4)])
 def test_scan_deposit_fused_route_bit_equal_to_plain(cuda, n, groups):
     """``cic_deposit_device_planar`` on the card against ``plain=True``
-    (the plain stages, on the card too): below 2^24 rows all 8 channels
-    in one fused launch, above it 4 launches of 2; no rows-route launch;
-    bit for bit, with masses that are not 1, invalid rows and rows on the
-    block's faces."""
+    (the planar sort and the plain stages, on the card too): one payload
+    sort launch, then below 2^24 rows all 8 channels in one fused launch
+    on the sorted rows, above it 4 launches of 2; no planar or rows-route
+    launch; bit for bit, with masses that are not 1, invalid rows and
+    rows on the block's faces."""
     from mpi_grid_redistribute_tpu_torch.ops import _build
 
     r = np.random.default_rng(n)
@@ -694,11 +871,14 @@ def test_scan_deposit_fused_route_bit_equal_to_plain(cuda, n, groups):
     _build.reset_counts()
     got = deposit.cic_deposit_device_planar(*args, block)
     torch.cuda.synchronize()
-    assert dfscan.ROUTES == {"rows": 0, "cic": groups}
+    assert dfscan.ROUTES == {"rows": 0, "packed": groups}
     assert dfscan.KERNEL.launches == groups
+    assert rowsort.KERNEL.launches == 1
     want = deposit.cic_deposit_device_planar(*args, block, plain=True)
     torch.cuda.synchronize()
-    assert dfscan.ROUTES == {"rows": 0, "cic": groups}  # plain: no launch
+    # plain: no launch
+    assert dfscan.ROUTES == {"rows": 0, "packed": groups}
+    assert rowsort.KERNEL.launches == 1
     assert _bits_equal(got, want)
     total = float(args[1][args[2]].double().sum())
     assert abs(float(got.double().sum()) - total) <= 1e-6 * total

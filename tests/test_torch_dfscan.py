@@ -27,7 +27,7 @@ from mpi_grid_redistribute_tpu.ops import deposit as jdeposit
 from mpi_grid_redistribute_tpu.ops import pallas_dfscan
 from mpi_grid_redistribute_tpu_torch.ops import binning
 from mpi_grid_redistribute_tpu_torch.ops import deposit as tdeposit
-from mpi_grid_redistribute_tpu_torch.ops import dfscan
+from mpi_grid_redistribute_tpu_torch.ops import dfscan, rowsort
 
 torch.set_num_threads(1)
 
@@ -359,9 +359,9 @@ def test_cic_shape_rule_covers_every_register_tile():
 
 
 def test_cic_kernel_cost_counts_the_fused_traffic():
-    """16 bytes a row read for the group at D = 3, 8 bytes written an
-    element of each channel, the pad included; and the rows route's count
-    is unchanged."""
+    """The planar entry's count, as one pass would move it: 16 bytes a row
+    read for the group at D = 3, 8 bytes written an element of each
+    channel, the pad included; and the rows route's count is unchanged."""
     payload = torch.zeros((4, 1000))
     b, f = dfscan.cic_kernel_cost(payload, (8, 8, 8), 0, 2, 256)
     assert b == 16 * 1000 + 8 * 2 * 1024
@@ -373,8 +373,72 @@ def test_cic_kernel_cost_counts_the_fused_traffic():
 def test_reset_counts_zeroes_the_routes():
     from mpi_grid_redistribute_tpu_torch.ops import _build
 
-    assert set(dfscan.ROUTES) == {"rows", "cic"}
-    dfscan.ROUTES["cic"] += 3
+    assert set(dfscan.ROUTES) == {"rows", "packed"}
+    dfscan.ROUTES["rows"] += 3
+    dfscan.ROUTES["packed"] += 2
     _build.reset_counts()
-    assert dfscan.ROUTES == {"rows": 0, "cic": 0}
+    assert dfscan.ROUTES == {"rows": 0, "packed": 0}
     assert dfscan.ROUTES is dfscan.KERNEL.routes
+
+
+# ---- the same entry on the sorted rows: dfscan.cic_tile_prefix_rows -------
+
+
+def _as_rows(payload):
+    """The rows ``[n, 4]`` of ``ops.rowsort`` that hold a planar payload
+    ``[D + 1, n]``: coordinates, then mass, then zeros."""
+    return rowsort.pack_rows_plain(payload[:-1], payload[-1])
+
+
+@pytest.mark.parametrize("group", ["pairs", "all"])
+@pytest.mark.parametrize("D,local_shape", [
+    (1, (16,)), (2, (8, 5)), (3, (8, 8, 8)),
+])
+@pytest.mark.parametrize("n,tile", [(1000, 256), (300, 64), (257, 256),
+                                    (97, 1)])
+def test_cic_rows_input_gives_the_planar_pack(D, local_shape, group, n,
+                                              tile):
+    """The packed input (the sorted rows) gives, through the plain twin,
+    the pack of the planar input those rows hold, bit for bit, channel
+    group by channel group, NaN and signed zeros included."""
+    payload = _deposit_payload(np.random.default_rng(D * 10 + n), D, n,
+                               local_shape)
+    rows = _as_rows(payload)
+    g = 2 if group == "pairs" else 1 << D
+    for c0 in range(0, 1 << D, g):
+        want = dfscan.cic_tile_prefix(payload, local_shape, c0, g, tile)
+        got = dfscan.cic_tile_prefix_rows(rows, local_shape, c0, g, tile)
+        assert got.shape == (2 * g, -(-n // tile) * tile)
+        _assert_bits(got, want.numpy())
+
+
+def test_cic_rows_entry_launches_nothing_on_the_cpu_and_checks_its_input():
+    payload = _deposit_payload(np.random.default_rng(2), 3, 500, (8, 8, 8))
+    rows = _as_rows(payload)
+    before = (dfscan.KERNEL.launches, dict(dfscan.ROUTES))
+    want = dfscan.cic_tile_prefix_plain(payload, (8, 8, 8), 2, 2, 256)
+    out = torch.empty((4, 512))
+    assert dfscan.cic_tile_prefix_rows(rows, (8, 8, 8), 2, 2, 256,
+                                       _out=out) is out
+    assert (dfscan.KERNEL.launches, dict(dfscan.ROUTES)) == before
+    _assert_bits(out, want.numpy())
+    with pytest.raises(TypeError):
+        dfscan.cic_tile_prefix_rows(rows.double(), (8, 8, 8), 0, 2, 256)
+    with pytest.raises(TypeError):  # the planar payload is not rows
+        dfscan.cic_tile_prefix_rows(payload[:3].t(), (8, 8, 8), 0, 2, 256)
+    for shape, c0, g in (((8, 8, 8, 8), 0, 2), ((8, 8, 8), 7, 2),
+                         ((8, 8, 8), 0, 0), ((), 0, 1)):
+        with pytest.raises(ValueError):
+            dfscan.cic_tile_prefix_rows(rows, shape, c0, g, 256)
+
+
+def test_cic_rows_kernel_cost_counts_a_row_a_particle():
+    """A 16-byte row read a particle whatever D is, and the planar
+    route's count otherwise."""
+    rows = torch.zeros((1000, 4))
+    b, f = dfscan.cic_rows_kernel_cost(rows, (8, 8, 8), 0, 2, 256)
+    assert (b, f) == dfscan.cic_kernel_cost(torch.zeros((4, 1000)),
+                                            (8, 8, 8), 0, 2, 256)
+    b, f = dfscan.cic_rows_kernel_cost(rows, (8,), 0, 2, 256)
+    assert b == 16 * 1000 + 8 * 2 * 1024
+    assert f == 2 * (11 * 8 + 2) * 2 * 1024

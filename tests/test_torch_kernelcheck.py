@@ -2,8 +2,10 @@
 ``analysis/rules_kernel.py``, ``tools/kernelcheck.py``) against the JAX
 package's on the CPU.
 
-The registry carries the reference's six case names, and each case's
-inputs are byte-equal to what the reference's builders make. Each plain
+The registry carries the reference's six case names, and each of those
+cases' inputs are byte-equal to what the reference's builders make;
+beside them it carries a case of each kernel the port has beyond the
+reference's (``kc.PORT_CASES``: the scan deposit's payload sort). Each plain
 twin is bit-equal to the reference case's ``reference`` and to its Pallas
 kernel run in interpret mode on the same inputs, except where the
 reference's jitted CPU code contracts kernel 1's drift into a fused
@@ -41,6 +43,8 @@ from mpi_grid_redistribute_tpu_torch.tools import kernelcheck as cli
 
 CPU = torch.device("cpu")
 NAMES = sorted(jkc.default_kernels())
+# the port's registry: the reference's cases and the port's own
+CASES = sorted(NAMES + list(kc.PORT_CASES))
 
 
 def _tuple(x):
@@ -63,12 +67,14 @@ def _plain_outputs(name):
 
 def test_registry_names_are_the_references():
     specs = kc.default_kernels()
-    assert sorted(specs) == NAMES
+    assert sorted(specs) == CASES
     ref = jkc.default_kernels()
     for name in NAMES:
         assert specs[name].scatter == ref[name].scatter, name
+    for name in CASES:
         assert specs[name].kernel in _build.KERNELS
         assert specs[name].launches == 1
+    assert not set(kc.PORT_CASES) & set(NAMES)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -337,7 +343,7 @@ def test_committed_footprint_baseline_covers_the_registry():
     from mpi_grid_redistribute_tpu_torch.analysis import baseline
 
     doc = baseline.load_kernelcheck_baseline()
-    assert sorted(doc["footprints"]) == NAMES
+    assert sorted(doc["footprints"]) == CASES
     assert doc["nvcc"] and doc["device"].startswith("NVIDIA")
     for name, row in doc["footprints"].items():
         assert row and rk.check_footprint(name, row) == [], name
@@ -349,7 +355,7 @@ def test_committed_footprint_baseline_covers_the_registry():
 def test_cli_json_sarif_github_on_the_cpu(capsys):
     assert cli.main(["--device", "cpu", "--format=json"]) == 0
     doc = json.loads(capsys.readouterr().out)
-    assert doc["findings"] == [] and doc["kernels"] == NAMES
+    assert doc["findings"] == [] and doc["kernels"] == CASES
     assert cli.main(["--device", "cpu", "--format=sarif",
                      "--kernels", "segdep_2d_6000"]) == 0
     run = json.loads(capsys.readouterr().out)["runs"][0]
@@ -404,7 +410,7 @@ def test_cli_check_baseline_reports_stale_entries(tmp_path, capsys):
     from mpi_grid_redistribute_tpu_torch.analysis import baseline
 
     path = str(tmp_path / "kc.json")
-    fp = {n: {"f": dict(ROW)} for n in NAMES}
+    fp = {n: {"f": dict(ROW)} for n in CASES}
     baseline.write_kernelcheck_baseline(path, fp, "12.8.93", "card")
     assert cli.main(["--check-baseline", "--baseline", path]) == 0
     fp["gone_case"] = {"f": dict(ROW)}
