@@ -56,8 +56,10 @@ started together), then, on the card:
      and timed; then ``analysis.kernelcheck`` over the seven
      registered cases (K000 launches, K001 guard bands, K002 write sets,
      K003 footprints against the committed baseline, K005 bit equality)
-     and the scan deposit's knockout cut (``bench/knockout_deposit.py``)
-     at a small width: every cut runs, phase 6 bit-equal to the deposit;
+     and the scan deposit's span table (``bench/knockout_deposit.py``)
+     at a small width: the five ``dep:*`` spans named, the rows adding
+     up to the call's device time within 2%, the profiled density
+     bit-equal to the deposit;
   6. drives the canonical ``GridRedistribute.redistribute`` (the 2x2x2
      grid as 8 vranks, engine ``"auto"``, which is the planar engine on
      one device): config 1 (1,048,576 uniform rows, seed 42, pos/vel/ids,
@@ -116,13 +118,11 @@ started together), then, on the card:
      slice's tools: every one-device registered program
      (``analysis.progcheck``) counted on the card and on the CPU with the
      same bytes, flops and kernel counts (``telemetry.roofline.
-     count_cost``; the planar knockout step too), timed, and its
+     count_cost``; the stage table's planar loop too), timed, and its
      ``roofline_report`` row journaled and read back as the
      ``roofline_achieved_fraction`` gauge; two of them counted and timed
      again at 2^20 rows a vrank, where a share is real; every
-     ``achieved_fraction`` in (0, 1.05]; the knockout of the planar step (``bench/knockout_stages``)
-     cut after each phase, its phase 8 bit-equal to
-     ``make_migrate_loop(engine="planar")``; ``tools.trace_export
+     ``achieved_fraction`` in (0, 1.05]; ``tools.trace_export
      --demo`` and ``examples.drift_demo --steps 3`` (both verdict lines)
      on the card; the program registry
      recorded once on the card (its sharded programs in item 9's world)
@@ -1435,37 +1435,49 @@ def kernelcheck_phase(torch, _build):
             "seconds": round(seconds, 3)}
 
 
-def deposit_cut_phase(torch, _build, deposit, knockout_deposit):
-    """The scan deposit's knockout cut (``bench/knockout_deposit.py``) at
-    a small width: every cut runs, the full run (phase 6) is bit-equal to
-    config 5's scan deposit built on its own, and kernel 5 launched in
-    the cut and full runs. No timing."""
+def deposit_span_phase(torch, _build, deposit, knockout_deposit):
+    """The scan deposit's span table (``bench/knockout_deposit.py``) at a
+    small width: one profiled call of whole deposits after a warm one,
+    every ``dep:*`` span named with device time, the rows adding up to
+    the call's device time within 2%, the profiled density bit-equal to
+    config 5's scan deposit built on its own, and kernel 5 launched. No
+    timing is kept."""
     from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+    from mpi_grid_redistribute_tpu_torch.telemetry import phases
 
     state = knockout_deposit.make_state((2, 2, 2), 1 << 14, "cuda")
-    build = knockout_deposit.loop_builder()
     _build.reset_counts()
-    outs = [build(phase, 1)(*state) for phase in knockout_deposit.PHASES]
-    torch.cuda.synchronize()
+    out, trace = phases.profile_call(knockout_deposit.make_loop(1), state,
+                                     "cuda")
     launches = _build.counts()["tile_df_cumsum_rows"]
-    for phase, out in zip(knockout_deposit.PHASES, outs):
-        parts = out if isinstance(out, tuple) else (out,)
-        check(all(t.is_cuda and t.numel() > 0 for t in parts),
-              f"deposit cut: phase {phase!r} returned no device tensor")
+    rows = phases.phase_rows(trace, knockout_deposit.PHASES, steps=1)
+    names = [r.phase for r in rows]
+    check(names == list(knockout_deposit.PHASES) + [phases.REST],
+          f"deposit spans: rows {names}")
+    check(all(r.delta_s > 0 for r in rows[:-1]),
+          f"deposit spans: a span read no device time: {rows}")
+    whole = trace.seconds_in()
+    total = sum(r.delta_s for r in rows)
+    check(whole > 0 and abs(total - whole) <= 0.02 * whole,
+          f"deposit spans: rows sum to {total:.6g} s, the call's device "
+          f"time is {whole:.6g} s")
     ref = deposit.shard_deposit_device_planar_fn(
         Domain(0.0, 1.0, periodic=True), ProcessGrid((1, 1, 1)),
         (knockout_deposit.MESH_CELLS,) * 3)(*state)
-    check(torch.equal(outs[-1].view(torch.int32), ref.view(torch.int32)),
-          "deposit cut: phase 6 is not bit-equal to the scan deposit")
-    check(launches >= 3, f"deposit cut: kernel 5 launched {launches} "
-          "time(s) over the cuts 4, 5 and the full run")
+    check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+          "deposit spans: the profiled deposit is not bit-equal to the "
+          "scan deposit")
+    check(launches >= 2, f"deposit spans: kernel 5 launched {launches} "
+          "time(s) over the warm and the profiled call")
     mass = float(state[2].sum())
-    check(abs(float(outs[-1].double().sum()) - mass) <= 1e-3 * mass,
-          "deposit cut: the mesh does not hold the deposited mass")
-    log(f"deposit cut: 6 phases ran at {state[0].shape[1]} rows, phase 6 "
-        f"bit-equal to the scan deposit, kernel 5 launched {launches} "
-        "times")
-    return {"rows": int(state[0].shape[1]), "launches": launches}
+    check(abs(float(out.double().sum()) - mass) <= 1e-3 * mass,
+          "deposit spans: the mesh does not hold the deposited mass")
+    log(f"deposit spans: {', '.join(names)} at {state[0].shape[1]} rows "
+        f"sum to {total * 1e3:.4f} of {whole * 1e3:.4f} ms, bit-equal to "
+        f"the scan deposit, kernel 5 launched {launches} times")
+    return {"rows": int(state[0].shape[1]), "launches": launches,
+            "spans": names, "sum_ms": round(total * 1e3, 4),
+            "whole_ms": round(whole * 1e3, 4)}
 
 
 def _signed_zero_rows_t(torch, x):
@@ -2444,9 +2456,7 @@ def history_leg(torch, _build, tservice, base, work):
     }
 
 
-# the knockout's width on the card and the count-equality check's (its
-# CPU half runs the same loop)
-KNOCKOUT_N = 65536
+# the count-equality check's width (its CPU half runs the same loop)
 COUNT_N = 4096
 # timed at the card's width too (tools.attribution.WIDE_N_LOCAL): the two
 # highest shares of the attribution snapshot, where a count too high
@@ -2531,16 +2541,16 @@ def finish_gate(gate):
     return res
 
 
-def tools_phase(torch, pt, nbody, work, recorded, gate):
+def tools_phase(torch, work, recorded, gate):
     """The counted rooflines and this slice's tools on the card: (a)
     every one-device registered program counted on the card and on the
     CPU, the same bytes, flops and kernel counts both ways, and the
-    knockout's planar step too; (b) the knockout of the planar step cut
-    after each phase, phase 8 bit-equal to ``make_migrate_loop
-    (engine="planar")``; (c) the programs timed, one ``roofline`` event
-    a row, the gauge read back through ``metrics.from_journal``, and
-    :data:`WIDE_ROOF_PROGRAMS` counted and timed at 2^20 rows a vrank;
-    every ``achieved_fraction`` in (0, 1.05]; (d) ``tools.trace_export
+    stage table's planar loop (``bench/knockout_stages``, the whole
+    ``make_migrate_loop(engine="planar")``) too; (b) the programs timed,
+    one ``roofline`` event a row, the gauge read back through
+    ``metrics.from_journal``, and :data:`WIDE_ROOF_PROGRAMS` counted and
+    timed at 2^20 rows a vrank; every ``achieved_fraction`` in (0,
+    1.05]; (c) ``tools.trace_export
     --demo`` and ``examples.drift_demo --steps 3`` on the card; (a')
     progcheck's J001-J004 and shardcheck's S004 in this process over
     ``recorded``, the registry's records on the card (the sharded
@@ -2580,9 +2590,9 @@ def tools_phase(torch, pt, nbody, work, recorded, gate):
     cpu = progcheck.program_costs(programs, device="cpu")
     ko_cost = {}
     for dev in ("cuda", "cpu"):
-        st = knockout_stages.make_state(GRID, COUNT_N, dev)
         ko_cost[dev] = roofline.count_cost(
-            knockout_stages.loop_builder(GRID, COUNT_N)(8, 2), tuple(st))
+            knockout_stages.make_loop(GRID, COUNT_N, 2, "planar", dev),
+            knockout_stages.make_state(GRID, COUNT_N, dev))
     card["knockout_planar_step"] = ko_cost["cuda"]
     cpu["knockout_planar_step"] = ko_cost["cpu"]
     keys = ("bytes_accessed", "flops", "kernels", "collective_bytes")
@@ -2614,34 +2624,7 @@ def tools_phase(torch, pt, nbody, work, recorded, gate):
         for n in resident), "J002: a resident program synchronized")
     lap("progcheck", t0)
 
-    # (b) the knockout: every cut runs, the full step is the loop's step
-    t0 = time.perf_counter()
-    C, M = knockout_stages.sizing(GRID, KNOCKOUT_N)
-    st = knockout_stages.make_state(GRID, KNOCKOUT_N, "cuda")
-    build = knockout_stages.loop_builder(GRID, KNOCKOUT_N)
-    for phase in knockout_stages.PHASES[:-1]:
-        build(phase, 2)(*st)
-    full = build(8, 2)(*st)
-    cfg = nbody.DriftConfig(
-        domain=pt.Domain(0.0, 1.0, periodic=True),
-        grid=pt.ProcessGrid((1, 1, 1)), dt=knockout_stages.DT, capacity=C,
-        n_local=KNOCKOUT_N, local_budget=M, engine="planar")
-    loop = nbody.make_migrate_loop(cfg, 2, vgrid=pt.ProcessGrid(GRID),
-                                   device="cuda")
-    f = st.fused
-    p, v, a, _ = loop(f[:3].view(torch.float32).reshape(-1).clone(),
-                      f[3:6].view(torch.float32).reshape(-1).clone(),
-                      f[6] > 0)
-    torch.cuda.synchronize()
-    check(torch.equal(full.fused[:3].reshape(-1),
-                      p.view(torch.int32).reshape(-1))
-          and torch.equal(full.fused[3:6].reshape(-1),
-                          v.view(torch.int32).reshape(-1))
-          and torch.equal(full.fused[6] > 0, a),
-          "knockout: phase 8 is not make_migrate_loop's planar step")
-    lap("knockout", t0)
-
-    # (c) the rooflines, measured: every program at the registry's width
+    # (b) the rooflines, measured: every program at the registry's width
     # (one event a row, the gauge), the widest shares at the card's width
     t0 = time.perf_counter()
     measured = roofline.measure_programs(programs, device="cuda", s2=2,
@@ -2673,7 +2656,7 @@ def tools_phase(torch, pt, nbody, work, recorded, gate):
               f"{limit}]")
     lap("roofline_wide", t0)
 
-    # (d) the tools on the card
+    # (c) the tools on the card
     t0 = time.perf_counter()
     out = io.StringIO()
     trace = work / "demo.trace.json"
@@ -3503,8 +3486,8 @@ def main() -> int:
     gate = start_gate(records_file)
     kcheck = kernelcheck_phase(torch, _build)
     lap("kernelcheck")
-    cut = deposit_cut_phase(torch, _build, deposit, knockout_deposit)
-    lap("deposit cut")
+    dep_spans = deposit_span_phase(torch, _build, deposit, knockout_deposit)
+    lap("deposit spans")
 
     # ---- the canonical GridRedistribute.redistribute
     canon, headline = canonical_phase(torch, pt, config1_oracle, oracle,
@@ -3525,7 +3508,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=HERE / "build") as work:
         driver = driver_phase(torch, _build, Path(work))
         lap("service driver")
-        tools = tools_phase(torch, pt, nbody, Path(work), recorded, gate)
+        tools = tools_phase(torch, Path(work), recorded, gate)
     gate_dir.cleanup()
     lap("rooflines and tools")
 
@@ -3588,7 +3571,7 @@ def main() -> int:
     log(json.dumps({"config5": c5}))
     log(json.dumps({"config5_segment": segment}))
     log(json.dumps({"kernelcheck": kcheck}))
-    log(json.dumps({"deposit_cut": cut}))
+    log(json.dumps({"deposit_spans": dep_spans}))
     log(json.dumps({"config2": c2}))
     log(json.dumps({"config3": c3}))
     log(json.dumps({"canonical": canon}))

@@ -14,8 +14,8 @@ own numbers, written by the port's own ``--update-baseline``:
   ``reference_profiles`` and ``reference_wire_attribution``, copies of
   the JAX package's committed sections, and ``reference_differences``,
   the justified list of numbers in which the port differs from them;
-* ``telemetry/attribution_baseline.json``: the knockout phase tables and
-  the roofline rows ``tools.attribution`` measured on the card;
+* ``telemetry/attribution_baseline.json``: the span tables and the
+  roofline rows ``tools.attribution`` measured on the card;
 * ``analysis/kernelcheck_baseline.json``: K003's footprint table, the
   registers and shared bytes of every function each kernelcheck case
   launches, read on the card, with the ``nvcc`` version that built them;
@@ -206,8 +206,10 @@ def write_wire_baseline(path: Optional[str],
 # -- the attribution snapshot (telemetry/attribution_baseline.json) --------
 
 _ATTRIBUTION_COMMENT = (
-    "The port's attribution snapshot: phase_tables holds the knockout "
-    "rows (bench/knockout_stages.py, bench/knockout_pipeline.py) measured "
+    "The port's attribution snapshot: phase_tables holds the span tables' "
+    "rows (bench/knockout_stages.py, bench/knockout_pipeline.py, "
+    "bench/knockout_deposit.py: device time a step by the program's own "
+    "spans) measured "
     "on the card named in 'device', the source the PERF.md tables are "
     "rendered from; roofline holds the roofline_report rows (counted "
     "bytes and flops over H100 roofs, measured CUDA-event times). "

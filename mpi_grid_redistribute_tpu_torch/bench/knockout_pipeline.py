@@ -1,24 +1,24 @@
-"""Knockout attribution of the port's pipelined chunk step (the twin of
-the JAX package's ``scripts/knockout_pipeline.py``): the steady-state
-step of ``service.pipeline.make_pipelined_chunk_fn`` is timed cut after
-each of its phases (cumulative), through ``telemetry.phases.
-attribute_phases``, with CUDA events on the card.
+"""Span table of the port's pipelined chunk step (the counterpart of the
+JAX package's ``scripts/knockout_pipeline.py``): the steady-state step of
+``service.pipeline.make_pipelined_chunk_fn``, whole and uncut, its device
+time a step charged to the chunk's own spans through ``telemetry.phases.
+attribute_phases``.
 
-The reference composes its two-phase surface in issue-first order,
-because a jitted chunk cannot be cut. The port's chunk is eager Python,
-so it is cut in place: ``make_pipelined_chunk_fn`` takes an internal
-``_stop_after`` and each steady-state step returns after the phase asked
-for. The phases keep the reference's names and numbers, in the order the
-pipelined step runs them: step k+1's drift and bin come BEFORE step k's
-landing (the arrivals drift in flight and land with their next-step key,
-K = 9 rows), then step k+1's issue and arrival gather. Nothing here can
-drift from the service chunk, and the last phase IS its step.
+The reference composes its two-phase surface in issue-first order and
+cuts it, because a jitted chunk cannot be read inside. The port reads
+the spans its chunk opens in the order the pipelined step runs them:
+``pipe:land+drift`` (step k+1's drift and bin, then step k's landing:
+the arrivals drift in flight and land with their next-step key, K = 9
+rows), ``pipe:issue`` (step k+1's issue and arrival gather) and
+``pipe:probe`` (the health probes, only when they are armed: 0 here).
 
 A run of S steps is one chunk of S + 1 steps on the same start state
-(the reference knockout's: uniform rows, ``FILL`` of each vrank live):
-its prologue (step 1's drift and issue), then S steady-state steps. The
-fuse, prologue, epilogue and compaction of the chunk are the same in
-every run and cancel in the length difference.
+(the reference knockout's: uniform rows, ``FILL`` of each vrank live),
+profiled once after a warm call: its prologue (step 1's drift and
+issue), then S steady-state steps. The chunk has no enclosing span, so
+``rest`` is what the whole call launched outside the listed ones (the
+fuse, the prologue, the epilogue's landing and compaction) over its S
+steps, and the rows add up to the call a step.
 
     python -m mpi_grid_redistribute_tpu_torch.bench.knockout_pipeline [n_local]
 
@@ -45,30 +45,25 @@ from mpi_grid_redistribute_tpu_torch.telemetry import phases as phases_lib
 from mpi_grid_redistribute_tpu_torch.utils import profiling
 
 K = 8  # the chunk's state: 3 pos + 3 vel + ids + alive
+STEPS = 8  # steady-state steps of the profiled chunk
 
-# the reference's phase names, in the order the pipelined step runs them
-PHASES = (
-    "1 drift + wrap",
-    "2 bin (routing key)",
-    "5 landing (fused scatter + free-stack)",
-    "3 issue (sort + flow-control plans)",
-    "4 arrival gather",
-)
+# the chunk's spans, in the order the pipelined step opens them
+PHASES = ("pipe:land+drift", "pipe:issue", "pipe:probe")
 
 
 def phase_bytes(V, n):
-    """Minimum logical traffic per phase (the reference's convention:
+    """Minimum logical traffic a step a row (the reference's convention:
     measured / roofline >> 1 flags a latency or serialization bound), at
     the chunk's widths: the landing drifts the ``[K, V, n]`` arrivals,
     bins them and scatters K + 1 rows (the key rides along)."""
     f32 = 4
     return {
-        PHASES[0]: (3 + 3 + 3) * V * n * f32,   # read pos+vel, write pos
-        PHASES[1]: (3 + 1 + 1) * V * n * f32,   # read pos+alive, write key
-        # arrival drift + key, scatter + targets + stack
-        PHASES[2]: (9 + 4 + (K + 1) + 1 + 2) * V * n * f32,
-        PHASES[3]: 4 * V * n * f32,             # sort in/out of (key, iota)
-        PHASES[4]: 2 * K * V * n * f32,         # gather in + out
+        # drift (read pos+vel, write pos), bin (read pos+alive, write
+        # key), arrival drift + key, scatter + targets + stack
+        "pipe:land+drift": ((3 + 3 + 3) + (3 + 1 + 1)
+                            + (9 + 4 + (K + 1) + 1 + 2)) * V * n * f32,
+        # sort in/out of (key, iota), gather in + out
+        "pipe:issue": (4 + 2 * K) * V * n * f32,
     }
 
 
@@ -88,50 +83,42 @@ def make_state(grid_shape, n: int, device, seed: int = 0):
                        device=device))
 
 
-def loop_builder(grid_shape, n: int, state):
-    """``build(phase, S) -> macro(pos, vel, ids, count)``: one pipelined
-    chunk of ``S`` steady-state steps (``S + 1`` steps with the
-    prologue's) on the template ``state`` (:func:`make_state`), each cut
-    after ``phase``."""
+def make_loop(grid_shape, n: int, state, steps: int = STEPS):
+    """``macro(pos, vel, ids, count)``: one pipelined chunk of ``steps``
+    steady-state steps (``steps + 1`` with the prologue's) on the
+    template ``state`` (:func:`make_state`). It reads its arguments
+    only."""
     rd = api.GridRedistribute(
         grid=tuple(grid_shape), lo=(0.0,) * 3, hi=(1.0,) * 3,
         periodic=(True,) * 3, engine="auto", device=state[0].device)
     pos, vel, ids, _ = state
-
-    def build(phase, S):
-        cut = int(phase.split()[0])
-        macro, _, _ = pipeline.make_pipelined_chunk_fn(
-            rd, DT, S + 1, pos, vel, ids,
-            _stop_after=None if phase == PHASES[-1] else cut)
-        return macro
-
-    return build
+    macro, _, _ = pipeline.make_pipelined_chunk_fn(rd, DT, steps + 1, pos,
+                                                   vel, ids)
+    return macro
 
 
-def run(n: int, grid_shape=(2, 2, 2), device=None, s1: int = 4,
-        s2: int = 36, reps: int = 7, progress=None):
-    """Attribute the pipelined step at ``n`` rows a vrank on
-    ``device``; returns the :class:`~..telemetry.phases.PhaseTiming`
-    rows."""
+def run(n: int, grid_shape=(2, 2, 2), device=None, steps: int = STEPS):
+    """The span table of the pipelined step at ``n`` rows a vrank on
+    ``device``: the :class:`~..telemetry.phases.PhaseTiming` rows, a
+    step each."""
     dev = _device.resolve(device)
     V = int(np.prod(grid_shape))
     state = make_state(grid_shape, n, dev)
     return phases_lib.attribute_phases(
-        loop_builder(grid_shape, n, state), state, PHASES, s1=s1, s2=s2,
-        reps=reps, phase_bytes=phase_bytes(V, n),
+        make_loop(grid_shape, n, state, steps), state, PHASES,
+        steps=steps, phase_bytes=phase_bytes(V, n),
         peak_bytes_per_sec=profiling.HBM_PEAK_BYTES_PER_SEC,
-        progress=progress, device=dev.type)
+        device=dev.type)
 
 
 def main(argv=None) -> int:
     return cli(
         argv, "mpi_grid_redistribute_tpu_torch.bench.knockout_pipeline",
-        "Knockout attribution of the pipelined chunk step (env "
-        "KNOCKOUT_GRID, KNOCKOUT_JSON).", 4096,
-        lambda n, grid, device, progress: run(
-            n, grid, device=device, progress=progress),
+        "Span table of the pipelined chunk step (env KNOCKOUT_GRID, "
+        "KNOCKOUT_JSON).", 4096,
+        lambda n, grid, device: [("pipeline", run(n, grid, device=device))],
         lambda grid, n: f"shapes: V={int(np.prod(grid))} n={n} (plan "
-        "width = n)")
+        f"width = n), {STEPS} steps")
 
 
 if __name__ == "__main__":

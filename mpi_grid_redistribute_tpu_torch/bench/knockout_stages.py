@@ -1,28 +1,37 @@
-"""Knockout attribution of the port's planar vrank migrate step (the twin
-of the JAX package's ``scripts/knockout_stages.py``): the step is timed
-cut after each of its phases (cumulative), at the reference's shapes on
-one card, with a logical-bytes column that turns the attribution into a
-roofline statement (the bytes each phase's math implies over HBM3's
-3.35 TB/s).
+"""Span tables of the port's vrank migrate loop (the counterpart of the JAX
+package's ``scripts/knockout_stages.py``), at the reference's shapes on
+one card, with a logical-bytes column that turns each row into a
+roofline statement (the bytes its math implies over HBM3's 3.35 TB/s).
 
-The reference keeps a truncatable COPY of its jitted step, because a
-compiled program cannot be cut. The port's step is eager Python, so it
-is cut in place: ``parallel.migrate.shard_migrate_vranks_fn``'s step
-takes an internal ``_stop_after`` and returns after the phase asked for.
-Nothing here can drift from the engine, and phase 8 IS the step
-``nbody.make_migrate_loop(engine="planar")`` runs, bit for bit.
+The reference times a copy of its jitted step cut after each phase and
+differences the cumulative times. The port reads the spans its loop
+already opens instead: ``models.nbody.make_migrate_loop``, whole and
+uncut, runs ``STEPS`` steps once under ``torch.profiler`` after a warm
+call, and each device operation goes to the innermost listed span open
+when it was launched (``telemetry.phases.attribute_phases``); what
+``mig:step`` launched outside them is the ``rest`` row, so the rows add
+up to the step. Nothing is cut and nothing is copied: the table times
+the loop the benchmark's cells run.
 
-Phases (the reference's numbering): 1 drift + wrap + bin (kernel 1),
-2 stable key sort + counts, 3 local allocation fixpoint, 4 vacated-slot
-plan, 5 arrival gather, 6 landing plan, 7 landing (kernel 2), 8 free-stack
-update (the full step).
+Two tables, by engine:
+
+* ``"auto"`` (the mover-sparse engine every cell runs): ``mig:init``
+  (the per-call set-up, paid once a call: its row is that over the
+  call's steps), ``mig:select``, ``mig:grant``, ``sync:sparse_guard``,
+  ``mig:pack``, ``mig:unpack``, ``mig:fallback`` (the dense step when the
+  guard reads false), ``rest`` (kernel 1's drift and bin, and the rest of
+  ``mig:step``);
+* ``"planar"`` (the dense step): ``mig:bin``, ``mig:grant``,
+  ``mig:pack``, ``mig:unpack``, ``rest`` (kernel 1, the cycle rescue and
+  the vacated-slot plan).
 
     python -m mpi_grid_redistribute_tpu_torch.bench.knockout_stages [n_local]
-    KNOCKOUT_GRID=2,2,2 KNOCKOUT_PHASES=1,2,8 KNOCKOUT_JSON=rows.json \\
+    KNOCKOUT_GRID=2,2,2 KNOCKOUT_JSON=rows.json \\
         python -m mpi_grid_redistribute_tpu_torch.bench.knockout_stages 65536
 
-``--device cpu`` runs on the CPU (host clock). ``KNOCKOUT_JSON=file``
-dumps the rows for ``tools.trace_export --phases``.
+``--device cpu`` runs on the CPU (the host ops' time). ``KNOCKOUT_JSON=
+file`` dumps the ``"auto"`` table's rows for ``tools.trace_export
+--phases``.
 """
 
 from __future__ import annotations
@@ -38,8 +47,7 @@ import torch
 
 from mpi_grid_redistribute_tpu_torch import _device
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
-from mpi_grid_redistribute_tpu_torch.ops import driftbin
-from mpi_grid_redistribute_tpu_torch.parallel import migrate
+from mpi_grid_redistribute_tpu_torch.models import nbody
 from mpi_grid_redistribute_tpu_torch.telemetry import phases as phases_lib
 from mpi_grid_redistribute_tpu_torch.utils import profiling
 
@@ -50,7 +58,18 @@ K = 7  # 3 pos + 3 vel + alive
 # reference's 1e-4 rounded to a power of two, so the CPU run is
 # bit-comparable with the reference's planar loop)
 DT = 2.0**-13
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
+STEPS = 8  # steps of the profiled call
+ENGINES = ("auto", "planar")
+# the spans each engine's table reads, in the order a step opens them
+PHASES = ("mig:init", "mig:select", "mig:grant", "sync:sparse_guard",
+          "mig:pack", "mig:unpack", "mig:fallback")
+PLANAR_PHASES = ("mig:bin", "mig:grant", "mig:pack", "mig:unpack")
+WHOLE = "mig:step"
+
+
+def spans_of(engine: str):
+    """The spans ``engine``'s table reads."""
+    return PLANAR_PHASES if engine == "planar" else PHASES
 
 
 def sizing(grid_shape, n: int):
@@ -75,82 +94,91 @@ def uniform_fused(grid_shape, n: int, seed: int = 0) -> np.ndarray:
 
 
 def make_state(grid_shape, n: int, device, seed: int = 0):
-    """:func:`uniform_fused` on ``device`` as the
-    :class:`~..parallel.migrate.MigrateState` the step takes."""
-    fused = torch.from_numpy(uniform_fused(grid_shape, n, seed)).to(device)
-    return migrate.init_state(fused, vranks=int(np.prod(grid_shape)),
-                              batched=True)
+    """:func:`uniform_fused` on ``device`` as the loop's arguments,
+    ``(pos [3 * V * n], vel [3 * V * n], alive [V * n])`` planar flat,
+    with each vrank's positions moved into its own slab (row-major vrank
+    ids), as the cells start: the sparse engine then runs its fast branch
+    from the first step."""
+    V = int(np.prod(grid_shape))
+    fused = uniform_fused(grid_shape, n, seed)
+    u = fused[:3].view(np.float32).reshape(3, V, n)
+    coords = np.stack(np.unravel_index(np.arange(V), grid_shape))[..., None]
+    g = np.asarray(grid_shape, np.float32)[:, None, None]
+    pos = ((coords + u) / g).astype(np.float32).reshape(-1)
+    return (torch.from_numpy(pos).to(device),
+            torch.from_numpy(fused[3:6].view(np.float32).reshape(-1)).to(
+                device),
+            torch.from_numpy(fused[6] > 0).to(device))
 
 
-def loop_builder(grid_shape, n: int, plain: bool = False):
-    """``build(phase, S) -> loop(fused, free_stack, n_free)``: S steps of
-    the port's planar vrank step cut after ``phase`` (a fresh copy of the
-    state a run, so every run starts from the same one). Returns the
-    final state."""
-    domain = Domain(0.0, 1.0, periodic=True)
-    vgrid = ProcessGrid(grid_shape)
-    V = vgrid.nranks
+def make_loop(grid_shape, n: int, steps: int = STEPS, engine: str = "auto",
+              device=None, plain: bool = False):
+    """``models.nbody.make_migrate_loop`` of ``steps`` steps over the
+    ``grid_shape`` vranks of one device, at the knockout's sizing: the
+    loop the cells run (``engine="auto"``) or the dense step's
+    (``"planar"``). It reads its arguments only."""
     C, M = sizing(grid_shape, n)
-    step = migrate.shard_migrate_vranks_fn(
-        domain, ProcessGrid((1,) * len(grid_shape)), vgrid, C,
-        local_budget=M, plain=plain)
-    bin_fn = driftbin.drift_wrap_bin_plain if plain else driftbin.drift_wrap_bin
-
-    def build(phase, S):
-        def loop(fused, free_stack, n_free):
-            st = migrate.MigrateState(fused.clone(), free_stack.clone(),
-                                      n_free.clone())
-            for _ in range(S):
-                f, key = bin_fn(st.fused, DT, domain, vgrid, V, V)
-                st, _ = step(st._replace(fused=f), key,
-                             _stop_after=None if phase == 8 else phase)
-            return st
-
-        return loop
-
-    return build
+    cfg = nbody.DriftConfig(
+        domain=Domain(0.0, 1.0, periodic=True),
+        grid=ProcessGrid((1,) * len(grid_shape)), dt=DT, capacity=C,
+        n_local=n, local_budget=M, engine=engine)
+    return nbody.make_migrate_loop(cfg, steps, vgrid=ProcessGrid(grid_shape),
+                                   device=device, plain=plain)
 
 
-def phase_bytes(V, n, M):
-    """Logical bytes each phase NEWLY touches (reads + writes), the
+def phase_bytes(V, n, M, steps: int = STEPS, engine: str = "auto"):
+    """Logical bytes a row touches a step (reads + writes), the
     reference's deliberately minimal traffic (sorts make several passes,
     scatters touch whole sectors), so measured / roofline >> 1 flags a
     latency or serialization bound, not a bandwidth wall."""
     f32 = 4
+    gather = (K + 1) * V * M * f32 + K * V * M * f32  # plan + in, out
+    landing = (4 + (K + 1) + 2) * V * M * f32  # plan, scatter, stack
+    if engine == "planar":
+        return {
+            "mig:bin": 4 * V * n * f32,  # sort in/out of (key, iota)
+            "mig:grant": 0,              # [V, V] tables
+            "mig:pack": gather,
+            "mig:unpack": landing,
+            # kernel 1 (read pos+vel+alive, write key), the vacated plan
+            phases_lib.REST: (3 + 3 + 1 + 1) * V * n * f32
+            + 3 * V * M * f32,
+        }
     return {
-        1: (3 + 3 + 1 + 1) * V * n * f32,  # read pos+vel+alive, write key
-        2: 4 * V * n * f32,                # sort in/out of (key, iota)
-        3: 0,                              # [V, V] tables
-        4: 3 * V * M * f32,                # plan vectors + order gather
-        5: (K + 1) * V * M * f32 + K * V * M * f32,  # gather in + out
-        6: 4 * V * M * f32,                # plan vectors
-        7: (K + 1) * V * M * f32,          # scatter writes + targets
-        8: 2 * V * M * f32,                # stack windows
+        # the fused state's cat in and out and the free stack, a call
+        "mig:init": (2 * K + 2) * V * n * f32 // steps,
+        "mig:select": (V * n + V * M) * f32,  # keys in, mover block out
+        "mig:grant": 0,
+        "sync:sparse_guard": 0,
+        "mig:pack": gather,
+        "mig:unpack": landing,
+        phases_lib.REST: (3 + 3 + 1 + 1) * V * n * f32,  # kernel 1
     }
 
 
-def run(n: int, grid_shape=(2, 2, 2), phases=PHASES, device=None,
-        s1: int = 4, s2: int = 36, reps: int = 7, progress=None):
-    """Attribute the step at ``n`` rows a vrank on ``device``; returns the
-    :class:`~..telemetry.phases.PhaseTiming` rows."""
+def run(n: int, grid_shape=(2, 2, 2), engine: str = "auto", device=None,
+        steps: int = STEPS):
+    """``engine``'s span table at ``n`` rows a vrank on ``device``:
+    the :class:`~..telemetry.phases.PhaseTiming` rows, a step each."""
     dev = _device.resolve(device)
     V = int(np.prod(grid_shape))
     _, M = sizing(grid_shape, n)
-    state = make_state(grid_shape, n, dev)
     return phases_lib.attribute_phases(
-        loop_builder(grid_shape, n), tuple(state), list(phases),
-        s1=s1, s2=s2, reps=reps, phase_bytes=phase_bytes(V, n, M),
+        make_loop(grid_shape, n, steps, engine, dev),
+        make_state(grid_shape, n, dev), spans_of(engine), whole=WHOLE,
+        steps=steps, phase_bytes=phase_bytes(V, n, M, steps, engine),
         peak_bytes_per_sec=profiling.HBM_PEAK_BYTES_PER_SEC,
-        progress=progress, device=dev.type)
+        device=dev.type)
 
 
 def cli(argv, prog, description, default_n, run_fn, shapes_line,
         default_grid="2,2,2"):
-    """The knockouts' shared command line: ``n_local`` and ``--device``,
-    the grid from ``KNOCKOUT_GRID`` (default ``default_grid``), each row
-    streamed as it is measured, the rows dumped to ``KNOCKOUT_JSON``.
-    ``run_fn(n, grid, device, progress)`` measures; ``shapes_line(grid,
-    n)`` heads the output."""
+    """The span tables' shared command line: ``n_local`` and
+    ``--device``, the grid from ``KNOCKOUT_GRID`` (default
+    ``default_grid``). ``run_fn(n, grid, device)`` measures and returns
+    ``[(title, rows)]``; each table is printed, and the first one's rows
+    are dumped to ``KNOCKOUT_JSON``. ``shapes_line(grid, n)`` heads the
+    output."""
     p = argparse.ArgumentParser(prog=prog, description=description)
     p.add_argument("n_local", nargs="?", type=int, default=default_n)
     p.add_argument("--device", default=None,
@@ -159,18 +187,14 @@ def cli(argv, prog, description, default_n, run_fn, shapes_line,
     grid = tuple(int(x) for x in
                  os.environ.get("KNOCKOUT_GRID", default_grid).split(","))
     print(shapes_line(grid, args.n_local), file=sys.stderr)
-    for line in phases_lib.format_phase_table([]).splitlines():
-        print(line, file=sys.stderr, flush=True)
-    rows = []
-
-    def stream(row):
-        rows.append(row)
-        print(phases_lib.format_phase_table(rows).splitlines()[-1],
-              file=sys.stderr, flush=True)
-
-    run_fn(args.n_local, grid, args.device, stream)
+    tables = run_fn(args.n_local, grid, args.device)
+    for title, rows in tables:
+        print(f"{title} (ms a step)", file=sys.stderr)
+        print(phases_lib.format_phase_table(rows), file=sys.stderr,
+              flush=True)
     out_json = os.environ.get("KNOCKOUT_JSON")
     if out_json:
+        rows = tables[0][1]
         with open(out_json, "w") as f:
             json.dump([r._asdict() for r in rows], f, indent=1)
         print(f"wrote {out_json} ({len(rows)} phase rows)", file=sys.stderr)
@@ -181,18 +205,17 @@ def _shapes_line(grid, n):
     V = int(np.prod(grid))
     C, M = sizing(grid, n)
     return (f"shapes: V={V} n={n} C={C} M={M} (plan rows/vrank), "
-            f"~{int(V * n * FILL * MIGRATION)} migrants/step")
+            f"~{int(V * n * FILL * MIGRATION)} migrants/step, {STEPS} steps")
 
 
 def main(argv=None) -> int:
-    phases = [int(x) for x in
-              os.environ.get("KNOCKOUT_PHASES", "1,2,3,4,5,6,7,8").split(",")]
     return cli(
         argv, "mpi_grid_redistribute_tpu_torch.bench.knockout_stages",
-        "Knockout attribution of the planar vrank migrate step (env "
-        "KNOCKOUT_GRID, KNOCKOUT_PHASES, KNOCKOUT_JSON).", 2**20,
-        lambda n, grid, device, progress: run(
-            n, grid, phases, device=device, progress=progress),
+        "Span tables of the vrank migrate loop, the sparse engine's and "
+        "the dense step's (env KNOCKOUT_GRID, KNOCKOUT_JSON).", 2**20,
+        lambda n, grid, device: [
+            (f"engine={e}", run(n, grid, e, device=device))
+            for e in ENGINES],
         _shapes_line)
 
 

@@ -113,20 +113,6 @@ def _row_major_strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
     return tuple(reversed(strides))
 
 
-# the scan deposit's phases, the reference knockout's numbering
-# (bench/knockout_deposit.py cuts the deposit after each); its spans
-# "dep:keys", "dep:sort", "dep:bounds", "dep:prefix" and "dep:place"
-# (phases 5 and 6) cover every operation it launches
-DEPOSIT_PHASES = (
-    "1 keys",
-    "2 payload sort",
-    "3 bounds",
-    "4 channel prefixes (kernel 5)",
-    "5 boundary gathers + differences",
-    "6 placement + ghost fold",
-)
-
-
 def _payload_route(device: torch.device, n: int, D: int, tile: int,
                    plain: bool) -> str:
     """How the scan deposit sorts its payload and feeds kernel 5:
@@ -145,7 +131,7 @@ def _payload_route(device: torch.device, n: int, D: int, tile: int,
 def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
                                local_shape, tile: int,
                                channel_group: int = None,
-                               plain: bool = False, _stop_after: int = None):
+                               plain: bool = False):
     """Scan-deposit core: stable sort by segment key, double-float prefix
     of the corner-weight channels, differences at the segment bounds.
 
@@ -160,9 +146,7 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
     that ``dfscan.cic_tile_prefix_rows`` reads (one fused kernel 5 launch
     a group); otherwise ``torch.sort`` and a gather of the planar payload
     into ``dfscan.cic_tile_prefix`` (its plain version on the CPU or when
-    ``plain``). Both give the same bits. ``_stop_after`` (2, 3 or 4;
-    internal, the knockout's cut) returns the tensors the deposit holds
-    after that phase instead."""
+    ``plain``). Both give the same bits."""
     n = key.shape[0]
     D = rel_rows.shape[0]
     K = max(1, min(tile, n))
@@ -176,14 +160,10 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
             keys_sorted, order = torch.sort(key, stable=True)
             payload = torch.cat([rel_rows, mass[None, :]], dim=0)
             payload_s = torch.index_select(payload, 1, order)
-    if _stop_after == 2:
-        return keys_sorted, payload_s[:D], payload_s[D]
     nch = 1 << D
     n_pad = -(-n // K) * K
     with span("dep:bounds"):
         bounds = binning.bounds_dense(keys_sorted, n_segments + 1)
-        if _stop_after == 3:
-            return bounds, dfscan.cic_frac(payload_s[:D], local_shape)
         t_idx = (bounds // K).long()
         has_local = (bounds % K > 0)[None, :]
         lb = (bounds - 1).clamp(0, n_pad - 1).long()
@@ -198,7 +178,7 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
         def prefix(c0, g):
             return planar(payload_s, local_shape, c0, g, K)
 
-    def per_group(c0, upto=None):
+    def per_group(c0):
         g = min(cg, nch - c0)
         with span("dep:prefix"):
             # within-tile prefixes of the group's corner channels, hi rows
@@ -207,8 +187,6 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
             tiles = l_pack.view(2 * g, n_pad // K, K)
             thi, tlo = _df_cumsum(tiles[:g, :, -1], axis=1,
                                   x_lo=tiles[g:, :, -1])
-        if upto == 4:
-            return tiles[:g], tiles[g:], thi, tlo
         with span("dep:place"):
             zg = torch.zeros((g, 1), dtype=_F32, device=l_pack.device)
             s_hi = torch.cat([zg, thi], dim=1)  # exclusive tile prefixes
@@ -225,9 +203,6 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
             return ((g_hi[:, 1:] - g_hi[:, :-1])
                     + (g_lo[:, 1:] - g_lo[:, :-1]))
 
-    if _stop_after == 4:
-        return tuple(t for c0 in range(0, nch, cg)
-                     for t in per_group(c0, 4))
     if cg >= nch:
         return per_group(0)
     groups = [per_group(c0) for c0 in range(0, nch, cg)]
@@ -250,18 +225,11 @@ def _place_corners(total: torch.Tensor, per_cell: torch.Tensor,
 
 def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
                               vblock: Tuple[int, ...], tile: int = 256,
-                              plain: bool = False, _stop_after: int = None):
+                              plain: bool = False):
     """Planar batched scan deposit of V slabs: ``pos_rows [D, V * n]``
     (vrank ``v`` owns columns ``[v*n, (v+1)*n)``), ``mass``/``valid``
     ``[V * n]``, ``lo_local [V, D]`` and ``inv_h [D]`` float32 tensors.
-    Returns per-vrank ghost blocks ``[V, *(vblock + 1)]``.
-
-    ``_stop_after`` (internal; ``bench/knockout_deposit.py``'s cut)
-    returns after phase 1 to 5 of :data:`DEPOSIT_PHASES` the tensors the
-    deposit holds there; ``None`` runs it whole."""
-    if _stop_after not in (None, 1, 2, 3, 4, 5):
-        raise ValueError(f"_stop_after must be 1 to 5 or None, got "
-                         f"{_stop_after}")
+    Returns per-vrank ghost blocks ``[V, *(vblock + 1)]``."""
     D, m = pos_rows.shape
     V = lo_local.shape[0]
     n = m // V
@@ -288,18 +256,13 @@ def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
                           V * n_cells).to(_I32)
         mass_z = torch.where(valid, mass, 0.0)
         rel_rows = torch.stack(rel, dim=0)
-    if _stop_after == 1:
-        return key, rel_rows, mass_z
     # above ~16M rows, process corner channels two at a time to bound the
     # double-float prefix temporaries, as the reference does
     cg = 2 if m > (1 << 24) else None
     per_cell = _sorted_per_segment_planar(
         key.reshape(-1), rel_rows, mass_z, V * n_cells,
         vblock, tile, channel_group=cg, plain=plain,
-        _stop_after=None if _stop_after == 5 else _stop_after,
     )  # [2^D, V * n_cells]
-    if _stop_after is not None:
-        return per_cell
     with span("dep:place"):
         per_cell = per_cell.reshape((per_cell.shape[0], V) + tuple(vblock))
         ghost = tuple(b + 1 for b in vblock)
@@ -310,16 +273,15 @@ def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
 
 def cic_deposit_device_planar(pos_rows, mass, valid, dev_lo, inv_h,
                               dev_block: Tuple[int, ...], tile: int = 256,
-                              plain: bool = False, _stop_after: int = None):
+                              plain: bool = False):
     """Planar scan deposit keyed by DEVICE-local cell: the vrank core at
     ``V = 1``. ``pos_rows [D, n]``, ``mass``/``valid`` ``[n]``, ``dev_lo
-    [D]``. Returns the +1-ghost device mesh ``[*(dev_block + 1)]``
-    (``_stop_after``: :func:`cic_deposit_vranks_planar`'s cut)."""
+    [D]``. Returns the +1-ghost device mesh ``[*(dev_block + 1)]``."""
     out = cic_deposit_vranks_planar(
         pos_rows, mass, valid, dev_lo[None, :], inv_h, dev_block,
-        tile=tile, plain=plain, _stop_after=_stop_after,
+        tile=tile, plain=plain,
     )
-    return out[0] if _stop_after is None else out
+    return out[0]
 
 
 def _device_keys_planar(pos_rows, valid, dev_lo, inv_h, dev_block):

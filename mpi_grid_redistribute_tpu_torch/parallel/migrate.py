@@ -398,16 +398,14 @@ def _grant_tables(counts, starts, n_free, M: int):
 
 
 def _land(flat, free_stack, n_free, vacated, arr_cols, n_sent, n_in,
-          impl: str, plain: bool, stop_after: int = None):
+          impl: str, plain: bool):
     """Land every vrank's arrivals with ONE scatter and update the free
     stack. ``vacated`` ``[V, P]`` is the vacated-slot plan (the leavers in
     send order), ``arr_cols`` ``[K, V, P]`` the gathered arrival columns.
     Per vrank, arrival ``k`` fills vacated slot ``k`` while both last,
     then popped holes; vacated slots past the arrivals get zero columns
     (holes, alive row 0) and are pushed on the stack. Returns ``(flat,
-    free_stack, n_free)``, all updated in place where they can be.
-    ``stop_after`` 6 returns after the landing plan, 7 after the scatter
-    (the knockout phases of the dense step)."""
+    free_stack, n_free)``, all updated in place where they can be."""
     V, n = free_stack.shape
     K = flat.shape[0]
     P = vacated.shape[1]
@@ -438,13 +436,9 @@ def _land(flat, free_stack, n_free, vacated, arr_cols, n_sent, n_in,
     cols = torch.where(
         (k_idx < ni)[None], arr_cols, torch.zeros_like(arr_cols)
     )
-    if stop_after == 6:
-        return flat, free_stack, n_free
     flat = _land_scatter(
         flat, gtargets.reshape(-1), cols.reshape(K, V * P), impl, plain
     )
-    if stop_after == 7:
-        return flat, free_stack, n_free
     n_push = (n_sent - n_in).clamp_min(0)
     free_stack, n_free = _stack_push_pop(
         free_stack, n_free, n_pop, n_push, vacated, n_in
@@ -744,17 +738,9 @@ def shard_migrate_vranks_fn(
         recv = col.all_to_all(send.permute(2, 1, 3, 0, 4).contiguous(), mesh)
         return recv.permute(2, 3, 0, 1, 4).reshape(V, K, Dev * V * C)
 
-    def _step(flat, free_stack, n_free, dest_key, stop_after=None):
-        """One dense step, O(residents). ``stop_after`` (one device only)
-        returns ``(state, None)`` after knockout phase 2 (the sort and
-        counts), 3 (the grant tables and cycle rescue), 4 (the
-        vacated-slot plan), 5 (the arrival gather), 6 (the landing plan)
-        or 7 (the landing scatter); phase 8 is the whole step."""
+    def _step(flat, free_stack, n_free, dest_key):
+        """One dense step, O(residents)."""
         dev = flat.device
-
-        def cut():
-            return MigrateState(flat, free_stack, n_free), None
-
         K = flat.shape[0]
         n = flat.shape[1] // V
         my_v = torch.arange(V, dtype=_I32, device=dev)
@@ -762,8 +748,6 @@ def shard_migrate_vranks_fn(
             order, counts, bounds = binning.sorted_dest_counts_batched(
                 dest_key, R_total
             )  # [V, n], [V, R_total], [V, R_total + 1]
-        if stop_after == 2:
-            return cut()
         leavers = counts.sum(dim=1, dtype=_I32)
         loc_counts = counts[:, loc0:loc0 + V]
         loc_starts = bounds[:, loc0:loc0 + V]
@@ -794,8 +778,6 @@ def shard_migrate_vranks_fn(
             sent_remote = rem_sent.sum(dim=1, dtype=_I32)
         n_in = allowed.sum(dim=0, dtype=_I32)
         n_sent = allowed.sum(dim=1, dtype=_I32) + sent_remote
-        if stop_after == 3:
-            return cut()
         if Dev > 1:
             with span("mig:exchange"):
                 pools = _remote_send(flat, order, bounds, rem_sent)
@@ -805,8 +787,6 @@ def shard_migrate_vranks_fn(
                 torch.cat([allowed, rem_sent], dim=1), order, P)
         else:
             vacated, _ = _plan_rows_batched(loc_starts, allowed, order, P)
-        if stop_after == 4:
-            return cut()
         with span("mig:pack"):
             # dst w reads source s's sorted space at segment (s -> w)
             arr_src, _ = _plan_rows_batched(
@@ -816,15 +796,11 @@ def shard_migrate_vranks_fn(
             if P > M:
                 arr_cols = torch.cat([arr_cols, torch.zeros(
                     (K, V, P - M), dtype=arr_cols.dtype, device=dev)], dim=2)
-        if stop_after == 5:
-            return cut()
         with span("mig:unpack"):
             flat, free_stack, n_free = _land(
                 flat, free_stack, n_free, vacated, arr_cols, n_sent, n_in,
-                impl, plain, stop_after,
+                impl, plain,
             )
-            if stop_after in (6, 7):
-                return cut()
             dropped_recv = zeros
             if Dev > 1:
                 # arrivals from other devices pop holes, after the local
@@ -850,15 +826,8 @@ def shard_migrate_vranks_fn(
         )
         return MigrateState(flat, free_stack, n_free), stats
 
-    def fn(state: MigrateState, dest_key: torch.Tensor = None,
-           _stop_after: int = None):
-        # _stop_after: the knockout cut (bench/knockout_stages.py) of the
-        # dense step on one device; 1 returns before any step work
+    def fn(state: MigrateState, dest_key: torch.Tensor = None):
         flat, free_stack, n_free = state
-        if _stop_after is not None and (Dev > 1 or mover_cap is not None):
-            raise ValueError("_stop_after cuts the one-device dense step")
-        if _stop_after == 1:
-            return state, None
         dev = flat.device
         n = flat.shape[1] // V
         if dest_key is None:
@@ -881,8 +850,7 @@ def shard_migrate_vranks_fn(
             if not binning.sparse_select_feasible(n, V, chunk=chunk, cap=cap):
                 B = None
         if B is None:
-            out, stats = _step(flat, free_stack, n_free, dest_key,
-                               _stop_after)
+            out, stats = _step(flat, free_stack, n_free, dest_key)
             if mover_cap is not None:
                 stats = stats._replace(
                     fast_path=torch.zeros((V,), dtype=_I32, device=dev)

@@ -1,11 +1,13 @@
-"""Phase attribution by cumulative truncation, and profiler spans (the
-port's copy of the JAX package's ``telemetry/phases.py``).
+"""Phase attribution from the program's own spans, and the spans (the
+port's counterpart of the JAX package's ``telemetry/phases.py``).
 
-:func:`attribute_phases` times the step truncated after each phase with
-the length-differenced protocol of
-:func:`..utils.profiling.time_per_step_samples` (CUDA events on the
-card), and reads each phase's cost off the deltas, optionally against a
-logical-bytes roofline; :func:`format_phase_table` prints the table.
+:func:`attribute_phases` runs a whole, uncut loop once under
+``torch.profiler`` and charges each device operation (on the CPU, each
+host op) to the innermost listed span open when it was launched; what
+the enclosing span launched outside the listed ones is the ``"rest"``
+row, so a table adds up to the whole by construction. Each row can be
+held against a logical-bytes roofline; :func:`format_phase_table` prints
+the table.
 
 :func:`span` and :func:`traced_span` label regions for
 ``torch.profiler`` traces (``record_function`` ranges: they show on the
@@ -23,8 +25,12 @@ trace's reader tells the loop's ranges from device work by them.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
-from typing import Callable, List, NamedTuple, Optional, Sequence
+import json
+import os
+import tempfile
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -95,108 +101,206 @@ def host_read(counter: dict, site: str, flag: torch.Tensor) -> bool:
 
 
 class PhaseTiming(NamedTuple):
-    """One row of an attribution run. ``cumulative_s`` is the truncated
-    step's per-step time; ``delta_s`` the increment over the previous
-    phase (the phase's attributed cost); roofline fields are populated
-    when logical bytes were supplied; ``spread_s`` is how far the
-    reading may be off: the range of the per-step samples
-    ``cumulative_s`` is the least of, plus the range of the short runs
-    they are differenced against, per step."""
+    """One row of a span table, a step's share: ``delta_s`` is the time
+    of the operations charged to the span ``phase`` (or to :data:`REST`),
+    ``cumulative_s`` the running sum of the rows up to this one, so the
+    last row's is the whole step; roofline fields are populated when
+    logical bytes were supplied."""
 
     phase: object
     cumulative_s: float
     delta_s: float
     logical_bytes: Optional[int] = None
     roofline_s: Optional[float] = None
-    spread_s: Optional[float] = None
 
     @property
     def x_roofline(self) -> Optional[float]:
-        """measured delta / roofline time; >>1 flags latency/serialization
+        """measured time / roofline time; >>1 flags latency/serialization
         bound (scatters, sorts), not a bandwidth wall."""
         if not self.roofline_s or self.roofline_s <= 0:
             return None
         return self.delta_s / self.roofline_s
 
 
+# the row of what the enclosing span (or the whole call) launched outside
+# every listed span
+REST = "rest"
+
+# the trace's device operations, and the host calls that launch them
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+class SpanTrace(NamedTuple):
+    """A profiled call, reduced: ``ops`` is ``(t, us)`` of every device
+    operation (on the CPU, every host op not nested in another), ``t``
+    the host time it was launched (began); ``ranges`` is ``(name, start,
+    end)`` of every span, by start. Microseconds on the trace's clock."""
+
+    ops: List[Tuple[float, float]]
+    ranges: List[Tuple[str, float, float]]
+
+    @classmethod
+    def from_chrome(cls, data: dict, device: str) -> "SpanTrace":
+        """On ``"cuda"`` a kernel, copy or set is tied to its launch by
+        its correlation id; elsewhere each outermost host op is one
+        operation."""
+        ranges, launches, dev_ops, host_ops = [], {}, [], []
+        for e in data.get("traceEvents", []):
+            if e.get("ph") != "X":
+                continue
+            cat = e.get("cat", "")
+            ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
+            corr = e.get("args", {}).get("correlation")
+            if cat == "user_annotation":
+                ranges.append((e["name"], ts, ts + dur))
+            elif cat in _DEVICE_CATS and corr is not None:
+                dev_ops.append((int(corr), dur))
+            elif cat in _LAUNCH_CATS and corr is not None:
+                launches[int(corr)] = ts
+            elif cat == "cpu_op":
+                host_ops.append((ts, ts + dur))
+        if device == "cuda":
+            ops = [(launches[c], us) for c, us in dev_ops if c in launches]
+        else:
+            ops, end = [], float("-inf")
+            for s0, e0 in sorted(host_ops):
+                if s0 >= end:  # an op nested in another is the outer's
+                    ops.append((s0, e0 - s0))
+                    end = e0
+        ranges.sort(key=lambda r: r[1])
+        return cls(sorted(ops), ranges)
+
+    def seconds_in(self, name: Optional[str] = None) -> float:
+        """Time of the operations launched inside any span ``name``, at
+        any depth (``None``: every operation of the call)."""
+        if name is None:
+            return sum(us for _, us in self.ops) * 1e-6
+        spans = []
+        for n, s, e in self.ranges:
+            if n != name:
+                continue
+            if spans and s <= spans[-1][1]:
+                spans[-1][1] = max(spans[-1][1], e)
+            else:
+                spans.append([s, e])
+        starts = [s for s, _ in spans]
+        total = 0.0
+        for t, us in self.ops:
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= spans[i][1]:
+                total += us
+        return total * 1e-6
+
+
+def profile_call(fn: Callable, args, device="cuda"):
+    """``fn(*args)`` once to warm (kernels built, caches filled), then
+    once under ``torch.profiler``; returns ``(out, SpanTrace)`` of the
+    second call. The Chrome trace goes through a temporary file in
+    ``TMPDIR``, deleted once read."""
+    from torch.profiler import ProfilerActivity
+
+    dev = torch.device(device)
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    warm = fn(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    del warm  # large outputs must not pile up
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            data = json.load(f)
+    finally:
+        os.unlink(path)
+    return out, SpanTrace.from_chrome(data, dev.type)
+
+
+def phase_rows(trace: SpanTrace, spans: Sequence[str], *,
+               whole: Optional[str] = None, steps: int = 1,
+               phase_bytes: Optional[dict] = None,
+               peak_bytes_per_sec: float = profiling.HBM_PEAK_BYTES_PER_SEC,
+               ) -> List[PhaseTiming]:
+    """The span table of ``trace``: one row per name of ``spans``, then
+    :data:`REST`, each a step's share (the call's time over ``steps``).
+
+    An operation goes to the innermost listed span open when it was
+    launched, wherever that span is; one inside no listed span goes to
+    the rest if it was launched inside a ``whole`` span (``None``: the
+    whole call), and is left out otherwise. ``phase_bytes`` (``{row:
+    logical_bytes}``, the least traffic a row's math implies a step)
+    fills the roofline columns."""
+    listed = [r for r in trace.ranges if r[0] in spans]
+    starts = [s for _, s, _ in listed]
+    outer = [(s, e) for n, s, e in trace.ranges if n == whole]
+    outer_starts = [s for s, _ in outer]
+    us = dict.fromkeys(list(spans) + [REST], 0.0)
+    for t, d in trace.ops:
+        # the latest-starting listed span still open at t is the
+        # innermost: spans nest on the launching thread
+        for j in range(bisect.bisect_right(starts, t) - 1, -1, -1):
+            if t <= listed[j][2]:
+                us[listed[j][0]] += d
+                break
+        else:
+            i = bisect.bisect_right(outer_starts, t) - 1
+            if whole is None or (i >= 0 and t <= outer[i][1]):
+                us[REST] += d
+    rows, cum = [], 0.0
+    for name, total in us.items():
+        sec = total * 1e-6 / steps
+        cum += sec
+        lb = None if phase_bytes is None else phase_bytes.get(name)
+        roof = None if lb is None else lb / peak_bytes_per_sec
+        rows.append(PhaseTiming(name, cum, sec, lb, roof))
+    return rows
+
+
 def attribute_phases(
-    loop_builder: Callable[[object, int], Callable],
+    loop: Callable,
     args,
-    phases: Sequence,
+    spans: Sequence[str],
     *,
-    s1: int = 4,
-    s2: int = 16,
-    reps: int = 2,
+    whole: Optional[str] = None,
+    steps: int = 1,
     phase_bytes: Optional[dict] = None,
     peak_bytes_per_sec: float = profiling.HBM_PEAK_BYTES_PER_SEC,
-    progress: Optional[Callable[[PhaseTiming], None]] = None,
     device="cuda",
 ) -> List[PhaseTiming]:
-    """Attribute a step's time to its phases by cumulative truncation.
-
-    Args:
-      loop_builder: ``loop_builder(phase, S)`` returns a callable running
-        ``S`` steps of the pipeline truncated after ``phase`` (phases are
-        caller-defined tokens); each truncation must keep its last
-        phase's output alive so the work is not skipped.
-      args: loop inputs, passed to the built loops.
-      phases: ordered phase tokens; ``phases[i]``'s cost is
-        ``cumulative[i] - cumulative[i-1]`` (the first row's delta is
-        its cumulative time).
-      s1/s2/reps: the differencing protocol's knobs
-        (:func:`..utils.profiling.time_per_step_samples`).
-      phase_bytes: optional ``{phase: logical_bytes}``, the least traffic
-        each phase's math implies; fills the roofline columns.
-      peak_bytes_per_sec: the roofline's denominator (the H100's HBM3
-        by default).
-      progress: optional callback with each finished row.
-      device: where the loops run (CUDA events on the card, the host's
-        clock on the CPU).
-
-    Returns one :class:`PhaseTiming` per phase, in order.
-    """
-    out: List[PhaseTiming] = []
-    prev = None
-    for phase in phases:
-        # a cut step can cost less than the noise (a toy size on the
-        # CPU): its readings are kept as they are, and the table marks a
-        # delta that does not add up
-        detail, _last = profiling.time_per_step_samples(
-            lambda S, phase=phase: (
-                lambda fn=loop_builder(phase, S): fn(*args)),
-            s1=s1, s2=s2, reps=reps, device=device, require_positive=False,
-        )
-        del _last  # large outputs must not pile up across phases
-        per_step = detail["min"]
-        delta = per_step if prev is None else per_step - prev
-        lb = None if phase_bytes is None else phase_bytes.get(phase)
-        roof = None if lb is None else lb / peak_bytes_per_sec
-        row = PhaseTiming(phase, per_step, delta, lb, roof,
-                          detail["max"] - detail["min"]
-                          + detail["base_spread"])
-        out.append(row)
-        if progress is not None:
-            progress(row)
-        prev = per_step
-    return out
+    """Attribute a step's time to the program's spans: ``loop(*args)``
+    runs ``steps`` whole steps; after a warm call one call is profiled
+    (:func:`profile_call`) and read by :func:`phase_rows` (``whole``,
+    ``phase_bytes``, ``peak_bytes_per_sec`` as there). Device time on
+    the card, the host ops' time on the CPU. Returns one
+    :class:`PhaseTiming` per span and one for :data:`REST`, in order."""
+    _, trace = profile_call(loop, args, device)
+    return phase_rows(trace, spans, whole=whole, steps=steps,
+                      phase_bytes=phase_bytes,
+                      peak_bytes_per_sec=peak_bytes_per_sec)
 
 
 def format_phase_table(timings: Sequence[PhaseTiming]) -> str:
-    """Markdown phase table (the BENCH_CONFIGS.md format): cumulative
-    ms, delta ms, logical MB, roofline ms, x-roofline."""
+    """Markdown span table: ms a step, the running sum, logical MB,
+    roofline ms, x-roofline."""
     lines = [
-        "| phase (cumulative) | ms | delta | logical MB | roofline ms "
+        "| span | ms | cumulative | logical MB | roofline ms "
         "| x-roofline |",
         "|---|---|---|---|---|---|",
     ]
-    for i, t in enumerate(timings):
+    for t in timings:
         mb = "—" if t.logical_bytes is None else f"{t.logical_bytes/1e6:8.1f}"
         roof = "—" if t.roofline_s is None else f"{t.roofline_s*1e3:6.2f}"
         xr = t.x_roofline
         xcol = "—" if xr is None else f"{xr:6.1f}"
-        delta = "(first)" if i == 0 else f"{t.delta_s*1e3:+7.2f}"
         lines.append(
-            f"| {t.phase} | {t.cumulative_s*1e3:7.2f} | {delta} | {mb} "
-            f"| {roof} | {xcol} |"
+            f"| {t.phase} | {t.delta_s*1e3:7.3f} | {t.cumulative_s*1e3:7.3f} "
+            f"| {mb} | {roof} | {xcol} |"
         )
     return "\n".join(lines)

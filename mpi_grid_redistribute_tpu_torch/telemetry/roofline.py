@@ -1,7 +1,7 @@
 """Rooflines from counted costs (the port's copy of the JAX package's
 ``telemetry/roofline.py``).
 
-The knockout tables (``telemetry/phases.py``) attribute MEASURED time;
+The span tables (``telemetry/phases.py``) attribute MEASURED time;
 this module supplies what the program SHOULD cost. The reference reads
 XLA's cost model (``Compiled.cost_analysis()``); PyTorch has none, so
 :func:`count_cost` runs the program once and COUNTS its bytes, flops and

@@ -20,7 +20,7 @@ Three track families:
   the latest preceding same-trace cause event, so the UI draws the
   arrow from the step that burned the budget to the alert it tripped.
 * **Phase spans** (pid 1): :class:`~.phases.PhaseTiming` rows (the
-  knockout / ``attribute_phases`` output) become duration events
+  span tables' / ``attribute_phases`` output) become duration events
   (``ph="X"``) laid end to end — each phase's span length is its
   attributed ``delta_s``, so the lane reads as one step's time budget.
 * **Migrate counters** (pid 2): ``migrate_step`` journal events become

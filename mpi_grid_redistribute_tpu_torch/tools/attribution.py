@@ -1,5 +1,5 @@
-"""Continuous attribution on the port: the knockout phase tables and the
-counted rooflines, one CLI (the twin of the JAX package's
+"""Continuous attribution on the port: the span tables and the counted
+rooflines, one CLI (the counterpart of the JAX package's
 ``scripts/attribution.py``).
 
 The committed snapshot (``telemetry/attribution_baseline.json``) is the
@@ -15,11 +15,14 @@ markers, and a structural gate keeps the two in step.
         --check [--format=sarif|json|github]
 
 * ``--update-baseline`` RE-MEASURES on the card (``--device``; default
-  the GPU): the three knockouts (``bench/knockout_stages.py``, the
-  migrate step, and ``bench/knockout_pipeline.py``, the pipelined step,
-  at both committed shapes on grid (2, 2, 2); ``bench/knockout_deposit.
-  py``, the scan deposit, at (4, 4, 4) and (2, 2, 2) x 2^20 rows), and
-  the roofline report
+  the GPU): the span tables, each read from the program's own spans in
+  one profiled run of the whole loop (``bench/knockout_stages.py``, the
+  migrate loop with the sparse engine the cells run, ``migrate``, and
+  with the dense step, ``migrate_planar``, and
+  ``bench/knockout_pipeline.py``, the pipelined step, at both committed
+  shapes on grid (2, 2, 2); ``bench/knockout_deposit.py``, the scan
+  deposit, at (4, 4, 4) and (2, 2, 2) x 2^20 rows), and the roofline
+  report
   (``telemetry.roofline.roofline_report``: every registered program
   counted, the vrank and macro-step programs timed) at the registry's
   width (``roofline``) and at ``n_local`` 2^20 for the one-device
@@ -27,17 +30,15 @@ markers, and a structural gate keeps the two in step.
   written beside them (``device``). A row whose ``achieved_fraction``
   exceeds ``roofline.ACHIEVED_FRACTION_MAX`` (1.05) means a count too
   high: the snapshot is not written and the command exits 1. With
-  ``--engines deposit`` (any of the knockouts) only those tables are
+  ``--engines deposit`` (any of the tables) only those tables are
   re-measured and merged into the snapshot, each with its card.
 * ``--render`` regenerates the ``PERF.md`` tables from the snapshot:
-  each cumulative reading with its spread (the range of its samples),
-  and a negative delta larger than the two readings' spreads marked
-  ``non-monotone`` (the cut step read slower than the longer one: no
-  attribution).
+  each span's ms a step and its share, and the total the rows add up
+  to.
 * ``--check`` NEVER re-measures (timings depend on the card): A001 the
-  snapshot exists, names its card, and its phase names match the live
-  knockout definitions; A002 the rendered ``PERF.md`` tables match the
-  snapshot byte for byte; A003 the roofline section covers every
+  snapshot exists, names its card, and its row names are the spans the
+  live scripts read (and ``rest``); A002 the rendered ``PERF.md`` tables
+  match the snapshot byte for byte; A003 the roofline section covers every
   registered program and nothing else, and no measured row is above
   1.05. Exit 0 clean, 1 findings, 2 usage error. A checkout of the
   program files alone holds no ``PERF.md``: there A002 has no table to
@@ -69,26 +70,15 @@ GRID = "2,2,2"
 SHAPES = (4096, 65536)
 WIDE_N_LOCAL = 2**20
 
-STAGE_LABELS = {
-    1: "1 drift + wrap + bin",
-    2: "2 stable key sort + counts",
-    3: "3 local allocation fixpoint",
-    4: "4 vacated-slot plan",
-    5: "5 arrival gather",
-    6: "6 landing plan",
-    7: "7 landing (overlay)",
-    8: "8 free-stack update (**full step**)",
-}
-
-ENGINES = ("migrate", "pipeline", "deposit")
-# the deposit knockout's shapes: (vrank grid, rows a vrank), the
+ENGINES = ("migrate", "migrate_planar", "pipeline", "deposit")
+# the deposit table's shapes: (vrank grid, rows a vrank), the
 # reference's default and config 5's
 DEPOSIT_SHAPES = (("4,4,4", 2**20), ("2,2,2", 2**20))
 ROOFLINE_SECTIONS = ("roofline", "roofline_wide")
 
 RULE_DOCS = {
     "A001": "committed attribution snapshot must exist, name its card, "
-    "and its phase names/counts must match the live knockout definitions",
+    "and its row names must be the spans the live span tables read",
     "A002": "PERF.md rendered phase and roofline tables must match the "
     "committed snapshot (run tools.attribution --render)",
     "A003": "the snapshot's roofline section must cover every "
@@ -99,19 +89,23 @@ _BASELINE_REL = os.path.relpath(attribution_baseline_path(), REPO)
 
 
 def _live_phases(engine):
-    """The knockout's phase tokens, from its module, so this gate cannot
-    drift from what the measurement cuts."""
-    if engine == "migrate":
-        from mpi_grid_redistribute_tpu_torch.bench import knockout_stages
+    """The table's rows: the spans its script reads, then ``rest``, from
+    the script's module, so this gate cannot drift from what the
+    measurement reads."""
+    from mpi_grid_redistribute_tpu_torch.bench import (
+        knockout_deposit,
+        knockout_pipeline,
+        knockout_stages,
+    )
+    from mpi_grid_redistribute_tpu_torch.telemetry.phases import REST
 
-        return list(knockout_stages.PHASES)
-    if engine == "deposit":
-        from mpi_grid_redistribute_tpu_torch.bench import knockout_deposit
-
-        return list(knockout_deposit.PHASES)
-    from mpi_grid_redistribute_tpu_torch.bench import knockout_pipeline
-
-    return list(knockout_pipeline.PHASES)
+    spans = {
+        "migrate": knockout_stages.spans_of("auto"),
+        "migrate_planar": knockout_stages.spans_of("planar"),
+        "deposit": knockout_deposit.PHASES,
+        "pipeline": knockout_pipeline.PHASES,
+    }[engine]
+    return list(spans) + [REST]
 
 
 # ---------------------------------------------------------------------
@@ -119,7 +113,7 @@ def _live_phases(engine):
 # ---------------------------------------------------------------------
 
 
-def _run_knockout(engine, n_local, device, grid_text=GRID):
+def _run_table(engine, n_local, device, grid_text=GRID):
     from mpi_grid_redistribute_tpu_torch.bench import (
         knockout_deposit,
         knockout_pipeline,
@@ -129,8 +123,10 @@ def _run_knockout(engine, n_local, device, grid_text=GRID):
     grid = tuple(int(x) for x in grid_text.split(","))
     print(f"attribution: measuring {engine} @ n_local={n_local} (grid "
           f"{grid_text}) ...", file=sys.stderr, flush=True)
-    if engine == "migrate":
-        rows = knockout_stages.run(n_local, grid, device=device)
+    if engine in ("migrate", "migrate_planar"):
+        rows = knockout_stages.run(
+            n_local, grid, "planar" if engine == "migrate_planar" else "auto",
+            device=device)
     elif engine == "deposit":
         rows = knockout_deposit.run(n_local, grid, device=device)
     else:
@@ -143,13 +139,13 @@ def _measure_phase_tables(device, engines=ENGINES):
     for engine in engines:
         if engine == "deposit":
             shapes = {f"{g}x{n}": {"grid": g, "n": n,
-                                   "rows": _run_knockout(engine, n, device, g)}
+                                   "rows": _run_table(engine, n, device, g)}
                       for g, n in DEPOSIT_SHAPES}
             tables[engine] = {"grid": None, "phases": _live_phases(engine),
                               "shapes": shapes,
                               "device": _device_label(device)}
             continue
-        shapes = {str(n): {"rows": _run_knockout(engine, n, device)}
+        shapes = {str(n): {"rows": _run_table(engine, n, device)}
                   for n in SHAPES}
         tables[engine] = {"grid": GRID, "phases": _live_phases(engine),
                           "shapes": shapes}
@@ -218,37 +214,12 @@ def _shape_label(grid, n):
 
 
 def _fmt_ms(seconds, bold=False):
-    s = f"{seconds * 1e3:.2f}"
+    s = f"{seconds * 1e3:.3f}"
     return f"**{s}**" if bold else s
 
 
-def _fmt_spread(seconds):
-    return "—" if seconds is None else f"{seconds * 1e3:.2f}"
-
-
-def non_monotone(rows, i) -> bool:
-    """Row ``i``'s delta is negative by more than the spreads of the two
-    readings it is the difference of: no attribution."""
-    if i == 0:
-        return False
-    a, b = rows[i - 1].get("spread_s"), rows[i].get("spread_s")
-    if a is None or b is None:
-        return False
-    return -rows[i]["delta_s"] > a + b
-
-
-def _fmt_delta(rows, i):
-    if i == 0:
-        return "(first)"
-    ms = rows[i]["delta_s"] * 1e3
-    text = f"+{ms:.2f}" if ms >= 0 else f"−{-ms:.2f}"
-    return text + " non-monotone" if non_monotone(rows, i) else text
-
-
-def _row_label(engine, phase, last):
-    if engine == "migrate":
-        return STAGE_LABELS.get(phase, str(phase))
-    return f"{phase} (**full**)" if last else str(phase)
+def _fmt_share(part, whole):
+    return "—" if whole <= 0 else f"{100 * part / whole:.1f}%"
 
 
 def _shapes(table):
@@ -265,25 +236,30 @@ def _shapes(table):
     return [(key, grid, n) for _, key, grid, n in sorted(out)]
 
 
-def render_table(engine, table):
-    """Deterministic markdown for one engine's committed phase table."""
+def render_table(table):
+    """Deterministic markdown for one committed span table: each
+    row's ms a step and its share of the step, then the total the rows
+    add up to."""
     shapes = _shapes(table)
-    header = "| phase (cumulative) |"
+    header = "| span |"
     rule = "|---|"
     for _, grid, n in shapes:
-        header += f" {_shape_label(grid, n)} ms | ± | delta |"
-        rule += "---|---|---|"
+        header += f" {_shape_label(grid, n)} ms | share |"
+        rule += "---|---|"
     lines = [header, rule]
-    phases = table["phases"]
-    for i, phase in enumerate(phases):
-        last = i == len(phases) - 1
-        cells = [_row_label(engine, phase, last)]
+    totals = {key: sum(r["delta_s"] for r in table["shapes"][key]["rows"])
+              for key, _, _ in shapes}
+    for i, phase in enumerate(table["phases"]):
+        cells = [str(phase)]
         for key, _, _ in shapes:
-            rows = table["shapes"][key]["rows"]
-            cells.append(_fmt_ms(rows[i]["cumulative_s"], bold=last))
-            cells.append(_fmt_spread(rows[i].get("spread_s")))
-            cells.append(_fmt_delta(rows, i))
+            row = table["shapes"][key]["rows"][i]
+            cells.append(_fmt_ms(row["delta_s"]))
+            cells.append(_fmt_share(row["delta_s"], totals[key]))
         lines.append("| " + " | ".join(cells) + " |")
+    cells = ["**total**"]
+    for key, _, _ in shapes:
+        cells += [_fmt_ms(totals[key], bold=True), "100%"]
+    lines.append("| " + " | ".join(cells) + " |")
     return "\n".join(lines)
 
 
@@ -297,7 +273,7 @@ def _rendered(doc):
     tables = doc.get("phase_tables") or {}
     for engine in ENGINES:
         if engine in tables:
-            out[engine] = render_table(engine, tables[engine])
+            out[engine] = render_table(tables[engine])
     for section in ROOFLINE_SECTIONS:
         if doc.get(section):
             out[section] = format_roofline_table(doc[section])
@@ -380,15 +356,15 @@ def check_findings(doc=None, perf_md=PERF_MD):
         if committed != live:
             fail("A001", _BASELINE_REL,
                  f"phase_tables[{engine!r}].phases {committed!r} != the "
-                 f"live knockout definition {live!r} — the step's phase "
-                 "structure changed; run --update-baseline")
+                 f"spans the live table reads {live!r} — run "
+                 "--update-baseline")
             continue
         for n, shape in sorted((table.get("shapes") or {}).items()):
             got = [r.get("phase") for r in shape.get("rows", [])]
             if got != live:
                 fail("A001", _BASELINE_REL,
                      f"phase_tables[{engine!r}] shape {n}: measured row "
-                     f"phases {got!r} != the live knockout definition "
+                     f"phases {got!r} != the spans the live table reads "
                      f"{live!r} — run --update-baseline")
 
     from mpi_grid_redistribute_tpu_torch.analysis import progcheck
@@ -466,21 +442,10 @@ def _emit(findings, fmt):
             print("attribution: clean")
 
 
-def _flag_non_monotone(tables):
-    for engine, table in tables.items():
-        for n, shape in table["shapes"].items():
-            flagged = [r["phase"] for i, r in enumerate(shape["rows"])
-                       if non_monotone(shape["rows"], i)]
-            if flagged:
-                print(f"attribution: {engine} at {n}: non-monotone phases "
-                      f"{flagged} (a negative delta beyond the readings' "
-                      "spread)", file=sys.stderr)
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="mpi_grid_redistribute_tpu_torch.tools.attribution",
-        description="knockout phase tables + counted rooflines: measure, "
+        description="span tables + counted rooflines: measure, "
         "render, and gate the committed attribution snapshot")
     p.add_argument("--update-baseline", action="store_true",
                    help="re-measure on the card and rewrite the snapshot")
@@ -493,7 +458,7 @@ def main(argv=None) -> int:
                    help="structural gate (never re-measures)")
     p.add_argument("--engines", default=None, metavar="ENGINE[,ENGINE]",
                    help="with --update-baseline: re-measure only these "
-                   f"knockouts ({', '.join(ENGINES)}) and keep the rest of "
+                   f"tables ({', '.join(ENGINES)}) and keep the rest of "
                    "the snapshot")
     p.add_argument("--format", default="text",
                    choices=("text", "json", "sarif", "github"), dest="fmt")
@@ -511,7 +476,6 @@ def main(argv=None) -> int:
         tables = dict((load_attribution_baseline() or {}).get(
             "phase_tables") or {})
         tables.update(_measure_phase_tables(args.device, engines))
-        _flag_non_monotone(tables)
         write_attribution_baseline(None, phase_tables=tables)
         print(f"attribution: re-measured {', '.join(engines)} into "
               f"{_BASELINE_REL}", file=sys.stderr)
@@ -536,7 +500,6 @@ def main(argv=None) -> int:
                   f"{roofline.ACHIEVED_FRACTION_MAX} (a count too high), "
                   f"the snapshot is not written: {over}", file=sys.stderr)
             return 1
-        _flag_non_monotone(tables)
         write_attribution_baseline(
             None, device=label, phase_tables=tables, roofline=narrow,
             roofline_wide=wide)

@@ -53,10 +53,8 @@ def cuda_time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
     against the best short run.
 
     Returns ``(detail, long_out)``: ``detail`` is ``{min, max, mean,
-    median, spread, k, values}`` of per-step seconds, and
-    ``base_spread``, the range of the short runs per step (what the best
-    short run may be off by); ``long_out`` is the last long run's
-    output."""
+    median, spread, k, values}`` of per-step seconds; ``long_out`` is
+    the last long run's output."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_per_step_samples needs a CUDA device")
     return time_per_step_samples(make_run, s1, s2, reps, device="cuda")
@@ -69,14 +67,13 @@ MAX_EXTRA_ROUNDS = 8
 
 def time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
                           s1: int = 2, s2: int = 10, reps: int = 4,
-                          device="cuda", require_positive: bool = True):
+                          device="cuda"):
     """:func:`cuda_time_per_step_samples` on ``device``: CUDA events on
     the card, the host's clock on the CPU (where the runs are
-    synchronous; the bench scripts' CPU runs in the tests).
-    ``require_positive`` re-times both lengths (at most
-    :data:`MAX_EXTRA_ROUNDS` more rounds of ``reps``) while the best long
-    run is no slower than the best short one, then raises; without it
-    the first readings are returned as they are."""
+    synchronous; the bench scripts' CPU runs in the tests). Both
+    lengths are re-timed (at most :data:`MAX_EXTRA_ROUNDS` more rounds of
+    ``reps``) while the best long run is no slower than the best short
+    one, then it raises."""
     if s2 <= s1 or reps < 1:
         raise ValueError(f"need s2 > s1 and reps >= 1, got {s1}, {s2}, {reps}")
     clock = (_event_seconds if torch.device(device).type == "cuda"
@@ -94,21 +91,20 @@ def time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
 
     times1 = run(s1)[0]
     times2, out2 = run(s2)
-    for _ in range(MAX_EXTRA_ROUNDS if require_positive else 0):
+    for _ in range(MAX_EXTRA_ROUNDS):
         if min(times2) > min(times1):
             break
         out2 = None
         times1 += run(s1)[0]
         more, out2 = run(s2)
         times2 += more
-    if require_positive and min(times2) <= min(times1):
+    if min(times2) <= min(times1):
         raise RuntimeError(
             f"time_per_step_samples: the best {s2}-step run "
             f"({min(times2):.6g} s) was no slower than the best {s1}-step "
             f"run ({min(times1):.6g} s) after {len(times2)} reps: the "
             "difference is noise, not a step; time longer runs")
     t1 = min(times1)
-    base_spread = (max(times1) - t1) / (s2 - s1)
     samples = [(t2 - t1) / (s2 - s1) for t2 in times2]
     lo, hi = min(samples), max(samples)
     detail = {
@@ -119,7 +115,6 @@ def time_per_step_samples(make_run: Callable[[int], Callable[[], object]],
         "spread": (hi - lo) / lo if lo > 0 else 0.0,
         "k": len(samples),
         "values": samples,
-        "base_spread": base_spread,
     }
     return detail, out2
 

@@ -1732,8 +1732,8 @@ def test_planar_step_counts_the_same_on_card_and_cpu(cuda):
     counts = []
     for dev in ("cuda", "cpu"):
         st = knockout_stages.make_state((2, 2, 2), 4096, dev)
-        loop = knockout_stages.loop_builder((2, 2, 2), 4096)(8, 2)
-        counts.append(_count_keys(roofline.count_cost(loop, tuple(st))))
+        loop = knockout_stages.make_loop((2, 2, 2), 4096, 2, "planar", dev)
+        counts.append(_count_keys(roofline.count_cost(loop, st)))
     assert counts[0] == counts[1]
     assert counts[0]["kernels"]["drift_wrap_bin"]["calls"] == 2
     assert counts[0]["kernels"]["overlay_scatter_planar"]["calls"] == 2
@@ -1846,16 +1846,28 @@ def test_kernelcheck_catches_a_write_past_a_tensor_on_the_card(cuda):
 
 
 @pytest.mark.cuda
-def test_deposit_knockout_phase_6_is_the_deposit_on_the_card(cuda):
+def test_deposit_span_table_reads_the_deposit_on_the_card(cuda):
+    """The deposit's span table on the card: one profiled call of two
+    whole deposits, every device operation charged to a row, the rows
+    adding up to the call's device time within 1%, the fused kernel 5
+    launched a channel group each, and the density bit-equal to the
+    plain deposit's."""
     from mpi_grid_redistribute_tpu_torch.bench import knockout_deposit
     from mpi_grid_redistribute_tpu_torch.ops import _build
+    from mpi_grid_redistribute_tpu_torch.telemetry import phases
 
     state = knockout_deposit.make_state((2, 2, 2), 1 << 12, cuda)
-    build = knockout_deposit.loop_builder(mesh_cells=32)
+    loop = knockout_deposit.make_loop(2, mesh_cells=32)
     _build.reset_counts()
-    outs = [build(p, 2)(*state) for p in knockout_deposit.PHASES]
-    torch.cuda.synchronize()
-    assert _build.counts()["tile_df_cumsum_rows"] == 6  # cuts 4, 5, full
-    full, _ = knockout_deposit.deposit_fns(mesh_cells=32, plain=True)
-    want = full(*state)
-    assert torch.equal(outs[-1].view(torch.int32), want.view(torch.int32))
+    out, trace = phases.profile_call(loop, state, "cuda")
+    # the warm call and the profiled one, 2 deposits each, one launch a
+    # deposit (below 2^24 rows all 8 channels are one group)
+    assert _build.counts()["tile_df_cumsum_rows"] == 4
+    rows = phases.phase_rows(trace, knockout_deposit.PHASES, steps=2)
+    assert [r.phase for r in rows] == list(knockout_deposit.PHASES) + [
+        phases.REST]
+    assert all(r.delta_s > 0 for r in rows[:-1])
+    assert sum(r.delta_s for r in rows) == pytest.approx(
+        trace.seconds_in() / 2, rel=0.01)
+    want = knockout_deposit.make_loop(1, mesh_cells=32, plain=True)(*state)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))

@@ -6,7 +6,8 @@ of the key and one ``index_select`` of the packed rows. These tests hold
 that version to the sort the deposit ran before (the planar payload's
 gather), pin the row layout kernel 5 reads, and drive the deposit's
 rows route on the CPU (the route forced, each op on its plain version):
-the same bits as the planar route, at every cut of the knockout. The
+the same bits as the planar route, in the whole deposit and in each
+channel group's intermediates. The
 card's kernel is held to the plain version in ``tests/test_torch_cuda.py``.
 """
 
@@ -158,31 +159,30 @@ def test_rows_route_deposit_is_bit_equal_to_the_planar_route(
     assert torch.equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize("cut", [2, 3, 4, 5])
-def test_rows_route_knockout_cuts_hold_what_the_planar_route_holds(
-        rows_route_on_the_cpu, cut):
-    """``_stop_after`` on the rows route: after the sort (2) the sorted
-    keys, coordinates and masses; after bounds, prefixes and gathers the
-    same tensors as the planar route, bit for bit."""
+@pytest.mark.parametrize("c0", [0, 2, 4, 6])
+def test_rows_route_intermediates_hold_what_the_planar_route_holds(c0):
+    """The rows route's intermediates, one channel group of 2 a case:
+    ``sort_rows`` gives the keys and payload that ``torch.sort`` and a
+    gather of the planar payload give, and ``cic_tile_prefix_rows`` on
+    the sorted rows the pack that ``cic_tile_prefix_plain`` makes of the
+    same sorted payload, bit for bit."""
     vblock = (4, 4, 4)
-    args = _deposit_args(np.random.default_rng(cut), 3, 2, 900, vblock)
-    got = deposit.cic_deposit_vranks_planar(*args, vblock, _stop_after=cut)
-    want = deposit.cic_deposit_vranks_planar(*args, vblock, plain=True,
-                                             _stop_after=cut)
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and g.dtype == w.dtype
-        assert torch.equal(g.contiguous().view(torch.uint8),
-                           w.contiguous().view(torch.uint8))
-    if cut == 2:
-        key, rel, mass = deposit.cic_deposit_vranks_planar(
-            *args, vblock, _stop_after=1)
-        keys_s, order = torch.sort(key.reshape(-1), stable=True)
-        assert torch.equal(got[0], keys_s)
-        assert torch.equal(_bits(got[1]), _bits(rel[:, order]))
-        assert torch.equal(_bits(got[2]), _bits(mass[order]))
+    pos, mass, valid, lo, inv_h = _deposit_args(
+        np.random.default_rng(c0), 3, 1, 900, vblock)
+    key, rel = deposit._device_keys_planar(pos, valid, lo[0], inv_h, vblock)
+    mass = torch.where(valid, mass, 0.0)
+    n_cells = int(np.prod(vblock))
+    keys_s, rows_s = rowsort.sort_rows(key, rel, mass,
+                                       n_cells.bit_length())
+    want_keys, order = torch.sort(key, stable=True)
+    payload_s = torch.cat([rel, mass[None, :]], dim=0)[:, order]
+    assert torch.equal(keys_s, want_keys)
+    assert torch.equal(_bits(rowsort.rows_as_payload(rows_s, 3)),
+                       _bits(payload_s))
+    got = dfscan.cic_tile_prefix_rows(rows_s, vblock, c0, 2, 256)
+    want = dfscan.cic_tile_prefix_plain(payload_s, vblock, c0, 2, 256)
+    assert got.shape == want.shape == (4, 1024)
+    assert torch.equal(_bits(got), _bits(want))
 
 
 def test_cpu_deposit_takes_the_planar_route():

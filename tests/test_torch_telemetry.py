@@ -294,29 +294,41 @@ def test_exchange_report_migrate_stats():
 
 
 def test_attribute_phases_orders_and_rooflines():
-    # phase tokens = extra multiply passes a step
-    def loop_builder(phase, S):
-        def loop(x):
-            for _ in range(S):
-                for _ in range(phase):
+    """Each op goes to the innermost listed span open at its launch: an
+    unlisted span inside a listed one is the listed one's, an op outside
+    every listed span is the rest's, and the rows, a step each, add up
+    to the call."""
+    def loop(x):
+        for _ in range(2):  # 2 steps
+            with span("t:a"):
+                x = x * 1.000001 + 1e-9
+                with span("t:unlisted"):
+                    x = x * 1.000001
+            with span("t:b"):
+                for _ in range(3):
                     x = x * 1.000001 + 1e-9
-            return x
-        return loop
+            x = x + 1e-9  # the rest
+        return x
 
     x = torch.ones((64, 64))
-    pb = {1: 1000, 2: 2000}
-    rows = attribute_phases(loop_builder, (x,), [1, 2], s1=2, s2=6, reps=1,
+    pb = {"t:a": 1000, "t:b": 2000}
+    rows = attribute_phases(loop, (x,), ["t:a", "t:b"], steps=2,
                             phase_bytes=pb, device="cpu")
-    assert [r.phase for r in rows] == [1, 2]
-    assert rows[0].delta_s == rows[0].cumulative_s
-    assert rows[1].delta_s == pytest.approx(
-        rows[1].cumulative_s - rows[0].cumulative_s)
+    assert [r.phase for r in rows] == ["t:a", "t:b", "rest"]
+    assert all(r.delta_s > 0 for r in rows)
+    assert rows[1].cumulative_s == pytest.approx(
+        rows[0].delta_s + rows[1].delta_s)
     assert rows[0].logical_bytes == 1000
     assert rows[0].roofline_s == pytest.approx(1000 / HBM)
+    assert rows[2].logical_bytes is None and rows[2].x_roofline is None
+    # only what the whole span launched counts as the rest
+    rows = attribute_phases(loop, (x,), ["t:a"], whole="t:b", steps=2,
+                            device="cpu")
+    assert [r.phase for r in rows] == ["t:a", "rest"]
+    assert rows[1].delta_s > 0
     table = format_phase_table(rows)
-    assert table.splitlines()[0].startswith("| phase (cumulative)")
+    assert table.splitlines()[0].startswith("| span | ms | cumulative")
     assert len(table.splitlines()) == 2 + len(rows)
-    assert "(first)" in table.splitlines()[2]
 
 
 def test_spans_and_profiler_session(tmp_path, monkeypatch):

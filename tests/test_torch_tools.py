@@ -330,7 +330,7 @@ def test_attribution_a002_on_a_stale_perf_table(tmp_path):
     doc = _doc()
     text = open(attribution.PERF_MD, encoding="utf-8").read()
     stale = tmp_path / "PERF.md"
-    stale.write_text(text.replace("(first)", "(stale)", 1))
+    stale.write_text(text.replace("**total**", "(stale)", 1))
     found = attribution.check_findings(doc, perf_md=str(stale))
     assert [f.rule for f in found] == ["A002"]
     stale.write_text(text.replace("<!-- attribution:roofline:begin -->", ""))
@@ -338,7 +338,7 @@ def test_attribution_a002_on_a_stale_perf_table(tmp_path):
         doc, perf_md=str(stale))] == ["A002"]
     # --render's output is what the gate wants
     fixed = attribution.render_markdown(doc, text.replace(
-        "(first)", "(stale)", 1))
+        "**total**", "(stale)", 1))
     stale.write_text(fixed)
     assert attribution.check_findings(doc, perf_md=str(stale)) == []
 
@@ -398,25 +398,32 @@ def test_attribution_update_baseline_refuses_a_row_over_the_roof(
     assert len(written) == 1
 
 
-def test_attribution_table_flags_a_delta_beyond_the_spread():
-    """A negative delta larger than the two readings' spreads is marked
-    non-monotone, one within them is printed as it is, and the spread of
-    each reading has its column."""
-    def row(phase, cum, delta, spread):
-        return dict(phase=phase, cumulative_s=cum * 1e-3,
-                    delta_s=delta * 1e-3, logical_bytes=None,
-                    roofline_s=None, spread_s=spread * 1e-3)
+def test_attribution_table_rows_sum_to_its_total():
+    """A rendered span table is additive: in every shape's column the
+    rows' ms add up to the total row, and each row's share is its part
+    of that total."""
+    def row(phase, ms):
+        return dict(phase=phase, cumulative_s=None, delta_s=ms * 1e-3,
+                    logical_bytes=None, roofline_s=None)
 
-    table = {"grid": "2,2,2", "phases": [1, 2, 3], "shapes": {"4096": {
-        "rows": [row(1, 2.0, 2.0, 0.1), row(2, 1.9, -0.1, 0.1),
-                 row(3, 1.0, -0.9, 0.2)]}}}
-    lines = attribution.render_table("migrate", table).splitlines()
-    assert lines[0] == "| phase (cumulative) | 8×4k ms | ± | delta |"
-    assert lines[2].endswith("| 2.00 | 0.10 | (first) |")
-    assert lines[3].endswith("| 1.90 | 0.10 | −0.10 |")
-    assert lines[4].endswith("| **1.00** | 0.20 | −0.90 non-monotone |")
-    assert [attribution.non_monotone(table["shapes"]["4096"]["rows"], i)
-            for i in range(3)] == [False, False, True]
+    table = {"grid": "2,2,2", "phases": ["mig:grant", "mig:pack", "rest"],
+             "shapes": {
+                 "4096": {"rows": [row("mig:grant", 0.5),
+                                   row("mig:pack", 0.25),
+                                   row("rest", 1.25)]},
+                 "65536": {"rows": [row("mig:grant", 0.5),
+                                    row("mig:pack", 2.0),
+                                    row("rest", 1.5)]}}}
+    lines = attribution.render_table(table).splitlines()
+    assert lines[0] == "| span | 8×4k ms | share | 8×64k ms | share |"
+    assert lines[2] == "| mig:grant | 0.500 | 25.0% | 0.500 | 12.5% |"
+    assert lines[-1] == "| **total** | **2.000** | 100% | **4.000** | 100% |"
+    body = [[c.strip() for c in line.strip("|").split("|")]
+            for line in lines[2:-1]]
+    for col, total in ((1, 2.0), (3, 4.0)):
+        assert sum(float(cells[col]) for cells in body) == total
+        assert sum(float(cells[col + 1].rstrip("%")) for cells in body) \
+            == pytest.approx(100.0)
 
 
 @pytest.mark.parametrize("fmt", ["json", "sarif", "github"])
@@ -439,13 +446,18 @@ def test_attribution_report_view(capsys):
 
 def test_attribution_live_phases_are_the_knockouts():
     from mpi_grid_redistribute_tpu_torch.bench import (
-        knockout_pipeline, knockout_stages,
+        knockout_deposit, knockout_pipeline, knockout_stages,
     )
 
     assert attribution._live_phases("migrate") == list(
-        knockout_stages.PHASES) == list(attribution.STAGE_LABELS)
+        knockout_stages.PHASES) + ["rest"]
+    assert "mig:select" in knockout_stages.PHASES
+    assert attribution._live_phases("migrate_planar") == list(
+        knockout_stages.PLANAR_PHASES) + ["rest"]
     assert attribution._live_phases("pipeline") == list(
-        knockout_pipeline.PHASES)
+        knockout_pipeline.PHASES) + ["rest"]
+    assert attribution._live_phases("deposit") == list(
+        knockout_deposit.PHASES) + ["rest"]
 
 
 # ------------------------------------------------- no GPU, no CPU asked
