@@ -50,10 +50,12 @@ started together), then, on the card:
      the plain-version run and across the two methods. Kernel 5 is also
      held at the tiles of its block route (2048 and 8192) and kernel 4 at
      D = 4, both timed; the scan deposit's payload sort
-     (``ops/rowsort.sort_rows``) and kernel 5's fused route on the sorted
-     rows at the CIC cell's deposit shape (67.1M rows, 22-bit keys, 4
-     groups of 2 channels), each bit for bit against its plain version
-     and timed; then ``analysis.kernelcheck`` over the seven
+     (``ops/rowsort.sort_keyed_rows``, the keys computed in its pack) and
+     kernel 5's fused route on the sorted rows and the tile carries
+     (``ops/tilecarry``) at the CIC cell's deposit shape (67.1M rows,
+     22-bit keys, 4 groups of 2 channels, 262,144 tiles), each bit for
+     bit against its plain version and timed; then
+     ``analysis.kernelcheck`` over the eight
      registered cases (K000 launches, K001 guard bands, K002 write sets,
      K003 footprints against the committed baseline, K005 bit equality)
      and the scan deposit's span table (``bench/knockout_deposit.py``)
@@ -242,9 +244,10 @@ MIGRATE_KERNELS = ("drift_wrap_bin", "overlay_scatter_planar")
 # kernels the row-store landing route launches once per step
 ROWS_KERNELS = ("drift_wrap_bin", "scatter_rows")
 # config 5: the deposit kernels each method launches once per step (the
-# scan deposit's payload sort and kernel 5)
+# scan deposit's payload sort, kernel 5 and the tile carries)
 DEPOSIT_KERNELS = {"mxu": ("segsum_sorted",),
-                   "scan": ("sort_rows", "tile_df_cumsum_rows")}
+                   "scan": ("sort_rows", "tile_df_cumsum_rows",
+                            "tile_carries")}
 # a substring of each kernel's device function names (csrc/*.cu), for its
 # device time in the profiles (kernel 4's memset is not counted)
 KERNEL_SYMBOLS = {
@@ -253,6 +256,7 @@ KERNEL_SYMBOLS = {
     "segsum_sorted": "segdep_",
     "tile_df_cumsum_rows": "dfscan_kernel",
     "scatter_rows": "scatter_rows_kernel",
+    "tile_carries": "tile_carry_kernel",
 }
 
 # steady-state canonical calls under the sync check: two deferred
@@ -1294,73 +1298,76 @@ ROWSORT_CUB_KERNELS = (
 )
 
 
-def cic_rows_phase(torch, dfscan, rowsort, profiling):
+def cic_rows_phase(torch, dfscan, rowsort, tilecarry, profiling):
     """The scan deposit's payload sort and kernel 5's fused route at the
-    CIC cell's deposit shape: 67.1M rows over 8 vranks of 64^3 cells
-    (22-bit keys, ~10% of the rows on the sentinel, masses that are not
-    1). ``rowsort.sort_rows`` against ``sort_rows_plain`` and, on the
-    sorted rows, ``dfscan.cic_tile_prefix_rows`` against
+    CIC cell's deposit shape: 67.1M slots over 8 vranks of 64^3 cells
+    (the 2x2x2 vrank grid of the unit box, 22-bit keys, ~10% of the slots
+    invalid, masses that are not 1). ``rowsort.sort_keyed_rows`` (the
+    keys computed in the pack) against its plain twin; on the sorted
+    rows, ``dfscan.cic_tile_prefix_rows`` against
     ``cic_tile_prefix_plain`` in the cell's 4 groups of 2 channels (one
-    "packed" launch each), bit for bit; both timed beside their plain
-    versions and their bounds. Returns the kernels line's entries of the
-    two kernels (``launches`` filled in by the caller)."""
+    "packed" launch each), and ``tilecarry.tile_carries`` on the first
+    group's pack against its plain twin, bit for bit; each timed beside
+    its plain version and its bound. Returns the kernels line's entries
+    of the sort, kernel 5 and the tile carries (``launches`` filled in by
+    the caller)."""
     m, vblock = CIC_CELL_ROWS, CIC_CELL_VBLOCK
+    V = CIC_CELL_VRANKS
     n_cells = 1
     for b in vblock:
         n_cells *= b
-    n_seg = CIC_CELL_VRANKS * n_cells
-    bits = n_seg.bit_length()
+    bits = (V * n_cells).bit_length()
     gen = torch.Generator(device="cuda").manual_seed(23)
+    lo = torch.tensor([[x / 2, y / 2, z / 2] for x in (0, 1) for y in (0, 1)
+                       for z in (0, 1)], device="cuda")
+    inv_h = torch.full((3,), 128.0, device="cuda")
+    vrank = torch.arange(m, device="cuda") // (m // V)
+    pos = (lo[vrank].t() + torch.rand((3, m), device="cuda", generator=gen)
+           * 0.5).contiguous()
     valid = torch.rand(m, device="cuda", generator=gen) < 0.9
-    rel = torch.where(valid, torch.rand((3, m), device="cuda",
-                                        generator=gen) * 64.0, 0.0)
-    mass = torch.where(valid, torch.rand(m, device="cuda", generator=gen)
-                       * 1.5 + 0.5, 0.0)
-    cell = rel.floor().to(torch.int32).clamp(0, 63)
-    vrank = torch.arange(m, device="cuda", dtype=torch.int32) // (
-        m // CIC_CELL_VRANKS)
-    key = torch.where(valid, vrank * n_cells
-                      + (cell[0] * vblock[1] + cell[1]) * vblock[2]
-                      + cell[2], n_seg).to(torch.int32)
-    del valid, cell, vrank
+    mass = torch.rand(m, device="cuda", generator=gen) * 1.5 + 0.5
+    del vrank
+    args = (pos, valid, mass, lo, inv_h, vblock)
 
-    launches0 = rowsort.KERNEL.launches
-    keys_s, rows_s = rowsort.sort_rows(key, rel, mass, bits)
-    keys_p, rows_p = rowsort.sort_rows_plain(key, rel, mass, bits)
+    launches0, routes0 = rowsort.KERNEL.launches, dict(rowsort.ROUTES)
+    keys_s, rows_s = rowsort.sort_keyed_rows(*args)
+    check(rowsort.KERNEL.launches == launches0 + 1
+          and rowsort.ROUTES == dict(routes0, keyed=routes0["keyed"] + 1),
+          f"sort_keyed_rows: not one 'keyed' launch a call "
+          f"({rowsort.ROUTES})")
+    keys_p, rows_p = rowsort.sort_keyed_rows_plain(*args)
     torch.cuda.synchronize()
-    check(rowsort.KERNEL.launches == launches0 + 1,
-          "sort_rows: not one launch a call")
     check(torch.equal(keys_s, keys_p)
           and torch.equal(rows_s.view(torch.int32), rows_p.view(torch.int32)),
-          f"sort_rows != plain at {m} rows over {bits} bits")
-    del keys_p, rows_p
+          f"sort_keyed_rows != plain at {m} slots over {bits} bits")
+    del keys_s, keys_p, rows_p
     usage = rowsort.KERNEL.resource_usage()
     check(all(k in usage for k in ROWSORT_CUB_KERNELS),
           f"sort_rows: resource_usage() lists {sorted(usage)}, not cub's "
           f"kernels {ROWSORT_CUB_KERNELS} (another cub than 2.8?)")
-    b_ms, b_by = bound(*rowsort.kernel_cost(key, rel, mass, bits))
-    sort = {
+    b_ms, b_by = bound(*rowsort.kernel_cost(*args))
+    keyed = {
         "name": "sort_rows",
-        "route": "cuda",
+        "route": "cuda, keyed (the keys computed in the pack)",
         "source": "mpi_grid_redistribute_tpu_torch/csrc/rowsort.cu",
         "replaces": None,  # the reference's lax.sort, no TPU kernel
         "shape": [m],
         "bits": bits,
         "max_abs_err": 0.0,
-        "ms": profiling.cuda_time_ms(
-            lambda: rowsort.sort_rows(key, rel, mass, bits), iters=5),
+        "ms": profiling.cuda_time_ms(lambda: rowsort.sort_keyed_rows(*args),
+                                     iters=5),
         "plain_ms": profiling.cuda_time_ms(
-            lambda: rowsort.sort_rows_plain(key, rel, mass, bits), iters=3),
-        # the call's own count (ops/rowsort.kernel_cost): the key and the
-        # payload read once, the sorted key and row written once
+            lambda: rowsort.sort_keyed_rows_plain(*args), iters=3),
+        # the call's own count (ops/rowsort.kernel_cost): what it reads
+        # once and the sorted key and row written once
         "bound_ms": b_ms,
         "bound_by": b_by,
         # the plain version is PyTorch's own stable sort and gather
         "library_ms": None,
         "regs": {k: usage[k]["regs"] for k in
-                 ("rowsort_pack_kernel<3>",) + ROWSORT_CUB_KERNELS},
+                 ("rowsort_keys_kernel<3>",) + ROWSORT_CUB_KERNELS},
     }
-    del key, rel, mass, keys_s
+    del args, pos, valid, mass
 
     payload = rowsort.rows_as_payload(rows_s, 3).contiguous()
     g = CIC_CELL_GROUP
@@ -1376,6 +1383,41 @@ def cic_rows_phase(torch, dfscan, rowsort, profiling):
               f"cic_tile_prefix_rows != plain at {m} rows, channels "
               f"{c0}..{c0 + g - 1}")
         del got, want
+    # the tile carries over kernel 5's pack of the first group: 262,144
+    # tiles, two launches in one call
+    l_pack = dfscan.cic_tile_prefix_rows(rows_s, vblock, 0, g, 256)
+    launches0 = tilecarry.KERNEL.launches
+    got = tilecarry.tile_carries(l_pack, 256)
+    want = tilecarry.tile_carries_plain(l_pack, 256)
+    torch.cuda.synchronize()
+    check(tilecarry.KERNEL.launches == launches0 + 1,
+          "tile_carries: not one call's launch")
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"tile_carries != plain over {m // 256} tiles of {g} channels")
+    del got, want
+    b_ms, b_by = bound(*tilecarry.kernel_cost(l_pack, 256))
+    carries = {
+        "name": "tile_carries",
+        "route": "cuda",
+        "source": "mpi_grid_redistribute_tpu_torch/csrc/tilecarry.cu",
+        "replaces": None,  # the reference's level-2 scan is XLA's
+        "shape": [2 * g, m // 256],
+        "tile": 256,
+        "max_abs_err": 0.0,
+        "ms": profiling.cuda_time_ms(
+            lambda: tilecarry.tile_carries(l_pack, 256), iters=5),
+        "plain_ms": profiling.cuda_time_ms(
+            lambda: tilecarry.tile_carries_plain(l_pack, 256), iters=3),
+        # the call's own count (ops/tilecarry.kernel_cost): the tile
+        # totals read once, the exclusive prefixes written once
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        # no single PyTorch call computes a double-float prefix
+        "library_ms": None,
+        "regs": {"tile_carry_kernel": tilecarry.KERNEL.resource_usage()[
+            "tile_carry_kernel"]["regs"]},
+    }
+    del l_pack
     b_ms, b_by = bound(*dfscan.cic_rows_kernel_cost(rows_s, vblock, 0, g,
                                                     256))
     fused = {
@@ -1402,11 +1444,11 @@ def cic_rows_phase(torch, dfscan, rowsort, profiling):
     }
     del rows_s, payload
     torch.cuda.empty_cache()
-    return sort, fused
+    return keyed, fused, carries
 
 
 def kernelcheck_phase(torch, _build):
-    """``tools.kernelcheck --check``'s rules on the card over the seven
+    """``tools.kernelcheck --check``'s rules on the card over the eight
     registered cases (``analysis/kernelcheck.py``): K000 (each case
     launches its kernel), K001 (guard bands intact), K002 (write sets,
     three launches alike, duplicate refusal), K003 (Hopper limits, and
@@ -1438,7 +1480,9 @@ def kernelcheck_phase(torch, _build):
 def deposit_span_phase(torch, _build, deposit, knockout_deposit):
     """The scan deposit's span table (``bench/knockout_deposit.py``) at a
     small width: one profiled call of whole deposits after a warm one,
-    every ``dep:*`` span named with device time, the rows adding up to
+    every ``dep:*`` span named, each but ``dep:keys`` with device time
+    (the card computes the keys in the payload sort's pack, under
+    ``dep:sort``), the rows adding up to
     the call's device time within 2%, the profiled density bit-equal to
     config 5's scan deposit built on its own, and kernel 5 launched. No
     timing is kept."""
@@ -1454,8 +1498,10 @@ def deposit_span_phase(torch, _build, deposit, knockout_deposit):
     names = [r.phase for r in rows]
     check(names == list(knockout_deposit.PHASES) + [phases.REST],
           f"deposit spans: rows {names}")
-    check(all(r.delta_s > 0 for r in rows[:-1]),
-          f"deposit spans: a span read no device time: {rows}")
+    check([r.phase for r in rows[:-1] if r.delta_s > 0]
+          == [p for p in knockout_deposit.PHASES if p != "dep:keys"],
+          f"deposit spans: not every span but dep:keys read device time: "
+          f"{rows}")
     whole = trace.seconds_in()
     total = sum(r.delta_s for r in rows)
     check(whole > 0 and abs(total - whole) <= 0.02 * whole,
@@ -1630,20 +1676,25 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
     out, syncs, guard = synced(COUNTED_STEPS)
     launches = _build.counts()
     routes = dict(deposit.dfscan.ROUTES)
+    sort_routes = dict(deposit.rowsort.ROUTES)
     syncs = (syncs - syncs2) / (COUNTED_STEPS - 2)
     guard = (guard - guard2) / (COUNTED_STEPS - 2)
     log(f"config5 {method}: launches over {COUNTED_STEPS} steps: "
-        f"{launches}, kernel 5 by route {routes}; host syncs per step "
+        f"{launches}, kernel 5 by route {routes}, the payload sort by "
+        f"route {sort_routes}; host syncs per step "
         f"{syncs:g} (residence-guard reads {guard:g}; the engine's sparse "
         f"guard is the other)")
     check_launches(launches, MIGRATE_KERNELS + DEPOSIT_KERNELS[method],
                    f"config5 {method}")
-    # the scan deposit sorts its payload as rows (one sort_rows launch)
-    # and, below 2^24 rows, takes all 8 channels in one fused launch of
-    # kernel 5 on those rows
+    # the scan deposit sorts its payload as rows (one sort_rows launch,
+    # its keys computed in the pack: route "keyed") and, below 2^24 rows,
+    # takes all 8 channels in one fused launch of kernel 5 on those rows
     want_packed = COUNTED_STEPS if method == "scan" else 0
     check(routes == {"rows": 0, "packed": want_packed},
           f"config5 {method}: kernel 5 launched {routes} by route")
+    check(sort_routes == {"keyed": want_packed},
+          f"config5 {method}: the payload sort launched {sort_routes} by "
+          f"route")
     stats, rho = out[3], out[4]
     check(int(stats.dropped_recv.sum()) == 0, "config5: arrivals dropped")
     check(int(out[2].sum()) == total, "config5: alive count not conserved")
@@ -1695,6 +1746,7 @@ def config5_phase(torch, nbody, deposit, _build, profiling, config5_deposit,
         "guard_reads_per_step": guard,
         "launches": launches,
         "dfscan_routes": routes,
+        "rowsort_routes": sort_routes,
         "device_busy_ms_per_step": busy,
     }, rho
 
@@ -3342,7 +3394,7 @@ def main() -> int:
     from mpi_grid_redistribute_tpu_torch.models import nbody
     from mpi_grid_redistribute_tpu_torch.ops import (
         _build, binning, deposit, dfscan, driftbin, overlay, rowsort,
-        scatter, segdep,
+        scatter, segdep, tilecarry,
     )
     from mpi_grid_redistribute_tpu_torch.parallel import migrate
     from mpi_grid_redistribute_tpu_torch.utils import profiling
@@ -3449,13 +3501,15 @@ def main() -> int:
     log(f"tile_df_cumsum_rows: {k5_rows['ms']:.5f} ms (bound "
         f"{k5_rows['bound_ms']:.5f}, plain {k5_rows['plain_ms']:.5f}) "
         f"bit-equal at [262144, 256]")
-    k_sort, k5 = cic_rows_phase(torch, dfscan, rowsort, profiling)
+    k_keyed, k5, k_carry = cic_rows_phase(torch, dfscan, rowsort, tilecarry,
+                                          profiling)
     # kernel 5's entry in the kernels line is its fused route, which the
     # scan deposit launches; its rows route's numbers go beside it
     k5["rows_route"] = {key: k5_rows[key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-    for k in (k_sort, k5):
-        log(f"{k['name']} at the CIC cell's {CIC_CELL_ROWS} rows: "
+    for k in (k_keyed, k5, k_carry):
+        log(f"{k['name']} ({k['route']}) at the CIC cell's {CIC_CELL_ROWS} "
+            f"rows: "
             f"{k['ms']:.5f} ms (bound {k['bound_ms']:.5f}, plain "
             f"{k['plain_ms']:.5f}) bit-equal to plain")
     k4 = segdep_phase(torch, segdep, common, profiling, kernel_times,
@@ -3547,10 +3601,12 @@ def main() -> int:
     for k, path in ((k1, main_launches), (row2, main_launches),
                     (k2, main_launches), (k4, c5["mxu"]["launches"]),
                     (k5, c5["scan"]["launches"]),
-                    (k_sort, c5["scan"]["launches"]),
+                    (k_keyed, c5["scan"]["rowsort_routes"]),
+                    (k_carry, c5["scan"]["launches"]),
                     (k6, rows["launches"])):
-        k = dict(k)
-        k["launches"] = path[k["name"]]
+        # the payload sort's launches are the deposit's, all keyed
+        launches = path["keyed" if k is k_keyed else k["name"]]
+        k = dict(k, launches=launches)
         if k["name"] == "overlay_scatter_planar":
             # kernel 2's other path of this run: the pipelined service
             # chunk's landings (K = 9, then 8), counted there

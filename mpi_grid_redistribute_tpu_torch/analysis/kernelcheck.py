@@ -6,9 +6,10 @@ trace time and interprets them abstractly. A CUDA kernel has no such
 anatomy to read: its addressing is arithmetic inside a ``.cu`` file. So
 the port checks what each kernel DOES, at the reference's registered
 shapes: a registry of the reference's six cases (names, shapes and
-seeded inputs) and one case of each kernel the port has beyond them
-(:data:`PORT_CASES`: the scan deposit's payload sort), each calling the
-port's public op with its plain twin beside it, and the rules
+seeded inputs) and cases of the kernels the port has beyond them
+(:data:`PORT_CASES`: the scan deposit's payload sort, which computes its
+keys, and its tile carries), each calling the port's public op with its
+plain twin beside it, and the rules
 
 - **K000** registry completeness: every kernel in ``ops._build.KERNELS``
   has a case, and on the card each case raises its kernel's launch count
@@ -351,43 +352,78 @@ def _build_segdep() -> KernelCase:
 # -- the port's own kernels, which replace no TPU kernel ----------------
 
 
-def _build_rowsort() -> KernelCase:
+def _build_rowsort_keys() -> KernelCase:
     from mpi_grid_redistribute_tpu_torch.ops import rowsort
 
-    n, d, n_cells = 5000, 3, 512
-    r = np.random.default_rng(17)
-    # dense keys with ties, a sentinel tail shuffled in, and payload bits
-    # that only a move keeps (-0.0, NaN)
-    key = r.integers(0, n_cells, size=n).astype(np.int32)
-    key[r.choice(n, size=400, replace=False)] = n_cells
-    rel = (r.random((d, n)) * 8).astype(np.float32)
-    rel[0, 7] = -0.0
-    rel[1, 8] = np.nan
-    mass = r.uniform(0.5, 2.0, n).astype(np.float32)
-    bits = n_cells.bit_length()
+    V, n, vblock = 2, 2500, (8, 8, 8)
+    r = np.random.default_rng(18)
+    # two vranks' 8^3 blocks side by side along x; ~10% invalid slots, and
+    # on valid ones a NaN, -0.0, an infinity, positions outside the block
+    # and on its upper face
+    lo = np.array([[0.0, 0.0, 0.0], [0.5, 0.0, 0.0]], np.float32)
+    inv_h = np.array([16.0, 8.0, 8.0], np.float32)
+    v = np.repeat(np.arange(V), n)
+    pos = (lo[v].T + r.random((3, V * n), dtype=np.float32)
+           * (1.0 / inv_h[:, None] * 8.0)).astype(np.float32)
+    valid = r.random(V * n) < 0.9
+    pos[0, :6] = (np.nan, -0.0, np.inf, -0.25, 1.5, 0.5)
+    pos[1, n:n + 2] = (-np.inf, 1.0)
+    valid[:6] = valid[n:n + 2] = True
+    mass = r.uniform(0.5, 2.0, V * n).astype(np.float32)
 
     def run(t):
-        k, rows = rowsort.sort_rows(t["key"], t["rel"], t["mass"], bits,
-                                    _out=(t["keys_s"], t["rows_s"]))
+        k, rows = rowsort.sort_keyed_rows(
+            t["pos"], t["valid"], t["mass"], t["lo"], t["inv_h"], vblock,
+            _out=(t["keys_s"], t["rows_s"]))
         return {"keys_s": k, "rows_s": rows}
 
     def plain(t):
-        k, rows = rowsort.sort_rows_plain(t["key"], t["rel"], t["mass"],
-                                          bits)
+        k, rows = rowsort.sort_keyed_rows_plain(
+            t["pos"], t["valid"], t["mass"], t["lo"], t["inv_h"], vblock)
         return {"keys_s": k, "rows_s": rows}
 
+    ins = {"pos": pos, "valid": valid, "mass": mass, "lo": lo,
+           "inv_h": inv_h}
     return KernelCase(
-        inputs={"key": key, "rel": rel, "mass": mass},
-        roles={"key": "in", "rel": "in", "mass": "in", "keys_s": "out",
-               "rows_s": "out"},
-        out_specs={"keys_s": ((n,), "int32"),
-                   "rows_s": ((n, rowsort.ROW_FLOATS), "float32")},
+        inputs=ins,
+        roles=dict(dict.fromkeys(ins, "in"), keys_s="out", rows_s="out"),
+        out_specs={"keys_s": ((V * n,), "int32"),
+                   "rows_s": ((V * n, rowsort.ROW_FLOATS), "float32")},
         run=run, plain=plain,
-        functions=lambda t: rowsort.launch_functions(t["key"], t["rel"]))
+        functions=lambda t: rowsort.launch_functions(t["pos"]))
+
+
+def _build_tilecarry() -> KernelCase:
+    from mpi_grid_redistribute_tpu_torch.ops import tilecarry
+
+    g, T, tile = 2, 3000, 4
+    r = np.random.default_rng(19)
+    # within-tile prefixes of 2 channels, hi rows above lo rows: 3000
+    # tiles, so that two launches run (ten doubling steps, then two), and
+    # a NaN, an infinity and -0.0 among the tile totals
+    pack = r.normal(size=(2 * g, T * tile)).astype(np.float32)
+    pack[g:] *= np.float32(2.0**-24)
+    pack[0, tile - 1] = -0.0
+    pack[1, 700 * tile - 1] = np.nan
+    pack[0, 2500 * tile - 1] = np.inf
+
+    def run(t):
+        return {"out": tilecarry.tile_carries(t["pack"], tile,
+                                              _out=t["out"])}
+
+    def plain(t):
+        return {"out": tilecarry.tile_carries_plain(t["pack"], tile)}
+
+    return KernelCase(
+        inputs={"pack": pack},
+        roles={"pack": "in", "out": "out"},
+        out_specs={"out": ((2 * g, T + 1), "float32")},
+        run=run, plain=plain,
+        functions=lambda t: tilecarry.launch_functions(t["pack"], tile))
 
 
 # the cases of the port's own kernels, beside the reference's six
-PORT_CASES = ("rowsort_3d_5000",)
+PORT_CASES = ("rowsort_keys_3d_2x2500", "tilecarry_2x3000")
 
 _DEFAULTS_BUILT = False
 
@@ -397,7 +433,7 @@ def _register_defaults() -> None:
     importing their ops, the kernels of ``ops._build.KERNELS`` they
     launch)."""
     from mpi_grid_redistribute_tpu_torch.ops import (  # noqa: F401
-        dfscan, driftbin, overlay, rowsort, scatter, segdep,
+        dfscan, driftbin, overlay, rowsort, scatter, segdep, tilecarry,
     )
 
     global _DEFAULTS_BUILT
@@ -442,12 +478,20 @@ def _register_defaults() -> None:
         "segsum_sorted", f"{ops}.segdep.segsum_sorted",
         f"{ops}.segdep.segsum_sorted_plain"))
     register_kernel(KernelSpec(
-        "rowsort_3d_5000", _build_rowsort,
+        "rowsort_keys_3d_2x2500", _build_rowsort_keys,
         "stable key-value radix sort of the scan deposit's payload rows, "
-        "5000 int32 keys in [0, 512] with ties and 400 sentinels, D = 3, "
-        "over the key's 10 bits (the port's own kernel)",
-        "sort_rows", f"{ops}.rowsort.sort_rows",
-        f"{ops}.rowsort.sort_rows_plain"))
+        "the keys computed in its pack from the positions: 2 vranks of "
+        "2500 slots onto 8^3 blocks, D = 3, ~10% invalid, NaN, -0.0, "
+        "infinities and positions off the block (the port's own kernel)",
+        "sort_rows", f"{ops}.rowsort.sort_keyed_rows",
+        f"{ops}.rowsort.sort_keyed_rows_plain"))
+    register_kernel(KernelSpec(
+        "tilecarry_2x3000", _build_tilecarry,
+        "the scan deposit's tile carries, the double-float prefix over the "
+        "last elements of 3000 tiles of 4 in 2 channels, two launches, a "
+        "NaN, an infinity and -0.0 among them (the port's own kernel)",
+        "tile_carries", f"{ops}.tilecarry.tile_carries",
+        f"{ops}.tilecarry.tile_carries_plain"))
 
 
 def default_kernels() -> Dict[str, KernelSpec]:

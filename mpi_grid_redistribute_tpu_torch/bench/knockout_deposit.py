@@ -13,11 +13,13 @@ after a warm call, each device operation charged to the innermost span
 open at its launch); what the call launched outside them is the
 ``rest`` row, so the rows add up to the deposit.
 
-Rows: ``dep:keys`` (block-local coordinates, cell keys, masked mass),
-``dep:sort`` (the payload sort: ``ops/rowsort`` on the card), ``dep:bounds``,
-``dep:prefix`` (kernel 5's fused launches, a channel group each, and the
-tile-total scan), ``dep:place`` (the boundary gathers and differences,
-the corner channels' placement and the ghost fold), ``rest``.
+Rows: ``dep:keys`` (block-local coordinates, cell keys, masked mass; on
+the card none, as the payload sort's pack computes them), ``dep:sort``
+(the payload sort: ``ops/rowsort.sort_keyed_rows`` on the card),
+``dep:bounds``, ``dep:prefix`` (kernel 5's fused launches, a channel
+group each, and the tile-total scan), ``dep:place`` (the boundary gathers
+and differences, the corner channels' placement and the ghost fold),
+``rest``.
 
     python -m mpi_grid_redistribute_tpu_torch.bench.knockout_deposit [n]
     KNOCKOUT_GRID=2,2,2 KNOCKOUT_JSON=rows.json \\

@@ -1012,7 +1012,7 @@ def verify(results, spec, ref, device_kind: str) -> dict:
             k = x["scan"]["steps"]
             launches(f"flat rank {r} (scan)", x["scan"]["launches"],
                      {"overlay_scatter_planar": k, "sort_rows": k,
-                      "tile_df_cumsum_rows": k})
+                      "tile_df_cumsum_rows": k, "tile_carries": k})
             check(x["owned"], f"flat rank {r}: a row off its owner")
         state_ok("flat", fl[0]["stats"])
         backlog_f = int(fl[0]["stats"]["backlog"].sum())
@@ -1038,7 +1038,8 @@ def verify(results, spec, ref, device_kind: str) -> dict:
                 plain = max(plain, d["err_vs_plain"])
                 launches(f"deposit {method} rank {r}", d["launches"],
                          {"segsum_sorted": 1} if method == "mxu" else
-                         {"sort_rows": 1, "tile_df_cumsum_rows": 1})
+                         {"sort_rows": 1, "tile_df_cumsum_rows": 1,
+                          "tile_carries": 1})
             check(plain <= DEPOSIT_TOL, f"deposit {method} across ranks: "
                                         f"{plain} from its plain version")
             check(one <= DEPOSIT_TOL, f"deposit {method} across ranks: {one} "
@@ -1068,7 +1069,8 @@ def verify(results, spec, ref, device_kind: str) -> dict:
         errs = {}
         for method in ("mxu", "scan"):
             kernels = (("segsum_sorted",) if method == "mxu"
-                       else ("sort_rows", "tile_df_cumsum_rows"))
+                       else ("sort_rows", "tile_df_cumsum_rows",
+                             "tile_carries"))
             one = 0.0
             for r, x in enumerate(dr):
                 y = x[method]
@@ -1196,7 +1198,8 @@ def verify(results, spec, ref, device_kind: str) -> dict:
             check(not bad, f"card vs CPU (drift step, halo, hierarchical) "
                            f"rank {r}: {bad} differ")
             launches(f"card vs CPU drift step rank {r}", sl["launches"],
-                     {"sort_rows": 1, "tile_df_cumsum_rows": 1})
+                     {"sort_rows": 1, "tile_df_cumsum_rows": 1,
+                      "tile_carries": 1})
             check(sl["hier_engine"] == "hierarchical",
                   f"card vs CPU: hierarchical ran {sl['hier_engine']!r}")
             check(sl["moved"] > 0 and sl["ghosts"] > 0,

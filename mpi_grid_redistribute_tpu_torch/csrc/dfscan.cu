@@ -91,6 +91,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "base_cell.cuh"
+#include "df_add.cuh"
 #include "resource_usage.cuh"
 
 #define DFSCAN_MAX_TILE 1024
@@ -103,19 +105,6 @@
 #define DFSCAN_CIC_DIMS 3  // the fused route's D = 1..3
 #define DFSCAN_CIC_REGS 6  // and its R = 1, 2, 4, ..., 32
 #define DFSCAN_CIC_PASS 2  // the fused route's channels a pass
-
-// deposit._df_add(a_hi, a_lo, b_hi, b_lo), its _two_sum written out in
-// the same operation order
-__device__ __forceinline__ void df_add(float& a_hi, float& a_lo, float b_hi,
-                                       float b_lo) {
-  float s = __fadd_rn(a_hi, b_hi);
-  float bb = __fsub_rn(s, a_hi);
-  float e = __fadd_rn(__fsub_rn(a_hi, __fsub_rn(s, bb)), __fsub_rn(b_hi, bb));
-  e = __fadd_rn(e, __fadd_rn(a_lo, b_lo));
-  float hi = __fadd_rn(s, e);
-  a_lo = __fsub_rn(e, __fsub_rn(hi, s));
-  a_hi = hi;
-}
 
 __host__ __device__ constexpr int ceil_log2(int n) {
   return n <= 1 ? 0 : 1 + ceil_log2((n + 1) / 2);
@@ -285,13 +274,9 @@ __device__ __forceinline__ float torch_clamp(float v, float lo, float hi) {
 }
 
 // ops/dfscan.cic_frac for one coordinate r on an axis of `cells` cells:
-// the base cell clip(int32(floor(r)), 0, cells - 1) with
-// binning.floor_to_int32's saturating conversion, then
-// clamp(r - float(cell), 0, 1). The conversion to an integer rounding
-// down saturates and takes NaN to 0 on the card, as floor_to_int32 does,
-// and its range ends clip to the same cells.
+// the base cell (base_cell.cuh), then clamp(r - float(cell), 0, 1).
 __device__ __forceinline__ float cic_frac(float r, int cells) {
-  const int i = min(max(__float2int_rd(r), 0), cells - 1);
+  const int i = base_cell(r, cells);
   return torch_clamp(__fsub_rn(r, __int2float_rn(i)), 0.0f, 1.0f);
 }
 

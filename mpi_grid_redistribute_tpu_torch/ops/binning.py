@@ -64,6 +64,13 @@ def floor_to_int32(x: torch.Tensor) -> torch.Tensor:
     return f.clamp(-2147483648.0, 2147483520.0).to(torch.int32)
 
 
+def base_cell(r: torch.Tensor, n: int) -> torch.Tensor:
+    """``clip(int32(floor(r)), 0, n - 1)``, with XLA's saturating
+    float-to-int32 conversion: the cell of a block-local coordinate on an
+    axis of ``n`` cells (``csrc/base_cell.cuh`` on the card)."""
+    return floor_to_int32(r).clamp(0, n - 1)
+
+
 def _remainder(q: torch.Tensor, ext) -> torch.Tensor:
     """``jnp.remainder`` semantics: C ``fmod`` plus the sign fix (the
     result takes the divisor's sign). ``torch.remainder`` computes

@@ -12,12 +12,13 @@ plane 0 of periodic axes (:func:`fold_ghosts`) or stay as the clamp-edge
 planes of open axes (:func:`assemble_dense`). Three methods:
 
   * ``"scan"`` (:func:`cic_deposit_device_planar`): a stable sort by
-    ``key`` (on the card one key-value radix sort that moves each
-    particle's payload with its key, ``ops.rowsort``), the corner-weight
-    channels, a two-level double-float prefix
-    sum (kernel 5, ``ops.dfscan``, within 256-row tiles, computing the
-    fractions and corner weights in its load on the card; plain PyTorch
-    over the tile totals) and differences at the run bounds. Per-cell
+    ``key`` (on the card one key-value radix sort whose pack computes
+    each particle's key and block-local coordinates from its position and
+    moves them with the key, ``ops.rowsort.sort_keyed_rows``), the
+    corner-weight channels, a two-level double-float prefix sum (kernel
+    5, ``ops.dfscan``, within 256-row tiles, computing the fractions and
+    corner weights in its load on the card; ``ops.tilecarry`` over the
+    tile totals) and differences at the run bounds. Per-cell
     error ~ulp(cell value); bit-equal to the JAX package on the same
     inputs;
   * ``"mxu"`` (:func:`cic_deposit_device_mxu`, and the slab-keyed
@@ -63,10 +64,10 @@ import torch
 from mpi_grid_redistribute_tpu_torch._device import OnDevice
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import (
-    binning, dfscan, rowsort, segdep,
+    binning, dfscan, rowsort, segdep, tilecarry,
 )
 from mpi_grid_redistribute_tpu_torch.ops.dfscan import (  # noqa: F401
-    _base_cell, _df_add, _df_cumsum, _two_sum,
+    _df_add, _df_cumsum, _two_sum,
 )
 from mpi_grid_redistribute_tpu_torch.parallel import collectives as col
 from mpi_grid_redistribute_tpu_torch.parallel import mesh as mesh_lib
@@ -116,11 +117,11 @@ def _row_major_strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
 def _payload_route(device: torch.device, n: int, D: int, tile: int,
                    plain: bool) -> str:
     """How the scan deposit sorts its payload and feeds kernel 5:
-    ``"rows"`` (``rowsort.sort_rows``, the payload as 16-byte rows moved
-    with the keys, and kernel 5's fused route on those rows) on a CUDA
-    device for D of 1 to 3, a tile the fused route takes and 1 to 2^31 - 1
-    rows; else ``"planar"`` (a stable ``torch.sort`` and a gather of the
-    planar payload), which ``plain`` always takes."""
+    ``"rows"`` (``rowsort``: the payload as 16-byte rows moved with the
+    keys, and kernel 5's fused route on those rows) on a CUDA device for D
+    of 1 to 3, a tile the fused route takes and 1 to 2^31 - 1 rows; else
+    ``"planar"`` (a stable ``torch.sort`` and a gather of the planar
+    payload), which ``plain`` always takes."""
     if (plain or device.type != "cuda" or not 1 <= D <= rowsort.MAX_DIMS
             or not 1 <= n <= rowsort.MAX_ROWS
             or dfscan.cic_geometry(tile, D).route != "cic"):
@@ -132,34 +133,42 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
                                local_shape, tile: int,
                                channel_group: int = None,
                                plain: bool = False):
-    """Scan-deposit core: stable sort by segment key, double-float prefix
-    of the corner-weight channels, differences at the segment bounds.
+    """Scan-deposit core on the planar route: stable sort by segment key,
+    double-float prefix of the corner-weight channels, differences at the
+    segment bounds.
 
     ``key [N]`` int32 in ``[0, n_segments]`` (sentinel ``n_segments`` for
     invalid rows), ``rel_rows [D, N]`` block-local coordinates, ``mass
     [N]`` (already zero on invalid rows). Returns ``per_cell [2^D,
-    n_segments]``. ``channel_group`` processes the channels in groups of
-    that many to bound the prefix temporaries; it changes no channel's
-    arithmetic. The sort takes the route :func:`_payload_route` gives: on
-    the card one ``rowsort.sort_rows`` launch over the key's
-    ``n_segments.bit_length()`` bits, the payload riding along as rows
-    that ``dfscan.cic_tile_prefix_rows`` reads (one fused kernel 5 launch
-    a group); otherwise ``torch.sort`` and a gather of the planar payload
-    into ``dfscan.cic_tile_prefix`` (its plain version on the CPU or when
-    ``plain``). Both give the same bits."""
+    n_segments]``. The sort is ``torch.sort`` and a gather of the planar
+    payload; :func:`_segment_sums` does the rest."""
     n = key.shape[0]
-    D = rel_rows.shape[0]
-    K = max(1, min(tile, n))
-    rows_route = _payload_route(key.device, n, D, K, plain) == "rows"
     with span("dep:sort"):
-        if rows_route:
-            keys_sorted, rows_s = rowsort.sort_rows(
-                key, rel_rows, mass, n_segments.bit_length())
-            payload_s = rowsort.rows_as_payload(rows_s, D)  # [D + 1, N]
-        else:
-            keys_sorted, order = torch.sort(key, stable=True)
-            payload = torch.cat([rel_rows, mass[None, :]], dim=0)
-            payload_s = torch.index_select(payload, 1, order)
+        keys_sorted, order = torch.sort(key, stable=True)
+        payload = torch.cat([rel_rows, mass[None, :]], dim=0)
+        sorted_ = torch.index_select(payload, 1, order)
+    return _segment_sums(keys_sorted, sorted_, False, n_segments,
+                         local_shape, max(1, min(tile, n)), channel_group,
+                         plain)
+
+
+def _segment_sums(keys_sorted, sorted_, rows_route: bool, n_segments: int,
+                  local_shape, K: int, channel_group: int = None,
+                  plain: bool = False):
+    """The scan deposit after its sort: ``keys_sorted [N]`` and the
+    payload in that order, as rows ``[N, 4]`` of ``ops.rowsort``
+    (``rows_route``: ``dfscan.cic_tile_prefix_rows``, one fused kernel 5
+    launch a group on the card) or planar ``[D + 1, N]``
+    (``dfscan.cic_tile_prefix``, its plain version on the CPU or when
+    ``plain``); the double-float prefix of the corner-weight channels in
+    tiles of ``K`` rows, the tiles' carries (``tilecarry.tile_carries``,
+    its plain version when ``plain``) and the differences at the segment
+    bounds. Returns
+    ``per_cell [2^D, n_segments]``. ``channel_group`` processes the
+    channels in groups of that many to bound the prefix temporaries; it
+    changes no channel's arithmetic."""
+    n = keys_sorted.shape[0]
+    D = len(local_shape)
     nch = 1 << D
     n_pad = -(-n // K) * K
     with span("dep:bounds"):
@@ -170,13 +179,15 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
     cg = nch if not channel_group else max(1, min(channel_group, nch))
     if rows_route:
         def prefix(c0, g):
-            return dfscan.cic_tile_prefix_rows(rows_s, local_shape, c0, g, K)
+            return dfscan.cic_tile_prefix_rows(sorted_, local_shape, c0, g,
+                                               K)
     else:
         planar = (dfscan.cic_tile_prefix_plain if plain
                   else dfscan.cic_tile_prefix)
 
         def prefix(c0, g):
-            return planar(payload_s, local_shape, c0, g, K)
+            return planar(sorted_, local_shape, c0, g, K)
+    carries = tilecarry.tile_carries_plain if plain else tilecarry.tile_carries
 
     def per_group(c0):
         g = min(cg, nch - c0)
@@ -184,14 +195,10 @@ def _sorted_per_segment_planar(key, rel_rows, mass, n_segments: int,
             # within-tile prefixes of the group's corner channels, hi rows
             # above lo rows: [2 g, n_pad]
             l_pack = prefix(c0, g)
-            tiles = l_pack.view(2 * g, n_pad // K, K)
-            thi, tlo = _df_cumsum(tiles[:g, :, -1], axis=1,
-                                  x_lo=tiles[g:, :, -1])
+            # the tiles' exclusive prefixes, hi rows above lo rows:
+            # [2 g, T + 1]
+            s_pack = carries(l_pack, K)
         with span("dep:place"):
-            zg = torch.zeros((g, 1), dtype=_F32, device=l_pack.device)
-            s_hi = torch.cat([zg, thi], dim=1)  # exclusive tile prefixes
-            s_lo = torch.cat([zg, tlo], dim=1)  # [g, T + 1]
-            s_pack = torch.cat([s_hi, s_lo], dim=0)  # [2 g, T + 1]
             l_at = torch.where(
                 has_local, torch.index_select(l_pack, 1, lb), 0.0
             )
@@ -232,7 +239,6 @@ def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
     Returns per-vrank ghost blocks ``[V, *(vblock + 1)]``."""
     D, m = pos_rows.shape
     V = lo_local.shape[0]
-    n = m // V
     n_cells = math.prod(vblock)
     if V * n_cells > 2**27:
         raise ValueError(
@@ -241,28 +247,25 @@ def cic_deposit_vranks_planar(pos_rows, mass, valid, lo_local, inv_h,
             f"bound (2**27). Use a coarser deposit grid per vrank or "
             f"fewer vranks per device."
         )
-    strides = _row_major_strides(vblock)
-    with span("dep:keys"):
-        valid2 = valid.reshape(V, n)
-        rel = []
-        cell = torch.zeros((V, n), dtype=_I32, device=pos_rows.device)
-        for d in range(D):
-            r = (pos_rows[d].reshape(V, n) - lo_local[:, d, None]) * inv_h[d]
-            r = torch.where(valid2, r, 0.0)
-            cell = cell + _base_cell(r, vblock[d]) * strides[d]
-            rel.append(r.reshape(m))
-        v_ids = torch.arange(V, dtype=_I32, device=pos_rows.device)[:, None]
-        key = torch.where(valid2, v_ids * n_cells + cell,
-                          V * n_cells).to(_I32)
-        mass_z = torch.where(valid, mass, 0.0)
-        rel_rows = torch.stack(rel, dim=0)
     # above ~16M rows, process corner channels two at a time to bound the
     # double-float prefix temporaries, as the reference does
     cg = 2 if m > (1 << 24) else None
-    per_cell = _sorted_per_segment_planar(
-        key.reshape(-1), rel_rows, mass_z, V * n_cells,
-        vblock, tile, channel_group=cg, plain=plain,
-    )  # [2^D, V * n_cells]
+    K = max(1, min(tile, m))
+    if _payload_route(pos_rows.device, m, D, K, plain) == "rows":
+        # the keys are computed in the payload sort's pack
+        with span("dep:sort"):
+            keys_s, rows_s = rowsort.sort_keyed_rows(
+                pos_rows, valid, mass, lo_local, inv_h, vblock)
+        per_cell = _segment_sums(keys_s, rows_s, True, V * n_cells, vblock,
+                                 K, cg, plain)
+    else:
+        with span("dep:keys"):
+            key, rel_rows, mass_z = rowsort.slab_keys_plain(
+                pos_rows, valid, mass, lo_local, inv_h, vblock)
+        per_cell = _sorted_per_segment_planar(
+            key, rel_rows, mass_z, V * n_cells, vblock, tile,
+            channel_group=cg, plain=plain,
+        )  # [2^D, V * n_cells]
     with span("dep:place"):
         per_cell = per_cell.reshape((per_cell.shape[0], V) + tuple(vblock))
         ghost = tuple(b + 1 for b in vblock)
@@ -295,7 +298,7 @@ def _device_keys_planar(pos_rows, valid, dev_lo, inv_h, dev_block):
     for d in range(D):
         r = (pos_rows[d] - dev_lo[d]) * inv_h[d]
         r = torch.where(valid, r, 0.0)
-        cell = cell + _base_cell(r, dev_block[d]) * strides[d]
+        cell = cell + binning.base_cell(r, dev_block[d]) * strides[d]
         rel.append(r)
     key = torch.where(valid, cell, n_cells).to(_I32)
     return key, torch.stack(rel, dim=0)
@@ -383,7 +386,7 @@ def _slab_keys_mxu(pos_rows, mass, valid, lo_local, inv_h, vblock):
         ok_d = (~valid2) | ((r >= -1e-4) & (r <= float(vblock[d])))
         in_block = in_block & ok_d.all()
         r = torch.where(valid2, r, 0.0)
-        cell = cell + _base_cell(r, vblock[d]) * strides[d]
+        cell = cell + binning.base_cell(r, vblock[d]) * strides[d]
         rel.append(r)
     v_ids = torch.arange(V, dtype=_I32, device=pos_rows.device)[:, None]
     key = torch.where(valid2, v_ids * n_cells + cell, V * n_cells).to(_I32)
@@ -475,7 +478,8 @@ def cic_deposit_vranks_segment(pos, mass, valid, lo_local, inv_h,
     # position turns the masked weight into 0 * NaN = NaN
     rel = torch.where(valid[..., None], rel, 0.0)
     i0 = torch.stack(
-        [_base_cell(rel[..., d], vblock[d]) for d in range(D)], dim=-1
+        [binning.base_cell(rel[..., d], vblock[d]) for d in range(D)],
+        dim=-1
     )
     frac = (rel - i0.to(_F32)).clamp(0.0, 1.0)
     w_valid = torch.where(valid, mass, 0.0).reshape(-1)

@@ -20,11 +20,11 @@ larger tile to the plain version.
 
 The double-float arithmetic itself (:func:`_two_sum`, :func:`_df_add`,
 :func:`_df_cumsum`) lives here as the kernel's plain version;
-``ops.deposit`` uses it for the level-2 scan over tile totals, which
-stays plain PyTorch as it stays XLA in the reference.
+it is also the plain version of the level-2 scan over the tiles' totals,
+which runs on the card as ``ops/tilecarry`` (``csrc/tilecarry.cu``).
 
 The scan deposit calls the kernel through :func:`cic_tile_prefix_rows`:
-from the sorted 16-byte rows that ``ops.rowsort.sort_rows`` leaves
+from the sorted 16-byte rows that ``ops.rowsort.sort_keyed_rows`` leaves
 (block-local coordinates, then mass) to one ``[2 g, n_pad]`` pack of the
 within-tile prefixes of ``g`` corner channels, hi words above lo words.
 On the card, for a tile of the register route and D of 1 to 3, that is
@@ -229,18 +229,13 @@ def tile_df_cumsum_rows(x: torch.Tensor, _out=None):
     return hi, lo
 
 
-def _base_cell(r: torch.Tensor, n: int) -> torch.Tensor:
-    """``clip(int32(floor(r)), 0, n - 1)``, with XLA's saturating
-    float-to-int32 conversion."""
-    return binning.floor_to_int32(r).clamp(0, n - 1)
-
-
 def cic_frac(rel_s: torch.Tensor, local_shape) -> torch.Tensor:
     """The CIC fractions ``[D, n]`` of block-local coordinates ``rel_s
     [D, n]``: ``clamp(rel - float(base cell), 0, 1)`` on each axis."""
     D = rel_s.shape[0]
     i0_s = torch.stack(
-        [_base_cell(rel_s[d], local_shape[d]) for d in range(D)], dim=0
+        [binning.base_cell(rel_s[d], local_shape[d]) for d in range(D)],
+        dim=0
     )
     return (rel_s - i0_s.to(torch.float32)).clamp(0.0, 1.0)
 
@@ -336,13 +331,13 @@ def cic_tile_prefix(payload_s: torch.Tensor, local_shape, c0: int, g: int,
 def cic_tile_prefix_rows(rows_s: torch.Tensor, local_shape, c0: int, g: int,
                          tile: int, _out=None):
     """:func:`cic_tile_prefix` on the sorted rows ``rows_s [n, 4]``
-    float32 of ``ops.rowsort.sort_rows`` (row ``i``: particle ``i``'s ``D
-    = len(local_shape)`` block-local coordinates, then its mass): the same
-    pack, bit for bit, as from the planar payload those rows hold. CUDA
-    tensors take one launch of the fused route, which loads a 16-byte row
-    a particle (route ``"packed"``), for the tiles :func:`cic_geometry`
-    sends to it; CPU tensors and other tiles run :func:`cic_tile_prefix`
-    on that payload."""
+    float32 of ``ops.rowsort.sort_keyed_rows`` (row ``i``: particle
+    ``i``'s ``D = len(local_shape)`` block-local coordinates, then its
+    mass): the same pack, bit for bit, as from the planar payload those
+    rows hold. CUDA tensors take one launch of the fused route, which
+    loads a 16-byte row a particle (route ``"packed"``), for the tiles
+    :func:`cic_geometry` sends to it; CPU tensors and other tiles run
+    :func:`cic_tile_prefix` on that payload."""
     D = len(local_shape)
     if (rows_s.dtype != torch.float32 or rows_s.dim() != 2
             or rows_s.shape[1] != rowsort.ROW_FLOATS):

@@ -459,64 +459,56 @@ def test_dfscan_cic_rows_route_matches_plain(cuda, D, local_shape, tile,
         assert _bits_equal(got, want)
 
 
-def _sort_keys(r, n, bits):
-    """Keys for a sort over ``bits`` bits: ``n_seg = 2^(bits - 1)``
-    segments (so ``n_seg.bit_length() == bits``), drawn from a pool a
-    quarter of ``n`` wide so that ties are dense, both ends of the range,
-    and the sentinel ``n_seg`` on ~15% of the rows."""
-    n_seg = 1 << (bits - 1)
-    pool = r.integers(0, n_seg, size=max(1, n // 4))
-    key = r.choice(pool, n).astype(np.int32)
-    key[r.random(n) < 0.15] = n_seg
-    if n > 2:
-        key[:2] = (0, n_seg - 1)
-    return key, n_seg
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [1, 22, 28])
 @pytest.mark.parametrize("n", [1, 1_000_003, (1 << 24) + 1])
 def test_sort_rows_bit_equal_to_the_stable_sort_and_gather(cuda, n, bits):
-    """``sort_rows`` on the card (one launch: the pack and cub's passes
-    over the key's own bits) against ``torch.sort(stable=True)`` and
-    ``index_select`` on the card: keys and rows bit for bit, on keys
-    dense with ties and the sentinel; the rows' NaN and signed zeros
-    kept; the inputs untouched."""
+    """The payload sort on the card (``sort_keyed_rows``, one launch: the
+    keyed pack and cub's passes over the key's own bits) against its
+    plain twin on the card (the keys phase, ``torch.sort(stable=True)``
+    and ``index_select``), over 1, 22 and 28 key bits (blocks of 1,
+    2^21 and 2^27 cells, so that the keys span the bits cub sorts):
+    keys and rows bit for bit, the rows' NaN and signed zeros kept, the
+    inputs untouched."""
+    side = {1: 1, 22: 128, 28: 512}[bits]
+    vblock = (side,) * 3
     r = np.random.default_rng(n + bits)
-    key, n_seg = _sort_keys(r, n, bits)
-    assert n_seg.bit_length() == bits
-    rel = (r.random((3, n)) * 64).astype(np.float32)
-    mass = r.uniform(0.5, 2.0, n).astype(np.float32)
-    if n > 4:
-        rel[0, 2:5] = (-0.0, np.nan, np.float32(3e38))
-        mass[3] = -0.0
-    key_t, rel_t, mass_t = (torch.from_numpy(a).to(cuda)
-                            for a in (key, rel, mass))
-    before = rowsort.KERNEL.launches
-    keys_s, rows_s = rowsort.sort_rows(key_t, rel_t, mass_t, bits)
-    want_k, want_r = rowsort.sort_rows_plain(key_t, rel_t, mass_t, bits)
+    if n > 8:
+        args = _keyed_inputs(r, 3, 1, n, vblock, cuda)
+    else:
+        args = [torch.from_numpy(a).to(cuda) for a in (
+            r.random((3, n), dtype=np.float32), np.ones(n, bool),
+            r.uniform(0.5, 2.0, n).astype(np.float32),
+            np.zeros((1, 3), np.float32),
+            np.full(3, side, np.float32))]
+    assert rowsort.keyed_bits(args[3], vblock) == bits
+    pos0 = args[0].clone()
+    before = (rowsort.KERNEL.launches, rowsort.ROUTES["keyed"])
+    keys_s, rows_s = rowsort.sort_keyed_rows(*args, vblock)
+    want_k, want_r = rowsort.sort_keyed_rows_plain(*args, vblock)
     torch.cuda.synchronize()
-    assert rowsort.KERNEL.launches == before + 1
+    assert (rowsort.KERNEL.launches, rowsort.ROUTES["keyed"]) == (
+        before[0] + 1, before[1] + 1)
     assert torch.equal(keys_s, want_k)
     assert _bits_equal(rows_s, want_r)
-    assert torch.equal(key_t.cpu(), torch.from_numpy(key))
-    out = (torch.empty_like(keys_s), torch.empty_like(rows_s))
-    got = rowsort.sort_rows(key_t, rel_t, mass_t, bits, _out=out)
-    torch.cuda.synchronize()
-    assert got[0] is out[0] and got[1] is out[1]
-    assert torch.equal(out[0], want_k) and _bits_equal(out[1], want_r)
+    assert _bits_equal(args[0], pos0)
 
 
 @pytest.mark.cuda
 def test_sort_rows_refuses_what_it_cannot_take(cuda):
-    key = torch.zeros(10, dtype=torch.int32, device=cuda)
-    rel = torch.zeros((3, 10), device=cuda)
+    pos = torch.zeros((3, 10), device=cuda)
+    valid = torch.ones(10, dtype=torch.bool, device=cuda)
     mass = torch.zeros(10, device=cuda)
-    with pytest.raises(ValueError):
-        rowsort.sort_rows(key, rel.t().contiguous().t(), mass, 4)
+    lo = torch.zeros((1, 3), device=cuda)
+    inv_h = torch.ones(3, device=cuda)
     with pytest.raises(TypeError):
-        rowsort.sort_rows(key, torch.zeros((4, 10), device=cuda), mass, 4)
-    k, rows = rowsort.sort_rows(key[:0], rel[:, :0], mass[:0], 4)
+        rowsort.sort_keyed_rows(pos, valid, mass.double(), lo, inv_h,
+                                (4, 4, 4))
+    with pytest.raises(ValueError):  # inputs on two devices
+        rowsort.sort_keyed_rows(pos, valid.cpu(), mass, lo, inv_h,
+                                (4, 4, 4))
+    k, rows = rowsort.sort_keyed_rows(pos[:, :0], valid[:0], mass[:0], lo,
+                                      inv_h, (4, 4, 4))
     assert k.shape == (0,) and rows.shape == (0, 4)
     with pytest.raises(ValueError):  # rows 4 bytes off a 16-byte line
         dfscan.cic_tile_prefix_rows(
@@ -526,15 +518,138 @@ def test_sort_rows_refuses_what_it_cannot_take(cuda):
 
 @pytest.mark.cuda
 def test_sort_rows_resource_usage_lists_cub_kernels(cuda):
-    """``rowsort.KERNEL.resource_usage()`` lists the pack's instances and
-    cub's four kernels of the sort, none spilling: ``csrc/rowsort.cu``
-    names cub's kernels as cub 2.8 instantiates them, and another cub
-    fails here rather than leave them out of the table."""
+    """``rowsort.KERNEL.resource_usage()`` lists the keyed pack's
+    instances and cub's four kernels of the sort, none spilling:
+    ``csrc/rowsort.cu`` names cub's kernels as cub 2.8 instantiates
+    them, and another cub fails here rather than leave them out of the
+    table."""
     usage = rowsort.KERNEL.resource_usage()
-    assert set(usage) == {f"rowsort_pack_kernel<{d}>" for d in (1, 2, 3)} | {
+    assert set(usage) == {f"rowsort_keys_kernel<{d}>" for d in (1, 2, 3)} | {
         f"cub::DeviceRadixSort{k}Kernel"
         for k in ("Histogram", "ExclusiveSum", "Onesweep", "SingleTile")}
     assert all(u["local_bytes"] == 0 for u in usage.values())
+
+
+def _keyed_inputs(r, D, V, n, vblock, cuda):
+    """V slabs side by side along axis 0 (vrank ``v``'s block starts at
+    ``v / V``), ~10% invalid slots; each vrank's first valid slots hold
+    NaN, +-inf, -0.0, positions outside the block and one on its upper
+    face; masses that are not 1, one -0.0."""
+    m = V * n
+    lo = np.zeros((V, D), np.float32)
+    lo[:, 0] = np.arange(V, dtype=np.float32) / np.float32(V)
+    width = np.ones(D, np.float32)
+    width[0] = np.float32(1.0) / np.float32(V)
+    inv_h = (np.asarray(vblock, np.float32) / width).astype(np.float32)
+    v = np.repeat(np.arange(V), n)
+    pos = (lo[v].T + r.random((D, m), dtype=np.float32)
+           * width[:, None]).astype(np.float32)
+    valid = r.random(m) < 0.9
+    special = [np.nan, np.inf, -np.inf, -0.0, -0.25, 1.75, 3e38]
+    for k in range(V):
+        s0 = k * n
+        pos[:, s0:s0 + len(special)] = np.asarray(special, np.float32)
+        pos[:, s0 + len(special)] = lo[k] + width  # the upper face
+        valid[s0:s0 + len(special) + 1] = True
+    mass = r.uniform(0.5, 2.0, m).astype(np.float32)
+    mass[3] = -0.0
+    return [torch.from_numpy(a).to(cuda)
+            for a in (pos, valid, mass, lo, inv_h)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,V,n,vblock", [
+    (3, 1, 1 << 20, (128, 128, 128)),  # 2^20 rows onto one block
+    (1, 8, 100_003, (64,)),  # the CIC cell's 8 vranks of 64^D cells
+    (2, 8, 100_003, (64, 64)),
+    (3, 8, 100_003, (64, 64, 64)),
+    (3, 3, 5_000, (4, 3, 5)),
+])
+def test_sort_keyed_rows_bit_equal_to_its_plain_twin(cuda, D, V, n, vblock):
+    """``sort_keyed_rows`` on the card (one launch, route ``"keyed"``: the
+    keys computed in the pack, then cub's passes) against its plain twin
+    on the card (the deposit's keys phase, a stable ``torch.sort`` and
+    ``index_select``): keys and rows bit for bit; the same from
+    positions whose rows are strided, and into ``_out``."""
+    args = _keyed_inputs(np.random.default_rng(D * V + n), D, V, n, vblock,
+                         cuda)
+    before = (rowsort.KERNEL.launches, dict(rowsort.ROUTES))
+    keys_s, rows_s = rowsort.sort_keyed_rows(*args, vblock)
+    want_k, want_r = rowsort.sort_keyed_rows_plain(*args, vblock)
+    torch.cuda.synchronize()
+    assert rowsort.KERNEL.launches == before[0] + 1
+    assert rowsort.ROUTES == dict(before[1], keyed=before[1]["keyed"] + 1)
+    assert torch.equal(keys_s, want_k)
+    assert _bits_equal(rows_s, want_r)
+    wide = torch.full((D, V * n + 5), float("nan"), device=cuda)
+    wide[:, :V * n] = args[0]
+    out = (torch.empty_like(keys_s), torch.empty_like(rows_s))
+    got = rowsort.sort_keyed_rows(wide[:, :V * n], *args[1:], vblock,
+                                  _out=out)
+    torch.cuda.synchronize()
+    assert got[0] is out[0] and got[1] is out[1]
+    assert torch.equal(out[0], want_k) and _bits_equal(out[1], want_r)
+
+
+def _carry_pack(r, g, T, tile, cuda):
+    """Within-tile prefixes of ``g`` channels, hi rows above lo rows, with
+    -0.0, a NaN, an infinity and a denormal among the tile totals."""
+    pack = r.normal(size=(2 * g, T * tile)).astype(np.float32)
+    pack[g:] *= np.float32(2.0**-24)
+    ends = pack[:, tile - 1::tile]
+    ends[0, 0] = -0.0
+    if T > 5:
+        ends[g - 1, T // 2] = np.nan
+        ends[0, T // 3] = np.inf
+        ends[2 * g - 1, 3] = np.float32(1e-41)
+    return torch.from_numpy(pack).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,T,tile", [
+    (1, 1, 4), (2, 2, 1), (2, 1023, 2), (1, 1024, 1), (2, 1025, 3),
+    (1, 2047, 1), (2, 2048, 1), (1, 3000, 4),
+    (2, 262_144, 256),  # the CIC cell's group of 2 channels
+    (8, 65_536, 256),  # its 8 channels at once, below 2^24 rows
+    (1, (1 << 21) + 3, 1),  # three launches, the second chunked
+])
+def test_tile_carries_bit_equal_to_their_plain_twin(cuda, g, T, tile):
+    """``tile_carries`` on the card (one C entry: ten doubling steps a
+    launch, in shared memory) against its plain twin on the card
+    (``_df_cumsum`` over the tiles' last elements): every bit, the
+    shifted-in zeros' signs, NaN and infinity included; the same from a
+    pack whose rows are strided, and into ``_out``."""
+    from mpi_grid_redistribute_tpu_torch.ops import tilecarry
+
+    pack = _carry_pack(np.random.default_rng(g * T + tile), g, T, tile,
+                       cuda)
+    before = tilecarry.KERNEL.launches
+    got = tilecarry.tile_carries(pack, tile)
+    want = tilecarry.tile_carries_plain(pack, tile)
+    torch.cuda.synchronize()
+    assert tilecarry.KERNEL.launches == before + 1
+    assert got.shape == want.shape == (2 * g, T + 1)
+    assert _bits_equal(got, want)
+    wide = torch.full((2 * g, T * tile + 8), float("nan"), device=cuda)
+    wide[:, :T * tile] = pack
+    out = torch.empty_like(want)
+    assert tilecarry.tile_carries(wide[:, :T * tile], tile, _out=out) is out
+    torch.cuda.synchronize()
+    assert _bits_equal(out, want)
+
+
+@pytest.mark.cuda
+def test_tile_carries_resource_usage(cuda):
+    """The tile carries' one kernel, 1024 threads a block with its two
+    double buffers of 2047 (hi, lo) pairs in static shared memory, none
+    spilling."""
+    from mpi_grid_redistribute_tpu_torch.ops import tilecarry
+
+    usage = tilecarry.KERNEL.resource_usage()
+    assert set(usage) == {"tile_carry_kernel"}
+    u = usage["tile_carry_kernel"]
+    assert u["local_bytes"] == 0 and u["max_threads"] >= 1024
+    assert u["static_smem"] == 2 * 2 * 2047 * 4
 
 
 def _vrank_deposit_args(r, D, n_per, cuda):
@@ -572,6 +687,7 @@ def test_vrank_deposit_rows_route_bit_equal_to_plain(cuda, D):
     got = deposit.cic_deposit_vranks_planar(*args, vblock)
     torch.cuda.synchronize()
     assert rowsort.KERNEL.launches == 1
+    assert rowsort.ROUTES == {"keyed": 1}
     assert dfscan.ROUTES == {"rows": 0, "packed": 1}
     want = deposit.cic_deposit_vranks_planar(*args, vblock, plain=True)
     torch.cuda.synchronize()
@@ -583,8 +699,9 @@ def test_vrank_deposit_rows_route_bit_equal_to_plain(cuda, D):
 @pytest.mark.cuda
 def test_vrank_deposit_counts_one_sort_and_four_packed_launches(cuda):
     """Above 2^24 rows (the CIC cell's deposit), a deposit makes 1 payload
-    sort launch and 4 packed kernel-5 launches (groups of 2), no planar or
-    rows-route one, bit-equal to ``plain=True``."""
+    sort launch, on the keyed route, 4 packed kernel-5 launches (groups
+    of 2), no planar or rows-route one, and 4 calls of the tile carries,
+    bit-equal to ``plain=True``."""
     from mpi_grid_redistribute_tpu_torch.ops import _build
 
     args, vblock = _vrank_deposit_args(np.random.default_rng(3), 3,
@@ -594,6 +711,8 @@ def test_vrank_deposit_counts_one_sort_and_four_packed_launches(cuda):
     torch.cuda.synchronize()
     counts = _build.counts()
     assert counts["sort_rows"] == 1 and counts["tile_df_cumsum_rows"] == 4
+    assert counts["tile_carries"] == 4
+    assert rowsort.ROUTES == {"keyed": 1}
     assert dfscan.ROUTES == {"rows": 0, "packed": 4}
     want = deposit.cic_deposit_vranks_planar(*args, vblock, plain=True)
     torch.cuda.synchronize()
@@ -874,6 +993,7 @@ def test_scan_deposit_fused_route_bit_equal_to_plain(cuda, n, groups):
     assert dfscan.ROUTES == {"rows": 0, "packed": groups}
     assert dfscan.KERNEL.launches == groups
     assert rowsort.KERNEL.launches == 1
+    assert rowsort.ROUTES == {"keyed": 1}
     want = deposit.cic_deposit_device_planar(*args, block, plain=True)
     torch.cuda.synchronize()
     # plain: no launch
@@ -1848,10 +1968,12 @@ def test_kernelcheck_catches_a_write_past_a_tensor_on_the_card(cuda):
 @pytest.mark.cuda
 def test_deposit_span_table_reads_the_deposit_on_the_card(cuda):
     """The deposit's span table on the card: one profiled call of two
-    whole deposits, every device operation charged to a row, the rows
-    adding up to the call's device time within 1%, the fused kernel 5
-    launched a channel group each, and the density bit-equal to the
-    plain deposit's."""
+    whole deposits, every device operation charged to a row, every phase
+    but ``dep:keys`` reading device time (the card computes the keys in
+    the payload sort's pack, under ``dep:sort``), the rows adding up to
+    the call's device time within 1%, the fused kernel 5 launched a
+    channel group each, and the density bit-equal to the plain
+    deposit's."""
     from mpi_grid_redistribute_tpu_torch.bench import knockout_deposit
     from mpi_grid_redistribute_tpu_torch.ops import _build
     from mpi_grid_redistribute_tpu_torch.telemetry import phases
@@ -1866,7 +1988,8 @@ def test_deposit_span_table_reads_the_deposit_on_the_card(cuda):
     rows = phases.phase_rows(trace, knockout_deposit.PHASES, steps=2)
     assert [r.phase for r in rows] == list(knockout_deposit.PHASES) + [
         phases.REST]
-    assert all(r.delta_s > 0 for r in rows[:-1])
+    assert [r.phase for r in rows[:-1] if r.delta_s > 0] == [
+        p for p in knockout_deposit.PHASES if p != "dep:keys"]
     assert sum(r.delta_s for r in rows) == pytest.approx(
         trace.seconds_in() / 2, rel=0.01)
     want = knockout_deposit.make_loop(1, mesh_cells=32, plain=True)(*state)

@@ -5,7 +5,8 @@ package's on the CPU.
 The registry carries the reference's six case names, and each of those
 cases' inputs are byte-equal to what the reference's builders make;
 beside them it carries a case of each kernel the port has beyond the
-reference's (``kc.PORT_CASES``: the scan deposit's payload sort). Each plain
+reference's (``kc.PORT_CASES``: the scan deposit's payload sort and its
+tile carries). Each plain
 twin is bit-equal to the reference case's ``reference`` and to its Pallas
 kernel run in interpret mode on the same inputs, except where the
 reference's jitted CPU code contracts kernel 1's drift into a fused

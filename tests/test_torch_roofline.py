@@ -19,7 +19,7 @@ from mpi_grid_redistribute_tpu_torch.analysis.baseline import (
 )
 from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
 from mpi_grid_redistribute_tpu_torch.ops import (
-    dfscan, driftbin, overlay, scatter, segdep,
+    dfscan, driftbin, overlay, scatter, segdep, tilecarry,
 )
 from mpi_grid_redistribute_tpu_torch.telemetry import metrics
 from mpi_grid_redistribute_tpu_torch.telemetry import roofline as troof
@@ -138,6 +138,7 @@ def _kernel_calls():
     keys = torch.from_numpy(np.sort(r.integers(0, 50, 300)).astype(np.int32))
     rel = torch.from_numpy(r.random((3, 300), dtype=np.float32) * 4)
     x = torch.from_numpy(r.random((5, 37), dtype=np.float32))
+    pack = torch.from_numpy(r.random((4, 40), dtype=np.float32))
     return [
         ("drift_wrap_bin", driftbin.drift_wrap_bin,
          driftbin.drift_wrap_bin_plain, (flat, 1.0, dom, grid, V, V),
@@ -153,11 +154,14 @@ def _kernel_calls():
         ("tile_df_cumsum_rows", dfscan.tile_df_cumsum_rows,
          dfscan.tile_df_cumsum_rows_plain, (x,),
          (12 * 5 * 37, 2 * 11 * 6 * 5 * 37)),
+        ("tile_carries", tilecarry.tile_carries,
+         tilecarry.tile_carries_plain, (pack, 4),
+         (4 * 4 * 10 + 4 * 4 * 11, 2 * 11 * 4 * 2 * 10)),
     ]
 
 
 @pytest.mark.parametrize("route", ["public", "plain"])
-@pytest.mark.parametrize("i", range(5))
+@pytest.mark.parametrize("i", range(6))
 def test_kernel_scope_counts_its_formula(i, route):
     name, public, plain, args, (nbytes, flops) = _kernel_calls()[i]
     fn = public if route == "public" else plain
@@ -170,7 +174,7 @@ def test_kernel_scope_counts_its_formula(i, route):
                                    "flops": flops}}
     mod = {"drift_wrap_bin": driftbin, "overlay_scatter_planar": overlay,
            "scatter_rows": scatter, "segsum_sorted": segdep,
-           "tile_df_cumsum_rows": dfscan}[name]
+           "tile_df_cumsum_rows": dfscan, "tile_carries": tilecarry}[name]
     assert mod.kernel_cost(*args) == (nbytes, flops)
 
 

@@ -1,14 +1,16 @@
 """The scan deposit's payload sort (``ops/rowsort``) and its route through
 the deposit, on the CPU.
 
-``sort_rows`` on the CPU is its plain version: a stable ``torch.sort``
-of the key and one ``index_select`` of the packed rows. These tests hold
-that version to the sort the deposit ran before (the planar payload's
-gather), pin the row layout kernel 5 reads, and drive the deposit's
-rows route on the CPU (the route forced, each op on its plain version):
-the same bits as the planar route, in the whole deposit and in each
-channel group's intermediates. The
-card's kernel is held to the plain version in ``tests/test_torch_cuda.py``.
+``sort_keyed_rows`` on the CPU is its plain version: the deposit's keys
+phase (``slab_keys_plain``), then ``sort_rows_plain``, a stable
+``torch.sort`` of the key and one ``index_select`` of the packed rows.
+These tests hold the sort to the one the deposit ran before (the planar
+payload's gather), pin the row layout kernel 5 reads, hold the keyed
+sort's plain version to an independent numpy reference of the keys
+phase, and drive the deposit's rows route on the CPU (the route forced,
+each op on its plain version): the same bits as the planar route, in the
+whole deposit and in each channel group's intermediates. The card's
+kernel is held to the plain version in ``tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -43,8 +45,7 @@ def test_sort_rows_is_the_stable_sort_and_gather(D, n, n_keys):
     of the planar payload by its permutation, bit for bit; each row is
     the coordinates, then the mass, then zero lanes."""
     key, rel, mass = _inputs(np.random.default_rng(D * n), D, n, n_keys)
-    keys_s, rows_s = rowsort.sort_rows(key, rel, mass,
-                                       n_keys.bit_length())
+    keys_s, rows_s = rowsort.sort_rows_plain(key, rel, mass)
     want_k, order = torch.sort(key, stable=True)
     payload = torch.cat([rel, mass[None]], dim=0)
     want = torch.index_select(payload, 1, order)
@@ -67,38 +68,130 @@ def test_pack_rows_keeps_every_bit_and_zeroes_the_rest():
     assert view.data_ptr() == rows.data_ptr()  # a view, not a copy
 
 
-def test_sort_rows_out_hook_and_checks():
-    key, rel, mass = _inputs(np.random.default_rng(6), 3, 300, 40)
-    before = rowsort.KERNEL.launches
-    want = rowsort.sort_rows_plain(key, rel, mass, 6)
-    out = (torch.empty(300, dtype=torch.int32), torch.empty((300, 4)))
-    got = rowsort.sort_rows(key, rel, mass, 6, _out=out)
+def _keyed_inputs(r, D, V, n, vblock):
+    """Slabs of V vranks side by side along axis 0 of the unit box (vrank
+    ``v``'s block starts at ``v / V``): positions in their blocks, and on
+    valid slots NaN, +-inf, -0.0 (on the block's lower face), positions
+    outside the block and on its upper face; ~10% invalid slots, some
+    holding NaN; masses that are not 1, with a -0.0 and a NaN."""
+    m = V * n
+    lo = np.zeros((V, D), np.float32)
+    lo[:, 0] = np.arange(V, dtype=np.float32) / np.float32(V)
+    width = np.ones(D, np.float32)
+    width[0] = np.float32(1.0) / np.float32(V)
+    inv_h = (np.asarray(vblock, np.float32) / width).astype(np.float32)
+    v = np.repeat(np.arange(V), n)
+    pos = (lo[v].T + r.random((D, m), dtype=np.float32)
+           * width[:, None]).astype(np.float32)
+    valid = r.random(m) < 0.9
+    mass = r.uniform(0.5, 2.0, m).astype(np.float32)
+    special = [np.nan, np.inf, -np.inf, -0.0, -0.25, 1.75, 1e10, -3e38]
+    for d in range(D):
+        for k in range(V):  # each vrank's first slots
+            s0 = k * n
+            pos[d, s0:s0 + len(special)] = special
+            pos[d, s0 + 10] = lo[k, d] + width[d]  # the upper face
+            pos[d, s0 + 11] = lo[k, d]  # the lower face
+            valid[s0:s0 + 12] = True
+    valid[n - 1] = False
+    pos[:, n - 1] = np.nan  # an invalid slot's bytes are any bytes
+    mass[2], mass[3] = -0.0, np.nan
+    return [torch.from_numpy(a) for a in (pos, valid, mass, lo, inv_h)]
+
+
+def _keys_reference(pos, valid, mass, lo, inv_h, vblock):
+    """The deposit's keys phase and the stable sort in numpy, float32 op
+    by op: ``(keys_s, rows_s)``."""
+    pos, valid, mass, lo, inv_h = (t.numpy() for t in (pos, valid, mass, lo,
+                                                       inv_h))
+    D, m = pos.shape
+    V = lo.shape[0]
+    v = np.repeat(np.arange(V), m // V)
+    with np.errstate(invalid="ignore", over="ignore"):
+        rel = (pos - lo[v].T) * inv_h[:, None]
+        rel = np.where(valid, rel, np.float32(0.0))
+        f = np.floor(rel)
+        f = np.clip(np.where(np.isnan(f), 0.0, f), -2.0**31, 2.0**31 - 128)
+    cells = np.clip(f.astype(np.int64), 0,
+                    np.asarray(vblock)[:, None] - 1)
+    n_cells = int(np.prod(vblock))
+    cell = sum(cells[d] * int(np.prod(vblock[d + 1:])) for d in range(D))
+    key = np.where(valid, v * n_cells + cell, V * n_cells).astype(np.int32)
+    rows = np.zeros((m, rowsort.ROW_FLOATS), np.float32)
+    rows[:, :D] = rel.T
+    rows[:, D] = np.where(valid, mass, np.float32(0.0))
+    order = np.argsort(key, kind="stable")
+    return torch.from_numpy(key[order]), torch.from_numpy(rows[order])
+
+
+@pytest.mark.parametrize("D,vblock", [(1, (16,)), (2, (5, 4)),
+                                      (3, (4, 3, 5))])
+@pytest.mark.parametrize("V", [1, 3])
+def test_keyed_sort_is_the_keys_phase_and_the_sort(D, vblock, V):
+    """``sort_keyed_rows`` on the CPU (its plain version: the deposit's
+    keys phase ``slab_keys_plain``, then ``sort_rows_plain``) against the
+    keys phase and a stable sort in numpy, bit for bit: invalid slots on
+    the sentinel with zero rows, NaN to cell 0, infinities and positions
+    outside the block clipped to its edge cells, the upper face in the
+    last cell, -0.0 kept."""
+    args = _keyed_inputs(np.random.default_rng(10 * D + V), D, V, 500,
+                         vblock)
+    keys_s, rows_s = rowsort.sort_keyed_rows(*args, vblock)
+    want_k, want_r = _keys_reference(*args, vblock)
+    assert keys_s.dtype == torch.int32 and torch.equal(keys_s, want_k)
+    assert torch.equal(_bits(rows_s), _bits(want_r))
+    key, rel, mass_z = rowsort.slab_keys_plain(*args, vblock)
+    plain = rowsort.sort_rows_plain(key, rel, mass_z)
+    assert torch.equal(keys_s, plain[0])
+    assert torch.equal(_bits(rows_s), _bits(plain[1]))
+    n_cells = int(np.prod(vblock))
+    assert int(keys_s[-1]) == V * n_cells  # the invalid slots sort last
+    assert (keys_s < V * n_cells).sum() == int(args[1].sum())
+
+
+def test_sort_keyed_rows_out_hook_and_checks():
+    vblock = (4, 3)
+    pos, valid, mass, lo, inv_h = _keyed_inputs(np.random.default_rng(11),
+                                                2, 2, 100, vblock)
+    before = (rowsort.KERNEL.launches, dict(rowsort.ROUTES))
+    want = rowsort.sort_keyed_rows_plain(pos, valid, mass, lo, inv_h, vblock)
+    out = (torch.empty(200, dtype=torch.int32), torch.empty((200, 4)))
+    got = rowsort.sort_keyed_rows(pos, valid, mass, lo, inv_h, vblock,
+                                  _out=out)
     assert got[0] is out[0] and got[1] is out[1]
-    assert rowsort.KERNEL.launches == before  # the CPU launches nothing
+    # the CPU launches nothing
+    assert (rowsort.KERNEL.launches, dict(rowsort.ROUTES)) == before
     for g, w in zip(got, want):
         assert torch.equal(_bits(g), _bits(w))
-    with pytest.raises(ValueError):
-        rowsort.sort_rows(key, rel, mass, 6,
-                          _out=(out[0], torch.empty((300, 3))))
     bad = [
-        (key.long(), rel, mass, 6), (key, rel.double(), mass, 6),
-        (key, torch.cat([rel, rel[:1]]), mass, 6), (key, rel[:, :5], mass, 6),
-        (key, rel, mass[:5], 6), (key[None], rel, mass, 6),
+        (pos.double(), valid, mass, lo, inv_h, vblock),
+        (torch.cat([pos, pos, pos, pos]), valid, mass,
+         torch.cat([lo] * 4, 1), torch.cat([inv_h] * 4), vblock * 4),
+        (pos, valid.int(), mass, lo, inv_h, vblock),
+        (pos, valid, mass[:5], lo, inv_h, vblock),
+        (pos, valid, mass, lo[:, :1], inv_h, vblock),
+        (pos, valid, mass, torch.zeros((3, 2)), inv_h, vblock),  # V: 3 ∤ 200
+        (pos, valid, mass, lo, inv_h.double(), vblock),
     ]
     for args in bad:
         with pytest.raises(TypeError):
-            rowsort.sort_rows(*args)
-    for bits in (0, 33):
+            rowsort.sort_keyed_rows(*args)
+    for vb in ((4,), (4, 0), (2**16, 2**15)):
         with pytest.raises(ValueError):
-            rowsort.sort_rows(key, rel, mass, bits)
+            rowsort.sort_keyed_rows(pos, valid, mass, lo, inv_h, vb)
 
 
-def test_sort_rows_cost_counts_each_byte_once():
-    key, rel, mass = _inputs(np.random.default_rng(7), 3, 100, 9)
-    assert rowsort.kernel_cost(key, rel, mass, 4) == (100 * 20 + 100 * 20,
-                                                      0)
-    assert rowsort.launch_functions(key, rel[:2]) == [
-        ("rowsort_pack_kernel<2>", 256, 0)]
+def test_keyed_sort_cost_counts_each_byte_once():
+    """37 bytes a slot at D = 3: 12 of positions, 1 of ``valid`` and 4
+    of mass read, a 4-byte key and a 16-byte row written; ``lo_local``
+    and ``inv_h`` once; a subtract and a multiply a coordinate."""
+    vblock = (4, 4, 4)
+    args = _keyed_inputs(np.random.default_rng(12), 3, 2, 50, vblock)
+    assert rowsort.kernel_cost(*args, vblock) == (
+        100 * 37 + 4 * 6 + 4 * 3, 2 * 3 * 100)
+    assert rowsort.launch_functions(args[0][:2]) == [
+        ("rowsort_keys_kernel<2>", 256, 0)]
+    assert rowsort.keyed_bits(args[3], vblock) == (2 * 64).bit_length()
 
 
 CUDA = torch.device("cuda")  # a device object: touches no card
@@ -139,8 +232,9 @@ def _deposit_args(r, D, V, n, vblock):
 
 @pytest.fixture
 def rows_route_on_the_cpu(monkeypatch):
-    """The deposit's rows route forced on the CPU, where ``sort_rows``
-    and ``cic_tile_prefix_rows`` run their plain versions."""
+    """The deposit's rows route forced on the CPU, where
+    ``sort_keyed_rows`` and ``cic_tile_prefix_rows`` run their plain
+    versions."""
     monkeypatch.setattr(deposit, "_payload_route",
                         lambda device, n, D, tile, plain:
                         "planar" if plain else "rows")
@@ -150,11 +244,27 @@ def rows_route_on_the_cpu(monkeypatch):
                                       (3, (4, 4, 4))])
 @pytest.mark.parametrize("tile", [256, 7])
 def test_rows_route_deposit_is_bit_equal_to_the_planar_route(
-        rows_route_on_the_cpu, D, vblock, tile):
+        rows_route_on_the_cpu, monkeypatch, D, vblock, tile):
+    """The rows route computes its keys in the keyed sort (one
+    ``sort_keyed_rows`` call and no keys phase of its own) and gives the
+    planar route's bits."""
+    calls, depth = [], [0]
+    for name in ("sort_keyed_rows", "slab_keys_plain"):
+        def spy(*a, _f=getattr(rowsort, name), _name=name, **k):
+            if not depth[0]:  # the deposit's own calls
+                calls.append(_name)
+            depth[0] += 1
+            try:
+                return _f(*a, **k)
+            finally:
+                depth[0] -= 1
+        monkeypatch.setattr(rowsort, name, spy)
     args = _deposit_args(np.random.default_rng(D + tile), D, 3, 700, vblock)
     got = deposit.cic_deposit_vranks_planar(*args, vblock, tile=tile)
+    assert calls == ["sort_keyed_rows"]
     want = deposit.cic_deposit_vranks_planar(*args, vblock, tile=tile,
                                              plain=True)
+    assert calls == ["sort_keyed_rows", "slab_keys_plain"]
     assert got.shape == (3,) + tuple(b + 1 for b in vblock)
     assert torch.equal(_bits(got), _bits(want))
 
@@ -162,18 +272,18 @@ def test_rows_route_deposit_is_bit_equal_to_the_planar_route(
 @pytest.mark.parametrize("c0", [0, 2, 4, 6])
 def test_rows_route_intermediates_hold_what_the_planar_route_holds(c0):
     """The rows route's intermediates, one channel group of 2 a case:
-    ``sort_rows`` gives the keys and payload that ``torch.sort`` and a
-    gather of the planar payload give, and ``cic_tile_prefix_rows`` on
-    the sorted rows the pack that ``cic_tile_prefix_plain`` makes of the
-    same sorted payload, bit for bit."""
+    ``sort_keyed_rows`` gives the keys and payload that the device-cell
+    keys, ``torch.sort`` and a gather of the planar payload give, and
+    ``cic_tile_prefix_rows`` on the sorted rows the pack that
+    ``cic_tile_prefix_plain`` makes of the same sorted payload, bit for
+    bit."""
     vblock = (4, 4, 4)
     pos, mass, valid, lo, inv_h = _deposit_args(
         np.random.default_rng(c0), 3, 1, 900, vblock)
+    keys_s, rows_s = rowsort.sort_keyed_rows(pos, valid, mass, lo, inv_h,
+                                             vblock)
     key, rel = deposit._device_keys_planar(pos, valid, lo[0], inv_h, vblock)
     mass = torch.where(valid, mass, 0.0)
-    n_cells = int(np.prod(vblock))
-    keys_s, rows_s = rowsort.sort_rows(key, rel, mass,
-                                       n_cells.bit_length())
     want_keys, order = torch.sort(key, stable=True)
     payload_s = torch.cat([rel, mass[None, :]], dim=0)[:, order]
     assert torch.equal(keys_s, want_keys)
