@@ -5,8 +5,9 @@ program.
 :func:`build` returns ``step(state) -> (state, rho)``: one call of
 ``models.nbody.make_migrate_loop(cfg, S, vgrid=..., mesh=...)`` whose
 planar ``(pos, vel, alive)`` outputs are the next call's inputs, and its
-density (``None`` without a deposit). :func:`emit` gives a state's live
-rows with the slab that holds each; :func:`stats_arrays` the counts of
+density (``None`` without a deposit). Under an assignment the loop gets
+the ``cells`` grid and the table. :func:`emit` gives a state's live rows
+with the slab that holds each; :func:`stats_arrays` the counts of
 ``MigrateStats`` a metric reads.
 """
 
@@ -29,6 +30,8 @@ def build(cell: Cell, device, mesh=None):
         local_budget=cell.budget, engine=cell.config.get("engine", "auto"),
         deposit_shape=cell.deposit_shape,
         deposit_method=cell.deposit_method or "scan",
+        cells=None if cell.cells is None else ProcessGrid(cell.cells),
+        assignment=cell.assignment,
     )
     loop = nbody.make_migrate_loop(
         cfg, cell.steps_per_call, vgrid=ProcessGrid(cell.vgrid), mesh=mesh,

@@ -6,9 +6,13 @@ ran, and says where each one must be and what the density is:
 
 * drift and wrap: ``p = wrap(p + v * dt)`` in float32, the product and the
   sum as two roundings, ``wrap(x) = x - floor(x)`` and a result that
-  rounds to 1 folded to 0 (the periodic unit box);
+  rounds to 1 folded to 0 (the periodic unit box); clustered rows turn
+  around with periods and phases of their own (:class:`Drift`,
+  :func:`turn_schedule`);
 * ownership: a particle belongs to grid cell ``clip(floor(x * g), 0, g-1)``
-  on each axis, and so to the slab that holds that cell;
+  on each axis, and so to the slab that holds that cell; under an
+  assignment, to cell ``clip(floor(x * c), 0, c-1)`` of the ``cells`` grid
+  and so to the slab the assignment gives it;
 * density: cloud-in-cell onto nodes ``i / M`` of the periodic ``M^3``
   mesh, unit mass, each particle giving ``prod(1 - f)`` or ``prod(f)`` to
   the 8 nodes around it, summed in float64.
@@ -39,18 +43,40 @@ BLOCK = 1 << 24  # rows a block, to bound the temporaries
 
 
 def wrap_unit(x: torch.Tensor) -> torch.Tensor:
-    """``x - floor(x)`` in place, a result of 1 folded to 0."""
+    """``x - floor(x)`` in place, a result of 1 folded to 0. A zero comes
+    out ``+0.0`` whatever its sign (``-0.0 - floor(-0.0)`` is ``+0.0``
+    under round to nearest), as from the program's wrap; the fingerprint
+    hashes bit patterns, so the sign of a zero counts."""
     x.sub_(torch.floor(x))
     return x.masked_fill_(x >= 1.0, 0.0)
 
 
-class Drift:
-    """Every particle of some rows, followed step by step."""
+def turn_schedule(vx: torch.Tensor, turn_calls: int):
+    """``(period, phase)``, ``[n]`` each, of the rows of a clustered
+    deployment, from the low 12 bits of each row's x velocity's float32 bit
+    pattern, which a turn (a change of sign) leaves as they are: the
+    period is ``turn_calls + (bits & 15)`` calls, the phase ``((bits >> 4)
+    & 255) % period``. A row turns before call ``c`` when ``(c + phase) %
+    period == 0``."""
+    b = vx.contiguous().view(torch.int32)
+    period = turn_calls + (b & 15)
+    return period, ((b >> 4) & 255) % period
 
-    def __init__(self, pos, vel, alive, dt: float, precision: str = "f32"):
+
+class Drift:
+    """Every particle of some rows, followed step by step. With
+    ``turn_calls`` (clustered rows) a particle turns around, its velocity
+    negated on every axis, before the calls of the loop (``steps_per_call``
+    steps each; call 0 the first warm call) that its
+    :func:`turn_schedule` names: it swings back and forth, each particle
+    with a period and a phase of its own."""
+
+    def __init__(self, pos, vel, alive, dt: float, precision: str = "f32",
+                 turn_calls: int = None, steps_per_call: int = 1):
         if precision not in ("f32", "bf16"):
             raise ValueError(f"precision {precision!r}: 'f32' or 'bf16'")
         self.precision = precision
+        self.turn_calls, self.S = turn_calls, steps_per_call
         keep = alive.nonzero().squeeze(1)
         self.pos = pos[:, keep].contiguous()
         self.vel = vel[:, keep].contiguous()
@@ -60,10 +86,19 @@ class Drift:
             self.vdt = (self.vel.bfloat16() * dt.bfloat16()).float()
         else:
             self.vdt = self.vel * dt
+        if turn_calls is not None:
+            self.period, self.phase = turn_schedule(self.vel[0], turn_calls)
         self.steps = 0
+
+    def _turn(self) -> None:
+        due = (self.phase + self.steps // self.S) % self.period == 0
+        self.vel = torch.where(due, -self.vel, self.vel)
+        self.vdt = torch.where(due, -self.vdt, self.vdt)
 
     def advance(self, steps: int) -> None:
         for _ in range(steps):
+            if self.turn_calls and self.steps % self.S == 0:
+                self._turn()
             if self.precision == "bf16":
                 q = (self.pos.bfloat16() + self.vdt.bfloat16())
                 q = q - torch.floor(q)
@@ -71,20 +106,30 @@ class Drift:
             else:
                 self.pos.add_(self.vdt)
                 wrap_unit(self.pos)
-        self.steps += steps
+            self.steps += 1
 
 
-def owner_slab(cell: Cell, pos: torch.Tensor) -> torch.Tensor:
-    """``[n]`` int64 slab owning each position of ``pos [3, n]``."""
+def cell_index(shape, pos: torch.Tensor) -> torch.Tensor:
+    """``[n]`` int64 row-major cell of the grid ``shape`` holding each
+    position of ``pos [3, n]``: ``clip(floor(x * g), 0, g - 1)`` on each
+    axis, in float32."""
     idx = torch.zeros(pos.shape[1], dtype=torch.int64, device=pos.device)
     acc = 1
     for a in reversed(range(3)):
-        g = cell.grid[a]
+        g = shape[a]
         c = torch.floor(pos[a] * float(g)).to(torch.int64).clamp_(0, g - 1)
         idx += c * acc
         acc *= g
+    return idx
+
+
+def owner_slab(cell: Cell, pos: torch.Tensor) -> torch.Tensor:
+    """``[n]`` int64 slab owning each position of ``pos [3, n]``: the slab
+    of its grid cell, or under an assignment the slab its cell of the
+    ``cells`` grid is assigned to."""
+    shape = cell.grid if cell.cells is None else cell.cells
     table = torch.as_tensor(cell.slab_of_cell_table(), device=pos.device)
-    return table[idx]
+    return table[cell_index(shape, pos)]
 
 
 def row_hash(pos: torch.Tensor, vel: torch.Tensor) -> torch.Tensor:

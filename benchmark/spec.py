@@ -4,9 +4,19 @@ name, checked, and the sizes the run derives from them.
 A cell ``<config>.<mix>`` reads ``configs/<config>.json`` (one deployment:
 its rank grid, how the grid lies on the cards, the slots a vrank, the fill,
 the deposit if any, the suffix of its metrics' names) and
-``traffic/<mix>.json`` (the migration a step and the steps a call). :func:`drift_sizing` is a frozen copy of the program's
-``bench/common.drift_sizing``, so a change to the program cannot move the
-yardstick.
+``traffic/<mix>.json`` (the migration a step and the steps a call).
+
+A configuration may also give its rows a clustered distribution whose
+particles turn around with periods and phases of their own (``rows``),
+and own its space by a cell grid assigned to the slabs by load
+(``cells``); the two go together. Without them a cell runs as uniform
+rows on the canonical grid.
+
+:func:`drift_sizing` and :func:`lpt_assignment` are frozen copies of the
+program's ``bench/common.drift_sizing`` and
+``parallel/migrate.balanced_assignment``, and :func:`lognormal_sizing` of
+the sizing in ``bench/config2_clustered``, so a change to the program
+cannot move the yardstick.
 """
 
 from __future__ import annotations
@@ -74,6 +84,39 @@ def drift_sizing(grid_shape, n_local: int, fill: float, migration: float,
     return v.astype(np.float32), cap, budget
 
 
+def lognormal_sizing(cells, migration: float):
+    """Per-axis velocity scale of the clustered rows: ``migration / 3 *
+    2 / g`` on an axis of ``g`` cells, so that about ``migration`` of the
+    rows cross a cell face a step."""
+    g = np.asarray(cells, np.float32)
+    return (migration / 3.0 * 2.0 / g).astype(np.float32)
+
+
+def hot_slab_sizing(hot: int, migration: float):
+    """``(capacity, budget)`` of the exchange from the rows of the hottest
+    slab at the draw, as ``bench/config2_clustered`` sizes them."""
+    c = math.ceil(hot * migration * 2.0)
+    return max(64, c), max(256, c)
+
+
+def lpt_assignment(cell_loads, n_ranks: int) -> tuple:
+    """Static cell -> slab map by LPT, "longest processing time first":
+    cells heaviest first (a stable order, so ties keep cell order), each to
+    the first least-loaded slab. ``cell_loads`` is the row-major cell
+    histogram; returns a tuple of int."""
+    loads = np.asarray(cell_loads, dtype=np.int64)
+    if loads.ndim != 1 or loads.size < n_ranks:
+        raise ValueError(f"need >= {n_ranks} cells, got shape {loads.shape}")
+    order = np.argsort(-loads, kind="stable")
+    bins = np.zeros((n_ranks,), np.int64)
+    assign = np.zeros(loads.shape, np.int32)
+    for c in order:
+        r = int(np.argmin(bins))
+        assign[c] = r
+        bins[r] += loads[c]
+    return tuple(int(x) for x in assign)
+
+
 def _strides(shape) -> Tuple[int, ...]:
     out, acc = [], 1
     for s in reversed(shape):
@@ -89,7 +132,13 @@ class Cell:
     The rank grid ``grid`` lies on ``dev_grid`` cards, each holding a
     ``vgrid`` block of it as vranks; slab ``s = card * V + v`` (row-major
     card rank, then row-major vrank) is grid cell ``card_cell * vgrid +
-    vrank_cell`` on every axis."""
+    vrank_cell`` on every axis.
+
+    Under an assignment (``cells`` set) the slabs own instead the cells of
+    the ``cells`` grid that ``assignment`` gives them, by LPT of the seed's
+    cell histogram. The draw (``state.draw``) measures the histogram,
+    fills ``assignment``, sizes ``capacity`` and ``budget`` from the
+    hottest slab, and returns the cell so completed."""
 
     name: str
     config: dict
@@ -102,10 +151,13 @@ class Cell:
     dt: float
     steps_per_call: int
     vel_scale: Tuple[float, ...]
-    capacity: int
-    budget: int
+    capacity: Optional[int]
+    budget: Optional[int]
     deposit_shape: Optional[Tuple[int, ...]]
     deposit_method: Optional[str]
+    rows: Optional[dict] = None
+    cells: Optional[Tuple[int, ...]] = None
+    assignment: Optional[Tuple[int, ...]] = None
 
     @property
     def chips(self) -> int:
@@ -125,7 +177,16 @@ class Cell:
 
     @property
     def live_total(self) -> int:
+        if self.rows is not None:
+            return int(self.rows["particles"])
         return self.live_per_slab * self.n_slabs
+
+    @property
+    def turn_calls(self) -> Optional[int]:
+        """The least number of calls between two turns of a clustered
+        particle (``rows``' ``turn_calls``; ``reference.turn_schedule``), or
+        ``None``: uniform rows never turn."""
+        return None if self.rows is None else int(self.rows["turn_calls"])
 
     @property
     def metric_suffix(self) -> str:
@@ -149,7 +210,13 @@ class Cell:
         return out
 
     def slab_of_cell_table(self) -> np.ndarray:
-        """``[prod(grid)]`` slab of each row-major grid cell."""
+        """``[prod(grid)]`` slab of each row-major grid cell; under an
+        assignment ``[prod(cells)]``, the assignment itself."""
+        if self.cells is not None:
+            if self.assignment is None:
+                raise ValueError(f"{self.name}: the assignment is made at "
+                                 f"the draw (state.draw)")
+            return np.asarray(self.assignment, np.int64)
         cells = self.slab_cells()
         flat = (cells * np.asarray(_strides(self.grid))).sum(axis=1)
         table = np.empty(self.n_slabs, np.int64)
@@ -181,13 +248,29 @@ def make_cell(name: str, config: dict, traffic: dict) -> Cell:
         raise ValueError(f"{name}: the drift loop runs in the periodic "
                          f"unit box")
     n_local = int(config["slots_per_vrank"])
-    fill = float(config["fill"])
     migration = float(traffic["migration"])
-    vel, cap, budget = drift_sizing(grid, n_local, fill, migration,
-                                    float(config["headroom"]))
     dep = config.get("deposit")
     if dep is not None and math.prod(dev_grid) != 1:
         raise ValueError(f"{name}: the density is judged on one card only")
+    rows, cells = config.get("rows"), config.get("cells")
+    if (rows is None) != (cells is None):
+        raise ValueError(f"{name}: rows and cells go together")
+    if rows is None:
+        fill = float(config["fill"])
+        vel, cap, budget = drift_sizing(grid, n_local, fill, migration,
+                                        float(config["headroom"]))
+    else:
+        cells = tuple(int(c) for c in cells)
+        if len(cells) != 3 or int(rows["turn_calls"]) < 1:
+            raise ValueError(f"{name}: cells have 3 axes, and turn_calls "
+                             f"is 1 or more")
+        if (math.prod(cells) < math.prod(grid) or dep is not None
+                or math.prod(dev_grid) != 1):
+            raise ValueError(f"{name}: an assignment needs a cell a slab at "
+                             f"least, one card and no deposit")
+        fill = int(rows["particles"]) / (n_local * math.prod(grid))
+        vel = lognormal_sizing(cells, migration)
+        cap = budget = None  # from the hottest slab, at the draw
     return Cell(
         name=name, config=config, traffic=traffic, grid=grid,
         dev_grid=dev_grid, vgrid=vgrid, n_local=n_local, fill=fill,
@@ -195,4 +278,5 @@ def make_cell(name: str, config: dict, traffic: dict) -> Cell:
         vel_scale=tuple(float(v) for v in vel), capacity=cap, budget=budget,
         deposit_shape=None if dep is None else tuple(dep["shape"]),
         deposit_method=None if dep is None else dep["method"],
+        rows=rows, cells=cells,
     )

@@ -1,20 +1,37 @@
 """The inputs of a run, made from ``--seed`` on the device.
 
-A copy of the program's ``bench/common.uniform_state``, frozen here and
-drawn with a ``torch.Generator`` on the run's device in a few large calls:
-every live particle uniform in the cell of the slab that holds it,
-velocities uniform in ``[-vel_scale, vel_scale]`` per axis, the first
-``fill * n_local`` slots of each slab alive. Rows come out planar, as the
-loop takes them: ``pos [3, m]`` and ``vel [3, m]`` float32 and ``alive
-[m]`` bool for the ``m = V * n_local`` slots of one card. A card's rows
-depend only on the seed and the card's rank, so the reference makes the
-same rows again after the window.
+Drawn with a ``torch.Generator`` on the run's device in a few large calls.
+Rows come out planar, as the loop takes them: ``pos [3, m]`` and ``vel
+[3, m]`` float32 and ``alive [m]`` bool for the ``m = V * n_local`` slots
+of one card. A card's rows depend only on the seed and the card's rank,
+so the reference makes the same rows again after the window.
+
+* Uniform rows (:func:`card_state`): a copy of the program's
+  ``bench/common.uniform_state``, frozen here: every live particle
+  uniform in the cell of the slab that holds it, velocities uniform in
+  ``[-vel_scale, vel_scale]`` per axis, the first ``fill * n_local``
+  slots of each slab alive.
+* Clustered rows (:func:`lognormal_state`, a configuration's ``rows``):
+  as ``bench/config2_clustered`` draws them, ``lognormal(mu, sigma) % 1``
+  per axis, velocities uniform in ``[-vel_scale, vel_scale]``; the cells
+  of the ``cells`` grid go to the slabs by LPT of this draw's own cell
+  histogram, and each row to the head of the slab its cell is assigned
+  to, in the order drawn. Before every call of the loop :func:`turn`
+  turns around the particles that are due, so that they swing back and
+  forth as bound matter does, each with a period and a phase of its own.
+
+:func:`draw` picks by the configuration and returns the cell too: under
+an assignment, completed with the assignment and the exchange's sizes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
 
+from benchmark import reference, spec
 from benchmark.spec import Cell
 
 _SEED_MIX = 0x9E3779B97F4A7C15
@@ -43,3 +60,76 @@ def card_state(cell: Cell, seed: int, rank: int, device):
     vel = scale * (w * 2.0 - 1.0)
     alive = (torch.arange(n, device=device) < cell.live_per_slab).repeat(V)
     return pos.contiguous(), vel.contiguous(), alive
+
+
+def lognormal_state(cell: Cell, seed: int, rank: int, device):
+    """``(cell, pos [3, m], vel [3, m], alive [m])`` of the clustered rows
+    of card ``rank``; ``cell`` completed with its assignment, ``capacity``
+    and ``budget``. Raises if a slab would hold more rows than its
+    slots."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(card_seed(seed, rank))
+    N, V, n = cell.live_total, cell.V, cell.n_local
+    rows = cell.rows
+    x = torch.empty((3, N), dtype=torch.float32, device=device)
+    x.log_normal_(float(rows["mu"]), float(rows["sigma"]), generator=gen)
+    x.sub_(torch.floor(x))  # % 1, exact
+    scale = torch.tensor(cell.vel_scale, dtype=torch.float32,
+                         device=device)[:, None]
+    w = torch.rand((3, N), generator=gen, device=device)
+    v = scale * (w * 2.0 - 1.0)
+    del w
+    cid = reference.cell_index(cell.cells, x)
+    n_cells = math.prod(cell.cells)
+    hist = torch.bincount(cid, minlength=n_cells).cpu().numpy()
+    assign = spec.lpt_assignment(hist, V)
+    owner = torch.as_tensor(assign, dtype=torch.int64, device=device)[cid]
+    del cid
+    k = torch.bincount(owner, minlength=V)
+    hot = int(k.max())
+    if hot > n:
+        raise ValueError(f"{cell.name}: seed {seed} puts {hot} rows on a "
+                         f"slab of {n} slots")
+    # one stable sort by owner; each slab's rows fill its head in order
+    o, order = torch.sort(owner, stable=True)
+    del owner
+    start = torch.cumsum(k, 0) - k
+    dest = o * n + torch.arange(N, device=device) - start[o]
+    del o
+    m = V * n
+    pos = torch.zeros((3, m), dtype=torch.float32, device=device)
+    pos[:, dest] = x[:, order]
+    del x
+    vel = torch.zeros((3, m), dtype=torch.float32, device=device)
+    vel[:, dest] = v[:, order]
+    del v, order
+    alive = torch.zeros((m,), dtype=torch.bool, device=device)
+    alive[dest] = True
+    cap, budget = spec.hot_slab_sizing(hot, float(cell.traffic["migration"]))
+    cell = dataclasses.replace(cell, assignment=assign, capacity=cap,
+                               budget=budget)
+    return cell, pos, vel, alive
+
+
+def turn(vel: torch.Tensor, call: int, turn_calls: int) -> None:
+    """Before call ``call`` of the loop, negate in place, on every axis, the
+    velocity of each row due to turn (``reference.turn_schedule``: a row's
+    period and phase follow from the low 12 bits of its x velocity's bit
+    pattern). ``vel`` is planar, ``[3, m]`` or flat ``[3 * m]``. The rule
+    is tabled over the 4,096 keys, so a turn is a mask, a gather and a
+    multiply by ``-1.0`` or ``1.0``, which changes the sign bit alone,
+    zeros' too."""
+    v = vel.view(3, -1)
+    key = torch.arange(4096, dtype=torch.int32, device=v.device)
+    period = turn_calls + (key & 15)
+    sign = torch.where((((key >> 4) % period) + call) % period == 0,
+                       -1.0, 1.0)
+    v.mul_(sign[v[0].view(torch.int32) & 4095])
+
+
+def draw(cell: Cell, seed: int, rank: int, device):
+    """``(cell, pos, vel, alive)`` of card ``rank``: the cell as given for
+    uniform rows, completed for clustered ones."""
+    if cell.rows is None:
+        return (cell,) + card_state(cell, seed, rank, device)
+    return lognormal_state(cell, seed, rank, device)

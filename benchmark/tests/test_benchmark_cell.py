@@ -15,11 +15,16 @@ ROOT = spec.ROOT
 
 
 def tiny_cell(config="uniform_2x2x2_cic128", traffic="m2_s4", slots=4096,
-              mesh=(16, 16, 16)):
+              mesh=(16, 16, 16), particles=None):
+    """A configuration at a tiny size; clustered rows fill half the slots
+    unless ``particles`` says otherwise."""
     cfg = json.loads((ROOT / "configs" / f"{config}.json").read_text())
     cfg["slots_per_vrank"] = slots
     if cfg.get("deposit"):
         cfg["deposit"]["shape"] = list(mesh)
+    if cfg.get("rows"):
+        n_slots = slots * np.prod(cfg["grid"])
+        cfg["rows"]["particles"] = particles or int(n_slots // 2)
     tr = json.loads((ROOT / "traffic" / f"{traffic}.json").read_text())
     return spec.make_cell(f"{config}.{traffic}", cfg, tr)
 
@@ -43,7 +48,7 @@ DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
 @pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("config,traffic", [
     ("uniform_2x2x2", "m2_s4"), ("uniform_2x2x2_cic128", "m2_s1"),
-    ("uniform_2x2x2", "m2_s1")])
+    ("uniform_2x2x2", "m2_s1"), ("lognormal_4x4x4", "m2_s4")])
 def test_program_agrees_with_reference(device, config, traffic):
     cell = tiny_cell(config, traffic)
     line = measure(cell, 2**31 + 7, _device(device))

@@ -2,6 +2,7 @@
 card skipped, everything else as in a run, and ``correct`` has to come out
 false for each fault a cell can have."""
 
+import itertools
 import multiprocessing as mp
 import socket
 
@@ -53,16 +54,38 @@ def _density_altered(st, out, rho):
     return out, rho
 
 
-@pytest.mark.parametrize("fault,traffic", [
-    (_unchanged, "m2_s4"), (_half_left_out, "m2_s4"),
-    (_velocity_altered, "m2_s4"), (_unchanged, "m2_s1"),
-    (_half_left_out, "m2_s1"), (_velocity_altered, "m2_s1"),
-    (_density_altered, "m2_s1")])
-def test_fault_is_not_correct(monkeypatch, fault, traffic):
-    config = "uniform_2x2x2_cic128" if traffic == "m2_s1" else "uniform_2x2x2"
-    _wrap_build(monkeypatch, fault)
+def _on_parity(fault, parity):
+    """``fault`` on the calls of one parity only (``None``: on every
+    call)."""
+    if parity is None:
+        return fault
+    calls = itertools.count()
+
+    def planted(st, out, rho):
+        if next(calls) % 2 == parity:
+            return fault(st, out, rho)
+        return out, rho
+
+    return planted
+
+
+U, CIC, LGN = "uniform_2x2x2", "uniform_2x2x2_cic128", "lognormal_4x4x4"
+
+
+@pytest.mark.parametrize("fault,config,traffic,parity", [
+    (_unchanged, U, "m2_s4", None), (_half_left_out, U, "m2_s4", None),
+    (_velocity_altered, U, "m2_s4", None), (_unchanged, CIC, "m2_s1", None),
+    (_half_left_out, CIC, "m2_s1", None),
+    (_velocity_altered, CIC, "m2_s1", None),
+    (_density_altered, CIC, "m2_s1", None),
+    # the clustered rows turn at phases of their own: each fault on the
+    # calls of either parity alone
+    (_unchanged, LGN, "m2_s4", 0), (_unchanged, LGN, "m2_s4", 1),
+    (_half_left_out, LGN, "m2_s4", 0), (_half_left_out, LGN, "m2_s4", 1)])
+def test_fault_is_not_correct(monkeypatch, fault, config, traffic, parity):
+    _wrap_build(monkeypatch, _on_parity(fault, parity))
     line = measure(tiny_cell(config, traffic), 2**31 + 5)
-    assert not line["correct"], (fault.__name__, line["checks"])
+    assert not line["correct"], (fault.__name__, parity, line["checks"])
 
 
 def test_landing_left_out_is_not_correct(monkeypatch):

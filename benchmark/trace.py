@@ -6,8 +6,9 @@ the per-layer readers need, and the readers themselves, found by file.
 (kernels, copies, sets) with their correlation ids, the host's launch
 calls, and the ``record_function`` ranges of the program and of the
 harness (``bench:window`` around the traced calls, ``bench:call`` around
-each). A device operation belongs to the ranges open on the host when it
-was launched.
+each, ``bench:turn`` around the turns of clustered rows before a call).
+A device operation belongs to the ranges open on the host when it was
+launched.
 
 Each file of ``metrics/`` is one per-layer metric: it sets ``NAME``,
 ``UNIT``, ``LAYER``, ``MOVES`` and ``SOURCE`` and defines ``read(ctx) ->
@@ -33,6 +34,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 WINDOW = "bench:window"
 CALL = "bench:call"
+TURN = "bench:turn"
 
 
 def _merge(intervals):

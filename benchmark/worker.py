@@ -14,6 +14,7 @@ densities of a few calls drawn from the seed, against the reference
 from __future__ import annotations
 
 import gc
+import itertools
 import sys
 import time
 
@@ -77,6 +78,28 @@ def _sync(device) -> None:
 CONTROLS = ("drift_bf16", "deposit_f32")
 
 
+def _turning(cell: Cell, step):
+    """``step`` with the turns of clustered rows (:func:`state.turn`, part
+    of the traffic) made before each call; ``step`` itself for rows that
+    never turn."""
+    if cell.turn_calls is None:
+        return step
+    calls = itertools.count()
+
+    def turned(st):
+        with torch.profiler.record_function(trace.TURN):
+            state.turn(st[1], next(calls), cell.turn_calls)
+        return step(st)
+
+    return turned
+
+
+def _drift(cell: Cell, pos, vel, alive, precision: str = "f32"):
+    return reference.Drift(pos, vel, alive, cell.dt, precision=precision,
+                           turn_calls=cell.turn_calls,
+                           steps_per_call=cell.steps_per_call)
+
+
 def control_step(cell: Cell, pos, vel, alive, control: str):
     """The reference in the program's place, one stage computed in the
     nearest precision below the configuration's: ``drift_bf16``, the drift
@@ -84,8 +107,8 @@ def control_step(cell: Cell, pos, vel, alive, control: str):
     density summed in float32 (the scan engine sums in double-float)."""
     if control not in CONTROLS:
         raise ValueError(f"control {control!r}: one of {CONTROLS}")
-    drift = reference.Drift(pos, vel, alive, cell.dt, precision="bf16"
-                            if control == "drift_bf16" else "f32")
+    drift = _drift(cell, pos, vel, alive,
+                   "bf16" if control == "drift_bf16" else "f32")
 
     def step(st):
         drift.advance(cell.steps_per_call)
@@ -150,8 +173,10 @@ def run_rank(cell: Cell, seed: int, seconds: float, traced: bool, rank: int,
     names the control (:data:`CONTROLS`) run in the program's place."""
     device = torch.device(device)
     S = cell.steps_per_call
-    step = None if control else program.build(cell, device, mesh)
-    pos, vel, alive = state.card_state(cell, seed, rank, device)
+    # the draw completes a cell under an assignment (its table, its sizes)
+    cell, pos, vel, alive = state.draw(cell, seed, rank, device)
+    step = None if control else _turning(cell,
+                                         program.build(cell, device, mesh))
     if control:
         step, st = control_step(cell, pos, vel, alive, control)
     else:
@@ -242,8 +267,9 @@ def judge(cell: Cell, seed: int, rank: int, comm, device, prog, rhos: dict,
     call's density from the reference's, over the reference's mean.
     ``prog`` is :func:`digest` of the program's output."""
     n = cell.n_slabs
-    pos0, vel0, alive0 = state.card_state(cell, seed, rank, device)
-    drift = reference.Drift(pos0, vel0, alive0, cell.dt)
+    # the reference's own draw: its rows, and its own assignment of them
+    rcell, pos0, vel0, alive0 = state.draw(cell, seed, rank, device)
+    drift = _drift(cell, pos0, vel0, alive0)
     del pos0, vel0, alive0
     S = cell.steps_per_call
     rho_gap = None
@@ -253,7 +279,7 @@ def judge(cell: Cell, seed: int, rank: int, comm, device, prog, rhos: dict,
         gap = float((rhos[c].double() - ref).abs().max() / ref.mean())
         rho_gap = gap if rho_gap is None else max(rho_gap, gap)
     drift.advance(total_steps - drift.steps)
-    rslab = reference.owner_slab(cell, drift.pos)
+    rslab = reference.owner_slab(rcell, drift.pos)
     rcount, rfp = reference.digests(drift.pos, drift.vel, rslab, n)
     both = comm.sum(torch.cat([prog, rcount.cpu(), rfp.cpu()]))
     count, fp, mis = both[:n], both[n:2 * n], both[2 * n]
