@@ -2,7 +2,8 @@
 each kernel a launch, frozen here from the shape formulas of the
 program's ``ops/driftbin``, ``ops/overlay`` and ``ops/dfscan``
 ``kernel_cost`` (each input byte read once, each output byte written
-once), and the launch shapes the loop gives them in a cell.
+once), and the launch shapes the loop gives them in a cell; and the
+bytes any implementation of the one-shot call has to move.
 """
 
 from __future__ import annotations
@@ -38,6 +39,16 @@ def dfscan_cost(rows: int, tile: int):
     flops each, an element."""
     n = rows * tile
     return 12 * n, 2 * 11 * (tile - 1).bit_length() * n
+
+
+ONESHOT_ROW_BYTES = 4 * (3 + 3)  # a one-shot row: position 3 + velocity 3
+
+
+def redistribute_floor_bytes(live_rows: int) -> int:
+    """The least bytes a one-shot call over ``live_rows`` live rows moves,
+    whatever implements it: each row's 24 bytes read once and written
+    once. No flops."""
+    return 2 * ONESHOT_ROW_BYTES * live_rows
 
 
 def bound_s(nbytes: float, flops: float, kind: str):

@@ -1,5 +1,6 @@
 """The system under test: the drift loop of ``mpi_grid_redistribute_tpu_torch``
-as a cell configures it. The only module of the benchmark that imports the
+as a cell configures it, or its public one-shot ``redistribute()`` call
+(:func:`build_oneshot`). The only module of the benchmark that imports the
 program.
 
 :func:`build` returns ``step(state) -> (state, rho)``: one call of
@@ -87,3 +88,39 @@ def kernel_launches() -> dict:
     from mpi_grid_redistribute_tpu_torch.ops import _build
 
     return dict(_build.counts())
+
+
+def build_oneshot(cell: Cell, device):
+    """``(gr, call)``: ``api.GridRedistribute`` over the cell's grid in the
+    periodic unit box with the public defaults (``capacity_factor`` 2,
+    ``out_capacity`` ``n_local``, ``on_overflow="grow"``, ``check_every``
+    16, ``engine="auto"``), and ``call((pos, vel, count)) ->
+    RedistributeResult``, one ``gr.redistribute(pos, vel, count=count)``."""
+    from mpi_grid_redistribute_tpu_torch.api import GridRedistribute
+    from mpi_grid_redistribute_tpu_torch.domain import Domain, ProcessGrid
+
+    gr = GridRedistribute(Domain(0.0, 1.0, periodic=True),
+                          ProcessGrid(cell.grid), device=device)
+
+    def call(snapshot):
+        pos, vel, count = snapshot
+        return gr.redistribute(pos, vel, count=count)
+
+    return gr, call
+
+
+def oneshot_report(gr) -> dict:
+    """What the run logs of the instance: ``gr.report()``'s resolved
+    engine, calls and blocking fetches, the capacities of the journal's
+    last ``redistribute`` attempt, and its counts of attempts and of
+    ``capacity_grow`` events (a call re-run by ``"grow"`` makes two
+    attempts). Reads the last call's stats."""
+    rep = gr.report()
+    events = rep.get("events") or {}
+    last = gr.telemetry.last("redistribute")
+    return {"engine": rep["engine"], "calls": rep["calls"],
+            "blocking_fetches": rep["blocking_fetches"],
+            "capacity": last.data.get("capacity"),
+            "out_capacity": last.data.get("out_capacity"),
+            "attempts": events.get("redistribute", 0),
+            "grows": events.get("capacity_grow", 0)}

@@ -17,6 +17,11 @@ ran, and says where each one must be and what the density is:
   mesh, unit mass, each particle giving ``prod(1 - f)`` or ``prod(f)`` to
   the 8 nodes around it, summed in float64.
 
+* the one-shot call's receive order (:func:`receive_order`): each rank
+  receives the rows it owns in MPI ``Alltoallv`` order, source ranks
+  ascending and each source's rows in input order; that is one stable
+  sort by owner of the live rows taken in (source, index) order.
+
 :func:`digests` condenses a set of rows into one count and one 64-bit
 fingerprint a slab: the sum (wrapping) of a mixing hash of each row's six
 float32 bit patterns, so the fingerprint of a slab does not depend on the
@@ -24,7 +29,8 @@ order of its rows, and those of the cards add up to the whole.
 
 ``precision="bf16"`` is the control: the same arithmetic rounded through
 bfloat16, the nearest precision below the float32 the configuration
-states. It has to come out not correct.
+states. It has to come out not correct. The one-shot call's control bins
+positions rounded to bfloat16 (``receive_order(bin_pos=...)``).
 """
 
 from __future__ import annotations
@@ -142,6 +148,47 @@ def row_hash(pos: torch.Tensor, vel: torch.Tensor) -> torch.Tensor:
         h = (h ^ w) * _MIX[c]
         h = h ^ (h >> 29)
     return h
+
+
+def row_hashes(pos: torch.Tensor, vel: torch.Tensor) -> torch.Tensor:
+    """:func:`row_hash` of row-major ``pos``/``vel`` ``[n, 3]``, in blocks."""
+    out = torch.empty(pos.shape[0], dtype=torch.int64, device=pos.device)
+    for b in range(0, pos.shape[0], BLOCK):
+        out[b:b + BLOCK] = row_hash(pos[b:b + BLOCK].T, vel[b:b + BLOCK].T)
+    return out
+
+
+def rank_slabs(cell: Cell) -> list:
+    """The slab of each rank ``r`` of the one-shot call. Ranks take the
+    grid's cells in MPI's Cartesian order, row-major with the last axis
+    fastest (``MPI_Cart_coords``): rank ``r`` holds the cell whose
+    row-major index is ``r``."""
+    return [int(s) for s in cell.slab_of_cell_table()]
+
+
+def receive_order(cell: Cell, pos, vel, count, bin_pos=None):
+    """``(pos [N, 3], vel [N, 3], slab_counts [n_slabs])``: the ``N`` live
+    rows of a one-shot input (``pos``/``vel`` ``[R * n, 3]``, block ``r``
+    the source rank ``r``'s ``n`` slots, its first ``count[r]`` live) as
+    the slabs receive them: grouped by owning slab in slab order, each
+    slab's rows in (source, index) order. ``bin_pos`` (the control) gives
+    the positions the owners are taken from; the rows moved are
+    ``pos``'s."""
+    n = cell.n_local
+    slots = torch.arange(n, device=pos.device)
+    live = (slots < count.to(pos.device)[:, None]).reshape(-1)
+    idx = live.nonzero().squeeze(1)
+    del live
+    where = pos if bin_pos is None else bin_pos
+    owner = torch.empty(idx.shape[0], dtype=torch.int64, device=pos.device)
+    for b in range(0, idx.shape[0], BLOCK):
+        owner[b:b + BLOCK] = owner_slab(cell, where[idx[b:b + BLOCK]].T)
+    order = torch.sort(owner, stable=True).indices
+    counts = torch.bincount(owner, minlength=cell.n_slabs)
+    del owner
+    idx = idx[order]
+    del order
+    return pos[idx], vel[idx], counts
 
 
 def digests(pos, vel, slab, n_slabs: int):

@@ -1,7 +1,7 @@
 """Run one cell of the benchmark once and print its line.
 
     python -m benchmark.run --workload <config>.<mix> --seed <n> \\
-        --seconds <s> --trace <0|1> [--control drift_bf16|deposit_f32]
+        --seconds <s> --trace <0|1> [--control drift_bf16|deposit_f32|bin_bf16]
 
 On one card the run is this process; a cell on several cards starts one
 process a card (``--rank`` and the other child options below), joined
@@ -9,8 +9,9 @@ over NCCL, and rank 0's numbers make the line. ``--trace 0`` prints the
 end-to-end metrics, ``--trace 1`` the per-layer ones from a profiled
 window of at most :data:`.worker.TRACE_SECONDS`. ``--control`` puts the
 reference in the program's place with one stage in a lower precision (the
-drift in bfloat16, or the density summed in float32): the comparison's
-controls, whose lines have to read ``"correct": false``.
+drift in bfloat16, or the density summed in float32; in a cell of the
+one-shot call, the owners binned from positions in bfloat16): the
+comparison's controls, whose lines have to read ``"correct": false``.
 
 The last line of standard output is one JSON object; the numbers the
 comparison judged, each beside its limit, are the last lines of standard
@@ -57,7 +58,8 @@ def _parser():
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    ap.add_argument("--control", choices=("drift_bf16", "deposit_f32"))
+    ap.add_argument("--control",
+                    choices=("drift_bf16", "deposit_f32", "bin_bf16"))
     # a child of a run on several cards
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
@@ -209,7 +211,8 @@ def main(argv=None) -> int:
     ms = np.asarray(r0["call_ms"])
     log(f"{args.workload} seed {args.seed}: {r0['calls']} calls of "
         f"{cell.steps_per_call} steps in {r0['window_s']:.3f} s; call ms "
-        f"median {np.median(ms):.3f}, max {ms.max():.3f}, first "
+        f"median {np.median(ms):.3f}, max {ms.max():.3f} (call "
+        f"{int(ms.argmax())}), first "
         f"{np.round(ms[:4], 3).tolist()}; warm call "
         f"{r0['warm_call_s'] * 1e3:.2f} ms; kernel launches a step "
         f"{r0.get('launches_per_step')}")

@@ -12,6 +12,12 @@ and own its space by a cell grid assigned to the slabs by load
 (``cells``); the two go together. Without them a cell runs as uniform
 rows on the canonical grid.
 
+A configuration's ``entry`` names the program entry a cell times: absent,
+the drift loop; ``"redistribute"``, the public one-shot
+``GridRedistribute.redistribute()`` call on snapshots of rows that its
+traffic file describes (``snapshots``, ``edit_rows``, ``vel_scale``):
+one call a step.
+
 :func:`drift_sizing` and :func:`lpt_assignment` are frozen copies of the
 program's ``bench/common.drift_sizing`` and
 ``parallel/migrate.balanced_assignment``, and :func:`lognormal_sizing` of
@@ -189,6 +195,12 @@ class Cell:
         return None if self.rows is None else int(self.rows["turn_calls"])
 
     @property
+    def entry(self) -> str:
+        """The program entry the cell times: ``"loop"`` (the drift loop,
+        a configuration without ``entry``) or ``"redistribute"``."""
+        return self.config.get("entry", "loop")
+
+    @property
     def metric_suffix(self) -> str:
         """The configuration's ``metric_suffix`` (``""`` if it has none):
         appended to the name of every metric the cell reports but
@@ -234,6 +246,8 @@ def load_cell(workload: str) -> Cell:
 
 
 def make_cell(name: str, config: dict, traffic: dict) -> Cell:
+    if "entry" in config:
+        return _oneshot_cell(name, config, traffic)
     grid = tuple(int(g) for g in config["grid"])
     dev_grid = tuple(int(g) for g in config["dev_grid"])
     vgrid = tuple(int(g) for g in config["vgrid"])
@@ -279,4 +293,40 @@ def make_cell(name: str, config: dict, traffic: dict) -> Cell:
         deposit_shape=None if dep is None else tuple(dep["shape"]),
         deposit_method=None if dep is None else dep["method"],
         rows=rows, cells=cells,
+    )
+
+
+ENTRIES = ("redistribute",)
+
+
+def _oneshot_cell(name: str, config: dict, traffic: dict) -> Cell:
+    """A cell of the one-shot call: every rank's ``slots_per_vrank`` slots
+    on one card, the first ``fill`` of them live in every snapshot."""
+    if config["entry"] not in ENTRIES:
+        raise ValueError(f"{name}: entry {config['entry']!r} is not one of "
+                         f"{ENTRIES}")
+    grid = tuple(int(g) for g in config["grid"])
+    dev_grid = tuple(int(g) for g in config["dev_grid"])
+    vgrid = tuple(int(g) for g in config["vgrid"])
+    if grid != vgrid or dev_grid != (1, 1, 1) or int(config["chips"]) != 1:
+        raise ValueError(f"{name}: the one-shot call holds every rank as a "
+                         f"vrank of one card (vgrid = grid, dev_grid 1x1x1)")
+    dom = config["domain"]
+    if (dom["lo"], dom["hi"], dom["periodic"]) != (0.0, 1.0, True):
+        raise ValueError(f"{name}: the one-shot call runs in the periodic "
+                         f"unit box")
+    if any(config.get(k) is not None for k in ("deposit", "rows", "cells")):
+        raise ValueError(f"{name}: the one-shot call takes no deposit, rows "
+                         f"or cells")
+    n, fill = int(config["slots_per_vrank"]), float(config["fill"])
+    snaps, edit = int(traffic["snapshots"]), int(traffic["edit_rows"])
+    if snaps < 1 or not 1 <= edit <= int(fill * n):
+        raise ValueError(f"{name}: snapshots is 1 or more, edit_rows from 1 "
+                         f"to the live rows a rank")
+    return Cell(
+        name=name, config=config, traffic=traffic, grid=grid,
+        dev_grid=dev_grid, vgrid=vgrid, n_local=n, fill=fill, dt=0.0,
+        steps_per_call=1,
+        vel_scale=(float(traffic["vel_scale"]),) * 3, capacity=None,
+        budget=None, deposit_shape=None, deposit_method=None,
     )

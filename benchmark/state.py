@@ -22,6 +22,11 @@ so the reference makes the same rows again after the window.
 
 :func:`draw` picks by the configuration and returns the cell too: under
 an assignment, completed with the assignment and the exchange's sizes.
+
+* Snapshots of the one-shot call (:func:`snapshots`, a configuration's
+  ``entry`` ``"redistribute"``): rows in the caller's layout, as each
+  rank reads a block of a file, a few of them drawn anew before every
+  call (:class:`Edits`); see there.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from benchmark import reference, spec
@@ -133,3 +139,69 @@ def draw(cell: Cell, seed: int, rank: int, device):
     if cell.rows is None:
         return (cell,) + card_state(cell, seed, rank, device)
     return lognormal_state(cell, seed, rank, device)
+
+
+def snapshots(cell: Cell, seed: int, device) -> list:
+    """The traffic's ``snapshots`` inputs of the one-shot call, each
+    ``(pos [R * n, 3], vel [R * n, 3], count [R])``: float32 rows in the
+    caller's layout (rank ``r`` in rows ``[r * n, (r + 1) * n)``) and int32
+    counts. Every rank holds ``count = fill * n`` live rows and zeros after
+    them; its live rows lie uniform over the whole unit box, as when each
+    rank reads a block of a file, and their velocities uniform in
+    ``[-vel_scale, vel_scale]``. Drawn one after another from one
+    generator, so every seed gives the same sizes."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(card_seed(seed, 0))
+    R, n, c = cell.n_slabs, cell.n_local, cell.live_per_slab
+    scale = float(cell.vel_scale[0])
+    count = torch.full((R,), c, dtype=torch.int32, device=device)
+    out = []
+    for _ in range(int(cell.traffic["snapshots"])):
+        pos = torch.rand((R, n, 3), generator=gen, device=device)
+        pos[:, c:] = 0.0
+        vel = torch.rand((R, n, 3), generator=gen, device=device)
+        vel.mul_(2.0 * scale).sub_(scale)
+        vel[:, c:] = 0.0
+        out.append((pos.reshape(R * n, 3), vel.reshape(R * n, 3), count))
+    return out
+
+
+class Edits:
+    """The traffic's change to its input before each call of the one-shot
+    call: :meth:`apply` draws anew, in place, the rows ``[j, j + k)`` of
+    every rank of the snapshot that call takes (positions uniform over the
+    box, velocities uniform in ``[-vel_scale, vel_scale]``), ``k`` the
+    traffic's ``edit_rows`` and ``j`` drawn from the seed among the live
+    rows. So no call takes an input that an earlier call has seen. The
+    edits are drawn in call order from generators seeded once, so making
+    them again on the snapshots drawn again, call after call
+    (:func:`inputs`), gives each call's input."""
+
+    def __init__(self, cell: Cell, seed: int, device):
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(card_seed(seed, 1))
+        self.rng = np.random.default_rng(card_seed(seed, 2))
+        self.R, self.n, self.c = cell.n_slabs, cell.n_local, cell.live_per_slab
+        self.k = int(cell.traffic["edit_rows"])
+        self.scale = float(cell.vel_scale[0])
+
+    def apply(self, snapshot) -> None:
+        pos, vel, _ = snapshot
+        R, n, k = self.R, self.n, self.k
+        j = int(self.rng.integers(0, self.c - k + 1))
+        w = torch.rand((2, R, k, 3), generator=self.gen, device=pos.device)
+        pos.view(R, n, 3)[:, j:j + k] = w[0]
+        vel.view(R, n, 3)[:, j:j + k] = w[1].mul_(2.0 * self.scale).sub_(
+            self.scale)
+
+
+def inputs(cell: Cell, seed: int, device, calls: int):
+    """Yield ``(i, snapshot)`` for the calls ``i < calls``: the input call
+    ``i`` took, the snapshot ``i % snapshots`` with every edit up to its
+    own made. The snapshot is edited in place for the next call."""
+    snaps = snapshots(cell, seed, device)
+    edits = Edits(cell, seed, device)
+    for i in range(calls):
+        snap = snaps[i % len(snaps)]
+        edits.apply(snap)
+        yield i, snap

@@ -18,16 +18,28 @@ def _python(code: str, cwd=ROOT, env=None):
                           capture_output=True, text=True, timeout=300)
 
 
-def test_no_jax_after_a_tiny_cell():
+def _tops_after(config: str, traffic: str):
     code = (
         "import json, sys\n"
         "from benchmark.tests.test_benchmark_cell import measure, tiny_cell\n"
-        "line = measure(tiny_cell('uniform_2x2x2_cic128', 'm2_s1'), 9)\n"
+        f"line = measure(tiny_cell({config!r}, {traffic!r}), 9)\n"
         "tops = sorted({m.split('.')[0] for m in sys.modules})\n"
         "print(json.dumps([line['correct'], tops]))\n")
     out = _python(code)
     assert out.returncode == 0, out.stderr
-    correct, tops = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_no_jax_after_a_tiny_cell():
+    correct, tops = _tops_after("uniform_2x2x2_cic128", "m2_s1")
+    assert correct
+    assert "mpi_grid_redistribute_tpu_torch" in tops
+    assert not set(tops) & set(TOP), set(tops) & set(TOP)
+
+
+def test_no_jax_after_a_tiny_oneshot_cell():
+    """The public call loads more of the port (the API, its telemetry)."""
+    correct, tops = _tops_after("oneshot_4x4x4", "file_order")
     assert correct
     assert "mpi_grid_redistribute_tpu_torch" in tops
     assert not set(tops) & set(TOP), set(tops) & set(TOP)

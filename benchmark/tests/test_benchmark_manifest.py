@@ -109,3 +109,25 @@ def test_bad_units_refused(bad):
 def test_unknown_or_malformed_cell_refused(workload):
     with pytest.raises((ValueError, FileNotFoundError)):
         spec.load_cell(workload)
+
+
+ONESHOT_READERS = {"dev_ms.call", "redistribute_roofline",
+                   "blocking_reads.call", "idle_share"}
+
+
+def test_each_entry_reports_its_readers(manifest):
+    """A configuration's entry is the loop or the one-shot call; a one-shot
+    cell runs on one card, one call a step, and lists the readers of the
+    call (with the device's idle share), and no loop cell lists the call's
+    own readers."""
+    cells = {w["name"]: spec.load_cell(w["name"]) for w in manifest["workloads"]}
+    assert {c.entry for c in cells.values()} == {"loop", "redistribute"}
+    for name, cell in cells.items():
+        sfx = cell.metric_suffix
+        listed = {m["name"][:len(m["name"]) - len(sfx)]
+                  for m in manifest["per_layer"] if name in m["workloads"]}
+        if cell.entry == "redistribute":
+            assert (cell.chips, cell.steps_per_call) == (1, 1), name
+            assert listed == ONESHOT_READERS, name
+        else:
+            assert not listed & (ONESHOT_READERS - {"idle_share"}), name

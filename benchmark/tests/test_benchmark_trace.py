@@ -140,6 +140,27 @@ def test_read_all_names_with_the_cells_suffix(workload, suffix):
     assert all(n.endswith(suffix) for n in got)
 
 
+def test_oneshot_readers_known_numbers(metrics):
+    """The one-shot call's readers: the device time inside ``bench:call``
+    a call, its byte floor's share, the blocking reads a traced call; in a
+    loop cell they read nothing."""
+    tr = canned()
+    cell = spec.load_cell("oneshot_4x4x4.file_order")
+    stats = {"calls": 4, "blocking_fetches": 2}
+    got = {n: m.read(ctx_of(cell, tr, stats)) for n, m in metrics.items()}
+    # every launched operation of the window lies in the one bench:call
+    assert got["dev_ms.call"] == pytest.approx(440 / 1e3)
+    floor = 48 * 67_108_864
+    assert costs.redistribute_floor_bytes(cell.live_total) == floor
+    assert got["redistribute_roofline"] == pytest.approx(
+        100 * floor / 3.35e12 / 440e-6)
+    assert got["blocking_reads.call"] == 0.5
+    loop = spec.load_cell("uniform_2x2x2.m2_s4")
+    for name in ("dev_ms.call", "redistribute_roofline",
+                 "blocking_reads.call"):
+        assert metrics[name].read(ctx_of(loop, tr, stats)) is None, name
+
+
 def test_reader_finds_nothing_returns_none(metrics):
     empty = trace.Trace.from_chrome({"traceEvents": []})
     cell = spec.load_cell("uniform_2x2x2.m2_s4")

@@ -6,7 +6,9 @@ the per-layer readers need, and the readers themselves, found by file.
 (kernels, copies, sets) with their correlation ids, the host's launch
 calls, and the ``record_function`` ranges of the program and of the
 harness (``bench:window`` around the traced calls, ``bench:call`` around
-each, ``bench:turn`` around the turns of clustered rows before a call).
+each, ``bench:turn`` around the turns of clustered rows before a call,
+``bench:edit`` around the edit of the one-shot call's input before a
+call).
 A device operation belongs to the ranges open on the host when it was
 launched.
 
@@ -35,6 +37,7 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 WINDOW = "bench:window"
 CALL = "bench:call"
 TURN = "bench:turn"
+EDIT = "bench:edit"
 
 
 def _merge(intervals):

@@ -9,6 +9,13 @@ call's inputs.
 Then it frees the program's state and judges the final rows, and the
 densities of a few calls drawn from the seed, against the reference
 (:mod:`.reference`), which follows every step the program ran.
+
+A cell of the one-shot call (:func:`run_oneshot`) calls
+``redistribute()`` back to back on its snapshots in turn, each call's
+input untouched by the one before but for the traffic's edit of a few
+rows; it judges the last call's output and one drawn from the seed
+(copied as it comes back), each against the reference's receive order of
+that call's input.
 """
 
 from __future__ import annotations
@@ -171,6 +178,8 @@ def run_rank(cell: Cell, seed: int, seconds: float, traced: bool, rank: int,
              comm, device, control: str = None, mesh=None) -> dict:
     """This card's run; returns what the line needs from it. ``control``
     names the control (:data:`CONTROLS`) run in the program's place."""
+    if cell.entry == "redistribute":
+        return run_oneshot(cell, seed, seconds, traced, comm, device, control)
     device = torch.device(device)
     S = cell.steps_per_call
     # the draw completes a cell under an assignment (its table, its sizes)
@@ -294,3 +303,259 @@ def judge(cell: Cell, seed: int, rank: int, comm, device, prog, rhos: dict,
     if rho_gap is not None:
         checks["rho_gap"] = {"value": rho_gap, "limit": RHO_GAP_LIMIT}
     return checks
+
+
+# the one-shot call: two calibrating calls of "grow", then one calibrated
+# call on each snapshot, the last of them held as the window holds its
+# sample, so the window runs the calibrated path only
+ONESHOT_WARM = 4
+ONESHOT_SAMPLES = 1  # calls drawn from the seed and judged besides the last
+ONESHOT_CONTROLS = ("bin_bf16",)
+
+
+class _Calls:
+    """``step(state) -> (result, None)``: call ``i`` of ``call`` on
+    snapshot ``i % len(snaps)``, whatever the state, after the traffic's
+    edit of that snapshot (:class:`state.Edits`). The results of the calls
+    in ``keep`` are copied into ``held``, into buffers that :meth:`reserve`
+    allocates in set-up: holding a result itself would make the allocator
+    grow inside the window."""
+
+    def __init__(self, call, snaps, edits):
+        self.call, self.snaps, self.edits = call, snaps, edits
+        self.i = 0
+        self.keep, self.held, self.spare = set(), {}, []
+
+    def reserve(self, like, n: int) -> None:
+        """``n`` buffers shaped as the result ``like``."""
+        self.spare = [(torch.empty_like(like[0]),
+                       (torch.empty_like(like[1][0]),),
+                       torch.empty_like(like[2])) for _ in range(n)]
+
+    def release(self) -> None:
+        """The held buffers back to the spares, ``keep`` emptied."""
+        self.spare += self.held.values()
+        self.held, self.keep = {}, set()
+
+    def _hold(self, out):
+        buf = self.spare.pop()
+        if buf[0].shape != out[0].shape:
+            raise RuntimeError(f"call {self.i}: the output's shape "
+                               f"{tuple(out[0].shape)} is not set-up's "
+                               f"{tuple(buf[0].shape)}")
+        for b, o in ((buf[0], out[0]), (buf[1][0], out[1][0]),
+                     (buf[2], out[2])):
+            b.copy_(o)
+        return buf
+
+    def __call__(self, st):
+        snap = self.snaps[self.i % len(self.snaps)]
+        with torch.profiler.record_function(trace.EDIT):
+            self.edits.apply(snap)
+        out = self.call(snap)
+        if self.i in self.keep:
+            self.held[self.i] = self._hold(out)
+        self.i += 1
+        return out, None
+
+
+def _padded(cell: Cell, pos, vel, counts):
+    """Rows grouped by slab (:func:`reference.receive_order`) in the
+    call's output layout: ``(pos [S * n, 3], (vel [S * n, 3],), count
+    [S], None)``, slab ``s`` in rows ``[s * n, s * n + count[s])``, zeros
+    after them."""
+    S, n = cell.n_slabs, cell.n_local
+    dev = pos.device
+    slab = torch.repeat_interleave(torch.arange(S, device=dev), counts)
+    i = torch.arange(pos.shape[0], device=dev) - (torch.cumsum(counts, 0)
+                                                  - counts)[slab]
+    ok = i < n
+    slot = slab[ok] * n + i[ok]
+    out_p = torch.zeros((S * n, 3), dtype=pos.dtype, device=dev)
+    out_v = torch.zeros((S * n, 3), dtype=vel.dtype, device=dev)
+    out_p[slot] = pos[ok]
+    out_v[slot] = vel[ok]
+    return out_p, (out_v,), counts.clamp(max=n).to(torch.int32), None
+
+
+def oneshot_control(cell: Cell, control: str):
+    """The reference in the one-shot call's place, its owners taken from
+    positions rounded to bfloat16 (``bin_bf16``; the call bins float32)."""
+    if control not in ONESHOT_CONTROLS:
+        raise ValueError(f"control {control!r} is for the drift loop; the "
+                         f"one-shot call's controls are {ONESHOT_CONTROLS}")
+
+    def call(snapshot):
+        pos, vel, count = snapshot
+        return _padded(cell, *reference.receive_order(
+            cell, pos, vel, count, bin_pos=pos.bfloat16().float()))
+
+    return call
+
+
+def oneshot_digest(cell: Cell, out, rank_slab: list) -> dict:
+    """A call's output condensed on its device, by slab: ``count [S]``,
+    ``hashes [S, out_capacity]`` (:func:`reference.row_hash` of each live
+    row at its place, 0 after the count) and ``misplaced``, the live rows
+    on a slab that does not own their position. ``out`` is the call's
+    ``(positions, (vel,), count, ...)``; API rank ``r``'s output lies on
+    slab ``rank_slab[r]``."""
+    pos, vel = out[0], out[1][0]
+    R, dev = len(rank_slab), pos.device
+    oc = pos.shape[0] // R
+    counts = out[2].cpu().tolist()
+    count = torch.zeros(cell.n_slabs, dtype=torch.int64, device=dev)
+    hashes = torch.zeros((cell.n_slabs, oc), dtype=torch.int64, device=dev)
+    misplaced = torch.zeros((), dtype=torch.int64, device=dev)
+    for r, s in enumerate(rank_slab):
+        c = min(int(counts[r]), oc)
+        p, v = pos[r * oc:r * oc + c], vel[r * oc:r * oc + c]
+        count[s] = c
+        hashes[s, :c] = reference.row_hashes(p, v)
+        misplaced += (reference.owner_slab(cell, p.T) != s).sum()
+    return {"count": count, "hashes": hashes, "misplaced": int(misplaced)}
+
+
+def judge_oneshot(cell: Cell, seed: int, device, digests: dict) -> dict:
+    """The compared numbers of the one-shot call, summed over the judged
+    calls (``digests``: call index -> :func:`oneshot_digest`), each
+    against the reference's receive order of that call's input, the
+    snapshot drawn again with its edits made again (:func:`state.inputs`):
+    ``count_gap``, ``misplaced_rows`` and ``slabs_differing`` as in
+    :func:`judge`, and ``order_gap``, the live output rows whose six
+    float32 bit patterns (by their hash) differ from the reference's row
+    at the same place of the slab's receive order, or that have no row
+    there."""
+    S = cell.n_slabs
+    tot = dict.fromkeys(("count_gap", "misplaced_rows", "slabs_differing",
+                         "order_gap"), 0)
+    for call, snap in state.inputs(cell, seed, device, max(digests) + 1):
+        if call not in digests:
+            continue
+        dg = digests[call]
+        rp, rv, rc = reference.receive_order(cell, *snap)
+        rh = reference.row_hashes(rp, rv)
+        del rp, rv
+        slab = torch.repeat_interleave(torch.arange(S, device=rh.device), rc)
+        rfp = torch.zeros(S, dtype=torch.int64, device=rh.device)
+        rfp.index_add_(0, slab, rh)
+        del slab
+        pc, ph = dg["count"], dg["hashes"]
+        i = torch.arange(ph.shape[1], device=ph.device)
+        at = ((torch.cumsum(rc, 0) - rc)[:, None] + i).clamp_(
+            max=max(rh.numel() - 1, 0))
+        ref_h = rh[at] if rh.numel() else torch.zeros_like(ph)
+        del at
+        off = (i < pc[:, None]) & ((i >= rc[:, None]) | (ph != ref_h))
+        tot["order_gap"] += int(off.sum())
+        del ref_h, off
+        tot["count_gap"] += int((pc - rc).abs().sum())
+        tot["misplaced_rows"] += dg["misplaced"]
+        tot["slabs_differing"] += int(((pc != rc) | (ph.sum(1) != rfp)).sum())
+    return {k: {"value": v, "limit": 0} for k, v in tot.items()}
+
+
+def run_oneshot(cell: Cell, seed: int, seconds: float, traced: bool, comm,
+                device, control: str = None) -> dict:
+    """:func:`run_rank` of a one-shot cell (one card): the snapshots from
+    the seed, the instance (:func:`program.build_oneshot`; with
+    ``control`` the reference in its place), :data:`ONESHOT_WARM` calls,
+    the window, then the judged calls' digests, the program freed, and
+    the comparison."""
+    device = torch.device(device)
+    snaps = state.snapshots(cell, seed, device)
+    gr = None
+    if control:
+        call = oneshot_control(cell, control)
+        rank_slab = list(range(cell.n_slabs))
+    else:
+        gr, call = program.build_oneshot(cell, device)
+        rank_slab = reference.rank_slabs(cell)
+    step = _Calls(call, snaps, state.Edits(cell, seed, device))
+    st, warm_s = None, 0.0
+    for i in range(ONESHOT_WARM):
+        if i == 2:
+            # calibrated from here: the sample's buffers, the last warm
+            # call held in them as the window holds its sample
+            step.reserve(st, ONESHOT_SAMPLES)
+            step.keep = {ONESHOT_WARM - 1}
+        _sync(device)
+        t = time.perf_counter()
+        st, _ = step(st)
+        _sync(device)
+        warm_s = time.perf_counter() - t
+    step.release()
+    if gr is not None:
+        # the deferred check's first copy to pinned memory, made here
+        gr.flush_overflow_checks()
+        before = program.oneshot_report(gr)
+        log(f"one-shot call: engine {before['engine']!r}, capacity "
+            f"{before['capacity']}, out_capacity {before['out_capacity']}, "
+            f"{before['blocking_fetches']} blocking reads in "
+            f"{before['calls']} warm calls")
+    span = min(seconds, TRACE_SECONDS) if traced else seconds
+    n_est = max(1, int(span / max(warm_s, 1e-3)) // 2)
+    rng = np.random.default_rng(state.card_seed(seed, 1 << 20))
+    step.keep = {ONESHOT_WARM + int(c) for c in rng.choice(
+        n_est, size=min(ONESHOT_SAMPLES, n_est), replace=False)}
+    # the window's calls ignore the state: the last warm output, held
+    # here, would lie beside the window's own outputs all through it
+    st = None
+    out = {"rank": 0, "setup_end": time.time(), "warm_call_s": warm_s}
+    if device.type == "cuda":
+        out["kind"] = torch.cuda.get_device_name(device)
+        out["mem_setup"] = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        allocs = torch.cuda.memory_stats(device)["num_device_alloc"]
+        reserved = torch.cuda.memory_reserved(device)
+    if traced:
+        def traced_window():
+            with torch.profiler.record_function(trace.WINDOW):
+                res = _window(step, st, span, comm, device, set(), False)
+            return res
+
+        res, tr = trace.profile(traced_window)
+    else:
+        res = _window(step, st, seconds, comm, device, set(), False)
+    st, calls, window_s, call_ms, _, _ = res
+    out.update(calls=calls, window_s=window_s, call_ms=call_ms, steps=calls)
+    if device.type == "cuda":
+        out["mem_window"] = torch.cuda.max_memory_allocated(device)
+        allocs = torch.cuda.memory_stats(device)["num_device_alloc"] - allocs
+        log(f"the allocator reserved {reserved} B before the window and "
+            f"{torch.cuda.memory_reserved(device)} B after it, with {allocs} "
+            f"device allocations in the window")
+    counters = {}
+    if gr is not None:
+        after = program.oneshot_report(gr)
+        gr.flush_overflow_checks()  # raises if a window dropped rows
+        counters = {"calls": calls, "blocking_fetches":
+                    after["blocking_fetches"] - before["blocking_fetches"]}
+        log(f"one-shot call: engine {after['engine']!r}; {after['calls']} "
+            f"calls made {after['attempts']} attempts, "
+            f"{after['grows']} capacity grows, "
+            f"{counters['blocking_fetches']} blocking reads in the window's "
+            f"{calls} calls")
+    if traced:
+        busy, win = tr.busy_us()
+        ctx = trace.Context(cell=cell, kind=out.get("kind", "cpu"), trace=tr,
+                            rank=0, stats=counters, cards=[(busy, win)])
+        log(f"trace: {len(tr.device)} device operations, "
+            f"{len(tr.ranges)} host ranges, window {win * 1e-6:.3f} s, "
+            f"busy {busy * 1e-6:.3f} s")
+        out.update(metrics=trace.read_all(ctx), busy_s=busy * 1e-6,
+                   trace_window_s=win * 1e-6, breakdown=tr.breakdown())
+        del tr, ctx
+    held = dict(step.held)
+    held[step.i - 1] = st
+    log(f"judged calls {sorted(held)} of {step.i}")
+    digests = {c: oneshot_digest(cell, o, rank_slab) for c, o in held.items()}
+    del st, res, step, held, snaps, call, gr  # the program, freed
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["checks"] = judge_oneshot(cell, seed, device, digests)
+    log(f"the reference judged {len(digests)} calls in "
+        f"{time.perf_counter() - t:.2f} s")
+    return out
